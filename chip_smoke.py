@@ -2,15 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the K1 kernels (the dense ray/triangle sweep, closest and any-hit)
-from `vision_tpu_torch/csrc/` into `vision_tpu_torch/_build/`, holds each
-against its plain PyTorch version on the card at the main path's shapes,
-times both, then renders the cornell box (`tests/fixtures.py` CBOX_JSON:
-36 triangles, 512x512, depth 8, 16 spp) through `vision_tpu_torch.render`
-and checks it against the repo's 1024-spp HDR golden. It prints one JSON
-line per phase, the kernel table, the card's name and power limit, and as
-its last line `{"ok": true, "device": {...}}`. Any failed check raises, and
-the script exits non-zero without that line; it never runs on the CPU.
+Builds every kernel from the checkout's sources, all at once: K1 (the dense
+ray/triangle sweep, `vision_tpu_torch/csrc/dense_isect.cu`), K2 and K3 (BVH
+traversal, flat and instanced, `csrc/packet_isect.cu`) and the native SAH
+builder (`native/*.cpp`), into `vision_tpu_torch/_build/`. Then, phase by
+phase, one JSON line each:
+
+  * K1 against its plain PyTorch version at the cornell box's shape and at
+    the dense path's upper bound, and the cornell box (`tests/fixtures.py`
+    CBOX_JSON: 36 triangles, 512x512, depth 8, 16 spp) rendered through
+    `vision_tpu_torch.render` and held against its 1024-spp golden;
+  * K2 against the plain walk and against K1 over the same 261,156
+    triangles, on `cbox_sphere`'s 512^2 primary rays and one bounce;
+  * K3 against the plain walk and against K2 on its flat twin, on
+    `cbox_spheres_instanced`'s 512^2 primary rays and one bounce;
+  * `cbox_sphere` rendered at 512^2, depth 8, 16 spp through K2 and held
+    against `tests/goldens/cbox_sphere_hdr.npz`;
+  * `cbox_spheres_instanced` rendered through K3 and its flat twin
+    (VT_INSTANCING=0) through K2, held against each other.
+
+Each render runs with every launch count set to 0 just before it and read
+just after, and fails if a kernel of its path was not launched. Last come
+the kernel table, the card's name and power limit, and as the last line
+`{"ok": true, "device": {...}}`. Any failed check raises, and the script
+exits non-zero without that line; it never runs on the CPU.
 """
 from __future__ import annotations
 
@@ -22,26 +37,43 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"
+RES = 512
 SEED = 0
 SPP = 16
-KERNEL_SOURCE = "vision_tpu_torch/csrc/dense_isect.cu"
-REPLACES = {"closest": "vision_tpu/accel/pallas_isect.py:82",
-            "anyhit": "vision_tpu/accel/pallas_isect.py:117"}
-# tolerances for kernel vs plain on the card (the kernel is built with
-# -fmad=false in the plain version's operation order, so it should agree
+SOURCES = {"dense_isect": "vision_tpu_torch/csrc/dense_isect.cu",
+           "packet_isect": "vision_tpu_torch/csrc/packet_isect.cu"}
+REPLACES = {
+    "dense_isect.closest": "vision_tpu/accel/pallas_isect.py:82",
+    "dense_isect.anyhit": "vision_tpu/accel/pallas_isect.py:117",
+    "packet_isect.closest": "vision_tpu/accel/packet_bvh.py:390 (v2), :1343 (v3)",
+    "packet_isect.anyhit": "vision_tpu/accel/packet_bvh.py:517 (v2), :1343 (v3)",
+    "packet_isect.closest_inst": "vision_tpu/accel/packet_bvh.py:880",
+    "packet_isect.anyhit_inst": "vision_tpu/accel/packet_bvh.py:1085",
+}
+# tolerances for kernel vs plain on the card (the kernels are built with
+# -fmad=false in the plain versions' operation order, so they should agree
 # bit for bit; these bound what rounding could still move)
 T_RTOL = 1e-6        # t on lanes with equal ids
 UV_ATOL = 1e-5       # barycentrics on lanes with equal ids
 TIE_RTOL = 1e-6      # ids may differ only where the two best t tie this close
 MAX_MISMATCH = 1e-4  # ... and on at most this share of lanes
+# K3 against K2 on the flat twin: the instanced walk intersects in object
+# space, so t rounds differently; hit masks and t within 1e-5 relative, but
+# for edge and tie lanes on at most 1e-4 of the wavefront
+FLAT_T_RTOL = 1e-5
 # golden thresholds of tests/test_golden.py test_cbox_hdr_self_golden
 GOLD_WERR = 0.06
 GOLD_BIAS = 0.025
+# instanced vs flat twin render (tests/test_instancing.py holds the JAX
+# package's pair to the same streams)
+TWIN_WERR = 0.01
 
 
 def emit(obj):
@@ -70,21 +102,25 @@ def cuda_ms(fn, n=25, warmup=3):
     return statistics.median(times)
 
 
-def cbox_scene(vt, res):
+def _load_by_path(name, rel):
     # by path: a site-packages `tests` package may shadow the repo's
-    spec = importlib.util.spec_from_file_location(
-        "cbox_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
-    fixtures = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixtures)
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cbox_scene(vt, res):
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
     s = copy.deepcopy(fixtures.CBOX_JSON)
     s["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [res, res]
-    return vt.load_scene(s, device="cuda")
+    return vt.load_scene(s, device=DEV)
 
 
 def cbox_rays(scene):
-    """512^2 primary rays through the pixel centres, from the port's camera."""
+    """Primary rays through the pixel centres, from the port's camera."""
     W, H = scene.camera.resolution
-    pix = torch.arange(W * H, device="cuda")
+    pix = torch.arange(W * H, device=DEV)
     p = torch.stack([(pix % W).float() + 0.5, (pix // W).float() + 0.5], -1)
     ray = scene.camera.generate_ray(p, torch.zeros_like(p))
     return ray.origin.contiguous(), ray.direction.contiguous()
@@ -101,60 +137,264 @@ def soup_case(n_tris=2048, n_rays=262144):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
 
     def cu(a):
-        return torch.as_tensor(a.astype(np.float32), device="cuda").contiguous()
+        return torch.as_tensor(a.astype(np.float32), device=DEV).contiguous()
 
     return cu(o), cu(d), cu(np.concatenate([p0, e1, e2], 1))
 
 
-def compare_k1(di, case, o, d, tris, anyhit_tmax_scale):
-    """Kernel vs plain at one shape; returns the phase record."""
-    R = o.shape[0]
-    inf = torch.full((R,), 1e30, device="cuda")
-    t_k, id_k, uv_k = di.closest(o, d, inf, tris)
-    t_p, id_p, uv_p = di.closest_plain(o, d, inf, tris)
-    torch.cuda.synchronize()
+def compare_closest(case, k, p, inst_k=None, inst_p=None):
+    """Closest-hit outputs k = (t, id, uv) of a kernel against p of its
+    plain version: ids (and instances) equal but on exact-t ties within
+    the budget; t and uv within the tolerances on the other lanes."""
+    (t_k, id_k, uv_k), (t_p, id_p, uv_p) = k, p
     same = id_k == id_p
-    diff = ~same
+    if inst_k is not None:
+        same &= inst_k == inst_p
     tie = torch.abs(t_k - t_p) <= TIE_RTOL * torch.abs(t_p)
-    n_diff = int(diff.sum())
+    n_diff = int((~same).sum())
+    R = t_k.shape[0]
     check(bool((tie | same).all()),
-          f"{case}: closest ids differ on {int((diff & ~tie).sum())} "
-          "lanes that are not ties")
+          f"{case}: closest ids differ on {int((~same & ~tie).sum())} lanes "
+          "that are not ties")
     check(n_diff <= MAX_MISMATCH * R, f"{case}: {n_diff} id ties > budget")
-    t_err = float(torch.max(torch.abs(t_k - t_p)[same]))
-    t_rel = float(torch.max((torch.abs(t_k - t_p) / torch.abs(t_p))[same]))
-    uv_err = float(torch.max(torch.abs(uv_k - uv_p)[same]))
+    dt = torch.abs(t_k - t_p)[same]
+    t_err = float(dt.max()) if dt.numel() else 0.0
+    t_rel = float((dt / torch.clamp_min(torch.abs(t_p[same]), 1e-30)).max()) \
+        if dt.numel() else 0.0
+    uv_err = float(torch.abs(uv_k - uv_p)[same].max()) if dt.numel() else 0.0
     check(t_rel <= T_RTOL, f"{case}: closest t rel err {t_rel}")
     check(uv_err <= UV_ATOL, f"{case}: closest uv err {uv_err}")
+    return dict(closest_id_ties=n_diff, closest_t_abs_err=t_err,
+                closest_t_rel_err=t_rel, closest_uv_abs_err=uv_err,
+                hit_share=float((id_p >= 0).float().mean()))
 
-    # shadow rays: t_max scattered around the nearest hit, so about half
-    # the lanes are occluded
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    tmax = torch.where(id_p >= 0, t_p, anyhit_tmax_scale) * torch.empty(
-        R, device="cuda").uniform_(0.5, 1.5, generator=g)
+
+def compare_anyhit(case, occ_k, occ_p, t_near, tmax):
+    """Any-hit flags: equal but where the nearest hit sits at t_max."""
+    edge = torch.abs(t_near - tmax) < 1e-6 * tmax
+    bad = (occ_k != occ_p) & ~edge
+    n_diff = int((occ_k != occ_p).sum())
+    check(not bool(bad.any()), f"{case}: any-hit differs on "
+          f"{int(bad.sum())} non-edge lanes")
+    check(n_diff <= MAX_MISMATCH * occ_k.shape[0],
+          f"{case}: any-hit {n_diff} > budget")
+    return dict(anyhit_edge_diffs=n_diff,
+                anyhit_max_abs_err=float(bad.float().max()),
+                occluded_share=float(occ_p.float().mean()))
+
+
+def shadow_tmax(t_p, id_p, miss_tmax):
+    """t_max scattered around the nearest hit, so about half the lanes are
+    occluded; dead lanes (t_max 0 on entry) stay dead."""
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    u = torch.empty(t_p.shape[0], device=DEV).uniform_(0.5, 1.5, generator=g)
+    return (torch.where(id_p >= 0, t_p, miss_tmax) * u).contiguous()
+
+
+def compare_k1(di, case, o, d, tris, anyhit_tmax_scale):
+    """K1 against its plain version at one shape; returns the phase record."""
+    R = o.shape[0]
+    inf = torch.full((R,), 1e30, device=DEV)
+    k = di.closest(o, d, inf, tris)
+    p = di.closest_plain(o, d, inf, tris)
+    torch.cuda.synchronize()
+    rec = compare_closest(case, k, p)
+    tmax = shadow_tmax(p[0], p[1], anyhit_tmax_scale)
     occ_k = di.anyhit(o, d, tmax, tris)
     occ_p = di.anyhit_plain(o, d, tmax, tris)
     torch.cuda.synchronize()
-    edge = torch.abs(t_p - tmax) < 1e-6 * tmax
-    occ_bad = (occ_k != occ_p) & ~edge
-    n_occ_diff = int((occ_k != occ_p).sum())
-    check(not bool(occ_bad.any()),
-          f"{case}: any-hit differs on {int(occ_bad.sum())} non-edge lanes")
-    check(n_occ_diff <= MAX_MISMATCH * R, f"{case}: any-hit {n_occ_diff} > budget")
-
-    times = {
-        "closest_ms": cuda_ms(lambda: di.closest(o, d, inf, tris)),
-        "closest_plain_ms": cuda_ms(lambda: di.closest_plain(o, d, inf, tris)),
-        "anyhit_ms": cuda_ms(lambda: di.anyhit(o, d, tmax, tris)),
-        "anyhit_plain_ms": cuda_ms(lambda: di.anyhit_plain(o, d, tmax, tris)),
-    }
+    rec.update(compare_anyhit(case, occ_k, occ_p, p[0], tmax))
+    rec.update(
+        closest_ms=cuda_ms(lambda: di.closest(o, d, inf, tris)),
+        closest_plain_ms=cuda_ms(lambda: di.closest_plain(o, d, inf, tris)),
+        anyhit_ms=cuda_ms(lambda: di.anyhit(o, d, tmax, tris)),
+        anyhit_plain_ms=cuda_ms(lambda: di.anyhit_plain(o, d, tmax, tris)))
     return dict(phase="k1_vs_plain", case=case, rays=R, tris=tris.shape[0],
-                hit_share=float((id_p >= 0).float().mean()),
-                occluded_share=float(occ_p.float().mean()),
-                closest_id_ties=n_diff, closest_t_abs_err=t_err,
-                closest_t_rel_err=t_rel, closest_uv_abs_err=uv_err,
-                anyhit_edge_diffs=n_occ_diff,
-                anyhit_max_abs_err=float(occ_bad.float().max()), **times)
+                **rec)
+
+
+def bounce_wave(vt_pt, data, o, d, hit):
+    """One bounce from a primary wavefront: cosine directions about the
+    geometric normal facing the ray (seeded), origins spawned off the
+    surface; lanes that missed trace with t_max = 0."""
+    from vision_tpu_torch.core import warp
+    from vision_tpu_torch.core.math import coordinate_system, dot, to_world
+    pos, ng, _, _, _, _, _ = vt_pt.compute_interaction(data, hit)
+    n = torch.where((dot(ng, d) > 0)[..., None], -ng, ng)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    u = torch.rand((o.shape[0], 2), device=DEV, generator=g)
+    t, b = coordinate_system(n)
+    w = to_world(t, b, n, warp.square_to_cosine_hemisphere(u)).contiguous()
+    o2 = vt_pt.spawn_origin(pos, ng, w, data.ray_offset).contiguous()
+    tmax = torch.where(hit.prim_id >= 0, 1e30, 0.0).contiguous()
+    return o2, w, tmax
+
+
+def phase_k2(vt, pi, pbvh_mod, di, vt_pt, scene):
+    """K2 against the plain walk and K1 on the primary wavefront and one
+    bounce of `scene` (cbox_sphere)."""
+    from vision_tpu_torch.core.types import Hit
+    data = scene.data
+    tree = data.pbvh
+    o, d = cbox_rays(scene)
+    R = o.shape[0]
+    tmax = torch.full((R,), 1e30, device=DEV)
+    recs = []
+    for wave in ("primary", "bounce"):
+        case = f"cbox_sphere_{wave}"
+        k = pi.closest(o, d, tmax, tree)
+        p = pbvh_mod.intersect_packet_plain(o, d, tmax, tree)
+        torch.cuda.synchronize()
+        rec = compare_closest(case, k, p)
+        # K1 over the same triangles: an independent algorithm
+        k1 = di.closest(o, d, tmax, data.tri_geom)
+        torch.cuda.synchronize()
+        k1_rec = compare_closest(case + "_vs_k1", k, k1)
+        rec.update({f"vs_k1_{a}": b for a, b in k1_rec.items()},
+                   vs_k1_bit_exact=bool(torch.equal(k[0], k1[0])
+                                        and torch.equal(k[1], k1[1])
+                                        and torch.equal(k[2], k1[2])))
+        st = shadow_tmax(p[0], p[1], 10.0)
+        st = torch.where(tmax > 0, st, 0.0).contiguous()
+        rec.update(compare_anyhit(case, pi.anyhit(o, d, st, tree),
+                                  pbvh_mod.intersect_packet_plain(
+                                      o, d, st, tree, any_hit=True), p[0], st))
+        rec.update(
+            closest_ms=cuda_ms(lambda: pi.closest(o, d, tmax, tree)),
+            closest_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_plain(
+                o, d, tmax, tree), n=3, warmup=1),
+            anyhit_ms=cuda_ms(lambda: pi.anyhit(o, d, st, tree)),
+            anyhit_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_plain(
+                o, d, st, tree, any_hit=True), n=3, warmup=1),
+            k1_closest_ms=cuda_ms(lambda: di.closest(o, d, tmax, data.tri_geom),
+                                  n=5, warmup=1))
+        recs.append(dict(phase="k2_vs_plain", case=case, rays=R,
+                         live_rays=int((tmax > 0).sum()),
+                         tris=data.tri_geom.shape[0], nodes=tree.n_nodes,
+                         leaf=tree.bsize, depth=tree.depth, **rec))
+        emit(recs[-1])
+        if wave == "primary":
+            o, d, tmax = bounce_wave(vt_pt, data, o, d, Hit(*p))
+    return recs
+
+
+def phase_k3(pi, pbvh_mod, vt_pt, scene, flat):
+    """K3 against the plain walk, and against K2 on the flat twin, on the
+    primary wavefront and one bounce of `scene` (cbox_spheres_instanced)."""
+    from vision_tpu_torch.core.types import Hit
+    data = scene.data
+    ip = data.ipbvh
+    o, d = cbox_rays(scene)
+    R = o.shape[0]
+    tmax = torch.full((R,), 1e30, device=DEV)
+    recs = []
+    for wave in ("primary", "bounce"):
+        case = f"cbox_spheres_instanced_{wave}"
+        t_k, id_k, uv_k, in_k = pi.closest_inst(o, d, tmax, ip)
+        t_p, id_p, uv_p, in_p = pbvh_mod.intersect_packet_inst_plain(o, d, tmax, ip)
+        torch.cuda.synchronize()
+        rec = compare_closest(case, (t_k, id_k, uv_k), (t_p, id_p, uv_p),
+                              in_k, in_p)
+        # K2 over the flat twin (world-space triangles, other ids)
+        t_f, id_f, _ = pi.closest(o, d, tmax, flat.data.pbvh)
+        torch.cuda.synchronize()
+        mask_diff = (id_k >= 0) != (id_f >= 0)
+        t_off = ((id_k >= 0) & (id_f >= 0)
+                 & (torch.abs(t_k - t_f) > FLAT_T_RTOL * torch.abs(t_f)))
+        n_flat = int((mask_diff | t_off).sum())
+        check(n_flat <= MAX_MISMATCH * R,
+              f"{case}: K3 vs K2 on the flat twin differ on {n_flat} lanes")
+        both = (id_k >= 0) & (id_f >= 0) & ~t_off
+        rec.update(vs_flat_diff_lanes=n_flat,
+                   vs_flat_t_rel_err=float((torch.abs(t_k - t_f)
+                                            / torch.abs(t_f))[both].max()))
+        st = shadow_tmax(t_p, id_p, 10.0)
+        st = torch.where(tmax > 0, st, 0.0).contiguous()
+        rec.update(compare_anyhit(case, pi.anyhit_inst(o, d, st, ip),
+                                  pbvh_mod.intersect_packet_inst_plain(
+                                      o, d, st, ip, any_hit=True), t_p, st))
+        rec.update(
+            closest_ms=cuda_ms(lambda: pi.closest_inst(o, d, tmax, ip)),
+            closest_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_inst_plain(
+                o, d, tmax, ip), n=3, warmup=1),
+            anyhit_ms=cuda_ms(lambda: pi.anyhit_inst(o, d, st, ip)),
+            anyhit_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_inst_plain(
+                o, d, st, ip, any_hit=True), n=3, warmup=1),
+            flat_k2_closest_ms=cuda_ms(lambda: pi.closest(o, d, tmax,
+                                                          flat.data.pbvh)))
+        recs.append(dict(phase="k3_vs_plain", case=case, rays=R,
+                         live_rays=int((tmax > 0).sum()),
+                         instances=ip.n_inst, nodes=ip.n_nodes,
+                         flat_tris=flat.data.tri_geom.shape[0],
+                         depth=ip.depth, **rec))
+        emit(recs[-1])
+        if wave == "primary":
+            o, d, tmax = bounce_wave(vt_pt, data, o, d,
+                                     Hit(t_p, id_p, uv_p, in_p))
+    return recs
+
+
+def render(vt, modules, scene, name):
+    """The main path on one scene: warm up at 1 spp, set every launch count
+    to 0, render 512^2 at 16 spp, read the counts. Returns (image, record)."""
+    check(scene.max_depth == 8 and scene.resolution == (RES, RES),
+          f"{name} config")
+    vt.render(scene, spp=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+    stats = {}
+    t0 = time.perf_counter()
+    hdr = vt.render(scene, spp=SPP, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
+                for m in modules for k, v in m.LAUNCHES.items()}
+    img = hdr.cpu().numpy()
+    check(img.shape == (RES, RES, 3), f"{name}: image shape {img.shape}")
+    check(bool(np.isfinite(img).all()), f"{name}: image has non-finite values")
+    check(float(img.max()) > 0.0, f"{name}: image is all zero")
+    return img, dict(phase="render", scene=name, res=RES, spp=SPP,
+                     max_depth=scene.max_depth, wall_s=wall,
+                     nrays=stats["nrays"], iters=stats["iters"],
+                     mrays_per_s=stats["nrays"] / wall / 1e6,
+                     peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                     launches=launches, mean=float(img.mean()))
+
+
+def block_err(a, b, B=8):
+    H, W, _ = a.shape
+    ab = a.reshape(H // B, B, W // B, B, 3).mean((1, 3))
+    bb = b.reshape(H // B, B, W // B, B, 3).mean((1, 3))
+    return float(np.abs(ab - bb).sum() / bb.sum()), \
+        float((ab - bb).mean() / bb.mean())
+
+
+def vs_golden(img, rel):
+    """Box-downsample a render to the golden's 128^2 and hold it against
+    the golden's 8x8 blocks."""
+    gold = np.load(os.path.join(ROOT, rel))["img"]
+    k = RES // 128
+    return block_err(img.reshape(128, k, 128, k, 3).mean((1, 3)), gold)
+
+
+def build_all(di, pi, native):
+    """One nvcc per CUDA source and the g++ build of the SAH builder, all
+    started together."""
+    with ThreadPoolExecutor(3) as ex:
+        futs = {"dense_isect": ex.submit(di.build),
+                "packet_isect": ex.submit(pi.build),
+                "native": ex.submit(native.build)}
+        out = {k: f.result() for k, f in futs.items()}
+    rec = dict(phase="build", seconds={k: v[1] for k, v in out.items()},
+               library={k: os.path.relpath(v[0], ROOT) for k, v in out.items()})
+    for k in SOURCES:
+        rec[f"ptxas_{k}"] = [ln.strip() for ln in out[k][2].splitlines()
+                             if "registers" in ln or "Compiling entry" in ln
+                             or "stack frame" in ln]
+    return rec
 
 
 def main():
@@ -163,7 +403,12 @@ def main():
                  "this script runs only on an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     import vision_tpu_torch as vt
+    from vision_tpu_torch import native
     from vision_tpu_torch.accel import dense_isect as di
+    from vision_tpu_torch.accel import packet_bvh as pbvh_mod
+    from vision_tpu_torch.accel import packet_isect as pi
+    from vision_tpu_torch.integrator import pt as vt_pt
+    scenes = _load_by_path("vt_torch_scenes", "tests/torch_scenes.py")
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -172,15 +417,11 @@ def main():
     emit(dict(phase="device", name=name, nvidia_smi=smi,
               torch=torch.__version__, cuda=torch.version.cuda,
               capability=list(torch.cuda.get_device_capability(0))))
-
-    lib_path, build_s, log = di.build()
-    emit(dict(phase="build", seconds=build_s, library=os.path.relpath(lib_path, ROOT),
-              ptxas=[ln.strip() for ln in log.splitlines()
-                     if "registers" in ln or "Compiling entry" in ln]))
+    emit(build_all(di, pi, native))
 
     # ---- K1 vs its plain version, at the main path's shape and the
     # dense path's upper bound ----
-    scene = cbox_scene(vt, 512)
+    scene = cbox_scene(vt, RES)
     o, d = cbox_rays(scene)
     cb = compare_k1(di, "cbox_36tris_512sq", o, d, scene.data.tri_geom, 10.0)
     emit(cb)
@@ -188,49 +429,98 @@ def main():
     soup = compare_k1(di, "soup_2048tris_262144rays", so, sd, stris, 1.0)
     emit(soup)
 
-    # ---- the main path: cornell box, 512^2, depth 8, 16 spp ----
-    check(scene.max_depth == 8 and scene.resolution == (512, 512), "cbox config")
-    vt.render(scene, spp=1)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in di.LAUNCHES:
-        di.LAUNCHES[k] = 0
-    stats = {}
-    t0 = time.perf_counter()
-    hdr = vt.render(scene, spp=SPP, stats=stats)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(di.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    img = hdr.cpu().numpy()
-    check(img.shape == (512, 512, 3), f"image shape {img.shape}")
-    check(bool(np.isfinite(img).all()), "image has non-finite values")
-    check(float(img.max()) > 0.0, "image is all zero")
-    check(all(v > 0 for v in launches.values()), f"K1 launches {launches}")
-    gold = np.load(os.path.join(ROOT, "tests", "goldens", "cbox_hdr.npz"))["img"]
-    ds = img.reshape(128, 4, 128, 4, 3).mean((1, 3))
-    ob = ds.reshape(16, 8, 16, 8, 3).mean((1, 3))
-    gb = gold.reshape(16, 8, 16, 8, 3).mean((1, 3))
-    werr = float(np.abs(ob - gb).sum() / gb.sum())
-    bias = float((ob - gb).mean() / gb.mean())
-    emit(dict(phase="render", scene="cbox", res=512, spp=SPP,
-              max_depth=scene.max_depth, wall_s=wall, nrays=stats["nrays"],
-              iters=stats["iters"], mrays_per_s=stats["nrays"] / wall / 1e6,
-              peak_mem_bytes=peak, launches=launches,
-              golden_werr=werr, golden_bias=bias, mean=float(img.mean())))
-    check(werr < GOLD_WERR, f"weighted error vs golden {werr}")
-    check(abs(bias) < GOLD_BIAS, f"bias vs golden {bias}")
+    # ---- the cornell box, 512^2, depth 8, 16 spp, through K1 ----
+    img, rec = render(vt, [di, pi], scene, "cbox")
+    rec["golden_werr"], rec["golden_bias"] = vs_golden(
+        img, "tests/goldens/cbox_hdr.npz")
+    emit(rec)
+    check(all(rec["launches"][f"dense_isect.{k}"] > 0
+              for k in ("closest", "anyhit")), f"K1 launches {rec['launches']}")
+    check(rec["golden_werr"] < GOLD_WERR, f"cbox vs golden {rec['golden_werr']}")
+    check(abs(rec["golden_bias"]) < GOLD_BIAS, f"cbox bias {rec['golden_bias']}")
+    launches = {f"dense_isect.{k}": rec["launches"][f"dense_isect.{k}"]
+                for k in ("closest", "anyhit")}
 
-    rows = []
-    for k in ("closest", "anyhit"):
-        err = max(cb["closest_t_abs_err"], cb["closest_uv_abs_err"],
-                  soup["closest_t_abs_err"], soup["closest_uv_abs_err"]) \
-            if k == "closest" else max(cb["anyhit_max_abs_err"],
-                                       soup["anyhit_max_abs_err"])
-        rows.append(dict(name=f"dense_isect.{k}", route="cuda",
-                         source=KERNEL_SOURCE, replaces=REPLACES[k],
-                         launches=launches[k], max_abs_err=err,
-                         ms=cb[f"{k}_ms"], plain_ms=cb[f"{k}_plain_ms"]))
+    # ---- K2: cbox_sphere, 261,156 triangles ----
+    t0 = time.perf_counter()
+    sphere = vt.load_scene(scenes.cbox_sphere(RES), device=DEV)
+    emit(dict(phase="load", scene="cbox_sphere",
+              seconds=time.perf_counter() - t0,
+              tris=sphere.data.tri_geom.shape[0]))
+    check(sphere.data.pbvh is not None and sphere.data.tri_geom.shape[0] == 261156,
+          "cbox_sphere takes the BVH")
+    k2 = phase_k2(vt, pi, pbvh_mod, di, vt_pt, sphere)
+    img, rec = render(vt, [di, pi], sphere, "cbox_sphere")
+    rec["golden_werr"], rec["golden_bias"] = vs_golden(
+        img, "tests/goldens/cbox_sphere_hdr.npz")
+    emit(rec)
+    check(rec["launches"]["packet_isect.closest"] > 0
+          and rec["launches"]["packet_isect.anyhit"] > 0,
+          f"K2 launches {rec['launches']}")
+    check(rec["launches"]["dense_isect.closest"] == 0
+          and rec["launches"]["dense_isect.anyhit"] == 0,
+          f"K1 launched on the BVH path {rec['launches']}")
+    check(rec["golden_werr"] < GOLD_WERR,
+          f"cbox_sphere vs golden {rec['golden_werr']}")
+    check(abs(rec["golden_bias"]) < GOLD_BIAS,
+          f"cbox_sphere bias {rec['golden_bias']}")
+    launches.update({f"packet_isect.{k}": rec["launches"][f"packet_isect.{k}"]
+                     for k in ("closest", "anyhit")})
+    del sphere
+
+    # ---- K3: cbox_spheres_instanced and its flat twin ----
+    t0 = time.perf_counter()
+    inst = vt.load_scene(scenes.cbox_spheres_instanced(RES), device=DEV)
+    t1 = time.perf_counter()
+    os.environ["VT_INSTANCING"] = "0"
+    try:
+        flat = vt.load_scene(scenes.cbox_spheres_instanced(RES), device=DEV)
+    finally:
+        os.environ.pop("VT_INSTANCING")
+    emit(dict(phase="load", scene="cbox_spheres_instanced",
+              seconds=t1 - t0, flat_twin_seconds=time.perf_counter() - t1,
+              instances=inst.data.ipbvh.n_inst,
+              flat_twin_tris=flat.data.tri_geom.shape[0]))
+    check(inst.data.ipbvh is not None and flat.data.pbvh is not None,
+          "the instanced scene takes K3, its flat twin K2")
+    k3 = phase_k3(pi, pbvh_mod, vt_pt, inst, flat)
+    img_i, rec = render(vt, [di, pi], inst, "cbox_spheres_instanced")
+    check(rec["launches"]["packet_isect.closest_inst"] > 0
+          and rec["launches"]["packet_isect.anyhit_inst"] > 0,
+          f"K3 launches {rec['launches']}")
+    launches.update({f"packet_isect.{k}": rec["launches"][f"packet_isect.{k}"]
+                     for k in ("closest_inst", "anyhit_inst")})
+    img_f, rec_f = render(vt, [di, pi], flat, "cbox_spheres_instanced_flat_twin")
+    check(rec_f["launches"]["packet_isect.closest"] > 0,
+          f"flat twin launches {rec_f['launches']}")
+    rec["twin_werr"], rec["twin_bias"] = block_err(img_i, img_f)
+    emit(rec)
+    emit(rec_f)
+    check(rec["twin_werr"] <= TWIN_WERR,
+          f"instanced vs flat twin {rec['twin_werr']}")
+
+    # ---- the kernel table ----
+    def worst(recs, keys):
+        return max(float(r[k]) for r in recs for k in keys)
+
+    closest_keys = ("closest_t_abs_err", "closest_uv_abs_err")
+    errs = {"dense_isect.closest": worst([cb, soup], closest_keys),
+            "dense_isect.anyhit": worst([cb, soup], ("anyhit_max_abs_err",)),
+            "packet_isect.closest": worst(k2, closest_keys),
+            "packet_isect.anyhit": worst(k2, ("anyhit_max_abs_err",)),
+            "packet_isect.closest_inst": worst(k3, closest_keys),
+            "packet_isect.anyhit_inst": worst(k3, ("anyhit_max_abs_err",))}
+    times = {"dense_isect.closest": (cb["closest_ms"], cb["closest_plain_ms"]),
+             "dense_isect.anyhit": (cb["anyhit_ms"], cb["anyhit_plain_ms"])}
+    for recs, suffix in ((k2, ""), (k3, "_inst")):
+        for op in ("closest", "anyhit"):
+            times[f"packet_isect.{op}{suffix}"] = (recs[0][f"{op}_ms"],
+                                                   recs[0][f"{op}_plain_ms"])
+    rows = [dict(name=k, route="cuda", source=SOURCES[k.split(".")[0]],
+                 replaces=REPLACES[k], launches=launches[k],
+                 max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1])
+            for k in REPLACES]
+    check(all(r["launches"] > 0 for r in rows), f"launches {launches}")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -221,3 +221,28 @@ def test_import_without_jax():
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("user_value", [None, "COMPATIBLE"])
+def test_import_pins_mkl_code_path(user_value):
+    """Importing the port pins MKL to its reproducible AVX2 code path before
+    any op runs (its AVX-512 sqrt can return one thread's chunk at rsqrt
+    accuracy on a process's first call), and keeps a value the user set.
+    The first threaded sqrt of the fresh process is then correctly rounded
+    to within 1 ulp."""
+    code = (
+        "import os, numpy as np, torch\n"
+        "import vision_tpu_torch\n"
+        "torch.set_num_threads(8)\n"
+        "x = np.random.default_rng(0).random(12288, dtype=np.float32) + 0.5\n"
+        "y = torch.sqrt(torch.as_tensor(x)).numpy().astype(np.float64)\n"
+        "rel = np.abs(y / np.sqrt(x.astype(np.float64)) - 1.0).max()\n"
+        "print(os.environ['MKL_CBWR'], rel < 1.2e-7)\n")
+    env = {k: v for k, v in os.environ.items() if k != "MKL_CBWR"}
+    if user_value:
+        env["MKL_CBWR"] = user_value
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [user_value or "AVX2", "True"]

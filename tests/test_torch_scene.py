@@ -3,6 +3,8 @@ gives the same packed geometry, id tables, material and light tables,
 camera and filter; `scene_from_arrays` carries a JAX scene across; and a
 scene outside the ported slice raises NotImplementedError."""
 import copy
+import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -121,6 +123,40 @@ def test_scene_from_arrays_matches_loader():
     assert torch.equal(data.atlas.data, ps.data.atlas.data)
 
 
+def _tensors(obj):
+    """Every tensor of a record, its sub-records included."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif dataclasses.is_dataclass(v):
+            yield from _tensors(v)
+
+
+def test_scene_from_arrays_copies_jax_buffers():
+    """scene_from_arrays copies every array: no tensor of the port shares
+    memory with the JAX scene, no non-writable warning is raised, and after
+    the port has rendered from the carried-across arrays the JAX scene's
+    arrays are unchanged."""
+    from vision_tpu_torch.integrator import pt as tpt
+    js = JScene(cbox(16))
+    arrays = jax_scene_arrays(js)
+    before = {k: np.array(v) for k, v in arrays.items()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        data, camera, filt = scene_from_arrays(arrays, "cpu")
+    ts = [t for rec in (data, camera, filt) for t in _tensors(rec)]
+    assert len(ts) > 40
+    for t in ts:
+        for v in arrays.values():
+            assert not np.may_share_memory(t.numpy(), v)
+    img, _ = tpt.render_wave(data, camera, filt, 0, 1, max_depth=2)
+    assert float(img.mean()) > 0.0
+    after = jax_scene_arrays(js)
+    for k, v in before.items():
+        np.testing.assert_array_equal(after[k], v)
+
+
 def test_scene_from_arrays_rejects_out_of_slice():
     with pytest.raises(NotImplementedError, match="slice 1b"):
         scene_from_arrays(jax_scene_arrays(JScene(make_glass_cbox())), "cpu")
@@ -164,16 +200,30 @@ OUT_OF_SLICE = {
         "param": {"frame_buffer": {"type": "light_field"}}})), "slice 4"),
     "mesh_file": (lambda: _edit(lambda s: _shape(s, {
         "type": "model", "param": {"fn": "bunny.obj"}})), "slice 7"),
+}
+
+# scenes outside the dense sweep's slice, which now load through their
+# BVH: a flat soup of > 2048 tris (K2) and a repeated heavy mesh (K3)
+BVH_SCENES = {
     "over_2048_tris": (lambda: _edit(lambda s: _shape(s, _sphere(40))),
-                       "slice 2"),
+                       "pbvh"),
     "instanced_meshes": (lambda: _edit(lambda s: [
         _shape(s, _sphere(10, x)) for x in (-0.6, -0.2, 0.2, 0.6)]),
-        "slice 3"),
+        "ipbvh"),
 }
 
 
-@pytest.mark.parametrize("name", sorted(OUT_OF_SLICE))
+@pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES))
 def test_out_of_slice_raises(name):
+    """A feature outside the ported slices raises NotImplementedError
+    naming its slice; the two scenes of BVH_SCENES, out of the slice before
+    slices 2 and 3, load and carry the tree their kernel walks."""
+    if name in BVH_SCENES:
+        make, field = BVH_SCENES[name]
+        ps = vt.load_scene(make(), device="cpu")
+        assert getattr(ps.data, field) is not None
+        assert (ps.data.pbvh is None) != (ps.data.ipbvh is None)
+        return
     make, where = OUT_OF_SLICE[name]
     with pytest.raises(NotImplementedError, match=where):
         vt.load_scene(make(), device="cpu")

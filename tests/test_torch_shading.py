@@ -56,15 +56,58 @@ FRESNEL = {
 }
 
 
+def _f64_schlick_weight(c):
+    m = np.clip(1.0 - c, 0.0, 1.0)
+    return m ** 5
+
+
+def _f64_fresnel_dielectric(ci, eta):
+    sin2_t = (1.0 - ci ** 2) / eta ** 2
+    ct = np.sqrt(np.maximum(1.0 - sin2_t, 0.0))
+    r_parl = (eta * ci - ct) / (eta * ci + ct)
+    r_perp = (ci - eta * ct) / (ci + eta * ct)
+    return np.where(sin2_t >= 1.0, 1.0, 0.5 * (r_parl ** 2 + r_perp ** 2))
+
+
+def _f64_fresnel_complex(ci, er, ei):
+    """|r_parl|^2 and |r_perp|^2 of the complex IOR er - i ei, in complex128."""
+    ci = np.clip(ci, 0.0, 1.0)
+    eta = er + 1j * ei
+    ct = np.sqrt(1.0 - (1.0 - ci ** 2) / eta ** 2)
+    rp = (eta * ci - ct) / (eta * ci + ct)
+    rs = (ci - eta * ct) / (ci + eta * ct)
+    return 0.5 * (np.abs(rp) ** 2 + np.abs(rs) ** 2)
+
+
+def _f64_fresnel_f82(c, F0, b):
+    m = np.clip(1.0 - c, 0.0, 1.0)
+    return F0 + (1.0 - F0) * (m ** 5)[:, None] - b * (c * m ** 6)[:, None]
+
+
+# each formula in float64 numpy, on the float32 inputs of test_fresnel
+FRESNEL_F64 = {
+    "schlick_weight": lambda c, e, k: _f64_schlick_weight(c),
+    "fresnel_schlick": lambda c, e, k: e + (1.0 - e) * _f64_schlick_weight(c)[:, None],
+    "fresnel_dielectric": lambda c, e, k: _f64_fresnel_dielectric(c[:, None], e),
+    "fresnel_complex": lambda c, e, k: _f64_fresnel_complex(c[:, None], e, k),
+    "fresnel_f82": lambda c, e, k: _f64_fresnel_f82(c, e * 0.3, k * 0.1),
+}
+
+
 @pytest.mark.parametrize("fn", sorted(FRESNEL))
 def test_fresnel(fn):
+    """Each package against a float64 evaluation of the same formula, both
+    within the float32 tolerance, so a failure names the side that left the
+    formula."""
     c = _u(N, 1, 0)[:, 0]
     e = 1.0 + _u(N, 3, 1) * 2.0
     k = _u(N, 3, 2) * 4.0
+    ref = FRESNEL_F64[fn](*(x.astype(np.float64) for x in (c, e, k)))
     a = FRESNEL[fn](jfr, jnp.asarray(c), jnp.asarray(e), jnp.asarray(k))
     b = FRESNEL[fn](tfr, tt(c), tt(e), tt(k))
-    for x, y in zip(a, b):
-        close(y, x)
+    for side, out in (("jax", a[0]), ("torch", b[0])):
+        np.testing.assert_allclose(np_(out), ref, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{side} vs the float64 formula")
 
 
 MICROFACET = {

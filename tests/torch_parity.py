@@ -33,8 +33,9 @@ def jax_scene_arrays(scene):
     `vision_tpu_torch.scene.scene.scene_from_arrays` reads it."""
     d = scene.data
     arrays = _record_arrays(d, "")
-    for name in ("materials", "lights", "atlas", "spectrum"):
-        arrays.update(_record_arrays(getattr(d, name), name + "."))
+    for name in ("materials", "lights", "atlas", "spectrum", "pbvh", "ipbvh"):
+        if getattr(d, name) is not None:
+            arrays.update(_record_arrays(getattr(d, name), name + "."))
     arrays.update(_record_arrays(scene.camera, "camera."))
     arrays.update(_record_arrays(scene.filter, "filter."))
     return arrays

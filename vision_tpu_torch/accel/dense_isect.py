@@ -4,8 +4,8 @@
 `_anyhit_kernel` of `vision_tpu/accel/pallas_isect.py` (reached through
 `intersect_pallas`). The kernels are in `csrc/dense_isect.cu`; they are
 compiled with nvcc for sm_90a at first use into `vision_tpu_torch/_build/`
-(a shared library with a plain C interface, loaded with ctypes), from the
-sources in the checkout only.
+(`accel/cuda_build.py`: a shared library with a plain C interface, loaded
+with ctypes), from the sources in the checkout only.
 
 `closest_plain` and `anyhit_plain` are their plain PyTorch versions (the
 port of `intersect_brute` / `occluded_brute`, blocked over 128 triangles).
@@ -16,22 +16,12 @@ exception, never a switch to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
 from ..core.types import Ray
+from . import cuda_build
 from . import intersect as isect
-
-SOURCE = os.path.join(os.path.dirname(__file__), "..", "csrc", "dense_isect.cu")
-BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "_build")
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 
 # launches of each kernel, counted where the wrapper launches it
 LAUNCHES = {"closest": 0, "anyhit": 0}
@@ -55,34 +45,10 @@ def anyhit_plain(origin, direction, t_max, tris):
     return isect.occluded_brute(Ray(origin, direction, t_max), *_split(tris))
 
 
-def _nvcc():
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the K1 kernels are "
-                       "built from source at first use")
-
-
 def build():
     """Compile the kernels unless this source's library exists.
     Returns (library path, seconds spent, compiler log)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"libdense_isect_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(lib_path):
-        return lib_path, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib_path)
-    return lib_path, time.perf_counter() - t0, log
+    return cuda_build.build("dense_isect")
 
 
 def _library():

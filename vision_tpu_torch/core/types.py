@@ -27,10 +27,13 @@ class Ray:
 @dataclass
 class Hit:
     """Closest-hit record: t (t_max on a miss), prim_id (int32, -1 on a
-    miss) and the winner's barycentrics (b1, b2)."""
+    miss) and the winner's barycentrics (b1, b2). `inst` is the TLAS
+    instance (int32, -1 on a miss), set only by the instanced traversal,
+    where prim_id is an object-space triangle shared by the instances."""
     t: torch.Tensor
     prim_id: torch.Tensor
     bary: torch.Tensor
+    inst: torch.Tensor = None
 
     @property
     def is_miss(self):

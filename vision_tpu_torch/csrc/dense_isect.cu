@@ -32,44 +32,25 @@
 // Closest hit: best_t starts at t_max and is replaced only by a strictly
 // smaller t, scanning ids upward, so an exact tie keeps the lower id as
 // intersect_brute does. Edges are tested with the 1e-6 barycentric slack of
-// intersect.py and packet_bvh.py; the Pallas K1 tests them strictly, which
-// can crack shared edges (ROADMAP fault C1), and that is not copied.
+// intersect.py and packet_bvh.py (mt.cuh); the Pallas K1 tests them
+// strictly, which can crack shared edges (ROADMAP fault C1), and that is not
+// copied.
 
 #include <cuda_runtime.h>
+
+#include "mt.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 256;          // triangles staged per shared-memory tile
-constexpr float kDetEps = 1e-9f;
-constexpr float kSlackLo = -1e-6f;  // barycentric slack closes edge cracks
-constexpr float kSlackHi = 1.000001f;
 
-// Möller-Trumbore against one staged triangle (p0 e1 e2, 9 floats), in the
-// operation order of intersect.py _mt_batch.
+// Möller-Trumbore against one staged triangle (p0 e1 e2, 9 floats).
 __device__ __forceinline__ bool mt_test(const float* s, float ox, float oy,
                                         float oz, float dx, float dy, float dz,
                                         float& t, float& u, float& v) {
-  const float p0x = s[0], p0y = s[1], p0z = s[2];
-  const float e1x = s[3], e1y = s[4], e1z = s[5];
-  const float e2x = s[6], e2y = s[7], e2z = s[8];
-  const float pvx = dy * e2z - dz * e2y;
-  const float pvy = dz * e2x - dx * e2z;
-  const float pvz = dx * e2y - dy * e2x;
-  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const bool big = fabsf(det) > kDetEps;
-  const float inv_det = big ? 1.0f / det : 0.0f;
-  const float tvx = ox - p0x;
-  const float tvy = oy - p0y;
-  const float tvz = oz - p0z;
-  u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-  t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-  return big && u >= kSlackLo && v >= kSlackLo && u + v <= kSlackHi &&
-         t > 0.0f;
+  return vt::mt_test(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+                     ox, oy, oz, dx, dy, dz, t, u, v);
 }
 
 __device__ __forceinline__ void stage_tile(float* s, const float* tris,

@@ -1,7 +1,7 @@
 """Wavefront path-tracing integrator.
 
-Counterpart of `vision_tpu/integrator/pt.py` for surface transport on the
-dense path. Per bounce, over a whole wavefront of lanes with masks in place
+Counterpart of `vision_tpu/integrator/pt.py` for surface transport. Per
+bounce, over a whole wavefront of lanes with masks in place
 of divergent control flow:
 
   trace closest -> [miss: env MIS, deactivate]
@@ -13,6 +13,11 @@ MIS is the balance heuristic; primary rays carry scatter_pdf = 1e16 so
 primary emission is unweighted. Every RNG draw happens in the JAX package's
 order, so both packages follow the same path on a lane up to float
 rounding. Python loops replace `lax.fori_loop` / `lax.while_loop`.
+
+Traces take the kernel the scene's geometry calls for: the dense sweep
+(K1) up to 2048 triangles, the BVH (K2) above, the TLAS over instances
+(K3) for an instanced scene. On the BVH paths dead lanes trace with
+t_max = 0, as the JAX package's packet path does.
 
 Differences from the JAX package, none of which changes an image:
   * lane = pixel always: the tile order and lane re-binning of the packet
@@ -26,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from ..accel import dense_isect
+from ..accel import dense_isect, packet_isect
 from ..core import rng, warp
 from ..core.math import (coordinate_system, cross, dot, face_forward,
                          normalize, safe_div, to_local, to_world)
@@ -38,16 +43,35 @@ from ..shading.materials import gather_params
 RAY_OFFSET = 2e-4
 
 
-def trace_closest(scene, ray):
-    """Closest hit through K1 (the dense sweep); every lane is traced, as
-    on the JAX package's dense path, which ignores the live mask."""
+def _gated(ray, act):
+    """t_max, 0 on lanes outside `act` (they leave the BVH walk at once)."""
+    t_max = ray.t_max if act is None else torch.where(act, ray.t_max, 0.0)
+    return ray.origin.contiguous(), ray.direction.contiguous(), t_max.contiguous()
+
+
+def trace_closest(scene, ray, act=None):
+    """Closest hit through K3 (instanced scene), K2 (BVH) or K1 (dense
+    sweep). The dense sweep traces every lane, as the JAX package's dense
+    path does; the BVH paths trace lanes outside `act` with t_max = 0."""
+    if scene.ipbvh is not None:
+        t, pid, bary, inst = packet_isect.closest_inst(*_gated(ray, act),
+                                                       scene.ipbvh)
+        return Hit(t=t, prim_id=pid, bary=bary, inst=inst)
+    if scene.pbvh is not None:
+        return Hit(*packet_isect.closest(*_gated(ray, act), scene.pbvh))
     t, pid, bary = dense_isect.closest(ray.origin, ray.direction, ray.t_max,
                                        scene.tri_geom)
     return Hit(t=t, prim_id=pid, bary=bary)
 
 
-def trace_occluded(scene, ray):
-    """Shadow-ray occlusion through K1's any-hit kernel: [R] bool."""
+def trace_occluded(scene, ray, act=None):
+    """Shadow-ray occlusion: [R] bool, through the any-hit kernel of the
+    path `trace_closest` takes (lanes outside `act` are unoccluded on the
+    BVH paths)."""
+    if scene.ipbvh is not None:
+        return packet_isect.anyhit_inst(*_gated(ray, act), scene.ipbvh)
+    if scene.pbvh is not None:
+        return packet_isect.anyhit(*_gated(ray, act), scene.pbvh)
     return dense_isect.anyhit(ray.origin, ray.direction, ray.t_max,
                               scene.tri_geom)
 
@@ -55,7 +79,10 @@ def trace_occluded(scene, ray):
 def compute_interaction(scene, hit):
     """Surface interaction from a hit: barycentric lerp of position / uv /
     normal from the packed triangle row; shading normal aligned with the
-    geometric one."""
+    geometric one. On an instanced scene the row is in the winning
+    instance's object space and goes to world space by its o2w (normals by
+    the inverse transpose); the residual instance's transform is the
+    identity and its rows carry their own ids."""
     pid = torch.clamp_min(hit.prim_id.long(), 0)
     b1 = hit.bary[..., 0]
     b2 = hit.bary[..., 1]
@@ -70,6 +97,26 @@ def compute_interaction(scene, hit):
     inst = a[..., 24].to(torch.int32)
     mat_id = a[..., 25].to(torch.int32)
     light_id = a[..., 26].to(torch.int32)
+    if scene.ipbvh is not None:
+        ti = torch.clamp_min(hit.inst.long(), 0)
+        x = scene.inst_xform[ti]
+        L0, L1, L2 = x[..., 0:3], x[..., 3:6], x[..., 6:9]
+        N0, N1, N2 = x[..., 12:15], x[..., 15:18], x[..., 18:21]
+
+        def lin(v):
+            return v[..., 0:1] * L0 + v[..., 1:2] * L1 + v[..., 2:3] * L2
+
+        p0 = lin(p0) + x[..., 9:12]
+        e1 = lin(e1)
+        e2 = lin(e2)
+        ns_raw = (ns_raw[..., 0:1] * N0 + ns_raw[..., 1:2] * N1
+                  + ns_raw[..., 2:3] * N2)
+        si = scene.inst_scene[ti].long()
+        res = si < 0
+        sic = torch.clamp_min(si, 0)
+        inst = torch.where(res, inst, si.to(torch.int32))
+        mat_id = torch.where(res, mat_id, scene.inst_mat[sic])
+        light_id = torch.where(res, light_id, scene.inst_light[sic])
     pos = p0 + b1[..., None] * e1 + b2[..., None] * e2
     ng = normalize(cross(e1, e2))
     ns = normalize(ns_raw)
@@ -96,8 +143,8 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     `depth` is a per-lane int tensor; all depth comparisons are
     elementwise. Returns a new carry dict."""
     r = Ray.make(c["o"], c["d"])
-    hit = trace_closest(scene, r)
     act = c["act"]
+    hit = trace_closest(scene, r, act)
     nrays = c["nrays"] + act.sum()
     L = c["L"]
     thr = c["thr"]
@@ -146,9 +193,11 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     w_nee = warp.mis_weight(l_pdf_pos, nee_pdf)
     nee_pre = (act & (l_pdf_pos > 0.0) & (nee_pdf >= 0.0)
                & (torch.amax(torch.abs(ls.L * f_nee), dim=-1) > 0.0))
-    occ = trace_occluded(scene, shadow_ray)
-    # ray accounting: the dense sweep processes every active lane
-    nrays = nrays + act.sum()
+    occ = trace_occluded(scene, shadow_ray, nee_pre)
+    # ray accounting: the BVH paths skip gated shadow lanes; the dense
+    # sweep processes every active lane
+    dense = scene.pbvh is None and scene.ipbvh is None
+    nrays = nrays + (act if dense else nee_pre).sum()
     nee_ok = nee_pre & ~occ
     Ld = ls.L * f_nee * safe_div(w_nee, l_pdf_pos)[..., None]
     L = L + torch.where(nee_ok[..., None], thr * Ld, 0.0)

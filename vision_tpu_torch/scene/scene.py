@@ -1,14 +1,23 @@
 """Scene: JSON description -> flat SceneData of tensors on one device.
 
 Counterpart of `vision_tpu/scene/scene.py` (`_build`, `_flatten`,
-`_pack_rows`, `_build_device_geometry`) for the subset of the cornell-box
-slice: procedural shapes (quad, cube, sphere), constant-color diffuse
-materials, area emission (on a shape or as a standalone area light), the
-srgb spectrum and the normal frame buffer, at most 2048 triangles. Every
-other feature raises NotImplementedError naming the ROADMAP slice that
-brings it, so a scene never quietly takes a path the JAX package would not
-take (a large mesh must not take the dense sweep where the JAX package
-builds a BVH).
+`_pack_rows`, `_build_instanced`, `_build_device_geometry`) for the ported
+subset: procedural shapes (quad, cube, sphere), constant-color diffuse
+materials, area emission (on a shape or as a standalone area light) and
+the srgb spectrum with the normal frame buffer. Geometry takes the path the
+JAX package gives it:
+
+  * at most 2048 triangles: the dense sweep (kernel K1);
+  * more: a SAH BVH over the flat soup (`pbvh`, kernel K2);
+  * a mesh used at least twice whose copies would cost >= 1024 triangles
+    (and has >= 64): one object-space copy per unique mesh under a TLAS of
+    instances, the rest of the scene as one last identity instance
+    (`ipbvh`, kernel K3). VT_INSTANCING=0 turns this off, as it does in
+    the JAX package.
+
+Every other feature raises NotImplementedError naming the ROADMAP slice
+that brings it, so a scene never quietly takes a path the JAX package would
+not take.
 """
 from __future__ import annotations
 
@@ -19,6 +28,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..accel.packet_bvh import (build_instanced_pbvh, build_packet_bvh,
+                                instanced_pbvh_from_arrays,
+                                packet_bvh_from_arrays)
 from ..core import transform as xf
 from ..lights.lights import LightBuilder, LightTable
 from ..sensor.camera import Camera
@@ -41,7 +53,7 @@ def _not_ported(what, slice_):
 @dataclass
 class SceneData:
     """Everything the integrator reads, as tensors on one device."""
-    tri_geom: torch.Tensor    # [T, 9] p0 e1 e2 (the dense sweep's input)
+    tri_geom: torch.Tensor    # [T, 9] p0 e1 e2 of the world soup (K1's input)
     tri_pack: torch.Tensor    # [T, 32] p0 e1 e2 n0 n1 n2 uv0 uv1 uv2 inst mat light
     inst_mat: torch.Tensor    # [I] int32
     inst_light: torch.Tensor  # [I] int32 (-1 = not emissive)
@@ -51,20 +63,39 @@ class SceneData:
     spectrum: SpectrumModel
     world_radius: float
     ray_offset: float         # render_setting.ray_offset_factor
+    pbvh: object = None       # PacketBVH of the flat soup (> 2048 tris, K2)
+    # instanced geometry (K3): tri_pack rows are then [unique meshes in
+    # object space][the residual world soup], and hits carry an instance
+    ipbvh: object = None              # InstancedPBVH
+    inst_scene: torch.Tensor = None   # [It] TLAS instance -> scene instance (-1 residual)
+    inst_xform: torch.Tensor = None   # [It, 32] o2w linear(9) t(3) normal matrix(9)
 
 
-def _pack_rows(t, inst_mat, inst_light):
-    """Packed per-triangle attribute rows (scene.py `_pack_rows`)."""
+def _pack_rows(t, inst_mat=None, inst_light=None):
+    """Packed per-triangle attribute rows (scene.py `_pack_rows`); the id
+    columns stay 0 without `inst_mat` (an instanced mesh's rows)."""
     n = max(len(t["p0"]), 1)
     tp = np.zeros((n, 32), np.float32)
     if len(t["p0"]):
         for k, lo in (("p0", 0), ("e1", 3), ("e2", 6), ("n0", 9), ("n1", 12),
                       ("n2", 15), ("uv0", 18), ("uv1", 20), ("uv2", 22)):
             tp[:, lo:lo + t[k].shape[1]] = t[k]
-        tp[:, 24] = t["inst"].astype(np.float32)
-        tp[:, 25] = inst_mat[t["inst"]].astype(np.float32)
-        tp[:, 26] = inst_light[t["inst"]].astype(np.float32)
+        if inst_mat is not None:
+            tp[:, 24] = t["inst"].astype(np.float32)
+            tp[:, 25] = inst_mat[t["inst"]].astype(np.float32)
+            tp[:, 26] = inst_light[t["inst"]].astype(np.float32)
     return tp
+
+
+def _mesh_rows(mesh):
+    """A mesh's per-triangle columns, as `_flatten` gives them."""
+    tr = mesh.triangles
+    p0, p1, p2 = (mesh.positions[tr[:, k]] for k in range(3))
+    out = dict(p0=p0, e1=p1 - p0, e2=p2 - p0)
+    for k in range(3):
+        out[f"n{k}"] = mesh.normals[tr[:, k]]
+        out[f"uv{k}"] = mesh.uvs[tr[:, k]]
+    return out, (p0, p1, p2)
 
 
 def _flatten(mesh_parts):
@@ -92,8 +123,11 @@ def _flatten(mesh_parts):
     return out
 
 
-def _world_radius(t):
-    p_all = np.concatenate([t["p0"], t["p0"] + t["e1"], t["p0"] + t["e2"]], 0)
+def _soup_points(t):
+    return np.concatenate([t["p0"], t["p0"] + t["e1"], t["p0"] + t["e2"]], 0)
+
+
+def _world_radius(p_all):
     if not len(p_all):
         return 1.0
     center = 0.5 * (p_all.min(0) + p_all.max(0))
@@ -173,17 +207,32 @@ class Scene:
             raw_parts.append((mesh, xf.from_json(p.get("transform")), inst_id,
                               key, p.get("emission")))
 
-        # the JAX package instances a mesh used >= 2x whose duplication
-        # would cost >= 1024 tris (TLAS/BLAS traversal, kernel K3)
+        # ---- instancing: a mesh used >= 2x whose copies would cost >= 1024
+        # tris keeps one object-space copy under the TLAS; everything else
+        # flattens to the world-space residual. Triangle numbering is
+        # [unique meshes][residual], so light tri_base offsets start after
+        # the unique meshes ----
         counts = Counter(k for (_, _, _, k, em) in raw_parts
                          if k is not None and em is None)
-        for k, c in counts.items():
-            nt = mesh_cache[k].num_triangles
-            if c >= 2 and nt >= 64 and (c - 1) * nt >= 1024:
-                raise _not_ported("instanced meshes", 3)
-
-        mesh_parts, pending, base = [], [], 0
+        dedup_keys = set()
+        if os.environ.get("VT_INSTANCING", "1") != "0":
+            for k, c in counts.items():
+                nt = mesh_cache[k].num_triangles
+                if c >= 2 and nt >= 64 and (c - 1) * nt >= 1024:
+                    dedup_keys.add(k)
+        dedup_meshes, dedup_instances, key_to_midx = [], [], {}
         for (mesh, m, inst_id, key, emission) in raw_parts:
+            if key in dedup_keys and emission is None:
+                if key not in key_to_midx:
+                    key_to_midx[key] = len(dedup_meshes)
+                    dedup_meshes.append(mesh)
+                dedup_instances.append((key_to_midx[key], m, inst_id))
+
+        mesh_parts, pending = [], []
+        base = sum(m_.num_triangles for m_ in dedup_meshes)
+        for (mesh, m, inst_id, key, emission) in raw_parts:
+            if key in dedup_keys and emission is None:
+                continue
             world = mesh.transformed(m)
             mesh_parts.append((world, inst_id))
             if emission is not None:
@@ -219,11 +268,16 @@ class Scene:
         t = _flatten(mesh_parts)
         inst_mat = np.asarray(inst_mat, np.int32)
         inst_light = np.asarray(inst_light, np.int32)
-        n_tris = len(t["p0"])
-        if n_tris > BRUTE_FORCE_MAX_TRIS:
-            raise _not_ported(
-                f"a scene of {n_tris} > {BRUTE_FORCE_MAX_TRIS} triangles "
-                "(BVH traversal, kernel K2)", 2)
+        geo = dict(pbvh=None, ipbvh=None, inst_scene=None, inst_xform=None)
+        if dedup_meshes:
+            tri_pack, p_all, inst_geo = _build_instanced(
+                dedup_meshes, dedup_instances, t, inst_mat, inst_light, device)
+            geo.update(inst_geo)
+        else:
+            tri_pack, p_all = _pack_rows(t, inst_mat, inst_light), _soup_points(t)
+            if len(t["p0"]) > BRUTE_FORCE_MAX_TRIS:
+                geo["pbvh"] = build_packet_bvh(t["p0"], t["p0"] + t["e1"],
+                                               t["p0"] + t["e2"], device)
 
         # ---- camera, filter, integrator, output ----
         cam = raw.get("camera", {})
@@ -257,16 +311,56 @@ class Scene:
         self.data = SceneData(
             tri_geom=torch.as_tensor(
                 np.concatenate([t["p0"], t["e1"], t["e2"]], 1), device=device),
-            tri_pack=torch.as_tensor(_pack_rows(t, inst_mat, inst_light),
-                                     device=device),
+            tri_pack=torch.as_tensor(tri_pack, device=device),
             inst_mat=torch.as_tensor(inst_mat, device=device),
             inst_light=torch.as_tensor(inst_light, device=device),
             materials=mats.build(device), lights=lights.build(device),
             atlas=AtlasBuilder().build(device),
             spectrum=SpectrumModel.make(sp_type, device),
-            world_radius=float(np.float32(_world_radius(t))),
+            world_radius=float(np.float32(_world_radius(p_all))),
             ray_offset=float(np.float32(rs.as_float("ray_offset_factor", 1.0))),
-        )
+            **geo)
+
+
+def _build_instanced(meshes, instances, t, inst_mat, inst_light, device):
+    """TLAS/BLAS geometry (scene.py `_build_instanced`): each unique mesh's
+    rows once in object space, then the residual world soup, which rides
+    along as the last instance with an identity transform (its rows keep
+    their inst / mat / light ids, so emissive triangles work unchanged).
+    Returns (tri_pack, the points that bound the world, the SceneData
+    fields ipbvh, inst_scene and inst_xform)."""
+    tris, packs = [], []
+    for mesh in meshes:
+        rows, ps = _mesh_rows(mesh)
+        tris.append(ps)
+        packs.append(_pack_rows(rows))
+    tris.append((t["p0"], t["p0"] + t["e1"], t["p0"] + t["e2"]))
+    packs.append(_pack_rows(t, inst_mat, inst_light))
+    # scene transforms are in column form; the TLAS builder and inst_xform
+    # take row-vector form (world = p @ m[:3, :3] + m[3, :3])
+    insts = ([(mi, np.asarray(m, np.float64).T) for (mi, m, _) in instances]
+             + [(len(meshes), np.eye(4))])
+    ipbvh = build_instanced_pbvh(tris, insts, device)
+    xf_rows = np.zeros((len(insts), 32), np.float32)
+    for i, (_, m) in enumerate(insts):
+        L = m[:3, :3]
+        xf_rows[i, 0:9] = L.reshape(-1)
+        xf_rows[i, 9:12] = m[3, :3]
+        xf_rows[i, 12:21] = np.linalg.inv(L).T.reshape(-1)  # n @ inv(L).T
+    inst_scene = np.array([sid for (_, _, sid) in instances] + [-1], np.int32)
+    pts = [_soup_points(t)]
+    for (mi, m, _) in instances:
+        P = meshes[mi].positions
+        lo, hi = P.min(0), P.max(0)
+        cs = np.array([[x, y, z] for x in (lo[0], hi[0])
+                       for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+        mm = np.asarray(m, np.float64).T
+        pts.append((cs @ mm[:3, :3] + mm[3, :3]).astype(np.float32))
+    geo = dict(ipbvh=ipbvh,
+               inst_scene=torch.as_tensor(inst_scene, device=device),
+               inst_xform=torch.as_tensor(xf_rows, device=device))
+    return (np.concatenate(packs, 0).astype(np.float32),
+            np.concatenate(pts, 0), geo)
 
 
 def _tri_areas(world):
@@ -280,19 +374,22 @@ def load_scene(path_or_dict, device):
 
 
 def scene_from_arrays(arrays, device):
-    """The JAX package's scene state, each field taken as np.asarray, ->
-    this package's (SceneData, Camera, FilterSampler) on `device`.
+    """The JAX package's scene state, each field as an array, -> this
+    package's (SceneData, Camera, FilterSampler) on `device`. Every array
+    is copied: a tensor never shares a buffer with the JAX scene.
 
     Keys: SceneData fields by name (`tri_p0`, `tri_e1`, `tri_e2`,
     `tri_pack`, `inst_mat`, `inst_light`, `world_radius`, `ray_offset`,
-    `has_media`), and the fields of its records under a prefix:
-    `materials.*` (MaterialTable), `lights.*` (LightTable), `atlas.*`
-    (TextureAtlas), `spectrum.*` (SpectrumModel), `camera.*` (Camera) and
-    `filter.*` (FilterSampler). Static fields (`feats`, `n_lights`,
-    `env_index`, `n_real`, `kind`, `resolution`, `is_box`) come as arrays
-    too. A scene outside the slice raises NotImplementedError.
+    `has_media`, and for an instanced scene `inst_scene`, `inst_xform`),
+    and the fields of its records under a prefix: `materials.*`
+    (MaterialTable), `lights.*` (LightTable), `atlas.*` (TextureAtlas),
+    `spectrum.*` (SpectrumModel), `camera.*` (Camera), `filter.*`
+    (FilterSampler), `pbvh.*` (PacketBVH) and `ipbvh.*` (InstancedPBVH).
+    Static fields (`feats`, `n_lights`, `env_index`, `n_real`, `kind`,
+    `resolution`, `is_box`, `bsize`) come as arrays too. A scene outside
+    the slice raises NotImplementedError.
     """
-    a = {k: np.asarray(v) for k, v in arrays.items()}
+    a = {k: np.array(v) for k, v in arrays.items()}
 
     def t(key, dtype=None):
         return torch.as_tensor(a[key], dtype=dtype, device=device)
@@ -301,9 +398,6 @@ def scene_from_arrays(arrays, device):
         raise _not_ported("participating media", 4)
     if int(a["spectrum.kind"]) != 0:
         raise _not_ported("the hero-wavelength spectrum", 4)
-    T = a["tri_p0"].shape[0]
-    if T > BRUTE_FORCE_MAX_TRIS:
-        raise _not_ported(f"a scene of {T} triangles", 2)
     mat_feats = tuple(str(f) for f in np.atleast_1d(a["materials.feats"]))
     bsdf.check_feats(mat_feats)
     light_feats = tuple(str(f) for f in np.atleast_1d(a["lights.feats"]))
@@ -328,6 +422,18 @@ def scene_from_arrays(arrays, device):
     spectrum = SpectrumModel(kind=0, dims=3, **{
         k: t(f"spectrum.{k}") for k in ("coeffs", "cie_x", "cie_y", "cie_z",
                                         "d65n")})
+    geo = dict(pbvh=None, ipbvh=None, inst_scene=None, inst_xform=None)
+    for key, make in (("pbvh", packet_bvh_from_arrays),
+                      ("ipbvh", instanced_pbvh_from_arrays)):
+        sub = {k[len(key) + 1:]: v for k, v in a.items()
+               if k.startswith(key + ".")}
+        if sub:
+            geo[key] = make(sub, device)
+    if geo["ipbvh"] is not None:
+        geo.update(inst_scene=t("inst_scene"), inst_xform=t("inst_xform"))
+    elif geo["pbvh"] is None and a["tri_p0"].shape[0] > BRUTE_FORCE_MAX_TRIS:
+        raise ValueError("a scene of more than "
+                         f"{BRUTE_FORCE_MAX_TRIS} triangles needs its pbvh.*")
     data = SceneData(
         tri_geom=torch.as_tensor(np.concatenate(
             [a["tri_p0"], a["tri_e1"], a["tri_e2"]], 1), device=device),
@@ -335,7 +441,7 @@ def scene_from_arrays(arrays, device):
         inst_light=t("inst_light"), materials=materials, lights=lights,
         atlas=atlas, spectrum=spectrum,
         world_radius=float(a["world_radius"]),
-        ray_offset=float(a["ray_offset"]))
+        ray_offset=float(a["ray_offset"]), **geo)
     camera = Camera(c2w=t("camera.c2w"), tan_half_fov=t("camera.tan_half_fov"),
                     lens_radius=t("camera.lens_radius"),
                     focal_distance=t("camera.focal_distance"),
