@@ -22,8 +22,14 @@ phase, one JSON line each:
     (VT_INSTANCING=0) through K2, held against each other.
 
 Each render runs with every launch count set to 0 just before it and read
-just after, and fails if a kernel of its path was not launched. Last come
-the kernel table, the card's name and power limit, and as the last line
+just after, and fails if a kernel of its path was not launched. On the K2
+and K3 wavefronts the kernels' counting build (`packet_isect.count_walk`)
+records the work each walk needed (box and triangle tests, records and
+slots read), checked against the numpy model of the walk
+(`tests/torch_walk_model.py`) on the first rays; from it, and for K1 from
+its shapes, comes each kernel's bound: the larger of its operations at the
+card's fp32 peak and its bytes at its memory rate. Last come the kernel
+table, the card's name and power limit, and as the last line
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
 exits non-zero without that line; it never runs on the CPU.
 """
@@ -74,6 +80,17 @@ GOLD_BIAS = 0.025
 # instanced vs flat twin render (tests/test_instancing.py holds the JAX
 # package's pair to the same streams)
 TWIN_WERR = 0.01
+# the bound of a kernel: the card's published peaks (NVIDIA H100 SXM data
+# sheet, dense rates at 700 W), float32 outside the tensor cores and HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+MT_FLOP = 40     # one Möller-Trumbore test (csrc/dense_isect.cu's count)
+SLAB_FLOP = 23   # one slab test: 6 subtracts, 6 multiplies, 11 min / max
+XFORM_FLOP = 36  # a ray into an instance's object space: 18 mul, 15 add, 3 div
+RAY_IN = 28      # bytes read per ray: origin, direction, t_max
+LIBRARY = "none: no single PyTorch call computes this function"
+MODEL_RAYS = 4096  # rays of a wavefront held against the numpy walk model
+KERNEL_BATCH = 20  # kernel calls back to back in one timing window
 
 
 def emit(obj):
@@ -85,8 +102,11 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, n=25, warmup=3):
-    """Median milliseconds of fn over n runs, timed with CUDA events."""
+def cuda_ms(fn, n=25, warmup=3, batch=KERNEL_BATCH):
+    """Median milliseconds of one call of fn: n windows of `batch` calls
+    back to back, each timed with CUDA events and divided by `batch`. With
+    a batch the host enqueues ahead of the card, so the window holds the
+    card's time and not the host's launch overhead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -95,11 +115,88 @@ def cuda_ms(fn, n=25, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def bound_ms(ops, nbytes):
+    """The least time the card could take for `ops` operations that move
+    `nbytes` bytes: the larger of the two at the card's peaks. Returns
+    (ms, "operations" or "bytes")."""
+    t_ops = ops / PEAK_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_work(n_rays, n_tris, any_hit):
+    """(operations, bytes) of K1 from its shapes: every ray against every
+    triangle; each input read once (rays, [T, 9] float32 triangles), each
+    output written once (t, id, u, v; or the any-hit flag)."""
+    return (n_rays * n_tris * MT_FLOP,
+            n_rays * (RAY_IN + (1 if any_hit else 16)) + n_tris * 36)
+
+
+def walk_work(pi, o, d, tmax, tree, any_hit, out):
+    """The counting build of the K2/K3 walk on these rays. Its outputs
+    must equal the kernel's `out`. Returns (record, per-ray counts): the
+    work the walk needed (box, triangle and instance steps; records and
+    slots read once each, rays in and results out) and its bound, the steps
+    per live ray, the active-lane share and the deepest stack. The
+    active-lane share is lane steps / (32 x the longest walk of each warp of
+    32 consecutive rays): the SIMD share a launch of one thread per ray
+    would get on these rays, a measure of their coherence. The kernel's
+    persistent warps fetch rays as lanes free up, so it is not the kernel's
+    own lane utilisation."""
+    instanced = getattr(tree, "insts", None) is not None
+    res = pi.count_walk(o, d, tmax, tree, any_hit)
+    counts, rec_seen, slot_seen = res[-3:]
+    want = (out,) if any_hit else out
+    check(all(torch.equal(a, b) for a, b in zip(res[:-3], want)),
+          "the counting build's outputs differ from the kernel's")
+    c = counts.long()
+    R = c.shape[0]
+    steps = c[:, 0] + c[:, 1] + c[:, 4]
+    warps = torch.nn.functional.pad(steps, (0, (-R) % 32)).view(-1, 32)
+    box, tri, ent = (int(c[:, k].sum()) for k in (2, 3, 4))
+    ops = box * SLAB_FLOP + tri * MT_FLOP + ent * XFORM_FLOP
+    n_rec, n_slot = int(rec_seen.sum()), int(slot_seen.sum())
+    nbytes = (R * (RAY_IN + (1 if any_hit else 16 + 4 * instanced))
+              + n_rec * 64 + n_slot * 48
+              + (tree.n_inst * 64 if instanced else 0))
+    ms, by = bound_ms(ops, nbytes)
+    live = max(int((tmax > 0).sum()), 1)
+    return dict(bound_ms=ms, bound_by=by, ops=ops, bytes=nbytes,
+                records_read=n_rec, slots_read=n_slot,
+                steps_per_ray=float(steps.sum()) / live,
+                max_steps=int(steps.max()),
+                inner_steps_per_ray=float(c[:, 0].sum()) / live,
+                box_tests_per_ray=box / live, tri_tests_per_ray=tri / live,
+                instance_entries_per_ray=ent / live,
+                active_lane_share=float(steps.sum())
+                / max(32.0 * float(warps.max(1).values.sum()), 1.0),
+                deepest_stack=int(c[:, 5].max())), c
+
+
+def model_check(wm, case, o, d, tmax, tree, any_hit, out, counts):
+    """The numpy model of the walk (tests/torch_walk_model.py) on the first
+    MODEL_RAYS rays: the same outputs and the same per-ray counts as the
+    kernel and its counting build."""
+    n = MODEL_RAYS
+    args = [x[:n].cpu().numpy() for x in (o, d, tmax)]
+    args += [tree.nodes.cpu().numpy(), tree.tris.cpu().numpy(), tree.bsize]
+    if getattr(tree, "insts", None) is not None:
+        args.append(tree.insts.cpu().numpy())
+    got, mc = wm.walk(*args, any_hit=any_hit)
+    want = (out,) if any_hit else out
+    got = (got,) if any_hit else got
+    same = all(np.array_equal(a, b[:n].cpu().numpy())
+               for a, b in zip(got, want))
+    check(same and np.array_equal(mc, counts[:n].cpu().numpy()),
+          f"{case}: the walk model differs from the kernel's walk")
 
 
 def _load_by_path(name, rel):
@@ -206,9 +303,11 @@ def compare_k1(di, case, o, d, tris, anyhit_tmax_scale):
     rec.update(compare_anyhit(case, occ_k, occ_p, p[0], tmax))
     rec.update(
         closest_ms=cuda_ms(lambda: di.closest(o, d, inf, tris)),
-        closest_plain_ms=cuda_ms(lambda: di.closest_plain(o, d, inf, tris)),
+        closest_plain_ms=cuda_ms(lambda: di.closest_plain(o, d, inf, tris),
+                                 batch=1),
         anyhit_ms=cuda_ms(lambda: di.anyhit(o, d, tmax, tris)),
-        anyhit_plain_ms=cuda_ms(lambda: di.anyhit_plain(o, d, tmax, tris)))
+        anyhit_plain_ms=cuda_ms(lambda: di.anyhit_plain(o, d, tmax, tris),
+                                batch=1))
     return dict(phase="k1_vs_plain", case=case, rays=R, tris=tris.shape[0],
                 **rec)
 
@@ -230,9 +329,9 @@ def bounce_wave(vt_pt, data, o, d, hit):
     return o2, w, tmax
 
 
-def phase_k2(vt, pi, pbvh_mod, di, vt_pt, scene):
+def phase_k2(pi, pbvh_mod, di, vt_pt, wm, scene):
     """K2 against the plain walk and K1 on the primary wavefront and one
-    bounce of `scene` (cbox_sphere)."""
+    bounce of `scene` (cbox_sphere), with the work each walk needed."""
     from vision_tpu_torch.core.types import Hit
     data = scene.data
     tree = data.pbvh
@@ -256,18 +355,24 @@ def phase_k2(vt, pi, pbvh_mod, di, vt_pt, scene):
                                         and torch.equal(k[2], k1[2])))
         st = shadow_tmax(p[0], p[1], 10.0)
         st = torch.where(tmax > 0, st, 0.0).contiguous()
-        rec.update(compare_anyhit(case, pi.anyhit(o, d, st, tree),
-                                  pbvh_mod.intersect_packet_plain(
-                                      o, d, st, tree, any_hit=True), p[0], st))
+        occ = pi.anyhit(o, d, st, tree)
+        rec.update(compare_anyhit(case, occ, pbvh_mod.intersect_packet_plain(
+            o, d, st, tree, any_hit=True), p[0], st))
+        rec["closest_work"], counts = walk_work(pi, o, d, tmax, tree, False, k)
+        if wave == "primary":
+            model_check(wm, case, o, d, tmax, tree, False, k, counts)
+        rec["anyhit_work"], counts = walk_work(pi, o, d, st, tree, True, occ)
+        if wave == "primary":
+            model_check(wm, case, o, d, st, tree, True, occ, counts)
         rec.update(
             closest_ms=cuda_ms(lambda: pi.closest(o, d, tmax, tree)),
             closest_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_plain(
-                o, d, tmax, tree), n=3, warmup=1),
+                o, d, tmax, tree), n=3, warmup=1, batch=1),
             anyhit_ms=cuda_ms(lambda: pi.anyhit(o, d, st, tree)),
             anyhit_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_plain(
-                o, d, st, tree, any_hit=True), n=3, warmup=1),
+                o, d, st, tree, any_hit=True), n=3, warmup=1, batch=1),
             k1_closest_ms=cuda_ms(lambda: di.closest(o, d, tmax, data.tri_geom),
-                                  n=5, warmup=1))
+                                  n=5, warmup=1, batch=1))
         recs.append(dict(phase="k2_vs_plain", case=case, rays=R,
                          live_rays=int((tmax > 0).sum()),
                          tris=data.tri_geom.shape[0], nodes=tree.n_nodes,
@@ -278,9 +383,10 @@ def phase_k2(vt, pi, pbvh_mod, di, vt_pt, scene):
     return recs
 
 
-def phase_k3(pi, pbvh_mod, vt_pt, scene, flat):
+def phase_k3(pi, pbvh_mod, vt_pt, wm, scene, flat):
     """K3 against the plain walk, and against K2 on the flat twin, on the
-    primary wavefront and one bounce of `scene` (cbox_spheres_instanced)."""
+    primary wavefront and one bounce of `scene` (cbox_spheres_instanced),
+    with the work each walk needed."""
     from vision_tpu_torch.core.types import Hit
     data = scene.data
     ip = data.ipbvh
@@ -310,16 +416,23 @@ def phase_k3(pi, pbvh_mod, vt_pt, scene, flat):
                                             / torch.abs(t_f))[both].max()))
         st = shadow_tmax(t_p, id_p, 10.0)
         st = torch.where(tmax > 0, st, 0.0).contiguous()
-        rec.update(compare_anyhit(case, pi.anyhit_inst(o, d, st, ip),
-                                  pbvh_mod.intersect_packet_inst_plain(
-                                      o, d, st, ip, any_hit=True), t_p, st))
+        occ = pi.anyhit_inst(o, d, st, ip)
+        rec.update(compare_anyhit(case, occ, pbvh_mod.intersect_packet_inst_plain(
+            o, d, st, ip, any_hit=True), t_p, st))
+        k = (t_k, id_k, uv_k, in_k)
+        rec["closest_work"], counts = walk_work(pi, o, d, tmax, ip, False, k)
+        if wave == "primary":
+            model_check(wm, case, o, d, tmax, ip, False, k, counts)
+        rec["anyhit_work"], counts = walk_work(pi, o, d, st, ip, True, occ)
+        if wave == "primary":
+            model_check(wm, case, o, d, st, ip, True, occ, counts)
         rec.update(
             closest_ms=cuda_ms(lambda: pi.closest_inst(o, d, tmax, ip)),
             closest_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_inst_plain(
-                o, d, tmax, ip), n=3, warmup=1),
+                o, d, tmax, ip), n=3, warmup=1, batch=1),
             anyhit_ms=cuda_ms(lambda: pi.anyhit_inst(o, d, st, ip)),
             anyhit_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_inst_plain(
-                o, d, st, ip, any_hit=True), n=3, warmup=1),
+                o, d, st, ip, any_hit=True), n=3, warmup=1, batch=1),
             flat_k2_closest_ms=cuda_ms(lambda: pi.closest(o, d, tmax,
                                                           flat.data.pbvh)))
         recs.append(dict(phase="k3_vs_plain", case=case, rays=R,
@@ -383,17 +496,18 @@ def vs_golden(img, rel):
 def build_all(di, pi, native):
     """One nvcc per CUDA source and the g++ build of the SAH builder, all
     started together."""
-    with ThreadPoolExecutor(3) as ex:
-        futs = {"dense_isect": ex.submit(di.build),
-                "packet_isect": ex.submit(pi.build),
-                "native": ex.submit(native.build)}
+    jobs = {"dense_isect": di.build, "packet_isect": pi.build,
+            "native": native.build}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {k: ex.submit(v) for k, v in jobs.items()}
         out = {k: f.result() for k, f in futs.items()}
     rec = dict(phase="build", seconds={k: v[1] for k, v in out.items()},
                library={k: os.path.relpath(v[0], ROOT) for k, v in out.items()})
-    for k in SOURCES:
-        rec[f"ptxas_{k}"] = [ln.strip() for ln in out[k][2].splitlines()
-                             if "registers" in ln or "Compiling entry" in ln
-                             or "stack frame" in ln]
+    for k in out:
+        if k != "native":
+            rec[f"ptxas_{k}"] = [ln.strip() for ln in out[k][2].splitlines()
+                                 if "registers" in ln or "Compiling entry" in ln
+                                 or "stack frame" in ln]
     return rec
 
 
@@ -409,6 +523,7 @@ def main():
     from vision_tpu_torch.accel import packet_isect as pi
     from vision_tpu_torch.integrator import pt as vt_pt
     scenes = _load_by_path("vt_torch_scenes", "tests/torch_scenes.py")
+    wm = _load_by_path("vt_torch_walk_model", "tests/torch_walk_model.py")
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -438,8 +553,7 @@ def main():
               for k in ("closest", "anyhit")), f"K1 launches {rec['launches']}")
     check(rec["golden_werr"] < GOLD_WERR, f"cbox vs golden {rec['golden_werr']}")
     check(abs(rec["golden_bias"]) < GOLD_BIAS, f"cbox bias {rec['golden_bias']}")
-    launches = {f"dense_isect.{k}": rec["launches"][f"dense_isect.{k}"]
-                for k in ("closest", "anyhit")}
+    per_render = {"cbox": rec["launches"]}
 
     # ---- K2: cbox_sphere, 261,156 triangles ----
     t0 = time.perf_counter()
@@ -449,7 +563,7 @@ def main():
               tris=sphere.data.tri_geom.shape[0]))
     check(sphere.data.pbvh is not None and sphere.data.tri_geom.shape[0] == 261156,
           "cbox_sphere takes the BVH")
-    k2 = phase_k2(vt, pi, pbvh_mod, di, vt_pt, sphere)
+    k2 = phase_k2(pi, pbvh_mod, di, vt_pt, wm, sphere)
     img, rec = render(vt, [di, pi], sphere, "cbox_sphere")
     rec["golden_werr"], rec["golden_bias"] = vs_golden(
         img, "tests/goldens/cbox_sphere_hdr.npz")
@@ -464,9 +578,7 @@ def main():
           f"cbox_sphere vs golden {rec['golden_werr']}")
     check(abs(rec["golden_bias"]) < GOLD_BIAS,
           f"cbox_sphere bias {rec['golden_bias']}")
-    launches.update({f"packet_isect.{k}": rec["launches"][f"packet_isect.{k}"]
-                     for k in ("closest", "anyhit")})
-    del sphere
+    per_render["cbox_sphere"] = rec["launches"]
 
     # ---- K3: cbox_spheres_instanced and its flat twin ----
     t0 = time.perf_counter()
@@ -483,13 +595,12 @@ def main():
               flat_twin_tris=flat.data.tri_geom.shape[0]))
     check(inst.data.ipbvh is not None and flat.data.pbvh is not None,
           "the instanced scene takes K3, its flat twin K2")
-    k3 = phase_k3(pi, pbvh_mod, vt_pt, inst, flat)
+    k3 = phase_k3(pi, pbvh_mod, vt_pt, wm, inst, flat)
     img_i, rec = render(vt, [di, pi], inst, "cbox_spheres_instanced")
     check(rec["launches"]["packet_isect.closest_inst"] > 0
           and rec["launches"]["packet_isect.anyhit_inst"] > 0,
           f"K3 launches {rec['launches']}")
-    launches.update({f"packet_isect.{k}": rec["launches"][f"packet_isect.{k}"]
-                     for k in ("closest_inst", "anyhit_inst")})
+    per_render["cbox_spheres_instanced"] = rec["launches"]
     img_f, rec_f = render(vt, [di, pi], flat, "cbox_spheres_instanced_flat_twin")
     check(rec_f["launches"]["packet_isect.closest"] > 0,
           f"flat twin launches {rec_f['launches']}")
@@ -498,6 +609,7 @@ def main():
     emit(rec_f)
     check(rec["twin_werr"] <= TWIN_WERR,
           f"instanced vs flat twin {rec['twin_werr']}")
+    per_render["cbox_spheres_instanced_flat_twin"] = rec_f["launches"]
 
     # ---- the kernel table ----
     def worst(recs, keys):
@@ -512,15 +624,36 @@ def main():
             "packet_isect.anyhit_inst": worst(k3, ("anyhit_max_abs_err",))}
     times = {"dense_isect.closest": (cb["closest_ms"], cb["closest_plain_ms"]),
              "dense_isect.anyhit": (cb["anyhit_ms"], cb["anyhit_plain_ms"])}
+    work = {f"dense_isect.{op}": dict(zip(("bound_ms", "bound_by"), bound_ms(
+        *k1_work(cb["rays"], cb["tris"], op == "anyhit"))))
+        for op in ("closest", "anyhit")}
     for recs, suffix in ((k2, ""), (k3, "_inst")):
         for op in ("closest", "anyhit"):
             times[f"packet_isect.{op}{suffix}"] = (recs[0][f"{op}_ms"],
                                                    recs[0][f"{op}_plain_ms"])
-    rows = [dict(name=k, route="cuda", source=SOURCES[k.split(".")[0]],
-                 replaces=REPLACES[k], launches=launches[k],
-                 max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1])
-            for k in REPLACES]
-    check(all(r["launches"] > 0 for r in rows), f"launches {launches}")
+            w = recs[0][f"{op}_work"]
+            work[f"packet_isect.{op}{suffix}"] = dict(
+                bound_ms=w["bound_ms"], bound_by=w["bound_by"],
+                steps_per_ray=w["steps_per_ray"],
+                tri_tests_per_ray=w["tri_tests_per_ray"],
+                active_lane_share=w["active_lane_share"],
+                deepest_stack=max(r[f"{op}_work"]["deepest_stack"]
+                                  for r in recs))
+    main_path = {"dense_isect": "cbox", "packet_isect": "cbox_sphere"}
+    rows = []
+    for k in REPLACES:
+        run = ("cbox_spheres_instanced" if k.endswith("_inst")
+               else main_path[k.split(".")[0]])
+        rows.append(dict(
+            name=k, route="cuda", source=SOURCES[k.split(".")[0]],
+            replaces=REPLACES[k], launches=per_render[run][k],
+            max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1],
+            **work[k], share_of_bound=work[k]["bound_ms"] / times[k][0],
+            launches_per_render={r: n[k] for r, n in per_render.items()
+                                 if n[k] > 0},
+            library_ms=None, library=LIBRARY))
+    check(all(r["launches"] > 0 for r in rows),
+          f"launches {[(r['name'], r['launches']) for r in rows]}")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,6 +13,7 @@ import torch
 
 import vision_tpu_torch as vt
 from tests.torch_parity import block_err, jax_scene_arrays, np_, tt
+from tests import torch_walk_model as wm
 from tests.torch_scenes import cbox_sphere
 from vision_tpu import native as jnative
 from vision_tpu.accel import intersect as jisect
@@ -94,11 +95,17 @@ def test_build_matches_jax(bsize):
             np_(getattr(a, k)),
             np.stack([np.asarray(getattr(b, f"{k}_{c}")) for c in "xyz"], -1))
     np.testing.assert_array_equal(np_(a.tri), np.asarray(b.tri)[:, :9])
-    # the kernels' layout holds the same tree
-    nodes = np_(a.nodes)
-    np.testing.assert_array_equal(nodes[:, 0:3], np_(a.lo))
-    np.testing.assert_array_equal(nodes.view(np.int32)[:, 7], np_(a.brick))
-    np.testing.assert_array_equal(np_(a.tris).view(np.int32)[:, 3],
+    # the kernels' layout holds the same tree: one child-pair record per
+    # inner node plus the root's header, three float4 per slot
+    n_inner = int(((np_(a.brick) < 0) & (np_(a.brick) > -4)).sum())
+    assert np_(a.nodes).shape == (n_inner + 1, 16)
+    assert np_(a.heads).tolist() == [0]
+    wm.check_records(a)
+    tris = np_(a.tris)
+    np.testing.assert_array_equal(tris[:, 0:3], np_(a.tri)[:, 0:3])
+    np.testing.assert_array_equal(tris[:, 4:7], np_(a.tri)[:, 3:6])
+    np.testing.assert_array_equal(tris[:, 8:11], np_(a.tri)[:, 6:9])
+    np.testing.assert_array_equal(tris.view(np.int32)[:, 3],
                                   np_(a.prim_order))
     assert 0 < a.depth <= tpb.STACK
 
@@ -173,6 +180,43 @@ def test_plain_walk_equals_dense_sweep():
     assert torch.equal(pi.anyhit(tr.origin, tr.direction, tr.t_max, tree),
                        tisect.occluded_brute(tr, tt(p0), tt(p1 - p0),
                                              tt(p2 - p0)))
+
+
+@pytest.mark.parametrize("tree", ["bsize4", "bsize64", "jax"])
+def test_records_hold_the_tree(soup900, tree):
+    """The child-pair records of the 900-triangle soup's tree at leaf 4
+    and 64, and of the JAX tree carried across, hold the tree node for
+    node (boxes bit for bit, references, reached exactly once)."""
+    p0, p1, p2 = soup900[0]
+    if tree == "jax":
+        t = soup900[2]
+    else:
+        t = tpb.build_packet_bvh(p0, p1, p2, "cpu", bsize=int(tree[5:]))
+    wm.check_records(t)
+
+
+@pytest.mark.parametrize("tree", ["bsize4", "jax"])
+def test_kernel_walk_model_matches_plain(soup900, tree):
+    """The kernels' walk over the records (the numpy model) against the
+    plain K2 bit for bit, closest and any hit, on 2,048 rays with every
+    7th lane dead (t_max 0); its stack never grows past the tree's depth."""
+    (p0, p1, p2), _, jt = soup900
+    t = jt if tree == "jax" else tpb.build_packet_bvh(p0, p1, p2, "cpu")
+    o, d = _rays(2048, seed=12)
+    tmax = np.where(np.arange(2048) % 7 == 0, 0.0, 1e30).astype(np.float32)
+    args = (np_(t.nodes), np_(t.tris), t.bsize)
+    (tm, idm, uvm, _), counts = wm.walk(o, d, tmax, *args)
+    tp, idp, uvp = tpb.intersect_packet_plain(tt(o), tt(d), tt(tmax), t)
+    assert np.array_equal(tm, np_(tp)) and np.array_equal(idm, np_(idp))
+    assert np.array_equal(uvm, np_(uvp))
+    assert (idm[::7] == -1).all() and (idm >= 0).mean() > 0.2
+    assert counts[:, 5].max() <= t.depth and (counts[::7] == 0).all()
+    st = np.where(idm >= 0, tm * 1.01, 2.0).astype(np.float32)
+    st[::7] = 0.0
+    occ, _ = wm.walk(o, d, st, *args, any_hit=True)
+    occ_p = np_(tpb.intersect_packet_plain(tt(o), tt(d), tt(st), t,
+                                           any_hit=True))
+    assert np.array_equal(occ, occ_p) and occ.any() and not occ.all()
 
 
 def test_plain_walk_raises_past_its_bound():

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import vision_tpu_torch as vt
+from tests import torch_walk_model as wm
 from tests.torch_parity import jax_scene_arrays, np_, tt
 from tests.torch_scenes import cbox_spheres_instanced
 from vision_tpu.accel import packet_bvh as jpb
@@ -89,6 +90,9 @@ def test_build_matches_jax():
     np.testing.assert_array_equal(np_(a.inst_w2o).reshape(-1),
                                   np.asarray(b.inst_w2o))
     assert 0 < a.depth <= tpb.STACK and a.max_steps > a.n_nodes
+    # the kernels' layout: records (a header per tree), instance records
+    assert np_(a.heads).shape == (3,) and np_(a.insts).shape == (4, 16)
+    wm.check_records(a)
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
@@ -121,6 +125,43 @@ def test_plain_matches_jax(scenes, any_hit):
                                atol=UV_ATOL)
     hit_inst = set(inst[inst >= 0].tolist())
     assert len(hit_inst) > 8 and (pid < 0).any()
+
+
+@pytest.mark.parametrize("tree", ["port", "jax"])
+def test_records_hold_the_tree(scenes, tree):
+    """The instanced scene's records (the port's own tree at leaf 4 and the
+    JAX tree carried across) hold the TLAS and every mesh tree."""
+    data = scenes[3].data if tree == "port" else scenes[2][0]
+    wm.check_records(data.ipbvh)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
+def test_kernel_walk_model_matches_plain(scenes, any_hit):
+    """The kernels' walk over the records (the numpy model: instance enter
+    and leave on one stack) against the plain K3 bit for bit, on the
+    rotated instances: 2,048 rays with every 7th lane dead."""
+    _, js, _, ps = scenes
+    ip = ps.data.ipbvh
+    o, d = _rays(js, n_extra=2048 - RES * RES, seed=3)
+    R = len(o)
+    tmax = np.where(np.arange(R) % 7 == 0, 0.0, 1e30).astype(np.float32)
+    args = (np_(ip.nodes), np_(ip.tris), ip.bsize, np_(ip.insts))
+    plain = tpb.intersect_packet_inst_plain(tt(o), tt(d), tt(tmax), ip)
+    if any_hit:
+        t, pid = np_(plain[0]), np_(plain[1])
+        tmax = np.where(pid >= 0, t * 1.01, 2.0).astype(np.float32)
+        tmax[::7] = 0.0
+        occ, _ = wm.walk(o, d, tmax, *args, any_hit=True)
+        occ_p = np_(tpb.intersect_packet_inst_plain(tt(o), tt(d), tt(tmax),
+                                                    ip, any_hit=True))
+        assert np.array_equal(occ, occ_p) and occ.any() and not occ.all()
+        return
+    model, counts = wm.walk(o, d, tmax, *args)
+    for a, b in zip(model, plain):
+        assert np.array_equal(a, np_(b))
+    assert len(set(model[3][model[3] >= 0].tolist())) > 8
+    assert (model[1][::7] == -1).all()
+    assert counts[:, 4].max() >= 2 and counts[:, 5].max() <= ip.depth
 
 
 def test_loader_matches_jax(scenes):

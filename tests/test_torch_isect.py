@@ -210,3 +210,25 @@ def test_kernels_match_plain_on_card():
     assert (occ != occp).float().mean() <= 1e-4
     assert di.LAUNCHES["closest"] == n0["closest"] + 1
     assert di.LAUNCHES["anyhit"] == n0["anyhit"] + 1
+
+
+def test_chip_smoke_k1_bound():
+    """chip_smoke.py's bound of K1 at the cornell box's shape (262,144 rays
+    x 36 triangles x 40 FLOP per test): 377,487,360 FLOP at 67 TFLOP/s is
+    5.63 us, above the 11.5 MB of rays, triangles and results at 3.35 TB/s,
+    so operations set it; a bytes-only load is bound by bytes."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_bounds", os.path.join(os.path.dirname(__file__), "..",
+                                          "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ops, nbytes = cs.k1_work(262144, 36, any_hit=False)
+    assert ops == 377_487_360
+    assert nbytes == 262144 * (12 + 12 + 4 + 4 + 4 + 8) + 36 * 36
+    ms, by = cs.bound_ms(ops, nbytes)
+    assert by == "operations" and round(ms * 1e3, 2) == 5.63
+    assert cs.k1_work(262144, 36, any_hit=True)[1] == 262144 * 29 + 36 * 36
+    ms, by = cs.bound_ms(0, 3.35e9)
+    assert by == "bytes" and ms == pytest.approx(1.0)

@@ -243,3 +243,17 @@ def test_instancing_threshold_matches_jax():
     assert js.data.ipbvh is None and js.data.pbvh is None
     np.testing.assert_array_equal(np_(ps.data.tri_pack),
                                   np.asarray(js.data.tri_pack))
+
+
+@pytest.mark.parametrize("fn", ["load_scene", "Scene", "scene_from_arrays",
+                                "render_to_file"])
+def test_entry_points_default_to_the_card(fn):
+    """The entry points run on the card unless the caller asks for the CPU:
+    their `device` parameter defaults to "cuda" (read from the signature,
+    no card needed)."""
+    import inspect
+    from vision_tpu_torch.scene import scene as tscene
+    f = {"load_scene": vt.load_scene, "Scene": tscene.Scene,
+         "scene_from_arrays": scene_from_arrays,
+         "render_to_file": vt.render_to_file}[fn]
+    assert inspect.signature(f).parameters["device"].default == "cuda"

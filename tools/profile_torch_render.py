@@ -1,17 +1,20 @@
 """Profile the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 tools/profile_torch_render.py [TRACE_DIR]
+    python3 tools/profile_torch_render.py [--scene NAME] [TRACE_DIR]
 
-Renders the cornell box (tests/fixtures.py CBOX_JSON, 512^2, depth 8) at
-1 spp to warm up, then at 4 spp timed plain and once more under
-torch.profiler, and prints JSON lines: the device's busy share of the
-traced window, device time by kernel (top 25), the two K1 kernels' share,
-and kernel launches per wavefront iteration. The Chrome trace goes to
+Renders a scene at 512^2, depth 8 (NAME: `cbox`, tests/fixtures.py
+CBOX_JSON, the default; `cbox_sphere` or `cbox_spheres_instanced`,
+tests/torch_scenes.py) at 1 spp to warm up, then at 4 spp timed plain and
+once more under torch.profiler, and prints JSON lines: the device's busy
+share of the traced window, device time by kernel (top 25), the share of
+device time in K1 (dense sweep), K2 and K3 (BVH walks), and kernel launches
+per wavefront iteration. The Chrome trace goes to
 TRACE_DIR/profile_render.json when a directory is given. Needs a CUDA
 device.
 """
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import json
 import os
@@ -33,16 +36,35 @@ def _self_device_us(evt):
     return 0.0
 
 
+# kernel families by the name of their CUDA kernels
+FAMILIES = {"k1_dense": "dense_", "k2_flat_bvh": "bvh_walk_kernel<false",
+            "k3_instanced_bvh": "bvh_walk_kernel<true"}
+
+
+def _load(rel):
+    # by path: a site-packages `tests` package may shadow the repo's
+    spec = importlib.util.spec_from_file_location(
+        rel.replace("/", "_")[:-3], os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", default="cbox",
+                    choices=["cbox", "cbox_sphere", "cbox_spheres_instanced"])
+    ap.add_argument("trace_dir", nargs="?")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_render.py needs a CUDA device")
     sys.path.insert(0, ROOT)
     import vision_tpu_torch as vt
-    spec = importlib.util.spec_from_file_location(
-        "cbox_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
-    fixtures = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixtures)
-    scene = vt.load_scene(fixtures.CBOX_JSON, device="cuda")
+    if args.scene == "cbox":
+        desc = _load("tests/fixtures.py").CBOX_JSON
+    else:
+        desc = getattr(_load("tests/torch_scenes.py"), args.scene)(512)
+    scene = vt.load_scene(desc, device="cuda")
     vt.render(scene, spp=1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -66,9 +88,11 @@ def main():
     busy_us = sum(r[1] for r in kernels)
     launches = sum(r[2] for r in kernels)
     kernels.sort(key=lambda r: -r[1])
-    k1 = sum(r[1] for r in kernels if "dense_" in r[0])
+    share = {f"{fam}_share_of_device": sum(r[1] for r in kernels if pat in r[0])
+             / max(busy_us, 1e-9) for fam, pat in FAMILIES.items()}
     print(json.dumps(dict(
-        phase="profile", device=torch.cuda.get_device_name(0),
+        phase="profile", scene=args.scene,
+        device=torch.cuda.get_device_name(0),
         power=subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True
@@ -77,15 +101,15 @@ def main():
         wall_s=wall, iters=stats["iters"],
         nrays=stats["nrays"], device_busy_s=busy_us / 1e6,
         device_busy_share=busy_us / 1e6 / wall,
-        k1_share_of_device=k1 / max(busy_us, 1e-9),
+        **share,
         kernel_launches=launches,
         launches_per_iter=launches / max(stats["iters"], 1))))
     for key, us, n in kernels[:25]:
         print(json.dumps(dict(kernel=key[:120], device_ms=us / 1e3, count=n,
                               share=us / max(busy_us, 1e-9))))
-    if len(sys.argv) > 1:
-        os.makedirs(sys.argv[1], exist_ok=True)
-        prof.export_chrome_trace(os.path.join(sys.argv[1],
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace_dir,
                                               "profile_render.json"))
 
 

@@ -6,8 +6,9 @@ tensors and dataclass records replace jnp functions and flax pytrees, and
 ray traversal is hand-written CUDA: the dense ray/triangle sweep (kernel
 K1, `accel/dense_isect.py`, `csrc/dense_isect.cu`) and the BVH walks, flat
 (K2) and instanced (K3) (`accel/packet_isect.py`, `csrc/packet_isect.cu`).
-Every entry point takes an explicit device. It imports torch and numpy,
-never jax.
+Every entry point runs on the card ("cuda") unless the caller passes another
+device, as the CPU tests do; nothing probes for a card and nothing falls
+back. It imports torch and numpy, never jax.
 """
 __version__ = "0.1.0"
 

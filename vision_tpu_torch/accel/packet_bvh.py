@@ -20,11 +20,22 @@ is the card's own (LEAF); the kernels accept any `bsize`, such as a JAX
 tree's 64.
 
 Each tree also carries the layout the CUDA kernels read
-(`csrc/packet_isect.cu`), built once on the host: `nodes [N, 8]` f32 as two
-float4 per node, (lo.xyz, right child) and (hi.xyz, brick), and `tris
-[slots, 12]` f32 as three float4 per slot, (p0.xyz, original id), (e1, 0),
-(e2, 0); the ints are stored as their bits. `depth` is the most inner
-nodes on any root-to-leaf path, which bounds the kernels' stack.
+(`csrc/packet_isect.cu`), built once on the host from the same tree:
+child-pair records `nodes [M, 16]` f32, four float4 each. An inner node's
+record holds both children: (lo_l.xyz, ref_l), (hi_l.xyz, ref_r),
+(lo_r.xyz, split axis), (hi_r.xyz, 0), so one step of the walk is one
+round of independent loads and no box is fetched twice. A reference is
+`index << 2 | kind`: kind 0 an inner node's record, 1 a leaf's brick, 2 a
+TLAS leaf's instance; -1 is none. Each tree's root has a header record
+(root.lo.xyz, ref_root), (root.hi.xyz, -1) ahead of its own, so the walk
+tests the root box once before it starts; `heads` lists them (the flat
+tree's is record 0; a TLAS's first, then one per mesh tree). `tris
+[slots, 12]` f32 holds three float4 per slot, (p0.xyz, original id), (e1,
+0), (e2, 0), and an instanced tree's `insts [I, 16]` f32 one record per
+instance: its world-to-object rows as three float4 (m0 m1 m2 t) and the
+header record of its mesh tree; ints are stored as their bits. `depth` is
+the most inner nodes on any root-to-leaf path, which bounds the kernels'
+stack.
 """
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ from .intersect import _mt_batch
 LEAF = 4      # triangles per leaf for the card's one-thread-per-ray walk
 STACK = 96    # entries of the kernels' traversal stack (kStack)
 _I32_MAX = 2 ** 31 - 1
+REF_INNER, REF_LEAF, REF_INSTANCE = 0, 1, 2  # reference kinds (ref & 3)
+REF_NONE = -1                                # no reference
 
 
 @dataclass
@@ -49,8 +62,9 @@ class PacketBVH:
     hi: torch.Tensor          # [N, 3] f32
     tri: torch.Tensor         # [slots, 9] f32 p0 e1 e2
     prim_order: torch.Tensor  # [slots] int32 original id, -1 = padding
-    nodes: torch.Tensor       # [N, 8] f32 kernel layout
+    nodes: torch.Tensor       # [M, 16] f32 child-pair records
     tris: torch.Tensor        # [slots, 12] f32 kernel layout
+    heads: torch.Tensor       # [roots] int32 header record of each tree
     bsize: int
     depth: int
 
@@ -67,6 +81,7 @@ class InstancedPBVH(PacketBVH):
     object-space ids). A TLAS leaf holds instance i = -4 - brick."""
     inst_root: torch.Tensor = None  # [I] int32 root node of i's mesh tree
     inst_w2o: torch.Tensor = None   # [I, 12] f32 rows (m0 m1 m2 t): p_obj = M p + t
+    insts: torch.Tensor = None      # [I, 16] f32 kernel layout: w2o, header
     max_steps: int = 0              # bound of one lane's walk (node visits)
 
     @property
@@ -117,26 +132,50 @@ def _depth(skip, brick, roots):
     return [int(d[a:b].max()) for a, b in zip(roots, bounds)]
 
 
-def _kernel_layout(skip, brick, lo, hi, tri, prim_order):
-    """(nodes [N, 8], tris [slots, 12]) float32 as the kernels read them."""
-    n = len(skip)
-    inner = np.nonzero((brick < 0) & (brick > -4))[0]
-    right = np.full(n, -1, np.int32)
-    right[inner] = skip[inner + 1]
-    nodes = np.zeros((n, 8), np.float32)
-    nodes[:, 0:3] = lo
-    nodes[:, 4:7] = hi
-    nodes.view(np.int32)[:, 3] = right
-    nodes.view(np.int32)[:, 7] = brick
+def _refs(skip, brick, roots):
+    """(ref [N] of every node, record [N] of each inner node, header record
+    of each root, record count): records in preorder, each root's header
+    just ahead of the root's own record."""
+    inner = (brick < 0) & (brick > -4)
+    is_root = np.zeros(len(skip), bool)
+    is_root[roots] = True
+    per = inner.astype(np.int64) + is_root
+    first = np.cumsum(per) - per
+    rec = first + is_root
+    ref = np.where(inner, rec << 2 | REF_INNER,
+                   np.where(brick >= 0, brick << 2 | REF_LEAF,
+                            (-4 - brick) << 2 | REF_INSTANCE))
+    m = int(per.sum())
+    if max(m, brick.max() + 1, -3 - brick.min()) >= 2 ** 29:
+        raise ValueError("BVH too large for the kernels' 29-bit references")
+    return ref, rec, first[roots], m
+
+
+def _kernel_layout(skip, brick, lo, hi, tri, prim_order, roots):
+    """(nodes [M, 16], tris [slots, 12], heads [roots]) as the kernels read
+    them."""
+    skip = skip.astype(np.int64)
+    brick = brick.astype(np.int64)
+    ref, rec, heads, m = _refs(skip, brick, roots)
+    nodes = np.zeros((m, 16), np.float32)
+    iv = nodes.view(np.int32)
+    i = np.nonzero((brick < 0) & (brick > -4))[0]
+    left, right, r = i + 1, skip[i + 1], rec[i]
+    nodes[r, 0:3], iv[r, 3] = lo[left], ref[left]
+    nodes[r, 4:7], iv[r, 7] = hi[left], ref[right]
+    nodes[r, 8:11], iv[r, 11] = lo[right], -(brick[i] + 1)
+    nodes[r, 12:15] = hi[right]
+    nodes[heads, 0:3], iv[heads, 3] = lo[roots], ref[roots]
+    nodes[heads, 4:7], iv[heads, 7] = hi[roots], REF_NONE
     tris = np.zeros((len(tri), 12), np.float32)
     tris[:, 0:3] = tri[:, 0:3]
     tris[:, 4:7] = tri[:, 3:6]
     tris[:, 8:11] = tri[:, 6:9]
     tris.view(np.int32)[:, 3] = prim_order
-    return nodes, tris
+    return nodes, tris, heads.astype(np.int32)
 
 
-def _fields(device, skip, brick, lo, hi, tri, prim_order):
+def _fields(device, skip, brick, lo, hi, tri, prim_order, roots=(0,)):
     """Host arrays -> the tensor fields shared by both tree kinds."""
     skip = np.asarray(skip, np.int32)
     brick = np.asarray(brick, np.int32)
@@ -144,12 +183,14 @@ def _fields(device, skip, brick, lo, hi, tri, prim_order):
     hi = np.asarray(hi, np.float32).reshape(-1, 3)
     tri = np.ascontiguousarray(np.asarray(tri, np.float32)[:, :9])
     prim_order = np.asarray(prim_order, np.int32)
-    nodes, tris = _kernel_layout(skip, brick, lo, hi, tri, prim_order)
+    nodes, tris, heads = _kernel_layout(skip, brick, lo, hi, tri, prim_order,
+                                        list(roots))
 
     def t(a):
         return torch.as_tensor(np.array(a), device=device)
     return dict(skip=t(skip), brick=t(brick), lo=t(lo), hi=t(hi), tri=t(tri),
-                prim_order=t(prim_order), nodes=t(nodes), tris=t(tris))
+                prim_order=t(prim_order), nodes=t(nodes), tris=t(tris),
+                heads=t(heads))
 
 
 def _check_depth(depth):
@@ -195,12 +236,17 @@ def _instanced(device, skip, brick, lo, hi, tri, prim_order, inst_root,
     # per instance it enters
     size = dict(zip(roots, np.diff(roots + [len(skip)]).tolist()))
     max_steps = roots[0] + sum(size[int(r)] for r in inst_root) + 1
-    f = _fields(device, skip, brick, lo, hi, tri, prim_order)
+    f = _fields(device, skip, brick, lo, hi, tri, prim_order, [0] + roots)
+    w2o = np.asarray(inst_w2o, np.float32).reshape(-1, 12)
+    insts = np.zeros((len(inst_root), 16), np.float32)
+    insts[:, :12] = w2o
+    head_of = dict(zip(roots, f["heads"].cpu().tolist()[1:]))
+    insts.view(np.int32)[:, 12] = [head_of[int(r)] for r in inst_root]
     return InstancedPBVH(
         **f, bsize=bsize, depth=depth,
         inst_root=torch.as_tensor(inst_root, device=device),
-        inst_w2o=torch.as_tensor(np.asarray(inst_w2o, np.float32)
-                                 .reshape(-1, 12).copy(), device=device),
+        inst_w2o=torch.as_tensor(w2o.copy(), device=device),
+        insts=torch.as_tensor(insts, device=device),
         max_steps=int(max_steps))
 
 

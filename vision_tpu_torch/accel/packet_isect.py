@@ -10,7 +10,10 @@ reached through `intersect_packet_inst`. The kernels are in
 
 Their plain PyTorch versions are `packet_bvh.intersect_packet_plain` and
 `intersect_packet_inst_plain`. A wrapper takes the plain version only for a
-tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
+tensor on the CPU; for a CUDA tensor it launches its kernel or raises. All
+four are instantiations of one walk, reached through one C entry
+(`vt_bvh_walk`); `count_walk` launches its counting build, from which
+chip_smoke.py computes each kernel's bound.
 """
 from __future__ import annotations
 
@@ -43,15 +46,9 @@ def _library():
         if lib.vt_packet_stack() != STACK:
             raise RuntimeError(f"packet_isect.cu has a stack of "
                                f"{lib.vt_packet_stack()}, packet_bvh.py {STACK}")
-        lib.vt_bvh_closest.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 4
-        lib.vt_bvh_anyhit.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 2
-        lib.vt_bvh_closest_inst.argtypes = ([ptr] * 5 + [i32] + [ptr] * 2
-                                            + [i32] + [ptr] * 5)
-        lib.vt_bvh_anyhit_inst.argtypes = ([ptr] * 5 + [i32] + [ptr] * 2
-                                           + [i32] + [ptr] * 2)
-        for fn in (lib.vt_bvh_closest, lib.vt_bvh_anyhit,
-                   lib.vt_bvh_closest_inst, lib.vt_bvh_anyhit_inst):
-            fn.restype = i32
+        lib.vt_bvh_walk.argtypes = ([ptr] * 6 + [i32, i32] + [ptr] * 6
+                                    + [i32, i32] + [ptr] * 4)
+        lib.vt_bvh_walk.restype = i32
         lib.vt_packet_error_string.argtypes = [i32]
         lib.vt_packet_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -63,16 +60,14 @@ def _check(origin, direction, t_max, tree, instanced):
     if dev.type != "cuda":
         raise ValueError(f"packet_isect: tensors on {dev}, want cuda or cpu")
     R = origin.shape[0]
-    n, s = tree.nodes.shape[0], tree.tris.shape[0]
+    m, s = tree.nodes.shape[0], tree.tris.shape[0]
     want = [("origin", origin, (R, 3), torch.float32),
             ("direction", direction, (R, 3), torch.float32),
             ("t_max", t_max, (R,), torch.float32),
-            ("nodes", tree.nodes, (n, 8), torch.float32),
+            ("nodes", tree.nodes, (m, 16), torch.float32),
             ("tris", tree.tris, (s, 12), torch.float32)]
     if instanced:
-        i = tree.inst_root.shape[0]
-        want += [("inst_root", tree.inst_root, (i,), torch.int32),
-                 ("inst_w2o", tree.inst_w2o, (i, 12), torch.float32)]
+        want.append(("insts", tree.insts, (tree.n_inst, 16), torch.float32))
     for name, x, shape, dtype in want:
         if x.device != dev:
             raise ValueError(f"packet_isect: {name} on {x.device}, want {dev}")
@@ -85,22 +80,66 @@ def _check(origin, direction, t_max, tree, instanced):
             raise ValueError(f"packet_isect: {name} is not contiguous")
     if tree.depth > STACK:
         raise ValueError(f"packet_isect: tree depth {tree.depth} > stack {STACK}")
-    if R >= 2 ** 31 or 3 * s >= 2 ** 31 or 2 * n >= 2 ** 31:
-        raise ValueError("packet_isect: too many rays, nodes or slots for int32")
+    # ray indices run past R by at most one fetch per thread
+    if R >= 2 ** 30 or 3 * s >= 2 ** 31 or 4 * m >= 2 ** 31:
+        raise ValueError("packet_isect: too many rays, records or slots for int32")
 
 
-def _launch(name, fn, *args):
-    lib = _library()
-    code = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"packet_isect {name} launch failed: "
-                           f"{lib.vt_packet_error_string(code).decode()}")
-    LAUNCHES[name] += 1
+def _launch(name, origin, direction, t_max, tree, any_hit, count=False):
+    """Launch the walk over `tree` (K3 if it has instances) on the current
+    stream: closest (t, id, bary[, inst]) or any hit (occ,), and with
+    `count` also the counting build's (counts [R, 6] int32, rec_seen [M]
+    uint8, slot_seen [slots] uint8). A launch of a kernel (not of the
+    counting build) adds one to LAUNCHES[name]."""
+    instanced = getattr(tree, "insts", None) is not None
+    _check(origin, direction, t_max, tree, instanced)
+    R, dev = origin.shape[0], origin.device
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    if any_hit:
+        outs = (empty(R, torch.bool),)
+        ptrs = [None] * 4 + [outs[0].data_ptr()]
+    else:
+        outs = (empty(R, torch.float32), empty(R, torch.int32),
+                empty((R, 2), torch.float32))
+        if instanced:
+            outs += (empty(R, torch.int32),)
+        ptrs = [x.data_ptr() for x in outs] + [None] * (5 - len(outs))
+    seen = ()
+    if count:
+        seen = (torch.zeros((R, 6), dtype=torch.int32, device=dev),
+                torch.zeros(tree.nodes.shape[0], dtype=torch.uint8, device=dev),
+                torch.zeros(tree.tris.shape[0], dtype=torch.uint8, device=dev))
+    if R:
+        with torch.cuda.device(dev):
+            lib = _library()
+            nxt = torch.empty(1, dtype=torch.int32, device=dev)  # ray counter
+            code = lib.vt_bvh_walk(
+                origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
+                tree.nodes.data_ptr(), tree.tris.data_ptr(),
+                tree.insts.data_ptr() if instanced else None, tree.bsize, R,
+                nxt.data_ptr(), *ptrs, int(any_hit), int(count),
+                *([x.data_ptr() for x in seen] if count else [None] * 3),
+                torch.cuda.current_stream().cuda_stream)
+            if code != 0:
+                raise RuntimeError(f"packet_isect {name} launch failed: "
+                                   f"{lib.vt_packet_error_string(code).decode()}")
+        if not count:
+            LAUNCHES[name] += 1
+    return outs + seen
 
 
-def _rays(origin, direction, t_max, tree):
-    return (origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-            tree.nodes.data_ptr(), tree.tris.data_ptr(), tree.bsize)
+def count_walk(origin, direction, t_max, tree, any_hit=False):
+    """The counting build of the kernel `tree` takes (K2 or K3), for
+    measurement only: its outputs, which equal the kernel's, then per ray
+    counts [R, 6] int32 (inner records, leaves, box tests, triangle tests,
+    instance entries, deepest stack) and the records [M] and triangle slots
+    [slots] it read, as uint8 flags. Not counted in LAUNCHES."""
+    if origin.device.type != "cuda":
+        raise ValueError("packet_isect.count_walk runs on the card only")
+    return _launch("count", origin, direction, t_max, tree, any_hit, True)
 
 
 def closest(origin, direction, t_max, pbvh):
@@ -109,17 +148,7 @@ def closest(origin, direction, t_max, pbvh):
     a miss gives t = t_max, id -1, bary 0; a lane with t_max <= 0 misses."""
     if origin.device.type == "cpu":
         return intersect_packet_plain(origin, direction, t_max, pbvh)
-    _check(origin, direction, t_max, pbvh, False)
-    R = origin.shape[0]
-    t = torch.empty(R, dtype=torch.float32, device=origin.device)
-    pid = torch.empty(R, dtype=torch.int32, device=origin.device)
-    bary = torch.empty((R, 2), dtype=torch.float32, device=origin.device)
-    if R:
-        with torch.cuda.device(origin.device):
-            _launch("closest", "vt_bvh_closest",
-                    *_rays(origin, direction, t_max, pbvh), R, t.data_ptr(),
-                    pid.data_ptr(), bary.data_ptr())
-    return t, pid, bary
+    return _launch("closest", origin, direction, t_max, pbvh, False)
 
 
 def anyhit(origin, direction, t_max, pbvh):
@@ -127,14 +156,7 @@ def anyhit(origin, direction, t_max, pbvh):
     if origin.device.type == "cpu":
         return intersect_packet_plain(origin, direction, t_max, pbvh,
                                       any_hit=True)
-    _check(origin, direction, t_max, pbvh, False)
-    R = origin.shape[0]
-    occ = torch.empty(R, dtype=torch.bool, device=origin.device)
-    if R:
-        with torch.cuda.device(origin.device):
-            _launch("anyhit", "vt_bvh_anyhit",
-                    *_rays(origin, direction, t_max, pbvh), R, occ.data_ptr())
-    return occ
+    return _launch("anyhit", origin, direction, t_max, pbvh, True)[0]
 
 
 def closest_inst(origin, direction, t_max, ipbvh):
@@ -142,20 +164,7 @@ def closest_inst(origin, direction, t_max, ipbvh):
     object-space id, bary, inst [R] int32 TLAS instance, -1 on a miss)."""
     if origin.device.type == "cpu":
         return intersect_packet_inst_plain(origin, direction, t_max, ipbvh)
-    _check(origin, direction, t_max, ipbvh, True)
-    R = origin.shape[0]
-    t = torch.empty(R, dtype=torch.float32, device=origin.device)
-    pid = torch.empty(R, dtype=torch.int32, device=origin.device)
-    bary = torch.empty((R, 2), dtype=torch.float32, device=origin.device)
-    inst = torch.empty(R, dtype=torch.int32, device=origin.device)
-    if R:
-        with torch.cuda.device(origin.device):
-            _launch("closest_inst", "vt_bvh_closest_inst",
-                    *_rays(origin, direction, t_max, ipbvh),
-                    ipbvh.inst_root.data_ptr(), ipbvh.inst_w2o.data_ptr(), R,
-                    t.data_ptr(), pid.data_ptr(), bary.data_ptr(),
-                    inst.data_ptr())
-    return t, pid, bary, inst
+    return _launch("closest_inst", origin, direction, t_max, ipbvh, False)
 
 
 def anyhit_inst(origin, direction, t_max, ipbvh):
@@ -163,13 +172,4 @@ def anyhit_inst(origin, direction, t_max, ipbvh):
     if origin.device.type == "cpu":
         return intersect_packet_inst_plain(origin, direction, t_max, ipbvh,
                                            any_hit=True)
-    _check(origin, direction, t_max, ipbvh, True)
-    R = origin.shape[0]
-    occ = torch.empty(R, dtype=torch.bool, device=origin.device)
-    if R:
-        with torch.cuda.device(origin.device):
-            _launch("anyhit_inst", "vt_bvh_anyhit_inst",
-                    *_rays(origin, direction, t_max, ipbvh),
-                    ipbvh.inst_root.data_ptr(), ipbvh.inst_w2o.data_ptr(), R,
-                    occ.data_ptr())
-    return occ
+    return _launch("anyhit_inst", origin, direction, t_max, ipbvh, True)[0]

@@ -56,7 +56,8 @@ def postprocess(scene, hdr):
     return film.linear_to_srgb(x)
 
 
-def render_to_file(scene_path, device, out_path=None, spp=None, verbose=True):
+def render_to_file(scene_path, device="cuda", out_path=None, spp=None,
+                   verbose=True):
     """Load, render and write a PNG; returns the output path."""
     scene = load_scene(scene_path, device)
     img = postprocess(scene, render(scene, spp=spp, verbose=verbose))

@@ -147,9 +147,10 @@ def _emission_color(edesc):
 
 
 class Scene:
-    """Host-side scene container (load + build) on an explicit device."""
+    """Host-side scene container (load + build) on `device`, the card
+    unless the caller asks for another."""
 
-    def __init__(self, path_or_dict, device):
+    def __init__(self, path_or_dict, device="cuda"):
         if isinstance(path_or_dict, (str, os.PathLike)):
             p = os.fspath(path_or_dict)
             if p.lower().endswith((".gltf", ".glb")):
@@ -368,12 +369,13 @@ def _tri_areas(world):
     return 0.5 * np.linalg.norm(np.cross(t1 - t0, t2 - t0), axis=-1)
 
 
-def load_scene(path_or_dict, device):
-    """Load a scene file or dict onto `device` (no default, no fallback)."""
+def load_scene(path_or_dict, device="cuda"):
+    """Load a scene file or dict onto `device`: the card unless the caller
+    asks for another (nothing probes for a card, nothing falls back)."""
     return Scene(path_or_dict, device)
 
 
-def scene_from_arrays(arrays, device):
+def scene_from_arrays(arrays, device="cuda"):
     """The JAX package's scene state, each field as an array, -> this
     package's (SceneData, Camera, FilterSampler) on `device`. Every array
     is copied: a tensor never shares a buffer with the JAX scene.
