@@ -8,10 +8,14 @@ traversal, flat and instanced, `csrc/packet_isect.cu`) and the native SAH
 builder (`native/*.cpp`), into `vision_tpu_torch/_build/`. Then, phase by
 phase, one JSON line each:
 
-  * K1 against its plain PyTorch version at the cornell box's shape and at
-    the dense path's upper bound, and the cornell box (`tests/fixtures.py`
-    CBOX_JSON: 36 triangles, 512x512, depth 8, 16 spp) rendered through
-    `vision_tpu_torch.render` and held against its 1024-spp golden;
+  * K1 against its plain PyTorch version on the cornell box's primary
+    wavefront, one bounce, a shadow wavefront with about half its lanes
+    dead, the dense path's upper bound (2048 triangles) and every edge
+    shape (1, 33 and 1,000 rays; 0, 1, 512, 513, 2048, 2049 and 261,156
+    triangles),
+    and the cornell box (`tests/fixtures.py` CBOX_JSON: 36 triangles,
+    512x512, depth 8, 16 spp) rendered through `vision_tpu_torch.render`
+    and held against its 1024-spp golden;
   * K2 against the plain walk and against K1 over the same 261,156
     triangles, on `cbox_sphere`'s 512^2 primary rays and one bounce;
   * K3 against the plain walk and against K2 on its flat twin, on
@@ -27,9 +31,14 @@ and K3 wavefronts the kernels' counting build (`packet_isect.count_walk`)
 records the work each walk needed (box and triangle tests, records and
 slots read), checked against the numpy model of the walk
 (`tests/torch_walk_model.py`) on the first rays; from it, and for K1 from
-its shapes, comes each kernel's bound: the larger of its operations at the
-card's fp32 peak and its bytes at its memory rate. Last come the kernel
-table, the card's name and power limit, and as the last line
+the rays' t_max (dead rays need no tests) and, for the any hit, the
+tests up to each ray's first occluder, comes each kernel's bound: the
+larger of its operations at the card's fp32 peak and its bytes at its
+memory rate. A kernel's `ms` is its device time with no host work in the
+window (calls captured in a CUDA graph, replays timed with CUDA events;
+K1's cross-checked once with torch.profiler); `call_ms` is the same calls
+made back to back from Python, the wrapper's host side included. Last come
+the kernel table, the card's name and power limit, and as the last line
 `{"ok": true, "device": {...}}`. Any failed check raises, and the script
 exits non-zero without that line; it never runs on the CPU.
 """
@@ -90,7 +99,13 @@ XFORM_FLOP = 36  # a ray into an instance's object space: 18 mul, 15 add, 3 div
 RAY_IN = 28      # bytes read per ray: origin, direction, t_max
 LIBRARY = "none: no single PyTorch call computes this function"
 MODEL_RAYS = 4096  # rays of a wavefront held against the numpy walk model
-KERNEL_BATCH = 20  # kernel calls back to back in one timing window
+KERNEL_BATCH = 20  # kernel calls in one timing window (one CUDA graph)
+# K1's edge shapes: one ray, a chunk of 32 and one, no multiple of a pass
+# (512 rays); no triangle, one, the resident limit (512) and one past it
+# (tiled), the dense path's limit (2048) and one past it, cbox_sphere's
+# 261,156
+EDGE_R = (1, 33, 1000)
+EDGE_T = (0, 1, 512, 513, 2048, 2049, 261156)
 
 
 def emit(obj):
@@ -104,9 +119,10 @@ def check(cond, msg):
 
 def cuda_ms(fn, n=25, warmup=3, batch=KERNEL_BATCH):
     """Median milliseconds of one call of fn: n windows of `batch` calls
-    back to back, each timed with CUDA events and divided by `batch`. With
-    a batch the host enqueues ahead of the card, so the window holds the
-    card's time and not the host's launch overhead."""
+    back to back, each timed with CUDA events and divided by `batch`. The
+    window holds the host's work too where a call's host side (checks,
+    allocations, the ctypes launch) is slower than its kernel: a kernel
+    row's `call_ms`, and the plain versions' times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -123,6 +139,55 @@ def cuda_ms(fn, n=25, warmup=3, batch=KERNEL_BATCH):
     return statistics.median(times)
 
 
+def graph_ms(fn, n=25, batch=KERNEL_BATCH):
+    """Median device milliseconds of one call of fn with no host work in
+    the window: `batch` calls captured once in a CUDA graph, its replay
+    timed with CUDA events n times, divided by `batch` (a kernel row's
+    `ms`). The captured calls count their launches once, at capture; the
+    renders set the counts to 0 before they run."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(batch):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / batch)
+    del g
+    return statistics.median(times)
+
+
+def profiled_ms(fn, key, calls=KERNEL_BATCH):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    `key` over `calls` calls of fn, from torch.profiler: the cross-check
+    of graph_ms. None if the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and key in e.key:
+            us += float(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)))
+            count += e.count
+    return us / count / 1e3 if count else None
+
+
 def bound_ms(ops, nbytes):
     """The least time the card could take for `ops` operations that move
     `nbytes` bytes: the larger of the two at the card's peaks. Returns
@@ -132,12 +197,36 @@ def bound_ms(ops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def k1_work(n_rays, n_tris, any_hit):
-    """(operations, bytes) of K1 from its shapes: every ray against every
-    triangle; each input read once (rays, [T, 9] float32 triangles), each
-    output written once (t, id, u, v; or the any-hit flag)."""
-    return (n_rays * n_tris * MT_FLOP,
-            n_rays * (RAY_IN + (1 if any_hit else 16)) + n_tris * 36)
+def k1_work(n_rays, n_tris, any_hit, live=None, tests=None):
+    """(operations, bytes) of K1 on these inputs: `live` rays (t_max > 0;
+    all by default) each against every triangle, or `tests` tests in all
+    (an any-hit sweep that stops at its first hit); a dead ray needs its
+    t_max read and its result written, a live one its origin and direction
+    too; the [T, 9] float32 triangles read once; each result written once
+    (t, id, u, v; or the any-hit flag)."""
+    live = n_rays if live is None else live
+    tests = live * n_tris if tests is None else tests
+    return (tests * MT_FLOP,
+            n_rays * (4 + (1 if any_hit else 16)) + live * (RAY_IN - 4)
+            + n_tris * 36)
+
+
+def anyhit_tests(o, d, tmax, tris, block=128):
+    """Tests an any-hit sweep in id order needs on these rays: for a live
+    ray the index of its first occluding triangle plus one, else every
+    triangle; none for a dead ray (the plain Möller-Trumbore, in blocks)."""
+    from vision_tpu_torch.accel import intersect as isect
+    T = tris.shape[0]
+    first = torch.full((o.shape[0],), T, dtype=torch.int64, device=DEV)
+    for base in range(0, T, block):
+        sl = tris[base:base + block]
+        t, _, _, ok = isect._mt_batch(o, d, sl[None, :, 0:3], sl[None, :, 3:6],
+                                      sl[None, :, 6:9])
+        occ = ok & (t < tmax[:, None])
+        j = torch.where(occ.any(1), occ.int().argmax(1) + base, T)
+        first = torch.minimum(first, j)
+    need = torch.where(first < T, first + 1, T)
+    return int(torch.where(tmax > 0, need, 0).sum())
 
 
 def walk_work(pi, o, d, tmax, tree, any_hit, out):
@@ -145,8 +234,8 @@ def walk_work(pi, o, d, tmax, tree, any_hit, out):
     must equal the kernel's `out`. Returns (record, per-ray counts): the
     work the walk needed (box, triangle and instance steps; records and
     slots read once each, rays in and results out) and its bound, the steps
-    per live ray, the active-lane share and the deepest stack. The
-    active-lane share is lane steps / (32 x the longest walk of each warp of
+    per live ray, the one-ray-per-thread lane share and the deepest stack.
+    That share is lane steps / (32 x the longest walk of each warp of
     32 consecutive rays): the SIMD share a launch of one thread per ray
     would get on these rays, a measure of their coherence. The kernel's
     persistent warps fetch rays as lanes free up, so it is not the kernel's
@@ -176,7 +265,7 @@ def walk_work(pi, o, d, tmax, tree, any_hit, out):
                 inner_steps_per_ray=float(c[:, 0].sum()) / live,
                 box_tests_per_ray=box / live, tri_tests_per_ray=tri / live,
                 instance_entries_per_ray=ent / live,
-                active_lane_share=float(steps.sum())
+                one_ray_per_thread_lane_share=float(steps.sum())
                 / max(32.0 * float(warps.max(1).values.sum()), 1.0),
                 deepest_stack=int(c[:, 5].max())), c
 
@@ -288,28 +377,118 @@ def shadow_tmax(t_p, id_p, miss_tmax):
     return (torch.where(id_p >= 0, t_p, miss_tmax) * u).contiguous()
 
 
-def compare_k1(di, case, o, d, tris, anyhit_tmax_scale):
-    """K1 against its plain version at one shape; returns the phase record."""
-    R = o.shape[0]
-    inf = torch.full((R,), 1e30, device=DEV)
-    k = di.closest(o, d, inf, tris)
-    p = di.closest_plain(o, d, inf, tris)
+def compare_k1(di, case, o, d, tris, tmax, shadow):
+    """K1 against its plain version on one wavefront: the closest hit with
+    t_max `tmax`, the any hit with `shadow`. Returns the phase record:
+    differences, each kernel's host-free time (`*_ms`), its back-to-back
+    call time (`*_call_ms`), its plain version's time, and its bound on
+    these inputs (dead rays need no tests; the any hit stops at its first
+    occluder in id order)."""
+    R, T = o.shape[0], tris.shape[0]
+    k = di.closest(o, d, tmax, tris)
+    p = di.closest_plain(o, d, tmax, tris)
     torch.cuda.synchronize()
     rec = compare_closest(case, k, p)
-    tmax = shadow_tmax(p[0], p[1], anyhit_tmax_scale)
-    occ_k = di.anyhit(o, d, tmax, tris)
-    occ_p = di.anyhit_plain(o, d, tmax, tris)
+    near = di.closest_plain(o, d, torch.full_like(tmax, 1e30), tris)[0]
+    occ_k = di.anyhit(o, d, shadow, tris)
+    occ_p = di.anyhit_plain(o, d, shadow, tris)
     torch.cuda.synchronize()
-    rec.update(compare_anyhit(case, occ_k, occ_p, p[0], tmax))
-    rec.update(
-        closest_ms=cuda_ms(lambda: di.closest(o, d, inf, tris)),
-        closest_plain_ms=cuda_ms(lambda: di.closest_plain(o, d, inf, tris),
-                                 batch=1),
-        anyhit_ms=cuda_ms(lambda: di.anyhit(o, d, tmax, tris)),
-        anyhit_plain_ms=cuda_ms(lambda: di.anyhit_plain(o, d, tmax, tris),
-                                batch=1))
-    return dict(phase="k1_vs_plain", case=case, rays=R, tris=tris.shape[0],
-                **rec)
+    rec.update(compare_anyhit(case, occ_k, occ_p, near, shadow))
+    live_c, live_a = int((tmax > 0).sum()), int((shadow > 0).sum())
+    tests = anyhit_tests(o, d, shadow, tris)
+    for op, tm, live, n in (("closest", tmax, live_c, None),
+                            ("anyhit", shadow, live_a, tests)):
+        kern, plain = getattr(di, op), getattr(di, f"{op}_plain")
+        b_ms, b_by = bound_ms(*k1_work(R, T, op == "anyhit", live, n))
+        rec.update({f"{op}_ms": graph_ms(lambda: kern(o, d, tm, tris)),
+                    f"{op}_call_ms": cuda_ms(lambda: kern(o, d, tm, tris)),
+                    f"{op}_plain_ms": cuda_ms(lambda: plain(o, d, tm, tris),
+                                              n=5, warmup=1, batch=1),
+                    f"{op}_live_rays": live, f"{op}_bound_ms": b_ms,
+                    f"{op}_bound_by": b_by})
+    rec["anyhit_tests_per_live_ray"] = tests / max(live_a, 1)
+    return dict(phase="k1_vs_plain", case=case, rays=R, tris=T, **rec)
+
+
+def half_dead(tmax, seed):
+    """t_max with about half the lanes, chosen from `seed`, dead (0)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    u = torch.rand(tmax.shape[0], device=DEV, generator=g)
+    return torch.where(u < 0.5, 0.0, tmax).contiguous()
+
+
+def phase_k1(di, vt_pt, scene):
+    """K1 against its plain versions on the cornell box's primary
+    wavefront, one bounce, a shadow wavefront with about half its lanes
+    dead, and the 2048-triangle soup (the dense path's upper bound), then
+    at every edge shape. Returns the four wavefronts' records."""
+    from vision_tpu_torch.core.types import Hit
+    tris = scene.data.tri_geom
+    o, d = cbox_rays(scene)
+    inf = torch.full((o.shape[0],), 1e30, device=DEV)
+    p = di.closest_plain(o, d, inf, tris)
+    recs = [compare_k1(di, "cbox_primary", o, d, tris, inf,
+                       shadow_tmax(p[0], p[1], 10.0))]
+    o2, d2, tm2 = bounce_wave(vt_pt, scene.data, o, d, Hit(*p))
+    p2 = di.closest_plain(o2, d2, tm2, tris)
+    shadow2 = torch.where(tm2 > 0, shadow_tmax(p2[0], p2[1], 10.0), 0.0)
+    recs.append(compare_k1(di, "cbox_bounce", o2, d2, tris, tm2,
+                           shadow2.contiguous()))
+    recs.append(compare_k1(di, "cbox_shadow_half_dead", o2, d2, tris,
+                           half_dead(tm2, SEED + 2),
+                           half_dead(shadow2, SEED + 2)))
+    so, sd, stris = soup_case()
+    sinf = torch.full((so.shape[0],), 1e30, device=DEV)
+    sp = di.closest_plain(so, sd, sinf, stris)
+    recs.append(compare_k1(di, "soup_2048tris", so, sd, stris, sinf,
+                           shadow_tmax(sp[0], sp[1], 1.0)))
+    recs[0]["closest_profiler_ms"] = profiled_ms(
+        lambda: di.closest(o, d, inf, tris), "dense_sweep_kernel")
+    for r in recs:
+        emit(r)
+    edges = []
+    for T in EDGE_T:
+        for R in EDGE_R:
+            eo, ed, etris = soup_case(T, R)
+            tm = torch.full((R,), 1e30, device=DEV)
+            tm[::3] = 0.0
+            case = f"edge_{R}rays_{T}tris"
+            k = di.closest(eo, ed, tm, etris)
+            p = di.closest_plain(eo, ed, tm, etris)
+            torch.cuda.synchronize()
+            rec = compare_closest(case, k, p)
+            sh = torch.where(tm > 0, shadow_tmax(p[0], p[1], 1.0), 0.0)
+            near = di.closest_plain(eo, ed, torch.full_like(tm, 1e30), etris)[0]
+            rec.update(compare_anyhit(case, di.anyhit(eo, ed, sh, etris),
+                                      di.anyhit_plain(eo, ed, sh, etris),
+                                      near, sh))
+            check(bool(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])),
+                  f"{case}: closest not bit for bit")
+            edges.append(dict(case=case, **rec))
+        if T == 512:
+            # |e1|_1 |d|_1 |e2|_1 past 2^122, so the kernels keep the
+            # division's exact path: directions scaled by 1e38 (hits kept,
+            # t subnormal), geometry by 1e20 (det and t overflow)
+            for what, scale in (("dir", 1e38), ("geom", 1e20)):
+                eo, ed, etris = soup_case(512, 1000)
+                if what == "dir":
+                    ed = (ed * scale).contiguous()
+                else:
+                    eo = (eo * scale).contiguous()
+                    etris = (etris * scale).contiguous()
+                tm = torch.full((1000,), 3e38, device=DEV)
+                k = di.closest(eo, ed, tm, etris)
+                p = di.closest_plain(eo, ed, tm, etris)
+                occ = (di.anyhit(eo, ed, p[0], etris),
+                       di.anyhit_plain(eo, ed, p[0], etris))
+                torch.cuda.synchronize()
+                case = f"edge_{what}_scale_{scale:g}"
+                check(all(torch.equal(a, b) for a, b in zip(k, p))
+                      and torch.equal(*occ), f"{case}: not bit for bit")
+                edges.append(dict(case=case, hit_share=float(
+                    (p[1] >= 0).float().mean())))
+    emit(dict(phase="k1_edges", cases=edges))
+    return recs
 
 
 def bounce_wave(vt_pt, data, o, d, hit):
@@ -365,10 +544,12 @@ def phase_k2(pi, pbvh_mod, di, vt_pt, wm, scene):
         if wave == "primary":
             model_check(wm, case, o, d, st, tree, True, occ, counts)
         rec.update(
-            closest_ms=cuda_ms(lambda: pi.closest(o, d, tmax, tree)),
+            closest_ms=graph_ms(lambda: pi.closest(o, d, tmax, tree)),
+            closest_call_ms=cuda_ms(lambda: pi.closest(o, d, tmax, tree)),
             closest_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_plain(
                 o, d, tmax, tree), n=3, warmup=1, batch=1),
-            anyhit_ms=cuda_ms(lambda: pi.anyhit(o, d, st, tree)),
+            anyhit_ms=graph_ms(lambda: pi.anyhit(o, d, st, tree)),
+            anyhit_call_ms=cuda_ms(lambda: pi.anyhit(o, d, st, tree)),
             anyhit_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_plain(
                 o, d, st, tree, any_hit=True), n=3, warmup=1, batch=1),
             k1_closest_ms=cuda_ms(lambda: di.closest(o, d, tmax, data.tri_geom),
@@ -427,14 +608,16 @@ def phase_k3(pi, pbvh_mod, vt_pt, wm, scene, flat):
         if wave == "primary":
             model_check(wm, case, o, d, st, ip, True, occ, counts)
         rec.update(
-            closest_ms=cuda_ms(lambda: pi.closest_inst(o, d, tmax, ip)),
+            closest_ms=graph_ms(lambda: pi.closest_inst(o, d, tmax, ip)),
+            closest_call_ms=cuda_ms(lambda: pi.closest_inst(o, d, tmax, ip)),
             closest_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_inst_plain(
                 o, d, tmax, ip), n=3, warmup=1, batch=1),
-            anyhit_ms=cuda_ms(lambda: pi.anyhit_inst(o, d, st, ip)),
+            anyhit_ms=graph_ms(lambda: pi.anyhit_inst(o, d, st, ip)),
+            anyhit_call_ms=cuda_ms(lambda: pi.anyhit_inst(o, d, st, ip)),
             anyhit_plain_ms=cuda_ms(lambda: pbvh_mod.intersect_packet_inst_plain(
                 o, d, st, ip, any_hit=True), n=3, warmup=1, batch=1),
-            flat_k2_closest_ms=cuda_ms(lambda: pi.closest(o, d, tmax,
-                                                          flat.data.pbvh)))
+            flat_k2_closest_ms=graph_ms(lambda: pi.closest(o, d, tmax,
+                                                           flat.data.pbvh)))
         recs.append(dict(phase="k3_vs_plain", case=case, rays=R,
                          live_rays=int((tmax > 0).sum()),
                          instances=ip.n_inst, nodes=ip.n_nodes,
@@ -534,15 +717,10 @@ def main():
               capability=list(torch.cuda.get_device_capability(0))))
     emit(build_all(di, pi, native))
 
-    # ---- K1 vs its plain version, at the main path's shape and the
-    # dense path's upper bound ----
+    # ---- K1 vs its plain version: the cornell box's wavefronts, the
+    # dense path's upper bound, the edge shapes ----
     scene = cbox_scene(vt, RES)
-    o, d = cbox_rays(scene)
-    cb = compare_k1(di, "cbox_36tris_512sq", o, d, scene.data.tri_geom, 10.0)
-    emit(cb)
-    so, sd, stris = soup_case()
-    soup = compare_k1(di, "soup_2048tris_262144rays", so, sd, stris, 1.0)
-    emit(soup)
+    k1 = phase_k1(di, vt_pt, scene)
 
     # ---- the cornell box, 512^2, depth 8, 16 spp, through K1 ----
     img, rec = render(vt, [di, pi], scene, "cbox")
@@ -616,27 +794,33 @@ def main():
         return max(float(r[k]) for r in recs for k in keys)
 
     closest_keys = ("closest_t_abs_err", "closest_uv_abs_err")
-    errs = {"dense_isect.closest": worst([cb, soup], closest_keys),
-            "dense_isect.anyhit": worst([cb, soup], ("anyhit_max_abs_err",)),
+    errs = {"dense_isect.closest": worst(k1, closest_keys),
+            "dense_isect.anyhit": worst(k1, ("anyhit_max_abs_err",)),
             "packet_isect.closest": worst(k2, closest_keys),
             "packet_isect.anyhit": worst(k2, ("anyhit_max_abs_err",)),
             "packet_isect.closest_inst": worst(k3, closest_keys),
             "packet_isect.anyhit_inst": worst(k3, ("anyhit_max_abs_err",))}
-    times = {"dense_isect.closest": (cb["closest_ms"], cb["closest_plain_ms"]),
-             "dense_isect.anyhit": (cb["anyhit_ms"], cb["anyhit_plain_ms"])}
-    work = {f"dense_isect.{op}": dict(zip(("bound_ms", "bound_by"), bound_ms(
-        *k1_work(cb["rays"], cb["tris"], op == "anyhit"))))
-        for op in ("closest", "anyhit")}
+    # every row at its main path's primary wavefront; K1 also at the others
+    times, work = {}, {}
+    for op in ("closest", "anyhit"):
+        times[f"dense_isect.{op}"] = tuple(
+            k1[0][f"{op}_{x}"] for x in ("ms", "call_ms", "plain_ms"))
+        work[f"dense_isect.{op}"] = dict(
+            bound_ms=k1[0][f"{op}_bound_ms"], bound_by=k1[0][f"{op}_bound_by"],
+            ms_by_wavefront={r["case"]: r[f"{op}_ms"] for r in k1},
+            bound_ms_by_wavefront={r["case"]: r[f"{op}_bound_ms"]
+                                   for r in k1})
     for recs, suffix in ((k2, ""), (k3, "_inst")):
         for op in ("closest", "anyhit"):
-            times[f"packet_isect.{op}{suffix}"] = (recs[0][f"{op}_ms"],
-                                                   recs[0][f"{op}_plain_ms"])
+            times[f"packet_isect.{op}{suffix}"] = tuple(
+                recs[0][f"{op}_{x}"] for x in ("ms", "call_ms", "plain_ms"))
             w = recs[0][f"{op}_work"]
             work[f"packet_isect.{op}{suffix}"] = dict(
                 bound_ms=w["bound_ms"], bound_by=w["bound_by"],
                 steps_per_ray=w["steps_per_ray"],
                 tri_tests_per_ray=w["tri_tests_per_ray"],
-                active_lane_share=w["active_lane_share"],
+                one_ray_per_thread_lane_share=w[
+                    "one_ray_per_thread_lane_share"],
                 deepest_stack=max(r[f"{op}_work"]["deepest_stack"]
                                   for r in recs))
     main_path = {"dense_isect": "cbox", "packet_isect": "cbox_sphere"}
@@ -647,7 +831,8 @@ def main():
         rows.append(dict(
             name=k, route="cuda", source=SOURCES[k.split(".")[0]],
             replaces=REPLACES[k], launches=per_render[run][k],
-            max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1],
+            max_abs_err=errs[k], ms=times[k][0], call_ms=times[k][1],
+            plain_ms=times[k][2],
             **work[k], share_of_bound=work[k]["bound_ms"] / times[k][0],
             launches_per_render={r: n[k] for r, n in per_render.items()
                                  if n[k] > 0},

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_sweep_model as sm
 from tests.torch_parity import np_, tt
 from vision_tpu.accel import intersect as jisect
 from vision_tpu.core.types import Ray as JRay
@@ -24,6 +25,12 @@ torch.set_num_threads(2)
 T_RTOL = 1e-5
 T_ATOL = 1e-7
 UV_ATOL = 1e-5
+# the K1 kernels' edge shapes: one ray, a chunk and one, a count that is
+# no multiple of a pass (512 rays); no triangle, one, the resident limit
+# (kTileTris, 512) and one past it, the dense path's limit and one past it
+EDGE_R = (1, 33, 1000)
+EDGE_T = (0, 1, 512, 513, 2048, 2049)
+SMEM_MAX = 232448  # bytes of shared memory an H100 block may use
 
 
 def _soup(n_tris, n_rays, seed):
@@ -189,27 +196,132 @@ def test_wrapper_rejects_other_devices():
                   torch.zeros((2, 9), device="meta"))
 
 
+def _dead_soup(n_tris, n_rays, seed):
+    """_soup with every third ray dead (t_max 0) and one NaN t_max."""
+    p0, e1, e2, o, d, tmax = _soup(n_tris, n_rays, seed)
+    tmax[::3] = 0.0
+    tmax[n_rays // 2] = np.nan
+    return np.concatenate([p0, e1, e2], 1), o, d, tmax
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """K1's CUDA kernels against their plain versions on the card."""
+    """K1's CUDA kernels against their plain versions on the card: 65,536
+    rays over 2048 triangles, and every edge shape with dead rays."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    p0, e1, e2, o, d, tmax = _soup(2048, 65536, 5)
-    cu = [torch.as_tensor(a, device="cuda") for a in (o, d, tmax)]
-    tris = torch.as_tensor(np.concatenate([p0, e1, e2], 1), device="cuda")
-    n0 = dict(di.LAUNCHES)
-    t, pid, bary = di.closest(*cu, tris)
-    tp, pidp, baryp = di.closest_plain(*cu, tris)
-    same = pid == pidp
-    assert same.float().mean() > 1 - 1e-4
-    assert torch.allclose(t[~same], tp[~same], rtol=1e-6)
-    assert torch.allclose(t, tp, rtol=1e-6)
-    assert torch.allclose(bary[same], baryp[same], atol=1e-5)
-    occ = di.anyhit(*cu, tris)
-    occp = di.anyhit_plain(*cu, tris)
-    assert (occ != occp).float().mean() <= 1e-4
-    assert di.LAUNCHES["closest"] == n0["closest"] + 1
-    assert di.LAUNCHES["anyhit"] == n0["anyhit"] + 1
+    shapes = [(2048, 65536)] + [(T, R) for T in EDGE_T + (261156,)
+                                for R in EDGE_R]
+    for n_tris, n_rays in shapes:
+        tris, o, d, tmax = _dead_soup(n_tris, n_rays, 5)
+        if n_tris == 2048 and n_rays == 65536:
+            tmax[:] = np.abs(tmax) + 0.05  # all live, as before
+        cu = [torch.as_tensor(a, device="cuda") for a in (o, d, tmax)]
+        tris = torch.as_tensor(tris, device="cuda")
+        n0 = dict(di.LAUNCHES)
+        t, pid, bary = di.closest(*cu, tris)
+        tp, pidp, baryp = di.closest_plain(*cu, tris)
+        same = pid == pidp
+        assert same.float().mean() > 1 - 1e-4
+        assert torch.allclose(t[~same], tp[~same], rtol=1e-6)
+        assert torch.allclose(t, tp, rtol=1e-6, equal_nan=True)
+        assert torch.allclose(bary[same], baryp[same], atol=1e-5)
+        occ = di.anyhit(*cu, tris)
+        occp = di.anyhit_plain(*cu, tris)
+        assert (occ != occp).float().mean() <= 1e-4
+        assert di.LAUNCHES["closest"] == n0["closest"] + 1
+        assert di.LAUNCHES["anyhit"] == n0["anyhit"] + 1
+
+
+@pytest.mark.parametrize("n_rays", EDGE_R)
+@pytest.mark.parametrize("n_tris", EDGE_T)
+def test_sweep_model_matches_plain(n_tris, n_rays):
+    """The numpy model of the kernels' loop order (persistent blocks, dead
+    rays answered and live ones packed, resident or tiled triangles, the
+    any-hit vote every kChunk triangles) equals the plain versions bit for
+    bit, writes every ray once and asks for at most 227 KB of shared
+    memory."""
+    tris, o, d, tmax = _dead_soup(n_tris, n_rays, n_tris + n_rays)
+    m = sm.sweep(o, d, tmax, tris, resident=3)
+    a = sm.sweep(o, d, tmax, tris, any_hit=True, resident=3)
+    t, pid, bary = di.closest(tt(o), tt(d), tt(tmax), tt(tris))
+    np.testing.assert_array_equal(m["t"], np_(t))
+    np.testing.assert_array_equal(m["id"], np_(pid))
+    np.testing.assert_array_equal(m["uv"], np_(bary))
+    np.testing.assert_array_equal(
+        a["occ"], np_(di.anyhit(tt(o), tt(d), tt(tmax), tt(tris))))
+    assert (m["cover"] == 1).all() and (a["cover"] == 1).all()
+    assert m["smem"] == 48 * min(n_tris, sm.constants()["kTileTris"])
+    assert m["smem"] <= SMEM_MAX
+
+
+@pytest.mark.parametrize("resident", (1, 3, 396))
+@pytest.mark.parametrize("n_rays", EDGE_R + (262144 + 17,))
+def test_sweep_model_covers_each_ray_once(n_rays, resident):
+    """Every ray is written exactly once, dead or live, for any grid: one
+    block taking many passes, a few, or one block per chunk."""
+    g = np.random.default_rng(n_rays)
+    tmax = np.where(g.random(n_rays) < 0.5, 0.0, 1.0).astype(np.float32)
+    z = np.zeros((n_rays, 3), np.float32)
+    res = sm.sweep(z, z, tmax, np.zeros((0, 9), np.float32), resident=resident)
+    assert (res["cover"] == 1).all()
+    assert res["blocks"] == min(resident, (n_rays + 31) // 32)
+    np.testing.assert_array_equal(res["t"], tmax)
+    assert (res["id"] == -1).all() and (res["uv"] == 0).all()
+
+
+def test_sweep_model_vs_jax():
+    """The model against the JAX package's intersect_brute /
+    occluded_brute and the Pallas K1 in interpret mode, with dead rays
+    (the Pallas kernel tests edges strictly, ROADMAP fault C1: compared on
+    lanes whose winner lies more than 1e-6 inside its triangle)."""
+    from vision_tpu.accel.pallas_isect import intersect_pallas
+    tris, o, d, tmax = _dead_soup(40, 1024, 4)
+    tmax[1024 // 2] = 0.0  # JAX's kernels take no NaN t_max
+    jr = JRay(origin=jnp.asarray(o), direction=jnp.asarray(d),
+              t_max=jnp.asarray(tmax))
+    jt = [jnp.asarray(tris[:, k:k + 3]) for k in (0, 3, 6)]
+    m = sm.sweep(o, d, tmax, tris, resident=2)
+    a = sm.sweep(o, d, tmax, tris, any_hit=True, resident=2)
+    _assert_hits_match(jisect.intersect_brute(jr, *jt), tt(m["t"]),
+                       tt(m["id"]), tt(m["uv"]))
+    assert (m["id"][tmax == 0] == -1).all()
+    oa = np.asarray(jisect.occluded_brute(jr, *jt))
+    near = sm.sweep(o, d, np.full_like(tmax, 1e30), tris)["t"]
+    edge = np.abs(near - tmax) <= 1e-5 * tmax
+    assert np.array_equal(oa[~edge], a["occ"][~edge]) and 0 < oa.mean() < 1
+    hp = intersect_pallas(jr, *jt, interpret=True)
+    uv = m["uv"]
+    inner = np.minimum(np.minimum(uv[:, 0], uv[:, 1]),
+                       1.0 - uv[:, 0] - uv[:, 1]) > 1e-6
+    keep = inner | (m["id"] < 0)
+    assert keep.mean() > 0.99 and (m["id"][keep] >= 0).any()
+    assert np.array_equal(np.asarray(hp.prim_id)[keep], m["id"][keep])
+    np.testing.assert_allclose(m["t"][keep], np.asarray(hp.t)[keep],
+                               rtol=T_RTOL, atol=T_ATOL)
+
+
+def test_sweep_model_skips_dead_lanes():
+    """Dead rays cost no lane-tests: with every other ray dead the warps
+    issue exactly half the tests; an any-hit warp whose rays are all
+    occluded by the first triangles leaves after one chunk of kChunk."""
+    c = sm.constants()
+    tris, o, d, tmax = _dead_soup(36, 4096, 7)
+    tmax = np.abs(np.nan_to_num(tmax)) + 0.05
+    half = tmax.copy()
+    half[1::2] = 0.0
+    full = sm.sweep(o, d, tmax, tris, resident=8)["lane_tests"]
+    assert full == 4096 * 36
+    assert sm.sweep(o, d, half, tris, resident=8)["lane_tests"] * 2 == full
+    # a wall at z = 0.5 in front of rays going up from z = 0, first in id order
+    wall = np.array([[-9, -9, 0.5, 30, 0, 0, 0, 30, 0]], np.float32)
+    up = np.tile(np.array([[0, 0, 1]], np.float32), (4096, 1))
+    o2 = o.copy()
+    o2[:, 2] = 0.0
+    res = sm.sweep(o2, up, tmax + 1.0, np.concatenate([wall, tris]),
+                   any_hit=True, resident=8)
+    assert res["occ"].all()
+    assert res["lane_tests"] == 4096 * c["kChunk"]
 
 
 def test_chip_smoke_k1_bound():
@@ -230,5 +342,12 @@ def test_chip_smoke_k1_bound():
     ms, by = cs.bound_ms(ops, nbytes)
     assert by == "operations" and round(ms * 1e3, 2) == 5.63
     assert cs.k1_work(262144, 36, any_hit=True)[1] == 262144 * 29 + 36 * 36
+    # dead rays (t_max <= 0) cost a t_max read and a result, no tests
+    ops, nbytes = cs.k1_work(262144, 36, any_hit=False, live=131072)
+    assert ops == 131072 * 36 * 40
+    assert nbytes == 262144 * (4 + 16) + 131072 * 24 + 36 * 36
+    # an any-hit sweep that stops early counts the tests it needed
+    assert cs.k1_work(262144, 36, any_hit=True, live=131072,
+                      tests=1_000_000)[0] == 40_000_000
     ms, by = cs.bound_ms(0, 3.35e9)
     assert by == "bytes" and ms == pytest.approx(1.0)

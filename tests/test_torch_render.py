@@ -117,3 +117,32 @@ def test_render_to_file(tmp_path):
     assert vt.render_to_file(s, "cpu", out_path=str(path), verbose=False) \
         == str(path)
     assert path.stat().st_size > 0
+
+
+def test_dense_gating_changes_nothing(monkeypatch):
+    """The dense path traces lanes outside `act` with t_max = 0 (the K1
+    kernels skip them); `radiance` and `render_wave` come out bit for bit
+    as when every lane is swept, as the JAX package's dense path does."""
+    ps = vt.load_scene(cbox(16), device="cpu")
+    assert ps.data.pbvh is None and ps.data.ipbvh is None
+    R = 16 * 16
+    g = np.random.default_rng(2)
+    p_film = (np.stack([np.arange(R) % 16, np.arange(R) // 16], -1)
+              + g.random((R, 2))).astype(np.float32)
+    ray = ps.camera.generate_ray(tt(p_film))
+    st = trng.seed(torch.arange(R), tt(g.integers(0, 2 ** 32, R)))
+
+    def run():
+        L, aov = tpt.radiance(ps.data, ray, st, max_depth=4)
+        img, wav = tpt.render_wave(ps.data, ps.camera, ps.filter, 0, 2,
+                                   ps.max_depth, ps.min_depth,
+                                   ps.rr_threshold)
+        return [L, img] + [aov[k] for k in ("albedo", "normal", "nrays")] \
+            + [wav[k] for k in ("albedo", "normal", "nrays", "film", "smp")]
+
+    gated = run()
+    monkeypatch.setattr(tpt, "_gated", lambda r, act: (
+        r.origin.contiguous(), r.direction.contiguous(), r.t_max.contiguous()))
+    swept = run()
+    for a, b in zip(gated, swept):
+        assert torch.equal(a, b)

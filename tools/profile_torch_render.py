@@ -6,9 +6,9 @@ Renders a scene at 512^2, depth 8 (NAME: `cbox`, tests/fixtures.py
 CBOX_JSON, the default; `cbox_sphere` or `cbox_spheres_instanced`,
 tests/torch_scenes.py) at 1 spp to warm up, then at 4 spp timed plain and
 once more under torch.profiler, and prints JSON lines: the device's busy
-share of the traced window, device time by kernel (top 25), the share of
-device time in K1 (dense sweep), K2 and K3 (BVH walks), and kernel launches
-per wavefront iteration. The Chrome trace goes to
+share of the traced window, device time by kernel (top 25), the device
+time, launches and share of device time of K1 (dense sweep), K2 and K3
+(BVH walks), and kernel launches per wavefront iteration. The Chrome trace goes to
 TRACE_DIR/profile_render.json when a directory is given. Needs a CUDA
 device.
 """
@@ -88,8 +88,13 @@ def main():
     busy_us = sum(r[1] for r in kernels)
     launches = sum(r[2] for r in kernels)
     kernels.sort(key=lambda r: -r[1])
-    share = {f"{fam}_share_of_device": sum(r[1] for r in kernels if pat in r[0])
-             / max(busy_us, 1e-9) for fam, pat in FAMILIES.items()}
+    share = {}
+    for fam, pat in FAMILIES.items():
+        us = sum(r[1] for r in kernels if pat in r[0])
+        n = sum(r[2] for r in kernels if pat in r[0])
+        share.update({f"{fam}_share_of_device": us / max(busy_us, 1e-9),
+                      f"{fam}_device_ms": us / 1e3, f"{fam}_launches": n,
+                      f"{fam}_ms_per_launch": us / 1e3 / max(n, 1)})
     print(json.dumps(dict(
         phase="profile", scene=args.scene,
         device=torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 `closest` and `anyhit` replace the Pallas kernels `_closest_kernel` and
 `_anyhit_kernel` of `vision_tpu/accel/pallas_isect.py` (reached through
-`intersect_pallas`). The kernels are in `csrc/dense_isect.cu`; they are
-compiled with nvcc for sm_90a at first use into `vision_tpu_torch/_build/`
+`intersect_pallas`). The kernels are in `csrc/dense_isect.cu` (persistent
+blocks, the scene staged once per block in shared memory, two rays per
+thread, dead rays answered at once and skipped); they are compiled with
+nvcc for sm_90a at first use into `vision_tpu_torch/_build/`
 (`accel/cuda_build.py`: a shared library with a plain C interface, loaded
 with ctypes), from the sources in the checkout only.
 
@@ -84,7 +86,8 @@ def _check(origin, direction, t_max, tris):
                              f"{tuple(x.shape)}, want {shape}")
         if not x.is_contiguous():
             raise ValueError(f"dense_isect: {name} is not contiguous")
-    if R >= 2 ** 31 or tris.shape[0] >= 2 ** 31 // 9:
+    # the kernels index rays by chunks of 32 across the grid, in int32
+    if R >= 2 ** 30 or tris.shape[0] >= 2 ** 31 // 9:
         raise ValueError("dense_isect: too many rays or triangles for int32")
 
 
@@ -97,7 +100,8 @@ def _raise_on(lib, code, name):
 def closest(origin, direction, t_max, tris):
     """Closest hit of rays origin/direction [R, 3], t_max [R] against
     triangles tris [T, 9] (p0 e1 e2). Returns (t [R], prim_id [R] int32,
-    bary [R, 2]); a miss gives t = t_max, id -1, bary 0."""
+    bary [R, 2]); a miss gives t = t_max, id -1, bary 0, and so does a
+    dead ray (t_max <= 0), which the kernel answers without a sweep."""
     if origin.device.type == "cpu":
         return closest_plain(origin, direction, t_max, tris)
     _check(origin, direction, t_max, tris)

@@ -55,6 +55,9 @@ def _mt_batch(o, d, p0, e1, e2):
 def recompute_bary(ray, prim_id, tri_p0, tri_e1, tri_e2):
     """Per-ray barycentrics of an already-found prim: one [R]-wide MT redo
     with the sweep's own arithmetic. 0 on a miss."""
+    if tri_p0.shape[0] == 0:  # no triangles: every ray missed
+        return torch.zeros((prim_id.shape[0], 2), dtype=ray.origin.dtype,
+                           device=ray.origin.device)
     pid = torch.clamp_min(prim_id.long(), 0)
     p0x, p0y, p0z = (tri_p0[:, i][pid] for i in range(3))
     e1x, e1y, e1z = (tri_e1[:, i][pid] for i in range(3))

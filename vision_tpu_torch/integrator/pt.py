@@ -16,8 +16,9 @@ rounding. Python loops replace `lax.fori_loop` / `lax.while_loop`.
 
 Traces take the kernel the scene's geometry calls for: the dense sweep
 (K1) up to 2048 triangles, the BVH (K2) above, the TLAS over instances
-(K3) for an instanced scene. On the BVH paths dead lanes trace with
-t_max = 0, as the JAX package's packet path does.
+(K3) for an instanced scene. Dead lanes trace with t_max = 0 on every
+path, as the JAX package's packet path does (its dense path sweeps them,
+which changes no result `_bounce` reads).
 
 Differences from the JAX package, none of which changes an image:
   * lane = pixel always: the tile order and lane re-binning of the packet
@@ -44,36 +45,34 @@ RAY_OFFSET = 2e-4
 
 
 def _gated(ray, act):
-    """t_max, 0 on lanes outside `act` (they leave the BVH walk at once)."""
+    """t_max, 0 on lanes outside `act` (every kernel answers them at once
+    with a miss)."""
     t_max = ray.t_max if act is None else torch.where(act, ray.t_max, 0.0)
     return ray.origin.contiguous(), ray.direction.contiguous(), t_max.contiguous()
 
 
 def trace_closest(scene, ray, act=None):
     """Closest hit through K3 (instanced scene), K2 (BVH) or K1 (dense
-    sweep). The dense sweep traces every lane, as the JAX package's dense
-    path does; the BVH paths trace lanes outside `act` with t_max = 0."""
+    sweep). Lanes outside `act` trace with t_max = 0 and miss; `_bounce`
+    reads no result of theirs."""
+    rays = _gated(ray, act)
     if scene.ipbvh is not None:
-        t, pid, bary, inst = packet_isect.closest_inst(*_gated(ray, act),
-                                                       scene.ipbvh)
+        t, pid, bary, inst = packet_isect.closest_inst(*rays, scene.ipbvh)
         return Hit(t=t, prim_id=pid, bary=bary, inst=inst)
     if scene.pbvh is not None:
-        return Hit(*packet_isect.closest(*_gated(ray, act), scene.pbvh))
-    t, pid, bary = dense_isect.closest(ray.origin, ray.direction, ray.t_max,
-                                       scene.tri_geom)
-    return Hit(t=t, prim_id=pid, bary=bary)
+        return Hit(*packet_isect.closest(*rays, scene.pbvh))
+    return Hit(*dense_isect.closest(*rays, scene.tri_geom))
 
 
 def trace_occluded(scene, ray, act=None):
     """Shadow-ray occlusion: [R] bool, through the any-hit kernel of the
-    path `trace_closest` takes (lanes outside `act` are unoccluded on the
-    BVH paths)."""
+    path `trace_closest` takes (lanes outside `act` are unoccluded)."""
+    rays = _gated(ray, act)
     if scene.ipbvh is not None:
-        return packet_isect.anyhit_inst(*_gated(ray, act), scene.ipbvh)
+        return packet_isect.anyhit_inst(*rays, scene.ipbvh)
     if scene.pbvh is not None:
-        return packet_isect.anyhit(*_gated(ray, act), scene.pbvh)
-    return dense_isect.anyhit(ray.origin, ray.direction, ray.t_max,
-                              scene.tri_geom)
+        return packet_isect.anyhit(*rays, scene.pbvh)
+    return dense_isect.anyhit(*rays, scene.tri_geom)
 
 
 def compute_interaction(scene, hit):
@@ -194,8 +193,8 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     nee_pre = (act & (l_pdf_pos > 0.0) & (nee_pdf >= 0.0)
                & (torch.amax(torch.abs(ls.L * f_nee), dim=-1) > 0.0))
     occ = trace_occluded(scene, shadow_ray, nee_pre)
-    # ray accounting: the BVH paths skip gated shadow lanes; the dense
-    # sweep processes every active lane
+    # ray accounting as the JAX package's: its BVH paths skip gated shadow
+    # lanes, its dense sweep counts every active lane
     dense = scene.pbvh is None and scene.ipbvh is None
     nrays = nrays + (act if dense else nee_pre).sum()
     nee_ok = nee_pre & ~occ
