@@ -23,7 +23,15 @@ phase, one JSON line each:
   * `cbox_sphere` rendered at 512^2, depth 8, 16 spp through K2 and held
     against `tests/goldens/cbox_sphere_hdr.npz`;
   * `cbox_spheres_instanced` rendered through K3 and its flat twin
-    (VT_INSTANCING=0) through K2, held against each other.
+    (VT_INSTANCING=0) through K2, held against each other;
+  * the materials and lights of slice 1b: `cbox_glass` (glass and mirror
+    boxes, ladder config 2; 36 triangles, K1) at 512^2, 64 spp, held
+    against `tests/goldens/cbox_glass_hdr.npz`; `cbox_zoo` (every material
+    family, point, spot and projector lights beside the area light;
+    6,276 triangles, K2) at 512^2, 16 spp, held against
+    `tests/goldens/cbox_zoo_hdr.npz`; `cbox_sky` (a substitute unit sky
+    through the open front; K1) at 64^2, 16 spp on the card, held against
+    the port's own render of the same seeds on the CPU.
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -89,6 +97,12 @@ GOLD_BIAS = 0.025
 # instanced vs flat twin render (tests/test_instancing.py holds the JAX
 # package's pair to the same streams)
 TWIN_WERR = 0.01
+# slice 1b: cbox_glass at ladder config 2's spp; cbox_sky on the card
+# against the CPU, both the port, from the same seeds (the bound of the
+# CPU tests' port-vs-JAX wavefronts)
+GLASS_SPP = 64
+SKY_RES = 64
+SKY_WERR = 0.01
 # the bound of a kernel: the card's published peaks (NVIDIA H100 SXM data
 # sheet, dense rates at 700 W), float32 outside the tensor cores and HBM3
 PEAK_FLOPS = 67e12
@@ -630,10 +644,10 @@ def phase_k3(pi, pbvh_mod, vt_pt, wm, scene, flat):
     return recs
 
 
-def render(vt, modules, scene, name):
+def render(vt, modules, scene, name, spp=SPP, res=RES):
     """The main path on one scene: warm up at 1 spp, set every launch count
-    to 0, render 512^2 at 16 spp, read the counts. Returns (image, record)."""
-    check(scene.max_depth == 8 and scene.resolution == (RES, RES),
+    to 0, render res^2 at `spp`, read the counts. Returns (image, record)."""
+    check(scene.max_depth == 8 and scene.resolution == (res, res),
           f"{name} config")
     vt.render(scene, spp=1)  # warm-up
     torch.cuda.synchronize()
@@ -643,21 +657,73 @@ def render(vt, modules, scene, name):
             m.LAUNCHES[k] = 0
     stats = {}
     t0 = time.perf_counter()
-    hdr = vt.render(scene, spp=SPP, stats=stats)
+    hdr = vt.render(scene, spp=spp, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
                 for m in modules for k, v in m.LAUNCHES.items()}
     img = hdr.cpu().numpy()
-    check(img.shape == (RES, RES, 3), f"{name}: image shape {img.shape}")
+    check(img.shape == (res, res, 3), f"{name}: image shape {img.shape}")
     check(bool(np.isfinite(img).all()), f"{name}: image has non-finite values")
     check(float(img.max()) > 0.0, f"{name}: image is all zero")
-    return img, dict(phase="render", scene=name, res=RES, spp=SPP,
+    return img, dict(phase="render", scene=name, res=res, spp=spp,
+                     material_feats=list(scene.data.materials.feats),
+                     light_feats=list(scene.data.lights.feats),
                      max_depth=scene.max_depth, wall_s=wall,
                      nrays=stats["nrays"], iters=stats["iters"],
                      mrays_per_s=stats["nrays"] / wall / 1e6,
                      peak_mem_bytes=torch.cuda.max_memory_allocated(),
                      launches=launches, mean=float(img.mean()))
+
+
+def phase_slice1b(vt, modules, scenes):
+    """cbox_glass (K1) and cbox_zoo (K2) against their JAX goldens, cbox_sky
+    on the card against the port's CPU render. Returns each render's
+    launch counts."""
+    per_render = {}
+    runs = (("cbox_glass", scenes.cbox_glass(RES), GLASS_SPP, "dense_isect"),
+            ("cbox_zoo", scenes.cbox_zoo(RES, sub_div=40), SPP,
+             "packet_isect"))
+    for name, desc, spp, kernel in runs:
+        t0 = time.perf_counter()
+        scene = vt.load_scene(desc, device=DEV)
+        emit(dict(phase="load", scene=name, seconds=time.perf_counter() - t0,
+                  tris=scene.data.tri_geom.shape[0]))
+        check((scene.data.pbvh is not None) == (kernel == "packet_isect")
+              and scene.data.ipbvh is None, f"{name} takes {kernel}")
+        img, rec = render(vt, modules, scene, name, spp=spp)
+        rec["golden_werr"], rec["golden_bias"] = vs_golden(
+            img, f"tests/goldens/{name}_hdr.npz")
+        emit(rec)
+        other = "packet_isect" if kernel == "dense_isect" else "dense_isect"
+        check(all(rec["launches"][f"{kernel}.{k}"] > 0
+                  for k in ("closest", "anyhit")), f"{name} {rec['launches']}")
+        check(all(v == 0 for k, v in rec["launches"].items()
+                  if k.startswith(other)), f"{name} {rec['launches']}")
+        check(rec["golden_werr"] < GOLD_WERR,
+              f"{name} vs golden {rec['golden_werr']}")
+        check(abs(rec["golden_bias"]) < GOLD_BIAS,
+              f"{name} bias {rec['golden_bias']}")
+        per_render[name] = rec["launches"]
+
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the sky's HDRI file is missing
+        sky = vt.load_scene(scenes.cbox_sky(SKY_RES), device=DEV)
+        sky_cpu = vt.load_scene(scenes.cbox_sky(SKY_RES), device="cpu")
+    check(sky.data.lights.env_index == 0 and sky.data.pbvh is None,
+          "cbox_sky: one environment light, the dense sweep")
+    img, rec = render(vt, modules, sky, "cbox_sky", spp=SPP, res=SKY_RES)
+    t0 = time.perf_counter()
+    ref = vt.render(sky_cpu, spp=SPP).numpy()
+    rec["cpu_render_s"] = time.perf_counter() - t0
+    rec["vs_cpu_werr"], rec["vs_cpu_bias"] = block_err(img, ref)
+    emit(rec)
+    check(rec["launches"]["dense_isect.closest"] > 0, f"cbox_sky {rec}")
+    check(rec["vs_cpu_werr"] <= SKY_WERR and abs(rec["vs_cpu_bias"]) <= SKY_WERR,
+          f"cbox_sky vs its CPU render {rec['vs_cpu_werr']}")
+    per_render["cbox_sky"] = rec["launches"]
+    return per_render
 
 
 def block_err(a, b, B=8):
@@ -788,6 +854,9 @@ def main():
     check(rec["twin_werr"] <= TWIN_WERR,
           f"instanced vs flat twin {rec['twin_werr']}")
     per_render["cbox_spheres_instanced_flat_twin"] = rec_f["launches"]
+
+    # ---- slice 1b: every material and light type ----
+    per_render.update(phase_slice1b(vt, [di, pi], scenes))
 
     # ---- the kernel table ----
     def worst(recs, keys):

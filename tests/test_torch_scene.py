@@ -4,6 +4,7 @@ camera and filter; `scene_from_arrays` carries a JAX scene across; and a
 scene outside the ported slice raises NotImplementedError."""
 import copy
 import dataclasses
+import os
 import warnings
 
 import numpy as np
@@ -13,15 +14,20 @@ import torch
 import vision_tpu_torch as vt
 from tests.fixtures import make_glass_cbox
 from tests.torch_parity import cbox, jax_scene_arrays, np_
+from tests.torch_scenes import cbox_glass, cbox_sky, cbox_zoo
 from vision_tpu.scene.scene import Scene as JScene
 from vision_tpu_torch.scene.scene import scene_from_arrays
 from vision_tpu_torch.shading.materials import COLUMNS
 
 torch.set_num_threads(2)
 
-LIGHT_FIELDS = ("ltype", "color", "color_tex", "two_sided", "inst_id",
-                "total_area", "tri_offset", "tri_count", "a_prob", "a_alias",
-                "a_pmf", "tri_base", "sel_prob", "sel_alias", "sel_pmf")
+LIGHT_FIELDS = ("ltype", "color", "color_tex", "position", "direction",
+                "cos_angle", "cos_falloff", "tan_xy", "w2o", "two_sided",
+                "inst_id", "total_area", "tri_offset", "tri_count", "a_prob",
+                "a_alias", "a_pmf", "tri_base", "env_tex", "e_prob", "e_alias",
+                "e_pmf", "sel_prob", "sel_alias", "sel_pmf", "ies_id",
+                "ies_profiles")
+LIGHT_STATIC = ("n_lights", "env_index", "env_prob", "env_w", "env_h")
 
 
 def _standalone_light():
@@ -53,7 +59,11 @@ def _two_lights_power():
 
 
 SCENES = {"cbox": lambda: cbox(16), "standalone_light": _standalone_light,
-          "two_lights_power": _two_lights_power}
+          "two_lights_power": _two_lights_power,
+          "cbox_glass": lambda: cbox_glass(16),
+          "cbox_zoo": lambda: cbox_zoo(16, sub_div=40),
+          "cbox_sky": lambda: cbox_sky(16),
+          "no_lights": lambda: _edit(lambda s: s["shapes"].pop())}
 
 
 def _assert_same_scene(data, camera, filt, ref):
@@ -71,7 +81,9 @@ def _assert_same_scene(data, camera, filt, ref):
     assert data.materials.feats == tuple(ref["materials.feats"])
     for k in LIGHT_FIELDS:
         eq(np_(getattr(data.lights, k)), ref[f"lights.{k}"])
-    assert data.lights.n_lights == int(ref["lights.n_lights"])
+    for k in LIGHT_STATIC:
+        assert getattr(data.lights, k) == ref[f"lights.{k}"].item(), k
+    assert data.lights.feats == tuple(ref["lights.feats"])
     for k in ("c2w", "tan_half_fov", "lens_radius", "focal_distance"):
         eq(np_(getattr(camera, k)), ref[f"camera.{k}"])
     assert camera.resolution == tuple(ref["camera.resolution"])
@@ -83,8 +95,10 @@ def _assert_same_scene(data, camera, filt, ref):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_loader_matches_jax(name):
     s = SCENES[name]()
-    ps = vt.load_scene(s, device="cpu")
-    ref = jax_scene_arrays(JScene(s))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # cbox_sky: its HDRI is missing
+        ps = vt.load_scene(s, device="cpu")
+        ref = jax_scene_arrays(JScene(s))
     _assert_same_scene(ps.data, ps.camera, ps.filter, ref)
 
 
@@ -104,13 +118,15 @@ def test_scene_from_arrays_matches_loader():
            "world_radius": ps.data.world_radius,
            "ray_offset": ps.data.ray_offset,
            "materials.feats": np.asarray(ps.data.materials.feats),
-           "lights.n_lights": ps.data.lights.n_lights,
+           "lights.feats": np.asarray(ps.data.lights.feats),
            "camera.resolution": np.asarray(ps.camera.resolution),
            "filter.is_box": ps.filter.is_box}
     ref.update({f"materials.{k}": np_(getattr(ps.data.materials, k))
                 for k in COLUMNS})
     ref.update({f"lights.{k}": np_(getattr(ps.data.lights, k))
                 for k in LIGHT_FIELDS})
+    ref.update({f"lights.{k}": np.asarray(getattr(ps.data.lights, k))
+                for k in LIGHT_STATIC})
     ref.update({f"camera.{k}": np_(getattr(ps.camera, k))
                 for k in ("c2w", "tan_half_fov", "lens_radius",
                           "focal_distance")})
@@ -158,8 +174,18 @@ def test_scene_from_arrays_copies_jax_buffers():
 
 
 def test_scene_from_arrays_rejects_out_of_slice():
-    with pytest.raises(NotImplementedError, match="slice 1b"):
-        scene_from_arrays(jax_scene_arrays(JScene(make_glass_cbox())), "cpu")
+    """A JAX scene with a subsurface material (it attaches a medium) and
+    one with the hero spectrum are refused, naming slice 4."""
+    sss = _edit(lambda s: s["materials"].__setitem__(
+        2, {"type": "subsurface", "name": "White", "param": {}}))
+    hero = _edit(lambda s: s.update(
+        spectrum={"type": "hero", "param": {"dimension": 4}}))
+    for s in (sss, hero):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            arrays = jax_scene_arrays(JScene(s))
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            scene_from_arrays(arrays, "cpu")
 
 
 def _edit(fn):
@@ -179,17 +205,41 @@ def _sphere(sub_div, x=0.0):
             [1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [x, 0.5, 0, 1]]}}}}
 
 
+# an existing file: an image slot naming it raises (image loading is
+# slice 7); a missing one takes the slot's default, as in the JAX package
+EXISTING_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "goldens", "cbox_hdr.npz")
+
+
+def _light(ltype, **param):
+    return lambda: _edit(lambda s: s["light_sampler"]["param"].update(
+        lights=[{"type": ltype, "param": param}]))
+
+
 OUT_OF_SLICE = {
-    "glass_material": (make_glass_cbox, "slice 1b"),
-    "oren_nayar": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        sigma=20.0)), "slice 1b"),
     "textured_color": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        color={"fn": "wood.png"})), "slice 1b"),
+        color={"fn": EXISTING_FILE})), "slice 7"),
+    "textured_roughness": (lambda: _edit(lambda s: s["materials"].__setitem__(
+        0, {"type": "mirror", "name": "Red",
+            "param": {"roughness": {"fn": EXISTING_FILE}}})), "slice 7"),
     "normal_map": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
         bump={"fn": "n.png"})), "slice 4"),
-    "point_light": (lambda: _edit(lambda s: s["light_sampler"]["param"].update(
-        lights=[{"type": "point", "param": {"position": [0, 1, 0]}}])),
-        "slice 1b"),
+    "subsurface": (lambda: _edit(lambda s: s["materials"].__setitem__(
+        0, {"type": "subsurface", "name": "Red", "param": {}})), "slice 4"),
+    "fresnel_node": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
+        color={"type": "lerp", "param": {
+            "t": {"type": "fresnel", "param": {"ior": 1.5}},
+            "A": [0.1, 0.1, 0.1], "B": [0.9, 0.9, 0.9]}})), "slice 4"),
+    "uv_mapping_node": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
+        color={"type": "vector_mapping", "param": {"node": [0.5, 0.5, 0.5]}})),
+        "slice 4"),
+    "ies_profile": (_light("spot", position=[0, 1.5, 0], ies="a.ies"), "slice 4"),
+    "env_image": (_light("spherical", color={"fn": EXISTING_FILE}), "slice 7"),
+    "projector_image": (_light("projector", color={"fn": EXISTING_FILE}),
+                        "slice 7"),
+    "emission_image": (lambda: _edit(lambda s: s["shapes"][-1]["param"][
+        "emission"]["param"].update(color={"fn": EXISTING_FILE})), "slice 7"),
+    "mix_env": (_light("mix", env0={}, env1={}), "slice 7"),
     "hero_spectrum": (lambda: _edit(lambda s: s.update(
         spectrum={"type": "hero", "param": {"dimension": 4}})), "slice 4"),
     "media": (lambda: _edit(lambda s: s.update(mediums={
@@ -200,6 +250,15 @@ OUT_OF_SLICE = {
         "param": {"frame_buffer": {"type": "light_field"}}})), "slice 4"),
     "mesh_file": (lambda: _edit(lambda s: _shape(s, {
         "type": "model", "param": {"fn": "bunny.obj"}})), "slice 7"),
+}
+
+# features out of the slice before slice 1b, which now load as the JAX
+# package loads them
+PORTED = {
+    "glass_material": make_glass_cbox,
+    "oren_nayar": lambda: _edit(lambda s: s["materials"][0]["param"].update(
+        sigma=20.0)),
+    "point_light": _light("point", position=[0, 1, 0]),
 }
 
 # scenes outside the dense sweep's slice, which now load through their
@@ -213,11 +272,19 @@ BVH_SCENES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES))
+@pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
+                         + sorted(PORTED))
 def test_out_of_slice_raises(name):
     """A feature outside the ported slices raises NotImplementedError
     naming its slice; the two scenes of BVH_SCENES, out of the slice before
-    slices 2 and 3, load and carry the tree their kernel walks."""
+    slices 2 and 3, load and carry the tree their kernel walks; the scenes
+    of PORTED, out of it before slice 1b, load as the JAX package does."""
+    if name in PORTED:
+        s = PORTED[name]()
+        ps = vt.load_scene(s, device="cpu")
+        _assert_same_scene(ps.data, ps.camera, ps.filter,
+                           jax_scene_arrays(JScene(s)))
+        return
     if name in BVH_SCENES:
         make, field = BVH_SCENES[name]
         ps = vt.load_scene(make(), device="cpu")

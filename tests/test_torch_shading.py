@@ -236,8 +236,9 @@ def test_light_sample_wi(scenes):
                        jnp.asarray(ref), jnp.asarray(_unit(N, 63)),
                        jnp.asarray(u_sel), jnp.asarray(u2),
                        js.data.world_radius)
-    lb = tlt.sample_wi(ps.data.lights, ps.data.tri_pack, tt(ref), tt(u_sel),
-                       tt(u2))
+    lb = tlt.sample_wi(ps.data.lights, ps.data.atlas, ps.data.tri_pack,
+                       tt(ref), tt(_unit(N, 63)), tt(u_sel), tt(u2),
+                       ps.data.world_radius)
     for f in ("p_light", "wi", "L", "dist"):
         close(getattr(lb, f), getattr(la, f), atol=1e-5)
     # pdf ~ r^2 / cos: relative

@@ -61,3 +61,16 @@ def block_err(a, b, B=8):
     ab = a.reshape(H // B, B, W // B, B, 3).mean((1, 3))
     bb = b.reshape(H // B, B, W // B, B, 3).mean((1, 3))
     return np.abs(ab - bb).sum() / bb.sum(), (ab - bb).mean() / bb.mean()
+
+
+def mostly_close(y, x, rtol, atol, loose, share=0.01):
+    """y within (rtol, atol) of x on all but `share` of the rows (leading
+    axis), and every element within `loose` (relative and absolute): for
+    outputs where float32 rounding in another op order meets an
+    ill-conditioned step (a square root or arccos near 0 / 1, a peaked
+    lobe) on a few lanes."""
+    x, y = np.asarray(x), np_(y)
+    off = ~np.isclose(y, x, rtol=rtol, atol=atol)
+    off = off.reshape(off.shape[0], -1).any(-1)
+    assert off.mean() <= share, off.sum()
+    np.testing.assert_allclose(y, x, rtol=loose, atol=loose)

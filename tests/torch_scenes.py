@@ -10,6 +10,17 @@ box (`tests/fixtures.py` CBOX_JSON), so nothing has to be downloaded.
     mesh, so both packages instance it: TLAS -> per-mesh traversal (K3).
     Flattened, the spheres come to 1,040,384 triangles. Loaded with
     VT_INSTANCING=0 the same JSON is its flat twin.
+  * `cbox_glass`: `tests/fixtures.py` `make_glass_cbox` (glass BK7 and
+    mirror boxes; ladder config 2), 36 triangles: the dense sweep (K1).
+  * `cbox_zoo`: `cbox_sphere(sub_div=40)` geometry (6,276 triangles, K2)
+    with a material of every family on it (principled with clearcoat and
+    sheen, substrate, a mix of rough copper and plastic, Oren-Nayar,
+    F82 metallic, an add of diffuse and a rough mirror) lit by the
+    ceiling emitter, a point, a spot and a constant-color projector under
+    the power light sampler.
+  * `cbox_sky`: the cbox without its emitter, lit through its open front
+    by a spherical light whose HDRI file is missing, which both packages
+    replace by a unit sky. 36 triangles, K1.
 
 This module loads `tests/fixtures.py` by path, and `chip_smoke.py` loads
 this module by path: a `tests` package elsewhere on sys.path must not
@@ -64,4 +75,84 @@ def cbox_spheres_instanced(res=512, sub_div=128, radius=0.12):
         lin = ([[c, 0, -sn, 0], [0, 1, 0, 0], [sn, 0, c, 0]] if i % 2
                else [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]])
         s["shapes"].append(_sphere(radius, sub_div, lin + [row]))
+    return s
+
+
+def cbox_glass(res=512):
+    """`make_glass_cbox` (ladder config 2) at res x res."""
+    s = _fixtures.make_glass_cbox()
+    s["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [res, res]
+    return s
+
+
+ZOO_MATERIALS = [
+    {"type": "principled_bsdf", "name": "Principled", "param": {
+        "color": [0.75, 0.6, 0.35], "roughness": 0.4, "anisotropic": 0.3,
+        "metallic": 0.1, "spec_tint": 0.2, "ior": 1.5, "sheen": 0.6,
+        "sheen_tint": 0.5, "sheen_roughness": 0.4, "clearcoat": 0.7,
+        "clearcoat_alpha": 0.1}},
+    {"type": "substrate", "name": "Substrate", "param": {
+        "color": [0.2, 0.4, 0.7], "spec": [0.06, 0.06, 0.06],
+        "roughness": 0.3}},
+    {"type": "mix", "name": "CuPlastic", "param": {
+        "frac": 0.6,
+        "mat0": {"type": "metal", "param": {"material_name": "Cu",
+                                            "roughness": 0.3}},
+        "mat1": {"type": "plastic", "param": {"color": [0.8, 0.2, 0.2],
+                                              "roughness": 0.2,
+                                              "ior": 1.5}}}},
+    {"type": "diffuse", "name": "RedOren", "param": {
+        "color": [0.63, 0.065, 0.05], "sigma": 20.0}},
+    {"type": "metallic", "name": "GreenMetallic", "param": {
+        "color": [0.3, 0.75, 0.3], "edge_tint": [0.9, 1.0, 0.9],
+        "roughness": 0.35}},
+    {"type": "add", "name": "DiffuseMirror", "param": {
+        "mat0": {"type": "diffuse", "param": {"color": [0.45, 0.45, 0.45]}},
+        "mat1": {"type": "mirror", "param": {"color": [0.3, 0.3, 0.3],
+                                             "roughness": 0.3}}}},
+]
+# shapes of cbox_sphere: floor, ceiling, back, left, right, short, tall,
+# the emitter, the sphere
+ZOO_ASSIGN = {2: "DiffuseMirror", 3: "RedOren", 4: "GreenMetallic",
+              5: "Substrate", 6: "Principled", 8: "CuPlastic"}
+SPHERE_CENTER = SPHERE_ROW[:3]
+
+
+def cbox_zoo(res=512, sub_div=40):
+    """`cbox_sphere` geometry with every material family and every
+    positional light type (point, spot on the sphere, constant-color
+    projector) besides the ceiling emitter, selected by power."""
+    s = cbox_sphere(res, sub_div)
+    s["materials"] += copy.deepcopy(ZOO_MATERIALS)
+    for i, name in ZOO_ASSIGN.items():
+        s["shapes"][i]["param"]["material"] = name
+    spot_pos = [0.33, 1.85, 1.1]
+    s["light_sampler"] = {"type": "power", "param": {"lights": [
+        {"type": "point", "param": {"color": [0.9, 0.8, 0.7], "scale": 1.0,
+                                    "position": [-0.55, 1.55, 0.6]}},
+        {"type": "spot", "param": {
+            "color": [2.5, 2.5, 2.5], "scale": 1.0, "position": spot_pos,
+            "direction": [c - p for c, p in zip(SPHERE_CENTER, spot_pos)],
+            "angle": 22.0, "falloff": 8.0}},
+        {"type": "projector", "param": {
+            "color": [0.4, 0.7, 1.0], "scale": 1.5, "angle": 18.0,
+            "ratio": 1.3,
+            "o2w": {"type": "look_at", "param": {
+                "position": [-0.7, 1.7, 1.2], "target_pos": [-0.3, 0.8, -0.6],
+                "up": [0, 1, 0]}}}},
+    ]}}
+    return s
+
+
+def cbox_sky(res=512):
+    """The cbox without its emitter, lit through the open front by a
+    spherical light whose HDRI file does not exist: the loader replaces it
+    by a constant unit sky in the light's frame."""
+    s = _base(res)
+    s["shapes"].pop()  # the ceiling emitter
+    s["light_sampler"] = {"type": "uniform", "param": {"lights": [
+        {"type": "spherical", "param": {
+            "color": {"fn": "__missing_sky__.exr"}, "scale": 3.0,
+            "o2w": {"type": "matrix4x4", "param": {"matrix4x4": [
+                [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}}}]}}
     return s

@@ -1,32 +1,49 @@
-"""Make the HDR golden of the `cbox_sphere` scene with the JAX package on the
-CPU: `tests/goldens/cbox_sphere_hdr.npz`, the reference of `chip_smoke.py`'s
-render of that scene through the port's K2 kernels.
+"""Make the HDR golden of one of the port's scenes with the JAX package on
+the CPU: the reference `chip_smoke.py` holds the port's render of that
+scene against.
 
-    JAX_PLATFORMS=cpu python tools/gen_torch_mesh_golden.py [out.npz]
+    JAX_PLATFORMS=cpu python tools/gen_torch_mesh_golden.py [scene] [out.npz]
 
-The scene is `tests/torch_scenes.py` `cbox_sphere` (the cornell box plus a
-261,120-triangle sphere on the short box, 261,156 triangles) at 128x128,
-depth 8, rendered in two halves of 64 spp each (frames 0-63 and 64-127,
-the regeneration wavefront in chunks of 8 as `vision_tpu.render.render`
-runs a BVH scene); the golden is their mean, 128 spp.
+`scene` is one of SCENES (default `cbox_sphere`), built by
+`tests/torch_scenes.py`; the golden goes to
+`tests/goldens/<scene>_hdr.npz` unless `out.npz` is given. Each scene
+renders at 128x128, depth 8, in two halves of SPP/2 samples (frames 0 to
+SPP/2 - 1 and SPP/2 to SPP - 1, the regeneration wavefront in chunks of
+8); the golden is their mean.
 
-Before it renders, the script checks the JAX trace it relies on: on the
-CPU the JAX package traces this scene with `intersect_bvh`, whose loop
-stops after 10,000 lock-step iterations without a word (ROADMAP fault C7).
-So the primary wavefront and one cosine bounce from its hits (seeded) are
-traced by `trace_closest` and by `intersect_brute` over all triangles, and
-the lanes where they disagree beyond an exact-t tie are counted.
+  * `cbox_sphere`: the cornell box plus a 261,120-triangle sphere on the
+    short box (261,156 triangles, the port's K2 path), 128 spp.
+  * `cbox_glass`: `make_glass_cbox` (glass and mirror boxes, 36
+    triangles, K1), 1024 spp.
+  * `cbox_zoo`: `cbox_sphere(sub_div=40)` geometry (6,276 triangles, K2)
+    with every material family and the point, spot and projector lights,
+    128 spp.
+
+Before a BVH scene renders, the script checks the JAX trace it relies on:
+on the CPU the JAX package traces such a scene with `intersect_bvh`, whose
+loop stops after 10,000 lock-step iterations without a word (ROADMAP
+fault C7). So the primary wavefront and one cosine bounce from its hits
+(seeded) are traced by `trace_closest` and by `intersect_brute` over all
+triangles, and the lanes where they disagree beyond an exact-t tie are
+counted.
 
 The gate `chip_smoke.py` applies (8x8-block weighted error < 0.06, |bias|
 < 0.025, the thresholds of tests/test_golden.py) must be at least three
 times the error between the two halves; the script fails otherwise.
 
-Measured on an 8-core CPU host, JAX on the CPU: scene build 5.8 s, trace
-check 24.8 s (0 of 16,384 primary and 0 of 16,384 bounce lanes disagree
-beyond a tie), 128 spp in 1,539 s. The two halves differ by weighted error
-0.0121 and bias -0.0020, so the gate is 4.9x and 12.5x the half-spp
-error. (A first attempt at 64 spp gave 0.0201, a ratio of 3.0, and was
-not kept.)
+Measured on an 8-core CPU host, JAX on the CPU:
+  * `cbox_sphere`: scene build 5.8 s, trace check 24.8 s (0 of 16,384
+    primary and 0 of 16,384 bounce lanes disagree beyond a tie), 128 spp
+    in 1,539 s. The two halves differ by weighted error 0.0121 and bias
+    -0.0020, so the gate is 4.9x and 12.5x the half-spp error. (A first
+    attempt at 64 spp gave 0.0201, a ratio of 3.0, and was not kept.)
+  * `cbox_glass`: 1024 spp in 91.4 s; halves differ by weighted error
+    0.0163 and bias 0.0013: the gate is 3.7x and 19.6x.
+  * `cbox_zoo`: trace check 0 of 16,384 primary and 0 of 12,087 bounce
+    lanes; 512 spp through the dense sweep in 1,611.6 s; halves differ by
+    0.0165 and 0.0008: the gate is 3.6x and 29.9x. (A first attempt, 128
+    spp through the CPU BVH walk in 1,798.3 s, gave 0.0319, a ratio of
+    1.9, and was not kept.)
 """
 import os
 import sys
@@ -38,7 +55,12 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 
 RES = 128
-SPP = 128
+SCENES = {"cbox_sphere": 128, "cbox_glass": 1024, "cbox_zoo": 512}
+# scenes the JAX package traces with its dense sweep over every triangle
+# (`intersect_brute`) instead of its CPU BVH walk: the same hits (the
+# trace check below compares the two), 4.5x faster on the CPU at 6,276
+# triangles
+DENSE = {"cbox_zoo"}
 CHUNK = 8
 SEED = 0
 GOLD_WERR = 0.06
@@ -100,34 +122,47 @@ def trace_check(sc):
 
 def main():
     import jax.numpy as jnp
-    from tests.torch_scenes import cbox_sphere
+    import tests.torch_scenes as scenes
     from vision_tpu.render import _wave_pass
     from vision_tpu.scene.scene import Scene
 
-    out_path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        ROOT, "tests", "goldens", "cbox_sphere_hdr.npz")
+    name = sys.argv[1] if len(sys.argv) > 1 else "cbox_sphere"
+    spp = SCENES[name]
+    out_path = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
+        ROOT, "tests", "goldens", f"{name}_hdr.npz")
     t0 = time.time()
-    sc = Scene(cbox_sphere(RES))
-    assert sc.data.pbvh is not None and sc.data.tri_p0.shape[0] == 261156
-    print(f"scene: {time.time() - t0:.1f} s", flush=True)
-    t0 = time.time()
-    check = trace_check(sc)
-    print(f"trace check ({time.time() - t0:.1f} s): {check}", flush=True)
-    if check["primary"] or check["bounce"]:
-        raise SystemExit("the CPU trace disagrees with intersect_brute")
+    sc = Scene(getattr(scenes, name)(RES))
+    check = {"primary": 0, "bounce": 0}
+    if sc.data.pbvh is not None:
+        t1 = time.time()
+        check = trace_check(sc)
+        print(f"trace check ({time.time() - t1:.1f} s): {check}", flush=True)
+        if check["primary"] or check["bounce"]:
+            raise SystemExit("the CPU trace disagrees with intersect_brute")
+    if name in DENSE:
+        import vision_tpu.scene.scene as jscene
+        limit = jscene.BRUTE_FORCE_MAX_TRIS
+        jscene.BRUTE_FORCE_MAX_TRIS = 1 << 30
+        try:
+            sc = Scene(getattr(scenes, name)(RES))
+        finally:
+            jscene.BRUTE_FORCE_MAX_TRIS = limit
+        assert sc.data.pbvh is None
+    print(f"{name}: {sc.data.tri_p0.shape[0]} triangles, scene "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     halves = []
     t0 = time.time()
     for h in range(2):
         acc = np.zeros((RES, RES, 3), np.float64)
-        for f0 in range(h * SPP // 2, (h + 1) * SPP // 2, CHUNK):
+        for f0 in range(h * spp // 2, (h + 1) * spp // 2, CHUNK):
             img, _ = _wave_pass(sc.data, sc.camera, sc.filter, jnp.uint32(f0),
                                 CHUNK, sc.max_depth, sc.min_depth,
                                 jnp.float32(sc.rr_threshold))
             acc += np.asarray(img, np.float64)
             print(f"  frames {f0}-{f0 + CHUNK - 1}: {time.time() - t0:.1f} s",
                   flush=True)
-        halves.append(acc / (SPP // 2 // CHUNK))
+        halves.append(acc / (spp // 2 // CHUNK))
     seconds = time.time() - t0
     werr, bias = block_err(halves[0], halves[1])
     img = (0.5 * (halves[0] + halves[1])).astype(np.float32)
@@ -136,7 +171,7 @@ def main():
           flush=True)
     if GOLD_WERR < 3 * werr or GOLD_BIAS < 3 * abs(bias):
         raise SystemExit("the gate is not three times the half-spp error")
-    np.savez_compressed(out_path, img=img, res=RES, spp=SPP,
+    np.savez_compressed(out_path, img=img, res=RES, spp=spp,
                         depth=sc.max_depth, seconds=seconds,
                         half_werr=werr, half_bias=bias,
                         trace_check=np.asarray([check["primary"],

@@ -3,8 +3,9 @@
     python3 tools/profile_torch_render.py [--scene NAME] [TRACE_DIR]
 
 Renders a scene at 512^2, depth 8 (NAME: `cbox`, tests/fixtures.py
-CBOX_JSON, the default; `cbox_sphere` or `cbox_spheres_instanced`,
-tests/torch_scenes.py) at 1 spp to warm up, then at 4 spp timed plain and
+CBOX_JSON, the default; `cbox_sphere`, `cbox_spheres_instanced`,
+`cbox_glass`, `cbox_zoo` or `cbox_sky`, tests/torch_scenes.py) at 1 spp
+to warm up, then at 4 spp timed plain and
 once more under torch.profiler, and prints JSON lines: the device's busy
 share of the traced window, device time by kernel (top 25), the device
 time, launches and share of device time of K1 (dense sweep), K2 and K3
@@ -53,7 +54,8 @@ def _load(rel):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="cbox",
-                    choices=["cbox", "cbox_sphere", "cbox_spheres_instanced"])
+                    choices=["cbox", "cbox_sphere", "cbox_spheres_instanced",
+                             "cbox_glass", "cbox_zoo", "cbox_sky"])
     ap.add_argument("trace_dir", nargs="?")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -64,6 +66,8 @@ def main():
         desc = _load("tests/fixtures.py").CBOX_JSON
     else:
         desc = getattr(_load("tests/torch_scenes.py"), args.scene)(512)
+    if args.scene == "cbox_zoo":
+        desc = _load("tests/torch_scenes.py").cbox_zoo(512, sub_div=40)
     scene = vt.load_scene(desc, device="cuda")
     vt.render(scene, spp=1)
     torch.cuda.synchronize()

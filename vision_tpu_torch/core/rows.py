@@ -1,0 +1,35 @@
+"""Packed table rows: one indexing fetches every column a lane reads.
+
+The JAX package fetches a table's columns for a lane through one fused
+fetch (`vision_tpu/core/gather.py` `fetch_rows`): the columns are stacked
+into one float32 matrix, ids and flags included (exact below 2^24). The
+port keeps that layout, so a shading step pays one gather launch for a
+row instead of one per column.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class PackedRows:
+    """`spec` = ((column name, width), ...) of `table`, stacked in that
+    order into `rows` [N, C] float32."""
+
+    def __init__(self, table, spec):
+        n = getattr(table, spec[0][0]).shape[0]
+        self.rows = torch.cat([getattr(table, k).reshape(n, -1)
+                               .to(torch.float32) for k, _ in spec], dim=1)
+        self.slices, o = {}, 0
+        for k, w in spec:
+            self.slices[k] = (o, o + w, w == 1)
+            o += w
+
+    def fetch(self, idx):
+        """Rows `idx` [...] -> a reader: col(name) is [...] for a width-1
+        column, else [..., width] (float32; cast ids back)."""
+        g = self.rows[idx]
+
+        def col(k):
+            lo, hi, scalar = self.slices[k]
+            return g[..., lo] if scalar else g[..., lo:hi]
+        return col

@@ -152,7 +152,7 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
 
     # ---------------- miss: environment ----------------
     miss = act & hit.is_miss
-    env_L = lt.env_radiance(lights, c["d"])
+    env_L = lt.env_radiance(lights, scene.atlas, c["d"])
     env_pdf = lt.env_pdf_wi(lights, c["d"])
     w_env = torch.where(first, 1.0, warp.mis_weight(c["spdf"], env_pdf))
     L = L + torch.where(miss[..., None], thr * env_L * w_env[..., None], 0.0)
@@ -162,7 +162,8 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     wo = -c["d"]
 
     # ---------------- emissive hit MIS ----------------
-    Le, l_pdf = lt.eval_hit_area(lights, light_id, c["o"], pos, ng)
+    Le, l_pdf = lt.eval_hit_area(lights, light_id, c["o"], pos, ng, uv,
+                                 scene.atlas)
     w_hit = torch.where(first, 1.0, warp.mis_weight(c["spdf"], l_pdf))
     hit_light = act & (light_id >= 0)
     L = L + torch.where(hit_light[..., None], thr * Le * w_hit[..., None], 0.0)
@@ -180,16 +181,22 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     # ---------------- NEE ----------------
     st, u_sel = rng.next_1d(c["st"])
     st, u_l2 = rng.next_2d(st)
-    ls = lt.sample_wi(lights, scene.tri_pack, pos, u_sel, u_l2)
+    ls = lt.sample_wi(lights, scene.atlas, scene.tri_pack, pos, ns, u_sel,
+                      u_l2, scene.world_radius)
     shadow_ray = Ray.make(spawn_origin(pos, ng, ls.wi, off_factor), ls.wi,
                           t_max=ls.dist * (1.0 - 1e-3))
     wi_l_nee = to_local(t, b, ns, ls.wi)
     nee_eval = ub.evaluate(params, wo_l, wi_l_nee)
     f_nee = nee_eval.f * torch.abs(wi_l_nee[..., 2])[..., None]
     nee_pdf = nee_eval.pdf
-    # area lights only: no delta lights (pdf < 0) on this slice
-    l_pdf_pos = ls.pdf
-    w_nee = warp.mis_weight(l_pdf_pos, nee_pdf)
+    if any(lights.has(k) for k in ("point", "spot", "proj", "dir")):
+        # a delta light's sample carries pdf = -pmf: no MIS for it
+        is_delta = ls.pdf < 0.0
+        l_pdf_pos = torch.where(is_delta, -ls.pdf, ls.pdf)
+        w_nee = torch.where(is_delta, 1.0, warp.mis_weight(l_pdf_pos, nee_pdf))
+    else:
+        l_pdf_pos = ls.pdf
+        w_nee = warp.mis_weight(l_pdf_pos, nee_pdf)
     nee_pre = (act & (l_pdf_pos > 0.0) & (nee_pdf >= 0.0)
                & (torch.amax(torch.abs(ls.L * f_nee), dim=-1) > 0.0))
     occ = trace_occluded(scene, shadow_ray, nee_pre)

@@ -47,8 +47,9 @@ def sample_alias(prob, alias, pmf, u, offset=0, count=None):
     Returns (index_in_subtable int64, pmf_value, u_remapped)."""
     n = count if count is not None else prob.shape[0]
     x = u * n
-    i = torch.minimum(torch.clamp_min(x.long(), 0),
-                      torch.as_tensor(n, device=u.device) - 1)
+    i = torch.clamp_min(x.long(), 0)
+    # an int count clamps without a host-to-device copy
+    i = torch.minimum(i, n - 1) if torch.is_tensor(n) else torch.clamp_max(i, n - 1)
     frac = x - i.float()
     gi = offset + i
     p, ali, pmf_i = prob[gi], alias[gi].long(), pmf[gi]

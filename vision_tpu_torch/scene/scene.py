@@ -1,11 +1,17 @@
 """Scene: JSON description -> flat SceneData of tensors on one device.
 
-Counterpart of `vision_tpu/scene/scene.py` (`_build`, `_flatten`,
-`_pack_rows`, `_build_instanced`, `_build_device_geometry`) for the ported
-subset: procedural shapes (quad, cube, sphere), constant-color diffuse
-materials, area emission (on a shape or as a standalone area light) and
-the srgb spectrum with the normal frame buffer. Geometry takes the path the
-JAX package gives it:
+Counterpart of `vision_tpu/scene/scene.py` (`_build`, `_add_light`,
+`_flatten`, `_pack_rows`, `_build_instanced`, `_build_device_geometry`) for
+the ported subset: procedural shapes (quad, cube, sphere), every material
+type of `shading/materials.py`, area emission (on a shape or as a
+standalone area light), point, spot, projector, spherical and directional
+lights, and the srgb spectrum with the normal frame buffer. A spherical
+light whose image file is missing, in a scene with no other light, becomes
+the JAX package's substitute: a unit sky in the light's frame. An image
+file that exists (a texture, a projector's image, an environment map)
+raises NotImplementedError: image loading is slice 7; so does the `mix`
+environment, which blends two images. Geometry takes the path the JAX
+package gives it:
 
   * at most 2048 triangles: the dense sweep (kernel K1);
   * more: a SAH BVH over the flat soup (`pbvh`, kernel K2);
@@ -22,8 +28,9 @@ not take.
 from __future__ import annotations
 
 import os
+import warnings
 from collections import Counter
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -35,8 +42,9 @@ from ..core import transform as xf
 from ..lights.lights import LightBuilder, LightTable
 from ..sensor.camera import Camera
 from ..sensor.filters import FilterSampler
-from ..shading import bsdf
-from ..shading.materials import COLUMNS, INT_COLUMNS, MaterialCompiler, MaterialTable
+from ..shading.materials import (COLUMNS, INT_COLUMNS, OPTIONAL,
+                                 MaterialCompiler, MaterialTable, check_feats,
+                                 image_exists_or_raise)
 from ..spectra.spectrum import SpectrumModel
 from . import desc as dsc
 from . import shapes as shp
@@ -134,37 +142,93 @@ def _world_radius(p_all):
     return max(float(np.linalg.norm(p_all - center, axis=-1).max()), 1e-3)
 
 
-def _emission_color(edesc):
-    """Emission desc -> (rgb * scale, two_sided)."""
+def _missing_image(scene_dir, payload, what):
+    """An image slot: NotImplementedError (slice 7) if its file exists; a
+    warning if it is missing, which the JAX package skips the same way."""
+    image_exists_or_raise(scene_dir, payload.get("fn"), what)
+    warnings.warn(f"{what}: image '{payload.get('fn')}' missing")
+
+
+def _emission_color(edesc, scene_dir):
+    """Emission desc -> (rgb * scale, two_sided). A missing emission image
+    leaves white times the scale, as in the JAX package."""
     ep = dsc.ParameterSet(edesc.get("param", {}))
     kind, payload, _ = dsc.parse_slot(ep.raw("color", [1, 1, 1]))
-    if kind != "const":
-        raise _not_ported("textured emission", "1b")
-    color = list(payload) + [payload[-1]] * (3 - len(payload))
+    if kind == "image":
+        _missing_image(scene_dir, payload, "emission texture")
+    color = payload if kind == "const" else [1.0, 1.0, 1.0]
+    color = list(color) + [color[-1]] * (3 - len(color))
     sk, sp_, _ = dsc.parse_slot(ep.raw("scale", 1.0))
     scale = sp_[0] if sk == "const" else 1.0
     return [c * scale for c in color[:3]], ep.as_bool("two_sided", False)
+
+
+def _add_light(lights, ldesc, scene_dir, add_area):
+    """One entry of light_sampler.lights (the JAX package's `_add_light`).
+    Returns the (color, o2w) of a spherical light whose image is missing,
+    else None; `add_area(color, two_sided, world_quad)` adds an area
+    light's geometry and row."""
+    lt = ldesc.get("type")
+    p = dsc.ParameterSet(ldesc.get("param", {}))
+    scale = p.as_float("scale", 1.0)
+    kind, payload, _ = dsc.parse_slot(p.raw("color", [1, 1, 1]))
+    if kind == "const":
+        c = payload + [payload[-1]] * (3 - len(payload))
+        color, img = [v * scale for v in c[:3]], None
+    else:
+        color, img = [scale] * 3, (payload if kind == "image" else None)
+    if lt in ("spot", "projector") and p.raw("ies", None):
+        raise _not_ported("IES light profiles", 4)
+    if lt == "point":
+        lights.add_point(color, p.as_float3("position"))
+    elif lt == "spot":
+        lights.add_spot(color, p.as_float3("position"),
+                        p.as_float3("direction", (0, 0, 1)),
+                        p.as_float("angle", 45.0), p.as_float("falloff", 10.0))
+    elif lt == "projector":
+        if img is not None:
+            _missing_image(scene_dir, img, "projector texture")
+        lights.add_projector(color, xf.from_json(p.raw("o2w")),
+                             p.as_float("angle", 30.0),
+                             p.as_float("ratio", 1.0), -1)
+    elif lt == "spherical":
+        if img is None:
+            return None  # a constant-color environment is skipped
+        _missing_image(scene_dir, img, "spherical light")
+        return color, p.raw("o2w")
+    elif lt == "directional":
+        lights.add_directional(color, p.as_float3("direction", (0, -1, 0)))
+    elif lt == "mix":
+        raise _not_ported("the 'mix' environment (a blend of two images)", 7)
+    elif lt == "area":
+        world = shp.make_quad(p.as_float("width", 1.0),
+                              p.as_float("height", 1.0)).transformed(
+            xf.from_json(p.raw("o2w")))
+        add_area(color, p.as_bool("two_sided", False), world)
+    return None
 
 
 class Scene:
     """Host-side scene container (load + build) on `device`, the card
     unless the caller asks for another."""
 
-    def __init__(self, path_or_dict, device="cuda"):
+    def __init__(self, path_or_dict, device="cuda", scene_dir=None):
         if isinstance(path_or_dict, (str, os.PathLike)):
             p = os.fspath(path_or_dict)
             if p.lower().endswith((".gltf", ".glb")):
                 raise _not_ported("glTF scene import", 7)
             raw = dsc.load_jsonc(p)
+            self.scene_dir = scene_dir or os.path.dirname(os.path.abspath(p))
         else:
             raw = path_or_dict
+            self.scene_dir = scene_dir or "."
         self.raw = raw
         self.device = torch.device(device)
         self._build()
 
     def _build(self):
         raw, device = self.raw, self.device
-        mats = MaterialCompiler()
+        mats = MaterialCompiler(self.scene_dir)
         for mdesc in raw.get("materials", []):
             mats.compile(mdesc)
 
@@ -180,7 +244,8 @@ class Scene:
         sp_type = "srgb"  # the JAX package reads any other name as srgb
 
         ls = raw.get("light_sampler", {})
-        lights = LightBuilder(sampler_type=ls.get("type", "uniform"))
+        lights = LightBuilder(sampler_type=ls.get("type", "uniform"),
+                              env_prob=ls.get("param", {}).get("env_prob", 0.5))
 
         # ---- shapes: procedural meshes, hash-dedup registry ----
         raw_parts = []  # (mesh, o2w, inst_id, geo_key, emission|None)
@@ -241,29 +306,33 @@ class Scene:
             base += world.num_triangles
 
         # ---- lights ----
-        for ldesc in ls.get("param", {}).get("lights", []):
-            if ldesc.get("type") != "area":
-                raise _not_ported(f"the '{ldesc.get('type')}' light", "1b")
-            lp = dsc.ParameterSet(ldesc.get("param", {}))
-            kind, payload, _ = dsc.parse_slot(lp.raw("color", [1, 1, 1]))
-            if kind != "const":
-                raise _not_ported("textured emission", "1b")
-            scale = lp.as_float("scale", 1.0)
-            color = list(payload) + [payload[-1]] * (3 - len(payload))
-            world = shp.make_quad(lp.as_float("width", 1.0),
-                                  lp.as_float("height", 1.0)).transformed(
-                xf.from_json(lp.raw("o2w")))
+        def add_area(color, two_sided, world):
+            nonlocal base
             inst_id = len(inst_mat)
             inst_mat.append(-1)
-            inst_light.append(lights.add_area(
-                [c * scale for c in color[:3]], inst_id, base,
-                _tri_areas(world), lp.as_bool("two_sided", False)))
+            inst_light.append(lights.add_area(color, inst_id, base,
+                                              _tri_areas(world), two_sided))
             mesh_parts.append((world, inst_id))
             base += world.num_triangles
+
+        skipped_env = None
+        for ldesc in ls.get("param", {}).get("lights", []):
+            skipped_env = _add_light(lights, ldesc, self.scene_dir,
+                                     add_area) or skipped_env
         for inst_id, edesc, tri_base, areas in pending:
-            color, two_sided = _emission_color(edesc)
+            color, two_sided = _emission_color(edesc, self.scene_dir)
             inst_light[inst_id] = lights.add_area(color, inst_id, tri_base,
                                                   areas, two_sided)
+        atlas = AtlasBuilder()
+        if skipped_env is not None and not lights.rows:
+            # the only light was an environment whose image is missing: a
+            # constant unit sky in its frame keeps the scene lit, as in the
+            # JAX package
+            warnings.warn("scene has no lights; substituting a constant "
+                          "environment for the missing HDRI")
+            image = np.full((8, 16, 3), 1.0, np.float32)
+            lights.add_spherical([1.0, 1.0, 1.0], xf.from_json(skipped_env[1]),
+                                 atlas.add_array(image), image)
 
         # ---- flatten geometry ----
         t = _flatten(mesh_parts)
@@ -316,7 +385,7 @@ class Scene:
             inst_mat=torch.as_tensor(inst_mat, device=device),
             inst_light=torch.as_tensor(inst_light, device=device),
             materials=mats.build(device), lights=lights.build(device),
-            atlas=AtlasBuilder().build(device),
+            atlas=atlas.build(device),
             spectrum=SpectrumModel.make(sp_type, device),
             world_radius=float(np.float32(_world_radius(p_all))),
             ray_offset=float(np.float32(rs.as_float("ray_offset_factor", 1.0))),
@@ -387,9 +456,11 @@ def scene_from_arrays(arrays, device="cuda"):
     (MaterialTable), `lights.*` (LightTable), `atlas.*` (TextureAtlas),
     `spectrum.*` (SpectrumModel), `camera.*` (Camera), `filter.*`
     (FilterSampler), `pbvh.*` (PacketBVH) and `ipbvh.*` (InstancedPBVH).
-    Static fields (`feats`, `n_lights`, `env_index`, `n_real`, `kind`,
-    `resolution`, `is_box`, `bsize`) come as arrays too. A scene outside
-    the slice raises NotImplementedError.
+    Static fields (`feats`, `n_lights`, `env_index`, `env_prob`, `env_w`,
+    `env_h`, `n_real`, `kind`, `resolution`, `is_box`, `bsize`) come as
+    arrays too. A scene outside the slice (media, the hero spectrum,
+    shade-time node graphs, normal maps, IES profiles) raises
+    NotImplementedError.
     """
     a = {k: np.array(v) for k, v in arrays.items()}
 
@@ -401,21 +472,28 @@ def scene_from_arrays(arrays, device="cuda"):
     if int(a["spectrum.kind"]) != 0:
         raise _not_ported("the hero-wavelength spectrum", 4)
     mat_feats = tuple(str(f) for f in np.atleast_1d(a["materials.feats"]))
-    bsdf.check_feats(mat_feats)
+    check_feats(mat_feats)
     light_feats = tuple(str(f) for f in np.atleast_1d(a["lights.feats"]))
-    if light_feats != ("area",) or int(a["lights.env_index"]) >= 0:
-        raise _not_ported(f"lights {light_feats}", "1b")
+    if "ies" in light_feats:
+        raise _not_ported("IES light profiles", 4)
 
     materials = MaterialTable(
         feats=mat_feats,
         **{k: t(f"materials.{k}",
                 torch.int32 if k in INT_COLUMNS else torch.float32)
-           for k in COLUMNS})
-    lk = ("ltype", "color", "color_tex", "two_sided", "inst_id", "total_area",
-          "tri_offset", "tri_count", "a_prob", "a_alias", "a_pmf", "tri_base",
-          "sel_prob", "sel_alias", "sel_pmf")
-    lights = LightTable(n_lights=int(a["lights.n_lights"]),
-                        **{k: t(f"lights.{k}") for k in lk})
+           for k in COLUMNS},
+        **{k: t(f"materials.{k}") for k in OPTIONAL
+           if f"materials.{k}" in a})
+    static = {"n_lights", "env_index", "env_prob", "env_w", "env_h", "feats"}
+    lf = [f.name for f in fields(LightTable)
+          if f.name not in static and f.name != "packed"]
+    lights = LightTable(
+        feats=light_feats, n_lights=int(a["lights.n_lights"]),
+        env_index=int(a["lights.env_index"]),
+        env_prob=float(a["lights.env_prob"]), env_w=int(a["lights.env_w"]),
+        env_h=int(a["lights.env_h"]),
+        **{k: t(f"lights.{k}", torch.int64 if k == "env_tex" else None)
+           for k in lf})
     atlas = TextureAtlas(data=t("atlas.data"),
                          offset=t("atlas.offset", torch.int64),
                          width=t("atlas.width", torch.int64),

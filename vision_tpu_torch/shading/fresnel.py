@@ -1,12 +1,13 @@
 """Fresnel variants over a trailing spectral axis.
 
 Counterpart of `vision_tpu/shading/fresnel.py`: Schlick, exact dielectric,
-complex conductor, F82-tint and constant. The diffuse lobe of the ported
-slice needs none of them; they are the building blocks of the specular
-lobes (ROADMAP queue A, slice 1b).
+complex conductor, F82-tint and constant, and the host-side conversions
+the material compiler uses (Schlick F0 from an IOR and back, the F82
+edge-tint coefficient). Those take numpy arrays or floats.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.math import lerp, safe_sqrt, sqr
@@ -27,6 +28,15 @@ def schlick_weight(cos_theta):
 def fresnel_schlick(F0, cos_theta):
     """F0 [..., S], cos_theta [...]."""
     return lerp(schlick_weight(cos_theta)[..., None], F0, torch.ones_like(F0))
+
+
+def schlick_F0_from_ior(ior):
+    return sqr((ior - 1.0) / (ior + 1.0))
+
+
+def schlick_ior_from_F0(f0):
+    s = np.sqrt(np.clip(f0, 0.0, 0.99))
+    return (1.0 + s) / (1.0 - s)
 
 
 def fresnel_dielectric(abs_cos_theta_i, eta):
@@ -77,3 +87,14 @@ def fresnel_f82(cos_theta, F0, b):
     m5 = sqr(sqr(m)) * m
     schlick = F0 + (1.0 - F0) * m5[..., None]
     return schlick - b * (cos_theta * m5 * m)[..., None]
+
+
+def f82_b_from_edge_tint(F0, edge_tint):
+    """The F82 correction coefficient b from the edge tint at cos = 1/7
+    (numpy, at material compile time)."""
+    cos_82 = 1.0 / 7.0
+    m = 1.0 - cos_82
+    m5 = m ** 5
+    schlick_at = F0 + (1.0 - F0) * m5
+    denom = cos_82 * m5 * m
+    return (schlick_at - edge_tint * schlick_at) / denom

@@ -1,157 +1,604 @@
 """Material compilation: JSON material descs -> flat material table rows.
 
-Counterpart of `vision_tpu/shading/materials.py` for the `diffuse` material
-with a constant color. The table keeps the JAX package's row layout (every
-uber-BSDF column), so both packages gather the same rows. Other material
-types, textured or node-graph slots and Oren-Nayar roughness raise
-NotImplementedError (ROADMAP queue A, slice 1b). The JAX package fetches
-rows through a one-hot matmul (a TPU gather workaround,
-`vision_tpu/core/gather.py`); plain indexing gives the same rows.
+Counterpart of `vision_tpu/shading/materials.py`. Each material type maps
+to parameters of the uber-BSDF (bsdf.py): diffuse (Oren-Nayar through
+`sigma`), mirror, metal, metallic, glass, substrate, plastic,
+principled_bsdf, emission, black_body, and the mixtures mix, add and
+multi_layered (a second row and two weights); an unknown type becomes grey
+diffuse. The table carries every column of the JAX package's
+`MaterialTable`, in its units, so both packages gather the same rows; the
+spectral columns (`glass_coeffs`, `metal_*_spd`, `dispersive_id`,
+`metal_id`) wait for the hero spectrum.
+
+A slot is a constant or a tree of constant calculation nodes, folded on
+the host as the JAX package folds it. An image slot whose file exists
+raises NotImplementedError (image loading, ROADMAP queue A slice 7); one
+whose file is missing takes the slot's default, as in the JAX package.
+Shade-time node graphs (a fresnel-driven mix, uv vector mapping, other
+context-dependent nodes), normal maps (`bump`) and subsurface (it attaches
+a medium) raise NotImplementedError naming slice 4.
+
+At shade time `gather_params` reads a lane's row in one indexing of the
+packed columns (`core/rows.py`) and resolves the kd / spec / rough / frac
+texture slots against the atlas.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+import os
+import warnings
+from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
 import torch
 
+from ..core.rows import PackedRows
 from ..scene.desc import ParameterSet, parse_slot
+from ..spectra import spd
+from ..spectra.spectrum import DATA_DIR
 from . import bsdf
 from . import fresnel as frs
+from .microfacet import calculate_alpha, roughness_to_alpha
+
+
+def _not_ported(what, slice_):
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP queue A, slice {slice_}")
 
 
 @dataclass
 class MaterialTable:
-    """[M, ...] rows of uber-BSDF parameters + texture slot ids (-1 = const)."""
-    kd: torch.Tensor          # [M, 3]
-    kd_tex: torch.Tensor      # [M]
+    """[M, ...] rows of uber-BSDF parameters + texture slot ids (-1 =
+    const), the JAX package's columns in its order."""
+    kd: torch.Tensor            # [M, 3]
+    kd_tex: torch.Tensor        # [M]
     sigma: torch.Tensor
     diffuse_kind: torch.Tensor
     diffuse_weight: torch.Tensor
-    spec_tint: torch.Tensor   # [M, 3]
+    spec_tint: torch.Tensor     # [M, 3]
+    spec_tex: torch.Tensor
     ax: torch.Tensor
     ay: torch.Tensor
+    rough_tex: torch.Tensor     # scalar roughness texture (remapped at shade time)
+    rough_remap: torch.Tensor
+    anisotropic: torch.Tensor
     fr_mode: torch.Tensor
-    eta: torch.Tensor         # [M] scalar dielectric ior
-    eta3: torch.Tensor        # [M, 3]
-    k3: torch.Tensor          # [M, 3]
+    eta: torch.Tensor           # [M] scalar dielectric ior
+    eta3: torch.Tensor          # [M, 3] conductor eta / Schlick F0 / F82 F0
+    k3: torch.Tensor            # [M, 3] conductor k / F82 b
     spec_weight: torch.Tensor
     trans_weight: torch.Tensor
     cc_weight: torch.Tensor
     cc_alpha: torch.Tensor
     sheen_weight: torch.Tensor
-    sheen_tint: torch.Tensor  # [M, 3]
+    sheen_tint: torch.Tensor    # [M, 3]
     flatness: torch.Tensor
     metallic: torch.Tensor
-    feats: tuple = bsdf.PORTED_FEATS
+    dispersive_id: torch.Tensor  # glass_coeffs row (-1 none)
+    metal_id: torch.Tensor       # metal SPD row (-1 none)
+    mix_b: torch.Tensor          # second row of a mixture (-1 plain)
+    mix_wa: torch.Tensor
+    mix_wb: torch.Tensor
+    frac_tex: torch.Tensor       # textured mix fraction (-1 const)
+    normal_tex: torch.Tensor     # normal map (-1 none)
+    bump_scale: torch.Tensor
+    glass_coeffs: torch.Tensor   # [G, 6] Sellmeier B1 C1 B2 C2 B3 C3
+    metal_eta_spd: torch.Tensor  # [Mt, 95]
+    metal_k_spd: torch.Tensor    # [Mt, 95]
+    fres_ior: torch.Tensor       # [M] shade-time fresnel mix (0 = none)
+    fres_a: torch.Tensor         # [M, 3]
+    fres_b: torch.Tensor         # [M, 3]
+    uv_xform: torch.Tensor       # [M, 6] shade-time uv TRS
+    sheen_rough: torch.Tensor    # [M] sheen LTC roughness
+    feats: tuple = ()
+    ems_E: torch.Tensor = None       # GGX energy LUT (ggx_energy.npz)
+    ems_Eavg: torch.Tensor = None
+    sheen_ltc: torch.Tensor = None   # [32, 32, 3] (sheen_ltc.npz)
+    # set by __post_init__: the packed gather rows and the static facts
+    # the shading code branches on
+    packed: PackedRows = field(default=None, repr=False)
+    fr_modes: tuple = ()
+    tex_slots: tuple = ()
+
+    def __post_init__(self):
+        self.packed = PackedRows(self, PACKED)
+        self.fr_modes = tuple(int(m) for m in torch.unique(self.fr_mode).cpu())
+        self.tex_slots = tuple(
+            s for s, k in (("kd", "kd_tex"), ("spec", "spec_tex"),
+                           ("rough", "rough_tex"), ("frac", "frac_tex"))
+            if bool((getattr(self, k) >= 0).any()))
 
 
-INT_COLUMNS = ("kd_tex", "diffuse_kind", "fr_mode")
-COLUMNS = tuple(f.name for f in fields(MaterialTable) if f.name != "feats")
+INT_COLUMNS = ("kd_tex", "spec_tex", "rough_tex", "rough_remap",
+               "diffuse_kind", "fr_mode", "dispersive_id", "metal_id",
+               "mix_b", "frac_tex", "normal_tex")
+# the table's columns (every dataclass field but the static ones and the
+# LUTs, which are present only when a material needs them)
+COLUMNS = tuple(f.name for f in fields(MaterialTable)
+                if f.name not in ("feats", "ems_E", "ems_Eavg", "sheen_ltc",
+                                  "packed", "fr_modes", "tex_slots"))
+OPTIONAL = ("ems_E", "ems_Eavg", "sheen_ltc")
+# the per-row columns a shading lane reads, packed in this order
+PACKED = (("kd", 3), ("kd_tex", 1), ("spec_tint", 3), ("spec_tex", 1),
+          ("ax", 1), ("ay", 1), ("rough_tex", 1), ("rough_remap", 1),
+          ("eta", 1), ("eta3", 3), ("k3", 3), ("sigma", 1),
+          ("diffuse_kind", 1), ("diffuse_weight", 1), ("fr_mode", 1),
+          ("spec_weight", 1), ("trans_weight", 1), ("cc_weight", 1),
+          ("cc_alpha", 1), ("sheen_weight", 1), ("sheen_tint", 3),
+          ("flatness", 1), ("metallic", 1), ("sheen_rough", 1),
+          ("mix_b", 1), ("mix_wa", 1), ("mix_wb", 1), ("frac_tex", 1))
 
 
 def _default_row():
     return dict(
         kd=[0.0, 0.0, 0.0], kd_tex=-1, sigma=0.0,
         diffuse_kind=bsdf.DIFF_LAMBERT, diffuse_weight=0.0,
-        spec_tint=[1.0, 1.0, 1.0], ax=1e-4, ay=1e-4,
+        spec_tint=[1.0, 1.0, 1.0], spec_tex=-1,
+        ax=1e-4, ay=1e-4, rough_tex=-1, rough_remap=1, anisotropic=0.0,
         fr_mode=frs.FR_DIELECTRIC, eta=1.5,
         eta3=[1.0, 1.0, 1.0], k3=[0.0, 0.0, 0.0],
-        spec_weight=0.0, trans_weight=0.0, cc_weight=0.0, cc_alpha=0.01,
-        sheen_weight=0.0, sheen_tint=[0.0, 0.0, 0.0],
+        spec_weight=0.0, trans_weight=0.0,
+        cc_weight=0.0, cc_alpha=0.01,
+        sheen_weight=0.0, sheen_tint=[0.0, 0.0, 0.0], sheen_rough=0.5,
         flatness=0.0, metallic=0.0,
+        dispersive_id=-1, metal_id=-1,
+        mix_b=-1, mix_wa=1.0, mix_wb=0.0, frac_tex=-1,
+        normal_tex=-1, bump_scale=1.0,
+        fres_ior=0.0, fres_a=[0.0, 0.0, 0.0], fres_b=[1.0, 1.0, 1.0],
+        uv_xform=[1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
     )
 
 
-def _const_slot(pset, key, default):
-    """A constant slot -> list of floats (a scalar pads to 3 as the JAX
-    package's resolve_rgb does); anything else raises."""
-    if key not in pset:
-        return list(default)
-    kind, payload, channels = parse_slot(pset.raw(key))
-    if kind != "const" or channels not in (None, "xyz"):
-        raise NotImplementedError(
-            f"material slot '{key}' of kind '{kind}' is not ported yet: "
-            "textures and node graphs come with ROADMAP queue A, slice 1b")
-    c = np.asarray(payload, np.float32)
-    return [float(x) for x in list(c) + [c[-1]] * max(0, 3 - len(c))]
+# ---- slot folding (constant node trees; `shader_graph.fold_slot`) ----
+
+_SWZ = {"x": 0, "y": 1, "z": 2, "w": 3, "r": 0, "g": 1, "b": 2, "a": 3}
+_BINARY = {
+    "add": np.add, "subtract": np.subtract, "sub": np.subtract,
+    "multiply": np.multiply, "mul": np.multiply,
+    "divide": lambda a, b: np.divide(a, np.where(np.abs(b) < 1e-9, 1e-9, b)),
+}
+_BINARY["div"] = _BINARY["divide"]
+
+
+class _MissingImage(Exception):
+    """An image slot whose file does not exist: the slot's default."""
+
+
+def image_exists_or_raise(scene_dir, fn, what):
+    """For an image slot: raise NotImplementedError (slice 7) if its file
+    exists, return False if it is missing."""
+    if os.path.exists(os.path.join(scene_dir, str(fn))):
+        raise _not_ported(f"loading the image '{fn}' ({what})", 7)
+    return False
+
+
+def _swizzle(c, channels):
+    if not channels:
+        return c
+    idx = [_SWZ[ch] for ch in channels.lower() if ch in _SWZ]
+    if not idx:
+        return c
+    return c[[min(i, c.shape[-1] - 1) for i in idx]]
+
+
+def _pad_op(a, b, op):
+    n = max(a.shape[-1], b.shape[-1])
+
+    def pad(v):
+        return np.concatenate([v, np.repeat(v[-1:], n - v.shape[-1])]) \
+            if v.shape[-1] < n else v
+    return op(pad(a), pad(b))
+
+
+def fold_const(raw, scene_dir):
+    """Fold a constant node tree -> float32 vector."""
+    kind, payload, channels = parse_slot(raw)
+    if kind == "const":
+        c = np.atleast_1d(np.asarray(payload, np.float32))
+    elif kind == "image":
+        image_exists_or_raise(scene_dir, payload.get("fn"), "a material slot")
+        raise _MissingImage(payload.get("fn"))
+    elif kind in _BINARY:
+        c = _pad_op(fold_const(payload.get("lhs", 0.0), scene_dir),
+                    fold_const(payload.get("rhs", 0.0), scene_dir),
+                    _BINARY[kind])
+    elif kind in ("lerp", "mix"):
+        t = fold_const(payload.get("t", 0.5), scene_dir)
+        A = fold_const(payload.get("A", payload.get("lhs", 0.0)), scene_dir)
+        B = fold_const(payload.get("B", payload.get("rhs", 1.0)), scene_dir)
+        c = np.add(_pad_op(A, t, lambda a, tt: a * (1.0 - tt)),
+                   _pad_op(B, t, lambda b, tt: b * tt))
+    elif kind == "scale":
+        v = fold_const(payload.get("value", payload.get("node", 1.0)), scene_dir)
+        c = v * float(np.atleast_1d(payload.get("scale", 1.0))[0])
+    elif kind == "clamp":
+        v = fold_const(payload.get("value", 0.0), scene_dir)
+        c = np.clip(v, float(payload.get("lower", 0.0)),
+                    float(payload.get("upper", 1.0)))
+    else:
+        raise _not_ported(f"the shader node '{kind}' (node graphs)", 4)
+    return _swizzle(np.atleast_1d(np.asarray(c, np.float32)), channels)
+
+
+def _fold_or_default(raw, scene_dir):
+    try:
+        return fold_const(raw, scene_dir)
+    except (_MissingImage, ValueError, TypeError, AttributeError) as e:
+        warnings.warn(f"slot fold failed ({e}); using default")
+        return None
 
 
 class MaterialCompiler:
-    """Accumulates material rows; dedups by name. Diffuse only."""
+    """Accumulates material rows; dedups by name."""
 
-    def __init__(self):
+    def __init__(self, scene_dir="."):
         self.rows = []
         self.by_name = {}
+        self.scene_dir = scene_dir
+
+    # ---- slot helpers ----
+
+    def _slot_rgb(self, pset, key, default):
+        """A color slot -> (rgb [3], tex id); textures never come out of
+        the port's folding (see the module's docstring)."""
+        if key not in pset:
+            return list(default), -1
+        v = _fold_or_default(pset.raw(key), self.scene_dir)
+        if v is None:
+            return list(default), -1
+        c = list(v) + [float(v[-1])] * max(0, 3 - v.shape[-1])
+        return [float(c[0]), float(c[1]), float(c[2])], -1
+
+    def _slot_scalar(self, pset, key, default):
+        if key not in pset:
+            return float(default), -1
+        v = _fold_or_default(pset.raw(key), self.scene_dir)
+        if v is None:
+            return float(default), -1
+        return float(v[0]), -1
+
+    def _slot_rough2(self, pset, key, default):
+        """Roughness may be scalar or [rx, ry]."""
+        kind, payload, _ = parse_slot(pset.raw(key, default))
+        if kind == "const":
+            if len(payload) >= 2:
+                return float(payload[0]), float(payload[1]), -1
+            return float(payload[0]), float(payload[0]), -1
+        if kind == "image":
+            image_exists_or_raise(self.scene_dir, payload.get("fn"),
+                                  "a roughness slot")
+        return float(default), float(default), -1
+
+    # ---- compile entry ----
 
     def compile(self, desc):
         """Compile one material desc; returns the material id."""
         name = desc.get("name")
         if name and name in self.by_name:
             return self.by_name[name]
-        mtype = desc.get("type", "diffuse")
-        if mtype != "diffuse":
-            raise NotImplementedError(
-                f"material type '{mtype}' is not ported yet: only 'diffuse' "
-                "is (ROADMAP queue A, slice 1b)")
-        p = ParameterSet(desc.get("param", {}))
-        if p.raw("bump", None) is not None:
-            raise NotImplementedError(
-                "normal maps are not ported yet: ROADMAP queue A, slice 4")
-        sigma = _const_slot(p, "sigma", [0.0])[0]
-        if sigma > 0:
-            raise NotImplementedError(
-                "Oren-Nayar diffuse (sigma > 0) is not ported yet: "
-                "ROADMAP queue A, slice 1b")
-        row = _default_row()
-        row.update(kd=_const_slot(p, "color", [0.5, 0.5, 0.5])[:3],
-                   diffuse_weight=1.0, sigma=sigma)
+        row = self._compile_row(desc)
         mid = len(self.rows)
         self.rows.append(row)
         if name:
             self.by_name[name] = mid
         return mid
 
+    def _append_child(self, desc):
+        """A sub-material of a mixture, in its own anonymous row."""
+        self.rows.append(self._compile_row(desc))
+        return len(self.rows) - 1
+
     def get(self, name):
         return self.by_name.get(name, -1)
 
+    def _alpha_from(self, pset, lo=0.0001):
+        rx, ry, rtex = self._slot_rough2(pset, "roughness", 0.5)
+        aniso = self._slot_scalar(pset, "anisotropic", 0.0)[0]
+        aniso = float(np.clip(aniso, -0.9, 0.9))
+        remap = pset.as_bool("remapping_roughness", True)
+        rx = float(np.clip(rx, lo, 1.0))
+        ry = float(np.clip(ry, lo, 1.0))
+        if remap:
+            ax_s, ay_s = roughness_to_alpha(rx), roughness_to_alpha(ry)
+        else:
+            ax_s, ay_s = rx, ry
+        if abs(aniso) > 1e-4 and rx == ry:
+            ax_s, ay_s = calculate_alpha(np.float32(ax_s), np.float32(aniso))
+            ax_s, ay_s = float(ax_s), float(ay_s)
+        return max(ax_s, 1e-6), max(ay_s, 1e-6), rtex, (1 if remap else 0), aniso
+
+    def _compile_row(self, desc):
+        mtype = desc.get("type", "diffuse")
+        p = ParameterSet(desc.get("param", {}))
+        row = _default_row()
+        fn = getattr(self, f"_mat_{mtype}", None)
+        if fn is None:
+            # unknown material -> grey diffuse
+            row.update(diffuse_weight=1.0, kd=[0.5, 0.5, 0.5])
+            return row
+        if p.raw("bump", None) is not None:
+            raise _not_ported("normal maps (the 'bump' slot)", 4)
+        fn(row, p)
+        return row
+
+    # ---- per-type compilers ----
+
+    def _mat_diffuse(self, row, p):
+        kd, tex = self._slot_rgb(p, "color", [0.5, 0.5, 0.5])
+        row.update(kd=kd, kd_tex=tex, diffuse_weight=1.0,
+                   sigma=self._slot_scalar(p, "sigma", 0.0)[0])
+
+    def _mat_mirror(self, row, p):
+        tint, tex = self._slot_rgb(p, "color", [1.0, 1.0, 1.0])
+        ax, ay, rtex, remap, aniso = self._alpha_from(p)
+        row.update(spec_tint=tint, spec_tex=tex, ax=ax, ay=ay, rough_tex=rtex,
+                   rough_remap=remap, anisotropic=aniso,
+                   fr_mode=frs.FR_CONSTANT, spec_weight=1.0)
+
+    def _mat_metal(self, row, p):
+        name = p.as_str("material_name", "Ag")
+        eta, k = spd.metal_ior_rgb(name)
+        if name not in spd.METAL_NAMES:
+            name = "Ag"
+        ax, ay, rtex, remap, aniso = self._alpha_from(p)
+        row.update(fr_mode=frs.FR_CONDUCTOR, eta3=list(map(float, eta)),
+                   k3=list(map(float, k)), ax=ax, ay=ay, rough_tex=rtex,
+                   rough_remap=remap, anisotropic=aniso, spec_weight=1.0,
+                   metal_id=spd.METAL_NAMES.index(name))
+
+    def _mat_metallic(self, row, p):
+        color, tex = self._slot_rgb(p, "color", [1.0, 1.0, 1.0])
+        edge, _ = self._slot_rgb(p, "edge_tint", [1.0, 1.0, 1.0])
+        ax, ay, rtex, remap, aniso = self._alpha_from(p, lo=0.01)
+        f0 = np.asarray(color, np.float32)
+        b = frs.f82_b_from_edge_tint(f0, np.asarray(edge, np.float32))
+        row.update(fr_mode=frs.FR_F82, eta3=list(map(float, f0)),
+                   k3=list(map(float, np.asarray(b))), spec_tex=tex,
+                   ax=ax, ay=ay, rough_tex=rtex, rough_remap=remap,
+                   anisotropic=aniso, spec_weight=1.0)
+
+    def _mat_glass(self, row, p):
+        """A named glass is a scalar IOR at the R peak in the sRGB mode."""
+        tint, tex = self._slot_rgb(p, "color", [1.0, 1.0, 1.0])
+        name = p.as_str("material_name", "")
+        if name:
+            eta = spd.glass_ior_scalar(name)
+            disp = spd.GLASS_NAMES.index(name if name in spd.GLASS_NAMES
+                                         else "BK7")
+        else:
+            eta = self._slot_scalar(p, "ior", 1.5)[0]
+            disp = -1
+        ax, ay, rtex, remap, aniso = self._alpha_from(p, lo=0.01)
+        row.update(spec_tint=tint, spec_tex=tex, fr_mode=frs.FR_DIELECTRIC,
+                   eta=float(eta), ax=ax, ay=ay, rough_tex=rtex,
+                   rough_remap=remap, anisotropic=aniso,
+                   spec_weight=1.0, trans_weight=1.0, dispersive_id=disp)
+
+    def _mat_substrate(self, row, p):
+        kd, kdtex = self._slot_rgb(p, "color", [1.0, 1.0, 1.0])
+        rs, _ = self._slot_rgb(p, "spec", [0.05, 0.05, 0.05])
+        ax, ay, rtex, remap, aniso = self._alpha_from(p)
+        if remap:  # substrate double-remaps alpha
+            ax, ay = ax * ax, ay * ay
+        ax, ay = float(np.clip(ax, 1e-4, 1.0)), float(np.clip(ay, 1e-4, 1.0))
+        row.update(kd=kd, kd_tex=kdtex, diffuse_kind=bsdf.DIFF_FRESNEL_BLEND,
+                   diffuse_weight=1.0, eta3=rs, fr_mode=frs.FR_SCHLICK,
+                   ax=ax, ay=ay, rough_tex=rtex, rough_remap=remap,
+                   anisotropic=aniso, spec_weight=1.0, eta=1.5)
+
+    def _mat_plastic(self, row, p):
+        kd, kdtex = self._slot_rgb(p, "color", [1.0, 1.0, 1.0])
+        rs, _ = self._slot_rgb(p, "spec", [0.05, 0.05, 0.05])
+        ior = self._slot_scalar(p, "ior", 1.3)[0]
+        ax, ay, rtex, remap, aniso = self._alpha_from(p)
+        if remap:  # plastic double-remaps alpha too
+            ax, ay = ax * ax, ay * ay
+        ax, ay = float(np.clip(ax, 1e-4, 1.0)), float(np.clip(ay, 1e-4, 1.0))
+        f0 = float(frs.schlick_F0_from_ior(np.float32(ior)))
+        row.update(kd=kd, kd_tex=kdtex, diffuse_weight=1.0,
+                   fr_mode=frs.FR_SCHLICK,
+                   eta3=[f0 * rs[0], f0 * rs[1], f0 * rs[2]],
+                   ax=ax, ay=ay, rough_tex=rtex, rough_remap=remap,
+                   anisotropic=aniso, spec_weight=1.0, eta=float(ior))
+
+    def _mat_principled_bsdf(self, row, p):
+        """Disney-style uber material."""
+        kd, kdtex = self._slot_rgb(p, "color", [1.0, 1.0, 1.0])
+        ior = self._slot_scalar(p, "ior", 1.5)[0]
+        metallic = self._slot_scalar(p, "metallic", 0.0)[0]
+        spec_trans = self._slot_scalar(p, "spec_trans", 0.0)[0]
+        sheen = self._slot_scalar(p, "sheen",
+                                  p.as_float("sheen_weight", 0.0))[0]
+        sheen_tint = self._slot_scalar(p, "sheen_tint", 0.0)[0]
+        sheen_rough = self._slot_scalar(p, "sheen_roughness", 0.5)[0]
+        cc = self._slot_scalar(p, "clearcoat", 0.0)[0]
+        cc_alpha = self._slot_scalar(p, "clearcoat_alpha", 0.1)[0]
+        flatness = self._slot_scalar(p, "flatness", 0.0)[0]
+        spec_tint_amt = self._slot_scalar(p, "spec_tint", 0.0)[0]
+        ax, ay, rtex, remap, aniso = self._alpha_from(p, lo=0.001)
+
+        lum = 0.212671 * kd[0] + 0.715160 * kd[1] + 0.072169 * kd[2]
+        ctint = [c / lum if lum > 0 else 1.0 for c in kd]
+        f0d = float(frs.schlick_F0_from_ior(np.float32(ior)))
+        f0 = [f0d * ((1 - spec_tint_amt) + spec_tint_amt * c) for c in ctint]
+        f0 = [(1 - metallic) * f + metallic * c for f, c in zip(f0, kd)]
+        stint = [(1 - sheen_tint) + sheen_tint * c for c in ctint]
+
+        diff_w = (1.0 - metallic) * (1.0 - spec_trans)
+        row.update(kd=kd, kd_tex=kdtex, diffuse_kind=bsdf.DIFF_DISNEY,
+                   diffuse_weight=diff_w,
+                   fr_mode=frs.FR_SCHLICK, eta3=f0, eta=float(ior),
+                   ax=ax, ay=ay, rough_tex=rtex, rough_remap=remap,
+                   anisotropic=aniso, spec_weight=1.0,
+                   trans_weight=(1.0 - metallic) * spec_trans,
+                   spec_tint=kd if spec_trans > 0 else [1.0, 1.0, 1.0],
+                   cc_weight=cc, cc_alpha=max(float(cc_alpha), 1e-3),
+                   sheen_weight=sheen * (1.0 - metallic),
+                   sheen_tint=stint, sheen_rough=float(np.clip(
+                       sheen_rough, 1.0 / 32, 1.0)),
+                   flatness=flatness, metallic=metallic)
+
+    def _mat_subsurface(self, row, p):
+        raise _not_ported("the subsurface material (an interior medium)", 4)
+
+    def _mat_emission(self, row, p):
+        row.update(diffuse_weight=0.0)
+
+    def _mat_black_body(self, row, p):
+        row.update(diffuse_weight=0.0)
+
+    def _mix_parent(self, row, id0, id1, wa, wb, frac_tex=-1):
+        """`row` as a LobeSet mixture: mat0's full parameters, mix_b at
+        mat1's row, weights (wa, wb). One nesting level: a deeper nest
+        collapses to its first side, with the JAX package's warning."""
+        r0, r1 = self.rows[id0], self.rows[id1]
+        if r0["mix_b"] >= 0 or r1["mix_b"] >= 0:
+            warnings.warn("nested material mixtures flatten to one level")
+        row.update(r0)
+        row.update(mix_b=id1, mix_wa=float(wa), mix_wb=float(wb),
+                   frac_tex=frac_tex)
+
+    def _mat_mix(self, row, p):
+        fkey = "frac" if "frac" in p else "scale"
+        frac, ftex = self._slot_scalar(p, fkey, 0.5)
+        id0 = self._append_child(p.raw("mat0", {}))
+        id1 = self._append_child(p.raw("mat1", {}))
+        # mat0 weighted by frac
+        self._mix_parent(row, id0, id1, frac, 1.0 - frac, ftex)
+
+    def _mat_add(self, row, p):
+        id0 = self._append_child(p.raw("mat0", {}))
+        id1 = self._append_child(p.raw("mat1", {}))
+        self._mix_parent(row, id0, id1, 1.0, 1.0)
+
+    def _mat_multi_layered(self, row, p):
+        # bottom + top as an additive lobe set, as the JAX package does
+        id0 = self._append_child(p.raw("mat0", p.raw("bottom", {})))
+        id1 = self._append_child(p.raw("mat1", p.raw("top", {})))
+        self._mix_parent(row, id0, id1, 1.0, 1.0)
+
     def build(self, device):
         rows = self.rows or [_default_row()]
-        cols = {}
-        for k in COLUMNS:
-            dt = torch.int32 if k in INT_COLUMNS else torch.float32
-            cols[k] = torch.as_tensor(np.asarray([r[k] for r in rows]),
-                                      dtype=dt, device=device)
-        feats = ("diff",) if any(r["diffuse_weight"] > 0 for r in rows) else ()
-        return MaterialTable(feats=feats, **cols)
+
+        def t(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        arrs = {k: t([r[k] for r in rows],
+                     torch.int32 if k in INT_COLUMNS else torch.float32)
+                for k in _default_row()}
+        arrs["glass_coeffs"] = t([spd._SELLMEIER[n] for n in spd.GLASS_NAMES])
+        ek = [spd.metal_complex_ior(n) for n in spd.METAL_NAMES]
+        arrs["metal_eta_spd"] = t(np.stack([e for e, _ in ek]))
+        arrs["metal_k_spd"] = t(np.stack([k for _, k in ek]))
+        feats = []
+        if any(r["diffuse_weight"] > 0 for r in rows):
+            feats.append("diff")
+        if any(r["spec_weight"] > 0 for r in rows):
+            feats.append("spec")
+        if any(r["trans_weight"] > 0 for r in rows):
+            feats.append("trans")
+        if any(r["cc_weight"] > 0 for r in rows):
+            feats.append("cc")
+        if any(r["sheen_weight"] > 0 for r in rows):
+            feats.append("sheen")
+            ltc_path = os.path.join(DATA_DIR, "sheen_ltc.npz")
+            if os.path.exists(ltc_path):
+                arrs["sheen_ltc"] = t(np.load(ltc_path)["table"])
+        if any(r["sigma"] > 0 for r in rows):
+            feats.append("oren")
+        if any(r["diffuse_kind"] == bsdf.DIFF_FRESNEL_BLEND for r in rows):
+            feats.append("blend")
+        if any(r["diffuse_kind"] == bsdf.DIFF_DISNEY for r in rows):
+            feats.append("disney")
+        if any(r["mix_b"] >= 0 for r in rows):
+            feats.append("mix2")
+        # rough conductors and mirrors: the multiple-scattering lobe
+        lut_path = os.path.join(DATA_DIR, "ggx_energy.npz")
+        metalish = {frs.FR_CONSTANT, frs.FR_CONDUCTOR, frs.FR_F82}
+        if os.path.exists(lut_path) and any(
+                r["spec_weight"] > 0 and r["fr_mode"] in metalish
+                and max(r["ax"], r["ay"]) > 0.02 for r in rows):
+            feats.append("ems")
+            lut = np.load(lut_path)
+            arrs["ems_E"] = t(lut["E"])
+            arrs["ems_Eavg"] = t(lut["E_avg"])
+        return MaterialTable(feats=tuple(feats), **arrs)
+
+
+PORTED_FEATS = ("diff", "spec", "trans", "cc", "sheen", "oren", "blend",
+                "disney", "mix2", "ems")
+
+
+def check_feats(feats):
+    """Raise for a material feature outside the ported slices: shade-time
+    node graphs and normal maps (slice 4)."""
+    extra = [f for f in feats if f not in PORTED_FEATS]
+    if extra:
+        raise _not_ported(f"the material features {extra} (shade-time node "
+                          "graphs and normal maps)", 4)
 
 
 def gather_params(table, atlas, mat_id, uv):
-    """Per-lane LobeParams from the table, with the diffuse color texture
-    resolved against the atlas. mat_id [...] int (clamped; invalid lanes get
-    row 0 with zero weights). Returns (LobeParams, dispersive mask); nothing
-    is dispersive on this slice."""
-    bsdf.check_feats(table.feats)
+    """Per-lane LobeParams from the table, the textured slots resolved
+    against the atlas. mat_id [...] int (clamped; invalid lanes get row 0
+    with zero weights). A mixture row brings its second row as
+    `params.mix_b`. Returns (LobeParams, dispersive mask); nothing is
+    dispersive in the sRGB mode."""
+    check_feats(table.feats)
     valid = mat_id >= 0
-    mid = torch.clamp(mat_id.long(), 0, table.kd.shape[0] - 1)
+    M = table.kd.shape[0]
+    mid = torch.clamp(mat_id.long(), 0, M - 1)
     wvalid = valid.to(torch.float32)
-    g = {k: getattr(table, k)[mid] for k in COLUMNS}
-    kd = g["kd"]
-    if atlas.has_textures:
-        kd_tex = g["kd_tex"]
-        kd = torch.where((kd_tex >= 0)[..., None], atlas.sample(kd_tex, uv), kd)
-    params = bsdf.LobeParams(
-        kd=kd, sigma=g["sigma"], diffuse_kind=g["diffuse_kind"],
-        diffuse_weight=g["diffuse_weight"] * wvalid,
-        spec_tint=g["spec_tint"], ax=g["ax"], ay=g["ay"],
-        fr_mode=g["fr_mode"], eta=g["eta"][..., None],
-        eta3=g["eta3"], k3=g["k3"],
-        spec_weight=g["spec_weight"] * wvalid,
-        trans_weight=g["trans_weight"] * wvalid,
-        cc_weight=g["cc_weight"] * wvalid, cc_alpha=g["cc_alpha"],
-        sheen_weight=g["sheen_weight"] * wvalid,
-        sheen_tint=g["sheen_tint"],
-        flatness=g["flatness"], metallic=g["metallic"],
-        feats=table.feats,
-    )
+    slots = table.tex_slots if atlas.has_textures else ()
+
+    def one(mid):
+        g = table.packed.fetch(mid)
+        kd = g("kd")
+        if "kd" in slots:
+            kd_tex = g("kd_tex").to(torch.int32)
+            kd = torch.where((kd_tex >= 0)[..., None],
+                             atlas.sample(kd_tex, uv), kd)
+        spec_tint = g("spec_tint")
+        if "spec" in slots:
+            spec_tex = g("spec_tex").to(torch.int32)
+            spec_tint = torch.where((spec_tex >= 0)[..., None],
+                                    atlas.sample(spec_tex, uv), spec_tint)
+        ax, ay = g("ax"), g("ay")
+        if "rough" in slots:
+            rough_tex = g("rough_tex").to(torch.int32)
+            r = atlas.sample(rough_tex, uv)[..., 0]
+            r_alpha = torch.where(g("rough_remap") > 0, r * r, r)
+            ax = torch.where(rough_tex >= 0, torch.clamp_min(r_alpha, 1e-6), ax)
+            ay = torch.where(rough_tex >= 0, torch.clamp_min(r_alpha, 1e-6), ay)
+        params = bsdf.LobeParams(
+            kd=kd, sigma=g("sigma"),
+            diffuse_kind=g("diffuse_kind").to(torch.int32),
+            diffuse_weight=g("diffuse_weight") * wvalid,
+            spec_tint=spec_tint, ax=ax, ay=ay,
+            fr_mode=g("fr_mode").to(torch.int32), eta=g("eta")[..., None],
+            eta3=g("eta3"), k3=g("k3"),
+            spec_weight=g("spec_weight") * wvalid,
+            trans_weight=g("trans_weight") * wvalid,
+            cc_weight=g("cc_weight") * wvalid, cc_alpha=g("cc_alpha"),
+            sheen_weight=g("sheen_weight") * wvalid,
+            sheen_tint=g("sheen_tint"),
+            flatness=g("flatness"), metallic=g("metallic"),
+            feats=table.feats, fr_modes=table.fr_modes,
+            ems_E=table.ems_E, ems_Eavg=table.ems_Eavg,
+            sheen_ltc=table.sheen_ltc, sheen_alpha=g("sheen_rough"))
+        return params, g
+
+    params, g = one(mid)
+    if "mix2" in table.feats:
+        midb_raw = g("mix_b")
+        has_b = midb_raw >= 0
+        params_b, _ = one(torch.clamp(midb_raw.long(), 0, M - 1))
+        wa, wb = g("mix_wa"), g("mix_wb")
+        if "frac" in slots:
+            ftex = g("frac_tex").to(torch.int32)
+            frac_t = atlas.sample(ftex, uv)[..., 0]
+            wa = torch.where(ftex >= 0, frac_t, wa)
+            wb = torch.where(ftex >= 0, 1.0 - frac_t, wb)
+        params = replace(params, mix_b=params_b,
+                         mix_wa=torch.where(has_b, wa, 1.0),
+                         mix_wb=torch.where(has_b, wb, 0.0))
     return params, torch.zeros_like(valid)

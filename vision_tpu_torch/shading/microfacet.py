@@ -1,12 +1,13 @@
 """GGX microfacet distribution in the local shading frame.
 
-Counterpart of `vision_tpu/shading/microfacet.py`: D, Smith Lambda/G1/G,
-visible-normal sampling, pdf_wh and the reflection/transmission Jacobians.
-The diffuse lobe of the ported slice needs none of them; they are the
-building blocks of the specular lobes (ROADMAP queue A, slice 1b).
+Counterpart of `vision_tpu/shading/microfacet.py`: the anisotropic alpha
+split, D, Smith Lambda/G1/G, visible-normal sampling, pdf_wh, the
+reflection/transmission Jacobians and the BRDF/BTDF without Fresnel. The
+Beckmann D of the JAX module is not ported: nothing on the path reaches it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.math import (Pi, TwoPi, abs_cos_theta, cos2_theta, cos_phi,
@@ -16,6 +17,17 @@ from ..core.math import (Pi, TwoPi, abs_cos_theta, cos2_theta, cos_phi,
 
 def roughness_to_alpha(roughness):
     return sqr(roughness)
+
+
+def calculate_alpha(alpha, anisotropic):
+    """Split scalar alpha into (ax, ay) by anisotropy in [-1, 1]. Takes
+    numpy float32 values (the material compiler calls it on the host)."""
+    ax = np.where(anisotropic < 0.0, alpha / (1.0 + anisotropic),
+                  alpha * (1.0 - anisotropic))
+    ay = np.where(anisotropic < 0.0, alpha * (1.0 + anisotropic),
+                  alpha / (1.0 - anisotropic))
+    iso = np.abs(anisotropic) <= 1e-4
+    return np.where(iso, alpha, ax), np.where(iso, alpha, ay)
 
 
 def D_ggx(wh, ax, ay):
@@ -48,11 +60,13 @@ def sample_wh_ggx(wo, u, ax, ay):
     wo_f = wo * sign[..., None]  # flip to the upper hemisphere
     vh = normalize(vec3(ax * wo_f[..., 0], ay * wo_f[..., 1], wo_f[..., 2]))
     lensq = sqr(vh[..., 0]) + sqr(vh[..., 1])
+    x_axis = torch.zeros_like(vh)
+    x_axis[..., 0] = 1.0
     t1 = torch.where(
         (lensq > 1e-9)[..., None],
         vec3(-vh[..., 1], vh[..., 0], torch.zeros_like(lensq))
         / torch.sqrt(torch.clamp_min(lensq, 1e-9))[..., None],
-        torch.tensor([1.0, 0.0, 0.0], device=wo.device).expand(vh.shape),
+        x_axis,
     )
     t2v = cross(vh, t1)
     r = torch.sqrt(u[..., 0])
@@ -89,3 +103,13 @@ def brdf_div_fr(wo, wh, wi, ax, ay):
     """D G / (4 cos_o cos_i): the microfacet BRDF without Fresnel."""
     return safe_div(D_ggx(wh, ax, ay) * G_ggx(wo, wi, ax, ay),
                     torch.abs(4.0 * cos_theta(wo) * cos_theta(wi)))
+
+
+def btdf_div_ft(wo, wh, wi, eta, ax, ay):
+    """Microfacet BTDF without Fresnel in radiance transport; eta =
+    eta_t/eta_i seen from wo, wh = normalize(wo + wi*eta)."""
+    denom = sqr(dot(wi, wh) * eta + dot(wo, wh))
+    return safe_div(
+        D_ggx(wh, ax, ay) * G_ggx(wo, wi, ax, ay)
+        * torch.abs(dot(wi, wh)) * torch.abs(dot(wo, wh)),
+        torch.abs(cos_theta(wi) * cos_theta(wo)) * denom)
