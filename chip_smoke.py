@@ -31,7 +31,17 @@ phase, one JSON line each:
     6,276 triangles, K2) at 512^2, 16 spp, held against
     `tests/goldens/cbox_zoo_hdr.npz`; `cbox_sky` (a substitute unit sky
     through the open front; K1) at 64^2, 16 spp on the card, held against
-    the port's own render of the same seeds on the CPU.
+    the port's own render of the same seeds on the CPU;
+  * the spectral and media transport of slice 4 (`phase_slice4`):
+    `cbox_glass_hero` (`cbox_glass` under the hero spectrum of dimension
+    4, dispersive BK7; ladder config 3, its 256 spp cut to 64) at 512^2
+    through K1, held against `tests/goldens/cbox_glass_hero_hdr.npz`;
+    `fog_cbox` (the cbox in a global homogeneous fog, srgb) at 512^2, 16
+    spp through K1, held against `tests/goldens/fog_cbox_hdr.npz`;
+    `cbox_sss` (a subsurface tall box under the hero spectrum) at 64^2,
+    16 spp on the card, held against the port's CPU render of the same
+    seeds; and `render_to_file` on the cbox (64^2, 4 spp), whose PNG,
+    written without PIL, must decode to the tonemapped render.
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -103,6 +113,11 @@ TWIN_WERR = 0.01
 GLASS_SPP = 64
 SKY_RES = 64
 SKY_WERR = 0.01
+# slice 4: the hero glass at GLASS_SPP (ladder config 3's 256 spp cut to
+# 64 for the run's time), the fog at SPP, the subsurface box like cbox_sky
+SSS_RES = 64
+PNG_RES = 64
+PNG_SPP = 4
 # the bound of a kernel: the card's published peaks (NVIDIA H100 SXM data
 # sheet, dense rates at 700 W), float32 outside the tensor cores and HBM3
 PEAK_FLOPS = 67e12
@@ -652,6 +667,7 @@ def render(vt, modules, scene, name, spp=SPP, res=RES):
     vt.render(scene, spp=1)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     for m in modules:
         for k in m.LAUNCHES:
             m.LAUNCHES[k] = 0
@@ -673,6 +689,10 @@ def render(vt, modules, scene, name, spp=SPP, res=RES):
                      nrays=stats["nrays"], iters=stats["iters"],
                      mrays_per_s=stats["nrays"] / wall / 1e6,
                      peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                     # the render's own: the peak above what the earlier
+                     # phases' scenes hold
+                     peak_mem_over_start_bytes=(
+                         torch.cuda.max_memory_allocated() - mem0),
                      launches=launches, mean=float(img.mean()))
 
 
@@ -724,6 +744,104 @@ def phase_slice1b(vt, modules, scenes):
           f"cbox_sky vs its CPU render {rec['vs_cpu_werr']}")
     per_render["cbox_sky"] = rec["launches"]
     return per_render
+
+
+def phase_slice4(vt, modules, scenes):
+    """cbox_glass_hero and fog_cbox (K1) against their JAX goldens,
+    cbox_sss on the card against the port's CPU render, and
+    render_to_file's PNG. Returns each render's launch counts."""
+    per_render = {}
+    runs = (("cbox_glass_hero", scenes.cbox_glass_hero(RES), GLASS_SPP,
+             True, False),
+            ("fog_cbox", scenes.fog_cbox(RES), SPP, False, True))
+    for name, desc, spp, hero, media in runs:
+        t0 = time.perf_counter()
+        scene = vt.load_scene(desc, device=DEV)
+        emit(dict(phase="load", scene=name, seconds=time.perf_counter() - t0,
+                  tris=scene.data.tri_geom.shape[0]))
+        check(scene.data.spectrum.hero == hero
+              and scene.data.has_media == media and scene.data.pbvh is None
+              and scene.data.ipbvh is None,
+              f"{name}: spectrum, media and the dense sweep")
+        img, rec = render(vt, modules, scene, name, spp=spp)
+        rec["golden_werr"], rec["golden_bias"] = vs_golden(
+            img, f"tests/goldens/{name}_hdr.npz")
+        emit(rec)
+        check(all(rec["launches"][f"dense_isect.{k}"] > 0
+                  for k in ("closest", "anyhit")), f"{name} {rec['launches']}")
+        check(all(v == 0 for k, v in rec["launches"].items()
+                  if k.startswith("packet_isect")), f"{name} {rec['launches']}")
+        check(rec["golden_werr"] < GOLD_WERR,
+              f"{name} vs golden {rec['golden_werr']}")
+        check(abs(rec["golden_bias"]) < GOLD_BIAS,
+              f"{name} bias {rec['golden_bias']}")
+        per_render[name] = rec["launches"]
+
+    sss = vt.load_scene(scenes.cbox_sss(SSS_RES), device=DEV)
+    sss_cpu = vt.load_scene(scenes.cbox_sss(SSS_RES), device="cpu")
+    check(sss.data.spectrum.hero and sss.data.has_media
+          and sss.data.pbvh is None, "cbox_sss: hero, media, dense sweep")
+    img, rec = render(vt, modules, sss, "cbox_sss", spp=SPP, res=SSS_RES)
+    t0 = time.perf_counter()
+    ref = vt.render(sss_cpu, spp=SPP).numpy()
+    rec["cpu_render_s"] = time.perf_counter() - t0
+    rec["vs_cpu_werr"], rec["vs_cpu_bias"] = block_err(img, ref)
+    emit(rec)
+    check(rec["launches"]["dense_isect.closest"] > 0, f"cbox_sss {rec}")
+    check(rec["vs_cpu_werr"] <= SKY_WERR and abs(rec["vs_cpu_bias"]) <= SKY_WERR,
+          f"cbox_sss vs its CPU render {rec['vs_cpu_werr']}")
+    per_render["cbox_sss"] = rec["launches"]
+
+    # render_to_file: the JAX package's argument order, a PNG without PIL
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
+    desc = copy.deepcopy(fixtures.CBOX_JSON)
+    desc["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [
+        PNG_RES, PNG_RES]
+    out = os.path.join(ROOT, "vision_tpu_torch", "_build", "smoke_cbox.png")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    check(vt.render_to_file(desc, out, PNG_SPP, False, device=DEV) == out,
+          "render_to_file's path")
+    seconds = time.perf_counter() - t0
+    png = read_png(out)
+    scene = vt.load_scene(desc, device=DEV)
+    want = vt.postprocess(scene, vt.render(scene, spp=PNG_SPP)).cpu().numpy()
+    want = np.clip(want * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    diff = np.abs(png.astype(np.int32) - want.astype(np.int32))
+    rec = dict(phase="render_to_file", path=os.path.relpath(out, ROOT),
+               bytes=os.path.getsize(out), seconds=seconds,
+               shape=list(png.shape), max_level_diff=int(diff.max()),
+               pil_loaded="PIL" in sys.modules,
+               pil_installed=importlib.util.find_spec("PIL") is not None)
+    emit(rec)
+    check(png.shape == (PNG_RES, PNG_RES, 3) and diff.max() <= 1,
+          f"render_to_file's PNG against the tonemapped render {rec}")
+    return per_render
+
+
+def read_png(path):
+    """The pixels [H, W, 3] of an 8-bit RGB PNG as `film.to_png` writes it
+    (one IDAT, filter byte 0 on every row), each chunk's CRC checked."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "PNG signature")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(crc == zlib.crc32(kind + body) & 0xFFFFFFFF, f"PNG CRC {kind}")
+        chunks[kind] = body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    check((depth, ctype) == (8, 2) and b"IEND" in chunks, "PNG header")
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    raw = raw.reshape(h, 1 + 3 * w)
+    check(bool((raw[:, 0] == 0).all()), "PNG row filters")
+    return raw[:, 1:].reshape(h, w, 3)
 
 
 def block_err(a, b, B=8):
@@ -857,6 +975,9 @@ def main():
 
     # ---- slice 1b: every material and light type ----
     per_render.update(phase_slice1b(vt, [di, pi], scenes))
+
+    # ---- slice 4: hero spectrum and dispersion, media and subsurface ----
+    per_render.update(phase_slice4(vt, [di, pi], scenes))
 
     # ---- the kernel table ----
     def worst(recs, keys):

@@ -109,14 +109,78 @@ def test_render_sample_matches_jax():
     assert ab["albedo"].shape == (res, res, 3)
 
 
+def _read_png(path):
+    """A small PNG reader for what `film.to_png` writes (8-bit RGB, no
+    interlace, filter 0 on every row): checks the signature, each chunk's
+    CRC, and returns the pixels [H, W, 3] uint8."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, []
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF, kind
+        chunks.append((kind, body))
+        pos += 12 + n
+    assert [k for k, _ in chunks] == [b"IHDR", b"IDAT", b"IEND"]
+    w, h, depth, ctype, comp, filt, lace = struct.unpack(">IIBBBBB",
+                                                         chunks[0][1])
+    assert (depth, ctype, comp, filt, lace) == (8, 2, 0, 0, 0)
+    raw = np.frombuffer(zlib.decompress(chunks[1][1]), np.uint8)
+    raw = raw.reshape(h, 1 + 3 * w)
+    assert (raw[:, 0] == 0).all()
+    return raw[:, 1:].reshape(h, w, 3)
+
+
 def test_render_to_file(tmp_path):
-    pytest.importorskip("PIL")
+    """render_to_file with the JAX package's argument order
+    (scene, out_path, spp, verbose) and the device by keyword writes the
+    tonemapped render as a PNG."""
     path = tmp_path / "cbox.png"
     s = cbox(8)
     s["output"]["spp"] = 1
-    assert vt.render_to_file(s, "cpu", out_path=str(path), verbose=False) \
+    assert vt.render_to_file(s, str(path), None, False, device="cpu") \
         == str(path)
     assert path.stat().st_size > 0
+    sc = vt.load_scene(s, device="cpu")
+    want = vt.postprocess(sc, vt.render(sc, spp=1)).numpy()
+    want = np.clip(want * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(_read_png(path), want)
+    with pytest.raises(NotImplementedError, match="slice 7a"):
+        vt.render_to_file(s, str(tmp_path / "cbox.exr"), device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 3), (16, 17)])
+def test_to_png_without_pil(tmp_path, shape, monkeypatch):
+    """film.to_png writes an 8-bit RGB PNG with the standard library alone
+    (PIL is made unimportable): its pixels are clip(img * 255 + 0.5), read
+    back by the small reader above and, where PIL exists here, by PIL."""
+    import builtins
+    from vision_tpu_torch.sensor import film
+    g = np.random.default_rng(sum(shape))
+    img = g.random(shape + (3,), dtype=np.float32) * 1.2 - 0.1
+    path = tmp_path / "x.png"
+    real_import = builtins.__import__
+
+    def no_pil(name, *a, **k):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("PIL is not available")
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    film.to_png(img, str(path))
+    monkeypatch.undo()
+    want = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(_read_png(path), want)
+    try:
+        from PIL import Image
+    except ImportError:
+        return
+    np.testing.assert_array_equal(np.asarray(Image.open(path).convert("RGB")),
+                                  want)
 
 
 def test_dense_gating_changes_nothing(monkeypatch):

@@ -2,7 +2,10 @@
 `cbox_glass` (glass and mirror boxes, K1's plain sweep), `cbox_zoo` (every
 material family under area, point, spot and projector lights; 6,276
 triangles through the plain K2) and `cbox_sky` (a substitute sky through
-the open front): per-lane `radiance` on the same rays and RNG states and
+the open front), and of slice 4: both of the first two under the hero
+spectrum (`cbox_glass_hero`, dispersive BK7; `cbox_zoo_hero`, every
+colour slot decoded, the copper's measured eta / k): per-lane `radiance`
+on the same rays and RNG states and
 the regeneration wavefront on the same pixels and seeds, under the
 thresholds of tests/test_torch_render.py. The JAX renders are made once
 per module. Last, a Lambert-only scene under an area light runs none of
@@ -17,7 +20,7 @@ import torch
 
 import vision_tpu_torch as vt
 from tests.torch_parity import block_err, cbox, np_, tt
-from tests.torch_scenes import cbox_glass, cbox_sky, cbox_zoo
+from tests.torch_scenes import HERO, cbox_glass, cbox_glass_hero, cbox_sky, cbox_zoo
 from vision_tpu.core import rng as jrng
 from vision_tpu.integrator import pt as jpt
 from vision_tpu.scene.scene import Scene as JScene
@@ -28,7 +31,9 @@ torch.set_num_threads(2)
 
 RES = 32
 SCENES = {"cbox_glass": cbox_glass, "cbox_zoo": lambda r: cbox_zoo(r, 40),
-          "cbox_sky": cbox_sky}
+          "cbox_sky": cbox_sky, "cbox_glass_hero": cbox_glass_hero,
+          "cbox_zoo_hero": lambda r: dict(cbox_zoo(r, 40),
+                                          spectrum=dict(HERO))}
 
 
 @pytest.fixture(scope="module")
@@ -56,9 +61,11 @@ def jax_waves(scenes):
 
 
 def test_scene_paths(scenes):
-    """cbox_glass and cbox_sky take the dense sweep, cbox_zoo the BVH."""
+    """cbox_glass and cbox_sky take the dense sweep, cbox_zoo the BVH; the
+    hero twins carry the hero spectrum of dimension 4."""
     for name, (js, ps) in scenes.items():
-        assert (ps.data.pbvh is not None) == (name == "cbox_zoo")
+        assert (ps.data.pbvh is not None) == name.startswith("cbox_zoo")
+        assert ps.data.spectrum.dims == (4 if name.endswith("hero") else 3)
         assert ps.data.materials.feats == js.data.materials.feats
         assert ps.data.lights.feats == js.data.lights.feats
     assert scenes["cbox_sky"][1].data.lights.env_index == 0
@@ -74,7 +81,7 @@ def test_radiance_per_lane(scenes, name, monkeypatch):
     interpret mode), whose ray count skips gated shadow lanes as the
     port's does."""
     js, ps = scenes[name]
-    if name == "cbox_zoo":
+    if name.startswith("cbox_zoo"):
         monkeypatch.setenv("VT_PACKET", "1")
     R = RES * RES
     g = np.random.default_rng(0)

@@ -1,7 +1,8 @@
 """The port's scene loader against the JAX package's: the same scene JSON
 gives the same packed geometry, id tables, material and light tables,
-camera and filter; `scene_from_arrays` carries a JAX scene across; and a
-scene outside the ported slice raises NotImplementedError."""
+camera and filter, medium table and spectrum; `scene_from_arrays` carries
+a JAX scene across; and a scene outside the ported slice raises
+NotImplementedError."""
 import copy
 import dataclasses
 import os
@@ -14,7 +15,8 @@ import torch
 import vision_tpu_torch as vt
 from tests.fixtures import make_glass_cbox
 from tests.torch_parity import cbox, jax_scene_arrays, np_
-from tests.torch_scenes import cbox_glass, cbox_sky, cbox_zoo
+from tests.torch_scenes import (cbox_glass, cbox_glass_hero, cbox_sky,
+                                cbox_sss, cbox_zoo, fog_cbox)
 from vision_tpu.scene.scene import Scene as JScene
 from vision_tpu_torch.scene.scene import scene_from_arrays
 from vision_tpu_torch.shading.materials import COLUMNS
@@ -63,7 +65,10 @@ SCENES = {"cbox": lambda: cbox(16), "standalone_light": _standalone_light,
           "cbox_glass": lambda: cbox_glass(16),
           "cbox_zoo": lambda: cbox_zoo(16, sub_div=40),
           "cbox_sky": lambda: cbox_sky(16),
-          "no_lights": lambda: _edit(lambda s: s["shapes"].pop())}
+          "no_lights": lambda: _edit(lambda s: s["shapes"].pop()),
+          "cbox_glass_hero": lambda: cbox_glass_hero(16),
+          "fog_cbox": lambda: fog_cbox(16),
+          "cbox_sss": lambda: cbox_sss(16)}
 
 
 def _assert_same_scene(data, camera, filt, ref):
@@ -90,6 +95,14 @@ def _assert_same_scene(data, camera, filt, ref):
     for k in ("radius", "prob", "alias", "pmf", "sign", "int_abs"):
         eq(np_(getattr(filt, k)), ref[f"filter.{k}"])
     assert filt.is_box == bool(ref["filter.is_box"])
+    assert data.spectrum.kind == int(ref["spectrum.kind"])
+    assert data.spectrum.dims == int(ref["spectrum.dims"])
+    assert data.has_media == bool(ref["has_media"])
+    assert data.camera_medium == int(ref["camera_medium"])
+    for k in ("sigma_a", "sigma_s", "g"):
+        eq(np_(getattr(data.mediums, k)), ref[f"mediums.{k}"])
+    for k in ("inst_in_medium", "inst_out_medium"):
+        eq(np_(getattr(data, k)), ref[k])
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -120,7 +133,15 @@ def test_scene_from_arrays_matches_loader():
            "materials.feats": np.asarray(ps.data.materials.feats),
            "lights.feats": np.asarray(ps.data.lights.feats),
            "camera.resolution": np.asarray(ps.camera.resolution),
-           "filter.is_box": ps.filter.is_box}
+           "filter.is_box": ps.filter.is_box,
+           "spectrum.kind": ps.data.spectrum.kind,
+           "spectrum.dims": ps.data.spectrum.dims,
+           "has_media": ps.data.has_media,
+           "camera_medium": ps.data.camera_medium,
+           "inst_in_medium": np_(ps.data.inst_in_medium),
+           "inst_out_medium": np_(ps.data.inst_out_medium)}
+    ref.update({f"mediums.{k}": np_(getattr(ps.data.mediums, k))
+                for k in ("sigma_a", "sigma_s", "g")})
     ref.update({f"materials.{k}": np_(getattr(ps.data.materials, k))
                 for k in COLUMNS})
     ref.update({f"lights.{k}": np_(getattr(ps.data.lights, k))
@@ -175,7 +196,9 @@ def test_scene_from_arrays_copies_jax_buffers():
 
 def test_scene_from_arrays_rejects_out_of_slice():
     """A JAX scene with a subsurface material (it attaches a medium) and
-    one with the hero spectrum are refused, naming slice 4."""
+    one with the hero spectrum, refused before slice 4, are carried across
+    as the port's loader builds them; one with a shade-time fresnel node
+    is refused, naming slice 4c."""
     sss = _edit(lambda s: s["materials"].__setitem__(
         2, {"type": "subsurface", "name": "White", "param": {}}))
     hero = _edit(lambda s: s.update(
@@ -184,8 +207,19 @@ def test_scene_from_arrays_rejects_out_of_slice():
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             arrays = jax_scene_arrays(JScene(s))
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            scene_from_arrays(arrays, "cpu")
+        data, camera, filt = scene_from_arrays(arrays, "cpu")
+        _assert_same_scene(data, camera, filt, arrays)
+        ps = vt.load_scene(s, device="cpu")
+        _assert_same_scene(ps.data, ps.camera, ps.filter, arrays)
+    fres = _edit(lambda s: s["materials"][0]["param"].update(
+        color={"type": "lerp", "param": {
+            "t": {"type": "fresnel", "param": {"ior": 1.5}},
+            "A": [0.1, 0.1, 0.1], "B": [0.9, 0.9, 0.9]}}))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        arrays = jax_scene_arrays(JScene(fres))
+    with pytest.raises(NotImplementedError, match="slice 4c"):
+        scene_from_arrays(arrays, "cpu")
 
 
 def _edit(fn):
@@ -206,7 +240,7 @@ def _sphere(sub_div, x=0.0):
 
 
 # an existing file: an image slot naming it raises (image loading is
-# slice 7); a missing one takes the slot's default, as in the JAX package
+# slice 7a); a missing one takes the slot's default, as in the JAX package
 EXISTING_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "goldens", "cbox_hdr.npz")
 
@@ -218,47 +252,47 @@ def _light(ltype, **param):
 
 OUT_OF_SLICE = {
     "textured_color": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        color={"fn": EXISTING_FILE})), "slice 7"),
+        color={"fn": EXISTING_FILE})), "slice 7a"),
     "textured_roughness": (lambda: _edit(lambda s: s["materials"].__setitem__(
         0, {"type": "mirror", "name": "Red",
-            "param": {"roughness": {"fn": EXISTING_FILE}}})), "slice 7"),
+            "param": {"roughness": {"fn": EXISTING_FILE}}})), "slice 7a"),
     "normal_map": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        bump={"fn": "n.png"})), "slice 4"),
-    "subsurface": (lambda: _edit(lambda s: s["materials"].__setitem__(
-        0, {"type": "subsurface", "name": "Red", "param": {}})), "slice 4"),
+        bump={"fn": "n.png"})), "slice 7a"),
     "fresnel_node": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
         color={"type": "lerp", "param": {
             "t": {"type": "fresnel", "param": {"ior": 1.5}},
-            "A": [0.1, 0.1, 0.1], "B": [0.9, 0.9, 0.9]}})), "slice 4"),
+            "A": [0.1, 0.1, 0.1], "B": [0.9, 0.9, 0.9]}})), "slice 4c"),
     "uv_mapping_node": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
         color={"type": "vector_mapping", "param": {"node": [0.5, 0.5, 0.5]}})),
-        "slice 4"),
-    "ies_profile": (_light("spot", position=[0, 1.5, 0], ies="a.ies"), "slice 4"),
-    "env_image": (_light("spherical", color={"fn": EXISTING_FILE}), "slice 7"),
+        "slice 4c"),
+    "ies_profile": (_light("spot", position=[0, 1.5, 0], ies="a.ies"),
+                    "slice 4c"),
+    "env_image": (_light("spherical", color={"fn": EXISTING_FILE}), "slice 7a"),
     "projector_image": (_light("projector", color={"fn": EXISTING_FILE}),
-                        "slice 7"),
+                        "slice 7a"),
     "emission_image": (lambda: _edit(lambda s: s["shapes"][-1]["param"][
-        "emission"]["param"].update(color={"fn": EXISTING_FILE})), "slice 7"),
-    "mix_env": (_light("mix", env0={}, env1={}), "slice 7"),
-    "hero_spectrum": (lambda: _edit(lambda s: s.update(
-        spectrum={"type": "hero", "param": {"dimension": 4}})), "slice 4"),
-    "media": (lambda: _edit(lambda s: s.update(mediums={
-        "process": True, "global": "fog", "list": [
-            {"type": "homogeneous", "name": "fog", "param": {}}]})),
-        "slice 4"),
+        "emission"]["param"].update(color={"fn": EXISTING_FILE})), "slice 7a"),
+    "mix_env": (_light("mix", env0={}, env1={}), "slice 7a"),
     "light_field": (lambda: _edit(lambda s: s.update(pipeline={
-        "param": {"frame_buffer": {"type": "light_field"}}})), "slice 4"),
+        "param": {"frame_buffer": {"type": "light_field"}}})), "slice 4d"),
     "mesh_file": (lambda: _edit(lambda s: _shape(s, {
         "type": "model", "param": {"fn": "bunny.obj"}})), "slice 7"),
 }
 
-# features out of the slice before slice 1b, which now load as the JAX
-# package loads them
+# features out of the slice before slice 1b (the first three) and before
+# slice 4 (the rest), which now load as the JAX package loads them
 PORTED = {
     "glass_material": make_glass_cbox,
     "oren_nayar": lambda: _edit(lambda s: s["materials"][0]["param"].update(
         sigma=20.0)),
     "point_light": _light("point", position=[0, 1, 0]),
+    "subsurface": lambda: _edit(lambda s: s["materials"].__setitem__(
+        0, {"type": "subsurface", "name": "Red", "param": {}})),
+    "hero_spectrum": lambda: _edit(lambda s: s.update(
+        spectrum={"type": "hero", "param": {"dimension": 4}})),
+    "media": lambda: _edit(lambda s: s.update(mediums={
+        "process": True, "global": "fog", "list": [
+            {"type": "homogeneous", "name": "fog", "param": {}}]})),
 }
 
 # scenes outside the dense sweep's slice, which now load through their
@@ -278,7 +312,8 @@ def test_out_of_slice_raises(name):
     """A feature outside the ported slices raises NotImplementedError
     naming its slice; the two scenes of BVH_SCENES, out of the slice before
     slices 2 and 3, load and carry the tree their kernel walks; the scenes
-    of PORTED, out of it before slice 1b, load as the JAX package does."""
+    of PORTED, out of it before slice 1b or slice 4, load as the JAX
+    package does."""
     if name in PORTED:
         s = PORTED[name]()
         ps = vt.load_scene(s, device="cpu")
@@ -297,7 +332,7 @@ def test_out_of_slice_raises(name):
 
 
 def test_adaptive_raises():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 4d"):
         vt.render(vt.load_scene(cbox(8), device="cpu"), spp=1, adaptive=True)
 
 

@@ -33,7 +33,8 @@ def jax_scene_arrays(scene):
     `vision_tpu_torch.scene.scene.scene_from_arrays` reads it."""
     d = scene.data
     arrays = _record_arrays(d, "")
-    for name in ("materials", "lights", "atlas", "spectrum", "pbvh", "ipbvh"):
+    for name in ("materials", "mediums", "lights", "atlas", "spectrum", "pbvh",
+                 "ipbvh"):
         if getattr(d, name) is not None:
             arrays.update(_record_arrays(getattr(d, name), name + "."))
     arrays.update(_record_arrays(scene.camera, "camera."))
@@ -74,3 +75,75 @@ def mostly_close(y, x, rtol, atol, loose, share=0.01):
     off = off.reshape(off.shape[0], -1).any(-1)
     assert off.mean() <= share, off.sum()
     np.testing.assert_allclose(y, x, rtol=loose, atol=loose)
+
+
+def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0):
+    """Per-lane `radiance` of both packages (JAX jitted, the port's plain
+    path) on the same jittered camera rays and RNG states from a numpy
+    seed. Returns (La, aovs_a, Lb, aovs_b) as numpy / dicts."""
+    import jax
+    import jax.numpy as jnp
+    from vision_tpu.core import rng as jrng
+    from vision_tpu.integrator import pt as jpt
+    from vision_tpu_torch.core import rng as trng
+    from vision_tpu_torch.integrator import pt as tpt
+    R = res * res
+    g = np.random.default_rng(seed)
+    p_film = (np.stack([np.arange(R) % res, np.arange(R) // res], -1)
+              + g.random((R, 2))).astype(np.float32)
+    seeds = g.integers(0, 2 ** 32, R, dtype=np.uint64)
+    jray = js.camera.generate_ray(jnp.asarray(p_film))
+    jst = jrng.seed(jnp.arange(R, dtype=jnp.uint32),
+                    jnp.asarray(seeds.astype(np.uint32)))
+    La, aa = jax.jit(lambda d, r, s: jpt.radiance(
+        d, r, s, max_depth=max_depth, rr_threshold=rr_threshold))(
+        js.data, jray, jst)
+    Lb, ab = tpt.radiance(ps.data, ps.camera.generate_ray(tt(p_film)),
+                          trng.seed(torch.arange(R), tt(seeds.astype(np.int64))),
+                          max_depth=max_depth, rr_threshold=rr_threshold)
+    return np.asarray(La), aa, np_(Lb), ab
+
+
+def assert_radiance_close(La, aa, Lb, ab, share=0.01):
+    """The per-lane thresholds of tests/test_torch_render_materials.py: a
+    lane whose path meets a rounding-level decision may take another path,
+    so at most `share` of lanes diverge; the means agree within 0.5%; the
+    first-bounce AOVs agree on the other lanes; the ray counts within 1%."""
+    R = La.shape[0]
+    bad = (np.abs(La - Lb) > 1e-4 + 1e-3 * np.abs(La)).any(-1)
+    assert bad.mean() <= share, bad.sum()
+    assert La.mean() > 0.01
+    assert abs(Lb.mean() / La.mean() - 1.0) < 0.005
+    np.testing.assert_allclose(np_(ab["albedo"])[~bad],
+                               np.asarray(aa["albedo"])[~bad], atol=1e-5)
+    np.testing.assert_allclose(np_(ab["normal"])[~bad],
+                               np.asarray(aa["normal"])[~bad], atol=1e-4)
+    assert abs(int(ab["nrays"]) - float(aa["nrays"])) <= 0.01 * R
+    return int(bad.sum())
+
+
+def jax_wave(js, spp=4):
+    """The JAX package's regeneration wavefront (frame 0) as numpy."""
+    import jax.numpy as jnp
+    from vision_tpu.render import _wave_pass
+    img, aov = _wave_pass(js.data, js.camera, js.filter, jnp.uint32(0), spp,
+                          js.max_depth, js.min_depth,
+                          jnp.float32(js.rr_threshold))
+    return np.asarray(img), {k: np.asarray(v) for k, v in aov.items()}
+
+
+def assert_wave_close(ps, ref, spp=4, count_rays=True):
+    """The port's regeneration wavefront from the same seeds against the
+    JAX one: 8x8 block error and bias <= 0.01, equal sample counts, loop
+    counts within 2, ray counts within 1% (dense scenes)."""
+    from vision_tpu_torch.integrator import pt as tpt
+    ia, aa = ref
+    ib, ab = tpt.render_wave(ps.data, ps.camera, ps.filter, 0, spp,
+                             ps.max_depth, ps.min_depth, ps.rr_threshold)
+    werr, bias = block_err(np_(ib), ia)
+    assert werr <= 0.01 and abs(bias) <= 0.01, (werr, bias)
+    assert np.array_equal(np_(ab["smp"]), aa["smp"])
+    assert abs(ab["iters"] - int(aa["iters"])) <= 2
+    if count_rays:
+        assert abs(int(ab["nrays"]) / float(aa["nrays"]) - 1.0) < 0.01
+    return werr

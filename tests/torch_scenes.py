@@ -21,6 +21,15 @@ box (`tests/fixtures.py` CBOX_JSON), so nothing has to be downloaded.
   * `cbox_sky`: the cbox without its emitter, lit through its open front
     by a spherical light whose HDRI file is missing, which both packages
     replace by a unit sky. 36 triangles, K1.
+  * `cbox_glass_hero`: `cbox_glass` under the hero-wavelength spectrum of
+    dimension 4 (ladder config 3's dispersive glass): the BK7 box's
+    Sellmeier IOR per wavelength, K1.
+  * `fog_cbox`: the cbox filled with a global homogeneous fog (sigma_s
+    0.3, sigma_a 0.01, g 0; `tests/test_medium.py` `fog_cbox`), srgb, K1.
+  * `cbox_sss`: the cbox whose tall box is a `subsurface` material (its
+    default sigmas at `sigma_scale` 0.5, a mean free path of ~0.3-0.4
+    scene units in a 0.6-unit-wide box: visibly translucent) under the
+    hero spectrum of dimension 4, K1.
 
 This module loads `tests/fixtures.py` by path, and `chip_smoke.py` loads
 this module by path: a `tests` package elsewhere on sys.path must not
@@ -155,4 +164,41 @@ def cbox_sky(res=512):
             "color": {"fn": "__missing_sky__.exr"}, "scale": 3.0,
             "o2w": {"type": "matrix4x4", "param": {"matrix4x4": [
                 [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}}}]}}
+    return s
+
+
+HERO = {"type": "hero", "param": {"dimension": 4}}
+
+
+def cbox_glass_hero(res=512):
+    """`cbox_glass` under the hero spectrum (dimension 4): dispersive BK7."""
+    s = cbox_glass(res)
+    s["spectrum"] = copy.deepcopy(HERO)
+    return s
+
+
+def fog_cbox(res=512, sigma_s=0.3, sigma_a=0.01):
+    """The cbox in a global homogeneous fog (tests/test_medium.py
+    `fog_cbox`), srgb."""
+    s = _base(res)
+    s["mediums"] = {
+        "process": True,
+        "global": "fog",
+        "list": [{"type": "homogeneous", "name": "fog",
+                  "param": {"g": 0.0, "sigma_s": [sigma_s] * 3,
+                            "sigma_a": [sigma_a] * 3, "scale": 1.0}}],
+    }
+    return s
+
+
+def cbox_sss(res=512):
+    """The cbox whose tall box is a translucent subsurface material, under
+    the hero spectrum: the interior medium decodes its sigmas per
+    wavelength and is entered through `inst_in_medium`."""
+    s = _base(res)
+    s["materials"].append({"type": "subsurface", "name": "Subsurface",
+                           "param": {"color": [1, 1, 1], "roughness": 0.2,
+                                     "ior": 1.4, "sigma_scale": 0.5}})
+    s["shapes"][6]["param"]["material"] = "Subsurface"
+    s["spectrum"] = copy.deepcopy(HERO)
     return s

@@ -18,6 +18,10 @@ SPP/2 - 1 and SPP/2 to SPP - 1, the regeneration wavefront in chunks of
   * `cbox_zoo`: `cbox_sphere(sub_div=40)` geometry (6,276 triangles, K2)
     with every material family and the point, spot and projector lights,
     128 spp.
+  * `cbox_glass_hero`: `cbox_glass` under the hero spectrum of dimension 4
+    (dispersive BK7), 4096 spp.
+  * `fog_cbox`: the cbox in a global homogeneous fog (sigma_s 0.3,
+    sigma_a 0.01, g 0), srgb, 4096 spp.
 
 Before a BVH scene renders, the script checks the JAX trace it relies on:
 on the CPU the JAX package traces such a scene with `intersect_bvh`, whose
@@ -44,6 +48,12 @@ Measured on an 8-core CPU host, JAX on the CPU:
     0.0165 and 0.0008: the gate is 3.6x and 29.9x. (A first attempt, 128
     spp through the CPU BVH walk in 1,798.3 s, gave 0.0319, a ratio of
     1.9, and was not kept.)
+  * `cbox_glass_hero`: 4096 spp in 1,098.7 s; halves differ by 0.0125 and
+    0.0006: the gate is 4.8x and 40.2x. (1024 spp, 246.6 s, gave 0.0271,
+    a ratio of 2.2, and was not kept: the hero estimator is noisier.)
+  * `fog_cbox`: 4096 spp in 274.7 s; halves differ by 0.0151 and 0.0028:
+    the gate is 4.0x and 9.0x. (1024 spp, 61.5 s, gave 0.0276, a ratio of
+    2.2, and was not kept.)
 """
 import os
 import sys
@@ -55,7 +65,8 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 
 RES = 128
-SCENES = {"cbox_sphere": 128, "cbox_glass": 1024, "cbox_zoo": 512}
+SCENES = {"cbox_sphere": 128, "cbox_glass": 1024, "cbox_zoo": 512,
+          "cbox_glass_hero": 4096, "fog_cbox": 4096}
 # scenes the JAX package traces with its dense sweep over every triangle
 # (`intersect_brute`) instead of its CPU BVH walk: the same hits (the
 # trace check below compares the two), 4.5x faster on the CPU at 6,276

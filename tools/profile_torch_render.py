@@ -4,7 +4,8 @@
 
 Renders a scene at 512^2, depth 8 (NAME: `cbox`, tests/fixtures.py
 CBOX_JSON, the default; `cbox_sphere`, `cbox_spheres_instanced`,
-`cbox_glass`, `cbox_zoo` or `cbox_sky`, tests/torch_scenes.py) at 1 spp
+`cbox_glass`, `cbox_zoo`, `cbox_sky`, `cbox_glass_hero`, `fog_cbox` or
+`cbox_sss`, tests/torch_scenes.py) at 1 spp
 to warm up, then at 4 spp timed plain and
 once more under torch.profiler, and prints JSON lines: the device's busy
 share of the traced window, device time by kernel (top 25), the device
@@ -55,7 +56,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="cbox",
                     choices=["cbox", "cbox_sphere", "cbox_spheres_instanced",
-                             "cbox_glass", "cbox_zoo", "cbox_sky"])
+                             "cbox_glass", "cbox_zoo", "cbox_sky",
+                             "cbox_glass_hero", "fog_cbox", "cbox_sss"])
     ap.add_argument("trace_dir", nargs="?")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -12,13 +12,15 @@ import torch
 
 
 class PackedRows:
-    """`spec` = ((column name, width), ...) of `table`, stacked in that
-    order into `rows` [N, C] float32."""
+    """`spec` = ((column name, width), ...) of `table` (a record, or a dict
+    of columns), stacked in that order into `rows` [N, C] float32."""
 
     def __init__(self, table, spec):
-        n = getattr(table, spec[0][0]).shape[0]
-        self.rows = torch.cat([getattr(table, k).reshape(n, -1)
-                               .to(torch.float32) for k, _ in spec], dim=1)
+        cols = {k: table[k] if isinstance(table, dict) else getattr(table, k)
+                for k, _ in spec}
+        n = cols[spec[0][0]].shape[0]
+        self.rows = torch.cat([cols[k].reshape(n, -1).to(torch.float32)
+                               for k, _ in spec], dim=1)
         self.slices, o = {}, 0
         for k, w in spec:
             self.slices[k] = (o, o + w, w == 1)

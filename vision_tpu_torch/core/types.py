@@ -23,6 +23,9 @@ class Ray:
                                device=origin.device)
         return cls(origin=origin, direction=direction, t_max=t_max)
 
+    def at(self, t):
+        return self.origin + t[..., None] * self.direction
+
 
 @dataclass
 class Hit:

@@ -20,13 +20,23 @@ Traces take the kernel the scene's geometry calls for: the dense sweep
 path, as the JAX package's packet path does (its dense path sweeps them,
 which changes no result `_bounce` reads).
 
+Under a hero spectrum the carry holds each lane's wavelengths (`lam`,
+`lpdf`, `alive`), radiance and throughput are [R, S], a dispersive
+interaction kills the secondary wavelengths, and a finished path converts
+to sRGB with its own wavelengths. A scene with media (`has_media`, a
+Python switch) carries each lane's medium (`med`): distance sampling
+before the emissive hit, phase-function NEE with shadow transmittance,
+the HG phase sample after the BSDF's, and the medium change when a path
+crosses a surface (`inst_in_medium` / `inst_out_medium`); the camera
+starts in the global medium.
+
 Differences from the JAX package, none of which changes an image:
   * lane = pixel always: the tile order and lane re-binning of the packet
     path (`_tile_order`, `_rebin_perm`) are not ported;
   * `nrays` is counted exactly in int64 (the JAX package sums in float32);
-  * the srgb spectrum carries no wavelengths, so the carry has no
-    lam / lpdf / alive entries (the hero spectrum is slice 4);
-  * no medium branch (`has_media` is False; media are slice 4).
+  * an srgb scene's carry has no lam / lpdf / alive entries, and a scene
+    without media no `med`: those scenes issue no spectral or medium
+    operation.
 """
 from __future__ import annotations
 
@@ -39,7 +49,9 @@ from ..core.math import (coordinate_system, cross, dot, face_forward,
 from ..core.types import Hit, Ray
 from ..lights import lights as lt
 from ..shading import bsdf as ub
+from ..shading import medium as md
 from ..shading.materials import gather_params
+from ..spectra.spectrum import SampledWavelengths
 
 RAY_OFFSET = 2e-4
 
@@ -138,21 +150,29 @@ def spawn_origin(pos, ng, w, factor=1.0):
 
 
 def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
-    """One wavefront bounce: trace + shade + NEE + BSDF sample + RR.
-    `depth` is a per-lane int tensor; all depth comparisons are
-    elementwise. Returns a new carry dict."""
+    """One wavefront bounce: trace + [medium] + shade + NEE + BSDF / phase
+    sample + RR. `depth` is a per-lane int tensor; all depth comparisons
+    are elementwise. Returns a new carry dict."""
     r = Ray.make(c["o"], c["d"])
     act = c["act"]
     hit = trace_closest(scene, r, act)
     nrays = c["nrays"] + act.sum()
     L = c["L"]
     thr = c["thr"]
+    st = c["st"]
     lights = scene.lights
     first = depth == 0
+    S = thr.shape[-1]
+    has_media = scene.has_media
+    sp, swl = None, None
+    if scene.spectrum.hero:
+        sp = scene.spectrum
+        swl = SampledWavelengths(lam=c["lam"], pdf=c["lpdf"],
+                                 secondary_alive=c["alive"])
 
     # ---------------- miss: environment ----------------
     miss = act & hit.is_miss
-    env_L = lt.env_radiance(lights, scene.atlas, c["d"])
+    env_L = lt.env_radiance(lights, scene.atlas, c["d"], sp, swl)
     env_pdf = lt.env_pdf_wi(lights, c["d"])
     w_env = torch.where(first, 1.0, warp.mis_weight(c["spdf"], env_pdf))
     L = L + torch.where(miss[..., None], thr * env_L * w_env[..., None], 0.0)
@@ -161,34 +181,72 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     pos, ng, ns, uv, inst, mat_id, light_id = compute_interaction(scene, hit)
     wo = -c["d"]
 
+    # ---------------- medium distance sampling ----------------
+    # medium-scatter lanes take phase NEE and an HG sample instead of the
+    # surface's emission and material
+    act_surface = act
+    if has_media:
+        med_id = c["med"]
+        in_med = med_id >= 0
+        sigma_t, sigma_s, g_med = md.gather_spectral(scene.mediums, med_id,
+                                                     sp, swl)
+        sigma_t = torch.where(in_med[..., None], sigma_t, 0.0)
+        sigma_s = torch.where(in_med[..., None], sigma_s, 0.0)
+        st, t_med, samp_raw, w_surf, w_med = md.sample_distance(
+            st, sigma_t, hit.t, S)
+        samp_med = act & in_med & samp_raw
+        w = torch.where(samp_med[..., None], w_med * sigma_s,
+                        torch.where((act & in_med)[..., None], w_surf, 1.0))
+        thr = thr * w
+        pos_med = r.at(t_med)
+        act_surface = act & ~samp_med
+
     # ---------------- emissive hit MIS ----------------
     Le, l_pdf = lt.eval_hit_area(lights, light_id, c["o"], pos, ng, uv,
-                                 scene.atlas)
+                                 scene.atlas, sp, swl)
     w_hit = torch.where(first, 1.0, warp.mis_weight(c["spdf"], l_pdf))
-    hit_light = act & (light_id >= 0)
+    hit_light = act_surface & (light_id >= 0)
     L = L + torch.where(hit_light[..., None], thr * Le * w_hit[..., None], 0.0)
 
     # ---------------- material params + shading frame ----------------
-    params, _ = gather_params(scene.materials, scene.atlas, mat_id, uv)
+    params, dispersive = gather_params(scene.materials, scene.atlas, mat_id,
+                                       uv, sp, swl)
+    if sp is not None:
+        # dispersion: a dispersive interaction kills the secondaries
+        swl = swl.terminate_secondary(act & dispersive)
     t, b = coordinate_system(ns)
     wo_l = to_local(t, b, ns, wo)
 
-    # first-bounce AOVs
+    # first-bounce AOVs (a spectral albedo enters as its mean)
     aov = (first & act)[..., None]
-    alb = torch.where(aov, ub.albedo(params, wo_l), c["alb"])
+    alb3 = ub.albedo(params, wo_l)
+    if alb3.shape[-1] != 3:
+        alb3 = torch.mean(alb3, -1, keepdim=True).expand(
+            alb3.shape[:-1] + (3,))
+    alb = torch.where(aov, alb3, c["alb"])
     nrm = torch.where(aov, ns, c["nrm"])
 
     # ---------------- NEE ----------------
-    st, u_sel = rng.next_1d(c["st"])
+    nee_pos = pos
+    if has_media:
+        nee_pos = torch.where(samp_med[..., None], pos_med, pos)
+    st, u_sel = rng.next_1d(st)
     st, u_l2 = rng.next_2d(st)
-    ls = lt.sample_wi(lights, scene.atlas, scene.tri_pack, pos, ns, u_sel,
-                      u_l2, scene.world_radius)
-    shadow_ray = Ray.make(spawn_origin(pos, ng, ls.wi, off_factor), ls.wi,
-                          t_max=ls.dist * (1.0 - 1e-3))
+    ls = lt.sample_wi(lights, scene.atlas, scene.tri_pack, nee_pos, ns, u_sel,
+                      u_l2, scene.world_radius, sp, swl)
+    shadow_o = spawn_origin(pos, ng, ls.wi, off_factor)
+    if has_media:
+        shadow_o = torch.where(samp_med[..., None], pos_med, shadow_o)
+    shadow_ray = Ray.make(shadow_o, ls.wi, t_max=ls.dist * (1.0 - 1e-3))
     wi_l_nee = to_local(t, b, ns, ls.wi)
     nee_eval = ub.evaluate(params, wo_l, wi_l_nee)
     f_nee = nee_eval.f * torch.abs(wi_l_nee[..., 2])[..., None]
     nee_pdf = nee_eval.pdf
+    if has_media:
+        # phase-function NEE on medium-scatter lanes (no cosine)
+        p_hg = md.hg_phase(dot(wo, ls.wi), g_med)
+        f_nee = torch.where(samp_med[..., None], p_hg[..., None], f_nee)
+        nee_pdf = torch.where(samp_med, p_hg, nee_pdf)
     if any(lights.has(k) for k in ("point", "spot", "proj", "dir")):
         # a delta light's sample carries pdf = -pmf: no MIS for it
         is_delta = ls.pdf < 0.0
@@ -206,16 +264,27 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     nrays = nrays + (act if dense else nee_pre).sum()
     nee_ok = nee_pre & ~occ
     Ld = ls.L * f_nee * safe_div(w_nee, l_pdf_pos)[..., None]
+    if has_media:
+        Ld = Ld * md.transmittance(sigma_t, ls.dist, in_med)
     L = L + torch.where(nee_ok[..., None], thr * Ld, 0.0)
 
-    # ---------------- BSDF sample ----------------
+    # ---------------- BSDF / phase sample ----------------
     st, bs = ub.sample(params, wo_l, st)
     wi_world = to_world(t, b, ns, bs.wi)
     f_cos = bs.ev.f * torch.abs(bs.wi[..., 2])[..., None]
     ratio = torch.where(bs.valid[..., None],
                         f_cos * safe_div(1.0, bs.ev.pdf)[..., None], 0.0)
+    spdf = bs.ev.pdf
+    valid = bs.valid
+    if has_media:
+        st, u_hg = rng.next_2d(st)
+        wi_hg, pdf_hg = md.hg_sample(wo, g_med, u_hg)
+        wi_world = torch.where(samp_med[..., None], wi_hg, wi_world)
+        ratio = torch.where(samp_med[..., None], 1.0, ratio)  # f == pdf
+        spdf = torch.where(samp_med, pdf_hg, spdf)
+        valid = valid | samp_med
     new_thr = thr * ratio
-    act = act & bs.valid & (torch.amax(new_thr, dim=-1) > 0.0)
+    act = act & valid & (torch.amax(new_thr, dim=-1) > 0.0)
 
     # ---------------- russian roulette ----------------
     eta = c["eta"] * bs.eta_scale
@@ -229,42 +298,84 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     act = act & ~kill
 
     out = dict(c)  # pass through keys owned by the caller
-    out.update(o=spawn_origin(pos, ng, wi_world, off_factor), d=wi_world,
-               L=L, thr=new_thr, spdf=bs.ev.pdf, act=act, eta=eta, st=st,
-               alb=alb, nrm=nrm, nrays=nrays)
+    new_o = spawn_origin(pos, ng, wi_world, off_factor)
+    if has_media:
+        new_o = torch.where(samp_med[..., None], pos_med, new_o)
+        # the medium changes where the path crosses the surface
+        crossed = ~samp_med & (dot(wi_world, ng) * dot(wo, ng) < 0.0)
+        entering = dot(wi_world, ng) < 0.0
+        il = inst.long()
+        trans_med = torch.where(entering, scene.inst_in_medium[il],
+                                scene.inst_out_medium[il])
+        out["med"] = torch.where(act & crossed, trans_med, med_id)
+    if sp is not None:
+        out["alive"] = swl.secondary_alive
+    out.update(o=new_o, d=wi_world, L=L, thr=new_thr, spdf=spdf, act=act,
+               eta=eta, st=st, alb=alb, nrm=nrm, nrays=nrays)
     return out
 
 
-def _init_carry(ray, state):
+def _init_carry(scene, ray, state, swl):
+    """The wavefront's starting carry: throughput 1 and radiance 0 over
+    S channels, the wavelengths under a hero spectrum, the camera's
+    medium in a scene with media."""
     R = ray.origin.shape[0]
+    S = scene.spectrum.dims
     dev = ray.origin.device
     f32 = dict(dtype=torch.float32, device=dev)
-    return dict(o=ray.origin, d=ray.direction,
-                L=torch.zeros((R, 3), **f32), thr=torch.ones((R, 3), **f32),
-                spdf=torch.full((R,), 1e16, **f32),
-                act=torch.ones((R,), dtype=torch.bool, device=dev),
-                eta=torch.ones((R,), **f32), st=state,
-                alb=torch.zeros((R, 3), **f32), nrm=torch.zeros((R, 3), **f32),
-                nrays=torch.zeros((), dtype=torch.int64, device=dev))
+    c = dict(o=ray.origin, d=ray.direction,
+             L=torch.zeros((R, S), **f32), thr=torch.ones((R, S), **f32),
+             spdf=torch.full((R,), 1e16, **f32),
+             act=torch.ones((R,), dtype=torch.bool, device=dev),
+             eta=torch.ones((R,), **f32), st=state,
+             alb=torch.zeros((R, 3), **f32), nrm=torch.zeros((R, 3), **f32),
+             nrays=torch.zeros((), dtype=torch.int64, device=dev))
+    if swl is not None:
+        c.update(alive=swl.secondary_alive, lam=swl.lam, lpdf=swl.pdf)
+    if scene.has_media:
+        c["med"] = torch.full((R,), scene.camera_medium, dtype=torch.int64,
+                              device=dev)
+    return c
+
+
+def _sample_wavelengths(scene, state):
+    """(state, SampledWavelengths or None): one draw under a hero
+    spectrum, none in the srgb mode."""
+    if not scene.spectrum.hero:
+        return state, None
+    return scene.spectrum.sample_wavelengths(state)
+
+
+def _to_srgb(scene, c):
+    """A carry's radiance as linear sRGB with its lanes' own wavelengths;
+    non-finite values to 0."""
+    if scene.spectrum.hero:
+        L = scene.spectrum.to_srgb(c["L"], SampledWavelengths(
+            lam=c["lam"], pdf=c["lpdf"], secondary_alive=c["alive"]))
+    else:
+        L = c["L"]
+    return torch.where(torch.isfinite(L), L, 0.0)
 
 
 def radiance(scene, ray, state, max_depth=16, min_depth=0, rr_threshold=1.0):
-    """Estimate L for a wavefront of rays, bounce-major. Returns
-    (L [R, 3] linear sRGB, aovs dict)."""
-    c = _init_carry(ray, state)
+    """Estimate L for a wavefront of rays, bounce-major: the wavelengths
+    are drawn first (hero spectrum). Returns (L [R, 3] linear sRGB, aovs
+    dict)."""
+    state, swl = _sample_wavelengths(scene, state)
+    c = _init_carry(scene, ray, state, swl)
     R = ray.origin.shape[0]
     for k in range(max_depth):
         depth = torch.full((R,), k, dtype=torch.int64, device=ray.origin.device)
         c = _bounce(scene, scene.ray_offset, min_depth, rr_threshold, depth, c)
-    Lf = scene.spectrum.to_srgb(c["L"])
-    Lf = torch.where(torch.isfinite(Lf), Lf, 0.0)
-    return Lf, dict(albedo=c["alb"], normal=c["nrm"], nrays=c["nrays"])
+    return _to_srgb(scene, c), dict(albedo=c["alb"], normal=c["nrm"],
+                                    nrays=c["nrays"])
 
 
 def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
                 rr_threshold=1.0):
     """Regeneration-wavefront renderer: one persistent lane per pixel; a
-    finished path's lane is refilled with that pixel's next sample at once.
+    finished path's lane is refilled with that pixel's next sample at once
+    (new wavelengths after its film and lens samples, the camera's medium).
 
     The loop runs until no lane is live, bounded by
     max_iters = spp * max_depth + 4 (one lane running spp paths of
@@ -283,6 +394,7 @@ def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
     py = (pix // W).to(torch.float32)
     p_center = torch.stack([px + 0.5, py + 0.5], dim=-1)
     frame_key = (int(frame0) * 0x9E3779B9) & 0xFFFFFFFF
+    hero = scene.spectrum.hero
 
     def new_path(sample_idx):
         # decorrelate (pixel, frame0 + sample) streams
@@ -291,11 +403,12 @@ def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
         offset, fw = filt.sample(u_film)
         st, u_lens = rng.next_2d(st)
         ray = camera.generate_ray(p_center + offset, u_lens)
-        return st, ray, fw
+        st, swl = _sample_wavelengths(scene, st)
+        return st, ray, swl, fw
 
     smp = torch.zeros((R,), dtype=torch.int64, device=dev)
-    st0, ray0, fw0 = new_path(smp)
-    c = _init_carry(ray0, st0)
+    st0, ray0, swl0, fw0 = new_path(smp)
+    c = _init_carry(scene, ray0, st0, swl0)
     c.update(dep=torch.zeros((R,), dtype=torch.int64, device=dev), fw=fw0,
              smp=smp, film=torch.zeros((R, 3), dtype=torch.float32, device=dev))
 
@@ -309,16 +422,16 @@ def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
         act = c["act"] & (dep < max_depth)
         done = act_in & ~act
 
-        # finished paths splat into their pixel (lane == pixel)
-        Lrgb = scene.spectrum.to_srgb(c["L"])
-        Lrgb = torch.where(torch.isfinite(Lrgb), Lrgb, 0.0)
+        # finished paths splat into their pixel (lane == pixel), converted
+        # with their own wavelengths
+        Lrgb = _to_srgb(scene, c)
         film = c["film"] + torch.where(done[..., None],
                                        Lrgb * c["fw"][..., None], 0.0)
         smp = c["smp"] + done.to(torch.int64)
 
         # regenerate lanes that still owe samples
         regen = done & (smp < spp)
-        st_n, ray_n, fw_n = new_path(smp)
+        st_n, ray_n, swl_n, fw_n = new_path(smp)
         m = regen[..., None]
         c.update(
             o=torch.where(m, ray_n.origin, c["o"]),
@@ -332,6 +445,13 @@ def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
             dep=torch.where(regen, 0, dep),
             fw=torch.where(regen, fw_n, c["fw"]),
             smp=smp, film=film)
+        if hero:
+            c.update(alive=torch.where(regen, swl_n.secondary_alive,
+                                       c["alive"]),
+                     lam=torch.where(m, swl_n.lam, c["lam"]),
+                     lpdf=torch.where(m, swl_n.pdf, c["lpdf"]))
+        if scene.has_media:
+            c["med"] = torch.where(regen, scene.camera_medium, c["med"])
         it += 1
 
     img = (c["film"] / torch.clamp_min(c["smp"].to(torch.float32), 1.0)[..., None]

@@ -21,7 +21,11 @@ type skips the masking. Conventions (as in the JAX package):
   * light selection uniform or by power; an environment takes a fixed
     share `env_prob` of the samples.
 
-IES profiles raise NotImplementedError (ROADMAP queue A, slice 4). A scene
+Under a hero spectrum every radiance a lane reads (env, sample, hit)
+decodes to a spectrum at the lane's wavelengths as illumination (the
+unbound decode times D65), after its rgb is formed, as in the JAX package.
+
+IES profiles raise NotImplementedError (ROADMAP queue A, slice 4c). A scene
 without a light gets the JAX package's sentinel: one black point light.
 The per-light columns a lane reads are fetched in one indexing of the
 packed columns (`core/rows.py`).
@@ -113,6 +117,12 @@ class LightSample:
     dist: torch.Tensor     # [...] distance for the occlusion test
 
 
+def _decode_illum(rgb, spectrum, swl):
+    if spectrum is None:
+        return rgb
+    return spectrum.decode_illumination(rgb, swl)
+
+
 def _falloff_spot(cos_theta, cos_angle, cos_falloff):
     c = torch.minimum(torch.maximum(cos_theta, cos_angle), cos_falloff)
     return safe_div(c - cos_angle, cos_falloff - cos_angle) ** 4
@@ -136,13 +146,15 @@ def _env_angles(table, world_dir):
     return spherical_theta(local), spherical_phi(local)
 
 
-def env_radiance(table, atlas, world_dir):
-    """Environment radiance on a miss."""
+def env_radiance(table, atlas, world_dir, spectrum=None, swl=None):
+    """Environment radiance on a miss ([..., S] under a hero spectrum)."""
     if table.env_index < 0:
-        return torch.zeros_like(world_dir)
+        S = 3 if spectrum is None else spectrum.dims
+        return torch.zeros(world_dir.shape[:-1] + (S,), device=world_dir.device)
     theta, phi = _env_angles(table, world_dir)
     uv = torch.stack([phi * Inv2Pi, theta * InvPi], -1)
-    return _sample_env_tex(table, atlas, uv) * table.color[table.env_index]
+    return _decode_illum(_sample_env_tex(table, atlas, uv)
+                         * table.color[table.env_index], spectrum, swl)
 
 
 def env_pdf_wi(table, world_dir):
@@ -196,13 +208,13 @@ def light_pmf(table, light_id):
 
 
 def sample_wi(table, atlas, tri_pack, ref_pos, ref_ng, u_sel, u2,
-              world_radius):
+              world_radius, spectrum=None, swl=None):
     """NEE light sample for every lane. tri_pack = [T, 32] packed triangle
     rows (p0 e1 e2 ... uv0 uv1 uv2) for area lights; `ref_ng` is unused,
     as in the JAX package. Returns LightSample."""
     if table.has("ies"):
         raise NotImplementedError(
-            "IES light profiles are not ported yet: ROADMAP queue A, slice 4")
+            "IES light profiles are not ported yet: ROADMAP queue A, slice 4c")
     lid, sel_pmf, u_sel2 = select_light(table, u_sel)
     g = table.packed.fetch(lid)
     lt = g("ltype")
@@ -345,6 +357,7 @@ def sample_wi(table, atlas, tri_pack, ref_pos, ref_ng, u_sel, u2,
         p_far = ref_pos + wi * (2.0 * world_radius)
         p_light = p_far if single else torch.where(far_m[..., None], p_far,
                                                    p_light)
+    L = _decode_illum(L, spectrum, swl)
     if dist2 is None:
         dist2 = torch.ones(shape, device=ref_pos.device)
     if not far:
@@ -364,7 +377,7 @@ def _any(mask, types, shape, device):
 
 
 def eval_hit_area(table, light_id, ref_pos, hit_pos, hit_ng, hit_uv=None,
-                  atlas=None):
+                  atlas=None, spectrum=None, swl=None):
     """(L, pdf_wi) when a scatter ray hits an emissive surface; pdf
     includes the light-selection pmf. With `hit_uv` and an atlas, textured
     emission is read at the hit."""
@@ -380,7 +393,7 @@ def eval_hit_area(table, light_id, ref_pos, hit_pos, hit_ng, hit_uv=None,
     w = ref_pos - hit_pos
     front = dot(normalize(w), hit_ng)
     vis = (front > 0.0) | (g("two_sided") > 0)
-    L = color * vis[..., None]
+    L = _decode_illum(color, spectrum, swl) * vis[..., None]
     pdf_wi = warp.pdf_wi_from_point(safe_div(1.0, g("total_area")), hit_ng, w)
     pdf_wi = (torch.where(torch.isfinite(pdf_wi), pdf_wi, 0.0)
               * _env_split(table, lid, g("sel_pmf")))

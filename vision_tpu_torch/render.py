@@ -24,11 +24,11 @@ def render(scene, spp=None, verbose=False, adaptive=False, stats=None):
     Returns linear HDR [H, W, 3] as a float32 tensor on the scene's device.
     If `stats` is a dict, the traced-ray count ("nrays") and the number of
     wavefront iterations ("iters") are added to it.
-    Adaptive sampling raises NotImplementedError (ROADMAP queue A, slice 4).
+    Adaptive sampling raises NotImplementedError (ROADMAP queue A, slice 4d).
     """
     if adaptive:
         raise NotImplementedError(
-            "adaptive sampling is not ported yet: ROADMAP queue A, slice 4")
+            "adaptive sampling is not ported yet: ROADMAP queue A, slice 4d")
     spp = spp or scene.output_spp or 64
     t0 = time.time()
     accum = None
@@ -56,13 +56,17 @@ def postprocess(scene, hdr):
     return film.linear_to_srgb(x)
 
 
-def render_to_file(scene_path, device="cuda", out_path=None, spp=None,
-                   verbose=True):
-    """Load, render and write a PNG; returns the output path."""
+def render_to_file(scene_path, out_path=None, spp=None, verbose=True, *,
+                   device="cuda"):
+    """Load, render and write an 8-bit PNG; returns the output path. The
+    arguments are the JAX package's, in its order, and `device` (the card
+    unless the caller asks for another). EXR output raises
+    NotImplementedError (ROADMAP queue A, slice 7a)."""
     scene = load_scene(scene_path, device)
-    img = postprocess(scene, render(scene, spp=spp, verbose=verbose))
     out = out_path or scene.output_fn
-    if not out.lower().endswith(".png"):
-        raise NotImplementedError("only PNG output is ported")
+    if out.lower().endswith(".exr"):
+        raise NotImplementedError(
+            "EXR output is not ported yet: ROADMAP queue A, slice 7a")
+    img = postprocess(scene, render(scene, spp=spp, verbose=verbose))
     film.to_png(np.asarray(img.cpu()), out)
     return out

@@ -5,11 +5,15 @@ Counterpart of `vision_tpu/scene/scene.py` (`_build`, `_add_light`,
 the ported subset: procedural shapes (quad, cube, sphere), every material
 type of `shading/materials.py`, area emission (on a shape or as a
 standalone area light), point, spot, projector, spherical and directional
-lights, and the srgb spectrum with the normal frame buffer. A spherical
+lights, the srgb and hero spectra (`spectrum.type`, `param.dimension`),
+homogeneous participating media (the `mediums` block: `process`, `list`,
+`global`; a shape's `medium.inside` / `outside`, the outside defaulting to
+the global medium; a subsurface material's interior medium; the camera in
+the global medium) and the normal frame buffer. A spherical
 light whose image file is missing, in a scene with no other light, becomes
 the JAX package's substitute: a unit sky in the light's frame. An image
 file that exists (a texture, a projector's image, an environment map)
-raises NotImplementedError: image loading is slice 7; so does the `mix`
+raises NotImplementedError: image loading is slice 7a; so does the `mix`
 environment, which blends two images. Geometry takes the path the JAX
 package gives it:
 
@@ -45,6 +49,7 @@ from ..sensor.filters import FilterSampler
 from ..shading.materials import (COLUMNS, INT_COLUMNS, OPTIONAL,
                                  MaterialCompiler, MaterialTable, check_feats,
                                  image_exists_or_raise)
+from ..shading.medium import MediumBuilder, MediumTable
 from ..spectra.spectrum import SpectrumModel
 from . import desc as dsc
 from . import shapes as shp
@@ -71,6 +76,11 @@ class SceneData:
     spectrum: SpectrumModel
     world_radius: float
     ray_offset: float         # render_setting.ray_offset_factor
+    mediums: MediumTable = None
+    inst_in_medium: torch.Tensor = None   # [I] int32 (-1 vacuum)
+    inst_out_medium: torch.Tensor = None  # [I] int32
+    has_media: bool = False   # a Python switch: no medium op without it
+    camera_medium: int = -1
     pbvh: object = None       # PacketBVH of the flat soup (> 2048 tris, K2)
     # instanced geometry (K3): tri_pack rows are then [unique meshes in
     # object space][the residual world soup], and hits carry an instance
@@ -143,7 +153,7 @@ def _world_radius(p_all):
 
 
 def _missing_image(scene_dir, payload, what):
-    """An image slot: NotImplementedError (slice 7) if its file exists; a
+    """An image slot: NotImplementedError (slice 7a) if its file exists; a
     warning if it is missing, which the JAX package skips the same way."""
     image_exists_or_raise(scene_dir, payload.get("fn"), what)
     warnings.warn(f"{what}: image '{payload.get('fn')}' missing")
@@ -178,7 +188,7 @@ def _add_light(lights, ldesc, scene_dir, add_area):
     else:
         color, img = [scale] * 3, (payload if kind == "image" else None)
     if lt in ("spot", "projector") and p.raw("ies", None):
-        raise _not_ported("IES light profiles", 4)
+        raise _not_ported("IES light profiles", "4c")
     if lt == "point":
         lights.add_point(color, p.as_float3("position"))
     elif lt == "spot":
@@ -199,7 +209,8 @@ def _add_light(lights, ldesc, scene_dir, add_area):
     elif lt == "directional":
         lights.add_directional(color, p.as_float3("direction", (0, -1, 0)))
     elif lt == "mix":
-        raise _not_ported("the 'mix' environment (a blend of two images)", 7)
+        raise _not_ported("the 'mix' environment (a blend of two images)",
+                          "7a")
     elif lt == "area":
         world = shp.make_quad(p.as_float("width", 1.0),
                               p.as_float("height", 1.0)).transformed(
@@ -232,16 +243,39 @@ class Scene:
         for mdesc in raw.get("materials", []):
             mats.compile(mdesc)
 
-        med = raw.get("mediums", {})
-        if med.get("list") or med.get("global"):
-            raise _not_ported("participating media", 4)
+        # ---- mediums: {process, list, global} ----
+        media = MediumBuilder()
+        med_desc = raw.get("mediums", {})
+        process_media = bool(med_desc.get("process", False))
+        for mdesc in med_desc.get("list", []):
+            media.add(mdesc)
+        gname = med_desc.get("global", "")
+        global_medium = media.get(gname) if gname else -1
+        inst_media = []  # (inside, outside) per instance
+
+        def sss_medium(mid, sss):
+            """The interior medium of subsurface material `mid`, made once
+            (the JAX package's `_obtain_sss_medium`)."""
+            nonlocal process_media
+            key = f"__sss_{mid}"
+            if media.get(key) >= 0:
+                return media.get(key)
+            param = {"sigma_a": sss["sigma_a"], "sigma_s": sss["sigma_s"],
+                     "g": sss["g"]}
+            if sss.get("medium_name"):
+                param = {"medium_name": sss["medium_name"], "g": sss["g"]}
+            process_media = True
+            return media.add({"type": "homogeneous", "name": key,
+                              "param": param})
+
         fb = raw.get("pipeline", {}).get("param", {}).get("frame_buffer", {})
         if fb.get("type", "normal") != "normal":
-            raise _not_ported(f"the '{fb.get('type')}' frame buffer", 4)
-        sp_type = raw.get("spectrum", {}).get("type", "srgb")
-        if sp_type == "hero":
-            raise _not_ported("the hero-wavelength spectrum", 4)
-        sp_type = "srgb"  # the JAX package reads any other name as srgb
+            raise _not_ported(f"the '{fb.get('type')}' frame buffer", "4d")
+        sp_desc = raw.get("spectrum", {})
+        sp_type = sp_desc.get("type", "srgb")
+        sp_dims = sp_desc.get("param", {}).get("dimension", 3)
+        if sp_type not in ("srgb", "hero"):
+            sp_type = "srgb"  # the JAX package reads any other name as srgb
 
         ls = raw.get("light_sampler", {})
         lights = LightBuilder(sampler_type=ls.get("type", "uniform"),
@@ -260,8 +294,6 @@ class Scene:
                 mesh = shp.make_shape(stype, p)
                 if key is not None:
                     mesh_cache[key] = mesh
-            if p.get("medium"):
-                raise _not_ported("participating media", 4)
             mat_name = p.get("material")
             if isinstance(mat_name, dict):
                 mid = mats.compile(mat_name)
@@ -270,6 +302,14 @@ class Scene:
             inst_id = len(inst_mat)
             inst_mat.append(mid)
             inst_light.append(-1)
+            med = p.get("medium", {})
+            inside = media.get(med.get("inside", "")) if med else -1
+            outside = (media.get(med.get("outside", "")) if med
+                       else global_medium)
+            sss = mats.sss.get(mid)
+            if sss is not None and inside < 0:
+                inside = sss_medium(mid, sss)
+            inst_media.append((inside, outside))
             raw_parts.append((mesh, xf.from_json(p.get("transform")), inst_id,
                               key, p.get("emission")))
 
@@ -310,6 +350,7 @@ class Scene:
             nonlocal base
             inst_id = len(inst_mat)
             inst_mat.append(-1)
+            inst_media.append((-1, global_medium))
             inst_light.append(lights.add_area(color, inst_id, base,
                                               _tri_areas(world), two_sided))
             mesh_parts.append((world, inst_id))
@@ -378,6 +419,11 @@ class Scene:
         self.output_fn = out.get("fn", "output.png")
         rs = dsc.ParameterSet(raw.get("render_setting", {}))
 
+        def media_col(k):
+            return torch.as_tensor(
+                np.asarray([m[k] for m in inst_media] or [-1], np.int32),
+                device=device)
+
         self.data = SceneData(
             tri_geom=torch.as_tensor(
                 np.concatenate([t["p0"], t["e1"], t["e2"]], 1), device=device),
@@ -386,10 +432,13 @@ class Scene:
             inst_light=torch.as_tensor(inst_light, device=device),
             materials=mats.build(device), lights=lights.build(device),
             atlas=atlas.build(device),
-            spectrum=SpectrumModel.make(sp_type, device),
+            spectrum=SpectrumModel.make(sp_type, sp_dims, device),
             world_radius=float(np.float32(_world_radius(p_all))),
             ray_offset=float(np.float32(rs.as_float("ray_offset_factor", 1.0))),
-            **geo)
+            mediums=media.build(device), inst_in_medium=media_col(0),
+            inst_out_medium=media_col(1),
+            has_media=process_media and len(media.rows) > 0,
+            camera_medium=global_medium, **geo)
 
 
 def _build_instanced(meshes, instances, t, inst_mat, inst_light, device):
@@ -451,15 +500,17 @@ def scene_from_arrays(arrays, device="cuda"):
 
     Keys: SceneData fields by name (`tri_p0`, `tri_e1`, `tri_e2`,
     `tri_pack`, `inst_mat`, `inst_light`, `world_radius`, `ray_offset`,
-    `has_media`, and for an instanced scene `inst_scene`, `inst_xform`),
-    and the fields of its records under a prefix: `materials.*`
-    (MaterialTable), `lights.*` (LightTable), `atlas.*` (TextureAtlas),
-    `spectrum.*` (SpectrumModel), `camera.*` (Camera), `filter.*`
-    (FilterSampler), `pbvh.*` (PacketBVH) and `ipbvh.*` (InstancedPBVH).
-    Static fields (`feats`, `n_lights`, `env_index`, `env_prob`, `env_w`,
-    `env_h`, `n_real`, `kind`, `resolution`, `is_box`, `bsize`) come as
-    arrays too. A scene outside the slice (media, the hero spectrum,
-    shade-time node graphs, normal maps, IES profiles) raises
+    `has_media`, `camera_medium`, `inst_in_medium`, `inst_out_medium`, and
+    for an instanced scene `inst_scene`, `inst_xform`), and the fields of
+    its records under a prefix: `materials.*` (MaterialTable, the spectral
+    columns included), `mediums.*` (MediumTable), `lights.*` (LightTable),
+    `atlas.*` (TextureAtlas), `spectrum.*` (SpectrumModel: `kind`, `dims`
+    and its tables), `camera.*` (Camera), `filter.*` (FilterSampler),
+    `pbvh.*` (PacketBVH) and `ipbvh.*` (InstancedPBVH). Static fields
+    (`feats`, `n_lights`, `env_index`, `env_prob`, `env_w`, `env_h`,
+    `n_real`, `kind`, `dims`, `resolution`, `is_box`, `bsize`,
+    `has_media`, `camera_medium`) come as arrays too. A scene outside the
+    slice (shade-time node graphs, normal maps, IES profiles) raises
     NotImplementedError.
     """
     a = {k: np.array(v) for k, v in arrays.items()}
@@ -467,15 +518,11 @@ def scene_from_arrays(arrays, device="cuda"):
     def t(key, dtype=None):
         return torch.as_tensor(a[key], dtype=dtype, device=device)
 
-    if bool(a.get("has_media", False)):
-        raise _not_ported("participating media", 4)
-    if int(a["spectrum.kind"]) != 0:
-        raise _not_ported("the hero-wavelength spectrum", 4)
     mat_feats = tuple(str(f) for f in np.atleast_1d(a["materials.feats"]))
     check_feats(mat_feats)
     light_feats = tuple(str(f) for f in np.atleast_1d(a["lights.feats"]))
     if "ies" in light_feats:
-        raise _not_ported("IES light profiles", 4)
+        raise _not_ported("IES light profiles", "4c")
 
     materials = MaterialTable(
         feats=mat_feats,
@@ -499,9 +546,21 @@ def scene_from_arrays(arrays, device="cuda"):
                          width=t("atlas.width", torch.int64),
                          height=t("atlas.height", torch.int64),
                          n_real=int(a["atlas.n_real"]))
-    spectrum = SpectrumModel(kind=0, dims=3, **{
+    spectrum = SpectrumModel(kind=int(a["spectrum.kind"]),
+                             dims=int(a["spectrum.dims"]), **{
         k: t(f"spectrum.{k}") for k in ("coeffs", "cie_x", "cie_y", "cie_z",
                                         "d65n")})
+    media = dict(has_media=bool(a.get("has_media", False)),
+                 camera_medium=int(a.get("camera_medium", -1)))
+    if "mediums.g" in a:
+        media.update(
+            mediums=MediumTable(**{k: t(f"mediums.{k}", torch.float32)
+                                   for k in ("sigma_a", "sigma_s", "g")}),
+            inst_in_medium=t("inst_in_medium", torch.int32),
+            inst_out_medium=t("inst_out_medium", torch.int32))
+    elif media["has_media"]:
+        raise ValueError("a scene with media needs its mediums.* and "
+                         "inst_*_medium")
     geo = dict(pbvh=None, ipbvh=None, inst_scene=None, inst_xform=None)
     for key, make in (("pbvh", packet_bvh_from_arrays),
                       ("ipbvh", instanced_pbvh_from_arrays)):
@@ -521,7 +580,7 @@ def scene_from_arrays(arrays, device="cuda"):
         inst_light=t("inst_light"), materials=materials, lights=lights,
         atlas=atlas, spectrum=spectrum,
         world_radius=float(a["world_radius"]),
-        ray_offset=float(a["ray_offset"]), **geo)
+        ray_offset=float(a["ray_offset"]), **media, **geo)
     camera = Camera(c2w=t("camera.c2w"), tan_half_fov=t("camera.tan_half_fov"),
                     lens_radius=t("camera.lens_radius"),
                     focal_distance=t("camera.focal_distance"),

@@ -1,7 +1,7 @@
 """Texture atlas: all scene images packed into one flat tensor.
 
 Counterpart of `vision_tpu/scene/texture.py`. AtlasBuilder takes arrays only;
-loading images from files comes with ROADMAP queue A slice 7.
+loading images from files comes with ROADMAP queue A slice 7a.
 """
 from __future__ import annotations
 

@@ -1,9 +1,13 @@
 """Film post: tonemap, gamma, PNG output.
 
 Counterpart of `vision_tpu/sensor/film.py` (linear / ACES Narkowicz /
-Reinhard tone mappers, then linear -> sRGB).
+Reinhard tone mappers, then linear -> sRGB). The PNG writer uses the
+standard library's zlib and struct and numpy, nothing else.
 """
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -26,8 +30,22 @@ def linear_to_srgb(x):
                        - 0.055)
 
 
+def _png_chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
 def to_png(img, path):
-    from PIL import Image
+    """Write img [H, W, 3] in [0, 1] as an 8-bit RGB PNG: the signature,
+    IHDR, one IDAT (every row with filter byte 0), IEND."""
     arr = np.asarray(img)
     arr = np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    h, w = arr.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          np.ascontiguousarray(arr[..., :3]).reshape(h, w * 3)],
+                         axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+                + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))

@@ -3,24 +3,30 @@
 Counterpart of `vision_tpu/shading/materials.py`. Each material type maps
 to parameters of the uber-BSDF (bsdf.py): diffuse (Oren-Nayar through
 `sigma`), mirror, metal, metallic, glass, substrate, plastic,
-principled_bsdf, emission, black_body, and the mixtures mix, add and
+principled_bsdf, subsurface (a rough dielectric row whose interior medium
+the scene attaches), emission, black_body, and the mixtures mix, add and
 multi_layered (a second row and two weights); an unknown type becomes grey
 diffuse. The table carries every column of the JAX package's
-`MaterialTable`, in its units, so both packages gather the same rows; the
-spectral columns (`glass_coeffs`, `metal_*_spd`, `dispersive_id`,
-`metal_id`) wait for the hero spectrum.
+`MaterialTable`, in its units, so both packages gather the same rows,
+the spectral ones included (`glass_coeffs`, `metal_*_spd`,
+`dispersive_id`, `metal_id`).
 
 A slot is a constant or a tree of constant calculation nodes, folded on
 the host as the JAX package folds it. An image slot whose file exists
-raises NotImplementedError (image loading, ROADMAP queue A slice 7); one
+raises NotImplementedError (image loading, ROADMAP queue A slice 7a); one
 whose file is missing takes the slot's default, as in the JAX package.
 Shade-time node graphs (a fresnel-driven mix, uv vector mapping, other
-context-dependent nodes), normal maps (`bump`) and subsurface (it attaches
-a medium) raise NotImplementedError naming slice 4.
+context-dependent nodes) raise NotImplementedError naming slice 4c, normal
+maps (`bump`, an image) slice 7a.
 
 At shade time `gather_params` reads a lane's row in one indexing of the
 packed columns (`core/rows.py`) and resolves the kd / spec / rough / frac
-texture slots against the atlas.
+texture slots against the atlas. Under the hero spectrum the colour slots
+decode to spectra at the lane's wavelengths, a dispersive glass takes its
+Sellmeier IOR per wavelength and a named metal its measured eta / k; a
+slot without a texture decodes from sigmoid coefficients computed once per
+row (`MaterialTable.hero_rows`), the same float32 operations as the
+per-lane decode, which textured slots keep.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from ..core.rows import PackedRows
 from ..scene.desc import ParameterSet, parse_slot
 from ..spectra import spd
-from ..spectra.spectrum import DATA_DIR
+from ..spectra.spd import DATA_DIR
 from . import bsdf
 from . import fresnel as frs
 from .microfacet import calculate_alpha, roughness_to_alpha
@@ -98,6 +104,9 @@ class MaterialTable:
     packed: PackedRows = field(default=None, repr=False)
     fr_modes: tuple = ()
     tex_slots: tuple = ()
+    has_dispersive: bool = False
+    has_metal_spd: bool = False
+    _hero: PackedRows = field(default=None, repr=False)
 
     def __post_init__(self):
         self.packed = PackedRows(self, PACKED)
@@ -106,6 +115,22 @@ class MaterialTable:
             s for s, k in (("kd", "kd_tex"), ("spec", "spec_tex"),
                            ("rough", "rough_tex"), ("frac", "frac_tex"))
             if bool((getattr(self, k) >= 0).any()))
+        self.has_dispersive = bool((self.dispersive_id >= 0).any())
+        self.has_metal_spd = bool((self.metal_id >= 0).any())
+
+    def hero_rows(self, spectrum):
+        """The sigmoid coefficients of every row's colour slots
+        (`HERO_SLOTS`), packed for one gather per lane; computed at the
+        first call (a table serves one scene, whose spectrum's table is the
+        same data in every model)."""
+        if self._hero is None:
+            cols = {k: spectrum.row_coeffs(getattr(self, k)) for k in HERO_SLOTS}
+            self._hero = PackedRows(cols, tuple((k, 3) for k in HERO_SLOTS))
+        return self._hero
+
+
+# colour slots a hero lane decodes (the non-metal eta3 / k3 included)
+HERO_SLOTS = ("kd", "spec_tint", "sheen_tint", "eta3", "k3")
 
 
 INT_COLUMNS = ("kd_tex", "spec_tex", "rough_tex", "rough_remap",
@@ -115,7 +140,9 @@ INT_COLUMNS = ("kd_tex", "spec_tex", "rough_tex", "rough_remap",
 # LUTs, which are present only when a material needs them)
 COLUMNS = tuple(f.name for f in fields(MaterialTable)
                 if f.name not in ("feats", "ems_E", "ems_Eavg", "sheen_ltc",
-                                  "packed", "fr_modes", "tex_slots"))
+                                  "packed", "fr_modes", "tex_slots",
+                                  "has_dispersive", "has_metal_spd",
+                                  "_hero"))
 OPTIONAL = ("ems_E", "ems_Eavg", "sheen_ltc")
 # the per-row columns a shading lane reads, packed in this order
 PACKED = (("kd", 3), ("kd_tex", 1), ("spec_tint", 3), ("spec_tex", 1),
@@ -125,7 +152,8 @@ PACKED = (("kd", 3), ("kd_tex", 1), ("spec_tint", 3), ("spec_tex", 1),
           ("spec_weight", 1), ("trans_weight", 1), ("cc_weight", 1),
           ("cc_alpha", 1), ("sheen_weight", 1), ("sheen_tint", 3),
           ("flatness", 1), ("metallic", 1), ("sheen_rough", 1),
-          ("mix_b", 1), ("mix_wa", 1), ("mix_wb", 1), ("frac_tex", 1))
+          ("mix_b", 1), ("mix_wa", 1), ("mix_wb", 1), ("frac_tex", 1),
+          ("dispersive_id", 1), ("metal_id", 1))
 
 
 def _default_row():
@@ -164,10 +192,10 @@ class _MissingImage(Exception):
 
 
 def image_exists_or_raise(scene_dir, fn, what):
-    """For an image slot: raise NotImplementedError (slice 7) if its file
+    """For an image slot: raise NotImplementedError (slice 7a) if its file
     exists, return False if it is missing."""
     if os.path.exists(os.path.join(scene_dir, str(fn))):
-        raise _not_ported(f"loading the image '{fn}' ({what})", 7)
+        raise _not_ported(f"loading the image '{fn}' ({what})", "7a")
     return False
 
 
@@ -215,7 +243,7 @@ def fold_const(raw, scene_dir):
         c = np.clip(v, float(payload.get("lower", 0.0)),
                     float(payload.get("upper", 1.0)))
     else:
-        raise _not_ported(f"the shader node '{kind}' (node graphs)", 4)
+        raise _not_ported(f"the shader node '{kind}' (node graphs)", "4c")
     return _swizzle(np.atleast_1d(np.asarray(c, np.float32)), channels)
 
 
@@ -234,6 +262,9 @@ class MaterialCompiler:
         self.rows = []
         self.by_name = {}
         self.scene_dir = scene_dir
+        # material id -> its interior-medium request (subsurface materials;
+        # the scene attaches it as the shape's inside medium)
+        self.sss = {}
 
     # ---- slot helpers ----
 
@@ -277,6 +308,9 @@ class MaterialCompiler:
             return self.by_name[name]
         row = self._compile_row(desc)
         mid = len(self.rows)
+        sss = row.pop("_sss", None)
+        if sss is not None:
+            self.sss[mid] = sss
         self.rows.append(row)
         if name:
             self.by_name[name] = mid
@@ -284,7 +318,9 @@ class MaterialCompiler:
 
     def _append_child(self, desc):
         """A sub-material of a mixture, in its own anonymous row."""
-        self.rows.append(self._compile_row(desc))
+        row = self._compile_row(desc)
+        row.pop("_sss", None)
+        self.rows.append(row)
         return len(self.rows) - 1
 
     def get(self, name):
@@ -316,7 +352,7 @@ class MaterialCompiler:
             row.update(diffuse_weight=1.0, kd=[0.5, 0.5, 0.5])
             return row
         if p.raw("bump", None) is not None:
-            raise _not_ported("normal maps (the 'bump' slot)", 4)
+            raise _not_ported("normal maps (the 'bump' slot, an image)", "7a")
         fn(row, p)
         return row
 
@@ -438,7 +474,23 @@ class MaterialCompiler:
                    flatness=flatness, metallic=metallic)
 
     def _mat_subsurface(self, row, p):
-        raise _not_ported("the subsurface material (an interior medium)", 4)
+        """A rough dielectric interface; its sigma_a / sigma_s (times
+        `sigma_scale`), g or `medium_name` become the shape's interior
+        medium, which the scene attaches."""
+        tint, tex = self._slot_rgb(p, "color", [1.0, 1.0, 1.0])
+        ior = self._slot_scalar(p, "ior", 1.5)[0]
+        ax, ay, rtex, remap, aniso = self._alpha_from(p, lo=0.01)
+        row.update(spec_tint=tint, spec_tex=tex, fr_mode=frs.FR_DIELECTRIC,
+                   eta=float(ior), ax=ax, ay=ay, rough_tex=rtex,
+                   rough_remap=remap, anisotropic=aniso,
+                   spec_weight=1.0, trans_weight=1.0)
+        sigma_a = p.as_float3("sigma_a", (0.0011, 0.0024, 0.014))
+        sigma_s = p.as_float3("sigma_s", (2.55, 3.21, 3.77))
+        scale = p.as_float("sigma_scale", 1.0)
+        row["_sss"] = dict(sigma_a=[c * scale for c in sigma_a],
+                           sigma_s=[c * scale for c in sigma_s],
+                           g=p.as_float("g", 0.0),
+                           medium_name=p.as_str("medium_name", ""))
 
     def _mat_emission(self, row, p):
         row.update(diffuse_weight=0.0)
@@ -530,38 +582,68 @@ PORTED_FEATS = ("diff", "spec", "trans", "cc", "sheen", "oren", "blend",
 
 def check_feats(feats):
     """Raise for a material feature outside the ported slices: shade-time
-    node graphs and normal maps (slice 4)."""
+    node graphs (slice 4c) and normal maps (images, slice 7a)."""
     extra = [f for f in feats if f not in PORTED_FEATS]
     if extra:
         raise _not_ported(f"the material features {extra} (shade-time node "
-                          "graphs and normal maps)", 4)
+                          "graphs, slice 4c, and normal maps, slice 7a)",
+                          "4c / 7a")
 
 
-def gather_params(table, atlas, mat_id, uv):
+def _sellmeier_eta(coeffs, lam_nm):
+    """coeffs [..., 6] (B1 C1 B2 C2 B3 C3), lam [..., S] (nm) -> eta
+    [..., S]."""
+    l2 = (lam_nm / 1000.0) ** 2
+    b1, c1 = coeffs[..., 0:1], coeffs[..., 1:2]
+    b2, c2 = coeffs[..., 2:3], coeffs[..., 3:4]
+    b3, c3 = coeffs[..., 4:5], coeffs[..., 5:6]
+    f = b1 * l2 / (l2 - c1) + b2 * l2 / (l2 - c2) + b3 * l2 / (l2 - c3)
+    return torch.sqrt(torch.clamp_min(f + 1.0, 1.0))
+
+
+def gather_params(table, atlas, mat_id, uv, spectrum=None, swl=None):
     """Per-lane LobeParams from the table, the textured slots resolved
     against the atlas. mat_id [...] int (clamped; invalid lanes get row 0
     with zero weights). A mixture row brings its second row as
-    `params.mix_b`. Returns (LobeParams, dispersive mask); nothing is
-    dispersive in the sRGB mode."""
+    `params.mix_b`. With a hero `spectrum`, colours decode to spectra at
+    swl.lam, a named metal's eta / k come from its SPD rows and a
+    dispersive glass's eta from its Sellmeier curve per wavelength. Returns
+    (LobeParams, dispersive mask [...], a dispersive row on a valid lane;
+    nothing is dispersive in the sRGB mode, which issues no operation of
+    the hero branch)."""
     check_feats(table.feats)
     valid = mat_id >= 0
     M = table.kd.shape[0]
     mid = torch.clamp(mat_id.long(), 0, M - 1)
     wvalid = valid.to(torch.float32)
     slots = table.tex_slots if atlas.has_textures else ()
+    hero = spectrum is not None and spectrum.hero
+    hrows = table.hero_rows(spectrum) if hero else None
 
     def one(mid):
         g = table.packed.fetch(mid)
+        h = hrows.fetch(mid) if hero else None
+
+        def colour(key, col, textured):
+            """A colour slot as its row holds it (rgb) or decoded."""
+            if not hero:
+                return col
+            if textured:
+                return spectrum.decode_albedo(col, swl)
+            return spectrum.eval_coeffs(h(key), swl)
+
         kd = g("kd")
         if "kd" in slots:
             kd_tex = g("kd_tex").to(torch.int32)
             kd = torch.where((kd_tex >= 0)[..., None],
                              atlas.sample(kd_tex, uv), kd)
+        kd = colour("kd", kd, "kd" in slots)
         spec_tint = g("spec_tint")
         if "spec" in slots:
             spec_tex = g("spec_tex").to(torch.int32)
             spec_tint = torch.where((spec_tex >= 0)[..., None],
                                     atlas.sample(spec_tex, uv), spec_tint)
+        spec_tint = colour("spec_tint", spec_tint, "spec" in slots)
         ax, ay = g("ax"), g("ay")
         if "rough" in slots:
             rough_tex = g("rough_tex").to(torch.int32)
@@ -569,29 +651,56 @@ def gather_params(table, atlas, mat_id, uv):
             r_alpha = torch.where(g("rough_remap") > 0, r * r, r)
             ax = torch.where(rough_tex >= 0, torch.clamp_min(r_alpha, 1e-6), ax)
             ay = torch.where(rough_tex >= 0, torch.clamp_min(r_alpha, 1e-6), ay)
+        # dielectric eta: one IOR, or Sellmeier per wavelength where a
+        # dispersive glass meets the hero spectrum
+        eta = g("eta")[..., None]
+        dispersive = None
+        eta3, k3 = g("eta3"), g("k3")
+        if hero:
+            S = swl.lam.shape[-1]
+            if table.has_dispersive:
+                disp_id = g("dispersive_id").long()
+                gc = table.glass_coeffs[
+                    torch.clamp(disp_id, 0, table.glass_coeffs.shape[0] - 1)]
+                dispersive = disp_id >= 0
+                eta = torch.where(dispersive[..., None],
+                                  _sellmeier_eta(gc, swl.lam), eta)
+            else:
+                eta = eta.expand(eta.shape[:-1] + (S,))
+            # conductor eta / k: the metal's SPD rows at swl, else decoded
+            eta3 = colour("eta3", eta3, False)
+            k3 = colour("k3", k3, False)
+            if table.has_metal_spd:
+                metal_id = g("metal_id").long()
+                mrow = torch.clamp(metal_id, 0, table.metal_eta_spd.shape[0] - 1)
+                is_metal = (metal_id >= 0)[..., None]
+                eta3 = torch.where(is_metal, spd.spd_eval_rows(
+                    table.metal_eta_spd, mrow, swl.lam), eta3)
+                k3 = torch.where(is_metal, spd.spd_eval_rows(
+                    table.metal_k_spd, mrow, swl.lam), k3)
         params = bsdf.LobeParams(
             kd=kd, sigma=g("sigma"),
             diffuse_kind=g("diffuse_kind").to(torch.int32),
             diffuse_weight=g("diffuse_weight") * wvalid,
             spec_tint=spec_tint, ax=ax, ay=ay,
-            fr_mode=g("fr_mode").to(torch.int32), eta=g("eta")[..., None],
-            eta3=g("eta3"), k3=g("k3"),
+            fr_mode=g("fr_mode").to(torch.int32), eta=eta,
+            eta3=eta3, k3=k3,
             spec_weight=g("spec_weight") * wvalid,
             trans_weight=g("trans_weight") * wvalid,
             cc_weight=g("cc_weight") * wvalid, cc_alpha=g("cc_alpha"),
             sheen_weight=g("sheen_weight") * wvalid,
-            sheen_tint=g("sheen_tint"),
+            sheen_tint=colour("sheen_tint", g("sheen_tint"), False),
             flatness=g("flatness"), metallic=g("metallic"),
             feats=table.feats, fr_modes=table.fr_modes,
             ems_E=table.ems_E, ems_Eavg=table.ems_Eavg,
             sheen_ltc=table.sheen_ltc, sheen_alpha=g("sheen_rough"))
-        return params, g
+        return params, g, dispersive
 
-    params, g = one(mid)
+    params, g, dispersive = one(mid)
     if "mix2" in table.feats:
         midb_raw = g("mix_b")
         has_b = midb_raw >= 0
-        params_b, _ = one(torch.clamp(midb_raw.long(), 0, M - 1))
+        params_b, _, disp_b = one(torch.clamp(midb_raw.long(), 0, M - 1))
         wa, wb = g("mix_wa"), g("mix_wb")
         if "frac" in slots:
             ftex = g("frac_tex").to(torch.int32)
@@ -601,4 +710,8 @@ def gather_params(table, atlas, mat_id, uv):
         params = replace(params, mix_b=params_b,
                          mix_wa=torch.where(has_b, wa, 1.0),
                          mix_wb=torch.where(has_b, wb, 0.0))
-    return params, torch.zeros_like(valid)
+        if dispersive is not None:
+            dispersive = dispersive | (disp_b & has_b)
+    if dispersive is None:
+        return params, torch.zeros_like(valid)
+    return params, dispersive & valid

@@ -1,28 +1,38 @@
-"""Measured optical constants: metal complex IORs and glass Sellmeier
-curves, for the sRGB mode.
+"""Spectral power distributions, CIE data, IOR curves, metal complex IORs.
 
-Counterpart of the RGB part of `vision_tpu/spectra/spd.py`: the metal
-table (`metal_ior.npz`, read from the JAX package's data directory by path
-with numpy), its evaluation at the sRGB peak wavelengths, and the scalar
-IOR of the named glasses. The spectral evaluation on the device
-(`spd_eval*`, `glass_ior` per wavelength) comes with the hero spectrum
-(ROADMAP queue A, slice 4).
+Counterpart of `vision_tpu/spectra/spd.py`: the CIE tables and the metal
+table (`cie.npz`, `metal_ior.npz` in this package's own `data/`, read with
+numpy), the linear-interpolated evaluation of an SPD sampled over [360, 830]
+nm on the host and on the device (`spd_eval`, `spd_eval_rows`), the metals'
+complex IOR at the sRGB peak wavelengths, and the glasses' Sellmeier IOR,
+scalar or per wavelength (`glass_ior`).
 """
 from __future__ import annotations
 
 import os
 
 import numpy as np
+import torch
 
-from .spectrum import DATA_DIR
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "data")
 
 VISIBLE_MIN = 360.0
 VISIBLE_MAX = 830.0
+CIE_SAMPLES = 471  # 1nm
 
 # sRGB response peak wavelengths (the JAX package's RGB_PEAK_WAVELENGTHS)
 RGB_PEAK_WAVELENGTHS = (602.785, 539.285, 445.772)
 
+_cie = np.load(os.path.join(DATA_DIR, "cie.npz"))
 _metals = np.load(os.path.join(DATA_DIR, "metal_ior.npz"))
+
+CIE_X = _cie["X"]
+CIE_Y = _cie["Y"]
+CIE_Z = _cie["Z"]
+CIE_D65 = _cie["D65"]
+CIE_Y_INTEGRAL = float(np.sum(CIE_Y))  # ~106.857 * (1nm)
+
 METAL_NAMES = sorted({k[:-4] for k in _metals.files if k.endswith("_eta")})
 
 
@@ -36,6 +46,30 @@ def spd_eval_host(values, lambdas):
     i1 = np.clip(i0 + 1, 0, n - 1)
     w = t - i0
     return values[i0] * (1 - w) + values[i1] * w
+
+
+def _lerp_index(lambdas, n):
+    lam = torch.clamp(lambdas, VISIBLE_MIN, VISIBLE_MAX)
+    t = (lam - VISIBLE_MIN) / (VISIBLE_MAX - VISIBLE_MIN) * (n - 1)
+    i0 = torch.clamp(torch.floor(t).to(torch.int64), 0, n - 1)
+    i1 = torch.clamp(i0 + 1, 0, n - 1)
+    return i0, i1, t - i0.to(torch.float32)
+
+
+def spd_eval(values, lambdas):
+    """Device version: values [N] tensor, lambdas [...] -> [...]."""
+    i0, i1, w = _lerp_index(lambdas, values.shape[0])
+    return values[i0] * (1.0 - w) + values[i1] * w
+
+
+def spd_eval_rows(table, rows, lambdas):
+    """Per-lane SPD rows: table [N, K], rows [...], lambdas [..., S] ->
+    [..., S]."""
+    k = table.shape[1]
+    i0, i1, w = _lerp_index(lambdas, k)
+    flat = table.reshape(-1)
+    r = rows.to(torch.int64)[..., None] * k
+    return flat[r + i0] * (1.0 - w) + flat[r + i1] * w
 
 
 def metal_complex_ior(name):
@@ -62,6 +96,18 @@ _SELLMEIER = {
               1.80691843, 156.530829),
 }
 GLASS_NAMES = list(_SELLMEIER.keys())
+
+
+def glass_ior(name, lambdas):
+    """Sellmeier IOR of a named glass (BK7 for an unknown name) at the
+    wavelengths `lambdas` [nm], a float32 tensor."""
+    if name not in _SELLMEIER:
+        name = "BK7"
+    b1, c1, b2, c2, b3, c3 = _SELLMEIER[name]
+    lam = lambdas / 1000.0
+    l2 = lam * lam
+    f = b1 * l2 / (l2 - c1) + b2 * l2 / (l2 - c2) + b3 * l2 / (l2 - c3)
+    return torch.sqrt(f + 1.0)
 
 
 def glass_ior_scalar(name):
