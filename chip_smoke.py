@@ -41,7 +41,21 @@ phase, one JSON line each:
     `cbox_sss` (a subsurface tall box under the hero spectrum) at 64^2,
     16 spp on the card, held against the port's CPU render of the same
     seeds; and `render_to_file` on the cbox (64^2, 4 spp), whose PNG,
-    written without PIL, must decode to the tonemapped render.
+    written without PIL, must decode to the tonemapped render;
+  * images, node graphs, IES, adaptive sampling and the light field
+    (slices 4c, 4d and 7a, `phase_images`; the images and the IES profile
+    of `tests/assets_torch/`, read by the port's own decoders): `cbox_tex`
+    (a baked image node, a uv-mapped texture, a normal map, a
+    fresnel-driven colour, an IES spot, a textured emitter; K1) at 512^2,
+    16 spp, held against `tests/goldens/cbox_tex_hdr.npz`; `env_sphere`
+    (a checkered sphere under the `mix` of two .hdr skies and a projector
+    image; 6,242 triangles, K2) at 512^2, and at 64^2 against the port's
+    CPU render; the cbox through `render(adaptive=True)` at 64 spp,
+    which must take fewer samples and pass the cbox golden; the cbox's
+    light field (grid 3, a thin lens; 2.36M lanes) at 16 spp, whose views
+    must differ and refocus at 0 to their mean, and whose tiles at a 64^2
+    base must be within 0.01 of the CPU render; and `render_to_file`'s
+    EXR, which must read back bit for bit as the render.
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -118,6 +132,8 @@ SKY_WERR = 0.01
 SSS_RES = 64
 PNG_RES = 64
 PNG_SPP = 4
+ADAPTIVE_SPP = 64  # the adaptive cbox: 8 chunks of 8
+LF_CHECK_SPP = 4   # the light field's CPU check at a 64^2 base
 # the bound of a kernel: the card's published peaks (NVIDIA H100 SXM data
 # sheet, dense rates at 700 W), float32 outside the tensor cores and HBM3
 PEAK_FLOPS = 67e12
@@ -659,12 +675,15 @@ def phase_k3(pi, pbvh_mod, vt_pt, wm, scene, flat):
     return recs
 
 
-def render(vt, modules, scene, name, spp=SPP, res=RES):
+def render(vt, modules, scene, name, spp=SPP, res=RES, adaptive=False):
     """The main path on one scene: warm up at 1 spp, set every launch count
-    to 0, render res^2 at `spp`, read the counts. Returns (image, record)."""
+    to 0, render res^2 at `spp` (adaptive: `render(adaptive=True)`; the
+    light-field frame buffer: the mosaic of its grid of views), read the
+    counts. Returns (image, record)."""
     check(scene.max_depth == 8 and scene.resolution == (res, res),
           f"{name} config")
-    vt.render(scene, spp=1)  # warm-up
+    grid = scene.lf_grid if scene.framebuffer_type == "light_field" else 1
+    vt.render(scene, spp=1, adaptive=adaptive)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -673,16 +692,20 @@ def render(vt, modules, scene, name, spp=SPP, res=RES):
             m.LAUNCHES[k] = 0
     stats = {}
     t0 = time.perf_counter()
-    hdr = vt.render(scene, spp=spp, stats=stats)
+    hdr = vt.render(scene, spp=spp, adaptive=adaptive, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
                 for m in modules for k, v in m.LAUNCHES.items()}
     img = hdr.cpu().numpy()
-    check(img.shape == (res, res, 3), f"{name}: image shape {img.shape}")
+    check(img.shape == (grid * res, grid * res, 3),
+          f"{name}: image shape {img.shape}")
     check(bool(np.isfinite(img).all()), f"{name}: image has non-finite values")
     check(float(img.max()) > 0.0, f"{name}: image is all zero")
-    return img, dict(phase="render", scene=name, res=res, spp=spp,
+    extra = {k: stats[k] for k in ("mean_spp", "active_frac") if k in stats}
+    if grid > 1:
+        extra.update(lf_grid=grid, lanes=grid * grid * res * res)
+    return img, dict(phase="render", scene=name, res=res, spp=spp, **extra,
                      material_feats=list(scene.data.materials.feats),
                      light_feats=list(scene.data.lights.feats),
                      max_depth=scene.max_depth, wall_s=wall,
@@ -818,6 +841,130 @@ def phase_slice4(vt, modules, scenes):
     emit(rec)
     check(png.shape == (PNG_RES, PNG_RES, 3) and diff.max() <= 1,
           f"render_to_file's PNG against the tonemapped render {rec}")
+    return per_render
+
+
+def phase_images(vt, modules, scenes):
+    """Slices 4c, 4d and 7a: `cbox_tex` (K1) against its JAX golden,
+    `env_sphere` (K2) on the card at 64^2 against the port's CPU render,
+    the adaptive cbox against the cbox golden, the light-field cbox (its
+    tiles at 64^2 against the CPU render, parallax, refocus), and
+    `render_to_file`'s EXR. Returns each render's launch counts."""
+    per_render = {}
+    # which image libraries the card's machine has (the port needs none)
+    emit(dict(phase="image_libraries",
+              pil_installed=importlib.util.find_spec("PIL") is not None,
+              cv2_installed=importlib.util.find_spec("cv2") is not None))
+
+    t0 = time.perf_counter()
+    tex = vt.load_scene(scenes.cbox_tex(RES), device=DEV)
+    emit(dict(phase="load", scene="cbox_tex", seconds=time.perf_counter() - t0,
+              tris=tex.data.tri_geom.shape[0],
+              atlas_texels=tex.data.atlas.data.shape[0]))
+    check(tex.data.pbvh is None
+          and {"nmap", "fresmix", "uvmap"} <= set(tex.data.materials.feats)
+          and {"ies", "tex"} <= set(tex.data.lights.feats),
+          "cbox_tex: the dense sweep, every new material and light feature")
+    img, rec = render(vt, modules, tex, "cbox_tex")
+    rec["golden_werr"], rec["golden_bias"] = vs_golden(
+        img, "tests/goldens/cbox_tex_hdr.npz")
+    emit(rec)
+    check(all(rec["launches"][f"dense_isect.{k}"] > 0
+              for k in ("closest", "anyhit")), f"cbox_tex {rec['launches']}")
+    check(rec["golden_werr"] < GOLD_WERR,
+          f"cbox_tex vs golden {rec['golden_werr']}")
+    check(abs(rec["golden_bias"]) < GOLD_BIAS,
+          f"cbox_tex bias {rec['golden_bias']}")
+    per_render["cbox_tex"] = rec["launches"]
+
+    t0 = time.perf_counter()
+    env = vt.load_scene(scenes.env_sphere(RES), device=DEV)
+    emit(dict(phase="load", scene="env_sphere",
+              seconds=time.perf_counter() - t0,
+              tris=env.data.tri_geom.shape[0]))
+    check(env.data.pbvh is not None and env.data.lights.env_index >= 0
+          and {"proj", "tex"} <= set(env.data.lights.feats),
+          "env_sphere: the BVH, the mix environment, the projector image")
+    img, rec = render(vt, modules, env, "env_sphere")
+    check(all(rec["launches"][f"packet_isect.{k}"] > 0
+              for k in ("closest", "anyhit")), f"env_sphere {rec['launches']}")
+    small = vt.load_scene(scenes.env_sphere(SKY_RES), device=DEV)
+    small_cpu = vt.load_scene(scenes.env_sphere(SKY_RES), device="cpu")
+    card = vt.render(small, spp=SPP).cpu().numpy()
+    t0 = time.perf_counter()
+    ref = vt.render(small_cpu, spp=SPP).numpy()
+    rec["cpu_render_s"] = time.perf_counter() - t0
+    rec["vs_cpu_werr"], rec["vs_cpu_bias"] = block_err(card, ref)
+    emit(rec)
+    check(rec["vs_cpu_werr"] <= SKY_WERR and abs(rec["vs_cpu_bias"]) <= SKY_WERR,
+          f"env_sphere vs its CPU render {rec['vs_cpu_werr']}")
+    per_render["env_sphere"] = rec["launches"]
+
+    # adaptive sampling on the cbox: chunks of 8, converged pixels stop
+    cb = cbox_scene(vt, RES)
+    img, rec = render(vt, modules, cb, "cbox_adaptive", spp=ADAPTIVE_SPP,
+                      adaptive=True)
+    rec["golden_werr"], rec["golden_bias"] = vs_golden(
+        img, "tests/goldens/cbox_hdr.npz")
+    emit(rec)
+    check(rec["launches"]["dense_isect.closest"] > 0, f"cbox_adaptive {rec}")
+    check(rec["mean_spp"] < ADAPTIVE_SPP,
+          f"cbox_adaptive took every sample {rec['mean_spp']}")
+    check(rec["golden_werr"] < GOLD_WERR and abs(rec["golden_bias"]) < GOLD_BIAS,
+          f"cbox_adaptive vs golden {rec['golden_werr']} {rec['golden_bias']}")
+    per_render["cbox_adaptive"] = rec["launches"]
+
+    # the light-field frame buffer: grid 3 through a thin lens
+    lf = vt.load_scene(scenes.lf_cbox(RES), device=DEV)
+    img, rec = render(vt, modules, lf, "lf_cbox")
+    g = lf.lf_grid
+    from vision_tpu_torch.sensor import light_field as vt_lf
+    tiles = torch.as_tensor(img).reshape(g, RES, g, RES, 3).permute(0, 2, 1,
+                                                                   3, 4)
+    rec["corner_views_mean_abs_diff"] = float(
+        (tiles[0, 0] - tiles[-1, -1]).abs().mean())
+    rec["refocus0_vs_mean_max_abs"] = float(
+        (vt_lf.refocus(tiles, 0.0) - tiles.mean(dim=(0, 1))).abs().max())
+    vtr = importlib.import_module("vision_tpu_torch.render")
+    small = vt.load_scene(scenes.lf_cbox(SKY_RES), device=DEV)
+    small_cpu = vt.load_scene(scenes.lf_cbox(SKY_RES), device="cpu")
+    card = vtr.render_light_field(small, spp=LF_CHECK_SPP).cpu().numpy()
+    t0 = time.perf_counter()
+    ref = vtr.render_light_field(small_cpu, spp=LF_CHECK_SPP).numpy()
+    rec["cpu_render_s"] = time.perf_counter() - t0
+    rec["vs_cpu_werr_by_tile"] = [block_err(card[j, i], ref[j, i])[0]
+                                  for j in range(g) for i in range(g)]
+    emit(rec)
+    check(rec["launches"]["dense_isect.closest"] > 0, f"lf_cbox {rec}")
+    check(rec["corner_views_mean_abs_diff"] > 1e-4, f"lf_cbox parallax {rec}")
+    check(rec["refocus0_vs_mean_max_abs"] <= 1e-6, f"lf_cbox refocus {rec}")
+    check(max(rec["vs_cpu_werr_by_tile"]) <= SKY_WERR,
+          f"lf_cbox tiles vs the CPU render {rec['vs_cpu_werr_by_tile']}")
+    per_render["lf_cbox"] = rec["launches"]
+
+    # render_to_file's OpenEXR, read back by the port's own reader
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
+    desc = copy.deepcopy(fixtures.CBOX_JSON)
+    desc["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [
+        PNG_RES, PNG_RES]
+    out = os.path.join(ROOT, "vision_tpu_torch", "_build", "smoke_cbox.exr")
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    check(vt.render_to_file(desc, out, PNG_SPP, False, device=DEV) == out,
+          "render_to_file's EXR path")
+    seconds = time.perf_counter() - t0
+    from vision_tpu_torch.scene.imageio import read_image
+    got, kind = read_image(out)
+    scene = vt.load_scene(desc, device=DEV)
+    want = vt.render(scene, spp=PNG_SPP).cpu().numpy()
+    rec = dict(phase="render_to_file_exr", path=os.path.relpath(out, ROOT),
+               bytes=os.path.getsize(out), seconds=seconds,
+               shape=list(got.shape), kind=kind,
+               max_abs_diff=float(np.abs(got - want).max()),
+               bit_equal=bool(np.array_equal(got, want)))
+    emit(rec)
+    check(rec["bit_equal"], f"render_to_file's EXR against the render {rec}")
     return per_render
 
 
@@ -978,6 +1125,10 @@ def main():
 
     # ---- slice 4: hero spectrum and dispersion, media and subsurface ----
     per_render.update(phase_slice4(vt, [di, pi], scenes))
+
+    # ---- slices 4c, 4d, 7a: images, node graphs, IES, adaptive, light
+    # field, EXR ----
+    per_render.update(phase_images(vt, [di, pi], scenes))
 
     # ---- the kernel table ----
     def worst(recs, keys):

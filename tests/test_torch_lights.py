@@ -2,8 +2,9 @@
 with the JAX package on the same seeded inputs, for every light type:
 area (textured emission included), point, spot, projector (with a texture
 from the atlas), spherical environment (an array-backed image) and
-directional, and the sentinel of a scene without lights. The JAX tables
-come across through `scene_from_arrays`. Then the port's counterparts of
+directional, spot and projector shaped by an IES profile, and the
+sentinel of a scene without lights. The JAX tables come across through
+`scene_from_arrays`. Then the port's counterparts of
 tests/test_lights.py:67,94 (the directional light)."""
 import copy
 
@@ -15,6 +16,7 @@ import torch
 import vision_tpu_torch as vt
 from tests.torch_materials import uniform, unit
 from tests.torch_parity import cbox, jax_scene_arrays, mostly_close, np_, tt
+from tests.torch_scenes import asset
 from vision_tpu.lights import lights as jlt
 from vision_tpu.scene.scene import Scene as JScene
 from vision_tpu_torch.core import transform as xf
@@ -51,6 +53,15 @@ def _add(kind, jb, ja, g):
         jb.add_spherical([1.5, 1.2, 1.0], O2W_ENV, ja.add_array(img), img)
     elif kind == "dir":
         jb.add_directional([1.0, 0.9, 0.8], [0.3, -1.0, -0.2])
+    elif kind == "ies":
+        # a spot and a projector shaped by the committed IES profile
+        from vision_tpu.lights.ies import IESProfile
+        prof = jb.add_ies_profile(np.asarray(
+            IESProfile.load(asset("spot.ies")).to_table()))
+        jb.add_spot([2.5, 2.0, 1.5], [0.3, 1.85, 1.1], [0.0, -0.9, -0.7],
+                    70.0, 10.0, ies=prof)
+        tex = ja.add_array(g.random((6, 9, 3), dtype=np.float32))
+        jb.add_projector([0.4, 0.7, 1.0], O2W_PROJ, 35.0, 1.3, tex, ies=prof)
 
 
 TABLES = {
@@ -67,6 +78,7 @@ TABLES = {
                    "power"),
     "every_type_uniform": (("point", "spot", "proj", "env", "dir"), True,
                            "uniform"),
+    "ies": (("ies",), True, "uniform"),
 }
 
 

@@ -17,7 +17,9 @@ from tests.torch_parity import np_, tt
 from vision_tpu.shading import fresnel as jfr, microfacet as jmf
 from vision_tpu.spectra import spd as jspd
 from vision_tpu_torch.shading import fresnel as tfr, microfacet as tmf
+from vision_tpu_torch.scene.texture import AtlasBuilder as TAtlas
 from vision_tpu_torch.shading import materials as tmat
+from vision_tpu_torch.shading import shader_graph as tsg
 from vision_tpu_torch.spectra import spd as tspd
 
 torch.set_num_threads(2)
@@ -47,7 +49,7 @@ def _same_table(jt, pt_):
 def _compile_both(descs):
     from vision_tpu.scene.texture import AtlasBuilder
     from vision_tpu.shading.materials import MaterialCompiler as JMC
-    jmc, tmc = JMC(AtlasBuilder()), tmat.MaterialCompiler()
+    jmc, tmc = JMC(AtlasBuilder()), tmat.MaterialCompiler(TAtlas())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         for d in descs:
@@ -151,13 +153,13 @@ def test_nested_mixture_flattens_with_a_warning():
             "mat1": {"type": "mirror", "param": {}}}},
         "mat1": {"type": "diffuse", "param": {}}}}
     with pytest.warns(UserWarning, match="flatten"):
-        tmat.MaterialCompiler().compile(desc)
+        tmat.MaterialCompiler(TAtlas()).compile(desc)
     _same_table(*_compile_both([desc]))
 
 
 def test_missing_image_takes_the_default():
     """An image slot whose file is missing takes the slot's default in both
-    packages (an existing one raises in the port: test_torch_scene)."""
+    packages (an existing one loads: test_torch_images)."""
     descs = [{"type": "diffuse", "param": {"color": {"fn": "none.png"}}},
              {"type": "mirror", "param": {"roughness": {"fn": "none.png"}}},
              {"type": "metallic",
@@ -189,7 +191,7 @@ CONST_TREES = {
 def test_fold_const(name):
     from vision_tpu.shading.shader_graph import fold_slot
     a = fold_slot(CONST_TREES[name]).const
-    b = tmat.fold_const(CONST_TREES[name], ".")
+    b = tsg.fold_slot(CONST_TREES[name], ".").const
     np.testing.assert_array_equal(b, a)
     assert b.dtype == a.dtype
 

@@ -138,7 +138,8 @@ def _read_png(path):
 def test_render_to_file(tmp_path):
     """render_to_file with the JAX package's argument order
     (scene, out_path, spp, verbose) and the device by keyword writes the
-    tonemapped render as a PNG."""
+    tonemapped render as a PNG, and for an `.exr` path the linear render as
+    OpenEXR, which reads back bit for bit."""
     path = tmp_path / "cbox.png"
     s = cbox(8)
     s["output"]["spp"] = 1
@@ -149,8 +150,12 @@ def test_render_to_file(tmp_path):
     want = vt.postprocess(sc, vt.render(sc, spp=1)).numpy()
     want = np.clip(want * 255.0 + 0.5, 0, 255).astype(np.uint8)
     np.testing.assert_array_equal(_read_png(path), want)
-    with pytest.raises(NotImplementedError, match="slice 7a"):
-        vt.render_to_file(s, str(tmp_path / "cbox.exr"), device="cpu")
+    from vision_tpu_torch.scene.imageio import read_image
+    exr = str(tmp_path / "cbox.exr")
+    assert vt.render_to_file(s, exr, None, False, device="cpu") == exr
+    got, kind = read_image(exr)
+    assert kind == "hdr"
+    np.testing.assert_array_equal(got, vt.render(sc, spp=1).numpy())
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (5, 3), (16, 17)])

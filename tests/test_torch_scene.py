@@ -1,8 +1,8 @@
 """The port's scene loader against the JAX package's: the same scene JSON
 gives the same packed geometry, id tables, material and light tables,
-camera and filter, medium table and spectrum; `scene_from_arrays` carries
-a JAX scene across; and a scene outside the ported slice raises
-NotImplementedError."""
+texture atlas, camera and filter, medium table and spectrum; `scene_from_arrays`
+carries a JAX scene across; and a scene outside the ported slices (mesh
+files) raises NotImplementedError."""
 import copy
 import dataclasses
 import os
@@ -15,8 +15,9 @@ import torch
 import vision_tpu_torch as vt
 from tests.fixtures import make_glass_cbox
 from tests.torch_parity import cbox, jax_scene_arrays, np_
-from tests.torch_scenes import (cbox_glass, cbox_glass_hero, cbox_sky,
-                                cbox_sss, cbox_zoo, fog_cbox)
+from tests.torch_scenes import (asset, cbox_glass, cbox_glass_hero, cbox_sky,
+                                cbox_sss, cbox_tex, cbox_zoo, env_sphere,
+                                fog_cbox, lf_cbox)
 from vision_tpu.scene.scene import Scene as JScene
 from vision_tpu_torch.scene.scene import scene_from_arrays
 from vision_tpu_torch.shading.materials import COLUMNS
@@ -68,7 +69,10 @@ SCENES = {"cbox": lambda: cbox(16), "standalone_light": _standalone_light,
           "no_lights": lambda: _edit(lambda s: s["shapes"].pop()),
           "cbox_glass_hero": lambda: cbox_glass_hero(16),
           "fog_cbox": lambda: fog_cbox(16),
-          "cbox_sss": lambda: cbox_sss(16)}
+          "cbox_sss": lambda: cbox_sss(16),
+          "cbox_tex": lambda: cbox_tex(16),
+          "env_sphere": lambda: env_sphere(16, sub_div=16),
+          "lf_cbox": lambda: lf_cbox(16)}
 
 
 def _assert_same_scene(data, camera, filt, ref):
@@ -103,6 +107,9 @@ def _assert_same_scene(data, camera, filt, ref):
         eq(np_(getattr(data.mediums, k)), ref[f"mediums.{k}"])
     for k in ("inst_in_medium", "inst_out_medium"):
         eq(np_(getattr(data, k)), ref[k])
+    for k in ("data", "offset", "width", "height"):
+        eq(np_(getattr(data.atlas, k)), ref[f"atlas.{k}"])
+    assert data.atlas.n_real == int(ref["atlas.n_real"])
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -111,8 +118,11 @@ def test_loader_matches_jax(name):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # cbox_sky: its HDRI is missing
         ps = vt.load_scene(s, device="cpu")
-        ref = jax_scene_arrays(JScene(s))
+        js = JScene(s)
+        ref = jax_scene_arrays(js)
     _assert_same_scene(ps.data, ps.camera, ps.filter, ref)
+    assert (ps.framebuffer_type, ps.lf_grid) == (js.framebuffer_type,
+                                                 js.lf_grid)
 
 
 def test_scene_from_arrays_matches_loader():
@@ -153,6 +163,9 @@ def test_scene_from_arrays_matches_loader():
                           "focal_distance")})
     ref.update({f"filter.{k}": np_(getattr(ps.filter, k))
                 for k in ("radius", "prob", "alias", "pmf", "sign", "int_abs")})
+    ref.update({f"atlas.{k}": np_(getattr(ps.data.atlas, k))
+                for k in ("data", "offset", "width", "height")})
+    ref["atlas.n_real"] = ps.data.atlas.n_real
     _assert_same_scene(data, camera, filt, ref)
     for k in ("coeffs", "cie_x", "cie_y", "cie_z", "d65n"):
         assert torch.equal(getattr(data.spectrum, k),
@@ -196,9 +209,12 @@ def test_scene_from_arrays_copies_jax_buffers():
 
 def test_scene_from_arrays_rejects_out_of_slice():
     """A JAX scene with a subsurface material (it attaches a medium) and
-    one with the hero spectrum, refused before slice 4, are carried across
-    as the port's loader builds them; one with a shade-time fresnel node
-    is refused, naming slice 4c."""
+    one with the hero spectrum, refused before slice 4, and one with a
+    shade-time fresnel node, refused before slice 4c, are carried across
+    as the port's loader builds them; so are a textured scene with a
+    normal map, a uv mapping and an IES spot (`cbox_tex`), and the mix
+    environment with a projector image (`env_sphere`), refused before
+    slices 4c and 7a."""
     sss = _edit(lambda s: s["materials"].__setitem__(
         2, {"type": "subsurface", "name": "White", "param": {}}))
     hero = _edit(lambda s: s.update(
@@ -215,11 +231,15 @@ def test_scene_from_arrays_rejects_out_of_slice():
         color={"type": "lerp", "param": {
             "t": {"type": "fresnel", "param": {"ior": 1.5}},
             "A": [0.1, 0.1, 0.1], "B": [0.9, 0.9, 0.9]}}))
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        arrays = jax_scene_arrays(JScene(fres))
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        scene_from_arrays(arrays, "cpu")
+    feats = []
+    for s in (fres, cbox_tex(16), env_sphere(16, sub_div=16)):
+        arrays = jax_scene_arrays(JScene(s))
+        data, camera, filt = scene_from_arrays(arrays, "cpu")
+        _assert_same_scene(data, camera, filt, arrays)
+        feats.append(data.materials.feats + data.lights.feats)
+    assert "fresmix" in feats[0]
+    assert {"nmap", "fresmix", "uvmap", "ies", "tex"} <= set(feats[1])
+    assert {"env", "proj", "tex"} <= set(feats[2])
 
 
 def _edit(fn):
@@ -239,48 +259,24 @@ def _sphere(sub_div, x=0.0):
             [1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [x, 0.5, 0, 1]]}}}}
 
 
-# an existing file: an image slot naming it raises (image loading is
-# slice 7a); a missing one takes the slot's default, as in the JAX package
-EXISTING_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                             "goldens", "cbox_hdr.npz")
-
-
 def _light(ltype, **param):
     return lambda: _edit(lambda s: s["light_sampler"]["param"].update(
         lights=[{"type": ltype, "param": param}]))
 
 
+def _env(fn):
+    return {"type": "spherical", "param": {"color": {"fn": asset(fn)}}}
+
+
 OUT_OF_SLICE = {
-    "textured_color": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        color={"fn": EXISTING_FILE})), "slice 7a"),
-    "textured_roughness": (lambda: _edit(lambda s: s["materials"].__setitem__(
-        0, {"type": "mirror", "name": "Red",
-            "param": {"roughness": {"fn": EXISTING_FILE}}})), "slice 7a"),
-    "normal_map": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        bump={"fn": "n.png"})), "slice 7a"),
-    "fresnel_node": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        color={"type": "lerp", "param": {
-            "t": {"type": "fresnel", "param": {"ior": 1.5}},
-            "A": [0.1, 0.1, 0.1], "B": [0.9, 0.9, 0.9]}})), "slice 4c"),
-    "uv_mapping_node": (lambda: _edit(lambda s: s["materials"][0]["param"].update(
-        color={"type": "vector_mapping", "param": {"node": [0.5, 0.5, 0.5]}})),
-        "slice 4c"),
-    "ies_profile": (_light("spot", position=[0, 1.5, 0], ies="a.ies"),
-                    "slice 4c"),
-    "env_image": (_light("spherical", color={"fn": EXISTING_FILE}), "slice 7a"),
-    "projector_image": (_light("projector", color={"fn": EXISTING_FILE}),
-                        "slice 7a"),
-    "emission_image": (lambda: _edit(lambda s: s["shapes"][-1]["param"][
-        "emission"]["param"].update(color={"fn": EXISTING_FILE})), "slice 7a"),
-    "mix_env": (_light("mix", env0={}, env1={}), "slice 7a"),
-    "light_field": (lambda: _edit(lambda s: s.update(pipeline={
-        "param": {"frame_buffer": {"type": "light_field"}}})), "slice 4d"),
     "mesh_file": (lambda: _edit(lambda s: _shape(s, {
         "type": "model", "param": {"fn": "bunny.obj"}})), "slice 7"),
 }
 
-# features out of the slice before slice 1b (the first three) and before
-# slice 4 (the rest), which now load as the JAX package loads them
+# features out of the slice before slice 1b (the first three), before
+# slice 4 (the next three) and before slices 4c, 4d and 7a (the rest, on
+# the image and IES files of tests/assets_torch), which now load as the
+# JAX package loads them
 PORTED = {
     "glass_material": make_glass_cbox,
     "oren_nayar": lambda: _edit(lambda s: s["materials"][0]["param"].update(
@@ -293,6 +289,33 @@ PORTED = {
     "media": lambda: _edit(lambda s: s.update(mediums={
         "process": True, "global": "fog", "list": [
             {"type": "homogeneous", "name": "fog", "param": {}}]})),
+    "textured_color": lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"fn": asset("checker.png")})),
+    "textured_roughness": lambda: _edit(lambda s: s["materials"].__setitem__(
+        0, {"type": "mirror", "name": "Red",
+            "param": {"roughness": {"fn": asset("bumps.png")}}})),
+    "normal_map": lambda: _edit(lambda s: s["materials"][0]["param"].update(
+        bump={"fn": asset("bumps.png"), "color_space": "linear"})),
+    "fresnel_node": lambda: _edit(lambda s: s["materials"][0]["param"].update(
+        color={"type": "lerp", "param": {
+            "t": {"type": "fresnel", "param": {"ior": 1.5}},
+            "A": [0.1, 0.1, 0.1], "B": [0.9, 0.9, 0.9]}})),
+    "uv_mapping_node": lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"type": "vector_mapping", "param": {
+            "node": {"fn": asset("checker.png")}, "scale": [2.0, 2.0, 1.0],
+            "rotation": [0.0, 0.0, 45.0]}})),
+    "ies_profile": _light("spot", position=[0, 1.5, 0],
+                          ies=asset("spot.ies")),
+    "env_image": lambda: _edit(lambda s: s["light_sampler"]["param"].update(
+        lights=[_env("sky_a.hdr")])),
+    "projector_image": _light("projector",
+                              color={"fn": asset("projector.png")}),
+    "emission_image": lambda: _edit(lambda s: s["shapes"][-1]["param"][
+        "emission"]["param"].update(color={"fn": asset("checker.png")})),
+    "mix_env": _light("mix", env0=_env("sky_a.hdr"), scale0=0.5,
+                      env1=_env("sky_b.hdr"), scale1=2.0),
+    "light_field": lambda: _edit(lambda s: s.update(pipeline={
+        "param": {"frame_buffer": {"type": "light_field"}}})),
 }
 
 # scenes outside the dense sweep's slice, which now load through their
@@ -309,16 +332,17 @@ BVH_SCENES = {
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
                          + sorted(PORTED))
 def test_out_of_slice_raises(name):
-    """A feature outside the ported slices raises NotImplementedError
-    naming its slice; the two scenes of BVH_SCENES, out of the slice before
-    slices 2 and 3, load and carry the tree their kernel walks; the scenes
-    of PORTED, out of it before slice 1b or slice 4, load as the JAX
-    package does."""
+    """A feature outside the ported slices (mesh files) raises
+    NotImplementedError naming its slice; the two scenes of BVH_SCENES,
+    out of the slice before slices 2 and 3, load and carry the tree their
+    kernel walks; the scenes of PORTED, out of it before slice 1b, 4, 4c,
+    4d or 7a, load as the JAX package does."""
     if name in PORTED:
         s = PORTED[name]()
         ps = vt.load_scene(s, device="cpu")
-        _assert_same_scene(ps.data, ps.camera, ps.filter,
-                           jax_scene_arrays(JScene(s)))
+        js = JScene(s)
+        _assert_same_scene(ps.data, ps.camera, ps.filter, jax_scene_arrays(js))
+        assert ps.framebuffer_type == js.framebuffer_type
         return
     if name in BVH_SCENES:
         make, field = BVH_SCENES[name]
@@ -332,8 +356,20 @@ def test_out_of_slice_raises(name):
 
 
 def test_adaptive_raises():
-    with pytest.raises(NotImplementedError, match="slice 4d"):
-        vt.render(vt.load_scene(cbox(8), device="cpu"), spp=1, adaptive=True)
+    """`render(adaptive=True)`, which raised before slice 4d, takes
+    `render_adaptive` and gives the JAX package's image and statistics on
+    the cbox (16^2, 32 spp: the inspector's chunks of 8 after 3)."""
+    import importlib
+    jrender = importlib.import_module("vision_tpu.render")
+    s = cbox(16)
+    ia, sa = jrender.render_adaptive(JScene(s), 32)
+    stats = {}
+    ib = vt.render(vt.load_scene(s, device="cpu"), spp=32, adaptive=True,
+                   stats=stats)
+    np.testing.assert_allclose(np_(ib), ia, rtol=1e-4, atol=1e-5)
+    assert stats["nrays"] == int(sa["nrays"])
+    assert stats["mean_spp"] == sa["mean_spp"]
+    assert stats["active_frac"] == sa["active_frac"]
 
 
 def test_instancing_threshold_matches_jax():

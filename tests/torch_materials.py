@@ -69,8 +69,9 @@ def build_tables():
     """(JAX MaterialTable, port MaterialTable, name -> row id)."""
     from vision_tpu.scene.texture import AtlasBuilder
     from vision_tpu.shading.materials import MaterialCompiler as JMC
+    from vision_tpu_torch.scene.texture import AtlasBuilder as TA
     from vision_tpu_torch.shading.materials import MaterialCompiler as TMC
-    jmc, tmc = JMC(AtlasBuilder()), TMC()
+    jmc, tmc = JMC(AtlasBuilder()), TMC(TA())
     ids = {}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")

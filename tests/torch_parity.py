@@ -104,21 +104,26 @@ def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0):
     return np.asarray(La), aa, np_(Lb), ab
 
 
-def assert_radiance_close(La, aa, Lb, ab, share=0.01):
+def assert_radiance_close(La, aa, Lb, ab, share=0.01, albedo_atol=1e-5,
+                          count_rays=True):
     """The per-lane thresholds of tests/test_torch_render_materials.py: a
     lane whose path meets a rounding-level decision may take another path,
     so at most `share` of lanes diverge; the means agree within 0.5%; the
-    first-bounce AOVs agree on the other lanes; the ray counts within 1%."""
+    first-bounce AOVs agree on the other lanes (the albedo within
+    `albedo_atol`); the ray counts within 1% (`count_rays`: not against
+    the JAX package's CPU BVH walk, which counts every gated shadow
+    lane)."""
     R = La.shape[0]
     bad = (np.abs(La - Lb) > 1e-4 + 1e-3 * np.abs(La)).any(-1)
     assert bad.mean() <= share, bad.sum()
     assert La.mean() > 0.01
     assert abs(Lb.mean() / La.mean() - 1.0) < 0.005
     np.testing.assert_allclose(np_(ab["albedo"])[~bad],
-                               np.asarray(aa["albedo"])[~bad], atol=1e-5)
+                               np.asarray(aa["albedo"])[~bad], atol=albedo_atol)
     np.testing.assert_allclose(np_(ab["normal"])[~bad],
                                np.asarray(aa["normal"])[~bad], atol=1e-4)
-    assert abs(int(ab["nrays"]) - float(aa["nrays"])) <= 0.01 * R
+    if count_rays:
+        assert abs(int(ab["nrays"]) - float(aa["nrays"])) <= 0.01 * R
     return int(bad.sum())
 
 

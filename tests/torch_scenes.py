@@ -30,6 +30,21 @@ box (`tests/fixtures.py` CBOX_JSON), so nothing has to be downloaded.
     default sigmas at `sigma_scale` 0.5, a mean free path of ~0.3-0.4
     scene units in a 0.6-unit-wide box: visibly translucent) under the
     hero spectrum of dimension 4, K1.
+  * `cbox_tex`: the cbox with images and shade-time nodes (slices 4c and
+    7a): the checker times a number (baked) on the floor and the back
+    wall, the checker through a `vector_mapping` node and the bump map on
+    the tall box, a fresnel-driven colour mix on the short box, an IES
+    spot beside the area light, whose emission is the checker. 36
+    triangles, K1.
+  * `env_sphere`: a checkered uv sphere (sub_div 40: 6,240 triangles) on
+    a ground quad, lit by the `mix` of two .hdr skies and a projector with
+    an RGBA image. 6,242 triangles, K2.
+  * `lf_cbox`: the cbox through a thin lens (radius 0.35, focal distance
+    6) under the light-field frame buffer of grid 3.
+
+The images and the IES profile are the files of `tests/assets_torch/`
+(`tools/gen_torch_assets.py` writes them); the scenes name them by
+absolute path.
 
 This module loads `tests/fixtures.py` by path, and `chip_smoke.py` loads
 this module by path: a `tests` package elsewhere on sys.path must not
@@ -201,4 +216,105 @@ def cbox_sss(res=512):
                                      "ior": 1.4, "sigma_scale": 0.5}})
     s["shapes"][6]["param"]["material"] = "Subsurface"
     s["spectrum"] = copy.deepcopy(HERO)
+    return s
+
+
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "assets_torch")
+
+
+def asset(fn):
+    return os.path.join(ASSETS, fn)
+
+
+def cbox_tex(res=512):
+    """The cbox with a baked image node, a uv-mapped image, a normal map,
+    a fresnel-driven colour, an IES spot and a textured emitter."""
+    s = _base(res)
+    checker = {"fn": asset("checker.png"), "color_space": "srgb"}
+    s["materials"] += [
+        {"type": "diffuse", "name": "Checker", "param": {"color": {
+            "type": "multiply", "param": {
+                "lhs": checker,
+                "rhs": {"type": "number", "param": {"value": [0.9, 0.85, 0.8]}}}}}},
+        {"type": "diffuse", "name": "Mapped", "param": {
+            "color": {"type": "vector_mapping", "param": {
+                "node": checker, "scale": [2.0, 3.0, 1.0],
+                "rotation": [0.0, 0.0, 30.0], "location": [0.1, 0.0, 0.0]}},
+            "bump": {"fn": asset("bumps.png"), "color_space": "linear"},
+            "bump_scale": 1.0}},
+        {"type": "diffuse", "name": "Fresnel", "param": {"color": {
+            "type": "mix", "param": {
+                "t": {"type": "fresnel", "param": {"ior": 1.5}},
+                "A": [0.7, 0.15, 0.1], "B": [0.1, 0.3, 0.85]}}}},
+    ]
+    s["shapes"][0]["param"]["material"] = "Checker"   # floor
+    s["shapes"][2]["param"]["material"] = "Checker"   # back wall
+    s["shapes"][5]["param"]["material"] = "Fresnel"   # short box
+    s["shapes"][6]["param"]["material"] = "Mapped"    # tall box
+    s["shapes"][7]["param"]["emission"]["param"].update(
+        color={"fn": asset("checker.png"), "color_space": "srgb"}, scale=40.0)
+    s["light_sampler"] = {"type": "uniform", "param": {"lights": [
+        {"type": "spot", "param": {
+            "color": [3.0, 2.8, 2.4], "scale": 1.0,
+            "position": [0.55, 1.95, 0.35], "direction": [-0.2, -1.0, 0.1],
+            "angle": 70.0, "falloff": 10.0, "ies": asset("spot.ies")}}]}}
+    return s
+
+
+# row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
+SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
+    [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}
+
+
+def env_sphere(res=512, sub_div=40):
+    """A checkered sphere on a ground quad under the `mix` of two skies
+    and a projector casting an RGBA image."""
+    s = _base(res)
+    s["materials"] = [
+        {"type": "diffuse", "name": "Checker", "param": {
+            "color": {"fn": asset("checker.png"), "color_space": "srgb"}}},
+        {"type": "diffuse", "name": "Ground", "param": {
+            "color": [0.5, 0.5, 0.5]}},
+    ]
+    s["shapes"] = [
+        {"type": "sphere", "name": "ball", "param": {
+            "radius": 1.0, "sub_div": sub_div, "material": "Checker",
+            "transform": {"type": "matrix4x4", "param": {"matrix4x4": [
+                [1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]]}}}},
+        {"type": "quad", "name": "ground", "param": {
+            "width": 8.0, "height": 8.0, "material": "Ground",
+            "transform": {"type": "matrix4x4", "param": {"matrix4x4": [
+                [1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, -1, 0, 1]]}}}},
+    ]
+    s["camera"]["param"]["fov_y"] = 35.0
+    s["camera"]["param"]["transform"] = {"type": "look_at", "param": {
+        "position": [0.0, 0.8, 4.5], "up": [0, 1, 0],
+        "target_pos": [0.0, -0.1, 0.0]}}
+
+    def env(fn):
+        return {"type": "spherical", "param": {
+            "color": {"fn": asset(fn), "color_space": "linear"},
+            "o2w": copy.deepcopy(SKY_O2W)}}
+
+    s["light_sampler"] = {"type": "uniform", "param": {"lights": [
+        {"type": "mix", "param": {"env0": env("sky_a.hdr"), "scale0": 0.7,
+                                  "env1": env("sky_b.hdr"), "scale1": 0.5}},
+        {"type": "projector", "param": {
+            "color": {"fn": asset("projector.png"), "color_space": "srgb"},
+            "scale": 40.0, "angle": 22.0, "ratio": 2.0,
+            "o2w": {"type": "look_at", "param": {
+                "position": [2.2, 2.6, 2.0], "target_pos": [0.0, -0.3, 0.0],
+                "up": [0, 1, 0]}}}},
+    ]}}
+    return s
+
+
+def lf_cbox(res=512, grid=3):
+    """The cbox through a thin lens under the light-field frame buffer."""
+    s = _base(res)
+    s["camera"]["param"]["lens_radius"] = 0.35
+    s["camera"]["param"]["focal_distance"] = 6.0
+    s["pipeline"] = {"param": {"frame_buffer": {"type": "light_field",
+                                                "param": {"grid": grid}}}}
     return s

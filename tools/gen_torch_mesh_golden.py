@@ -22,6 +22,9 @@ SPP/2 - 1 and SPP/2 to SPP - 1, the regeneration wavefront in chunks of
     (dispersive BK7), 4096 spp.
   * `fog_cbox`: the cbox in a global homogeneous fog (sigma_s 0.3,
     sigma_a 0.01, g 0), srgb, 4096 spp.
+  * `cbox_tex`: the cbox with a baked image node, a uv-mapped texture, a
+    normal map, a fresnel-driven colour, an IES spot and a textured
+    emitter, read from `tests/assets_torch/` (36 triangles, K1), 4096 spp.
 
 Before a BVH scene renders, the script checks the JAX trace it relies on:
 on the CPU the JAX package traces such a scene with `intersect_bvh`, whose
@@ -54,6 +57,8 @@ Measured on an 8-core CPU host, JAX on the CPU:
   * `fog_cbox`: 4096 spp in 274.7 s; halves differ by 0.0151 and 0.0028:
     the gate is 4.0x and 9.0x. (1024 spp, 61.5 s, gave 0.0276, a ratio of
     2.2, and was not kept.)
+  * `cbox_tex`: 4096 spp in 380.2 s; halves differ by 0.0032 and -0.0002:
+    the gate is 18.7x and 116.3x.
 """
 import os
 import sys
@@ -66,7 +71,7 @@ import numpy as np  # noqa: E402
 
 RES = 128
 SCENES = {"cbox_sphere": 128, "cbox_glass": 1024, "cbox_zoo": 512,
-          "cbox_glass_hero": 4096, "fog_cbox": 4096}
+          "cbox_glass_hero": 4096, "fog_cbox": 4096, "cbox_tex": 4096}
 # scenes the JAX package traces with its dense sweep over every triangle
 # (`intersect_brute`) instead of its CPU BVH walk: the same hits (the
 # trace check below compares the two), 4.5x faster on the CPU at 6,276

@@ -4,8 +4,10 @@
 
 Renders a scene at 512^2, depth 8 (NAME: `cbox`, tests/fixtures.py
 CBOX_JSON, the default; `cbox_sphere`, `cbox_spheres_instanced`,
-`cbox_glass`, `cbox_zoo`, `cbox_sky`, `cbox_glass_hero`, `fog_cbox` or
-`cbox_sss`, tests/torch_scenes.py) at 1 spp
+`cbox_glass`, `cbox_zoo`, `cbox_sky`, `cbox_glass_hero`, `fog_cbox`,
+`cbox_sss`, `cbox_tex`, `env_sphere` or `lf_cbox` (a 512^2 base, grid 3),
+tests/torch_scenes.py; `cbox_adaptive`, the cbox through
+`render(adaptive=True)`, whose 4 spp are one chunk) at 1 spp
 to warm up, then at 4 spp timed plain and
 once more under torch.profiler, and prints JSON lines: the device's busy
 share of the traced window, device time by kernel (top 25), the device
@@ -57,24 +59,27 @@ def main():
     ap.add_argument("--scene", default="cbox",
                     choices=["cbox", "cbox_sphere", "cbox_spheres_instanced",
                              "cbox_glass", "cbox_zoo", "cbox_sky",
-                             "cbox_glass_hero", "fog_cbox", "cbox_sss"])
+                             "cbox_glass_hero", "fog_cbox", "cbox_sss",
+                             "cbox_tex", "env_sphere", "lf_cbox",
+                             "cbox_adaptive"])
     ap.add_argument("trace_dir", nargs="?")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_render.py needs a CUDA device")
     sys.path.insert(0, ROOT)
     import vision_tpu_torch as vt
-    if args.scene == "cbox":
+    adaptive = args.scene == "cbox_adaptive"
+    if args.scene in ("cbox", "cbox_adaptive"):
         desc = _load("tests/fixtures.py").CBOX_JSON
     else:
         desc = getattr(_load("tests/torch_scenes.py"), args.scene)(512)
     if args.scene == "cbox_zoo":
         desc = _load("tests/torch_scenes.py").cbox_zoo(512, sub_div=40)
     scene = vt.load_scene(desc, device="cuda")
-    vt.render(scene, spp=1)
+    vt.render(scene, spp=1, adaptive=adaptive)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    vt.render(scene, spp=SPP)
+    vt.render(scene, spp=SPP, adaptive=adaptive)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
@@ -83,7 +88,7 @@ def main():
     stats = {}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        vt.render(scene, spp=SPP, stats=stats)
+        vt.render(scene, spp=SPP, adaptive=adaptive, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # CPU-side ops (aten::*) report their kernels' device time too: keep

@@ -138,7 +138,36 @@ def compute_interaction(scene, hit):
     uv = (b0[..., None] * a[..., 18:20]
           + b1[..., None] * a[..., 20:22]
           + b2[..., None] * a[..., 22:24])
+    if "nmap" in scene.materials.feats:
+        ns = _normal_map(scene, a, e1, e2, ng, ns, uv, mat_id)
     return pos, ng, ns, uv, inst, mat_id, light_id
+
+
+def _normal_map(scene, a, e1, e2, ng, ns, uv, mat_id):
+    """The shading normal through the lane's material's tangent-space
+    normal map (`normal_tex`, strength `bump_scale`) in a uv-aligned
+    tangent frame (the map's x follows u; an arbitrary tangent on a
+    degenerate chart), facing the geometric normal's side; lanes without a
+    map keep `ns`."""
+    mt = scene.materials
+    mid = torch.clamp(mat_id.long(), 0, mt.normal_tex.shape[0] - 1)
+    nt = mt.normal_tex[mid]
+    s = mt.bump_scale[mid]
+    texn = scene.atlas.sample(torch.clamp_min(nt, 0), uv) * 2.0 - 1.0
+    nx = texn[..., 0] * s
+    ny = texn[..., 1] * s
+    nz = (1.0 - s) + s * texn[..., 2]
+    duv1 = a[..., 20:22] - a[..., 18:20]
+    duv2 = a[..., 22:24] - a[..., 18:20]
+    det = duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]
+    T = (e1 * duv2[..., 1:2] - e2 * duv1[..., 1:2]) * torch.sign(det)[..., None]
+    t_ok = (torch.abs(det) > 1e-12) & (torch.sum(T * T, -1) > 1e-16)
+    T = torch.where(t_ok[..., None], T, coordinate_system(ns)[0])
+    T = normalize(T - ns * dot(T, ns)[..., None])
+    B = cross(ns, T)
+    ns_m = normalize(T * nx[..., None] + B * ny[..., None]
+                     + ns * nz[..., None])
+    return torch.where((nt >= 0)[..., None], face_forward(ns_m, ng), ns)
 
 
 def spawn_origin(pos, ng, w, factor=1.0):
@@ -209,8 +238,11 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     L = L + torch.where(hit_light[..., None], thr * Le * w_hit[..., None], 0.0)
 
     # ---------------- material params + shading frame ----------------
+    # |n.wo| only for a fresnel-driven colour: other scenes issue no op
+    cos_wo = (torch.abs(dot(ns, wo)) if "fresmix" in scene.materials.feats
+              else None)
     params, dispersive = gather_params(scene.materials, scene.atlas, mat_id,
-                                       uv, sp, swl)
+                                       uv, sp, swl, cos_wo=cos_wo)
     if sp is not None:
         # dispersion: a dispersive interaction kills the secondaries
         swl = swl.terminate_secondary(act & dispersive)
@@ -372,10 +404,14 @@ def radiance(scene, ray, state, max_depth=16, min_depth=0, rr_threshold=1.0):
 
 
 def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
-                rr_threshold=1.0):
+                rr_threshold=1.0, spp_budget=None):
     """Regeneration-wavefront renderer: one persistent lane per pixel; a
     finished path's lane is refilled with that pixel's next sample at once
     (new wavelengths after its film and lens samples, the camera's medium).
+
+    `spp_budget` is an optional per-pixel [R] int sample budget <= spp
+    (adaptive sampling: a converged pixel gets 0, its lane starts dead and
+    costs nothing); `spp` stays the loop bound.
 
     The loop runs until no lane is live, bounded by
     max_iters = spp * max_depth + 4 (one lane running spp paths of
@@ -409,6 +445,10 @@ def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
     smp = torch.zeros((R,), dtype=torch.int64, device=dev)
     st0, ray0, swl0, fw0 = new_path(smp)
     c = _init_carry(scene, ray0, st0, swl0)
+    budget = spp
+    if spp_budget is not None:
+        budget = spp_budget.to(device=dev, dtype=torch.int64)
+        c["act"] = c["act"] & (budget > 0)
     c.update(dep=torch.zeros((R,), dtype=torch.int64, device=dev), fw=fw0,
              smp=smp, film=torch.zeros((R, 3), dtype=torch.float32, device=dev))
 
@@ -430,7 +470,7 @@ def render_wave(scene, camera, filt, frame0, spp, max_depth=16, min_depth=0,
         smp = c["smp"] + done.to(torch.int64)
 
         # regenerate lanes that still owe samples
-        regen = done & (smp < spp)
+        regen = done & (smp < budget)
         st_n, ray_n, swl_n, fw_n = new_path(smp)
         m = regen[..., None]
         c.update(

@@ -25,8 +25,10 @@ Under a hero spectrum every radiance a lane reads (env, sample, hit)
 decodes to a spectrum at the lane's wavelengths as illumination (the
 unbound decode times D65), after its rgb is formed, as in the JAX package.
 
-IES profiles raise NotImplementedError (ROADMAP queue A, slice 4c). A scene
-without a light gets the JAX package's sentinel: one black point light.
+A spot or projector light may carry an IES profile (`ies_id`, a row of
+`ies_profiles`: 64 polar samples, peak 1, `lights/ies.py`) that scales
+its output by the angle from its axis. A scene without a light gets the
+JAX package's sentinel: one black point light.
 The per-light columns a lane reads are fetched in one indexing of the
 packed columns (`core/rows.py`).
 """
@@ -42,6 +44,7 @@ from ..core.math import (Inv2Pi, InvPi, Pi, TwoPi, cross, dot, normalize,
                          safe_div, spherical_phi, spherical_theta, vec3)
 from ..core.rows import PackedRows
 from .alias import build_alias, sample_alias
+from .ies import eval_ies
 
 L_AREA = 0
 L_POINT = 1
@@ -58,7 +61,7 @@ PACKED = (("ltype", 1), ("color", 3), ("color_tex", 1), ("position", 3),
           ("direction", 3), ("cos_angle", 1), ("cos_falloff", 1),
           ("tan_xy", 2), ("w2o", 9), ("two_sided", 1), ("total_area", 1),
           ("tri_offset", 1), ("tri_count", 1), ("tri_base", 1),
-          ("sel_pmf", 1))
+          ("sel_pmf", 1), ("ies_id", 1))
 
 
 @dataclass
@@ -212,11 +215,16 @@ def sample_wi(table, atlas, tri_pack, ref_pos, ref_ng, u_sel, u2,
     """NEE light sample for every lane. tri_pack = [T, 32] packed triangle
     rows (p0 e1 e2 ... uv0 uv1 uv2) for area lights; `ref_ng` is unused,
     as in the JAX package. Returns LightSample."""
-    if table.has("ies"):
-        raise NotImplementedError(
-            "IES light profiles are not ported yet: ROADMAP queue A, slice 4c")
     lid, sel_pmf, u_sel2 = select_light(table, u_sel)
     g = table.packed.fetch(lid)
+
+    def ies_weight(cos_theta):
+        """The selected light's IES attenuation (1 without a profile)."""
+        l_ies = g("ies_id").long()
+        prof = table.ies_profiles[torch.clamp(
+            l_ies, 0, table.ies_profiles.shape[0] - 1)]
+        return torch.where(l_ies >= 0, eval_ies(prof, cos_theta), 1.0)
+
     lt = g("ltype")
     color = g("color")
     env = table.has("env") and table.env_index >= 0
@@ -294,6 +302,8 @@ def sample_wi(table, atlas, tri_pack, ref_pos, ref_ng, u_sel, u2,
         if table.has("spot"):
             cos_sp = torch.sum(g("direction") * -wi_near, -1)
             fall = _falloff_spot(cos_sp, g("cos_angle"), g("cos_falloff"))
+            if table.has("ies"):
+                fall = fall * ies_weight(cos_sp)
             L = put("spot", L_p * fall[..., None], L)
         if table.has("proj"):
             # the shading point in the projector's frame
@@ -312,6 +322,8 @@ def sample_wi(table, atlas, tri_pack, ref_pos, ref_ng, u_sel, u2,
             else:
                 proj_col = torch.ones(shape + (3,), device=ref_pos.device)
             L_pr = color * proj_col / d2[..., None] * in_frame[..., None]
+            if table.has("ies"):
+                L_pr = L_pr * ies_weight(normalize(pl)[..., 2])[..., None]
             L = put("proj", L_pr, L)
 
     # ---- spherical environment: the alias table over pixels
@@ -416,6 +428,7 @@ class LightBuilder:
         self.env = None            # (tex_id, weights [H, W], w, h)
         self.sampler_type = sampler_type
         self.env_prob = env_prob
+        self.ies_profiles = []     # [64] polar profiles
 
     def _default(self):
         return dict(ltype=L_POINT, color=[0, 0, 0], color_tex=-1,
@@ -446,7 +459,13 @@ class LightBuilder:
         return self._add(ltype=L_POINT, color=list(color),
                          position=list(position), power=4 * Pi * _lum(color))
 
-    def add_spot(self, color, position, direction, angle_deg, falloff_deg):
+    def add_ies_profile(self, profile):
+        """Register a [64] polar profile; returns its id."""
+        self.ies_profiles.append(np.asarray(profile, np.float32))
+        return len(self.ies_profiles) - 1
+
+    def add_spot(self, color, position, direction, angle_deg, falloff_deg,
+                 ies=-1):
         angle = np.deg2rad(np.clip(angle_deg, 1.0, 89.0))
         falloff = np.deg2rad(np.clip(falloff_deg, 0.0, np.rad2deg(angle)))
         d = np.asarray(direction, np.float64)
@@ -455,15 +474,15 @@ class LightBuilder:
                          position=list(position), direction=list(d),
                          cos_angle=float(np.cos(angle)),
                          cos_falloff=float(np.cos(max(0.0, angle - falloff))),
-                         power=2 * Pi * _lum(color))
+                         power=2 * Pi * _lum(color), ies_id=ies)
 
-    def add_projector(self, color, o2w, angle_deg, ratio, tex_id):
+    def add_projector(self, color, o2w, angle_deg, ratio, tex_id, ies=-1):
         tan_y = float(np.tan(np.deg2rad(angle_deg)))
         return self._add(ltype=L_PROJECTOR, color=list(color),
                          position=list(np.asarray(o2w[:3, 3], np.float64)),
                          tan_xy=[ratio * tan_y, tan_y],
                          w2o=np.linalg.inv(o2w[:3, :3]).astype(np.float32),
-                         color_tex=tex_id, power=_lum(color))
+                         color_tex=tex_id, power=_lum(color), ies_id=ies)
 
     def add_spherical(self, scale_color, o2w, tex_id, image):
         h, w = image.shape[:2]
@@ -524,6 +543,8 @@ class LightBuilder:
         feats = tuple(sorted(TYPE_NAMES[t] for t in {r["ltype"] for r in rows}))
         if any(r["color_tex"] >= 0 and r["ltype"] != L_SPHERICAL for r in rows):
             feats += ("tex",)
+        if any(r["ies_id"] >= 0 for r in rows):
+            feats += ("ies",)
         return LightTable(
             feats=feats, n_lights=L, env_index=env_index,
             env_prob=float(np.clip(self.env_prob, 0.01, 0.99)),
@@ -542,4 +563,5 @@ class LightBuilder:
             e_prob=t(ep), e_alias=t(ea, torch.int32), e_pmf=t(em),
             sel_prob=t(sp), sel_alias=t(sa, torch.int32), sel_pmf=t(sm),
             ies_id=col("ies_id", torch.int32),
-            ies_profiles=t(np.ones((1, 64), np.float32)))
+            ies_profiles=t(np.stack(self.ies_profiles) if self.ies_profiles
+                           else np.ones((1, 64), np.float32)))

@@ -9,13 +9,16 @@ lights, the srgb and hero spectra (`spectrum.type`, `param.dimension`),
 homogeneous participating media (the `mediums` block: `process`, `list`,
 `global`; a shape's `medium.inside` / `outside`, the outside defaulting to
 the global medium; a subsurface material's interior medium; the camera in
-the global medium) and the normal frame buffer. A spherical
-light whose image file is missing, in a scene with no other light, becomes
-the JAX package's substitute: a unit sky in the light's frame. An image
-file that exists (a texture, a projector's image, an environment map)
-raises NotImplementedError: image loading is slice 7a; so does the `mix`
-environment, which blends two images. Geometry takes the path the JAX
-package gives it:
+the global medium), images (textured and node-graph material slots, normal
+maps, textured emission, projector images, spherical environment maps and
+the `mix` environment, which blends two maps at load time, all packed into
+one texture atlas; `scene/imageio.py` decodes PNG, Radiance .hdr and
+OpenEXR), IES profiles on spot and projector lights, and the normal and
+light-field frame buffers (`framebuffer_type`, `lf_grid`). An image that
+cannot be read takes its slot's default with a warning, as in the JAX
+package; a spherical light whose image is missing, in a scene with no
+other light, becomes the JAX package's substitute: a unit sky in the
+light's frame. Geometry takes the path the JAX package gives it:
 
   * at most 2048 triangles: the dense sweep (kernel K1);
   * more: a SAH BVH over the flat soup (`pbvh`, kernel K2);
@@ -25,9 +28,9 @@ package gives it:
     (`ipbvh`, kernel K3). VT_INSTANCING=0 turns this off, as it does in
     the JAX package.
 
-Every other feature raises NotImplementedError naming the ROADMAP slice
-that brings it, so a scene never quietly takes a path the JAX package would
-not take.
+Every other feature (mesh files, JPEG images) raises NotImplementedError
+naming the ROADMAP slice that brings it, so a scene never quietly takes a
+path the JAX package would not take.
 """
 from __future__ import annotations
 
@@ -43,17 +46,18 @@ from ..accel.packet_bvh import (build_instanced_pbvh, build_packet_bvh,
                                 instanced_pbvh_from_arrays,
                                 packet_bvh_from_arrays)
 from ..core import transform as xf
+from ..lights.ies import IESProfile
 from ..lights.lights import LightBuilder, LightTable
 from ..sensor.camera import Camera
 from ..sensor.filters import FilterSampler
 from ..shading.materials import (COLUMNS, INT_COLUMNS, OPTIONAL,
-                                 MaterialCompiler, MaterialTable, check_feats,
-                                 image_exists_or_raise)
+                                 MaterialCompiler, MaterialTable)
 from ..shading.medium import MediumBuilder, MediumTable
+from ..shading.shader_graph import SlotValue
 from ..spectra.spectrum import SpectrumModel
 from . import desc as dsc
 from . import shapes as shp
-from .texture import AtlasBuilder, TextureAtlas
+from .texture import AtlasBuilder, TextureAtlas, load_image
 
 BRUTE_FORCE_MAX_TRIS = 2048
 
@@ -152,28 +156,87 @@ def _world_radius(p_all):
     return max(float(np.linalg.norm(p_all - center, axis=-1).max()), 1e-3)
 
 
-def _missing_image(scene_dir, payload, what):
-    """An image slot: NotImplementedError (slice 7a) if its file exists; a
-    warning if it is missing, which the JAX package skips the same way."""
-    image_exists_or_raise(scene_dir, payload.get("fn"), what)
-    warnings.warn(f"{what}: image '{payload.get('fn')}' missing")
+def _add_image(atlas, scene_dir, payload, default_cs, what):
+    """An image slot's atlas id; -1 with a warning when its file cannot be
+    read (the JAX package skips such an image the same way). An image
+    format this package does not decode raises NotImplementedError."""
+    try:
+        return atlas.add_image(os.path.join(scene_dir, payload["fn"]),
+                               payload.get("color_space", default_cs))
+    except NotImplementedError:
+        raise
+    except Exception as e:
+        warnings.warn(f"{what} missing: {e}")
+        return -1
 
 
-def _emission_color(edesc, scene_dir):
-    """Emission desc -> (rgb * scale, two_sided). A missing emission image
-    leaves white times the scale, as in the JAX package."""
+def _emission_color(edesc, atlas, scene_dir):
+    """Emission desc -> (rgb * scale, two_sided, atlas id | -1). A textured
+    emission's constant is white times the scale."""
     ep = dsc.ParameterSet(edesc.get("param", {}))
     kind, payload, _ = dsc.parse_slot(ep.raw("color", [1, 1, 1]))
+    tex = -1
     if kind == "image":
-        _missing_image(scene_dir, payload, "emission texture")
+        tex = _add_image(atlas, scene_dir, payload, "srgb", "emission texture")
     color = payload if kind == "const" else [1.0, 1.0, 1.0]
     color = list(color) + [color[-1]] * (3 - len(color))
     sk, sp_, _ = dsc.parse_slot(ep.raw("scale", 1.0))
     scale = sp_[0] if sk == "const" else 1.0
-    return [c * scale for c in color[:3]], ep.as_bool("two_sided", False)
+    return [c * scale for c in color[:3]], ep.as_bool("two_sided", False), tex
 
 
-def _add_light(lights, ldesc, scene_dir, add_area):
+def _ies_id(lights, p, scene_dir):
+    """The IES profile of a spot or projector light (-1 without one, or
+    with a warning when its file is unusable)."""
+    fn = p.raw("ies", None)
+    if not fn:
+        return -1
+    try:
+        prof = IESProfile.load(os.path.join(scene_dir, fn))
+        return lights.add_ies_profile(prof.to_table())
+    except Exception as e:
+        warnings.warn(f"ies profile '{fn}' unusable: {e}")
+        return -1
+
+
+def _add_mix_env(lights, atlas, p, scene_dir):
+    """The `mix` environment: scale0 env0 + scale1 env1 combined at load
+    time into one spherical light, resampled by nearest index to the larger
+    resolution, in env0's frame."""
+    def load_env(key, skey):
+        sub = p.raw(key, {}) or {}
+        sp_ = dsc.ParameterSet(sub.get("param", {}))
+        kind, payload, _ = dsc.parse_slot(sp_.raw("color", [1, 1, 1]))
+        if kind != "image":
+            return None
+        try:
+            img = load_image(os.path.join(scene_dir, payload["fn"]),
+                             payload.get("color_space", "linear"))
+        except NotImplementedError:
+            raise
+        except Exception:
+            return None
+        scale = p.as_float(skey, 1.0) * sp_.as_float("scale", 1.0)
+        return img, scale, xf.from_json(sp_.raw("o2w"))
+
+    e0 = load_env("env0", "scale0")
+    e1 = load_env("env1", "scale1")
+    if e0 is None and e1 is None:
+        return
+    if e0 is None or e1 is None:
+        img, scale, o2w = e0 or e1
+        combined = img * scale
+    else:
+        h = max(e0[0].shape[0], e1[0].shape[0])
+        w = max(e0[0].shape[1], e1[0].shape[1])
+        combined = (SlotValue(image=e0[0]).as_image(h, w) * e0[1]
+                    + SlotValue(image=e1[0]).as_image(h, w) * e1[1])
+        o2w = e0[2]
+    tex = atlas.add_array(combined.astype(np.float32))
+    lights.add_spherical([1.0, 1.0, 1.0], o2w, tex, combined)
+
+
+def _add_light(lights, atlas, ldesc, scene_dir, add_area):
     """One entry of light_sampler.lights (the JAX package's `_add_light`).
     Returns the (color, o2w) of a spherical light whose image is missing,
     else None; `add_area(color, two_sided, world_quad)` adds an area
@@ -187,30 +250,33 @@ def _add_light(lights, ldesc, scene_dir, add_area):
         color, img = [v * scale for v in c[:3]], None
     else:
         color, img = [scale] * 3, (payload if kind == "image" else None)
-    if lt in ("spot", "projector") and p.raw("ies", None):
-        raise _not_ported("IES light profiles", "4c")
     if lt == "point":
         lights.add_point(color, p.as_float3("position"))
     elif lt == "spot":
         lights.add_spot(color, p.as_float3("position"),
                         p.as_float3("direction", (0, 0, 1)),
-                        p.as_float("angle", 45.0), p.as_float("falloff", 10.0))
+                        p.as_float("angle", 45.0), p.as_float("falloff", 10.0),
+                        ies=_ies_id(lights, p, scene_dir))
     elif lt == "projector":
+        tex = -1
         if img is not None:
-            _missing_image(scene_dir, img, "projector texture")
+            tex = _add_image(atlas, scene_dir, img, "srgb", "projector texture")
         lights.add_projector(color, xf.from_json(p.raw("o2w")),
                              p.as_float("angle", 30.0),
-                             p.as_float("ratio", 1.0), -1)
+                             p.as_float("ratio", 1.0), tex,
+                             ies=_ies_id(lights, p, scene_dir))
     elif lt == "spherical":
         if img is None:
             return None  # a constant-color environment is skipped
-        _missing_image(scene_dir, img, "spherical light")
-        return color, p.raw("o2w")
+        tex = _add_image(atlas, scene_dir, img, "linear", "spherical light")
+        if tex < 0:
+            return color, p.raw("o2w")
+        lights.add_spherical(color, xf.from_json(p.raw("o2w")), tex,
+                             atlas.images[tex])
     elif lt == "directional":
         lights.add_directional(color, p.as_float3("direction", (0, -1, 0)))
     elif lt == "mix":
-        raise _not_ported("the 'mix' environment (a blend of two images)",
-                          "7a")
+        _add_mix_env(lights, atlas, p, scene_dir)
     elif lt == "area":
         world = shp.make_quad(p.as_float("width", 1.0),
                               p.as_float("height", 1.0)).transformed(
@@ -239,7 +305,8 @@ class Scene:
 
     def _build(self):
         raw, device = self.raw, self.device
-        mats = MaterialCompiler(self.scene_dir)
+        atlas = AtlasBuilder()
+        mats = MaterialCompiler(atlas, self.scene_dir)
         for mdesc in raw.get("materials", []):
             mats.compile(mdesc)
 
@@ -269,8 +336,10 @@ class Scene:
                               "param": param})
 
         fb = raw.get("pipeline", {}).get("param", {}).get("frame_buffer", {})
-        if fb.get("type", "normal") != "normal":
-            raise _not_ported(f"the '{fb.get('type')}' frame buffer", "4d")
+        # the frame buffer: "light_field" renders an S x S grid of
+        # sub-aperture views (`render.render_light_field`)
+        self.framebuffer_type = fb.get("type", "normal")
+        self.lf_grid = int(fb.get("param", {}).get("grid", 3))
         sp_desc = raw.get("spectrum", {})
         sp_type = sp_desc.get("type", "srgb")
         sp_dims = sp_desc.get("param", {}).get("dimension", 3)
@@ -358,13 +427,13 @@ class Scene:
 
         skipped_env = None
         for ldesc in ls.get("param", {}).get("lights", []):
-            skipped_env = _add_light(lights, ldesc, self.scene_dir,
+            skipped_env = _add_light(lights, atlas, ldesc, self.scene_dir,
                                      add_area) or skipped_env
         for inst_id, edesc, tri_base, areas in pending:
-            color, two_sided = _emission_color(edesc, self.scene_dir)
+            color, two_sided, tex = _emission_color(edesc, atlas,
+                                                    self.scene_dir)
             inst_light[inst_id] = lights.add_area(color, inst_id, tri_base,
-                                                  areas, two_sided)
-        atlas = AtlasBuilder()
+                                                  areas, two_sided, tex)
         if skipped_env is not None and not lights.rows:
             # the only light was an environment whose image is missing: a
             # constant unit sky in its frame keeps the scene lit, as in the
@@ -509,9 +578,7 @@ def scene_from_arrays(arrays, device="cuda"):
     `pbvh.*` (PacketBVH) and `ipbvh.*` (InstancedPBVH). Static fields
     (`feats`, `n_lights`, `env_index`, `env_prob`, `env_w`, `env_h`,
     `n_real`, `kind`, `dims`, `resolution`, `is_box`, `bsize`,
-    `has_media`, `camera_medium`) come as arrays too. A scene outside the
-    slice (shade-time node graphs, normal maps, IES profiles) raises
-    NotImplementedError.
+    `has_media`, `camera_medium`) come as arrays too.
     """
     a = {k: np.array(v) for k, v in arrays.items()}
 
@@ -519,10 +586,7 @@ def scene_from_arrays(arrays, device="cuda"):
         return torch.as_tensor(a[key], dtype=dtype, device=device)
 
     mat_feats = tuple(str(f) for f in np.atleast_1d(a["materials.feats"]))
-    check_feats(mat_feats)
     light_feats = tuple(str(f) for f in np.atleast_1d(a["lights.feats"]))
-    if "ies" in light_feats:
-        raise _not_ported("IES light profiles", "4c")
 
     materials = MaterialTable(
         feats=mat_feats,

@@ -1,22 +1,52 @@
 """Texture atlas: all scene images packed into one flat tensor.
 
-Counterpart of `vision_tpu/scene/texture.py`. AtlasBuilder takes arrays only;
-loading images from files comes with ROADMAP queue A slice 7a.
+Counterpart of `vision_tpu/scene/texture.py`. Image files are decoded by
+`imageio.py` (standard library and numpy; no PIL, no OpenCV) into the
+arrays the JAX package's PIL / OpenCV loader gives, then linearised in its
+numpy operation order, so both packages build the same atlas bit for bit.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .imageio import read_image
+
+
+def _srgb_to_linear(x):
+    return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def load_image(path, color_space="srgb"):
+    """Load an image -> float32 RGB [H, W, 3], linearised: 8-bit data is
+    /255 and, for `color_space` "srgb", decoded from sRGB; HDR data (.hdr,
+    .exr) is taken as it is."""
+    img, kind = read_image(path)
+    if kind == "hdr":
+        return np.ascontiguousarray(img, np.float32)
+    img = np.asarray(img, np.float32) / 255.0
+    if color_space == "srgb":
+        img = _srgb_to_linear(img)
+    return img.astype(np.float32)
+
 
 class AtlasBuilder:
-    """Host-side accumulation of textures; dedup by content."""
+    """Host-side accumulation of textures; dedup by path or content."""
 
     def __init__(self):
         self.images = []      # list of np [H, W, 3]
         self.by_key = {}
+
+    def add_image(self, path, color_space="srgb"):
+        key = (os.path.abspath(path), color_space)
+        if key in self.by_key:
+            return self.by_key[key]
+        idx = self.add_array(load_image(path, color_space))
+        self.by_key[key] = idx
+        return idx
 
     def add_array(self, img):
         img = np.ascontiguousarray(np.asarray(img, np.float32))

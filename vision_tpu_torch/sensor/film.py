@@ -1,8 +1,8 @@
-"""Film post: tonemap, gamma, PNG output.
+"""Film post: tonemap, gamma, PNG and OpenEXR output.
 
 Counterpart of `vision_tpu/sensor/film.py` (linear / ACES Narkowicz /
-Reinhard tone mappers, then linear -> sRGB). The PNG writer uses the
-standard library's zlib and struct and numpy, nothing else.
+Reinhard tone mappers, then linear -> sRGB). The PNG and EXR writers use
+the standard library's zlib and struct and numpy, nothing else.
 """
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from ..scene.imageio import write_exr
 
 
 def tonemap(x, mode="linear", exposure=1.0):
@@ -49,3 +51,9 @@ def to_png(img, path):
         f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
                 + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + _png_chunk(b"IEND", b""))
+
+
+def to_exr(img, path):
+    """Write linear img [H, W, 3] as a single-part, uncompressed scanline
+    OpenEXR of FLOAT channels B, G, R (`scene/imageio.py` write_exr)."""
+    write_exr(np.asarray(img, np.float32), path)

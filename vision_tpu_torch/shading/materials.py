@@ -11,17 +11,20 @@ diffuse. The table carries every column of the JAX package's
 the spectral ones included (`glass_coeffs`, `metal_*_spd`,
 `dispersive_id`, `metal_id`).
 
-A slot is a constant or a tree of constant calculation nodes, folded on
-the host as the JAX package folds it. An image slot whose file exists
-raises NotImplementedError (image loading, ROADMAP queue A slice 7a); one
-whose file is missing takes the slot's default, as in the JAX package.
-Shade-time node graphs (a fresnel-driven mix, uv vector mapping, other
-context-dependent nodes) raise NotImplementedError naming slice 4c, normal
-maps (`bump`, an image) slice 7a.
+A slot is a constant, an image or a tree of calculation nodes over them,
+folded or baked into the texture atlas on the host (`shader_graph.py`); an
+image that cannot be read takes the slot's default, as in the JAX package.
+Two nodes are staged on the row for shade time: a fresnel-driven colour
+mix (`fres_ior`, `fres_a`, `fres_b`; the row's static colour is the mean of
+the two ends) and a uv `vector_mapping` (`uv_xform`). The `bump` slot
+holds a tangent-space normal map (`normal_tex`, `bump_scale`), which
+`integrator/pt.py` applies.
 
 At shade time `gather_params` reads a lane's row in one indexing of the
-packed columns (`core/rows.py`) and resolves the kd / spec / rough / frac
-texture slots against the atlas. Under the hero spectrum the colour slots
+packed columns (`core/rows.py`), moves the lookup uv by the row's uv
+transform, resolves the kd / spec / rough / frac texture slots against the
+atlas and blends a fresnel-driven kd by the lane's |cos wo|. Under the
+hero spectrum the colour slots
 decode to spectra at the lane's wavelengths, a dispersive glass takes its
 Sellmeier IOR per wavelength and a named metal its measured eta / k; a
 slot without a texture decodes from sigmoid coefficients computed once per
@@ -43,12 +46,8 @@ from ..spectra import spd
 from ..spectra.spd import DATA_DIR
 from . import bsdf
 from . import fresnel as frs
+from . import shader_graph as sg
 from .microfacet import calculate_alpha, roughness_to_alpha
-
-
-def _not_ported(what, slice_):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue A, slice {slice_}")
 
 
 @dataclass
@@ -153,7 +152,8 @@ PACKED = (("kd", 3), ("kd_tex", 1), ("spec_tint", 3), ("spec_tex", 1),
           ("cc_alpha", 1), ("sheen_weight", 1), ("sheen_tint", 3),
           ("flatness", 1), ("metallic", 1), ("sheen_rough", 1),
           ("mix_b", 1), ("mix_wa", 1), ("mix_wb", 1), ("frac_tex", 1),
-          ("dispersive_id", 1), ("metal_id", 1))
+          ("dispersive_id", 1), ("metal_id", 1), ("uv_xform", 6),
+          ("fres_ior", 1), ("fres_a", 3), ("fres_b", 3))
 
 
 def _default_row():
@@ -176,137 +176,91 @@ def _default_row():
     )
 
 
-# ---- slot folding (constant node trees; `shader_graph.fold_slot`) ----
-
-_SWZ = {"x": 0, "y": 1, "z": 2, "w": 3, "r": 0, "g": 1, "b": 2, "a": 3}
-_BINARY = {
-    "add": np.add, "subtract": np.subtract, "sub": np.subtract,
-    "multiply": np.multiply, "mul": np.multiply,
-    "divide": lambda a, b: np.divide(a, np.where(np.abs(b) < 1e-9, 1e-9, b)),
-}
-_BINARY["div"] = _BINARY["divide"]
-
-
-class _MissingImage(Exception):
-    """An image slot whose file does not exist: the slot's default."""
-
-
-def image_exists_or_raise(scene_dir, fn, what):
-    """For an image slot: raise NotImplementedError (slice 7a) if its file
-    exists, return False if it is missing."""
-    if os.path.exists(os.path.join(scene_dir, str(fn))):
-        raise _not_ported(f"loading the image '{fn}' ({what})", "7a")
-    return False
-
-
-def _swizzle(c, channels):
-    if not channels:
-        return c
-    idx = [_SWZ[ch] for ch in channels.lower() if ch in _SWZ]
-    if not idx:
-        return c
-    return c[[min(i, c.shape[-1] - 1) for i in idx]]
-
-
-def _pad_op(a, b, op):
-    n = max(a.shape[-1], b.shape[-1])
-
-    def pad(v):
-        return np.concatenate([v, np.repeat(v[-1:], n - v.shape[-1])]) \
-            if v.shape[-1] < n else v
-    return op(pad(a), pad(b))
-
-
-def fold_const(raw, scene_dir):
-    """Fold a constant node tree -> float32 vector."""
-    kind, payload, channels = parse_slot(raw)
-    if kind == "const":
-        c = np.atleast_1d(np.asarray(payload, np.float32))
-    elif kind == "image":
-        image_exists_or_raise(scene_dir, payload.get("fn"), "a material slot")
-        raise _MissingImage(payload.get("fn"))
-    elif kind in _BINARY:
-        c = _pad_op(fold_const(payload.get("lhs", 0.0), scene_dir),
-                    fold_const(payload.get("rhs", 0.0), scene_dir),
-                    _BINARY[kind])
-    elif kind in ("lerp", "mix"):
-        t = fold_const(payload.get("t", 0.5), scene_dir)
-        A = fold_const(payload.get("A", payload.get("lhs", 0.0)), scene_dir)
-        B = fold_const(payload.get("B", payload.get("rhs", 1.0)), scene_dir)
-        c = np.add(_pad_op(A, t, lambda a, tt: a * (1.0 - tt)),
-                   _pad_op(B, t, lambda b, tt: b * tt))
-    elif kind == "scale":
-        v = fold_const(payload.get("value", payload.get("node", 1.0)), scene_dir)
-        c = v * float(np.atleast_1d(payload.get("scale", 1.0))[0])
-    elif kind == "clamp":
-        v = fold_const(payload.get("value", 0.0), scene_dir)
-        c = np.clip(v, float(payload.get("lower", 0.0)),
-                    float(payload.get("upper", 1.0)))
-    else:
-        raise _not_ported(f"the shader node '{kind}' (node graphs)", "4c")
-    return _swizzle(np.atleast_1d(np.asarray(c, np.float32)), channels)
-
-
-def _fold_or_default(raw, scene_dir):
-    try:
-        return fold_const(raw, scene_dir)
-    except (_MissingImage, ValueError, TypeError, AttributeError) as e:
-        warnings.warn(f"slot fold failed ({e}); using default")
-        return None
-
-
 class MaterialCompiler:
-    """Accumulates material rows; dedups by name."""
+    """Accumulates material rows; dedups by name. Textured slots bake into
+    `atlas_builder` (`shader_graph.py`)."""
 
-    def __init__(self, scene_dir="."):
+    def __init__(self, atlas_builder, scene_dir="."):
         self.rows = []
         self.by_name = {}
+        self.atlas = atlas_builder
         self.scene_dir = scene_dir
         # material id -> its interior-medium request (subsurface materials;
         # the scene attaches it as the shape's inside medium)
         self.sss = {}
+        # shade-time nodes the slots of the row being compiled staged
+        self._pending_fresnel = None
+        self._pending_uvmap = None
 
     # ---- slot helpers ----
 
     def _slot_rgb(self, pset, key, default):
-        """A color slot -> (rgb [3], tex id); textures never come out of
-        the port's folding (see the module's docstring)."""
+        """A colour slot -> (rgb [3], tex id). Calculation node trees fold
+        or bake (`shader_graph.py`); a fresnel-driven mix or a uv
+        vector_mapping is staged on the row being compiled for shade time.
+        A fresnel mix's static colour is the mean of its two ends."""
         if key not in pset:
             return list(default), -1
-        v = _fold_or_default(pset.raw(key), self.scene_dir)
-        if v is None:
-            return list(default), -1
-        c = list(v) + [float(v[-1])] * max(0, 3 - v.shape[-1])
-        return [float(c[0]), float(c[1]), float(c[2])], -1
+        raw = pset.raw(key)
+        dyn = sg.detect_fresnel_mix(raw, self.scene_dir)
+        if dyn is not None:
+            ior, A, B = dyn
+            self._pending_fresnel = (ior, A, B)
+            return [0.5 * (a + b) for a, b in zip(A, B)], -1
+        uvm = sg.detect_uv_mapping(raw)
+        if uvm is not None:
+            self._pending_uvmap, raw = uvm
+        return sg.resolve_rgb(raw, self.atlas, self.scene_dir, default)
 
     def _slot_scalar(self, pset, key, default):
         if key not in pset:
             return float(default), -1
-        v = _fold_or_default(pset.raw(key), self.scene_dir)
-        if v is None:
-            return float(default), -1
-        return float(v[0]), -1
+        return sg.resolve_scalar(pset.raw(key), self.atlas, self.scene_dir,
+                                 default)
 
     def _slot_rough2(self, pset, key, default):
-        """Roughness may be scalar or [rx, ry]."""
+        """Roughness may be scalar, [rx, ry] or an image (linear, remapped
+        at shade time); an unreadable image takes the default."""
         kind, payload, _ = parse_slot(pset.raw(key, default))
         if kind == "const":
             if len(payload) >= 2:
                 return float(payload[0]), float(payload[1]), -1
             return float(payload[0]), float(payload[0]), -1
         if kind == "image":
-            image_exists_or_raise(self.scene_dir, payload.get("fn"),
-                                  "a roughness slot")
+            try:
+                tex = self.atlas.add_image(
+                    os.path.join(self.scene_dir, payload.get("fn")), "linear")
+            except NotImplementedError:
+                raise
+            except Exception as e:
+                warnings.warn(f"roughness image unusable ({e}); using default")
+                return float(default), float(default), -1
+            return float(default), float(default), tex
         return float(default), float(default), -1
 
     # ---- compile entry ----
+
+    def _row_with_dynamic(self, desc):
+        """_compile_row, then the shade-time nodes its slots staged: the
+        fresnel mix's IOR (at least 1.0001) and ends, the uv transform."""
+        saved = (self._pending_fresnel, self._pending_uvmap)
+        self._pending_fresnel = self._pending_uvmap = None
+        row = self._compile_row(desc)
+        if self._pending_fresnel is not None:
+            ior, A, B = self._pending_fresnel
+            row.update(fres_ior=float(max(ior, 1.0001)), fres_a=list(A),
+                       fres_b=list(B))
+        if self._pending_uvmap is not None:
+            row["uv_xform"] = list(self._pending_uvmap)
+        self._pending_fresnel, self._pending_uvmap = saved
+        return row
 
     def compile(self, desc):
         """Compile one material desc; returns the material id."""
         name = desc.get("name")
         if name and name in self.by_name:
             return self.by_name[name]
-        row = self._compile_row(desc)
+        row = self._row_with_dynamic(desc)
         mid = len(self.rows)
         sss = row.pop("_sss", None)
         if sss is not None:
@@ -318,7 +272,7 @@ class MaterialCompiler:
 
     def _append_child(self, desc):
         """A sub-material of a mixture, in its own anonymous row."""
-        row = self._compile_row(desc)
+        row = self._row_with_dynamic(desc)
         row.pop("_sss", None)
         self.rows.append(row)
         return len(self.rows) - 1
@@ -351,9 +305,13 @@ class MaterialCompiler:
             # unknown material -> grey diffuse
             row.update(diffuse_weight=1.0, kd=[0.5, 0.5, 0.5])
             return row
-        if p.raw("bump", None) is not None:
-            raise _not_ported("normal maps (the 'bump' slot, an image)", "7a")
         fn(row, p)
+        # the bump slot: a tangent-space normal map, applied at shade time
+        # (`integrator/pt.py` compute_interaction)
+        if p.raw("bump", None) is not None:
+            _, btex = self._slot_rgb(p, "bump", [0.5, 0.5, 1.0])
+            row.update(normal_tex=btex,
+                       bump_scale=p.as_float("bump_scale", 1.0))
         return row
 
     # ---- per-type compilers ----
@@ -563,6 +521,12 @@ class MaterialCompiler:
             feats.append("disney")
         if any(r["mix_b"] >= 0 for r in rows):
             feats.append("mix2")
+        if any(r["normal_tex"] >= 0 for r in rows):
+            feats.append("nmap")     # shade-time normal mapping
+        if any(r["fres_ior"] > 0 for r in rows):
+            feats.append("fresmix")  # shade-time fresnel-driven colour
+        if any(r["uv_xform"] != [1.0, 0.0, 0.0, 0.0, 1.0, 0.0] for r in rows):
+            feats.append("uvmap")    # shade-time vector_mapping uv TRS
         # rough conductors and mirrors: the multiple-scattering lobe
         lut_path = os.path.join(DATA_DIR, "ggx_energy.npz")
         metalish = {frs.FR_CONSTANT, frs.FR_CONDUCTOR, frs.FR_F82}
@@ -576,20 +540,6 @@ class MaterialCompiler:
         return MaterialTable(feats=tuple(feats), **arrs)
 
 
-PORTED_FEATS = ("diff", "spec", "trans", "cc", "sheen", "oren", "blend",
-                "disney", "mix2", "ems")
-
-
-def check_feats(feats):
-    """Raise for a material feature outside the ported slices: shade-time
-    node graphs (slice 4c) and normal maps (images, slice 7a)."""
-    extra = [f for f in feats if f not in PORTED_FEATS]
-    if extra:
-        raise _not_ported(f"the material features {extra} (shade-time node "
-                          "graphs, slice 4c, and normal maps, slice 7a)",
-                          "4c / 7a")
-
-
 def _sellmeier_eta(coeffs, lam_nm):
     """coeffs [..., 6] (B1 C1 B2 C2 B3 C3), lam [..., S] (nm) -> eta
     [..., S]."""
@@ -601,17 +551,19 @@ def _sellmeier_eta(coeffs, lam_nm):
     return torch.sqrt(torch.clamp_min(f + 1.0, 1.0))
 
 
-def gather_params(table, atlas, mat_id, uv, spectrum=None, swl=None):
+def gather_params(table, atlas, mat_id, uv, spectrum=None, swl=None,
+                  cos_wo=None):
     """Per-lane LobeParams from the table, the textured slots resolved
-    against the atlas. mat_id [...] int (clamped; invalid lanes get row 0
-    with zero weights). A mixture row brings its second row as
+    against the atlas at the row's transformed uv. mat_id [...] int
+    (clamped; invalid lanes get row 0 with zero weights). `cos_wo` is
+    |n.wo| per lane for a fresnel-driven colour (without it the row's
+    static colour stands). A mixture row brings its second row as
     `params.mix_b`. With a hero `spectrum`, colours decode to spectra at
     swl.lam, a named metal's eta / k come from its SPD rows and a
     dispersive glass's eta from its Sellmeier curve per wavelength. Returns
     (LobeParams, dispersive mask [...], a dispersive row on a valid lane;
     nothing is dispersive in the sRGB mode, which issues no operation of
     the hero branch)."""
-    check_feats(table.feats)
     valid = mat_id >= 0
     M = table.kd.shape[0]
     mid = torch.clamp(mat_id.long(), 0, M - 1)
@@ -632,22 +584,39 @@ def gather_params(table, atlas, mat_id, uv, spectrum=None, swl=None):
                 return spectrum.decode_albedo(col, swl)
             return spectrum.eval_coeffs(h(key), swl)
 
+        # the row's vector_mapping: uv' = [a b; c d] uv + (tx, ty)
+        uv_l = uv
+        if "uvmap" in table.feats:
+            x = g("uv_xform")
+            uv_l = torch.stack(
+                [x[..., 0] * uv[..., 0] + x[..., 1] * uv[..., 1] + x[..., 2],
+                 x[..., 3] * uv[..., 0] + x[..., 4] * uv[..., 1] + x[..., 5]],
+                -1)
         kd = g("kd")
         if "kd" in slots:
             kd_tex = g("kd_tex").to(torch.int32)
             kd = torch.where((kd_tex >= 0)[..., None],
-                             atlas.sample(kd_tex, uv), kd)
-        kd = colour("kd", kd, "kd" in slots)
+                             atlas.sample(kd_tex, uv_l), kd)
+        fres = "fresmix" in table.feats and cos_wo is not None
+        if fres:
+            # a fresnel-driven colour: A..B by the dielectric Fresnel term
+            fi = g("fres_ior")
+            F = frs.fresnel_dielectric(torch.abs(cos_wo),
+                                       torch.clamp_min(fi, 1.0001))
+            fa = g("fres_a")
+            kd = torch.where((fi > 0.0)[..., None],
+                             fa + F[..., None] * (g("fres_b") - fa), kd)
+        kd = colour("kd", kd, "kd" in slots or fres)
         spec_tint = g("spec_tint")
         if "spec" in slots:
             spec_tex = g("spec_tex").to(torch.int32)
             spec_tint = torch.where((spec_tex >= 0)[..., None],
-                                    atlas.sample(spec_tex, uv), spec_tint)
+                                    atlas.sample(spec_tex, uv_l), spec_tint)
         spec_tint = colour("spec_tint", spec_tint, "spec" in slots)
         ax, ay = g("ax"), g("ay")
         if "rough" in slots:
             rough_tex = g("rough_tex").to(torch.int32)
-            r = atlas.sample(rough_tex, uv)[..., 0]
+            r = atlas.sample(rough_tex, uv_l)[..., 0]
             r_alpha = torch.where(g("rough_remap") > 0, r * r, r)
             ax = torch.where(rough_tex >= 0, torch.clamp_min(r_alpha, 1e-6), ax)
             ay = torch.where(rough_tex >= 0, torch.clamp_min(r_alpha, 1e-6), ay)
