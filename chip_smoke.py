@@ -55,7 +55,23 @@ phase, one JSON line each:
     light field (grid 3, a thin lens; 2.36M lanes) at 16 spp, whose views
     must differ and refocus at 0 to their mean, and whose tiles at a 64^2
     base must be within 0.01 of the CPU render; and `render_to_file`'s
-    EXR, which must read back bit for bit as the render.
+    EXR, which must read back bit for bit as the render;
+  * gradients (slice 5, `phase_grad`): a render without grad launching
+    no more kernels per iteration than before; one loss-and-gradient step
+    of `diff.optimize.make_loss` on the cbox at 512^2, depth 8, 16 spp
+    (BASELINE's 1024 cut to 16), each bounce checkpointed, all four
+    parameter groups (materials, lights, atlas, camera), its forward,
+    backward and step walls, peak memory, K1's launches in the forward
+    and in the backward's replay and kernel launches per bounce; the
+    identity sum_c color_c d mean / d color_c = mean (the srgb image is
+    linear in the light's colour) to 1e-4 at 512^2; the card's gradients
+    against the port's CPU ones at 64^2 (the cbox, every group, the
+    camera's through K1's hit; cbox_sphere's kd and light colour through
+    K2) at rtol 1e-3, atol 1e-3 max|g|; K1's autograd Function against
+    autograd through the plain sweep at 262,144 rays; the texture
+    recovery of tests/test_diff.py at 128^2 (24 Adam steps, the last loss
+    below 0.35 of the first); and peak memory at 128^2, 16 spp with and
+    without the checkpoints.
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -134,6 +150,28 @@ PNG_RES = 64
 PNG_SPP = 4
 ADAPTIVE_SPP = 64  # the adaptive cbox: 8 chunks of 8
 LF_CHECK_SPP = 4   # the light field's CPU check at a 64^2 base
+# slice 5 (`phase_grad`): the full-width gradient step at BASELINE's
+# resolution and depth, its 1024 spp cut to 16 for the run's time; the
+# linearity identity at 4 spp; card against CPU at 64^2 (depth 3 on the
+# cbox, 2 on cbox_sphere at sub_div 40, whose CPU walk stays quick); the
+# texture recovery of tests/test_diff.py at 128^2; the memory of the
+# checkpointed and the taped bounce at 128^2
+GRAD_SPP = 16
+GRAD_LINEAR_SPP = 4
+GRAD_CPU_RES = 64
+GRAD_CPU_SPP = 4
+GRAD_RTOL = 1e-3      # BASELINE.md:22: rtol 1e-3, atol 1e-3 max|g| a leaf
+LINEAR_RTOL = 1e-4
+DIVERGE_SHARE = 0.01  # pixels whose card and CPU forwards part (rounding)
+OPT_RES = 128
+OPT_STEPS = 24
+OPT_FRAME = 5
+MEM_RES = 128
+# the cbox's kernel launches at 512^2, 4 spp (31 wavefront iterations, 789
+# each) before the gradient path existed: a render without grad must
+# launch no more
+CBOX_LAUNCHES_4SPP = 24466
+CBOX_ITERS_4SPP = 31
 # the bound of a kernel: the card's published peaks (NVIDIA H100 SXM data
 # sheet, dense rates at 700 W), float32 outside the tensor cores and HBM3
 PEAK_FLOPS = 67e12
@@ -968,6 +1006,291 @@ def phase_images(vt, modules, scenes):
     return per_render
 
 
+def device_kernels(fn):
+    """(kernel launches on the card, device milliseconds) while fn runs,
+    from torch.profiler's device-side events; and fn's result."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for e in prof.key_averages():
+        t = float(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0)))
+        if e.device_type == DeviceType.CUDA and t > 0:
+            n += e.count
+            us += t
+    return n, us / 1e3, out
+
+
+def grad_leaves(opt, data, camera, keys):
+    """Fresh leaves that require grad, for `keys` {group: [key, ...]} (a
+    group's every key for None) of the parameter surface."""
+    surf = opt.param_surface(data, camera, tuple(keys))
+    return {g: {k: v.detach().clone().requires_grad_(True)
+                for k, v in surf[g].items() if keys[g] is None or k in keys[g]}
+            for g in keys}
+
+
+def flat_leaves(params):
+    return [(f"{g}.{k}", v) for g, d in params.items() for k, v in d.items()]
+
+
+def zero_counts(modules):
+    for m in modules:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+
+
+def read_counts(modules):
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{k}": v
+            for m in modules for k, v in m.LAUNCHES.items()}
+
+
+def card_vs_cpu(vt, opt, desc, keys, depth, spp, name, card):
+    """The port's gradients of `keys` on the card against its CPU ones on
+    the same scene, seeds and a seeded-random per-pixel cotangent, at
+    BASELINE's tolerance; pixels whose forwards part past the per-lane
+    tolerance of the CPU tests get a zero cotangent (at most 1%)."""
+    res = desc["camera"]["param"]["radiance_collector"]["param"]["resolution"][0]
+    runs = []   # (params, image, seconds) on the card, then on the CPU
+    for dev in (DEV, "cpu"):
+        sc = vt.load_scene(desc, device=dev)
+        params = grad_leaves(opt, sc.data, sc.camera, keys)
+        t0 = time.perf_counter()
+        img = opt.render_with_params(sc.data, sc.camera, params, 0,
+                                     max_depth=depth, spp=spp, device=dev)
+        runs.append((params, img, time.perf_counter() - t0))
+    a, b = (r[1].detach().cpu().numpy() for r in runs)
+    bad = (np.abs(a - b) > 1e-4 + 1e-3 * np.abs(b)).any(-1)
+    w = np.random.default_rng(SEED + 5).standard_normal(a.shape).astype(
+        np.float32) * ~bad[..., None]
+    grads = []
+    for params, img, _ in runs:
+        leaves = flat_leaves(params)
+        gs = torch.autograd.grad(
+            (img * torch.as_tensor(w, device=img.device)).sum(),
+            [v for _, v in leaves], allow_unused=True)
+        grads.append({k: (torch.zeros_like(v) if g is None else g).cpu().numpy()
+                      for (k, v), g in zip(leaves, gs)})
+    rec = dict(phase="grad_card_vs_cpu", scene=name, res=res, spp=spp,
+               max_depth=depth, diverged_pixels=int(bad.sum()),
+               card_s=runs[0][2], cpu_s=runs[1][2], leaves={})
+    for k, gc in grads[1].items():
+        gk = grads[0][k]
+        m = float(np.abs(gc).max())
+        rec["leaves"][k] = dict(
+            max_abs_grad=m, max_abs_err=float(np.abs(gk - gc).max()),
+            ok=bool(np.isfinite(gk).all() and np.allclose(
+                gk, gc, rtol=GRAD_RTOL, atol=GRAD_RTOL * m)))
+    emit(dict(rec, card=card))
+    check(bad.mean() <= DIVERGE_SHARE, f"{name}: {bad.sum()} pixels part")
+    check(all(v["ok"] for v in rec["leaves"].values()),
+          f"{name}: card gradients against the CPU's {rec['leaves']}")
+    return rec
+
+
+def phase_grad(vt, modules, scenes, card):
+    """Slice 5: one loss-and-gradient step on the cbox at 512^2, 16 spp,
+    depth 8, every bounce checkpointed, all four parameter groups (walls,
+    memory, K1 launches in the forward and the backward's replay, kernel
+    launches per bounce); the linearity of the image in the light's
+    colour; the card's gradients against the CPU's on the cbox (K1, the
+    camera included) and cbox_sphere (K2); K1's autograd Function against
+    autograd through the plain sweep at 262,144 rays; the texture recovery
+    of tests/test_diff.py at 128^2; peak memory with and without the
+    checkpoints at 128^2. Each record carries `card`, the card's name and
+    power limit as nvidia-smi gives them."""
+    from vision_tpu_torch.accel import dense_isect as di
+    from vision_tpu_torch.diff import optimize as opt
+    from vision_tpu_torch.integrator import pt as vt_pt
+    from vision_tpu_torch.sensor import film
+    from vision_tpu_torch.core import rng
+    every = {g: None for g in opt.GROUPS}
+
+    # ---- a render without grad launches what it did ----
+    cb = cbox_scene(vt, RES)
+    stats = {}
+    n, dev_ms, _ = device_kernels(
+        lambda: vt.render(cb, spp=4, stats=stats))
+    rec = dict(phase="grad_nograd_render", scene="cbox", spp=4,
+               kernel_launches=n, iters=stats["iters"],
+               launches_per_iter=n / stats["iters"], device_ms=dev_ms)
+    emit(dict(rec, card=card))
+    check(rec["iters"] == CBOX_ITERS_4SPP
+          and rec["kernel_launches"] <= CBOX_LAUNCHES_4SPP,
+          f"a render without grad launches more: {rec}")
+
+    # ---- the full-width step ----
+    gold = np.load(os.path.join(ROOT, "tests/goldens/cbox_hdr.npz"))["img"]
+    k = RES // gold.shape[0]
+    target = np.repeat(np.repeat(gold, k, 0), k, 1)
+    params = grad_leaves(opt, cb.data, cb.camera, every)
+    warm = opt.make_loss(cb.data, cb.camera, target, max_depth=cb.max_depth,
+                         spp=1, device=DEV)
+    warm(params, 0).backward()
+    loss_fn = opt.make_loss(cb.data, cb.camera, target,
+                            max_depth=cb.max_depth, spp=GRAD_SPP, device=DEV)
+    params = grad_leaves(opt, cb.data, cb.camera, every)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    loss = loss_fn(params, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = read_counts(modules)
+    zero_counts(modules)
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bwd = read_counts(modules)
+    grads = {k: v.grad for k, v in flat_leaves(params)}
+    rec = dict(phase="grad_step", scene="cbox", res=RES, spp=GRAD_SPP,
+               max_depth=cb.max_depth, remat=True, groups=list(opt.GROUPS),
+               loss=loss.item(), forward_s=t1 - t0, backward_s=t2 - t1,
+               step_s=t2 - t0, bounce_calls=GRAD_SPP * cb.max_depth,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               peak_mem_over_start_bytes=(torch.cuda.max_memory_allocated()
+                                          - mem0),
+               launches_forward=fwd, launches_backward=bwd,
+               max_abs_grad={k: (None if g is None else float(g.abs().max()))
+                             for k, g in grads.items()})
+    del loss
+    # kernel launches per bounce, at 1 spp: the forward's 8 bounces, then
+    # the backward's replays and their backward operations
+    params = grad_leaves(opt, cb.data, cb.camera, every)
+    n_f, ms_f, loss = device_kernels(lambda: warm(params, 0))
+    n_b, ms_b, _ = device_kernels(lambda: loss.backward())
+    rec.update(profile_spp=1, kernel_launches_per_bounce_forward=n_f / cb.max_depth,
+               kernel_launches_per_bounce_backward=n_b / cb.max_depth,
+               device_ms_forward_1spp=ms_f, device_ms_backward_1spp=ms_b)
+    emit(dict(rec, card=card))
+    check(all(g is None or bool(torch.isfinite(g).all())
+              for g in grads.values()), "a non-finite gradient in the step")
+    check(all(grads[k] is not None for k in ("materials.kd", "lights.color",
+                                             "camera.c2w")),
+          "a gradient of the step is missing")
+    check(rec["max_abs_grad"]["camera.c2w"] > 0.0,
+          "the camera's gradient vanished: K1's hit carries none")
+    check(fwd["dense_isect.closest"] == rec["bounce_calls"],
+          f"K1 closest in the forward {fwd}")
+    check(bwd["dense_isect.closest"] > 0,
+          f"the backward's replay did not run K1 {bwd}")
+    del grads, params, loss
+
+    # ---- the image is linear in the light's colour ----
+    lc = cb.data.lights.color.detach().clone().requires_grad_(True)
+    img = opt.render_with_params(cb.data, cb.camera, {"lights": {"color": lc}},
+                                 0, max_depth=cb.max_depth,
+                                 spp=GRAD_LINEAR_SPP, device=DEV)
+    m = img.mean()
+    g, = torch.autograd.grad(m, lc)
+    lhs = float((lc.detach() * g).sum())
+    rec = dict(phase="grad_linearity", scene="cbox", res=RES,
+               spp=GRAD_LINEAR_SPP, mean=m.item(), sum_c_dmean_dc=lhs,
+               rel_err=abs(lhs - m.item()) / m.item())
+    emit(dict(rec, card=card))
+    check(rec["rel_err"] < LINEAR_RTOL, f"linearity {rec}")
+    del img, m
+
+    # ---- the card's gradients against the CPU's ----
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
+    desc = copy.deepcopy(fixtures.CBOX_JSON)
+    desc["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [
+        GRAD_CPU_RES, GRAD_CPU_RES]
+    rec = card_vs_cpu(vt, opt, desc, every, 3, GRAD_CPU_SPP, "cbox", card)
+    cam = rec["leaves"]["camera.c2w"]
+    check(cam["max_abs_grad"] > 1.0 and cam["ok"],
+          f"the camera's gradient on the card {cam}")
+    card_vs_cpu(vt, opt, scenes.cbox_sphere(GRAD_CPU_RES, sub_div=40),
+                {"materials": ["kd"], "lights": ["color"]}, 2, GRAD_CPU_SPP,
+                "cbox_sphere", card)
+
+    # ---- K1's Function against autograd through the plain sweep ----
+    o, d = cbox_rays(cb)
+    inf = torch.full((o.shape[0],), 1e30, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    g_t = torch.randn(o.shape[0], device=DEV, generator=gen)
+    g_b = torch.randn((o.shape[0], 2), device=DEV, generator=gen)
+    res = []
+    for fn in (di.closest, di.closest_plain):
+        x = [o.clone().requires_grad_(True), d.clone().requires_grad_(True)]
+        t, _, bary = fn(x[0], x[1], inf, cb.data.tri_geom)
+        res.append(torch.autograd.grad((t, bary), x, (g_t, g_b)))
+    errs = [float((a - b).abs().max()) for a, b in zip(*res)]
+    scale = [float(b.abs().max()) for b in res[1]]
+    rec = dict(phase="grad_k1_function", rays=o.shape[0],
+               max_abs_err_origin=errs[0], max_abs_err_direction=errs[1],
+               max_abs_grad_origin=scale[0], max_abs_grad_direction=scale[1])
+    emit(dict(rec, card=card))
+    check(all(e <= 1e-5 * s for e, s in zip(errs, scale)),
+          f"K1's Function against plain autograd {rec}")
+
+    # ---- the texture recovery (tests/test_diff.py) at 128^2 ----
+    path = os.path.join(ROOT, "vision_tpu_torch", "_build", "grad_wall.png")
+    film.to_png(scenes.wall_texture(), path)
+    tex = vt.load_scene(scenes.tex_wall_cbox(OPT_RES, path), device=DEV)
+    check(tex.data.atlas.data.shape[0] > 1, "the wall texture never loaded")
+    target = opt.render_with_params(
+        tex.data, tex.camera, opt.param_surface(tex.data, tex.camera,
+                                                ("atlas",)),
+        OPT_FRAME, max_depth=2, device=DEV).detach()
+    from dataclasses import replace
+    gray = replace(tex.data, atlas=replace(
+        tex.data.atlas, data=torch.full_like(tex.data.atlas.data, 0.5)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = opt.optimize_scene(gray, tex.camera, target, groups=("atlas",),
+                                   steps=OPT_STEPS, lr=0.1, max_depth=2,
+                                   fixed_frame=OPT_FRAME, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(phase="grad_texture_recovery", res=OPT_RES, steps=OPT_STEPS,
+               lr=0.1, max_depth=2, wall_s=wall, step_wall_s=wall / OPT_STEPS,
+               losses=losses, last_over_first=losses[-1] / losses[0])
+    emit(dict(rec, card=card))
+    check(rec["last_over_first"] < 0.35, f"texture recovery {rec}")
+
+    # ---- peak memory with and without the checkpoints, 128^2 ----
+    small = cbox_scene(vt, MEM_RES)
+    W = MEM_RES
+    pix = torch.arange(W * W, device=DEV)
+    p_film = torch.stack([(pix % W).float() + 0.5,
+                          (pix // W).float() + 0.5], -1)
+    peaks = {}
+    for remat in (True, False):
+        params = grad_leaves(opt, small.data, small.camera, every)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sc, cam = opt.apply_params(small.data, small.camera, params)
+        img = torch.zeros((W * W, 3), device=DEV)
+        for s in range(GRAD_SPP):
+            L, _ = vt_pt.radiance(sc, cam.generate_ray(p_film),
+                                  rng.seed(pix, s), max_depth=small.max_depth,
+                                  min_depth=99, remat=remat)
+            img = img + L
+        (img / GRAD_SPP).square().mean().backward()
+        torch.cuda.synchronize()
+        peaks[remat] = dict(
+            peak_over_start_bytes=torch.cuda.max_memory_allocated() - mem0,
+            step_s=time.perf_counter() - t0)
+        del params, sc, cam, img, L
+    rec = dict(phase="grad_memory", res=MEM_RES, spp=GRAD_SPP,
+               max_depth=small.max_depth, remat=peaks[True],
+               taped=peaks[False],
+               taped_over_remat=(peaks[False]["peak_over_start_bytes"]
+                                 / peaks[True]["peak_over_start_bytes"]))
+    emit(dict(rec, card=card))
+    check(rec["taped_over_remat"] > 1.0, f"checkpointing saved nothing {rec}")
+
+
 def read_png(path):
     """The pixels [H, W, 3] of an 8-bit RGB PNG as `film.to_png` writes it
     (one IDAT, filter byte 0 on every row), each chunk's CRC checked."""
@@ -1129,6 +1452,9 @@ def main():
     # ---- slices 4c, 4d, 7a: images, node graphs, IES, adaptive, light
     # field, EXR ----
     per_render.update(phase_images(vt, [di, pi], scenes))
+
+    # ---- slice 5: gradients ----
+    phase_grad(vt, [di, pi], scenes, smi)
 
     # ---- the kernel table ----
     def worst(recs, keys):

@@ -77,6 +77,17 @@ def mostly_close(y, x, rtol, atol, loose, share=0.01):
     np.testing.assert_allclose(y, x, rtol=loose, atol=loose)
 
 
+def _rays_and_states(res, seed):
+    """Jittered film positions [R, 2] and per-lane RNG seeds [R] from a
+    numpy seed, and the generator for what follows."""
+    R = res * res
+    g = np.random.default_rng(seed)
+    p_film = (np.stack([np.arange(R) % res, np.arange(R) // res], -1)
+              + g.random((R, 2))).astype(np.float32)
+    seeds = g.integers(0, 2 ** 32, R, dtype=np.uint64)
+    return p_film, seeds, g
+
+
 def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0):
     """Per-lane `radiance` of both packages (JAX jitted, the port's plain
     path) on the same jittered camera rays and RNG states from a numpy
@@ -88,10 +99,7 @@ def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0):
     from vision_tpu_torch.core import rng as trng
     from vision_tpu_torch.integrator import pt as tpt
     R = res * res
-    g = np.random.default_rng(seed)
-    p_film = (np.stack([np.arange(R) % res, np.arange(R) // res], -1)
-              + g.random((R, 2))).astype(np.float32)
-    seeds = g.integers(0, 2 ** 32, R, dtype=np.uint64)
+    p_film, seeds, _ = _rays_and_states(res, seed)
     jray = js.camera.generate_ray(jnp.asarray(p_film))
     jst = jrng.seed(jnp.arange(R, dtype=jnp.uint32),
                     jnp.asarray(seeds.astype(np.uint32)))
@@ -102,6 +110,101 @@ def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0):
                           trng.seed(torch.arange(R), tt(seeds.astype(np.int64))),
                           max_depth=max_depth, rr_threshold=rr_threshold)
     return np.asarray(La), aa, np_(Lb), ab
+
+
+def radiance_vjp_both(js, params, res, max_depth=3, seed=0, share=0.01,
+                      jit=False):
+    """The vector-Jacobian product of per-lane `radiance` (no Russian
+    roulette, each bounce checkpointed) with respect to `params`, a nested
+    {group: [keys]} of the JAX package's `param_surface` groups, in both
+    packages: the JAX package through `jax.vjp`, the port through torch
+    autograd, on the same scene arrays (`scene_from_arrays`), the same
+    parameters (`params_from_arrays`), jittered camera rays and RNG states,
+    and a seeded-random cotangent [R, 3]. Lanes whose forward radiance
+    differs past the per-lane tolerance of `assert_radiance_close` get a
+    zero cotangent; at most `share` of them may. The JAX package runs op by
+    op (`jax.disable_jit`), which on the lobe-rich scenes is several times
+    quicker than compiling the whole backward, or with `jit` compiled once
+    (quicker on the Lambert cbox). Returns (gradients of the JAX
+    package, of the port, each {group: {key: numpy}}, forward radiance of
+    both)."""
+    import jax
+    import jax.numpy as jnp
+    from vision_tpu.core import rng as jrng
+    from vision_tpu.diff import optimize as jopt
+    from vision_tpu.integrator import pt as jpt
+    from vision_tpu_torch.core import rng as trng
+    from vision_tpu_torch.diff import optimize as topt
+    from vision_tpu_torch.integrator import pt as tpt
+    from vision_tpu_torch.scene.scene import scene_from_arrays
+    R = res * res
+    p_film, seeds, g = _rays_and_states(res, seed)
+    cot = g.standard_normal((R, 3)).astype(np.float32)
+    surface = jopt.param_surface(js.data, js.camera, tuple(params))
+    jp = {grp: {k: surface[grp][k] for k in keys}
+          for grp, keys in params.items()}
+    jst = jrng.seed(jnp.arange(R, dtype=jnp.uint32),
+                    jnp.asarray(seeds.astype(np.uint32)))
+
+    def f(p):
+        sc, cam = jopt.apply_params(js.data, js.camera, p)
+        L, _ = jpt.radiance(sc, cam.generate_ray(jnp.asarray(p_film)), jst,
+                            max_depth=max_depth, min_depth=99, remat=True)
+        return L
+
+    data, camera, _ = scene_from_arrays(jax_scene_arrays(js), "cpu")
+    pp = topt.params_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
+    leaves = [(grp, k, v.requires_grad_(True))
+              for grp, d in pp.items() for k, v in d.items()]
+    sc, cam = topt.apply_params(data, camera, pp)
+    Lb, _ = tpt.radiance(sc, cam.generate_ray(tt(p_film)),
+                         trng.seed(torch.arange(R), tt(seeds.astype(np.int64))),
+                         max_depth=max_depth, min_depth=99, remat=True)
+    def bad_lanes(La):
+        bad = (np.abs(La - np_(Lb)) > 1e-4 + 1e-3 * np.abs(La)).any(-1)
+        assert bad.mean() <= share, bad.sum()
+        return bad
+
+    if jit:
+        @jax.jit
+        def fwd_vjp(p, ct):
+            L, pull = jax.vjp(f, p)
+            return L, pull(ct)[0]
+
+        La, ga = fwd_vjp(jp, jnp.asarray(cot))
+        La = np.asarray(La)
+        bad = bad_lanes(La)
+        ct = cot * ~bad[:, None]
+        if bad.any():
+            ga = fwd_vjp(jp, jnp.asarray(ct))[1]
+    else:
+        with jax.disable_jit():
+            La, vjp = jax.vjp(f, jp)
+            La = np.asarray(La)
+            bad = bad_lanes(La)
+            ct = cot * ~bad[:, None]
+            ga = vjp(jnp.asarray(ct))[0]
+    ga = jax.tree.map(np.asarray, ga)
+    gs = torch.autograd.grad(Lb, [v for _, _, v in leaves], tt(ct),
+                             allow_unused=True)
+    gb = {}
+    for (grp, k, v), gv in zip(leaves, gs):
+        gb.setdefault(grp, {})[k] = (np.zeros(v.shape, np.float32)
+                                     if gv is None else np_(gv))
+    return ga, gb, La, np_(Lb)
+
+
+def assert_grad_close(ga, gb, floor=0.0, rows=None):
+    """One leaf's gradient of the port (gb) against the JAX package's (ga)
+    at BASELINE's tolerance: rtol 1e-3 and atol 1e-3 max|ga|, the maximum
+    taken no lower than `floor` (the float32 noise level of the case);
+    `rows` restricts the comparison to those leading rows. The port's is
+    finite everywhere."""
+    assert np.isfinite(gb).all()
+    if rows is not None:
+        ga, gb = ga[rows], gb[rows]
+    atol = 1e-3 * max(np.abs(ga).max(), floor)
+    np.testing.assert_allclose(gb, ga, rtol=1e-3, atol=atol)
 
 
 def assert_radiance_close(La, aa, Lb, ab, share=0.01, albedo_atol=1e-5,

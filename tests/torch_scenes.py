@@ -41,6 +41,8 @@ box (`tests/fixtures.py` CBOX_JSON), so nothing has to be downloaded.
     an RGBA image. 6,242 triangles, K2.
   * `lf_cbox`: the cbox through a thin lens (radius 0.35, focal distance
     6) under the light-field frame buffer of grid 3.
+  * `tex_wall_cbox`: the cbox whose back wall carries an 8x8 image
+    (`wall_texture`), the texture-recovery scene of `tests/test_diff.py`.
 
 The images and the IES profile are the files of `tests/assets_torch/`
 (`tools/gen_torch_assets.py` writes them); the scenes name them by
@@ -317,4 +319,26 @@ def lf_cbox(res=512, grid=3):
     s["camera"]["param"]["focal_distance"] = 6.0
     s["pipeline"] = {"param": {"frame_buffer": {"type": "light_field",
                                                 "param": {"grid": grid}}}}
+    return s
+
+
+def wall_texture():
+    """The 8x8 texture of `tests/test_diff.py`'s textured cbox."""
+    import numpy as np
+    return (np.random.RandomState(7).rand(8, 8, 3) * 0.8 + 0.1).astype(
+        np.float32)
+
+
+def tex_wall_cbox(res, png_path):
+    """The cbox whose back wall is a diffuse material with the image at
+    `png_path` (srgb), as `tests/test_diff.py` builds it; the caller writes
+    `wall_texture()` there."""
+    s = _base(res)
+    s["materials"] = list(s["materials"]) + [{
+        "type": "diffuse", "name": "texwall",
+        "param": {"color": {"fn": png_path, "color_space": "srgb"}}}]
+    for sh in s["shapes"]:
+        if sh.get("name") == "back":
+            sh["param"]["material"] = "texwall"
+            break
     return s

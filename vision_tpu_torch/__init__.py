@@ -6,6 +6,7 @@ tensors and dataclass records replace jnp functions and flax pytrees, and
 ray traversal is hand-written CUDA: the dense ray/triangle sweep (kernel
 K1, `accel/dense_isect.py`, `csrc/dense_isect.cu`) and the BVH walks, flat
 (K2) and instanced (K3) (`accel/packet_isect.py`, `csrc/packet_isect.cu`).
+The renderer is differentiable on torch autograd (`diff.optimize`).
 Every entry point runs on the card ("cuda") unless the caller passes another
 device, as the CPU tests do; nothing probes for a card and nothing falls
 back. It imports torch and numpy, never jax.
@@ -35,3 +36,4 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from .scene.scene import Scene, load_scene  # noqa: E402,F401
 from .render import render, render_to_file, postprocess  # noqa: E402,F401
+from . import diff  # noqa: E402,F401

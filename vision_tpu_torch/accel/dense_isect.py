@@ -14,6 +14,16 @@ port of `intersect_brute` / `occluded_brute`, blocked over 128 triangles).
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel or raises. A build or launch failure is an
 exception, never a switch to the plain version.
+
+The closest hit carries a gradient, as the JAX package's CPU route
+(`intersect_brute` + `recompute_bary`, plain jnp) does: when the rays
+require grad, `closest` runs through `_Closest`, whose forward is the
+kernel (or the plain sweep) without a graph and whose backward
+differentiates the winner's Möller-Trumbore t and (u, v) with respect to
+origin, direction and t_max (a miss passes t's gradient to t_max), in
+torch ops over one gathered row per ray (`intersect.recompute_hit`). A
+call without grad takes the kernel alone and adds no operation. The any
+hit is a boolean and has no gradient, as `occluded_brute`'s.
 """
 from __future__ import annotations
 
@@ -97,11 +107,46 @@ def _raise_on(lib, code, name):
                            f"{lib.vt_error_string(code).decode()}")
 
 
+class _Closest(torch.autograd.Function):
+    """The closest hit with the gradient of the winner's t and (u, v)."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, t_max, tris):
+        t, pid, bary = _closest(origin, direction, t_max, tris)
+        ctx.save_for_backward(origin, direction, t_max, tris, pid)
+        ctx.mark_non_differentiable(pid)
+        return t, pid, bary
+
+    @staticmethod
+    def backward(ctx, g_t, _g_pid, g_bary):
+        origin, direction, t_max, tris, pid = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_() for x in (origin, direction,
+                                                         t_max)]
+            t, bary = isect.recompute_hit(Ray(*xs), pid, *_split(tris))
+            # with no triangle, bary is a constant 0
+            ys, gys = zip(*[(y, g) for y, g in ((t, g_t), (bary, g_bary))
+                            if y.requires_grad])
+            gs = torch.autograd.grad(ys, xs, gys, allow_unused=True)
+        return (*(torch.zeros_like(x) if g is None else g
+                  for x, g in zip(xs, gs)), None)
+
+
 def closest(origin, direction, t_max, tris):
     """Closest hit of rays origin/direction [R, 3], t_max [R] against
     triangles tris [T, 9] (p0 e1 e2). Returns (t [R], prim_id [R] int32,
     bary [R, 2]); a miss gives t = t_max, id -1, bary 0, and so does a
-    dead ray (t_max <= 0), which the kernel answers without a sweep."""
+    dead ray (t_max <= 0), which the kernel answers without a sweep.
+    t and bary carry the gradient of the winner's hit when a ray input
+    requires grad (`_Closest`)."""
+    if torch.is_grad_enabled() and (origin.requires_grad
+                                    or direction.requires_grad
+                                    or t_max.requires_grad):
+        return _Closest.apply(origin, direction, t_max, tris)
+    return _closest(origin, direction, t_max, tris)
+
+
+def _closest(origin, direction, t_max, tris):
     if origin.device.type == "cpu":
         return closest_plain(origin, direction, t_max, tris)
     _check(origin, direction, t_max, tris)

@@ -52,12 +52,9 @@ def _mt_batch(o, d, p0, e1, e2):
     return t, u, v, ok
 
 
-def recompute_bary(ray, prim_id, tri_p0, tri_e1, tri_e2):
-    """Per-ray barycentrics of an already-found prim: one [R]-wide MT redo
-    with the sweep's own arithmetic. 0 on a miss."""
-    if tri_p0.shape[0] == 0:  # no triangles: every ray missed
-        return torch.zeros((prim_id.shape[0], 2), dtype=ray.origin.dtype,
-                           device=ray.origin.device)
+def _mt_rows(ray, prim_id, tri_p0, tri_e1, tri_e2, with_t):
+    """u, v (and with `with_t` t) of each ray against its own triangle
+    prim_id (clamped to 0), in the sweep's arithmetic."""
     pid = torch.clamp_min(prim_id.long(), 0)
     p0x, p0y, p0z = (tri_p0[:, i][pid] for i in range(3))
     e1x, e1y, e1z = (tri_e1[:, i][pid] for i in range(3))
@@ -78,8 +75,33 @@ def recompute_bary(ray, prim_id, tri_p0, tri_e1, tri_e2):
     qvy = tvz * e1x - tvx * e1z
     qvz = tvx * e1y - tvy * e1x
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det if with_t else None
+    return u, v, t
+
+
+def recompute_bary(ray, prim_id, tri_p0, tri_e1, tri_e2):
+    """Per-ray barycentrics of an already-found prim: one [R]-wide MT redo
+    with the sweep's own arithmetic. 0 on a miss."""
+    if tri_p0.shape[0] == 0:  # no triangles: every ray missed
+        return torch.zeros((prim_id.shape[0], 2), dtype=ray.origin.dtype,
+                           device=ray.origin.device)
+    u, v, _ = _mt_rows(ray, prim_id, tri_p0, tri_e1, tri_e2, False)
     uv = torch.stack([u, v], dim=-1)
     return torch.where((prim_id >= 0)[..., None], uv, 0.0)
+
+
+def recompute_hit(ray, prim_id, tri_p0, tri_e1, tri_e2):
+    """(t, bary) of an already-found prim as functions of the ray, for
+    autograd: `recompute_bary` plus the winner's t, t_max on a miss (as
+    the sweep's where(miss, t_max, t) gives it)."""
+    if tri_p0.shape[0] == 0:
+        return ray.t_max, torch.zeros((prim_id.shape[0], 2),
+                                      dtype=ray.origin.dtype,
+                                      device=ray.origin.device)
+    u, v, t = _mt_rows(ray, prim_id, tri_p0, tri_e1, tri_e2, True)
+    hit = prim_id >= 0
+    uv = torch.where(hit[..., None], torch.stack([u, v], dim=-1), 0.0)
+    return torch.where(hit, t, ray.t_max), uv
 
 
 def intersect_brute(ray, tri_p0, tri_e1, tri_e2, block=128):

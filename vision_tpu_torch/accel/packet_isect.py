@@ -10,7 +10,10 @@ reached through `intersect_packet_inst`. The kernels are in
 
 Their plain PyTorch versions are `packet_bvh.intersect_packet_plain` and
 `intersect_packet_inst_plain`. A wrapper takes the plain version only for a
-tensor on the CPU; for a CUDA tensor it launches its kernel or raises. All
+tensor on the CPU; for a CUDA tensor it launches its kernel or raises.
+Their hits are constants on both devices, as the JAX package's packet path
+makes them (`stop_gradient` on every kernel input): the kernels write
+into fresh tensors, and the plain walks run without a graph. All
 four are instantiations of one walk, reached through one C entry
 (`vt_bvh_walk`); `count_walk` launches its counting build, from which
 chip_smoke.py computes each kernel's bound.
@@ -147,15 +150,17 @@ def closest(origin, direction, t_max, pbvh):
     PacketBVH. Returns (t [R], prim_id [R] int32 original id, bary [R, 2]);
     a miss gives t = t_max, id -1, bary 0; a lane with t_max <= 0 misses."""
     if origin.device.type == "cpu":
-        return intersect_packet_plain(origin, direction, t_max, pbvh)
+        with torch.no_grad():
+            return intersect_packet_plain(origin, direction, t_max, pbvh)
     return _launch("closest", origin, direction, t_max, pbvh, False)
 
 
 def anyhit(origin, direction, t_max, pbvh):
     """K2 any hit: [R] bool, some triangle with 0 < t < t_max."""
     if origin.device.type == "cpu":
-        return intersect_packet_plain(origin, direction, t_max, pbvh,
-                                      any_hit=True)
+        with torch.no_grad():
+            return intersect_packet_plain(origin, direction, t_max, pbvh,
+                                          any_hit=True)
     return _launch("anyhit", origin, direction, t_max, pbvh, True)[0]
 
 
@@ -163,13 +168,15 @@ def closest_inst(origin, direction, t_max, ipbvh):
     """K3 closest hit against an InstancedPBVH: (t, prim_id as a global
     object-space id, bary, inst [R] int32 TLAS instance, -1 on a miss)."""
     if origin.device.type == "cpu":
-        return intersect_packet_inst_plain(origin, direction, t_max, ipbvh)
+        with torch.no_grad():
+            return intersect_packet_inst_plain(origin, direction, t_max, ipbvh)
     return _launch("closest_inst", origin, direction, t_max, ipbvh, False)
 
 
 def anyhit_inst(origin, direction, t_max, ipbvh):
     """K3 any hit: [R] bool."""
     if origin.device.type == "cpu":
-        return intersect_packet_inst_plain(origin, direction, t_max, ipbvh,
-                                           any_hit=True)
+        with torch.no_grad():
+            return intersect_packet_inst_plain(origin, direction, t_max,
+                                               ipbvh, any_hit=True)
     return _launch("anyhit_inst", origin, direction, t_max, ipbvh, True)[0]

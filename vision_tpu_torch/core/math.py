@@ -52,6 +52,76 @@ def safe_sqrt(x):
     return torch.sqrt(torch.clamp_min(x, 1e-20))
 
 
+class _Sqrt0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return torch.where(y > 0.0, g / (2.0 * y), 0.0)
+
+
+def sqrt0(x):
+    """sqrt(x) whose gradient at x = 0 is 0 instead of inf: where a select
+    drops the root's result at 0, the unselected branch's 0 * inf would
+    make the gradient NaN. The same single op when no gradient is taken."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Sqrt0.apply(x)
+    return torch.sqrt(x)
+
+
+class _Asin0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.arcsin(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        inside = torch.abs(x) < 1.0
+        return torch.where(inside, g * torch.rsqrt(
+            torch.where(inside, 1.0 - x * x, 1.0)), 0.0)
+
+
+def asin0(x):
+    """arcsin(x) whose gradient at |x| = 1 is 0 instead of inf (see
+    `sqrt0`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Asin0.apply(x)
+    return torch.arcsin(x)
+
+
+class _Clip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        w = torch.where((x > lo) & (x < hi), 1.0,
+                        torch.where((x == lo) | (x == hi), 0.5, 0.0))
+        return g * w, None, None
+
+
+def clip(x, lo, hi):
+    """clamp(x, lo, hi) with the JAX package's gradient (`jnp.clip`, a
+    maximum then a minimum): 1 inside, 1/2 at a bound, 0 outside, where
+    torch's clamp passes 1 at a bound. The same single op when no
+    gradient is taken."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Clip.apply(x, lo, hi)
+    return torch.clamp(x, lo, hi)
+
+
 def safe_div(a, b, eps=0.0):
     """a/b with `eps` where b == 0 (renderer convention for degenerate pdfs)."""
     nz = b != 0.0
@@ -143,7 +213,7 @@ def sin2_theta(w):
 
 
 def sin_theta(w):
-    return torch.sqrt(sin2_theta(w))
+    return sqrt0(sin2_theta(w))
 
 
 def tan2_theta(w):

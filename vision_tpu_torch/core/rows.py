@@ -11,6 +11,18 @@ from __future__ import annotations
 import torch
 
 
+def gather_rows(table, idx):
+    """table[idx] along the leading axis. A 1-D index goes through
+    index_select, whose backward adds into the table with index_add (atomic
+    adds on the card) where indexing's backward first sorts the indices:
+    with 262,144 lanes reading a table of a few rows, that sort-based
+    kernel took 99% of a gradient step's device time on an H100. The same
+    one gather in the forward."""
+    if idx.dim() == 1:
+        return table.index_select(0, idx)
+    return table[idx]
+
+
 class PackedRows:
     """`spec` = ((column name, width), ...) of `table` (a record, or a dict
     of columns), stacked in that order into `rows` [N, C] float32."""
@@ -29,7 +41,7 @@ class PackedRows:
     def fetch(self, idx):
         """Rows `idx` [...] -> a reader: col(name) is [...] for a width-1
         column, else [..., width] (float32; cast ids back)."""
-        g = self.rows[idx]
+        g = gather_rows(self.rows, idx)
 
         def col(k):
             lo, hi, scalar = self.slices[k]

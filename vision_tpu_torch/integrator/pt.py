@@ -30,6 +30,14 @@ the HG phase sample after the BSDF's, and the medium change when a path
 crosses a surface (`inst_in_medium` / `inst_out_medium`); the camera
 starts in the global medium.
 
+`radiance(remat=True)` runs each bounce under
+`torch.utils.checkpoint` (non-reentrant): the backward replays a bounce
+instead of keeping its activations, as `jax.checkpoint` does in the JAX
+package. The tables a bounce would otherwise build at its first use (the
+hero rows of the material and medium tables) are built before the loop,
+so the replay recomputes exactly what the forward saved; the counter RNG
+is stateless and the kernels deterministic, so the replay is exact.
+
 Differences from the JAX package, none of which changes an image:
   * lane = pixel always: the tile order and lane re-binning of the packet
     path (`_tile_order`, `_rebin_perm`) are not ported;
@@ -41,6 +49,7 @@ Differences from the JAX package, none of which changes an image:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..accel import dense_isect, packet_isect
 from ..core import rng, warp
@@ -370,6 +379,15 @@ def _init_carry(scene, ray, state, swl):
     return c
 
 
+def _prepare(scene):
+    """Build the row tables a bounce reads that are made at first use (the
+    hero rows), from the scene's current parameter leaves."""
+    if scene.spectrum.hero:
+        scene.materials.hero_rows(scene.spectrum)
+        if scene.has_media:
+            scene.mediums.hero_rows(scene.spectrum)
+
+
 def _sample_wavelengths(scene, state):
     """(state, SampledWavelengths or None): one draw under a hero
     spectrum, none in the srgb mode."""
@@ -389,16 +407,24 @@ def _to_srgb(scene, c):
     return torch.where(torch.isfinite(L), L, 0.0)
 
 
-def radiance(scene, ray, state, max_depth=16, min_depth=0, rr_threshold=1.0):
+def radiance(scene, ray, state, max_depth=16, min_depth=0, rr_threshold=1.0,
+             remat=False):
     """Estimate L for a wavefront of rays, bounce-major: the wavelengths
-    are drawn first (hero spectrum). Returns (L [R, 3] linear sRGB, aovs
-    dict)."""
+    are drawn first (hero spectrum). With `remat`, each bounce is
+    checkpointed: the backward replays it instead of keeping its
+    activations. Returns (L [R, 3] linear sRGB, aovs dict)."""
     state, swl = _sample_wavelengths(scene, state)
+    _prepare(scene)
     c = _init_carry(scene, ray, state, swl)
     R = ray.origin.shape[0]
     for k in range(max_depth):
         depth = torch.full((R,), k, dtype=torch.int64, device=ray.origin.device)
-        c = _bounce(scene, scene.ray_offset, min_depth, rr_threshold, depth, c)
+        args = (scene, scene.ray_offset, min_depth, rr_threshold, depth, c)
+        if remat:
+            c = checkpoint(_bounce, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            c = _bounce(*args)
     return _to_srgb(scene, c), dict(albedo=c["alb"], normal=c["nrm"],
                                     nrays=c["nrays"])
 

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.rows import gather_rows
 from .imageio import read_image
 
 
@@ -111,8 +112,8 @@ class TextureAtlas:
 
         def texel(xi, yi):
             # floor-mod, as jnp.mod: the result takes the divisor's sign
-            return self.data[off + torch.remainder(yi, h) * w
-                             + torch.remainder(xi, w)]
+            return gather_rows(self.data, off + torch.remainder(yi, h) * w
+                               + torch.remainder(xi, w))
 
         c00 = texel(x0, y0)
         c10 = texel(x0 + 1, y0)

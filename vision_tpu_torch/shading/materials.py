@@ -105,7 +105,7 @@ class MaterialTable:
     tex_slots: tuple = ()
     has_dispersive: bool = False
     has_metal_spd: bool = False
-    _hero: PackedRows = field(default=None, repr=False)
+    _hero: PackedRows = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.packed = PackedRows(self, PACKED)
@@ -121,7 +121,8 @@ class MaterialTable:
         """The sigmoid coefficients of every row's colour slots
         (`HERO_SLOTS`), packed for one gather per lane; computed at the
         first call (a table serves one scene, whose spectrum's table is the
-        same data in every model)."""
+        same data in every model). `dataclasses.replace` leaves it unset,
+        so a table with new parameter leaves computes it from them."""
         if self._hero is None:
             cols = {k: spectrum.row_coeffs(getattr(self, k)) for k in HERO_SLOTS}
             self._hero = PackedRows(cols, tuple((k, 3) for k in HERO_SLOTS))

@@ -45,7 +45,7 @@ class MediumTable:
     sigma_s: torch.Tensor  # [Md, 3]
     g: torch.Tensor        # [Md]
     packed: PackedRows = field(default=None, repr=False)
-    _hero: PackedRows = field(default=None, repr=False)
+    _hero: PackedRows = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
         self.packed = PackedRows(

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..core.math import safe_div, sqr
+from ..core.math import asin0, clip, safe_div, sqr
 from . import spd
 
 XYZ_TO_SRGB = np.array([
@@ -125,7 +125,7 @@ class SpectrumModel:
         """Trilinear lookup of the sigmoid-poly coefficients [..., 3] for
         rgb [..., 3] in [0, 1]^3, with the grayscale special case."""
         res = self.coeffs.shape[1]
-        rgb = torch.clamp(rgb, 0.0, 1.0)
+        rgb = clip(rgb, 0.0, 1.0)
         r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
         maxc = torch.where(r > g, torch.where(r > b, 0, 2),
                            torch.where(g > b, 1, 2))
@@ -138,7 +138,7 @@ class SpectrumModel:
 
         def ism(t):
             return 0.5 - torch.sin(
-                torch.arcsin(1.0 - 2.0 * torch.clamp(t, 0.0, 1.0)) / 3.0)
+                asin0(1.0 - 2.0 * torch.clamp(t, 0.0, 1.0)) / 3.0)
 
         zz = ism(ism(z))
         fx = x * (res - 1)
