@@ -72,6 +72,16 @@ phase, one JSON line each:
     recovery of tests/test_diff.py at 128^2 (24 Adam steps, the last loss
     below 0.35 of the first); and peak memory at 128^2, 16 spp with and
     without the checkpoints.
+  * the real-time loop (slice 6, `phase_realtime`): the cbox at 512^2 at
+    its defaults (m_light 8, spatial_taps 2, svgf_passes 3, SHARC,
+    gi_bounce_depth 2) through K1, timed as bench.py's bench_classroom_rt
+    (one warm-up frame, two more, four timed), with kernel launches and
+    device time a frame and the split by stage (G-buffer, ReSTIR DI,
+    ReSTIR GI with the cache, SVGF); the cbox at 128^2, frames 0 and 7,
+    against `tests/goldens/cbox_rt_hdr.npz` (the JAX loop's frames); four
+    frames at 64^2 on the card against the port's CPU frames; and
+    `cbox_sphere` at 512^2 with the surfel cache and GI at half
+    resolution through K2.
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -172,6 +182,18 @@ MEM_RES = 128
 # launch no more
 CBOX_LAUNCHES_4SPP = 24466
 CBOX_ITERS_4SPP = 31
+# slice 6 (`phase_realtime`): the real-time loop at its defaults, timed as
+# bench.py's bench_classroom_rt (one warm-up frame, two more, then
+# RT_TIMED frames); the 128^2 golden's frames (tools/gen_torch_rt_golden.py)
+# at GOLD_WERR / GOLD_BIAS; RT_TWIN_FRAMES frames at RT_TWIN_RES^2 on the
+# card against the port's CPU frames within TWIN_WERR; cbox_sphere (K2)
+# with the surfel cache and GI at half resolution for RT_SPHERE_FRAMES
+RT_TIMED = 4
+RT_GOLD_RES = 128
+RT_GOLD_FRAMES = (0, 7)
+RT_TWIN_RES = 64
+RT_TWIN_FRAMES = 4
+RT_SPHERE_FRAMES = 4
 # the bound of a kernel: the card's published peaks (NVIDIA H100 SXM data
 # sheet, dense rates at 700 W), float32 outside the tensor cores and HBM3
 PEAK_FLOPS = 67e12
@@ -1291,6 +1313,153 @@ def phase_grad(vt, modules, scenes, card):
     check(rec["taped_over_remat"] > 1.0, f"checkpointing saved nothing {rec}")
 
 
+def rt_frames(rt, data, camera, state, n, **kw):
+    """n frames of `render_realtime` from `state`: (images, state)."""
+    imgs = []
+    for _ in range(n):
+        img, state = rt.render_realtime(data, camera, state, **kw)
+        imgs.append(img)
+    return imgs, state
+
+
+def parted_share(a, b):
+    """Share of pixels of a whose value parts from b's past the per-lane
+    tolerance of the CPU tests."""
+    return float((np.abs(a - b) > 1e-4 + 1e-3 * np.abs(b)).any(-1).mean())
+
+
+def phase_realtime(vt, modules, scenes, sphere, card):
+    """Slice 6: the real-time loop (`integrator/realtime.py`). The cbox at
+    512^2 at the defaults through K1: steady-state frame time (host clock
+    ending in a synchronize), launches and K1 launches a frame, device
+    busy share, the per-stage split (`tools/profile_torch_render.py`
+    `staged_frame`, each stage in its own profiler window), peak memory.
+    The cbox at 128^2 against the JAX golden's frames 0 and 7; at 64^2,
+    four card frames against the port's CPU frames of the same seeds.
+    cbox_sphere at 512^2 with the surfel cache and GI at half resolution
+    through K2. Returns the launch counts of one frame of each 512^2 run."""
+    from vision_tpu_torch.integrator import realtime as rt
+    prof = _load_by_path("vt_profile_render", "tools/profile_torch_render.py")
+    per_frame = {}
+
+    # ---- the cbox at 512^2, defaults, K1 ----
+    cb = cbox_scene(vt, RES)
+    t0 = time.perf_counter()
+    state = rt.RealTimeState.initial((RES, RES), device=DEV)
+    _, state = rt_frames(rt, cb.data, cb.camera, state, 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _, state = rt_frames(rt, cb.data, cb.camera, state, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    imgs, state = rt_frames(rt, cb.data, cb.camera, state, RT_TIMED)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / RT_TIMED
+    launches = read_counts(modules)
+    peak = torch.cuda.max_memory_allocated()
+    img = imgs[-1].cpu().numpy()
+    n, dev_ms, (_, state) = device_kernels(
+        lambda: rt.render_realtime(cb.data, cb.camera, state))
+    stages = {}
+
+    def run(name, fn):
+        k, ms, out = device_kernels(fn)
+        stages[name] = dict(kernel_launches=k, device_ms=ms)
+        return out
+    prof.staged_frame(cb.data, cb.camera, state, run)
+    per_frame["cbox_rt_frame"] = {k: v // RT_TIMED for k, v in launches.items()}
+    rec = dict(phase="realtime", scene="cbox", res=RES, settings="defaults",
+               first_frame_s=first_s, frame_s=wall, timed_frames=RT_TIMED,
+               fps=1.0 / wall, kernel_launches_per_frame=n,
+               device_ms_per_frame=dev_ms,
+               device_busy_share=dev_ms / 1e3 / wall,
+               launches_per_frame=per_frame["cbox_rt_frame"], stages=stages,
+               peak_mem_bytes=peak, peak_mem_over_start_bytes=peak - mem0,
+               mean=float(img.mean()))
+    emit(dict(rec, card=card))
+    check(img.shape == (RES, RES, 3) and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.0, f"cbox real-time frame {rec}")
+    check(all(launches[f"dense_isect.{k}"] > 0 for k in ("closest", "anyhit"))
+          and not any(v for k, v in launches.items()
+                      if k.startswith("packet_isect")),
+          f"cbox real-time frames' launches {launches}")
+    del state, imgs
+
+    # ---- the cbox at 128^2 against the JAX golden ----
+    gold = np.load(os.path.join(ROOT, "tests/goldens/cbox_rt_hdr.npz"))
+    sc = cbox_scene(vt, RT_GOLD_RES)
+    imgs, _ = rt_frames(rt, sc.data, sc.camera, rt.RealTimeState.initial(
+        (RT_GOLD_RES, RT_GOLD_RES), device=DEV), max(RT_GOLD_FRAMES) + 1)
+    rec = dict(phase="realtime_golden", scene="cbox", res=RT_GOLD_RES,
+               frames={})
+    for f in RT_GOLD_FRAMES:
+        a, b = imgs[f].cpu().numpy(), gold[f"frame{f}"]
+        werr, bias = block_err(a, b)
+        rec["frames"][f] = dict(werr=werr, bias=bias,
+                                parted_share=parted_share(a, b))
+    emit(rec)
+    check(all(v["werr"] < GOLD_WERR and abs(v["bias"]) < GOLD_BIAS
+              for v in rec["frames"].values()),
+          f"real-time frames against the JAX golden {rec}")
+
+    # ---- the cbox at 64^2: card frames against the port's CPU frames ----
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
+    desc = copy.deepcopy(fixtures.CBOX_JSON)
+    desc["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [
+        RT_TWIN_RES, RT_TWIN_RES]
+    runs = {}
+    for dev in (DEV, "cpu"):
+        sc = vt.load_scene(desc, device=dev)
+        t0 = time.perf_counter()
+        imgs, _ = rt_frames(rt, sc.data, sc.camera, rt.RealTimeState.initial(
+            (RT_TWIN_RES, RT_TWIN_RES), device=dev), RT_TWIN_FRAMES)
+        runs[dev] = ([i.cpu().numpy() for i in imgs],
+                     time.perf_counter() - t0)
+    rec = dict(phase="realtime_vs_cpu", scene="cbox", res=RT_TWIN_RES,
+               cpu_s=runs["cpu"][1], frames=[])
+    for a, b in zip(runs[DEV][0], runs["cpu"][0]):
+        werr, bias = block_err(a, b)
+        rec["frames"].append(dict(werr=werr, bias=bias,
+                                  parted_share=parted_share(a, b)))
+    emit(rec)
+    check(all(v["werr"] <= TWIN_WERR and abs(v["bias"]) <= TWIN_WERR
+              for v in rec["frames"]),
+          f"real-time frames on the card against the CPU's {rec}")
+
+    # ---- cbox_sphere at 512^2, the surfel cache, GI at half res, K2 ----
+    state = rt.RealTimeState.initial((RES, RES), cache="surfel",
+                                     gi_scale=0.5, device=DEV)
+    _, state = rt_frames(rt, sphere.data, sphere.camera, state,
+                         RT_SPHERE_FRAMES - 1, gi_scale=0.5)
+    torch.cuda.synchronize()
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    imgs, state = rt_frames(rt, sphere.data, sphere.camera, state, 1,
+                            gi_scale=0.5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(modules)
+    img = imgs[0].cpu().numpy()
+    per_frame["cbox_sphere_rt_frame"] = launches
+    rec = dict(phase="realtime", scene="cbox_sphere", res=RES,
+               settings="surfel cache, gi_scale 0.5", frames=RT_SPHERE_FRAMES,
+               frame_s=wall, launches_per_frame=launches,
+               live_surfels=int(state.sharc.live.sum()),
+               mean=float(img.mean()))
+    emit(dict(rec, card=card))
+    check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+          f"cbox_sphere real-time frame {rec}")
+    check(all(launches[f"packet_isect.{k}"] > 0 for k in ("closest", "anyhit"))
+          and not any(v for k, v in launches.items()
+                      if k.startswith("dense_isect")),
+          f"cbox_sphere real-time launches {launches}")
+    check(rec["live_surfels"] > 0, "no surfel spawned")
+    return per_frame
+
+
 def read_png(path):
     """The pixels [H, W, 3] of an 8-bit RGB PNG as `film.to_png` writes it
     (one IDAT, filter byte 0 on every row), each chunk's CRC checked."""
@@ -1455,6 +1624,9 @@ def main():
 
     # ---- slice 5: gradients ----
     phase_grad(vt, [di, pi], scenes, smi)
+
+    # ---- slice 6: the real-time loop ----
+    per_render.update(phase_realtime(vt, [di, pi], scenes, sphere, smi))
 
     # ---- the kernel table ----
     def worst(recs, keys):

@@ -201,17 +201,28 @@ def test_film_postprocess():
         np.testing.assert_allclose(np_(b), np.asarray(a), rtol=RTOL, atol=ATOL)
 
 
+# the real-time loop's modules (slice 6), which the walk must reach
+REALTIME_MODULES = (
+    "integrator.realtime", "integrator.restir", "integrator.restir_gi",
+    "sensor.gbuffer", "caches.sharc", "caches.surfel", "post.svgf",
+    "post.upsample", "post.denoise", "integrator.pt")
+
+
 def test_import_without_jax():
-    """The port imports no jax or flax: every module imports with both
-    blocked in sys.modules."""
+    """The port imports no jax or flax: every module, the real-time loop's
+    ten among them, imports with both blocked in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "import vision_tpu_torch\n"
+        "seen = set()\n"
         "for m in pkgutil.walk_packages(vision_tpu_torch.__path__, "
         "'vision_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    seen.add(m.name)\n"
+        f"assert {{'vision_tpu_torch.' + m for m in {REALTIME_MODULES!r}}} "
+        "<= seen, seen\n"
         "assert not any(k in ('jax', 'flax', 'vision_tpu') or k.startswith("
         "('jax.', 'flax.', 'vision_tpu.')) for k, v in sys.modules.items() "
         "if v is not None)\n"

@@ -88,7 +88,8 @@ def _rays_and_states(res, seed):
     return p_film, seeds, g
 
 
-def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0):
+def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0,
+                  include_primary=True):
     """Per-lane `radiance` of both packages (JAX jitted, the port's plain
     path) on the same jittered camera rays and RNG states from a numpy
     seed. Returns (La, aovs_a, Lb, aovs_b) as numpy / dicts."""
@@ -104,12 +105,31 @@ def radiance_both(js, ps, res, max_depth=3, rr_threshold=1.0, seed=0):
     jst = jrng.seed(jnp.arange(R, dtype=jnp.uint32),
                     jnp.asarray(seeds.astype(np.uint32)))
     La, aa = jax.jit(lambda d, r, s: jpt.radiance(
-        d, r, s, max_depth=max_depth, rr_threshold=rr_threshold))(
-        js.data, jray, jst)
+        d, r, s, max_depth=max_depth, rr_threshold=rr_threshold,
+        include_primary=include_primary))(js.data, jray, jst)
     Lb, ab = tpt.radiance(ps.data, ps.camera.generate_ray(tt(p_film)),
                           trng.seed(torch.arange(R), tt(seeds.astype(np.int64))),
-                          max_depth=max_depth, rr_threshold=rr_threshold)
+                          max_depth=max_depth, rr_threshold=rr_threshold,
+                          include_primary=include_primary)
     return np.asarray(La), aa, np_(Lb), ab
+
+
+def port_record(jrec, cls, **static):
+    """A JAX record (flax dataclass) as the port's dataclass `cls` on the
+    CPU: each array field copied by name (a uint32 array as int64, the
+    port's masked-uint32 layout), the fields in `static` as given."""
+    out = dict(static)
+    for f in dataclasses.fields(cls):
+        if f.name in static:
+            continue
+        v = getattr(jrec, f.name)
+        if v is None:
+            out[f.name] = None
+            continue
+        a = np.array(v)
+        out[f.name] = torch.as_tensor(a.astype(np.int64) if a.dtype == np.uint32
+                                      else a)
+    return cls(**out)
 
 
 def radiance_vjp_both(js, params, res, max_depth=3, seed=0, share=0.01,

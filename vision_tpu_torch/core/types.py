@@ -5,7 +5,7 @@ share a leading wavefront axis, in place of flax pytrees.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 
 import torch
 
@@ -45,3 +45,12 @@ class Hit:
     @property
     def is_hit(self):
         return self.prim_id >= 0
+
+
+def take(rec, idx):
+    """The record with every tensor field gathered at lanes `idx` along its
+    leading axis (the JAX package's `jax.tree.map(lambda a: a[idx], rec)`);
+    fields that are not tensors pass through."""
+    return replace(rec, **{f.name: getattr(rec, f.name)[idx]
+                           for f in fields(rec)
+                           if isinstance(getattr(rec, f.name), torch.Tensor)})

@@ -187,10 +187,13 @@ def spawn_origin(pos, ng, w, factor=1.0):
     return pos + ng * s * (RAY_OFFSET * factor * mag)[..., None]
 
 
-def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
+def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c,
+            include_primary=True):
     """One wavefront bounce: trace + [medium] + shade + NEE + BSDF / phase
     sample + RR. `depth` is a per-lane int tensor; all depth comparisons
-    are elementwise. Returns a new carry dict."""
+    are elementwise. Without `include_primary`, emission and environment
+    seen directly by the first segment weigh 0 (ReSTIR GI's paths: that
+    light is the DI pass's estimand). Returns a new carry dict."""
     r = Ray.make(c["o"], c["d"])
     act = c["act"]
     hit = trace_closest(scene, r, act)
@@ -212,7 +215,8 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     miss = act & hit.is_miss
     env_L = lt.env_radiance(lights, scene.atlas, c["d"], sp, swl)
     env_pdf = lt.env_pdf_wi(lights, c["d"])
-    w_env = torch.where(first, 1.0, warp.mis_weight(c["spdf"], env_pdf))
+    w_first = 1.0 if include_primary else 0.0
+    w_env = torch.where(first, w_first, warp.mis_weight(c["spdf"], env_pdf))
     L = L + torch.where(miss[..., None], thr * env_L * w_env[..., None], 0.0)
 
     act = act & hit.is_hit
@@ -242,7 +246,7 @@ def _bounce(scene, off_factor, min_depth, rr_threshold, depth, c):
     # ---------------- emissive hit MIS ----------------
     Le, l_pdf = lt.eval_hit_area(lights, light_id, c["o"], pos, ng, uv,
                                  scene.atlas, sp, swl)
-    w_hit = torch.where(first, 1.0, warp.mis_weight(c["spdf"], l_pdf))
+    w_hit = torch.where(first, w_first, warp.mis_weight(c["spdf"], l_pdf))
     hit_light = act_surface & (light_id >= 0)
     L = L + torch.where(hit_light[..., None], thr * Le * w_hit[..., None], 0.0)
 
@@ -408,18 +412,21 @@ def _to_srgb(scene, c):
 
 
 def radiance(scene, ray, state, max_depth=16, min_depth=0, rr_threshold=1.0,
-             remat=False):
+             remat=False, include_primary=True):
     """Estimate L for a wavefront of rays, bounce-major: the wavelengths
     are drawn first (hero spectrum). With `remat`, each bounce is
     checkpointed: the backward replays it instead of keeping its
-    activations. Returns (L [R, 3] linear sRGB, aovs dict)."""
+    activations. `include_primary=False` leaves out the light that the
+    first segment sees directly (see `_bounce`). Returns (L [R, 3] linear
+    sRGB, aovs dict)."""
     state, swl = _sample_wavelengths(scene, state)
     _prepare(scene)
     c = _init_carry(scene, ray, state, swl)
     R = ray.origin.shape[0]
     for k in range(max_depth):
         depth = torch.full((R,), k, dtype=torch.int64, device=ray.origin.device)
-        args = (scene, scene.ray_offset, min_depth, rr_threshold, depth, c)
+        args = (scene, scene.ray_offset, min_depth, rr_threshold, depth, c,
+                include_primary)
         if remat:
             c = checkpoint(_bounce, *args, use_reentrant=False,
                            preserve_rng_state=False)
