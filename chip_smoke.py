@@ -82,6 +82,23 @@ phase, one JSON line each:
     frames at 64^2 on the card against the port's CPU frames; and
     `cbox_sphere` at 512^2 with the surfel cache and GI at half
     resolution through K2.
+  * mesh files, glTF, JPEG, the CLI and the SDK (slices 7, 7b and 8a,
+    `phase_meshes`): `cbox_sphere`'s 261,120-triangle sphere written as
+    OBJ, PLY, GLB and STL (tests/torch_scenes.py) and loaded as a `model`
+    shape, tri_pack bit for bit against the procedural scene (the STL's
+    positions); the OBJ twin at 512^2, 16 spp through K2 against the
+    cbox_sphere golden and this call's procedural render; the OBJ placed
+    16 times through K3 against the procedural instanced render;
+    `gltf_cbox` (a GLB: pbrMetallicRoughness materials, a JPEG floor, a
+    gold sphere, an emissive light, a KHR_lights_punctual point light, a
+    camera node; 996 triangles, K1) at 512^2, 16 spp against
+    `tests/goldens/gltf_cbox_hdr.npz`; every committed JPEG against its PIL
+    decode, the 2048^2 one timed, with no PIL or OpenCV imported;
+    `python -m vision_tpu_torch.cli` in process: the GLB to a PNG within
+    one level of the tonemapped render, `-p graph`, `-p realtime` and
+    `--denoise` at 128^2, an EXR read back bit for bit; and the SDK
+    (`VisionRenderer`) on the OBJ's arrays at 512^2, 16 spp through K2,
+    and at 64^2 on the card against the CPU.
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -194,6 +211,10 @@ RT_GOLD_FRAMES = (0, 7)
 RT_TWIN_RES = 64
 RT_TWIN_FRAMES = 4
 RT_SPHERE_FRAMES = 4
+# slices 7, 7b and 8a (`phase_meshes`)
+CLI_RES = 128       # the CLI's graph, realtime, denoise and EXR runs
+SDK_RES = 64        # the SDK on the card against the SDK on the CPU ...
+SDK_CPU_SPP = 4     # ... over a sub_div-40 OBJ sphere, at this many passes
 # the bound of a kernel: the card's published peaks (NVIDIA H100 SXM data
 # sheet, dense rates at 700 W), float32 outside the tensor cores and HBM3
 PEAK_FLOPS = 67e12
@@ -1460,6 +1481,282 @@ def phase_realtime(vt, modules, scenes, sphere, card):
     return per_frame
 
 
+def sdk_cbox_sphere(res, device, obj_path):
+    """`VisionRenderer` fed the cbox's walls, boxes and emitter (procedural
+    arrays with the cbox's matrices) and the sphere's arrays as the OBJ
+    at `obj_path` loads them, placed where cbox_sphere puts its sphere."""
+    from vision_tpu_torch.scene import shapes as shp
+    from vision_tpu_torch.sdk import VisionRenderer
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
+    scenes = _load_by_path("vt_torch_scenes", "tests/torch_scenes.py")
+    r = VisionRenderer(resolution=(res, res), device=device)
+    for m in fixtures.CBOX_JSON["materials"]:
+        r.add_material(copy.deepcopy(m))
+    for sh in fixtures.CBOX_JSON["shapes"]:
+        mesh = (shp.make_cube() if sh["type"] == "cube" else shp.make_quad())
+        p = sh["param"]
+        rows = np.asarray(p["transform"]["param"]["matrix4x4"], np.float64)
+        r.add_instance(mesh.positions, mesh.triangles, mesh.normals, mesh.uvs,
+                       material=p["material"], o2w=rows.T,
+                       emission=[17, 12, 4] if "emission" in p else None)
+    m = shp.load_model(obj_path)
+    rows = np.eye(4)
+    rows[3] = scenes.SPHERE_ROW
+    r.add_instance(m.positions, m.triangles, m.normals, m.uvs,
+                   material="White", o2w=rows.T)
+    r.set_camera([0, 1, 6.8], [0, 1, 0], fov_y=19.5)
+    return r.build_accel()
+
+
+def phase_meshes(vt, modules, scenes, sphere_img, inst, inst_img, card):
+    """Slices 7, 7b and 8a: mesh files, glTF import, JPEG, the CLI and the
+    SDK. The 261,120-triangle sphere of cbox_sphere written as OBJ, PLY,
+    GLB and STL (load seconds, the file alone and the whole scene; tri_pack
+    bit for bit against the procedural scene, the STL's positions); the
+    OBJ twin at 512^2, 16 spp through K2 against the cbox_sphere golden and
+    the procedural render of this call; the OBJ placed 16 times through K3
+    against the procedural instanced render; gltf_cbox (a GLB with a JPEG
+    texture, 996 triangles) at 512^2, 16 spp through K1 against its JAX
+    golden; every committed JPEG against its PIL decode, with no PIL or
+    OpenCV imported; the CLI (the GLB to a PNG, the graph, realtime and
+    denoise pipelines, an EXR); the SDK on the OBJ's arrays through K2.
+    Returns each render's launch counts."""
+    import hashlib
+    import tempfile
+    from vision_tpu_torch import cli
+    from vision_tpu_torch.scene import imageio
+    from vision_tpu_torch.scene import shapes as shp
+    per_render = {}
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+
+    # ---- 1. the four files of the sphere against the procedural scene ----
+    t0 = time.perf_counter()
+    files = scenes.cbox_sphere_files(d, RES)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = vt.load_scene(scenes.cbox_sphere(RES), device=DEV)
+    proc_s = time.perf_counter() - t0
+    want = proc.data.tri_pack
+    obj_scene = None
+    for fmt in scenes.MESH_FORMATS:
+        path = files[fmt]["shapes"][-1]["param"]["fn"]
+        t0 = time.perf_counter()
+        mesh = shp.load_model(path)
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sc = vt.load_scene(files[fmt], device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = sc.data.tri_pack
+        rec = dict(phase="load", scene=f"cbox_sphere_{fmt}", card=card,
+                   file_bytes=os.path.getsize(path), parse_seconds=parse_s,
+                   seconds=load_s, procedural_seconds=proc_s,
+                   write_all_four_seconds=write_s,
+                   mesh_tris=int(mesh.num_triangles),
+                   tris=int(sc.data.tri_geom.shape[0]),
+                   takes_bvh=sc.data.pbvh is not None)
+        if fmt == "stl":
+            rec["positions_equal"] = bool(torch.equal(got[:, :9], want[:, :9]))
+            rec["ids_equal"] = bool(torch.equal(got[:, 24:], want[:, 24:]))
+            ok = rec["positions_equal"] and rec["ids_equal"]
+        else:
+            rec["tri_pack_bit_equal"] = bool(torch.equal(got, want))
+            ok = rec["tri_pack_bit_equal"]
+        emit(rec)
+        check(ok and rec["tris"] == 261156 and rec["takes_bvh"],
+              f"cbox_sphere {fmt} twin {rec}")
+        if fmt == "obj":
+            obj_scene = sc
+    del proc
+
+    # ---- 2. the OBJ twin through K2 ----
+    img, rec = render(vt, modules, obj_scene, "cbox_sphere_obj")
+    rec["golden_werr"], rec["golden_bias"] = vs_golden(
+        img, "tests/goldens/cbox_sphere_hdr.npz")
+    rec["vs_procedural_werr"], _ = block_err(img, sphere_img)
+    rec["vs_procedural_max_abs"] = float(np.abs(img - sphere_img).max())
+    emit(rec)
+    check(all(rec["launches"][f"packet_isect.{k}"] > 0
+              for k in ("closest", "anyhit"))
+          and not any(v for k, v in rec["launches"].items()
+                      if k.startswith("dense_isect")),
+          f"cbox_sphere_obj launches {rec['launches']}")
+    check(rec["golden_werr"] < GOLD_WERR and abs(rec["golden_bias"]) < GOLD_BIAS,
+          f"cbox_sphere_obj vs golden {rec}")
+    check(rec["vs_procedural_werr"] <= TWIN_WERR,
+          f"cbox_sphere_obj vs the procedural render {rec}")
+    per_render["cbox_sphere_obj"] = rec["launches"]
+    del obj_scene
+
+    # ---- 3. one OBJ placed 16 times: K3 ----
+    t0 = time.perf_counter()
+    sc = vt.load_scene(scenes.cbox_spheres_instanced_obj(d, RES), device=DEV)
+    load_s = time.perf_counter() - t0
+    check(sc.data.ipbvh is not None
+          and sc.data.ipbvh.n_inst == inst.data.ipbvh.n_inst
+          and torch.equal(sc.data.tri_pack, inst.data.tri_pack),
+          "the instanced OBJ scene takes K3 as the procedural one")
+    img, rec = render(vt, modules, sc, "cbox_spheres_instanced_obj")
+    rec["load_seconds"] = load_s
+    rec["instances"] = sc.data.ipbvh.n_inst
+    rec["vs_procedural_werr"], _ = block_err(img, inst_img)
+    emit(rec)
+    check(all(rec["launches"][f"packet_isect.{k}_inst"] > 0
+              for k in ("closest", "anyhit")),
+          f"cbox_spheres_instanced_obj launches {rec['launches']}")
+    check(rec["vs_procedural_werr"] <= TWIN_WERR,
+          f"instanced OBJ vs the procedural render {rec}")
+    per_render["cbox_spheres_instanced_obj"] = rec["launches"]
+    del sc
+
+    # ---- 4. gltf_cbox through K1 against its JAX golden ----
+    t0 = time.perf_counter()
+    desc, gdir = scenes.gltf_cbox_scene(d, RES)
+    sc = vt.Scene(desc, DEV, scene_dir=gdir)
+    load_s = time.perf_counter() - t0
+    glb = os.path.join(gdir, "gltf_cbox.glb")
+    check(sc.data.pbvh is None and sc.data.tri_geom.shape[0] == 996
+          and sc.data.atlas.n_real == 1 and sc.data.lights.n_lights == 2,
+          "gltf_cbox: 996 triangles on the dense sweep, a JPEG, two lights")
+    img, rec = render(vt, modules, sc, "gltf_cbox")
+    rec["load_seconds"] = load_s
+    rec["glb_bytes"] = os.path.getsize(glb)
+    rec["golden_werr"], rec["golden_bias"] = vs_golden(
+        img, "tests/goldens/gltf_cbox_hdr.npz")
+    emit(rec)
+    check(all(rec["launches"][f"dense_isect.{k}"] > 0
+              for k in ("closest", "anyhit"))
+          and not any(v for k, v in rec["launches"].items()
+                      if k.startswith("packet_isect")),
+          f"gltf_cbox launches {rec['launches']}")
+    check(rec["golden_werr"] < GOLD_WERR and abs(rec["golden_bias"]) < GOLD_BIAS,
+          f"gltf_cbox vs golden {rec}")
+    per_render["gltf_cbox"] = rec["launches"]
+    del sc
+
+    # ---- 5. the committed JPEGs against their PIL decodes ----
+    assets = os.path.join(ROOT, "tests", "assets_torch")
+    dec = np.load(os.path.join(assets, "jpeg_decodes.npz"))
+    for k in sorted(n for n in dec.files if "." not in n):
+        t0 = time.perf_counter()
+        got, _ = imageio.read_image(os.path.join(assets, k + ".jpg"))
+        seconds = time.perf_counter() - t0
+        ref = dec[k]
+        part = got[:ref.shape[0], :ref.shape[1]].astype(np.int32)
+        rec = dict(phase="jpeg", file=k + ".jpg", card=card,
+                   shape=list(got.shape), seconds=seconds,
+                   max_abs_diff=int(np.abs(part - ref).max()))
+        ok = rec["max_abs_diff"] == 0
+        if k + ".sha256" in dec:
+            rec["sha256_equal"] = (hashlib.sha256(got.tobytes()).digest()
+                                   == dec[k + ".sha256"].tobytes())
+            ok = ok and rec["sha256_equal"] and list(got.shape) == list(
+                dec[k + ".shape"])
+        emit(rec)
+        check(ok, f"JPEG {k} against its PIL decode {rec}")
+    check("PIL" not in sys.modules and "cv2" not in sys.modules,
+          "an image library was imported")
+
+    # ---- 6. the command line ----
+    def run_cli(name, args):
+        zero_counts(modules)
+        t0 = time.perf_counter()
+        check(cli.main(args + ["-d", DEV, "-q"]) == 0, f"cli {name}")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, read_counts(modules)
+
+    out = os.path.join(d, "glb.png")
+    wall, launches = run_cli("gltf_cbox", ["-s", glb, "-o", out, "--spp",
+                                           str(SPP)])
+    sc = vt.load_scene(glb, device=DEV)
+    want = postprocess_u8(vt, sc, vt.render(sc, spp=SPP))
+    png = read_png(out).astype(np.int32)
+    rec = dict(phase="cli", run="gltf_cbox.glb -> png", wall_s=wall,
+               res=list(png.shape[:2]), spp=SPP, max_depth=sc.max_depth,
+               launches=launches,
+               max_level_diff=int(np.abs(png - want).max()))
+    emit(rec)
+    check(png.shape == (RES, RES, 3) and rec["max_level_diff"] <= 1
+          and launches["dense_isect.closest"] > 0,
+          f"the CLI's PNG of gltf_cbox {rec}")
+    per_render["cli_gltf_cbox"] = launches
+    del sc
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
+    small = copy.deepcopy(fixtures.CBOX_JSON)
+    small["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [
+        CLI_RES, CLI_RES]
+    js = os.path.join(d, "cbox.json")
+    with open(js, "w") as f:
+        json.dump(small, f)
+    for name, extra in (("graph", ["-p", "graph"]),
+                        ("realtime", ["-p", "realtime", "--spp", "2"]),
+                        ("denoise", ["--denoise", "--spp", "4"])):
+        out = os.path.join(d, f"{name}.png")
+        wall, launches = run_cli(name, ["-s", js, "-o", out] + extra)
+        png = read_png(out)
+        rec = dict(phase="cli", run=name, res=CLI_RES, wall_s=wall,
+                   launches=launches, mean=float(png.mean()))
+        emit(rec)
+        check(png.shape == (CLI_RES, CLI_RES, 3) and png.max() > 0
+              and launches["dense_isect.closest"] > 0, f"cli {name} {rec}")
+    out = os.path.join(d, "cbox.exr")
+    wall, _ = run_cli("exr", ["-s", js, "-o", out, "--spp", "4"])
+    with open(out, "rb") as f:
+        got = imageio.read_exr(f.read())
+    want = vt.render(vt.load_scene(js, device=DEV), spp=4).cpu().numpy()
+    rec = dict(phase="cli", run="exr", res=CLI_RES, wall_s=wall,
+               bit_equal=bool(np.array_equal(got, want)))
+    emit(rec)
+    check(rec["bit_equal"], f"the CLI's EXR against the render {rec}")
+
+    # ---- 7. the SDK on the OBJ's arrays ----
+    obj = files["obj"]["shapes"][-1]["param"]["fn"]
+    t0 = time.perf_counter()
+    r = sdk_cbox_sphere(RES, DEV, obj)
+    build_s = time.perf_counter() - t0
+    check(r._scene.data.pbvh is not None, "the SDK scene takes the BVH")
+    r.render(spp=1)  # warm-up
+    r._accum, r._frame = None, 0
+    torch.cuda.synchronize()
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    r.render(spp=SPP)
+    img = r.download_radiance()
+    wall = time.perf_counter() - t0
+    launches = read_counts(modules)
+    rec = dict(phase="sdk", scene="cbox + the OBJ sphere", res=RES, spp=SPP,
+               build_seconds=build_s, wall_s=wall, launches=launches,
+               mean=float(img.mean()))
+    rec["golden_werr"], rec["golden_bias"] = vs_golden(
+        img, "tests/goldens/cbox_sphere_hdr.npz")
+    # on the card and on the CPU at SDK_RES over a sub_div-40 OBJ sphere
+    small_obj = os.path.join(d, "sphere40.obj")
+    scenes.write_obj(small_obj, shp.make_sphere(0.3, 40))
+    imgs = []
+    for dev in (DEV, "cpu"):
+        s = sdk_cbox_sphere(SDK_RES, dev, small_obj)
+        imgs.append(s.render(spp=SDK_CPU_SPP).download_radiance())
+    rec["vs_cpu_werr"], rec["vs_cpu_bias"] = block_err(imgs[0], imgs[1])
+    emit(rec)
+    check(launches["packet_isect.closest"] > 0
+          and launches["packet_isect.anyhit"] > 0
+          and launches["dense_isect.closest"] == 0, f"SDK launches {rec}")
+    check(rec["golden_werr"] < GOLD_WERR and abs(rec["golden_bias"]) < GOLD_BIAS,
+          f"the SDK's cbox_sphere vs the golden {rec}")
+    check(rec["vs_cpu_werr"] <= SKY_WERR and abs(rec["vs_cpu_bias"]) <= SKY_WERR,
+          f"the SDK on the card vs the CPU {rec}")
+    per_render["sdk_cbox_sphere_obj"] = launches
+    tmp.cleanup()
+    return per_render
+
+
+def postprocess_u8(vt, scene, hdr):
+    """The 8-bit image `film.to_png` writes of a render."""
+    img = vt.postprocess(scene, hdr).cpu().numpy()
+    return np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8).astype(np.int32)
+
+
 def read_png(path):
     """The pixels [H, W, 3] of an 8-bit RGB PNG as `film.to_png` writes it
     (one IDAT, filter byte 0 on every row), each chunk's CRC checked."""
@@ -1566,6 +1863,7 @@ def main():
           "cbox_sphere takes the BVH")
     k2 = phase_k2(pi, pbvh_mod, di, vt_pt, wm, sphere)
     img, rec = render(vt, [di, pi], sphere, "cbox_sphere")
+    sphere_img = img
     rec["golden_werr"], rec["golden_bias"] = vs_golden(
         img, "tests/goldens/cbox_sphere_hdr.npz")
     emit(rec)
@@ -1627,6 +1925,10 @@ def main():
 
     # ---- slice 6: the real-time loop ----
     per_render.update(phase_realtime(vt, [di, pi], scenes, sphere, smi))
+
+    # ---- slices 7, 7b, 8a: mesh files, glTF, JPEG, the CLI and the SDK ----
+    per_render.update(phase_meshes(vt, [di, pi], scenes, sphere_img, inst,
+                                   img_i, smi))
 
     # ---- the kernel table ----
     def worst(recs, keys):

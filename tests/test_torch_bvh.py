@@ -268,10 +268,19 @@ def test_loader_builds_the_bvh(mesh_scene):
 
 
 def test_mesh_file_still_raises():
+    """A mesh file raised before slice 7. A missing one now skips its
+    shape with a warning, as in the JAX package, and the mesh scene still
+    takes its BVH with the JAX package's triangles."""
     s = cbox_sphere(16, sub_div=40)
-    s["shapes"].append({"type": "model", "param": {"fn": "bunny.obj"}})
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        vt.load_scene(s, device="cpu")
+    s["shapes"].append({"type": "model", "name": "bunny",
+                        "param": {"fn": "bunny.obj"}})
+    with pytest.warns(UserWarning, match="skipping shape 'bunny'"):
+        ps = vt.load_scene(s, device="cpu")
+    with pytest.warns(UserWarning, match="skipping shape 'bunny'"):
+        js = JScene(s)
+    assert ps.data.pbvh is not None
+    np.testing.assert_array_equal(np_(ps.data.tri_pack),
+                                  np.asarray(js.data.tri_pack))
 
 
 def test_radiance_per_lane(mesh_scene, monkeypatch):

@@ -5,8 +5,8 @@ the Radiance .hdr decoder against OpenCV (run-length and flat scanlines),
 `load_image` against the JAX package's (PIL / OpenCV) bit for bit, srgb and
 linear, the atlas built from files, EXR (a round trip through
 `film.to_exr`, and ZIP / ZIPS / HALF files built here against the arrays
-they were written from: OpenCV here has no EXR codec) and JPEG, which
-raises naming slice 7b."""
+they were written from: OpenCV here has no EXR codec) and a JPEG in a
+scene (the decoder's own tests are in `tests/test_torch_jpeg.py`)."""
 import os
 import struct
 import zlib
@@ -272,18 +272,25 @@ def test_exr_zip_file(tmp_path, comp, ptype, names):
 
 
 def test_jpeg_raises_naming_7b(tmp_path):
-    """A JPEG image (which the JAX package reads through PIL) raises
-    NotImplementedError naming ROADMAP slice 7b, from the decoder and from
-    a scene's image slot."""
+    """A JPEG image raised NotImplementedError naming slice 7b before the
+    port had a decoder. A baseline JPEG now loads as the JAX package loads
+    it through PIL, from `load_image` and from a scene's image slot; a
+    progressive one raises naming 7c, from both."""
     p = tmp_path / "t.jpg"
     Image.fromarray(_rand((8, 8, 3), 9)).save(p)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        ttex.load_image(str(p))
+    np.testing.assert_array_equal(ttex.load_image(str(p)),
+                                  jtex.load_image(str(p)))
     import vision_tpu_torch as vt
     from tests.torch_parity import cbox
     s = cbox(8)
     s["materials"][0]["param"]["color"] = {"fn": str(p)}
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    atlas = vt.load_scene(s, device="cpu").data.atlas
+    np.testing.assert_array_equal(atlas.data.numpy()[:64, :3],
+                                  jtex.load_image(str(p)).reshape(64, 3))
+    Image.fromarray(_rand((8, 8, 3), 9)).save(p, progressive=True)
+    with pytest.raises(NotImplementedError, match="7c"):
+        ttex.load_image(str(p))
+    with pytest.raises(NotImplementedError, match="7c"):
         vt.load_scene(s, device="cpu")
 
 

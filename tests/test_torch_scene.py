@@ -1,8 +1,8 @@
 """The port's scene loader against the JAX package's: the same scene JSON
 gives the same packed geometry, id tables, material and light tables,
 texture atlas, camera and filter, medium table and spectrum; `scene_from_arrays`
-carries a JAX scene across; and a scene outside the ported slices (mesh
-files) raises NotImplementedError."""
+carries a JAX scene across; and a scene outside the ported slices (a
+progressive JPEG) raises NotImplementedError."""
 import copy
 import dataclasses
 import os
@@ -269,15 +269,18 @@ def _env(fn):
 
 
 OUT_OF_SLICE = {
-    "mesh_file": (lambda: _edit(lambda s: _shape(s, {
-        "type": "model", "param": {"fn": "bunny.obj"}})), "slice 7"),
+    "progressive_jpeg": (lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"fn": asset("progressive.jpg")})), "7c"),
 }
 
 # features out of the slice before slice 1b (the first three), before
-# slice 4 (the next three) and before slices 4c, 4d and 7a (the rest, on
-# the image and IES files of tests/assets_torch), which now load as the
-# JAX package loads them
+# slice 4 (the next three), before slices 4c, 4d and 7a (the next ones, on
+# the image and IES files of tests/assets_torch) and before slice 7 (a
+# mesh file; this one is missing, so both packages skip its shape with a
+# warning), which now load as the JAX package loads them
 PORTED = {
+    "mesh_file": lambda: _edit(lambda s: _shape(s, {
+        "type": "model", "param": {"fn": "bunny.obj"}})),
     "glass_material": make_glass_cbox,
     "oren_nayar": lambda: _edit(lambda s: s["materials"][0]["param"].update(
         sigma=20.0)),
@@ -332,15 +335,17 @@ BVH_SCENES = {
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
                          + sorted(PORTED))
 def test_out_of_slice_raises(name):
-    """A feature outside the ported slices (mesh files) raises
+    """A feature outside the ported slices (a progressive JPEG) raises
     NotImplementedError naming its slice; the two scenes of BVH_SCENES,
     out of the slice before slices 2 and 3, load and carry the tree their
     kernel walks; the scenes of PORTED, out of it before slice 1b, 4, 4c,
-    4d or 7a, load as the JAX package does."""
+    4d, 7a or 7, load as the JAX package does."""
     if name in PORTED:
         s = PORTED[name]()
-        ps = vt.load_scene(s, device="cpu")
-        js = JScene(s)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # mesh_file: bunny.obj is missing
+            ps = vt.load_scene(s, device="cpu")
+            js = JScene(s)
         _assert_same_scene(ps.data, ps.camera, ps.filter, jax_scene_arrays(js))
         assert ps.framebuffer_type == js.framebuffer_type
         return

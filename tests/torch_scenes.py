@@ -44,6 +44,15 @@ box (`tests/fixtures.py` CBOX_JSON), so nothing has to be downloaded.
   * `tex_wall_cbox`: the cbox whose back wall carries an 8x8 image
     (`wall_texture`), the texture-recovery scene of `tests/test_diff.py`.
 
+  * mesh files (slice 7): `cbox_sphere_files` writes `cbox_sphere`'s
+    sphere as OBJ, PLY, GLB and STL (`write_obj`, `write_ply`,
+    `write_glb`, `write_stl`) and returns the scene on each as a `model`
+    shape; `cbox_spheres_instanced_obj` places one OBJ 16 times;
+    `gltf_cbox` writes the cbox as a GLB (`GltfBuilder`: materials, a
+    JPEG floor, a gold sphere, an emissive and a point light, a camera
+    node; 996 triangles, K1) and `gltf_cbox_scene` imports it at a given
+    resolution and depth 8.
+
 The images and the IES profile are the files of `tests/assets_torch/`
 (`tools/gen_torch_assets.py` writes them); the scenes name them by
 absolute path.
@@ -342,3 +351,365 @@ def tex_wall_cbox(res, png_path):
             sh["param"]["material"] = "texwall"
             break
     return s
+
+
+# ---------------------------------------------------------------------------
+# Mesh files and glTF scenes (slice 7), written from procedural geometry
+# ---------------------------------------------------------------------------
+
+def _shapes():
+    from vision_tpu_torch.scene import shapes
+    return shapes
+
+
+def write_obj(path, mesh):
+    """v / vt / vn at %.9g (float32 round-trips exactly), f i/i/i."""
+    import numpy as np
+    P, N, UV = mesh.positions, mesh.normals, mesh.uvs
+    lines = ["# written by tests/torch_scenes.py"]
+    lines += ["v %.9g %.9g %.9g" % tuple(p) for p in P.tolist()]
+    lines += ["vt %.9g %.9g" % tuple(t) for t in UV.tolist()]
+    lines += ["vn %.9g %.9g %.9g" % tuple(n) for n in N.tolist()]
+    T = np.asarray(mesh.triangles, np.int64) + 1
+    lines += ["f %d/%d/%d %d/%d/%d %d/%d/%d" % (a, a, a, b, b, b, c, c, c)
+              for a, b, c in T.tolist()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_ply(path, mesh):
+    """binary_little_endian: vertex x y z nx ny nz s t (float), face
+    `list uchar int vertex_indices`."""
+    import numpy as np
+    V, T = len(mesh.positions), len(mesh.triangles)
+    head = ("ply\nformat binary_little_endian 1.0\n"
+            "comment written by tests/torch_scenes.py\n"
+            f"element vertex {V}\n"
+            + "".join(f"property float {c}\n"
+                      for c in ("x", "y", "z", "nx", "ny", "nz", "s", "t"))
+            + f"element face {T}\nproperty list uchar int vertex_indices\n"
+            "end_header\n")
+    vert = np.concatenate([mesh.positions, mesh.normals, mesh.uvs], 1)
+    face = np.zeros(T, np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    face["n"] = 3
+    face["i"] = mesh.triangles
+    with open(path, "wb") as f:
+        f.write(head.encode() + vert.astype("<f4").tobytes() + face.tobytes())
+
+
+def write_stl(path, mesh):
+    """Binary STL: each triangle's unit normal and its three corners."""
+    import numpy as np
+    P, T = mesh.positions, mesh.triangles
+    tri = P[T]  # [T, 3, 3]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+    rec = np.zeros(len(T), np.dtype([("n", "<f4", (3,)), ("v", "<f4", (3, 3)),
+                                     ("a", "<u2")]))
+    rec["n"], rec["v"] = n, tri
+    with open(path, "wb") as f:
+        f.write(b"binary STL written by tests/torch_scenes.py".ljust(80, b" ")
+                + len(T).to_bytes(4, "little") + rec.tobytes())
+
+
+def gltf_normals(normals):
+    """Normals to store in a glTF file so that the loaders' float64
+    normalization (gltf.py) rounds back to exactly these float32 normals:
+    each one that would move is scaled by the first factor in (1, 1.0004]
+    that lands it (a stored length within 4e-4 of 1)."""
+    import numpy as np
+
+    def renorm(n):
+        n = n.astype(np.float64)
+        ln = np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        return (n / ln).astype(np.float32)
+
+    want = np.asarray(normals, np.float32)
+    out = want.copy()
+    left = np.nonzero((renorm(out) != want).any(-1) & (want != 0).any(-1))[0]
+    for s in np.linspace(1.0, 1.0004, 4097)[1:]:
+        if not len(left):
+            break
+        cand = (want[left].astype(np.float64) * s).astype(np.float32)
+        ok = (renorm(cand) == want[left]).all(-1)
+        out[left[ok]] = cand[ok]
+        left = left[~ok]
+    if len(left):
+        raise ValueError(f"{len(left)} normals do not round-trip")
+    return out
+
+
+class GltfBuilder:
+    """A small glTF 2.0 writer: accessors in one buffer, meshes, nodes,
+    materials, images, a camera and KHR_lights_punctual lights; saved as
+    .glb, as .gltf with an external .bin, or as .gltf with a data URI."""
+
+    def __init__(self):
+        self.doc = {"asset": {"version": "2.0",
+                              "generator": "tests/torch_scenes.py"},
+                    "scene": 0, "scenes": [{"nodes": []}], "nodes": [],
+                    "meshes": [], "accessors": [], "bufferViews": []}
+        self.bin = bytearray()
+
+    def _view(self, data, stride=None):
+        while len(self.bin) % 4:
+            self.bin.append(0)
+        bv = {"buffer": 0, "byteOffset": len(self.bin), "byteLength": len(data)}
+        if stride:
+            bv["byteStride"] = stride
+        self.bin += data
+        self.doc["bufferViews"].append(bv)
+        return len(self.doc["bufferViews"]) - 1
+
+    def accessor(self, arr, normalized=False):
+        """A tightly packed accessor of arr [count, n] (or [count])."""
+        import numpy as np
+        arr = np.ascontiguousarray(arr)
+        ctype = {np.dtype("float32"): 5126, np.dtype("uint32"): 5125,
+                 np.dtype("uint16"): 5123, np.dtype("uint8"): 5121,
+                 np.dtype("int16"): 5122, np.dtype("int8"): 5120}[arr.dtype]
+        n = 1 if arr.ndim == 1 else arr.shape[1]
+        acc = {"bufferView": self._view(arr.astype(arr.dtype.newbyteorder("<"))
+                                        .tobytes()),
+               "componentType": ctype, "count": int(arr.shape[0]),
+               "type": {1: "SCALAR", 2: "VEC2", 3: "VEC3", 4: "VEC4"}[n]}
+        if normalized:
+            acc["normalized"] = True
+        if ctype == 5126 and n == 3:
+            acc["min"] = arr.min(0).tolist()
+            acc["max"] = arr.max(0).tolist()
+        self.doc["accessors"].append(acc)
+        return len(self.doc["accessors"]) - 1
+
+    def interleaved(self, arrays):
+        """float32 arrays [count, n_i] in one strided buffer view; returns
+        one accessor per array."""
+        import numpy as np
+        count = arrays[0].shape[0]
+        rec = np.concatenate([np.asarray(a, "<f4") for a in arrays], 1)
+        view = self._view(rec.tobytes(), stride=rec.shape[1] * 4)
+        out, off = [], 0
+        for a in arrays:
+            self.doc["accessors"].append({
+                "bufferView": view, "byteOffset": off, "componentType": 5126,
+                "count": int(count),
+                "type": {2: "VEC2", 3: "VEC3"}[a.shape[1]]})
+            out.append(len(self.doc["accessors"]) - 1)
+            off += a.shape[1] * 4
+        return out
+
+    def mesh(self, mesh, material=None, uv_normalized=None, index_type="uint32"):
+        """A one-primitive mesh of a TriMesh (POSITION, NORMAL through
+        `gltf_normals`, TEXCOORD_0, indices); `uv_normalized` = "uint8" /
+        "uint16" stores the uvs as normalized integers."""
+        import numpy as np
+        attrs = {"POSITION": self.accessor(np.asarray(mesh.positions, np.float32)),
+                 "NORMAL": self.accessor(gltf_normals(mesh.normals))}
+        if uv_normalized:
+            top = np.iinfo(uv_normalized).max
+            attrs["TEXCOORD_0"] = self.accessor(
+                np.round(np.clip(mesh.uvs, 0, 1) * top).astype(uv_normalized),
+                normalized=True)
+        else:
+            attrs["TEXCOORD_0"] = self.accessor(np.asarray(mesh.uvs, np.float32))
+        prim = {"attributes": attrs, "mode": 4, "indices": self.accessor(
+            np.asarray(mesh.triangles).reshape(-1).astype(index_type))}
+        if material is not None:
+            prim["material"] = material
+        self.doc["meshes"].append({"primitives": [prim]})
+        return len(self.doc["meshes"]) - 1
+
+    def node(self, parent=None, **fields):
+        self.doc["nodes"].append(fields)
+        i = len(self.doc["nodes"]) - 1
+        if parent is None:
+            self.doc["scenes"][0]["nodes"].append(i)
+        else:
+            self.doc["nodes"][parent].setdefault("children", []).append(i)
+        return i
+
+    def material(self, name, color, metallic=0.0, roughness=1.0,
+                 texture_uri=None, emissive=None):
+        d = {"name": name, "pbrMetallicRoughness": {
+            "baseColorFactor": list(color) + [1.0],
+            "metallicFactor": metallic, "roughnessFactor": roughness}}
+        if texture_uri is not None:
+            self.doc.setdefault("images", []).append({"uri": texture_uri})
+            self.doc.setdefault("samplers", []).append({})
+            self.doc.setdefault("textures", []).append({
+                "source": len(self.doc["images"]) - 1,
+                "sampler": len(self.doc["samplers"]) - 1})
+            d["pbrMetallicRoughness"]["baseColorTexture"] = {
+                "index": len(self.doc["textures"]) - 1}
+        if emissive is not None:
+            d["emissiveFactor"] = list(emissive)
+        self.doc.setdefault("materials", []).append(d)
+        return len(self.doc["materials"]) - 1
+
+    def point_light(self, color, intensity, position):
+        ext = self.doc.setdefault("extensions", {}).setdefault(
+            "KHR_lights_punctual", {"lights": []})
+        ext["lights"].append({"type": "point", "color": list(color),
+                              "intensity": intensity})
+        self.doc.setdefault("extensionsUsed", []).append("KHR_lights_punctual")
+        return self.node(translation=list(position), extensions={
+            "KHR_lights_punctual": {"light": len(ext["lights"]) - 1}})
+
+    def camera(self, yfov, matrix):
+        self.doc.setdefault("cameras", []).append({
+            "type": "perspective", "perspective": {
+                "yfov": yfov, "aspectRatio": 1.0, "znear": 0.01}})
+        return self.node(camera=len(self.doc["cameras"]) - 1,
+                         matrix=[float(v) for v in matrix])
+
+    def _doc(self, uri):
+        import copy
+        doc = copy.deepcopy(self.doc)
+        doc["buffers"] = [{"byteLength": len(self.bin)}]
+        if uri is not None:
+            doc["buffers"][0]["uri"] = uri
+        return doc
+
+    def save(self, path, kind=None):
+        """`kind`: "glb" (by default for a .glb path), "bin" (.gltf with an
+        external .bin beside it) or "data" (.gltf with a data URI)."""
+        import base64
+        import json
+        import struct
+        kind = kind or ("glb" if path.endswith(".glb") else "bin")
+        if kind == "glb":
+            js = json.dumps(self._doc(None)).encode()
+            js += b" " * (-len(js) % 4)
+            bn = bytes(self.bin) + b"\0" * (-len(self.bin) % 4)
+            body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+                    + struct.pack("<II", len(bn), 0x004E4942) + bn)
+            with open(path, "wb") as f:
+                f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+            return path
+        if kind == "bin":
+            bin_name = os.path.splitext(os.path.basename(path))[0] + ".bin"
+            with open(os.path.join(os.path.dirname(path), bin_name), "wb") as f:
+                f.write(bytes(self.bin))
+            doc = self._doc(bin_name)
+        else:
+            doc = self._doc("data:application/octet-stream;base64,"
+                            + base64.b64encode(bytes(self.bin)).decode())
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return path
+
+
+def write_glb(path, mesh):
+    """One mesh as a GLB: POSITION / NORMAL / TEXCOORD_0 float32 and
+    uint32 indices, under one node with no transform."""
+    g = GltfBuilder()
+    g.node(mesh=g.mesh(mesh), name="mesh")
+    return g.save(path)
+
+
+MESH_FORMATS = ("obj", "ply", "glb", "stl")
+
+
+def cbox_sphere_files(dirname, res=512, sub_div=256):
+    """`cbox_sphere` with its procedural sphere written to `dirname` as
+    sphere.obj / .ply / .glb / .stl: {format: the cbox_sphere scene whose
+    sphere is a `model` shape on that file} (file paths are absolute)."""
+    shapes = _shapes()
+    mesh = shapes.make_sphere(0.3, sub_div)
+    writers = {"obj": write_obj, "ply": write_ply, "glb": write_glb,
+               "stl": write_stl}
+    out = {}
+    for fmt in MESH_FORMATS:
+        path = os.path.join(os.path.abspath(dirname), f"sphere.{fmt}")
+        writers[fmt](path, mesh)
+        s = cbox_sphere(res, sub_div)
+        sph = s["shapes"][-1]
+        sph["type"] = "model"
+        sph["param"] = {"fn": path, "material": sph["param"]["material"],
+                        "transform": sph["param"]["transform"]}
+        out[fmt] = s
+    return out
+
+
+def cbox_spheres_instanced_obj(dirname, res=512, sub_div=128, radius=0.12):
+    """`cbox_spheres_instanced` with its sphere one OBJ file (scaled to
+    `radius` in the file) placed 16 times."""
+    shapes = _shapes()
+    mesh = shapes.make_sphere(radius, sub_div)
+    path = os.path.join(os.path.abspath(dirname), "sphere_inst.obj")
+    write_obj(path, mesh)
+    s = cbox_spheres_instanced(res, sub_div, radius)
+    for sh in s["shapes"][-16:]:
+        sh["type"] = "model"
+        sh["param"] = {"fn": path, "material": sh["param"]["material"],
+                       "transform": sh["param"]["transform"]}
+    return s
+
+
+GLTF_TEXTURE = "tiles.jpg"   # in tests/assets_torch/, copied beside the GLB
+GLTF_SPHERE = dict(radius=0.3, sub_div=16, translation=[0.33, 0.9, 0.37],
+                   rotation_y=0.5)
+
+
+def gltf_cbox(dirname, sub_div=GLTF_SPHERE["sub_div"]):
+    """The cbox as a GLB in `dirname` (returns its path): its walls,
+    boxes and emitter as nodes over object-space quads and cubes (the
+    cbox's matrices as node matrices, under one parent node), the diffuse
+    materials as pbrMetallicRoughness (metallic 0, roughness 1), the floor
+    textured with `tiles.jpg` (copied beside the file) times a base
+    colour, a rough gold sphere (sub_div 16) placed by TRS, the ceiling
+    emitter as emissiveFactor (17, 12, 4; the importer takes factors above
+    1 as they are), a KHR_lights_punctual point light and the cbox camera
+    as a glTF camera node. 996 triangles: the dense sweep (K1)."""
+    import math
+    import shutil
+    import numpy as np
+    from vision_tpu_torch.core import transform as xf
+    shapes = _shapes()
+    shutil.copyfile(asset(GLTF_TEXTURE), os.path.join(dirname, GLTF_TEXTURE))
+    g = GltfBuilder()
+    mats = {}
+    for m in CBOX_JSON["materials"]:
+        mats[m["name"]] = g.material(m["name"], m["param"]["color"])
+    mats["Tiles"] = g.material("Tiles", [0.9, 0.85, 0.8],
+                               texture_uri=GLTF_TEXTURE)
+    mats["Light"] = g.material("Light", [0.0, 0.0, 0.0], emissive=[17, 12, 4])
+    mats["Gold"] = g.material("Gold", [1.0, 0.78, 0.34], metallic=1.0,
+                              roughness=0.35)
+    quad, cube = shapes.make_quad(), shapes.make_cube()
+    room = g.node(name="cbox", translation=[0.0, 0.0, 0.0])
+    for sh in CBOX_JSON["shapes"]:
+        name = sh["name"]
+        mat = {"floor": "Tiles", "light": "Light"}.get(
+            name, sh["param"]["material"])
+        geo = cube if sh["type"] == "cube" else quad
+        rows = sh["param"]["transform"]["param"]["matrix4x4"]
+        # row-vector rows flattened = the column-major matrix of glTF
+        g.node(parent=room, name=name, mesh=g.mesh(geo, mats[mat]),
+               matrix=[float(v) for r in rows for v in r])
+    sp = GLTF_SPHERE
+    a = sp["rotation_y"] / 2.0
+    g.node(name="sphere", mesh=g.mesh(shapes.make_sphere(1.0, sub_div),
+                                      mats["Gold"]),
+           translation=sp["translation"], scale=[sp["radius"]] * 3,
+           rotation=[0.0, math.sin(a), 0.0, math.cos(a)])
+    g.point_light([1.0, 0.9, 0.8], 683.0 * 0.6, [-0.45, 1.6, 0.6])
+    cam = CBOX_JSON["camera"]["param"]
+    c2w = np.asarray(xf.from_json(cam["transform"]), np.float64)
+    # glTF cameras look down -z: the node is the vision frame turned 180
+    # degrees about y (the importer turns it back)
+    node = c2w @ np.diag([-1.0, 1.0, -1.0, 1.0])
+    g.camera(math.radians(cam["fov_y"]), node.T.reshape(-1))
+    return g.save(os.path.join(dirname, "gltf_cbox.glb"))
+
+
+def gltf_cbox_scene(dirname, res=512, max_depth=8):
+    """`gltf_cbox` written to `dirname` and imported (the port's
+    `load_gltf_scene`, equal to the JAX package's), at res x res and
+    `max_depth`: (scene dict, scene_dir)."""
+    from vision_tpu_torch.scene.gltf import load_gltf_scene
+    path = gltf_cbox(dirname)
+    s = load_gltf_scene(path)
+    s["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [res, res]
+    s["integrator"] = {"type": "pt", "param": {"max_depth": max_depth}}
+    return s, os.path.dirname(path)

@@ -15,6 +15,17 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
   * `spot.ies`: an LM-63-2002 profile with TILT=NONE, one horizontal angle
     and a soft cone of 10 vertical angles from 0 to 90 degrees (the narrow
     profile of tests/test_lights.py widened and smoothed).
+  * JPEG files, written by PIL (libjpeg-turbo), and `jpeg_decodes.npz`,
+    what PIL decodes from each (`Image.open(p).convert("RGB")`):
+    `tiles.jpg` (128x128 terracotta tiles, 4:2:0, quality 90; the
+    floor texture of `tests/torch_scenes.py` `gltf_cbox`), `strip.jpg`
+    (33x65, 4:2:2, quality 50, optimized Huffman tables, a restart
+    interval of 2 MCUs), `grey.jpg` (17x9 greyscale, quality 95) and
+    `grain_2048.jpg` (2048x2048, 4:2:0, quality 85: smooth waves under a
+    fine grain, the decoder's timing case; the .npz holds the sha256 of
+    its decode and the decode of its 128x128 corner); and
+    `progressive.jpg` (`strip()` saved progressive), which the port's
+    decoder refuses (ROADMAP queue A, 7c).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -88,6 +99,68 @@ def sky(kind):
     return img.astype(np.float32)
 
 
+def tiles():
+    y, x = np.mgrid[0:128, 0:128].astype(np.float64)
+    grout = ((x % 32) < 2) | ((y % 32) < 2)
+    tone = 0.85 + 0.15 * np.sin(0.9 * (x // 32) + 1.7 * (y // 32))[..., None]
+    base = np.array([176.0, 92.0, 60.0]) * tone
+    mottle = 12.0 * np.sin(x * 0.37 + np.cos(y * 0.21) * 3.0)[..., None]
+    img = np.where(grout[..., None], [200.0, 196.0, 186.0], base + mottle)
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def strip():
+    y, x = np.mgrid[0:65, 0:33].astype(np.float64)
+    r = 128 + 120 * np.sin(x * 0.4) * np.cos(y * 0.13)
+    g = 255 * y / 64.0
+    b = 255 - 7.7 * x
+    return np.clip(np.round(np.stack([r, g, b], -1)), 0, 255).astype(np.uint8)
+
+
+def grey():
+    y, x = np.mgrid[0:9, 0:17]
+    return ((x * 15 + y * 28) % 256).astype(np.uint8)
+
+
+def grain(n=2048):
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    waves = np.stack([np.sin(7.0 * x + 3.0 * y), np.cos(5.0 * y - 2.0 * x),
+                      np.sin(11.0 * x * y + 1.0)], -1)
+    noise = np.random.RandomState(1).randint(-9, 10, (n, n, 3))
+    return np.clip(np.round(128 + 90 * waves + noise), 0, 255).astype(np.uint8)
+
+
+JPEGS = {  # name: (image, PIL save options)
+    "tiles.jpg": (tiles, dict(quality=90, subsampling=2)),
+    "strip.jpg": (strip, dict(quality=50, subsampling=1, optimize=True,
+                              restart_marker_blocks=2)),
+    "grey.jpg": (grey, dict(quality=95)),
+    "grain_2048.jpg": (grain, dict(quality=85, subsampling=2)),
+}
+CORNER = 128  # the decode kept of the large file: its CORNER^2 top left
+
+
+def write_jpegs(out):
+    """The JPEG files and their PIL decodes (`jpeg_decodes.npz`)."""
+    import hashlib
+    from PIL import Image
+    dec = {}
+    for fn, (make, opts) in JPEGS.items():
+        p = os.path.join(out, fn)
+        Image.fromarray(make()).save(p, **opts)
+        rgb = np.asarray(Image.open(p).convert("RGB"))
+        key = fn.rsplit(".", 1)[0]
+        if rgb.shape[0] > CORNER:
+            dec[key + ".sha256"] = np.frombuffer(
+                hashlib.sha256(rgb.tobytes()).digest(), np.uint8)
+            dec[key + ".shape"] = np.asarray(rgb.shape)
+            rgb = rgb[:CORNER, :CORNER]
+        dec[key] = rgb
+    np.savez_compressed(os.path.join(out, "jpeg_decodes.npz"), **dec)
+    Image.fromarray(strip()).save(os.path.join(out, "progressive.jpg"),
+                                  quality=80, progressive=True)
+
+
 def main():
     from PIL import Image
     import cv2
@@ -101,6 +174,7 @@ def main():
         cv2.imwrite(os.path.join(out, f"sky_{k}.hdr"), sky(k)[..., ::-1])
     with open(os.path.join(out, "spot.ies"), "w") as f:
         f.write(IES)
+    write_jpegs(out)
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

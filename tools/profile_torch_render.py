@@ -6,7 +6,8 @@ Renders a scene at 512^2, depth 8 (NAME: `cbox`, tests/fixtures.py
 CBOX_JSON, the default; `cbox_sphere`, `cbox_spheres_instanced`,
 `cbox_glass`, `cbox_zoo`, `cbox_sky`, `cbox_glass_hero`, `fog_cbox`,
 `cbox_sss`, `cbox_tex`, `env_sphere` or `lf_cbox` (a 512^2 base, grid 3),
-tests/torch_scenes.py; `cbox_adaptive`, the cbox through
+tests/torch_scenes.py; `gltf_cbox`, its GLB written to a temporary
+directory and imported; `cbox_adaptive`, the cbox through
 `render(adaptive=True)`, whose 4 spp are one chunk) at 1 spp
 to warm up, then at 4 spp timed plain and
 once more under torch.profiler, and prints JSON lines: the device's busy
@@ -35,6 +36,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -220,7 +222,7 @@ def main():
                              "cbox_glass", "cbox_zoo", "cbox_sky",
                              "cbox_glass_hero", "fog_cbox", "cbox_sss",
                              "cbox_tex", "env_sphere", "lf_cbox",
-                             "cbox_adaptive", "cbox_rt"])
+                             "gltf_cbox", "cbox_adaptive", "cbox_rt"])
     ap.add_argument("--cpu-ops", type=int, metavar="RES",
                     help="cbox_rt: count each stage's operations on the CPU "
                          "at RES^2 (no card needed)")
@@ -243,11 +245,17 @@ def main():
     adaptive = args.scene == "cbox_adaptive"
     if args.scene in ("cbox", "cbox_adaptive"):
         desc = _load("tests/fixtures.py").CBOX_JSON
-    else:
+    elif args.scene != "gltf_cbox":
         desc = getattr(_load("tests/torch_scenes.py"), args.scene)(512)
     if args.scene == "cbox_zoo":
         desc = _load("tests/torch_scenes.py").cbox_zoo(512, sub_div=40)
-    scene = vt.load_scene(desc, device="cuda")
+    if args.scene == "gltf_cbox":
+        tmp = tempfile.TemporaryDirectory()
+        desc, sdir = _load("tests/torch_scenes.py").gltf_cbox_scene(
+            tmp.name, 512)
+        scene = vt.Scene(desc, "cuda", scene_dir=sdir)
+    else:
+        scene = vt.load_scene(desc, device="cuda")
     vt.render(scene, spp=1, adaptive=adaptive)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

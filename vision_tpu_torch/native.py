@@ -1,12 +1,15 @@
-"""ctypes bindings of the native host builder (`native/bvh_builder.cpp`).
+"""ctypes bindings of the port's host library: the SAH BVH builder
+(`native/bvh_builder.cpp`), the OBJ parser (`csrc/mesh_io.cpp`) and the
+JPEG entropy decoder (`csrc/jpeg_huff.cpp`).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
-`build_bvh_boxes_native`) for the port, which may not import the JAX
-package. At first use the sources `native/bvh_builder.cpp` and
-`native/mesh_io.cpp` are compiled with g++ into
-`vision_tpu_torch/_build/` (the tracked `native/libvision_native.so` is
-neither loaded nor rebuilt). A missing compiler or a failed build raises:
-the port has no fallback builder.
+`build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
+import the JAX package. At first use the three sources are compiled with
+g++ into `vision_tpu_torch/_build/` (the tracked `native/libvision_native.so`
+is neither loaded nor rebuilt). The OBJ parser is the port's own copy of
+`native/mesh_io.cpp`'s: its vertex cache keys on the exact index triple
+(ROADMAP C15). A missing compiler or a failed build raises: the port has
+no fallback.
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import numpy as np
 
 from .accel.cuda_build import compile_library
 
-_NATIVE = os.path.join(os.path.dirname(__file__), "..", "native")
-SOURCES = [os.path.join(_NATIVE, f) for f in ("bvh_builder.cpp", "mesh_io.cpp")]
+_HERE = os.path.dirname(__file__)
+SOURCES = [os.path.join(_HERE, "..", "native", "bvh_builder.cpp"),
+           os.path.join(_HERE, "csrc", "mesh_io.cpp"),
+           os.path.join(_HERE, "csrc", "jpeg_huff.cpp")]
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lib = None
@@ -30,8 +35,8 @@ def build():
     Returns (library path, seconds spent, compiler log)."""
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
-        raise RuntimeError("no C++ compiler (g++ or $CXX): the BVH builder "
-                           "is compiled from native/ at first use")
+        raise RuntimeError("no C++ compiler (g++ or $CXX): the host library "
+                           "is compiled from source at first use")
     return compile_library("vision_native", cxx, CXX_FLAGS, SOURCES)
 
 
@@ -47,8 +52,92 @@ def _library():
         lib.vt_build_bvh_boxes.argtypes = [F, F, ctypes.c_int64, ctypes.c_int32,
                                            F, F, I, I, I, I, I]
         lib.vt_build_bvh_boxes.restype = ctypes.c_int64
+        lib.vt_load_obj.argtypes = [ctypes.c_char_p, ctypes.POINTER(_MeshBlob)]
+        lib.vt_load_obj.restype = ctypes.c_int32
+        lib.vt_free_mesh.argtypes = [ctypes.POINTER(_MeshBlob)]
+        lib.vt_free_mesh.restype = None
+        lib.vt_obj_key.argtypes = [ctypes.c_int64] * 3 + [
+            ctypes.POINTER(ctypes.c_uint64)]
+        lib.vt_obj_key.restype = None
+        P = ctypes.c_void_p
+        lib.vt_jpeg_decode_scan.argtypes = [P, ctypes.c_int64, ctypes.c_int32,
+                                            P, P, P, P, ctypes.c_int32,
+                                            ctypes.c_int32, ctypes.c_int32]
+        lib.vt_jpeg_decode_scan.restype = ctypes.c_int64
         _lib = lib
     return _lib
+
+
+class _MeshBlob(ctypes.Structure):
+    _fields_ = [("positions", ctypes.POINTER(ctypes.c_float)),
+                ("normals", ctypes.POINTER(ctypes.c_float)),
+                ("uvs", ctypes.POINTER(ctypes.c_float)),
+                ("triangles", ctypes.POINTER(ctypes.c_int32)),
+                ("n_verts", ctypes.c_int64),
+                ("n_tris", ctypes.c_int64)]
+
+
+def load_obj_native(path):
+    """Parse an OBJ file: (positions [V,3], normals [V,3], uvs [V,2]
+    float32, triangles [T,3] int32), one vertex per distinct v/vt/vn
+    triple in the order of first use, polygons fan-triangulated; a missing
+    vt or vn gives zeros. Raises FileNotFoundError / OSError when the file
+    cannot be opened / read."""
+    lib = _library()
+    blob = _MeshBlob()
+    rc = lib.vt_load_obj(os.fsencode(path), ctypes.byref(blob))
+    if rc == -1:
+        raise FileNotFoundError(f"cannot open {path}")
+    if rc != 0:
+        raise OSError(f"cannot read {path}")
+    try:
+        nv, nt = blob.n_verts, blob.n_tris
+        out = [np.ctypeslib.as_array(ptr, (n, k)).copy() for ptr, n, k in (
+            (blob.positions, nv, 3), (blob.normals, nv, 3), (blob.uvs, nv, 2),
+            (blob.triangles, nt, 3))]
+    finally:
+        lib.vt_free_mesh(ctypes.byref(blob))
+    return tuple(out)
+
+
+def obj_key(vi, ti, ni):
+    """The OBJ parser's vertex-cache key of a 0-based index triple (-1 for
+    an absent vt / vn): two 64-bit words."""
+    out = (ctypes.c_uint64 * 2)()
+    _library().vt_obj_key(vi, ti, ni, out)
+    return tuple(out)
+
+
+def jpeg_decode_scan(data, start, comps, planes, bits, vals, mcux, mcuy,
+                     restart):
+    """Huffman-decode one sequential JPEG scan (`csrc/jpeg_huff.cpp`).
+    data: the file's bytes, the scan's data from `start`; comps: int32
+    [n, 7] rows (DC table, AC table, h, v, blocks a plane row, blocks wide
+    and high for a one-component scan); planes: each component's int16
+    [rows, blocks a row, 64] coefficients, written in place; bits uint8
+    [8, 16], vals uint8 [8, 256]: the DC tables 0-3 then the AC tables.
+    Returns the offset in `data` of the marker that ends the scan."""
+    buf = np.frombuffer(data, np.uint8)
+    comps = np.ascontiguousarray(comps, np.int32)
+    bits = np.ascontiguousarray(bits, np.uint8)
+    vals = np.ascontiguousarray(vals, np.uint8)
+    for p in planes:
+        if p.dtype != np.int16 or not p.flags.c_contiguous or p.shape[-1] != 64:
+            raise ValueError("coefficient planes must be C-contiguous int16 "
+                             "[rows, cols, 64]")
+    if comps.shape != (len(planes), 7):
+        raise ValueError("one [7] row a component")
+    ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
+    rc = _library().vt_jpeg_decode_scan(
+        buf.ctypes.data + start, len(buf) - start, len(planes),
+        comps.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data,
+        mcux, mcuy, restart)
+    if rc < 0:
+        raise ValueError({-1: "corrupt JPEG data: a bad Huffman code",
+                          -2: "corrupt JPEG Huffman table",
+                          -3: "corrupt JPEG data: a restart marker is "
+                              "missing"}[rc])
+    return start + rc
 
 
 def _run(fn, inputs, n, max_leaf):

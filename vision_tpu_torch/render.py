@@ -3,8 +3,8 @@
 Counterpart of `vision_tpu/render.py`: regeneration-wavefront passes of up to
 WAVE_CHUNK samples, accumulated into a running-average film, then tonemap +
 gamma for output; adaptive sampling between passes (`render_adaptive`);
-the light-field frame buffer (`render_light_field`); PNG and OpenEXR
-output.
+the light-field frame buffer (`render_light_field`); one sample per pixel
+(`_render_pass`, the SDK's progressive pass); PNG and OpenEXR output.
 """
 from __future__ import annotations
 
@@ -22,6 +22,15 @@ from .sensor import light_field as lf
 # samples folded into one regeneration wavefront per pass (the JAX
 # package's dense-path chunk)
 WAVE_CHUNK = 32
+
+
+def _render_pass(scene_data, camera, filt, frame_index, max_depth, min_depth,
+                 rr_threshold):
+    """One sample per pixel of frame `frame_index`: (radiance [H, W, 3],
+    aovs)."""
+    return pt.render_sample(scene_data, camera, filt, frame_index,
+                            max_depth=max_depth, min_depth=min_depth,
+                            rr_threshold=rr_threshold)
 
 
 def _accumulate(scene, camera, spp, verbose, stats, label="spp"):

@@ -1,5 +1,6 @@
 """Image files without PIL, OpenCV or OpenEXR: the standard library's zlib
-and struct, and numpy.
+and struct, numpy, and the port's host library (`native.py`) for JPEG's
+entropy decoding.
 
 The JAX package reads PNG and JPEG through PIL and Radiance .hdr and
 OpenEXR through OpenCV (`vision_tpu/scene/texture.py` `load_image`). This
@@ -20,11 +21,16 @@ module decodes what those libraries give for the files a scene names:
     ZIPS and ZIP, HALF and FLOAT channels; R, G, B (A dropped) or Y
     (replicated). PIZ and the other compressions, tiled, deep and
     multi-part files raise NotImplementedError.
+  * JPEG (`read_jpeg`): baseline and extended sequential Huffman files
+    of 8-bit samples, 1 (grey) or 3 (YCbCr) components, any sampling
+    factors, restart intervals, any size; decoded as PIL (libjpeg-turbo)
+    decodes them, in libjpeg's integer arithmetic: the ISLOW IDCT
+    (`jidctint.c`), "fancy" triangle-filter upsampling of h2v1, h1v2 and
+    h2v2 chroma (`jdsample.c`), the YCbCr -> RGB tables (`jdcolor.c`).
+    Progressive, arithmetic-coded, lossless, 12-bit, CMYK and Adobe
+    (APP14) files raise NotImplementedError naming ROADMAP queue A, 7c.
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
-
-JPEG raises NotImplementedError: a baseline JPEG decoder is ROADMAP queue
-A, slice 7b.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from .. import native
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -58,11 +66,11 @@ def read_image(path):
     if len(data) >= 4 and struct.unpack("<i", data[:4])[0] == EXR_MAGIC:
         return read_exr(data), "hdr"
     if data[:3] == b"\xff\xd8\xff":
-        raise _not_ported(f"decoding the JPEG '{os.path.basename(path)}' "
-                          "(a baseline JPEG decoder)", "7b")
+        return read_jpeg(data), "ldr"
     raise NotImplementedError(
-        f"'{os.path.basename(path)}': not a PNG, Radiance .hdr or OpenEXR "
-        "file; no other image format is decoded")
+        f"'{os.path.basename(path)}': not a PNG, JPEG, Radiance .hdr or "
+        "OpenEXR file: other formats (BMP, TGA, TIFF, ...) are ROADMAP "
+        "queue A, 7c")
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +161,270 @@ def read_png(data):
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
+
+
+# ---------------------------------------------------------------------------
+# JPEG (baseline and extended sequential Huffman, 8-bit samples)
+# ---------------------------------------------------------------------------
+
+def _jpeg_7c(what):
+    return _not_ported(f"decoding {what} JPEG files", "7c")
+
+
+# libjpeg's ISLOW IDCT constants (jidctint.c): FIX(x) = round(x * 2^13)
+_CONST_BITS, _PASS1_BITS = 13, 2
+(_F0298, _F0390, _F0541, _F0765, _F0899, _F1175, _F1501, _F1847, _F1961,
+ _F2053, _F2562, _F3072) = (2446, 3196, 4433, 6270, 7373, 9633, 12299, 15137,
+                            16069, 16819, 20995, 25172)
+
+
+def _idct_1d(x, n):
+    """One pass of the ISLOW IDCT over x[0..7] (int64 arrays), descaled by
+    n bits with rounding: the eight outputs."""
+    z1 = (x[2] + x[6]) * _F0541
+    tmp2 = z1 - x[6] * _F1847
+    tmp3 = z1 + x[2] * _F0765
+    tmp0 = (x[0] + x[4]) << _CONST_BITS
+    tmp1 = (x[0] - x[4]) << _CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * _F1175
+    t0, t1, t2, t3 = t0 * _F0298, t1 * _F2053, t2 * _F3072, t3 * _F1501
+    z1, z2 = z1 * -_F0899, z2 * -_F2562
+    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    r = 1 << (n - 1)
+    return [(tmp10 + t3 + r) >> n, (tmp11 + t2 + r) >> n,
+            (tmp12 + t1 + r) >> n, (tmp13 + t0 + r) >> n,
+            (tmp13 - t0 + r) >> n, (tmp12 - t1 + r) >> n,
+            (tmp11 - t2 + r) >> n, (tmp10 - t3 + r) >> n]
+
+
+def _idct_islow(coef, q):
+    """libjpeg's jpeg_idct_islow on every block at once: coef int16
+    [..., 64] in natural order, q the quantisation table [64] -> uint8
+    [..., 8, 8] samples. Columns first, then rows, in int64 (libjpeg's
+    JLONG); libjpeg's zero-AC shortcuts give the same numbers. The output
+    wraps as libjpeg's range-limit table does (mod 1024 around the
+    centre, then clamped)."""
+    c = coef.reshape(-1, 8, 8).astype(np.int64) * q.reshape(8, 8).astype(np.int64)
+    ws = np.stack(_idct_1d([c[:, k, :] for k in range(8)],
+                           _CONST_BITS - _PASS1_BITS), 1)        # [B, row, col]
+    out = np.stack(_idct_1d([ws[:, :, k] for k in range(8)],
+                            _CONST_BITS + _PASS1_BITS + 3), 2)
+    out = np.clip(((out + 512) & 1023) - 384, 0, 255).astype(np.uint8)
+    return out.reshape(coef.shape[:-1] + (8, 8))
+
+
+def _edge(plane, h, w):
+    """plane[:h, :w] with its last row and column repeated once more on
+    each side (libjpeg's context rows and edge columns)."""
+    p = plane[:h, :w].astype(np.int32)
+    return np.pad(p, 1, mode="edge")
+
+
+def _fancy_h(p):
+    """libjpeg's h2v1 fancy upsampling of the padded rows p [h, w + 2]:
+    3/4 of the nearer sample and 1/4 of the further, biased 1 and 2."""
+    c = 3 * p[:, 1:-1]
+    out = np.empty((p.shape[0], 2 * (p.shape[1] - 2)), np.int32)
+    out[:, 0::2] = (c + p[:, :-2] + 1) >> 2
+    out[:, 1::2] = (c + p[:, 2:] + 2) >> 2
+    return out
+
+
+def _upsample(plane, h, w, fy, fx):
+    """A component's samples plane[:h, :w] upsampled by (fy, fx) as
+    libjpeg-turbo's jdsample.c does with fancy upsampling on: h2v1 and
+    h2v2 by triangle filters when the component is more than 2 samples
+    wide, h1v2 always, any other integral factor (and h2v1 / h2v2 of a
+    component at most 2 wide) by replication."""
+    if (fy, fx) == (1, 1):
+        return plane[:h, :w]
+    if (fy, fx) == (1, 2) and w > 2:
+        return _fancy_h(_edge(plane, h, w)[1:-1])
+    if (fy, fx) in ((2, 1), (2, 2)) and (fx == 1 or w > 2):
+        p = _edge(plane, h, w)
+        c = 3 * p[1:-1]
+        up, down = c + p[:-2], c + p[2:]   # column sums for rows 2y, 2y + 1
+        if fx == 1:
+            out = np.empty((2 * h, p.shape[1]), np.int32)
+            out[0::2], out[1::2] = (up + 1) >> 2, (down + 2) >> 2
+            return out[:, 1:-1]
+        out = np.empty((2 * h, 2 * w), np.int32)
+        for rows, s in ((slice(0, None, 2), up), (slice(1, None, 2), down)):
+            cs = 3 * s[:, 1:-1]
+            out[rows, 0::2] = (cs + s[:, :-2] + 8) >> 4
+            out[rows, 1::2] = (cs + s[:, 2:] + 7) >> 4
+        return out
+    return np.repeat(np.repeat(plane[:h, :w], fy, 0), fx, 1)
+
+
+def _ycc_to_rgb(y, cb, cr):
+    """libjpeg's ycc_rgb_convert: its fixed-point tables (16 bits)."""
+    x = np.arange(256, dtype=np.int64) - 128
+    half = 1 << 15
+
+    def fix(v):
+        return int(v * 65536 + 0.5)
+
+    cr_r = (fix(1.40200) * x + half) >> 16
+    cb_b = (fix(1.77200) * x + half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + half
+    y = y.astype(np.int64)
+    cb, cr = cb.astype(np.intp), cr.astype(np.intp)
+    r = y + cr_r[cr]
+    g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = y + cb_b[cb]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def read_jpeg(data):
+    """JPEG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them
+    (grey replicated to three channels). Raises NotImplementedError (7c)
+    for progressive, arithmetic-coded, lossless or hierarchical files, for
+    12-bit samples, and for CMYK or Adobe (APP14) files; ValueError for a
+    corrupt file."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("not a JPEG file")
+    qt = {}
+    huff_bits = np.zeros((8, 16), np.uint8)
+    huff_vals = np.zeros((8, 256), np.uint8)
+    frame, comps, planes, latched = None, None, None, {}
+    restart, jfif = 0, False
+    pos = 2
+    while True:
+        while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
+                and data[pos + 1] == 0xFF:
+            pos += 1  # fill bytes before a marker
+        if pos + 2 > len(data) or data[pos] != 0xFF:
+            raise ValueError("corrupt JPEG: expected a marker")
+        marker = data[pos + 1]
+        if marker == 0xD9:  # EOI
+            break
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            pos += 2
+            continue
+        n, = struct.unpack(">H", data[pos + 2:pos + 4])
+        body = data[pos + 4:pos + 2 + n]
+        if len(body) != n - 2:
+            raise ValueError("truncated JPEG segment")
+        pos += 2 + n
+        if marker == 0xE0 and body[:5] == b"JFIF\0":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe":
+            raise _jpeg_7c("Adobe (APP14: CMYK, YCCK or RGB)")
+        elif marker == 0xDB:  # DQT
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                size = 128 if pq else 64
+                zz = np.frombuffer(body, ">u2" if pq else "u1", 64, i + 1)
+                q = np.empty(64, np.int64)
+                q[_ZIGZAG] = zz
+                qt[tq] = q
+                i += 1 + size
+        elif marker == 0xC4:  # DHT
+            i = 0
+            while i < len(body):
+                tc, th = body[i] >> 4, body[i] & 15
+                if tc > 1 or th > 3:
+                    raise ValueError("corrupt JPEG Huffman table id")
+                bits = np.frombuffer(body, np.uint8, 16, i + 1)
+                nv = int(bits.sum())
+                if nv > 256:
+                    raise ValueError("corrupt JPEG Huffman table")
+                huff_bits[4 * tc + th] = bits
+                huff_vals[4 * tc + th] = 0
+                huff_vals[4 * tc + th, :nv] = np.frombuffer(body, np.uint8, nv,
+                                                             i + 17)
+                i += 17 + nv
+        elif marker == 0xDD:  # DRI
+            restart, = struct.unpack(">H", body[:2])
+        elif marker in (0xC0, 0xC1):  # SOF0 / SOF1: sequential Huffman
+            prec, H, W, nc = struct.unpack(">BHHB", body[:6])
+            if prec != 8:
+                raise _jpeg_7c(f"{prec}-bit")
+            if nc not in (1, 3):
+                raise _jpeg_7c(f"{nc}-component (CMYK)" if nc == 4
+                               else f"{nc}-component")
+            if H == 0 or W == 0:
+                raise ValueError("JPEG without a height or width (DNL)")
+            comps = [dict(id=body[6 + 3 * k], h=body[7 + 3 * k] >> 4,
+                          v=body[7 + 3 * k] & 15, tq=body[8 + 3 * k])
+                     for k in range(nc)]
+            hmax = max(c["h"] for c in comps)
+            vmax = max(c["v"] for c in comps)
+            mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+            for c in comps:
+                c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
+                c["w"] = -(-W * c["h"] // hmax)
+                c["h_px"] = -(-H * c["v"] // vmax)
+            planes = [np.zeros((c["bh"], c["bw"], 64), np.int16) for c in comps]
+            frame = (H, W, hmax, vmax, mcux, mcuy)
+        elif 0xC2 <= marker <= 0xCF and marker != 0xC4:
+            raise _jpeg_7c({0xC2: "progressive", 0xC3: "lossless",
+                            0xC8: "JPEG-extension"}.get(
+                marker, "arithmetic-coded" if marker >= 0xC9
+                else "hierarchical"))
+        elif marker == 0xDA:  # SOS
+            if frame is None:
+                raise ValueError("JPEG scan before its frame header")
+            ns = body[0]
+            rows, sel = [], []
+            for k in range(ns):
+                cid, tables = body[1 + 2 * k], body[2 + 2 * k]
+                ci = next((j for j, c in enumerate(comps) if c["id"] == cid),
+                          None)
+                if ci is None or tables >> 4 > 3 or tables & 15 > 3:
+                    raise ValueError("corrupt JPEG scan header")
+                c = comps[ci]
+                if ci not in latched:  # libjpeg latches a table at its scan
+                    if c["tq"] not in qt:
+                        raise ValueError("JPEG quantisation table missing")
+                    latched[ci] = qt[c["tq"]].copy()
+                sel.append(ci)
+                rows.append([tables >> 4, tables & 15, c["h"], c["v"], c["bw"],
+                             -(-c["w"] // 8), -(-c["h_px"] // 8)])
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+            if (ss, se, a) != (0, 63, 0):
+                raise _jpeg_7c("progressive")
+            pos = native.jpeg_decode_scan(
+                data, pos, np.asarray(rows, np.int32), [planes[i] for i in sel],
+                huff_bits, huff_vals, frame[4], frame[5], restart)
+    if frame is None:
+        raise ValueError("JPEG without a frame header")
+    H, W, hmax, vmax = frame[:4]
+    out = []
+    for ci, c in enumerate(comps):
+        if ci not in latched:
+            raise ValueError("JPEG component without a scan")
+        blocks = _idct_islow(planes[ci], latched[ci])       # [bh, bw, 8, 8]
+        px = blocks.transpose(0, 2, 1, 3).reshape(c["bh"] * 8, c["bw"] * 8)
+        if vmax % c["v"] or hmax % c["h"]:
+            raise _jpeg_7c("fractionally sampled")
+        up = _upsample(px, c["h_px"], c["w"], vmax // c["v"], hmax // c["h"])
+        out.append(up[:H, :W])
+    if len(comps) == 1:
+        return np.repeat(out[0][..., None].astype(np.uint8), 3, axis=-1)
+    ids = [c["id"] for c in comps]
+    if not jfif and ids == [82, 71, 66]:
+        raise _jpeg_7c("RGB (unconverted)")
+    return _ycc_to_rgb(*out)
+
+
+# zig-zag position k -> natural (row-major) index
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Scene: JSON description -> flat SceneData of tensors on one device.
 
 Counterpart of `vision_tpu/scene/scene.py` (`_build`, `_add_light`,
-`_flatten`, `_pack_rows`, `_build_instanced`, `_build_device_geometry`) for
-the ported subset: procedural shapes (quad, cube, sphere), every material
+`_flatten`, `_pack_rows`, `_build_instanced`, `_build_device_geometry`):
+procedural shapes (quad, cube, sphere) and mesh files (the `model` shape:
+OBJ, PLY, STL, glTF; `shapes.py`, `gltf.py`), whole glTF / GLB scenes
+(`Scene("x.glb")`, imported by `gltf.load_gltf_scene`), every material
 type of `shading/materials.py`, area emission (on a shape or as a
 standalone area light), point, spot, projector, spherical and directional
 lights, the srgb and hero spectra (`spectrum.type`, `param.dimension`),
@@ -12,13 +14,16 @@ the global medium; a subsurface material's interior medium; the camera in
 the global medium), images (textured and node-graph material slots, normal
 maps, textured emission, projector images, spherical environment maps and
 the `mix` environment, which blends two maps at load time, all packed into
-one texture atlas; `scene/imageio.py` decodes PNG, Radiance .hdr and
-OpenEXR), IES profiles on spot and projector lights, and the normal and
-light-field frame buffers (`framebuffer_type`, `lf_grid`). An image that
-cannot be read takes its slot's default with a warning, as in the JAX
-package; a spherical light whose image is missing, in a scene with no
-other light, becomes the JAX package's substitute: a unit sky in the
-light's frame. Geometry takes the path the JAX package gives it:
+one texture atlas; `scene/imageio.py` decodes PNG, baseline JPEG,
+Radiance .hdr and OpenEXR), IES profiles on spot and projector lights, and
+the normal and light-field frame buffers (`framebuffer_type`, `lf_grid`).
+A mesh file that cannot be read skips its shape with a warning, and an
+image that cannot be read takes its slot's default with a warning, as in
+the JAX package; a spherical light whose image is missing, in a scene with
+no other light, becomes the JAX package's substitute: a unit sky in the
+light's frame. Identical geometry (the same procedural parameters, the
+same file, node and primitive) loads once. Geometry takes the path the
+JAX package gives it:
 
   * at most 2048 triangles: the dense sweep (kernel K1);
   * more: a SAH BVH over the flat soup (`pbvh`, kernel K2);
@@ -28,9 +33,9 @@ light's frame. Geometry takes the path the JAX package gives it:
     (`ipbvh`, kernel K3). VT_INSTANCING=0 turns this off, as it does in
     the JAX package.
 
-Every other feature (mesh files, JPEG images) raises NotImplementedError
-naming the ROADMAP slice that brings it, so a scene never quietly takes a
-path the JAX package would not take.
+A feature outside the ported slices raises NotImplementedError naming the
+ROADMAP slice that brings it, so a scene never quietly takes a path the
+JAX package would not take.
 """
 from __future__ import annotations
 
@@ -57,14 +62,10 @@ from ..shading.shader_graph import SlotValue
 from ..spectra.spectrum import SpectrumModel
 from . import desc as dsc
 from . import shapes as shp
+from .gltf import load_gltf_scene
 from .texture import AtlasBuilder, TextureAtlas, load_image
 
 BRUTE_FORCE_MAX_TRIS = 2048
-
-
-def _not_ported(what, slice_):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue A, slice {slice_}")
 
 
 @dataclass
@@ -287,23 +288,28 @@ def _add_light(lights, atlas, ldesc, scene_dir, add_area):
 
 class Scene:
     """Host-side scene container (load + build) on `device`, the card
-    unless the caller asks for another."""
+    unless the caller asks for another. A `.gltf` / `.glb` path imports the
+    whole file (`gltf.load_gltf_scene`); any other path is scene JSON(C).
+    `meshes` are TriMesh objects for the shapes of type `__sdk__`, the
+    i-th such shape taking meshes[i] (the SDK's way in)."""
 
-    def __init__(self, path_or_dict, device="cuda", scene_dir=None):
+    def __init__(self, path_or_dict, device="cuda", scene_dir=None,
+                 meshes=()):
         if isinstance(path_or_dict, (str, os.PathLike)):
             p = os.fspath(path_or_dict)
             if p.lower().endswith((".gltf", ".glb")):
-                raise _not_ported("glTF scene import", 7)
-            raw = dsc.load_jsonc(p)
+                raw = load_gltf_scene(p)
+            else:
+                raw = dsc.load_jsonc(p)
             self.scene_dir = scene_dir or os.path.dirname(os.path.abspath(p))
         else:
             raw = path_or_dict
             self.scene_dir = scene_dir or "."
         self.raw = raw
         self.device = torch.device(device)
-        self._build()
+        self._build(list(meshes))
 
-    def _build(self):
+    def _build(self, sdk_meshes):
         raw, device = self.raw, self.device
         atlas = AtlasBuilder()
         mats = MaterialCompiler(atlas, self.scene_dir)
@@ -340,6 +346,9 @@ class Scene:
         # sub-aperture views (`render.render_light_field`)
         self.framebuffer_type = fb.get("type", "normal")
         self.lf_grid = int(fb.get("param", {}).get("grid", 3))
+        # the pipeline the scene asks for ("fixed", "customized" = the
+        # render graph, "bake"); the CLI's -p overrides it
+        self.pipeline_type = raw.get("pipeline", {}).get("type", "fixed")
         sp_desc = raw.get("spectrum", {})
         sp_type = sp_desc.get("type", "srgb")
         sp_dims = sp_desc.get("param", {}).get("dimension", 3)
@@ -350,19 +359,30 @@ class Scene:
         lights = LightBuilder(sampler_type=ls.get("type", "uniform"),
                               env_prob=ls.get("param", {}).get("env_prob", 0.5))
 
-        # ---- shapes: procedural meshes, hash-dedup registry ----
+        # ---- shapes: the mesh registry (identical geometry loads once); a
+        # mesh file that cannot be read skips its shape ----
         raw_parts = []  # (mesh, o2w, inst_id, geo_key, emission|None)
         inst_mat, inst_light = [], []
         mesh_cache = {}
+        sdk_meshes = iter(sdk_meshes)
         for sdesc in raw.get("shapes", []):
             stype = sdesc.get("type", "quad")
             p = sdesc.get("param", {})
-            key = shp.geometry_key(stype, p)
-            mesh = mesh_cache.get(key)
-            if mesh is None:
-                mesh = shp.make_shape(stype, p)
-                if key is not None:
-                    mesh_cache[key] = mesh
+            key = shp.geometry_key(stype, p, self.scene_dir)
+            try:
+                if stype == "__sdk__":
+                    mesh = next(sdk_meshes, None)
+                    if mesh is None:
+                        raise ValueError("an __sdk__ shape without its mesh")
+                else:
+                    mesh = mesh_cache.get(key)
+                    if mesh is None:
+                        mesh = shp.make_shape(stype, p, self.scene_dir)
+                        if key is not None:
+                            mesh_cache[key] = mesh
+            except (FileNotFoundError, ValueError) as e:
+                warnings.warn(f"skipping shape '{sdesc.get('name')}': {e}")
+                continue
             mat_name = p.get("material")
             if isinstance(mat_name, dict):
                 mid = mats.compile(mat_name)

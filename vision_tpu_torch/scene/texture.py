@@ -1,8 +1,9 @@
 """Texture atlas: all scene images packed into one flat tensor.
 
 Counterpart of `vision_tpu/scene/texture.py`. Image files are decoded by
-`imageio.py` (standard library and numpy; no PIL, no OpenCV) into the
-arrays the JAX package's PIL / OpenCV loader gives, then linearised in its
+`imageio.py` (standard library, numpy and, for JPEG's entropy decoding,
+the port's host library; no PIL, no OpenCV) into the arrays the JAX
+package's PIL / OpenCV loader gives, then linearised in its
 numpy operation order, so both packages build the same atlas bit for bit.
 """
 from __future__ import annotations

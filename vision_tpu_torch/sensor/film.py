@@ -1,7 +1,7 @@
-"""Film post: tonemap, gamma, PNG and OpenEXR output.
+"""Film post: accumulation, tonemap, gamma, PNG and OpenEXR output.
 
-Counterpart of `vision_tpu/sensor/film.py` (linear / ACES Narkowicz /
-Reinhard tone mappers, then linear -> sRGB). The PNG and EXR writers use
+Counterpart of `vision_tpu/sensor/film.py` (the running average, linear /
+ACES Narkowicz / Reinhard tone mappers, then linear -> sRGB). The PNG and EXR writers use
 the standard library's zlib and struct and numpy, nothing else.
 """
 from __future__ import annotations
@@ -13,6 +13,12 @@ import numpy as np
 import torch
 
 from ..scene.imageio import write_exr
+
+
+def accumulate(accum_prev, frame_value, frame_index):
+    """Running average: prev + (new - prev) / (n + 1) for frame n."""
+    a = 1.0 / (frame_index + 1.0)
+    return accum_prev + (frame_value - accum_prev) * a
 
 
 def tonemap(x, mode="linear", exposure=1.0):

@@ -21,8 +21,8 @@ context-dependent node folds to a neutral 1.0 with a warning, as in the
 JAX package.
 
 A slot whose image cannot be read takes the slot's default with a warning,
-as in the JAX package; an image format this package does not decode
-(JPEG) raises NotImplementedError.
+as in the JAX package; an image format this package does not decode (a
+progressive JPEG, BMP, TGA, TIFF: ROADMAP 7c) raises NotImplementedError.
 """
 from __future__ import annotations
 
