@@ -99,6 +99,26 @@ phase, one JSON line each:
     `--denoise` at 128^2, an EXR read back bit for bit; and the SDK
     (`VisionRenderer`) on the OBJ's arrays at 512^2, 16 spp through K2,
     and at 64^2 on the card against the CPU.
+  * the lightmap bake (slice 8b, `phase_bake`): the cbox baked through K1
+    at the CLI's defaults (lightmap 256: 28,463 texel lanes, 16 spp, depth
+    4) and `cbox_sphere(sub_div=40)` (6,276 triangles) through K2 at
+    lightmap 1024 (404,241 lanes), each displayed by `render_baked` at
+    512^2 within (0.3, 3) of the path-traced render's mean; host seconds
+    of the unwrap and rasterization, device seconds of the bake, launches
+    a pass, rays per second; the CLI's `-p bake` to a PNG within one level
+    of the display; the card's lightmap-64 bake against the port's CPU
+    bake (8x8 block error and bias <= 0.01).
+  * distribution (slice 9, `phase_dist`): a world-size-1 NCCL group,
+    `render_sharded` of the cbox at 512^2 bit for bit against the
+    single-process pass, `training_step` against the same step taken in
+    one process (rtol 1e-6 under torch's deterministic algorithms;
+    BASELINE's tolerance in the default mode, whose atomic adds reorder),
+    `measure_weak_scaling(dp_sizes=(1,))` timed. Several ranks are held
+    on the CPU (tests/test_torch_dist.py): one card hosts one NCCL rank.
+  * the utilities (slice 8b, `phase_utils`): `render_resumable` of the
+    cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
+    the uninterrupted run; `scene_memory_stats` of cbox_sphere;
+    `overlay_rays` of 16 pixels at 512^2.
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -1751,6 +1771,381 @@ def phase_meshes(vt, modules, scenes, sphere_img, inst, inst_img, card):
     return per_render
 
 
+BAKE_SPP = 16        # the CLI's default bake (vision_tpu/cli.py:92)
+BAKE_DEPTH = 4       # bake_lightmap's default depth
+BAKE_LM = 256        # the CLI's lightmap width
+BAKE_K2_LM = 1024    # cbox_sphere(sub_div=40): 404,241 lanes through K2
+BAKE_K2_SUBDIV = 40  # 6,276 triangles (> 2048: K2); the chart unwrap is
+                     # quadratic in chart size, out of reach at 261,120
+BAKE_CPU = (64, 4, 2)  # lightmap, spp, depth of the card-vs-CPU bake
+DIST_FRAME = 3
+DIST_DEPTH = 4       # training_step's default depth
+GRAD_GROUPS = ("materials", "lights", "atlas", "camera")
+RESUME_AT = 8        # render_resumable: stopped here, resumed to SPP
+OVERLAY_PIXELS = 16
+
+
+def bake_run(vt, modules, scene, name, lm_res, card, spp=BAKE_SPP,
+             depth=BAKE_DEPTH):
+    """One bake through `bake.bake_scene` with every launch count set to 0
+    just before it and read just after, and its display pass at the
+    scene's resolution the same way. Returns (baked, display image,
+    record)."""
+    from vision_tpu_torch.pipelines import bake
+    torch.cuda.synchronize()
+    zero_counts(modules)
+    st = {}
+    t0 = time.perf_counter()
+    baked = bake.bake_scene(scene.data, lm_res, spp, depth, stats=st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(modules)
+    lm = baked.lm.cpu().numpy()
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    img = bake.render_baked(scene.data, scene.camera, baked).cpu().numpy()
+    disp_s = time.perf_counter() - t0
+    disp_launches = read_counts(modules)
+    rec = dict(phase="bake", scene=name, card=card, lightmap=list(lm.shape[:2]),
+               spp=spp, max_depth=depth,
+               tris=int(scene.data.tri_geom.shape[0]),
+               host_unwrap_rasterize_s=st["host_s"], device_bake_s=st["bake_s"],
+               wall_s=wall, lanes=st["lanes"], nrays=st["nrays"],
+               rays_per_s=st["nrays"] / st["bake_s"],
+               launches=launches,
+               launches_per_pass={k: v / spp for k, v in launches.items()},
+               coverage=float((lm.sum(-1) > 0).mean()),
+               lm_finite=bool(np.isfinite(lm).all()), lm_mean=float(lm.mean()),
+               display_res=list(img.shape[:2]), display_s=disp_s,
+               display_launches=disp_launches,
+               display_mean=float(img.mean()))
+    check(rec["lm_finite"] and bool(np.isfinite(img).all()),
+          f"bake {name}: non-finite values")
+    check(rec["coverage"] > 0.2, f"bake {name}: coverage {rec['coverage']}")
+    return baked, img, rec
+
+
+def phase_bake(vt, modules, scenes, cbox, cbox_img, card):
+    """Slice 8b: the lightmap bake (`pipelines/bake.py`). The cbox baked
+    through K1 at the CLI's defaults (lightmap 256, 16 spp, depth 4) and
+    cbox_sphere(sub_div=40) (6,276 triangles) through K2 at lightmap 1024
+    (404,241 lanes), each displayed by `render_baked` at 512^2, whose mean
+    must be within (0.3, 3) of the path-traced render's; the CLI's
+    `-p bake` on the cbox to a PNG within one level of that display; the
+    cbox bake at lightmap 64, 4 spp, depth 2 on the card against the
+    port's CPU bake (8x8 block error and bias <= 0.01). Returns the launch
+    counts of each bake and display pass."""
+    import tempfile
+    from vision_tpu_torch import cli
+    from vision_tpu_torch.pipelines import bake
+    per_run = {}
+
+    # ---- the cbox through K1 ----
+    _, img, rec = bake_run(vt, modules, cbox, "cbox", BAKE_LM, card)
+    rec["display_vs_render_mean"] = rec["display_mean"] / float(cbox_img.mean())
+    emit(rec)
+    L = rec["launches"]
+    check(L["dense_isect.closest"] > 0 and L["dense_isect.anyhit"] > 0
+          and L["packet_isect.closest"] == 0, f"cbox bake launches {L}")
+    check(rec["display_launches"]["dense_isect.closest"] == 1,
+          f"render_baked launches {rec['display_launches']}")
+    check(0.3 < rec["display_vs_render_mean"] < 3.0,
+          f"cbox baked display against the render {rec}")
+    per_run["bake_cbox"] = L
+    per_run["render_baked_cbox"] = rec["display_launches"]
+    cbox_u8 = postprocess_u8(vt, cbox, torch.as_tensor(img, device=DEV))
+
+    # ---- cbox_sphere(sub_div=40) through K2 ----
+    sph = vt.load_scene(scenes.cbox_sphere(RES, sub_div=BAKE_K2_SUBDIV),
+                        device=DEV)
+    check(sph.data.pbvh is not None, "the sub_div-40 sphere takes the BVH")
+    sph_img, rrec = render(vt, modules, sph, "cbox_sphere_sub40")
+    _, img, rec = bake_run(vt, modules, sph, "cbox_sphere_sub40", BAKE_K2_LM,
+                           card)
+    rec["display_vs_render_mean"] = rec["display_mean"] / float(sph_img.mean())
+    rec["render_wall_s"] = rrec["wall_s"]
+    emit(rec)
+    L = rec["launches"]
+    check(L["packet_isect.closest"] > 0 and L["packet_isect.anyhit"] > 0
+          and L["dense_isect.closest"] == 0, f"cbox_sphere bake launches {L}")
+    check(rec["lanes"] > 262144, f"lanes {rec['lanes']}")
+    check(0.3 < rec["display_vs_render_mean"] < 3.0,
+          f"cbox_sphere baked display against the render {rec}")
+    per_run["bake_cbox_sphere_sub40"] = L
+    per_run["render_baked_cbox_sphere_sub40"] = rec["display_launches"]
+    del sph
+
+    # ---- the CLI's -p bake on the cbox ----
+    fixtures = _load_by_path("cbox_fixtures", "tests/fixtures.py")
+    desc = copy.deepcopy(fixtures.CBOX_JSON)
+    desc["camera"]["param"]["radiance_collector"]["param"]["resolution"] = [
+        RES, RES]
+    with tempfile.TemporaryDirectory() as d:
+        js = os.path.join(d, "cbox.json")
+        with open(js, "w") as f:
+            json.dump(desc, f)
+        out = os.path.join(d, "bake.png")
+        zero_counts(modules)
+        t0 = time.perf_counter()
+        check(cli.main(["-s", js, "-o", out, "-p", "bake", "-d", DEV,
+                        "-q"]) == 0,
+              "cli -p bake")
+        wall = time.perf_counter() - t0
+        launches = read_counts(modules)
+        png = read_png(out).astype(np.int32)
+    rec = dict(phase="cli", run="-p bake", res=list(png.shape[:2]),
+               wall_s=wall, launches=launches,
+               max_level_diff=int(np.abs(png - cbox_u8).max()))
+    emit(rec)
+    check(png.shape == (RES, RES, 3) and rec["max_level_diff"] <= 1
+          and launches["dense_isect.closest"] > 0, f"cli -p bake {rec}")
+    per_run["cli_bake_cbox"] = launches
+
+    # ---- the card's bake against the CPU's ----
+    lm_res, spp, depth = BAKE_CPU
+    lms = [bake.bake_lightmap(vt.load_scene(desc, device=dev).data, lm_res,
+                              spp, depth)[0] for dev in (DEV, "cpu")]
+    werr, bias = block_err(lms[0], lms[1])
+    off = (np.abs(lms[0] - lms[1]) > 1e-4 + 1e-3 * np.abs(lms[1])).any(-1)
+    rec = dict(phase="bake", scene="cbox card vs cpu", lightmap=lm_res,
+               spp=spp, max_depth=depth, vs_cpu_werr=werr, vs_cpu_bias=bias,
+               parted_texel_share=float(off.mean()))
+    emit(rec)
+    check(werr <= SKY_WERR and abs(bias) <= SKY_WERR,
+          f"the bake on the card vs the CPU {rec}")
+    return per_run
+
+
+def single_step(vt_pt, opt, data, camera, target, depth):
+    """The world-1 training step's loss and gradients in one process, the
+    way the gradient path takes them: `param_surface` leaves through
+    `apply_params`, pixel centres, seeds (pixel, frame), `pt.radiance` with
+    each bounce checkpointed, torch autograd."""
+    from vision_tpu_torch.core import rng
+    params = grad_leaves(opt, data, camera, {g: None for g in GRAD_GROUPS})
+    sc, cam = opt.apply_params(data, camera, params)
+    W, H = cam.resolution
+    pix = torch.arange(W * H, device=DEV)
+    p = torch.stack([(pix % W).float() + 0.5, (pix // W).float() + 0.5], -1)
+    L, _ = vt_pt.radiance(sc, cam.generate_ray(p), rng.seed(pix, DIST_FRAME),
+                          depth, 0, 1.0, remat=True)
+    diff = L - target.reshape(-1, 3)
+    loss = torch.mean(diff * diff)
+    leaves = flat_leaves(params)
+    grads = torch.autograd.grad(loss, [v for _, v in leaves],
+                                allow_unused=True)
+    return float(loss.detach()), {k: (torch.zeros_like(v) if g is None else g)
+                         for (k, v), g in zip(leaves, grads)}
+
+
+def phase_dist(vt, modules, vt_pt, cbox, card):
+    """Slice 9 on one card: a world-size-1 NCCL process group (file://
+    rendezvous), `render_sharded` of the cbox at 512^2 bit for bit against
+    the single-process pass of the same seeds, `training_step` (all four
+    groups, depth 4) against the same loss and gradients taken in one
+    process (under torch's deterministic algorithms within rtol 1e-6; in
+    the default mode, whose atomic adds reorder between runs, at
+    BASELINE's rtol 1e-3, atol 1e-3 max|g|, with the spread of two
+    single-process steps beside it), `measure_weak_scaling(dp_sizes=(1,))`
+    timed. Several
+    ranks are held on the CPU with gloo (tests/test_torch_dist.py): one
+    H100 cannot host two NCCL ranks. Returns the launch counts of the
+    sharded render and step."""
+    import tempfile
+    import torch.distributed as tdist
+    from vision_tpu_torch.diff import optimize as opt
+    from vision_tpu_torch.parallel import dist, launch
+    per_run = {}
+    d = tempfile.mkdtemp()
+    check(launch.init_distributed("file://" + os.path.join(d, "rendezvous"),
+                                  world_size=1, rank=0, device=DEV),
+          "init_distributed")
+    try:
+        backend = tdist.get_backend()
+        mesh = dist.make_mesh(sp=1)
+        data, cam, filt = cbox.data, cbox.camera, cbox.filter
+        ref, _ = vt_pt.render_sample(data, cam, filt, DIST_FRAME, max_depth=8)
+        dist.render_sharded(data, cam, filt, DIST_FRAME, mesh, max_depth=8)
+        torch.cuda.synchronize()
+        zero_counts(modules)
+        t0 = time.perf_counter()
+        img = dist.render_sharded(data, cam, filt, DIST_FRAME, mesh,
+                                  max_depth=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(modules)
+        rec = dict(phase="dist", run="render_sharded", backend=backend,
+                   world=tdist.get_world_size(), card=card, res=RES,
+                   max_depth=8, wall_s=wall, launches=launches,
+                   bit_equal=bool(torch.equal(img, ref)),
+                   max_abs_diff=float((img - ref).abs().max()))
+        emit(rec)
+        check(backend == "nccl" and rec["bit_equal"]
+              and launches["dense_isect.closest"] > 0,
+              f"render_sharded against the single-process pass {rec}")
+        per_run["render_sharded_cbox"] = launches
+
+        target = torch.as_tensor(np.random.default_rng(SEED).random(
+            (RES, RES, 3)).astype(np.float32), device=DEV)
+
+        def step():
+            return dist.training_step(data, cam, filt, DIST_FRAME, mesh,
+                                      target, max_depth=DIST_DEPTH,
+                                      groups=GRAD_GROUPS)
+
+        def single():
+            return single_step(vt_pt, opt, data, cam, target, DIST_DEPTH)
+
+        step()  # warm-up: the first all-reduce over the whole group
+        torch.cuda.synchronize()
+        zero_counts(modules)
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(modules)
+        ref_loss, ref_grads = single()
+        _, ref2_grads = single()
+        # the backward's index_add_ adds with atomics on the card, in the
+        # order they land: the same step twice differs in the last bits.
+        # Under torch's deterministic algorithms both take the sorted
+        # adds, and the step must equal the single-process one within
+        # rtol 1e-6; in the default mode the run-to-run spread is
+        # reported and the step held at BASELINE's gradient tolerance.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            det_loss, det_grads = step()
+            det_ref_loss, det_ref_grads = single()
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+        def worst(got, want, rtol, arel):
+            """(largest |a - b| / (rtol |b| + arel max|b|) over the leaves
+            {name: tensor}, the leaves past 1)."""
+            top, parted = 0.0, []
+            for k, b in want.items():
+                tol = rtol * b.abs() + arel * float(b.abs().max())
+                r = float(((got[k] - b).abs() / tol.clamp_min(1e-38)).max())
+                top = max(top, r)
+                if r > 1.0:
+                    parted.append(k)
+            return top, parted
+
+        def by_name(nested):
+            return {f"{g}.{k}": v for g, d in nested.items()
+                    for k, v in d.items()}
+
+        spread, _ = worst(ref2_grads, ref_grads, 1e-6, 1e-6)
+        default_r, default_parted = worst(by_name(grads), ref_grads, 1e-3,
+                                          1e-3)
+        default_r6, _ = worst(by_name(grads), ref_grads, 1e-6, 1e-6)
+        det_r, det_parted = worst(by_name(det_grads), det_ref_grads, 1e-6,
+                                  0.0)
+        rec = dict(phase="dist", run="training_step", backend=backend,
+                   res=RES, max_depth=DIST_DEPTH, groups=list(GRAD_GROUPS),
+                   wall_s=wall, launches=launches, loss=float(loss),
+                   single_process_loss=ref_loss,
+                   loss_rel_diff=abs(float(loss) - ref_loss) / ref_loss,
+                   default_vs_single_over_rtol1e3=default_r,
+                   default_vs_single_over_rtol1e6=default_r6,
+                   single_vs_single_over_rtol1e6=spread,
+                   deterministic_loss_rel_diff=abs(
+                       float(det_loss) - det_ref_loss) / det_ref_loss,
+                   deterministic_vs_single_over_rtol1e6=det_r,
+                   deterministic_leaves_parted=det_parted)
+        emit(rec)
+        check(rec["loss_rel_diff"] <= 1e-6 and not default_parted,
+              f"training_step against the single-process step {rec}")
+        check(rec["deterministic_loss_rel_diff"] <= 1e-6 and not det_parted,
+              f"deterministic training_step against the single-process "
+              f"step {rec}")
+        per_run["training_step_cbox"] = launches
+
+        t0 = time.perf_counter()
+        times = launch.measure_weak_scaling(data, cam, filt, dp_sizes=(1,),
+                                            pixels_per_chip=RES * RES,
+                                            max_depth=8, iters=3)
+        rec = dict(phase="dist", run="measure_weak_scaling", backend=backend,
+                   pixels_per_rank=RES * RES, max_depth=8, iters=3,
+                   seconds_per_pass=times,
+                   wall_s=time.perf_counter() - t0)
+        emit(rec)
+        check(set(times) == {1} and times[1] > 0, f"weak scaling {rec}")
+    finally:
+        tdist.destroy_process_group()
+    return per_run
+
+
+def phase_utils(vt, modules, cbox, sphere, cbox_img, card):
+    """The utilities of slice 8b on the card: `render_resumable` of the cbox
+    at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against the
+    uninterrupted run; `scene_memory_stats` of cbox_sphere (261,156
+    triangles) beside the card's own count; `validate_radiance` of the cbox
+    render; `overlay_rays` of 16 pixels at 512^2. Returns the launch counts
+    of the resumed half and the overlay."""
+    import tempfile
+    from vision_tpu_torch.sensor import visualizer as vz
+    from vision_tpu_torch.utils import checkpoint as ck
+    from vision_tpu_torch.utils import debug as dbg
+    per_run = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        full = ck.render_resumable(cbox, SPP, os.path.join(d, "a.npz"),
+                                   checkpoint_every=SPP)
+        full_s = time.perf_counter() - t0
+        part = os.path.join(d, "b.npz")
+        ck.render_resumable(cbox, RESUME_AT, part, checkpoint_every=RESUME_AT)
+        zero_counts(modules)
+        t0 = time.perf_counter()
+        resumed = ck.render_resumable(cbox, SPP, part,
+                                      checkpoint_every=RESUME_AT)
+        resume_s = time.perf_counter() - t0
+        launches = read_counts(modules)
+        ckpt_bytes = os.path.getsize(part)
+    ok, counts = dbg.validate_radiance(full)
+    rec = dict(phase="utils", run="render_resumable", res=RES, spp=SPP,
+               stopped_at=RESUME_AT, full_s=full_s, resumed_half_s=resume_s,
+               checkpoint_bytes=ckpt_bytes, launches=launches,
+               bit_equal=bool(np.array_equal(full, resumed)),
+               validate_radiance=counts,
+               vs_render_werr=block_err(full, cbox_img)[0])
+    emit(rec)
+    check(rec["bit_equal"] and ok and launches["dense_isect.closest"] > 0,
+          f"render_resumable {rec}")
+    per_run["render_resumable_cbox_second_half"] = launches
+
+    st = dbg.scene_memory_stats(sphere.data)
+    top = sorted((v, k) for k, v in st.items() if k != "TOTAL")[-5:]
+    rec = dict(phase="utils", run="scene_memory_stats", scene="cbox_sphere",
+               tris=int(sphere.data.tri_geom.shape[0]), total_bytes=st["TOTAL"],
+               largest={k: v for v, k in reversed(top)},
+               entries=len(st) - 1)
+    emit(rec)
+    check(st["TOTAL"] > st["tri_pack"] > 0 and any(
+        k.startswith("pbvh.") for k in st), f"memory stats {rec}")
+
+    W, H = cbox.camera.resolution
+    pix = np.random.default_rng(SEED).choice(W * H, OVERLAY_PIXELS,
+                                             replace=False)
+    base = np.zeros((H, W, 3), np.float32)
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    over = vz.overlay_rays(base.copy(), cbox.data, cbox.camera, pix,
+                           max_depth=3)
+    wall = time.perf_counter() - t0
+    launches = read_counts(modules)
+    rec = dict(phase="utils", run="overlay_rays", res=RES,
+               pixels=OVERLAY_PIXELS, max_depth=3, wall_s=wall,
+               drawn_pixels=int((over != base).any(-1).sum()),
+               launches=launches)
+    emit(rec)
+    check(rec["drawn_pixels"] > 0 and launches["dense_isect.closest"] > 0,
+          f"overlay_rays {rec}")
+    per_run["overlay_rays_cbox"] = launches
+    return per_run
+
+
 def postprocess_u8(vt, scene, hdr):
     """The 8-bit image `film.to_png` writes of a render."""
     img = vt.postprocess(scene, hdr).cpu().numpy()
@@ -1844,6 +2239,7 @@ def main():
 
     # ---- the cornell box, 512^2, depth 8, 16 spp, through K1 ----
     img, rec = render(vt, [di, pi], scene, "cbox")
+    cbox_img = img
     rec["golden_werr"], rec["golden_bias"] = vs_golden(
         img, "tests/goldens/cbox_hdr.npz")
     emit(rec)
@@ -1929,6 +2325,11 @@ def main():
     # ---- slices 7, 7b, 8a: mesh files, glTF, JPEG, the CLI and the SDK ----
     per_render.update(phase_meshes(vt, [di, pi], scenes, sphere_img, inst,
                                    img_i, smi))
+
+    # ---- slices 8b and 9: the bake, distribution, the utilities ----
+    per_render.update(phase_bake(vt, [di, pi], scenes, scene, cbox_img, smi))
+    per_render.update(phase_dist(vt, [di, pi], vt_pt, scene, smi))
+    per_render.update(phase_utils(vt, [di, pi], scene, sphere, cbox_img, smi))
 
     # ---- the kernel table ----
     def worst(recs, keys):

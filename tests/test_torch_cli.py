@@ -1,8 +1,8 @@
 """The port's entry points (`vision_tpu_torch/cli.py`, `pipelines/graph.py`,
 `sdk.py`) against the JAX package's on the CPU: `cli.main(... -d cpu)`
 against `vision_tpu.cli.main` on the same 16^2 cbox, PNG for PNG, for the
-fixed, graph and realtime pipelines and --denoise; the EXR output; the
-options that raise (-p bake, --distributed); --clear-cache; the render
+fixed, graph, realtime and bake pipelines and --denoise; the EXR
+output; --distributed without a process group; --clear-cache; the render
 graph's order and errors; and `VisionRenderer` against the JAX SDK."""
 import inspect
 import json
@@ -78,19 +78,52 @@ def test_cli_exr_is_the_render(tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
+def _both_clis(tmp_path, scene, args):
+    """Both command lines on `scene` with `args`: for each, the PNG it
+    wrote (as int32) or the SystemExit it raised."""
+    out = []
+    for main, name in ((tcli.main, "t.png"), (jcli.main, "j.png")):
+        path = str(tmp_path / name)
+        try:
+            assert main(["-s", scene, "-o", path, "-d", "cpu", "-q"]
+                        + args) == 0
+            out.append(_png(path))
+        except SystemExit as e:
+            out.append(e)
+    return out
+
+
 @pytest.mark.parametrize("args,where", [
-    (["-p", "bake"], "slice 8b"), (["--distributed"], "slice 9")])
-def test_cli_out_of_slice_raises(tmp_path, args, where):
-    with pytest.raises(NotImplementedError, match=where):
-        tcli.main(["-s", _scene_file(tmp_path), "-o",
-                   str(tmp_path / "o.png"), "-d", "cpu", "-q"] + args)
+    (["-p", "bake", "--spp", "2"], "slice 8b"), (["--distributed"], "slice 9")])
+def test_cli_out_of_slice_raises(tmp_path, monkeypatch, args, where):
+    """The options of ROADMAP slices 8b and 9 behave as in the JAX
+    package's command line. `-p bake` (a 256-wide lightmap at 2 spp, then
+    the display pass): the PNGs within one level. `--distributed` with
+    none of RANK / WORLD_SIZE / MASTER_ADDR set: both exit non-zero
+    (SystemExit with a message) instead of rendering alone."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    a, b = _both_clis(tmp_path, _scene_file(tmp_path), args)
+    if where == "slice 9":
+        for e in (a, b):
+            assert isinstance(e, SystemExit) and e.code not in (0, None)
+            assert str(e.code).startswith("--distributed:")
+        return
+    assert a.shape == b.shape == (16, 16, 3) and a.max() > 0
+    assert np.abs(a - b).max() <= 1
 
 
 def test_cli_bake_scene_raises(tmp_path):
-    """A scene whose pipeline is `bake` raises too (slice 8b)."""
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-        tcli.main(["-s", _scene_file(tmp_path, pipeline={"type": "bake"}),
-                   "-o", str(tmp_path / "o.png"), "-d", "cpu", "-q"])
+    """A scene whose pipeline type is `bake` takes the bake, as in the JAX
+    package: its PNG within one level of the JAX command line's, and bit
+    for bit the port's `-p bake` of the same scene without the type."""
+    s = _scene_file(tmp_path, pipeline={"type": "bake"})
+    a, b = _both_clis(tmp_path, s, ["--spp", "2"])
+    assert a.shape == (16, 16, 3) and np.abs(a - b).max() <= 1
+    c = str(tmp_path / "p.png")
+    tcli.main(["-s", _scene_file(tmp_path), "-o", c, "-d", "cpu", "-q",
+               "-p", "bake", "--spp", "2"])
+    np.testing.assert_array_equal(a, _png(c))
 
 
 def test_cli_clear_cache_and_threads(tmp_path, monkeypatch):

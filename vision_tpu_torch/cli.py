@@ -7,11 +7,13 @@ or a .gltf / .glb file), -o (.png, or .exr for the linear HDR), --spp,
 -d (`cuda`, the default, or `cpu`; nothing is probed), --denoise
 (`post/denoise.py` `denoise_simple` before the tonemap), -p (`fixed`:
 `render.render`; `graph`: the render graph's one sample; `realtime`:
---spp frames of the real-time loop, averaged), --adaptive, -q, -t (torch's
-CPU threads), --clear-cache (removes the port's compiled libraries, which
-are rebuilt at first use) and -m cli. Without -p the scene's own pipeline
-type picks (`customized` -> graph). `-p bake` and `--distributed` raise
-NotImplementedError naming their ROADMAP slices (8b, 9).
+--spp frames of the real-time loop, averaged; `bake`: a 256-wide lightmap
+baked at --spp (16) samples, then its display pass), --adaptive, -q, -t
+(torch's CPU threads), --clear-cache (removes the port's compiled
+libraries, which are rebuilt at first use), --distributed (starts the
+process group from the environment, `parallel/launch.py`, and exits
+non-zero without one) and -m cli. Without -p the scene's own pipeline
+type picks (`bake` -> bake, `customized` -> graph).
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ def main(argv=None):
     ap.add_argument("-p", "--pipeline", default=None,
                     choices=["fixed", "graph", "bake", "realtime"],
                     help="render pipeline (default: the scene's choice; "
-                         "realtime = --spp frames of the ReSTIR DI/GI loop)")
+                         "bake = lightmap bake + display, realtime = --spp "
+                         "frames of the ReSTIR DI/GI loop)")
     ap.add_argument("-m", "--mode", default="cli", choices=["cli"],
                     help="run mode")
     ap.add_argument("--clear-cache", action="store_true",
@@ -46,19 +49,24 @@ def main(argv=None):
     ap.add_argument("--adaptive", action="store_true",
                     help="variance-based adaptive sampling")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process rendering (not ported)")
+                    help="start the torch.distributed process group from "
+                         "the environment (torchrun; one process a card)")
     ap.add_argument("-q", "--quiet", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.distributed:
-        raise NotImplementedError("--distributed (multi-process rendering) is "
-                                  "not ported yet: ROADMAP queue A, slice 9")
     import torch
     if args.threads:
         torch.set_num_threads(args.threads)
     if args.clear_cache:
         from .accel import cuda_build
         shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
+    if args.distributed:
+        from .parallel import launch
+        if not launch.init_distributed(device=args.device):
+            # asked for several processes: rendering alone would be wrong
+            raise SystemExit("--distributed: no process group to join (set "
+                             "RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT, "
+                             "e.g. with torchrun)")
 
     from .render import postprocess, render
     from .scene.scene import load_scene
@@ -75,9 +83,10 @@ def main(argv=None):
     pipeline = args.pipeline or {"bake": "bake", "customized": "graph"}.get(
         scene.pipeline_type)
     if pipeline == "bake":
-        raise NotImplementedError("the bake pipeline (pipelines/bake.py) is not "
-                                  "ported yet: ROADMAP queue A, slice 8b")
-    if pipeline == "realtime":
+        from .pipelines.bake import bake_scene, render_baked
+        baked = bake_scene(scene.data, lightmap_res=256, spp=args.spp or 16)
+        hdr = render_baked(scene.data, scene.camera, baked)
+    elif pipeline == "realtime":
         from .integrator import realtime as rt
         state = rt.RealTimeState.initial(scene.camera.resolution,
                                          device=args.device)
