@@ -119,6 +119,22 @@ phase, one JSON line each:
     cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
     the uninterrupted run; `scene_memory_stats` of cbox_sphere;
     `overlay_rays` of 16 pixels at 512^2.
+  * the image files of slice 7c (`phase_image_files`): progressive, CMYK,
+    YCCK, RGB, lossless and arithmetic-coded JPEG, Adam7, low-depth and
+    16-bit PNG, TGA and BMP files
+    of tests/assets_torch/, each decoded on the card's host, timed and
+    held bit for bit against its committed PIL decode (image_decodes.npz).
+  * the bench ladder (slice 10, `phase_bench`): `python -m
+    vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
+    JSON line printed again and held to bench.py's schema (metric, unit, a
+    finite positive value, the gradient rung, no rung in error); one
+    `_wave_metric` pass of the cbox rung and the grad rung's
+    `_grad_metric` (256^2, depth 4, two steps) under the launch counts
+    (K1, the grad rung through K1's gradient); and the rungs that read reference scenes (absent here) on generated
+    stand-ins at their own sizes, on lines of their own: the staircase
+    rungs on `cbox_sphere` (K2), the kitchen on the 1.04M-triangle flat
+    twin (K2), the prism on `cbox_glass_hero` (K1), classroom_rt on the
+    cbox (K1).
 
 Each render runs with every launch count set to 0 just before it and read
 just after, and fails if a kernel of its path was not launched. On the K2
@@ -2146,6 +2162,143 @@ def phase_utils(vt, modules, cbox, sphere, cbox_img, card):
     return per_run
 
 
+def phase_image_files(card):
+    """Slice 7c on the card's host: every file of
+    tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
+    lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
+    BMP) decoded by the port and
+    held bit for bit against its committed PIL decode, with its seconds;
+    the TIFF raises naming ROADMAP 7d; no image library imported."""
+    from vision_tpu_torch.scene import imageio
+    assets = os.path.join(ROOT, "tests", "assets_torch")
+    dec = np.load(os.path.join(assets, "image_decodes.npz"))
+    for fn in dec.files:
+        t0 = time.perf_counter()
+        got, _ = imageio.read_image(os.path.join(assets, fn))
+        seconds = time.perf_counter() - t0
+        same = got.shape == dec[fn].shape
+        rec = dict(phase="image_file", file=fn, card=card,
+                   shape=list(got.shape), seconds=seconds,
+                   max_abs_diff=int(np.abs(got.astype(np.int32)
+                                           - dec[fn]).max()) if same else None)
+        emit(rec)
+        check(rec["max_abs_diff"] == 0, f"{fn} against its PIL decode {rec}")
+    try:
+        imageio.read_image(os.path.join(assets, "tiny.tif"))
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("7d" in raised, f"tiny.tif: {raised!r}")
+    check("PIL" not in sys.modules and "cv2" not in sys.modules,
+          "an image library was imported")
+
+
+BENCH_TIMEOUT = 900  # seconds for `python -m vision_tpu_torch.bench`
+BENCH_METRIC = ("cbox_512_d8_pt_throughput", "Mrays/s")  # bench.py's
+# the rungs that read a reference scene, each on a generated stand-in:
+# (rung, stand-in, the scene's maker and arguments, the kernel it must launch)
+BENCH_STANDINS = (
+    ("bench_staircase", "cbox_sphere", "cbox_sphere", "packet_isect.closest"),
+    ("bench_staircase_sol", "cbox_sphere", "cbox_sphere",
+     "packet_isect.closest"),
+    ("bench_staircase_grad", "cbox_sphere", "cbox_sphere",
+     "packet_isect.closest"),
+    ("bench_kitchen", "cbox_spheres_instanced flat twin (1,040,420 tris)",
+     "cbox_spheres_instanced", "packet_isect.closest"),
+    ("bench_prism", "cbox_glass_hero", "cbox_glass_hero",
+     "dense_isect.closest"),
+    ("bench_classroom_rt", "cbox", None, "dense_isect.closest"))
+
+
+def phase_bench(vt, modules, scenes, cbox, card):
+    """Slice 10: `python -m vision_tpu_torch.bench` as a user runs it, in a
+    subprocess; its one line printed again here and held to bench.py's
+    schema (no rung may report an error). Then, in this process and under
+    the launch counts, one `_wave_metric` pass of the cbox rung (K1), the
+    grad rung's `_grad_metric` (one untimed and one timed step, K1 with its
+    gradient), and
+    each rung that reads a reference scene on a generated stand-in at the
+    rung's own sizes. Returns the launch counts of each."""
+    import math
+    import tempfile
+    from vision_tpu_torch import bench
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vision_tpu_torch.bench"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        print(ln, flush=True)
+    check(proc.returncode == 0,
+          f"bench exited {proc.returncode}: {proc.stderr[-4000:]}")
+    check(len(lines) == 1, f"bench printed {len(lines)} lines")
+    out = json.loads(lines[0])
+    emit(dict(phase="bench", seconds=wall, card=card,
+              stderr_tail=proc.stderr[-600:]))
+    check((out.get("metric"), out.get("unit")) == BENCH_METRIC,
+          f"bench metric {out.get('metric')} {out.get('unit')}")
+    check(isinstance(out.get("value"), float) and math.isfinite(out["value"])
+          and out["value"] > 0, f"bench value {out.get('value')}")
+    extra = out.get("extra", {})
+    check(isinstance(extra.get("cbox_256_d4_grad_mrays"), float),
+          f"bench grad rung {extra}")
+    check(not any(isinstance(v, str) and v.startswith("error:")
+                  for v in extra.values()), f"bench rung errors {extra}")
+
+    per_run = {}
+    zero_counts(modules)
+    stats = {}
+    mrays = bench._wave_metric(cbox, spp=16, depth=bench.DEPTH, warmup=0,
+                               iters=1, stats=stats)
+    launches = read_counts(modules)
+    rec = dict(phase="bench_pass", rung="bench_cbox", res=RES, spp=16,
+               depth=bench.DEPTH, mrays=mrays, **stats, launches=launches)
+    emit(rec)
+    check(launches["dense_isect.closest"] > 0
+          and launches["dense_isect.anyhit"] > 0, f"bench cbox pass {rec}")
+    per_run["bench_cbox_pass"] = launches
+
+    zero_counts(modules)
+    t0 = time.perf_counter()
+    mrays = bench._grad_metric(bench._cbox(bench.GRAD_RES, DEV), depth=4,
+                               iters=1)
+    wall = time.perf_counter() - t0
+    launches = read_counts(modules)
+    rec = dict(phase="bench_pass", rung="bench_grad", res=bench.GRAD_RES,
+               depth=4, steps=2, mrays=mrays, wall_s=wall, launches=launches)
+    emit(rec)
+    check(math.isfinite(mrays) and mrays > 0
+          and launches["dense_isect.closest"] > 0
+          and launches["dense_isect.anyhit"] > 0, f"bench grad pass {rec}")
+    per_run["bench_grad_pass"] = launches
+
+    with tempfile.TemporaryDirectory() as d:
+        for rung, stand_in, maker, kernel in BENCH_STANDINS:
+            desc = getattr(scenes, maker)(RES) if maker else cbox.raw
+            path = os.path.join(d, f"{maker or 'cbox'}.json")
+            with open(path, "w") as f:
+                json.dump(desc, f)
+            if maker == "cbox_spheres_instanced":
+                os.environ["VT_INSTANCING"] = "0"
+            zero_counts(modules)
+            t0 = time.perf_counter()
+            try:
+                v = getattr(bench, rung)(path, device=DEV)
+            finally:
+                os.environ.pop("VT_INSTANCING", None)
+            wall = time.perf_counter() - t0
+            launches = read_counts(modules)
+            rec = dict(phase="bench_standin", rung=rung, stand_in=stand_in,
+                       value=v, unit="ms" if rung.endswith("_rt") else
+                       "Mrays/s", wall_s=wall, launches=launches)
+            emit(rec)
+            check(isinstance(v, float) and math.isfinite(v) and v > 0
+                  and launches[kernel] > 0, f"bench stand-in {rec}")
+            per_run[f"{rung}_standin"] = launches
+    return per_run
+
+
 def postprocess_u8(vt, scene, hdr):
     """The 8-bit image `film.to_png` writes of a render."""
     img = vt.postprocess(scene, hdr).cpu().numpy()
@@ -2330,6 +2483,12 @@ def main():
     per_render.update(phase_bake(vt, [di, pi], scenes, scene, cbox_img, smi))
     per_render.update(phase_dist(vt, [di, pi], vt_pt, scene, smi))
     per_render.update(phase_utils(vt, [di, pi], scene, sphere, cbox_img, smi))
+
+    # ---- slice 7c: the image files PIL decodes for the JAX package ----
+    phase_image_files(smi)
+
+    # ---- slice 10: the bench ladder ----
+    per_render.update(phase_bench(vt, [di, pi], scenes, scene, smi))
 
     # ---- the kernel table ----
     def worst(recs, keys):

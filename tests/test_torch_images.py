@@ -17,7 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
-from tests.torch_scenes import ASSETS
+from tests.torch_scenes import ASSETS, gen_assets
 from vision_tpu.scene import texture as jtex
 from vision_tpu_torch.scene import imageio as tio
 from vision_tpu_torch.scene import texture as ttex
@@ -122,17 +122,28 @@ def test_png_each_filter_matches_pil(tmp_path, filt):
 
 
 def test_png_out_of_scope_raises(tmp_path):
-    """Interlaced files and bit depths other than those listed are not
-    decoded: NotImplementedError, never a wrong image."""
+    """A colour type at a bit depth PNG does not define raises ValueError,
+    never a wrong image, as PIL refuses it. Interlaced (Adam7) files and
+    bit depths below 8, out of scope before slice 7c, now decode as PIL
+    decodes them (every variant: tests/test_torch_image_files.py)."""
     px = np.zeros((4, 12), np.uint8)
     data = _encode_png(px, 2, 8, [0])
-    ihdr = struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)
-    interlaced = data[:8] + _chunk(b"IHDR", ihdr) + data[33:]
-    low = data[:8] + _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 4, 0, 0,
-                                                 0, 0)) + data[33:]
-    for blob in (interlaced, low):
-        with pytest.raises(NotImplementedError):
+    for depth, ctype in ((4, 2), (16, 3), (2, 4), (4, 6)):
+        blob = data[:8] + _chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", 4, 4, depth, ctype, 0, 0, 0)) + data[33:]
+        p = tmp_path / f"{depth}_{ctype}.png"
+        p.write_bytes(blob)
+        with pytest.raises(ValueError, match="PIL refuses it too"):
             tio.read_png(blob)
+        with pytest.raises(OSError):
+            Image.open(p).convert("RGB")
+    g = np.random.default_rng(3)
+    for depth, ctype, interlace in ((8, 2, 1), (4, 0, 0), (4, 0, 1)):
+        w = 4 if ctype == 2 else 7
+        v = g.integers(0, 1 << depth, (5, w, 3 if ctype == 2 else 1))
+        p = tmp_path / f"ok{depth}_{interlace}.png"
+        p.write_bytes(gen_assets.png_bytes(v, depth, ctype, bool(interlace)))
+        np.testing.assert_array_equal(tio.read_image(str(p))[0], _pil_rgb(p))
 
 
 @pytest.mark.parametrize("width", [40, 5])
@@ -274,8 +285,9 @@ def test_exr_zip_file(tmp_path, comp, ptype, names):
 def test_jpeg_raises_naming_7b(tmp_path):
     """A JPEG image raised NotImplementedError naming slice 7b before the
     port had a decoder. A baseline JPEG now loads as the JAX package loads
-    it through PIL, from `load_image` and from a scene's image slot; a
-    progressive one raises naming 7c, from both."""
+    it through PIL, from `load_image` and from a scene's image slot; so
+    does a progressive one (slice 7c); a TIFF raises naming 7d, from
+    both."""
     p = tmp_path / "t.jpg"
     Image.fromarray(_rand((8, 8, 3), 9)).save(p)
     np.testing.assert_array_equal(ttex.load_image(str(p)),
@@ -288,9 +300,17 @@ def test_jpeg_raises_naming_7b(tmp_path):
     np.testing.assert_array_equal(atlas.data.numpy()[:64, :3],
                                   jtex.load_image(str(p)).reshape(64, 3))
     Image.fromarray(_rand((8, 8, 3), 9)).save(p, progressive=True)
-    with pytest.raises(NotImplementedError, match="7c"):
-        ttex.load_image(str(p))
-    with pytest.raises(NotImplementedError, match="7c"):
+    np.testing.assert_array_equal(ttex.load_image(str(p)),
+                                  jtex.load_image(str(p)))
+    atlas = vt.load_scene(s, device="cpu").data.atlas
+    np.testing.assert_array_equal(atlas.data.numpy()[:64, :3],
+                                  jtex.load_image(str(p)).reshape(64, 3))
+    t = tmp_path / "t.tif"
+    Image.fromarray(_rand((8, 8, 3), 9)).save(t)
+    s["materials"][0]["param"]["color"] = {"fn": str(t)}
+    with pytest.raises(NotImplementedError, match="7d"):
+        ttex.load_image(str(t))
+    with pytest.raises(NotImplementedError, match="7d"):
         vt.load_scene(s, device="cpu")
 
 

@@ -7,7 +7,8 @@ decoder follows libjpeg's integer arithmetic (ISLOW IDCT, fancy
 upsampling, the YCbCr tables) and lands on PIL's bytes. Also: the
 committed assets against their stored PIL decodes, a JPEG texture in a
 scene against the JAX package's (which reads it through PIL), and the
-files the decoder refuses (progressive, CMYK) naming ROADMAP 7c."""
+progressive and CMYK files that slice 7c added (its other variants:
+tests/test_torch_image_files.py)."""
 import hashlib
 import io
 import os
@@ -98,8 +99,10 @@ def test_load_image_matches_jax(color_space):
 
 @pytest.mark.parametrize("kind", ["progressive", "cmyk"])
 def test_refused_files_name_7c(tmp_path, kind):
-    """Progressive and CMYK (Adobe) files raise NotImplementedError naming
-    ROADMAP queue A, 7c."""
+    """Progressive and CMYK (Adobe) files raised NotImplementedError naming
+    ROADMAP queue A, 7c, until slice 7c ported them: they now decode bit
+    for bit as PIL decodes them, through `read_image` and `load_image`
+    (every variant: tests/test_torch_image_files.py)."""
     img = _image(16, 16, False, 3)
     if kind == "progressive":
         data = _jpeg(img, progressive=True)
@@ -107,10 +110,9 @@ def test_refused_files_name_7c(tmp_path, kind):
         data = _jpeg(img, "CMYK")
     p = tmp_path / "x.jpg"
     p.write_bytes(data)
-    with pytest.raises(NotImplementedError, match="7c"):
-        tio.read_image(str(p))
-    with pytest.raises(NotImplementedError, match="7c"):
-        ttex.load_image(str(p))
+    np.testing.assert_array_equal(tio.read_image(str(p))[0], _pil(data))
+    np.testing.assert_array_equal(ttex.load_image(str(p)),
+                                  jtex.load_image(str(p)))
 
 
 @pytest.mark.parametrize("cut", ["scan", "header"])

@@ -54,8 +54,8 @@ box (`tests/fixtures.py` CBOX_JSON), so nothing has to be downloaded.
     resolution and depth 8.
 
 The images and the IES profile are the files of `tests/assets_torch/`
-(`tools/gen_torch_assets.py` writes them); the scenes name them by
-absolute path.
+(`tools/gen_torch_assets.py` writes them; `gen_assets` is that module,
+for its encoders); the scenes name them by absolute path.
 
 This module loads `tests/fixtures.py` by path, and `chip_smoke.py` loads
 this module by path: a `tests` package elsewhere on sys.path must not
@@ -232,6 +232,13 @@ def cbox_sss(res=512):
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "assets_torch")
+
+# the asset generator (its PNG, TGA and BMP encoders), loaded by path
+_spec = importlib.util.spec_from_file_location(
+    "vt_gen_torch_assets", os.path.join(os.path.dirname(ASSETS), "..",
+                                        "tools", "gen_torch_assets.py"))
+gen_assets = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(gen_assets)
 
 
 def asset(fn):

@@ -23,9 +23,15 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
     interval of 2 MCUs), `grey.jpg` (17x9 greyscale, quality 95) and
     `grain_2048.jpg` (2048x2048, 4:2:0, quality 85: smooth waves under a
     fine grain, the decoder's timing case; the .npz holds the sha256 of
-    its decode and the decode of its 128x128 corner); and
-    `progressive.jpg` (`strip()` saved progressive), which the port's
-    decoder refuses (ROADMAP queue A, 7c).
+    its decode and the decode of its 128x128 corner).
+  * The files of slice 7c (`image_files`) and `image_decodes.npz`, what
+    PIL decodes from each: progressive, CMYK, YCCK (a CMYK file's Adobe
+    transform set to 2), RGB, lossless and arithmetic-coded JPEG (the last
+    two by encoders here); Adam7, 2-, 4- and 16-bit
+    PNG; TGA (run-length, colour-mapped, grey, 16-bit) and BMP (RLE8,
+    RLE4, 1-bit, 565 bitfields, top-down, 32-bit with alpha) written by
+    the small encoders here (PIL writes none of these PNG, TGA and BMP
+    variants); and `tiny.tif`, which the port does not decode (7d).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -130,6 +136,187 @@ def grain(n=2048):
     return np.clip(np.round(128 + 90 * waves + noise), 0, 255).astype(np.uint8)
 
 
+# ---------------------------------------------------------------------------
+# Small encoders for what PIL cannot write (Adam7 PNG, low bit depths, TGA
+# variants, RLE and bitfield BMP); the reference decode is PIL's all the same
+# ---------------------------------------------------------------------------
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_chunk(kind, body):
+    import struct
+    import zlib
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _png_rows(v, depth):
+    """Samples int [h, w, nch] -> filtered scanlines (each row's filter
+    type cycling 0..4 from its index), bytes."""
+    h, w, nch = v.shape
+    if depth == 16:
+        raw = np.stack([v >> 8, v & 255], -1).reshape(h, -1).astype(np.uint8)
+    elif depth == 8:
+        raw = v.reshape(h, -1).astype(np.uint8)
+    else:
+        bits = ((v.reshape(h, -1)[..., None] >> np.arange(depth - 1, -1, -1))
+                & 1).reshape(h, -1).astype(np.uint8)
+        raw = np.packbits(bits, axis=1)
+    bpp = max(1, nch * depth // 8)
+    out, prev = [], np.zeros(raw.shape[1], np.int32)
+    for y in range(h):
+        r = raw[y].astype(np.int32)
+        a = np.concatenate([np.zeros(bpp, np.int32), r[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        ft = y % 5
+        pred = [0, a, prev, (a + prev) >> 1, _paeth(a, prev, c)][ft]
+        out.append(bytes([ft]) + ((r - pred) & 255).astype(np.uint8).tobytes())
+        prev = r
+    return b"".join(out)
+
+
+def png_bytes(v, depth, ctype, interlace=False, palette=None):
+    """A PNG of samples v int [h, w, nch] at `depth` and colour type
+    `ctype`, Adam7-interlaced if asked, with a PLTE of `palette` [n, 3]."""
+    import struct
+    import zlib
+    h, w = v.shape[:2]
+    if interlace:
+        data = b"".join(_png_rows(v[y0::dy, x0::dx], depth)
+                        for x0, y0, dx, dy in ADAM7
+                        if x0 < w and y0 < h)
+    else:
+        data = _png_rows(v, depth)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace))
+    plte = b"" if palette is None else _png_chunk(
+        b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr) + plte
+            + _png_chunk(b"IDAT", zlib.compress(data, 9))
+            + _png_chunk(b"IEND", b""))
+
+
+def _rle_packets(px):
+    """TGA run-length packets of pixels px uint8 [n, bytes a pixel]: runs
+    of equal pixels (up to 128) and raw stretches (up to 128)."""
+    out, i, n = [], 0, len(px)
+    while i < n:
+        j = i + 1
+        while j < n and j - i < 128 and (px[j] == px[i]).all():
+            j += 1
+        if j - i > 1:
+            out.append(bytes([0x80 | (j - i - 1)]) + px[i].tobytes())
+            i = j
+            continue
+        j = i + 1
+        while (j < n and j - i < 128
+               and not (j + 1 < n and (px[j + 1] == px[j]).all())):
+            j += 1
+        out.append(bytes([j - i - 1]) + px[i:j].tobytes())
+        i = j
+    return b"".join(out)
+
+
+def tga_bytes(px, image_type, depth, cmap=None, cmap_depth=24, cmap_start=0,
+              top_down=False, right_to_left=False, id_field=b"",
+              rle_rows=False):
+    """A TGA of pixels px uint8 [h, w, bytes a pixel], in file byte order
+    (BGR(A), an index or grey) and image order (row 0 at the top, column 0
+    on the left): stored bottom-up unless top_down, mirrored if
+    right_to_left, run-length coded for types 9-11 (packets across rows,
+    or within rows with rle_rows)."""
+    import struct
+    h, w = px.shape[:2]
+    rows = px if top_down else px[::-1]
+    if right_to_left:
+        rows = rows[:, ::-1]
+    flags = (0x20 if top_down else 0) | (0x10 if right_to_left else 0)
+    nmap = 0 if cmap is None else len(cmap)
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field), int(cmap is not None),
+                       image_type, cmap_start, nmap,
+                       cmap_depth if cmap is not None else 0, 0, 0, w, h,
+                       depth, flags)
+    body = b"" if cmap is None else np.asarray(cmap, np.uint8).tobytes()
+    if image_type & 8:
+        flat = rows.reshape(h, w, -1)
+        data = (b"".join(_rle_packets(r) for r in flat) if rle_rows
+                else _rle_packets(flat.reshape(h * w, -1)))
+    else:
+        data = np.ascontiguousarray(rows).tobytes()
+    return head + id_field + body + data
+
+
+def bmp_bytes(w, h, bits, rows, palette=None, compression=0, masks=None,
+              header=40, top_down=False, data=None):
+    """A BMP of `rows` (bytes of each pixel row in file order, top row
+    first; padded to 4 bytes here) or of ready `data` (RLE streams), with a
+    BGRX palette [n, 4], bitfield masks after a 40-byte header or inside a
+    larger one, stored bottom-up unless top_down."""
+    import struct
+    if data is None:
+        stride = ((w * bits + 31) >> 3) & ~3
+        order = rows if top_down else rows[::-1]
+        data = b"".join(r + bytes(stride - len(r)) for r in order)
+    pal = b"" if palette is None else np.asarray(palette, np.uint8).tobytes()
+    extra = b""
+    info = struct.pack("<iiHHIIiiII", w, -h if top_down else h, 1, bits,
+                       compression, len(data), 2835, 2835,
+                       0 if palette is None else len(palette), 0)
+    if masks is not None:
+        m = struct.pack("<4I", *(list(masks) + [0] * (4 - len(masks))))
+        if header == 40:
+            extra = m[:12]
+        else:
+            info += m
+    info = info.ljust(header - 4, b"\0")
+    off = 14 + header + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", off + len(data), 0, 0, off)
+            + struct.pack("<I", header) + info + extra + pal + data)
+
+
+def bmp_rle(idx, rle4=False, delta=None):
+    """An RLE8 / RLE4 stream of indices idx [h, w] (image order): each
+    bottom-up row as encoded runs and absolute stretches, an end of line
+    after each and an end of bitmap; `delta` = (row, col, right, up)
+    inserts a delta escape at that place of the stream."""
+    h, w = idx.shape
+    out = []
+    for y, row in enumerate(idx[::-1]):
+        x = 0
+        while x < w:
+            if delta is not None and (y, x) == delta[:2]:
+                out.append(bytes([0, 2, delta[2], delta[3]]))
+            j = x + 1
+            while j < w and j - x < 255 and row[j] == row[x]:
+                j += 1
+            if j - x >= 3 or w - x < 3:
+                b = row[x] << 4 | row[x] if rle4 else row[x]
+                out.append(bytes([j - x, b]))
+                x = j
+                continue
+            n = min(w - x, 255 if not rle4 else 254, 10)
+            seg = row[x:x + n]
+            if rle4:
+                seg2 = np.append(seg, 0) if n % 2 else seg
+                body = bytes((seg2[0::2] << 4 | seg2[1::2]).astype(np.uint8))
+            else:
+                body = bytes(seg.astype(np.uint8))
+            if len(body) % 2:
+                body += b"\0"
+            out.append(bytes([0, n]) + body)
+            x += n
+        out.append(b"\0\0")
+    out.append(b"\0\1")
+    return b"".join(out)
+
+
 JPEGS = {  # name: (image, PIL save options)
     "tiles.jpg": (tiles, dict(quality=90, subsampling=2)),
     "strip.jpg": (strip, dict(quality=50, subsampling=1, optimize=True,
@@ -157,8 +344,547 @@ def write_jpegs(out):
             rgb = rgb[:CORNER, :CORNER]
         dec[key] = rgb
     np.savez_compressed(os.path.join(out, "jpeg_decodes.npz"), **dec)
-    Image.fromarray(strip()).save(os.path.join(out, "progressive.jpg"),
-                                  quality=80, progressive=True)
+
+
+def _lossless_diffs(x, psv, pt, restart_rows):
+    """The differences (mod 2^16, in -32767..32768) of one component's
+    samples x int [h, w] >> pt under predictor `psv`, with the first row
+    of each restart interval predicted from its left alone."""
+    x = x.astype(np.int64) >> pt
+    h, w = x.shape
+    pred = np.zeros_like(x)
+    for y in range(h):
+        first = y == 0 or (restart_rows and y % restart_rows == 0)
+        for i in range(w):
+            if first:
+                p = (1 << (8 - pt - 1)) if i == 0 else x[y, i - 1]
+            elif i == 0:
+                p = x[y - 1, 0]
+            else:
+                ra, rb, rc = x[y, i - 1], x[y - 1, i], x[y - 1, i - 1]
+                p = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                     5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                     7: (ra + rb) >> 1}[psv]
+            pred[y, i] = p
+    d = (x - pred) & 0xFFFF
+    return np.where(d > 32768, d - 65536, d)
+
+
+def lossless_jpeg_bytes(img, psv=1, pt=0, restart_rows=0, app=b""):
+    """A lossless (SOF3) Huffman JPEG of img uint8 [h, w, nc] (nc 1 or 3,
+    sampling 1x1, interleaved): predictor `psv` (1-7), point transform
+    `pt`, a restart marker every `restart_rows` rows, the segments `app`
+    after SOI. One DC table codes the 17 difference categories in 5 bits
+    each."""
+    import struct
+    h, w, nc = img.shape
+    diffs = np.stack([_lossless_diffs(img[..., c], psv, pt, restart_rows)
+                      for c in range(nc)], -1)
+
+    def seg(m, body):
+        return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
+
+    out, acc, n = bytearray(), 0, 0
+
+    def put(v, k):
+        nonlocal acc, n
+        acc, n = acc << k | (v & ((1 << k) - 1)), n + k
+        while n >= 8:
+            b = (acc >> (n - 8)) & 0xFF
+            out.append(b)
+            if b == 0xFF:
+                out.append(0)
+            n -= 8
+
+    def flush():
+        nonlocal n
+        if n:
+            put((1 << (8 - n)) - 1, 8 - n)
+
+    for y in range(h):
+        if restart_rows and y and y % restart_rows == 0:
+            flush()
+            out.extend(bytes([0xFF, 0xD0 + (y // restart_rows - 1) % 8]))
+        for x in range(w):
+            for c in range(nc):
+                d = int(diffs[y, x, c])
+                cat = 16 if d == 32768 else abs(d).bit_length()
+                put(cat, 5)
+                if 0 < cat < 16:
+                    put(d if d > 0 else d - 1, cat)
+    flush()
+    frame = struct.pack(">BHHB", 8, h, w, nc) + b"".join(
+        bytes([c + 1, 0x11, 0]) for c in range(nc))
+    dht = bytes([0x00]) + bytes([0, 0, 0, 0, 17] + [0] * 11) + bytes(range(17))
+    sos = bytes([nc]) + b"".join(bytes([c + 1, 0]) for c in range(nc)) + \
+        bytes([psv, 0, pt])
+    dri = seg(0xDD, struct.pack(">H", restart_rows * w)) if restart_rows \
+        else b""
+    return (b"\xff\xd8" + app + seg(0xC3, frame) + seg(0xC4, dht) + dri
+            + seg(0xDA, sos) + bytes(out) + b"\xff\xd9")
+
+
+# ITU-T T.81 Table D.2 as libjpeg packs it (jaricom.c): (Qe, Next_Index_LPS,
+# Next_Index_MPS, Switch_MPS); entry 113 is libjpeg's fixed 0.5 estimate
+_QE = [(0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+       (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+       (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+       (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+       (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+       (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+       (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+       (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+       (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+       (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+       (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+       (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+       (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+       (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+       (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+       (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+       (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+       (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+       (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+       (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+       (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+       (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+       (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+       (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+       (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+       (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+       (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+       (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+       (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+       (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+       (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+       (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+       (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+       (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+       (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+       (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+       (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+       (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+_NATURAL = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19,
+            26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42,
+            49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59,
+            52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+
+
+class _QMEncoder:
+    """libjpeg's arithmetic encoder (jcarith.c): the QM coder's interval
+    arithmetic, carry propagation through stacked 0xFF bytes and byte
+    stuffing, its termination; statistics bins are bytearrays."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buf = \
+            0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b):
+        self.out.append(b)
+        if b == 0xFF:
+            self.out.append(0)
+
+    def _zeros(self):
+        self.out.extend(bytes(self.zc))
+        self.zc = 0
+
+    def _flush_byte(self, carry):
+        if carry:  # a carry into the buffered byte: stacked 0xFF -> 0x00
+            if self.buf >= 0:
+                self._zeros()
+                self._emit(self.buf + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buf == 0:
+                self.zc += 1
+            elif self.buf >= 0:
+                self._zeros()
+                self._emit(self.buf)
+            if self.sc:
+                self._zeros()
+                self.out.extend(b"\xff\x00" * self.sc)
+                self.sc = 0
+
+    def encode(self, st, i, val):
+        sv = st[i]
+        qe, nl, nm, switch = _QE[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:               # the less probable symbol
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ (nl | switch << 7)
+        else:                            # the more probable symbol
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:                      # renormalisation, output (D.1.6)
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._flush_byte(True)
+                    self.buf = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._flush_byte(False)
+                    self.buf = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        self._flush_byte(bool(self.c & 0xF8000000))
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+        self.reset()
+
+
+def _qm_magnitude(e, st, i, v, x2):
+    """Figures F.8 and F.9: the category and bits of |v| - 1 from bin i
+    (x2: the bin of the longer categories, None for DC, whose chain starts
+    at bin 20 of the same table)."""
+    m, v = 0, v - 1
+    if v:
+        e.encode(st, i, 1)
+        m, v2 = 1, v
+        if x2 is None:
+            i = 20
+            while v2 >> 1:
+                v2 >>= 1
+                e.encode(st, i, 1)
+                m <<= 1
+                i += 1
+        elif v2 >> 1:
+            v2 >>= 1
+            e.encode(st, i, 1)
+            m <<= 1
+            i = x2
+            while v2 >> 1:
+                v2 >>= 1
+                e.encode(st, i, 1)
+                m <<= 1
+                i += 1
+    e.encode(st, i, 0)
+    i += 14
+    while m >> 1:
+        m >>= 1
+        e.encode(st, i, 1 if m & v else 0)
+
+
+def _qm_dc(e, dc, ctx, last, ci, value, lo=0, up=1):
+    """One DC value (F.1.4.1), its context updated (conditioning L, U)."""
+    i = ctx[ci]
+    v = value - last[ci]
+    if v == 0:
+        e.encode(dc, i, 0)
+        ctx[ci] = 0
+        return
+    last[ci] = value
+    e.encode(dc, i, 1)
+    sign = int(v < 0)
+    e.encode(dc, i + 1, sign)
+    v = abs(v)
+    ctx[ci] = 8 if sign else 4
+    m = (v - 1).bit_length()
+    cat = (1 << m) >> 1
+    if cat < (1 << lo) >> 1:
+        ctx[ci] = 0
+    elif cat > (1 << up) >> 1:
+        ctx[ci] += 8
+    _qm_magnitude(e, dc, i + 2 + sign, v, None)
+
+
+def _qm_ac(e, ac, fixed, blk, ss, se, al, kx=5):
+    """An AC band (F.1.4.2, G.1.3.2 with its point transform al;
+    conditioning K = kx)."""
+    vals = [(-((-int(blk[_NATURAL[k]])) >> al) if blk[_NATURAL[k]] < 0
+             else int(blk[_NATURAL[k]]) >> al) for k in range(64)]
+    ke = se
+    while ke >= ss and vals[ke] == 0:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        e.encode(ac, i, 0)                   # not the end of block
+        while vals[k] == 0:
+            e.encode(ac, i + 1, 0)
+            i += 3
+            k += 1
+        e.encode(ac, i + 1, 1)
+        e.encode(fixed, 0, int(vals[k] < 0))
+        _qm_magnitude(e, ac, i + 2, abs(vals[k]), 189 if k <= kx else 217)
+        k += 1
+    if k <= se:
+        e.encode(ac, 3 * (k - 1), 1)         # the end of block
+
+
+def _qm_ac_refine(e, ac, fixed, blk, ss, se, ah, al):
+    """An AC refinement band (G.1.3.3)."""
+    mag = [abs(int(blk[_NATURAL[k]])) for k in range(64)]
+    neg = [int(blk[_NATURAL[k]]) < 0 for k in range(64)]
+    ke = se
+    while ke > 0 and not mag[ke] >> al:
+        ke -= 1
+    kex = ke
+    while kex > 0 and not mag[kex] >> ah:
+        kex -= 1
+    k = ss
+    while k <= ke:
+        i = 3 * (k - 1)
+        if k > kex:
+            e.encode(ac, i, 0)
+        while True:
+            v = mag[k] >> al
+            if v:
+                if v >> 1:
+                    e.encode(ac, i + 2, v & 1)
+                else:
+                    e.encode(ac, i + 1, 1)
+                    e.encode(fixed, 0, int(neg[k]))
+                break
+            e.encode(ac, i + 1, 0)
+            i += 3
+            k += 1
+        k += 1
+    if k <= se:
+        e.encode(ac, 3 * (k - 1), 1)
+
+
+def _coefficients(sampling, mcus, q, seed):
+    """Quantised coefficients int32 [rows, cols, 64] of each component for
+    `mcus` (rows, columns) of MCUs: DC and a falling share of AC values
+    within 8-bit JPEG's range (|value * q| <= 1000)."""
+    g = np.random.RandomState(seed)
+    lim = 1000 // q
+    out = []
+    for h, v in sampling:
+        shape = (mcus[0] * v, mcus[1] * h)
+        c = np.zeros(shape + (64,), np.int32)
+        c[..., 0] = g.randint(-lim, lim + 1, shape)
+        for k in range(1, 64):
+            amp = max(1, int(lim / (1 + k / 4)))
+            keep = g.random_sample(shape) < 0.5 / (1 + k / 8)
+            c[..., _NATURAL[k]] = np.where(keep, g.randint(-amp, amp + 1,
+                                                           shape), 0)
+        out.append(c)
+    return out
+
+
+def arith_jpeg_bytes(coef, sampling, q=4, progressive=False, restart=0,
+                     cond=(0, 1, 5), scans=None):
+    """An arithmetic-coded JPEG (SOF9, or SOF10 with `progressive`) of the
+    quantised coefficients coef[c] int [rows, cols, 64] (natural order,
+    padded to whole MCUs) of components sampled (h, v) = sampling[c]; every
+    quantiser q; a restart every `restart` MCUs of each scan. The
+    progressive scans: DC first at Al 1 (all components), AC 1-5 and 6-63
+    first at Al 1 (each), the DC and AC refinements to Al 0. cond: the
+    conditioning (DC L, DC U, AC K) of every table, in a DAC segment when
+    it is not T.81's default (0, 1, 5). scans: a sequential file's scans,
+    each a list of component indices in scan order (repeats allowed, to
+    write files a decoder must refuse); one scan of every component when
+    None."""
+    import struct
+    nc = len(coef)
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mcuy, mcux = coef[0].shape[0] // sampling[0][1], \
+        coef[0].shape[1] // sampling[0][0]
+    H, W = 8 * vmax * mcuy, 8 * hmax * mcux
+
+    def seg(m, body):
+        return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
+
+    def scan(comps, ss, se, ah, al):
+        e = _QMEncoder()
+        dc = [bytearray(64) for _ in comps]
+        ac = [bytearray(256) for _ in comps]
+        fixed = bytearray([113])
+        ctx, last = [0] * nc, [0] * nc
+        if len(comps) == 1:
+            c = comps[0]
+            h, v = sampling[c]
+            rows = -(-H * v // vmax // 8)
+            cols = -(-W * h // hmax // 8)
+            units = [[(c, r, k, 0)] for r in range(rows) for k in range(cols)]
+        else:
+            units = [[(c, my * sampling[c][1] + by,
+                       mx * sampling[c][0] + bx, s)
+                      for s, c in enumerate(comps)
+                      for by in range(sampling[c][1])
+                      for bx in range(sampling[c][0])]
+                     for my in range(mcuy) for mx in range(mcux)]
+        for n, unit in enumerate(units):
+            if restart and n and n % restart == 0:
+                e.finish()
+                e.out.extend(bytes([0xFF, 0xD0 + (n // restart - 1) % 8]))
+                for b in dc + ac:
+                    b[:] = bytes(len(b))
+                ctx, last = [0] * nc, [0] * nc
+            for c, r, k, s_ in unit:  # s_: the component's scan slot
+                blk = coef[c][r, k]
+                lo, up, kx = cond
+                if not progressive:
+                    _qm_dc(e, dc[s_], ctx, last, s_, int(blk[0]), lo, up)
+                    _qm_ac(e, ac[s_], fixed, blk, 1, 63, 0, kx)
+                elif ss == 0 and ah == 0:
+                    _qm_dc(e, dc[s_], ctx, last, s_, int(blk[0]) >> al, lo,
+                           up)
+                elif ss == 0:
+                    e.encode(fixed, 0, (int(blk[0]) >> al) & 1)
+                elif ah == 0:
+                    _qm_ac(e, ac[s_], fixed, blk, ss, se, al, kx)
+                else:
+                    _qm_ac_refine(e, ac[s_], fixed, blk, ss, se, ah, al)
+        e.finish()
+        head = bytes([len(comps)]) + b"".join(
+            bytes([c + 1, (s << 4) | s]) for s, c in enumerate(comps))
+        return seg(0xDA, head + bytes([ss, se, ah << 4 | al])) + bytes(e.out)
+
+    frame = struct.pack(">BHHB", 8, H, W, nc) + b"".join(
+        bytes([c + 1, sampling[c][0] << 4 | sampling[c][1], 0])
+        for c in range(nc))
+    out = (b"\xff\xd8" + seg(0xDB, bytes([0]) + bytes([q] * 64))
+           + seg(0xCA if progressive else 0xC9, frame))
+    if restart:
+        out += seg(0xDD, struct.pack(">H", restart))
+    if tuple(cond) != (0, 1, 5):
+        out += seg(0xCC, b"".join(bytes([t, cond[1] << 4 | cond[0],
+                                         0x10 | t, cond[2]])
+                                  for t in range(nc)))
+    everyone = list(range(nc))
+    if not progressive:
+        for comps in scans or [everyone]:
+            out += scan(comps, 0, 63, 0, 0)
+    else:
+        out += scan(everyone, 0, 0, 0, 1)
+        for c in everyone:
+            out += scan([c], 1, 5, 0, 1) + scan([c], 6, 63, 0, 1)
+        out += scan(everyone, 0, 0, 1, 0)
+        for c in everyone:
+            out += scan([c], 1, 63, 1, 0)
+    return out + b"\xff\xd9"
+
+
+def _pil_jpeg(img, mode=None, **opts):
+    import io
+    from PIL import Image
+    b = io.BytesIO()
+    im = Image.fromarray(img)
+    (im.convert(mode) if mode else im).save(b, "JPEG", **opts)
+    return b.getvalue()
+
+
+def _adobe_transform(data, t):
+    """`data` with its Adobe APP14 colour transform set to t."""
+    i = data.index(b"Adobe") + 11
+    return data[:i] + bytes([t]) + data[i + 1:]
+
+
+def _indices(img, levels=4):
+    """A palette index per pixel of an RGB image: its R and G quantised."""
+    q = img.astype(np.int32) * levels // 256
+    return (q[..., 0] * levels + q[..., 1]).astype(np.uint8)
+
+
+def image_files():
+    """The files of slice 7c (name -> bytes): JPEG variants PIL writes or
+    that differ from one only in a marker byte, lossless and
+    arithmetic-coded JPEG, and PNG, TGA and BMP files written by the
+    encoders above; `tiny.tif`, a TIFF,
+    stays undecoded (ROADMAP 7d)."""
+    import io
+    from PIL import Image
+    rgb = strip()                                   # 33 x 65
+    g = np.random.RandomState(7)
+    pal16 = g.randint(0, 256, (16, 3))
+    idx = _indices(rgb)                             # 0..15
+    bgrx = np.concatenate([pal16[:, ::-1], np.zeros((16, 1), int)], 1)
+    cmyk = _pil_jpeg(rgb, "CMYK", quality=85)
+    grey16 = (np.add.outer(np.arange(40), np.arange(24)) * 97 % 65536)
+    files = {
+        "progressive.jpg": _pil_jpeg(rgb, quality=80, progressive=True),
+        "progressive_tiles.jpg": _pil_jpeg(tiles(), quality=90, subsampling=2,
+                                           progressive=True, optimize=True,
+                                           restart_marker_blocks=3),
+        "cmyk.jpg": cmyk,
+        "ycck.jpg": _adobe_transform(cmyk, 2),
+        "rgb_adobe.jpg": _pil_jpeg(rgb, quality=90, keep_rgb=True),
+        "lossless.jpg": lossless_jpeg_bytes(rgb, psv=4, pt=1, restart_rows=8),
+        "arith.jpg": arith_jpeg_bytes(_coefficients(((1, 1),), (3, 4), 4, 1),
+                                      ((1, 1),), q=4, restart=5),
+        "arith_progressive.jpg": arith_jpeg_bytes(
+            _coefficients(((2, 2), (1, 1), (1, 1)), (2, 3), 8, 2),
+            ((2, 2), (1, 1), (1, 1)), q=8, progressive=True, restart=2,
+            cond=(1, 3, 2)),
+        "adam7.png": png_bytes(rgb, 8, 2, interlace=True),
+        "pal4_adam7.png": png_bytes(idx[..., None], 4, 3, interlace=True,
+                                    palette=pal16),
+        "grey2.png": png_bytes((grey()[..., None] >> 6), 2, 0),
+        "grey16.png": png_bytes(grey16[..., None], 16, 0),
+        "la16.png": png_bytes(np.stack([grey16, 65535 - grey16], -1), 16, 4),
+        "rle24.tga": tga_bytes(rgb[..., ::-1], 10, 24, rle_rows=True),
+        "cmap16_topright.tga": tga_bytes(
+            idx[..., None], 1, 8, cmap=((pal16 >> 3) @ [1024, 32, 1]).astype(
+                "<u2")[:, None].view(np.uint8),
+            cmap_depth=16, cmap_start=0, top_down=True, right_to_left=True),
+        "grey_rle.tga": tga_bytes((rgb[..., 1:2] >> 3) << 3, 11, 8,
+                                  rle_rows=True),
+        "rgb16.tga": tga_bytes(((rgb >> 3) @ [1024, 32, 1]).astype(
+            "<u2")[..., None].view(np.uint8), 2, 16),
+        "rle8.bmp": bmp_bytes(33, 65, 8, None, palette=bgrx, compression=1,
+                              data=bmp_rle(idx, delta=(3, 0, 2, 1))),
+        "rle4.bmp": bmp_bytes(33, 65, 4, None, palette=bgrx, compression=2,
+                              data=bmp_rle(idx, rle4=True)),
+        "pal1.bmp": bmp_bytes(33, 65, 1, [np.packbits(r & 1).tobytes()
+                                          for r in idx], palette=bgrx[:2]),
+        "bf565_v5.bmp": bmp_bytes(33, 65, 16, [r.tobytes() for r in (
+            (rgb >> [3, 2, 3]) @ [2048, 32, 1]).astype("<u2")],
+            compression=3, masks=(0xF800, 0x7E0, 0x1F), header=124),
+        "topdown24.bmp": bmp_bytes(33, 65, 24, [r[:, ::-1].tobytes()
+                                                for r in rgb], top_down=True),
+        "bgra32_v4.bmp": bmp_bytes(33, 65, 32, [np.concatenate(
+            [r, r[:, :1]], 1).astype(np.uint8).tobytes() for r in rgb],
+            compression=3, masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+            header=108),
+    }
+    b = io.BytesIO()
+    Image.fromarray(rgb[:8, :8]).save(b, "TIFF")
+    files["tiny.tif"] = b.getvalue()
+    return files
+
+
+def write_image_files(out):
+    """The files of `image_files` and `image_decodes.npz`, what PIL decodes
+    from each (`Image.open(p).convert("RGB")`), keyed by file name; the
+    TIFF has none (the port does not decode it)."""
+    from PIL import Image
+    dec = {}
+    for fn, data in image_files().items():
+        p = os.path.join(out, fn)
+        with open(p, "wb") as f:
+            f.write(data)
+        if not fn.endswith(".tif"):
+            dec[fn] = np.asarray(Image.open(p).convert("RGB"))
+    np.savez_compressed(os.path.join(out, "image_decodes.npz"), **dec)
 
 
 def main():
@@ -175,6 +901,7 @@ def main():
     with open(os.path.join(out, "spot.ies"), "w") as f:
         f.write(IES)
     write_jpegs(out)
+    write_image_files(out)
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

@@ -61,9 +61,15 @@ def _library():
         lib.vt_obj_key.restype = None
         P = ctypes.c_void_p
         lib.vt_jpeg_decode_scan.argtypes = [P, ctypes.c_int64, ctypes.c_int32,
-                                            P, P, P, P, ctypes.c_int32,
-                                            ctypes.c_int32, ctypes.c_int32]
+                                            P, P, P, P] + [ctypes.c_int32] * 8
         lib.vt_jpeg_decode_scan.restype = ctypes.c_int64
+        lib.vt_jpeg_decode_arith_scan.argtypes = [
+            P, ctypes.c_int64, ctypes.c_int32, P, P, P] + [ctypes.c_int32] * 8
+        lib.vt_jpeg_decode_arith_scan.restype = ctypes.c_int64
+        lib.vt_jpeg_decode_lossless.argtypes = [
+            P, ctypes.c_int64, ctypes.c_int32, P, P, P, P] + \
+            [ctypes.c_int32] * 5
+        lib.vt_jpeg_decode_lossless.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -109,35 +115,98 @@ def obj_key(vi, ti, ni):
 
 
 def jpeg_decode_scan(data, start, comps, planes, bits, vals, mcux, mcuy,
-                     restart):
-    """Huffman-decode one sequential JPEG scan (`csrc/jpeg_huff.cpp`).
-    data: the file's bytes, the scan's data from `start`; comps: int32
-    [n, 7] rows (DC table, AC table, h, v, blocks a plane row, blocks wide
-    and high for a one-component scan); planes: each component's int16
-    [rows, blocks a row, 64] coefficients, written in place; bits uint8
-    [8, 16], vals uint8 [8, 256]: the DC tables 0-3 then the AC tables.
-    Returns the offset in `data` of the marker that ends the scan."""
+                     restart, prog=None):
+    """Huffman-decode one JPEG scan (`csrc/jpeg_huff.cpp`). data: the
+    file's bytes, the scan's data from `start`; comps: int32 [n, 7] rows
+    (DC table, AC table, h, v, blocks a plane row, blocks wide and high for
+    a one-component scan); planes: each component's int16 [rows, blocks a
+    row, 64] coefficients, written in place (a progressive scan adds its
+    band to them); bits uint8 [8, 16], vals uint8 [8, 256]: the DC tables
+    0-3 then the AC tables; prog: None for a sequential scan, else (Ss,
+    Se, Ah, Al) of a progressive one. Returns the offset in `data` of the
+    marker that ends the scan."""
     buf = np.frombuffer(data, np.uint8)
     comps = np.ascontiguousarray(comps, np.int32)
     bits = np.ascontiguousarray(bits, np.uint8)
     vals = np.ascontiguousarray(vals, np.uint8)
+    _check_planes(planes, comps)
+    ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
+    rc = _library().vt_jpeg_decode_scan(
+        buf.ctypes.data + start, len(buf) - start, len(planes),
+        comps.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data,
+        mcux, mcuy, restart, prog is not None, *(prog or (0, 63, 0, 0)))
+    return start + _scan_end(rc)
+
+
+def _check_planes(planes, comps):
     for p in planes:
         if p.dtype != np.int16 or not p.flags.c_contiguous or p.shape[-1] != 64:
             raise ValueError("coefficient planes must be C-contiguous int16 "
                              "[rows, cols, 64]")
     if comps.shape != (len(planes), 7):
         raise ValueError("one [7] row a component")
-    ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
-    rc = _library().vt_jpeg_decode_scan(
-        buf.ctypes.data + start, len(buf) - start, len(planes),
-        comps.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data,
-        mcux, mcuy, restart)
+    if not 1 <= len(planes) <= 4:
+        raise ValueError("a JPEG scan holds 1 to 4 components")
+
+
+def _scan_end(rc):
+    """A scan decoder's return: the offset of the marker that ends the
+    scan, or the error it met."""
     if rc < 0:
         raise ValueError({-1: "corrupt JPEG data: a bad Huffman code",
                           -2: "corrupt JPEG Huffman table",
                           -3: "corrupt JPEG data: a restart marker is "
-                              "missing"}[rc])
-    return start + rc
+                              "missing",
+                          -4: "a lossless JPEG restart interval of part of "
+                              "a row (libjpeg refuses it)",
+                          -5: "a JPEG scan of no or more than 4 components, "
+                              "or a table outside 0-3"}[rc])
+    return rc
+
+
+def jpeg_decode_arith_scan(data, start, comps, planes, cond, mcux, mcuy,
+                           restart, prog=None):
+    """Decode one arithmetic-coded JPEG scan (`csrc/jpeg_huff.cpp`), its
+    arguments as `jpeg_decode_scan`'s but for cond: int32 [12], the DC
+    conditioning bounds L and U of tables 0-3, then the AC K of tables 0-3
+    (the DAC segment's, T.81's defaults 0, 1, 5)."""
+    buf = np.frombuffer(data, np.uint8)
+    comps = np.ascontiguousarray(comps, np.int32)
+    cond = np.ascontiguousarray(cond, np.int32)
+    _check_planes(planes, comps)
+    ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
+    rc = _library().vt_jpeg_decode_arith_scan(
+        buf.ctypes.data + start, len(buf) - start, len(planes),
+        comps.ctypes.data, ptrs, cond.ctypes.data, mcux, mcuy, restart,
+        prog is not None, *(prog or (0, 63, 0, 0)))
+    return start + _scan_end(rc)
+
+
+def jpeg_decode_lossless(data, start, tables, planes, bits, vals, restart,
+                         psv, pt):
+    """Decode one lossless JPEG scan (`csrc/jpeg_huff.cpp`) of components
+    sampled 1x1: tables, each component's DC table (0-3); planes, each
+    component's uint16 [h, w] samples, written in place; bits / vals as
+    for `jpeg_decode_scan`; restart: MCUs an interval (0 none); psv: the
+    predictor (1-7); pt: the point transform. Returns the offset in `data`
+    of the marker that ends the scan."""
+    buf = np.frombuffer(data, np.uint8)
+    tables = np.ascontiguousarray(tables, np.int32)
+    bits = np.ascontiguousarray(bits, np.uint8)
+    vals = np.ascontiguousarray(vals, np.uint8)
+    if not 1 <= len(planes) <= 4 or tables.shape != (len(planes),):
+        raise ValueError("a JPEG scan holds 1 to 4 components, a DC table "
+                         "each")
+    h, w = planes[0].shape
+    for p in planes:
+        if p.dtype != np.uint16 or not p.flags.c_contiguous or p.shape != (h, w):
+            raise ValueError("sample planes must be C-contiguous uint16 [h, w]")
+    ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
+    rc = _library().vt_jpeg_decode_lossless(
+        buf.ctypes.data + start, len(buf) - start, len(planes),
+        tables.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data, w, h,
+        restart, psv, pt)
+    return start + _scan_end(rc)
 
 
 def _run(fn, inputs, n, max_leaf):
