@@ -119,11 +119,18 @@ phase, one JSON line each:
     cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
     the uninterrupted run; `scene_memory_stats` of cbox_sphere;
     `overlay_rays` of 16 pixels at 512^2.
-  * the image files of slice 7c (`phase_image_files`): progressive, CMYK,
-    YCCK, RGB, lossless and arithmetic-coded JPEG, Adam7, low-depth and
-    16-bit PNG, TGA and BMP files
-    of tests/assets_torch/, each decoded on the card's host, timed and
-    held bit for bit against its committed PIL decode (image_decodes.npz).
+  * the image files of slices 7c and 7d (`phase_image_files`):
+    progressive, CMYK, YCCK, RGB, lossless and arithmetic-coded JPEG,
+    Adam7, low-depth and 16-bit PNG, TGA, BMP, TIFF and GIF files of
+    tests/assets_torch/, each decoded on the card's host, timed and held
+    bit for bit against its committed PIL decode (image_decodes.npz); the
+    OpenEXR files (every compression, tiled, multi-part) against their
+    libOpenEXR decodes (exr_decodes.npz); the timing files `lzw_2048.tif`
+    and `piz_2048.exr`; the deep and luminance-chroma refusals.
+  * the twin scenes of slice 7d (`phase_image_twins`): `cbox_tex_files`
+    through K1 and `env_sphere_files` through K2 at 512^2, their images
+    read from TIFF, GIF and OpenEXR files, each bit for bit with its
+    original's render in the same run.
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -961,12 +968,13 @@ def phase_slice4(vt, modules, scenes):
     return per_render
 
 
-def phase_images(vt, modules, scenes):
+def phase_images(vt, modules, scenes, images):
     """Slices 4c, 4d and 7a: `cbox_tex` (K1) against its JAX golden,
     `env_sphere` (K2) on the card at 64^2 against the port's CPU render,
     the adaptive cbox against the cbox golden, the light-field cbox (its
     tiles at 64^2 against the CPU render, parallax, refocus), and
-    `render_to_file`'s EXR. Returns each render's launch counts."""
+    `render_to_file`'s EXR. Returns each render's launch counts; the
+    cbox_tex and env_sphere images go into `images`."""
     per_render = {}
     # which image libraries the card's machine has (the port needs none)
     emit(dict(phase="image_libraries",
@@ -983,6 +991,7 @@ def phase_images(vt, modules, scenes):
           and {"ies", "tex"} <= set(tex.data.lights.feats),
           "cbox_tex: the dense sweep, every new material and light feature")
     img, rec = render(vt, modules, tex, "cbox_tex")
+    images["cbox_tex"] = img
     rec["golden_werr"], rec["golden_bias"] = vs_golden(
         img, "tests/goldens/cbox_tex_hdr.npz")
     emit(rec)
@@ -1003,6 +1012,7 @@ def phase_images(vt, modules, scenes):
           and {"proj", "tex"} <= set(env.data.lights.feats),
           "env_sphere: the BVH, the mix environment, the projector image")
     img, rec = render(vt, modules, env, "env_sphere")
+    images["env_sphere"] = img
     check(all(rec["launches"][f"packet_isect.{k}"] > 0
               for k in ("closest", "anyhit")), f"env_sphere {rec['launches']}")
     small = vt.load_scene(scenes.env_sphere(SKY_RES), device=DEV)
@@ -2162,35 +2172,104 @@ def phase_utils(vt, modules, cbox, sphere, cbox_img, card):
     return per_run
 
 
+def _image_file_rec(fn, got, want, seconds, card, kind):
+    """One `image_file` line: the decode against its committed reference,
+    bit for bit (float data compared as its bits, NaN payloads included)."""
+    same = got.shape == want.shape
+    if same and got.dtype == np.float32:
+        bit_equal = bool(np.array_equal(got.view(np.uint32),
+                                        want.view(np.uint32)))
+        with np.errstate(invalid="ignore"):
+            d = np.abs(got.astype(np.float64) - want)
+        diff = float(np.nanmax(d)) if not np.isnan(d).all() else 0.0
+    elif same:
+        bit_equal = bool(np.array_equal(got, want))
+        diff = int(np.abs(got.astype(np.int32) - want).max())
+    else:
+        bit_equal, diff = False, None
+    return dict(phase="image_file", file=fn, kind=kind, card=card,
+                shape=list(got.shape), seconds=seconds, max_abs_diff=diff,
+                bit_equal=bit_equal)
+
+
 def phase_image_files(card):
-    """Slice 7c on the card's host: every file of
+    """Slices 7c and 7d on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
-    BMP) decoded by the port and
-    held bit for bit against its committed PIL decode, with its seconds;
-    the TIFF raises naming ROADMAP 7d; no image library imported."""
+    BMP; TIFF and GIF, `tiny.tif` among them) held bit for bit against its
+    committed PIL decode, and every file of exr_decodes.npz (every OpenEXR
+    compression, tiled and multi-part files) against its committed
+    libOpenEXR decode, each with its seconds; the timing files
+    `lzw_2048.tif` and `piz_2048.exr` against their decodes' sha256; the
+    deep files refused (ValueError) and a luminance-chroma file raising
+    naming ROADMAP 7e; no image library imported."""
+    import hashlib
     from vision_tpu_torch.scene import imageio
     assets = os.path.join(ROOT, "tests", "assets_torch")
-    dec = np.load(os.path.join(assets, "image_decodes.npz"))
-    for fn in dec.files:
-        t0 = time.perf_counter()
-        got, _ = imageio.read_image(os.path.join(assets, fn))
-        seconds = time.perf_counter() - t0
-        same = got.shape == dec[fn].shape
-        rec = dict(phase="image_file", file=fn, card=card,
-                   shape=list(got.shape), seconds=seconds,
-                   max_abs_diff=int(np.abs(got.astype(np.int32)
-                                           - dec[fn]).max()) if same else None)
-        emit(rec)
-        check(rec["max_abs_diff"] == 0, f"{fn} against its PIL decode {rec}")
-    try:
-        imageio.read_image(os.path.join(assets, "tiny.tif"))
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    check("7d" in raised, f"tiny.tif: {raised!r}")
-    check("PIL" not in sys.modules and "cv2" not in sys.modules,
+    for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz",
+                                                      "hdr")):
+        dec = np.load(os.path.join(assets, npz))
+        files = [k for k in dec.files if ":" not in k]
+        check(kind == "hdr" or "tiny.tif" in files, "tiny.tif's PIL decode")
+        for fn in files:
+            t0 = time.perf_counter()
+            got, got_kind = imageio.read_image(os.path.join(assets, fn))
+            rec = _image_file_rec(fn, got, dec[fn], time.perf_counter() - t0,
+                                  card, got_kind)
+            emit(rec)
+            check(got_kind == kind and rec["bit_equal"]
+                  and rec["max_abs_diff"] == 0, f"{fn} against its decode {rec}")
+        for fn in sorted({k.split(":")[0] for k in dec.files if ":" in k}):
+            t0 = time.perf_counter()
+            got, got_kind = imageio.read_image(os.path.join(assets, fn))
+            seconds = time.perf_counter() - t0
+            rec = _image_file_rec(fn, got[:128, :128], dec[fn + ":corner"],
+                                  seconds, card, got_kind)
+            rec.update(shape=list(got.shape), timing_file=True,
+                       sha256_equal=hashlib.sha256(got.tobytes()).digest()
+                       == dec[fn + ":sha256"].tobytes())
+            emit(rec)
+            check(rec["bit_equal"] and rec["sha256_equal"]
+                  and rec["max_abs_diff"] == 0, f"{fn} {rec}")
+    for fn, err, what in (("yc.exr", NotImplementedError, "7e"),
+                          ("deep_scanline.exr", ValueError, "deep"),
+                          ("deep_tiled.exr", ValueError, "deep")):
+        try:
+            imageio.read_image(os.path.join(assets, fn))
+            raised = ""
+        except err as e:
+            raised = str(e)
+        check(what in raised, f"{fn}: {raised!r}")
+    check(not {"PIL", "cv2", "OpenEXR", "Imath"} & set(sys.modules),
           "an image library was imported")
+
+
+def phase_image_twins(vt, modules, scenes, originals, card):
+    """Slice 7d through the kernels: `env_sphere_files` (its skies from
+    OpenEXR files, PIZ and tiled RLE; its checker from an LZW TIFF; its
+    projector image from a GIF) through K2 and `cbox_tex_files` (its
+    images from TIFF and GIF files) through K1, at 512^2 and the seeds of
+    `phase_images`: each bit for bit with its original's render of this
+    run. Returns each render's launch counts."""
+    per_render = {}
+    for name, make, kernel in (("cbox_tex_files", scenes.cbox_tex_files,
+                                "dense_isect"),
+                               ("env_sphere_files", scenes.env_sphere_files,
+                                "packet_isect")):
+        t0 = time.perf_counter()
+        sc = vt.load_scene(make(RES), device=DEV)
+        load_s = time.perf_counter() - t0
+        img, rec = render(vt, modules, sc, name)
+        orig = originals[name[:-len("_files")]]
+        rec.update(load_s=load_s, card=card,
+                   bit_equal_to_original=bool(np.array_equal(img, orig)),
+                   max_abs_diff_to_original=float(np.abs(img - orig).max()))
+        emit(rec)
+        check(rec["bit_equal_to_original"], f"{name} against its original")
+        check(all(rec["launches"][f"{kernel}.{k}"] > 0
+                  for k in ("closest", "anyhit")), f"{name} {rec['launches']}")
+        per_render[name] = rec["launches"]
+    return per_render
 
 
 BENCH_TIMEOUT = 900  # seconds for `python -m vision_tpu_torch.bench`
@@ -2467,7 +2546,8 @@ def main():
 
     # ---- slices 4c, 4d, 7a: images, node graphs, IES, adaptive, light
     # field, EXR ----
-    per_render.update(phase_images(vt, [di, pi], scenes))
+    originals = {}
+    per_render.update(phase_images(vt, [di, pi], scenes, originals))
 
     # ---- slice 5: gradients ----
     phase_grad(vt, [di, pi], scenes, smi)
@@ -2484,8 +2564,10 @@ def main():
     per_render.update(phase_dist(vt, [di, pi], vt_pt, scene, smi))
     per_render.update(phase_utils(vt, [di, pi], scene, sphere, cbox_img, smi))
 
-    # ---- slice 7c: the image files PIL decodes for the JAX package ----
+    # ---- slices 7c and 7d: the image files PIL and OpenCV (libOpenEXR)
+    # decode for the JAX package, and the scenes that read them ----
     phase_image_files(smi)
+    per_render.update(phase_image_twins(vt, [di, pi], scenes, originals, smi))
 
     # ---- slice 10: the bench ladder ----
     per_render.update(phase_bench(vt, [di, pi], scenes, scene, smi))

@@ -6,8 +6,13 @@ TGA and BMP variants (written by `tools/gen_torch_assets.py`'s encoders:
 PIL cannot write most of them), progressive, CMYK, YCCK and RGB JPEG
 files, the committed assets against their stored PIL decodes, and the
 Radiance files OpenCV refuses; lossless and arithmetic-coded JPEG from
-the generator's own encoders. The tolerance is exact everywhere. PIL
-reads files here by path, as the JAX package does."""
+the generator's own encoders. Slice 7d: TIFF and GIF files (the
+generator's hand-built encoders and PIL's writers) against PIL, and the
+reader picked by the file's extension as the JAX package picks it (ROADMAP
+C20): ".hdr" / ".exr" through OpenCV's rules, every other name through
+PIL's. The tolerance is exact everywhere. PIL reads files here by path,
+as the JAX package does."""
+import hashlib
 import io
 import os
 import struct
@@ -620,15 +625,16 @@ def test_arithmetic_jpeg_matches_pil(tmp_path, progressive, sampling, cond):
 
 def test_jpeg_cases_left_name_7d():
     """Arithmetic-coded lossless (SOF11) and subsampled lossless files are
-    not decoded yet: they raise NotImplementedError naming ROADMAP queue
-    A, 7d, never a wrong image."""
+    not decoded yet: they named slice 7d until it was done, and now raise
+    NotImplementedError naming the slice after it, ROADMAP queue A, 7e;
+    never a wrong image."""
     d = bytearray(ga.lossless_jpeg_bytes(_image(8, 8, 3, 2)))
     i = d.index(b"\xff\xc3")
     d[i + 11] = 0x22
-    with pytest.raises(NotImplementedError, match="lossless.*7d"):
+    with pytest.raises(NotImplementedError, match="lossless.*7e"):
         tio.read_jpeg(bytes(d))
     d[i + 1], d[i + 11] = 0xCB, 0x11
-    with pytest.raises(NotImplementedError, match="arithmetic.*7d"):
+    with pytest.raises(NotImplementedError, match="arithmetic.*7e"):
         tio.read_jpeg(bytes(d))
 
 
@@ -638,16 +644,22 @@ def test_jpeg_cases_left_name_7d():
 
 def test_committed_files_match_their_pil_decodes():
     """Every file of tests/assets_torch/image_decodes.npz
-    (`tools/gen_torch_assets.py` `image_files`) decodes to its stored PIL
-    decode; `tiny.tif` raises naming 7d."""
+    (`tools/gen_torch_assets.py` `image_files`: slice 7c's files, and
+    slice 7d's TIFF and GIF files and the scenes' twins) decodes to its
+    stored PIL decode; `tiny.tif`, which raised naming 7d before, among
+    them; the timing TIFF `lzw_2048.tif` to the decode whose sha256 and
+    corner are stored."""
     dec = np.load(os.path.join(ASSETS, "image_decodes.npz"))
-    assert len(dec.files) == 23
-    for fn in dec.files:
+    files = [k for k in dec.files if ":" not in k]
+    assert len(files) == 44 and "tiny.tif" in files
+    for fn in files:
         got, kind = tio.read_image(os.path.join(ASSETS, fn))
         assert kind == "ldr"
         np.testing.assert_array_equal(got, dec[fn], err_msg=fn)
-    with pytest.raises(NotImplementedError, match="TIFF.*7d"):
-        tio.read_image(os.path.join(ASSETS, "tiny.tif"))
+    got, _ = tio.read_image(os.path.join(ASSETS, "lzw_2048.tif"))
+    np.testing.assert_array_equal(got[:128, :128], dec["lzw_2048.tif:corner"])
+    assert hashlib.sha256(got.tobytes()).digest() == \
+        dec["lzw_2048.tif:sha256"].tobytes()
 
 
 @pytest.mark.parametrize("fn", ["rle24.tga", "cmap16_topright.tga",
@@ -670,12 +682,17 @@ def test_load_image_matches_jax(fn, color_space):
     (b"II*\0" + bytes(30), "TIFF"), (b"\0\0\1\0\1\0" + bytes(30), "ICO"),
     (b"\x0a\x05\x01\x08" + bytes(40), "PNG, JPEG, BMP, TGA")])
 def test_other_formats_name_7d(tmp_path, head, what):
-    """GIF, WebP, TIFF, an icon (a directory of one entry: PIL's ICO plugin
-    takes it) and a file of no known format raise NotImplementedError
-    naming 7d: TGA, which has no magic number, is tried last."""
+    """WebP, an icon (a directory of one entry: PIL's ICO plugin takes it)
+    and a file of no known format raise NotImplementedError naming the
+    slice after 7d, 7e: TGA, which has no magic number, is tried last. GIF
+    and TIFF, which named 7d before it was done, are decoded now: these
+    empty bodies are refused (ValueError) as PIL refuses them."""
     p = tmp_path / "x.img"
     p.write_bytes(head)
-    with pytest.raises(NotImplementedError, match=f"{what}.*7d"):
+    if what in ("GIF", "TIFF"):
+        _assert_same(tmp_path, head, decodes=False, name="x.img")
+        return
+    with pytest.raises(NotImplementedError, match=f"{what}.*7e"):
         tio.read_image(str(p))
 
 
@@ -705,3 +722,369 @@ def test_radiance_refusals_match_opencv(tmp_path, edit):
     assert cv2.imread(p, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH) is None
     with pytest.raises(ValueError, match="OpenCV"):
         tio.read_image(p)
+
+
+# ---------------------------------------------------------------------------
+# slice 7d: TIFF
+# ---------------------------------------------------------------------------
+
+# (photometric, bits, samples, extra samples, sample format)
+TIFF_LAYOUTS = [(1, 8, 1, (), 1), (0, 8, 1, (), 1), (2, 8, 3, (), 1),
+                (2, 8, 4, (2,), 1), (2, 8, 4, (1,), 1), (2, 8, 4, (0,), 1),
+                (1, 8, 2, (2,), 1), (2, 16, 3, (), 1), (1, 16, 1, (), 1),
+                (0, 16, 1, (), 1), (1, 16, 1, (), 2), (5, 8, 4, (), 1),
+                (3, 8, 1, (), 1), (3, 4, 1, (), 1), (1, 4, 1, (), 1),
+                (0, 2, 1, (), 1), (1, 1, 1, (), 1), (0, 1, 1, (), 1),
+                (1, 32, 1, (), 1), (1, 32, 1, (), 2), (1, 32, 1, (), 3)]
+
+
+def _tiff_samples(g, h, w, bits, spp, sf):
+    if sf == 3:
+        v = (g.standard_normal((h, w, spp)) * 200).astype(np.float32)
+        v[0, :3, 0] = [np.nan, np.inf, -np.inf]
+        return v
+    if sf == 2:
+        return g.integers(-300, 300, (h, w, spp)) & ((1 << bits) - 1)
+    return g.integers(0, 1 << bits, (h, w, spp))
+
+
+@pytest.mark.parametrize("bo", ["<", ">"], ids=["II", "MM"])
+@pytest.mark.parametrize("layout", ["strips", "tiles", "planar"])
+@pytest.mark.parametrize("comp, pred", [(1, 1), (5, 2), (8, 1), (32946, 2),
+                                        (32773, 2)],
+                         ids=["raw", "lzw_pred2", "deflate", "deflate_pred2",
+                              "packbits_pred2"])
+def test_tiff_matches_pil(tmp_path, comp, pred, layout, bo):
+    """Every photometric, bit depth, sample format and extra-sample layout
+    of the slice, 13 x 21 in strips of 5 rows, 16 x 16 tiles (partial at
+    the edges) or planar strips, in both byte orders, uncompressed, LZW,
+    Deflate (8, 32946) and PackBits, predictor 2 where asked (libtiff
+    applies it in LZW and Deflate only): PIL's decode, or its refusal.
+    PIL's quirks come along: 16-bit grey clipped at 255 (photometric 0 not
+    inverted), colour cut to its high byte, floats truncated, associated
+    alpha undone, a big-endian 32-bit sample that libtiff decoded read
+    byte-swapped, planar layouts PIL has no raw mode for refused."""
+    g = np.random.default_rng(comp + pred + len(layout) + (bo == ">"))
+    kw = dict(rows_per_strip=5) if layout == "strips" else \
+        dict(tile=(16, 16)) if layout == "tiles" else \
+        dict(planar=True, rows_per_strip=4)
+    for photo, bits, spp, extra, sf in TIFF_LAYOUTS:
+        if layout == "planar" and (spp == 1 or (comp == 1 and bits > 8)):
+            continue  # one plane; PIL's raw planar 16-bit bands are garbage
+        v = _tiff_samples(g, 13, 21, bits, spp, sf)
+        cm = g.integers(0, 65536, (1 << bits, 3)) if photo == 3 else None
+        data = ga.tiff_bytes(v, bits, photo, comp, predictor=pred, bo=bo,
+                             extra=extra, colormap=cm,
+                             sampleformat=sf if sf != 1 else None, **kw)
+        want, got = _both(tmp_path, data, "t.tif")
+        assert (want is None) == (got is None), (photo, bits, spp, extra, sf)
+        if want is not None:
+            np.testing.assert_array_equal(got, want, err_msg=str(
+                (photo, bits, spp, extra, sf)))
+
+
+@pytest.mark.parametrize("comp", [1, 5, 8, 32773])
+def test_tiff_fill_order_2_matches_pil(tmp_path, comp):
+    """Fill order 2 (each byte's bits reversed before decoding): every
+    layout PIL has a mode for, decoded or refused as PIL does (a 4-bit
+    palette read without libtiff is refused)."""
+    g = np.random.default_rng(comp)
+    for photo, bits, spp in [(1, 1, 1), (0, 1, 1), (1, 2, 1), (0, 4, 1),
+                             (1, 8, 1), (2, 8, 3), (3, 4, 1), (3, 8, 1),
+                             (1, 16, 1), (2, 16, 3)]:
+        v = g.integers(0, 1 << bits, (13, 21, spp))
+        cm = g.integers(0, 65536, (1 << bits, 3)) if photo == 3 else None
+        want, got = _both(tmp_path, ga.tiff_bytes(
+            v, bits, photo, comp, fill=2, colormap=cm, rows_per_strip=6),
+            "t.tif")
+        assert (want is None) == (got is None), (photo, bits)
+        if want is not None:
+            np.testing.assert_array_equal(got, want)
+
+
+def test_tiff_lzw_matches_pil(tmp_path):
+    """LZW streams that fill the 12-bit table and clear it (a 200 x 300
+    image, predictor 2), and old-style LZW (least significant bit first),
+    which PIL's libtiff decodes too."""
+    g = np.random.default_rng(3)
+    v = (np.add.outer(np.arange(200), np.arange(300)) // 3)[..., None] \
+        .repeat(3, -1)
+    v = (v + g.integers(0, 3, v.shape)) % 256
+    _assert_same(tmp_path, ga.tiff_bytes(v, 8, 2, 5, predictor=2,
+                                         rows_per_strip=64), name="t.tif")
+    for photo, spp in ((1, 1), (2, 3)):
+        v = g.integers(0, 256, (13, 21, spp))
+        _assert_same(tmp_path, ga.tiff_bytes(v, 8, photo, 5, lzw_old=True,
+                                             rows_per_strip=5), name="t.tif")
+
+
+def _jpeg_tiff(img, sub, factors, rps):
+    chunks = []
+    for y0 in range(0, img.shape[0], rps):
+        b = io.BytesIO()
+        Image.fromarray(img[y0:y0 + rps]).save(b, "JPEG", quality=85,
+                                               subsampling=sub)
+        tables, strip = ga._jpeg_split(b.getvalue())
+        chunks.append(strip)
+    return ga.tiff_bytes(img, 8, 6, 7, rows_per_strip=rps, jpeg_chunks=chunks,
+                         jpeg_tables=tables, ycbcr_sub=factors)
+
+
+@pytest.mark.parametrize("sub, factors, decodes", [
+    (2, (2, 2), True), (1, (2, 1), True), (0, (1, 1), True),
+    (2, (1, 1), False)], ids=["420", "422", "444", "420_tagged_444"])
+def test_tiff_jpeg_ycbcr_matches_pil(tmp_path, sub, factors, decodes):
+    """YCbCr JPEG strips (JPEGTables, abbreviated strips) decoded to RGB
+    as libtiff's JPEG colour mode has libjpeg do it (fancy upsampling, as
+    the port's JPEG decoder), in one strip and in strips of 16 rows; data
+    sampled otherwise than its YCbCrSubsampling tag is refused, as
+    libtiff refuses it."""
+    g = np.random.default_rng(sub)
+    y, x = np.mgrid[0:48, 0:72]
+    img = np.stack([(x * 3) % 256, (y * 5) % 256, ((x + y) * 2) % 256], -1)
+    img = np.clip(img + g.integers(0, 40, img.shape), 0, 255).astype(np.uint8)
+    for rps in (48, 16):
+        _assert_same(tmp_path, _jpeg_tiff(img, sub, factors, rps), decodes,
+                     name="t.tif")
+
+
+PIL_TIFFS = [(c, m) for c in ("tiff_lzw", "tiff_deflate", "tiff_adobe_deflate",
+                               "packbits", "raw")
+             for m in ("RGB", "RGBA", "L", "LA", "P", "1", "I;16", "CMYK", "F",
+                       "I")] + [("jpeg", "RGB"), ("jpeg", "L")]
+
+
+@pytest.mark.parametrize("compression, mode", PIL_TIFFS,
+                         ids=[f"{c}-{m}" for c, m in PIL_TIFFS])
+def test_pil_written_tiff_matches_pil(tmp_path, mode, compression):
+    """What PIL's own TIFF writer makes of each mode and compression (JPEG
+    for RGB and grey: libtiff's JPEG writer refuses or mangles the other
+    modes)."""
+    g = np.random.default_rng(len(mode))
+    img = g.integers(0, 256, (40, 56, 3)).astype(np.uint8)
+    if mode == "F":
+        im = Image.fromarray(img[..., 0].astype(np.float32) * 3.3 - 20)
+    elif mode == "I":
+        im = Image.fromarray(img[..., 0].astype(np.int32) * 200)
+    elif mode == "I;16":
+        im = Image.fromarray(img[..., 0].astype(np.uint16) * 300)
+    else:
+        im = Image.fromarray(img).convert(mode)
+    b = io.BytesIO()
+    im.save(b, "TIFF", compression=compression)
+    _assert_same(tmp_path, b.getvalue(), name="t.tif")
+
+
+@pytest.mark.parametrize("comp, what", [
+    (4, "CCITT Group 4"), (34925, "LZMA"), (50000, "ZSTD"), (50001, "WebP"),
+    (32809, "ThunderScan"), (34676, "SGILog"), (6, "old-style JPEG")])
+def test_tiff_codecs_for_7e_name_it(comp, what):
+    """The rarer codecs raise NotImplementedError naming ROADMAP 7e; so
+    does BigTIFF."""
+    data = bytearray(ga.tiff_bytes(np.zeros((4, 4, 1), np.int64), 8, 1, 1))
+    i = data.index(struct.pack("<HHI", 259, 3, 1))
+    data[i + 8:i + 10] = struct.pack("<H", comp)
+    with pytest.raises(NotImplementedError, match=f"{what}.*7e"):
+        tio.read_tiff(bytes(data))
+    with pytest.raises(NotImplementedError, match="BigTIFF.*7e"):
+        tio._read_pil(b"II+\0" + bytes(30), "x.tif")
+    b = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).convert("CMYK").save(
+        b, "TIFF", compression="jpeg")
+    with pytest.raises(NotImplementedError, match="JPEG TIFF.*7e"):
+        tio.read_tiff(b.getvalue())
+
+
+def test_truncated_tiff_is_refused(tmp_path):
+    """A compressed strip whose byte count stops halfway is refused, as
+    PIL (libtiff) refuses it; an uncompressed one decodes, as PIL reads it
+    from its offset whatever the count says, and a file cut inside its
+    pixels is refused."""
+    v = np.random.default_rng(5).integers(0, 256, (13, 21, 3))
+    for comp in (1, 5, 8, 32773):
+        data = bytearray(ga.tiff_bytes(v, 8, 2, comp))
+        i = data.index(struct.pack("<HHI", 279, 4, 1)) + 8
+        count, = struct.unpack("<I", data[i:i + 4])
+        data[i:i + 4] = struct.pack("<I", count // 2)
+        _assert_same(tmp_path, bytes(data), comp == 1, name="t.tif")
+    # pixels that run past the end of the file
+    data = bytearray(ga.tiff_bytes(v, 8, 2, 1))
+    i = data.index(struct.pack("<HHI", 273, 4, 1)) + 8
+    data[i:i + 4] = struct.pack("<I", len(data) - 100)
+    _assert_same(tmp_path, bytes(data), decodes=False, name="t.tif")
+
+
+# ---------------------------------------------------------------------------
+# slice 7d: GIF
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("min_bits", range(2, 9))
+def test_gif_matches_pil(tmp_path, min_bits):
+    """Each LZW minimum code size 2-8 at palettes of 2 to 256 colours,
+    progressive and interlaced rows, a local colour table with a
+    transparent index, and a frame inside a larger screen (filled with the
+    transparent index, else 0) or reaching past a smaller one."""
+    g = np.random.default_rng(min_bits)
+    for ncol in (2, 3, 4, 16, 200, 256):
+        if ncol > 1 << min_bits:
+            continue
+        idx = g.integers(0, ncol, (37, 53))
+        idx[:10, :20] = idx[0, 0]
+        pal = g.integers(0, 256, (ncol, 3))
+        for interlace in (False, True):
+            _assert_same(tmp_path, ga.gif_bytes(idx, pal, min_bits,
+                                                interlace), name="t.gif")
+        _assert_same(tmp_path, ga.gif_bytes(idx, pal, min_bits, local=True,
+                                            transparency=1), name="t.gif")
+        _assert_same(tmp_path, ga.gif_bytes(
+            idx, pal, min_bits, screen=(60, 45), offset=(3, 5),
+            transparency=ncol - 1), name="t.gif")
+        _assert_same(tmp_path, ga.gif_bytes(idx, pal, min_bits,
+                                            screen=(40, 30), offset=(3, 5)),
+                     name="t.gif")
+
+
+def test_gif_tables_and_refusals_match_pil(tmp_path):
+    """A grey-ramp palette and no palette (PIL's mode L: the index as
+    grey), a 300 x 400 frame whose codes fill the 12-bit table, PIL's own
+    writer, a file without its terminators (decoded), and data cut short
+    (refused, as PIL refuses it)."""
+    g = np.random.default_rng(9)
+    idx = g.integers(0, 256, (20, 30))
+    _assert_same(tmp_path, ga.gif_bytes(idx, np.repeat(
+        np.arange(256)[:, None], 3, 1), 8), name="t.gif")
+    _assert_same(tmp_path, ga.gif_bytes(idx, None, 8), name="t.gif")
+    y, x = np.mgrid[0:300, 0:400]
+    big = ((x // 7 + y // 5) % 200 + g.integers(0, 2, x.shape)) % 256
+    _assert_same(tmp_path, ga.gif_bytes(big, g.integers(0, 256, (256, 3)), 8),
+                 name="t.gif")
+    d = ga.gif_bytes(big[:40, :50], g.integers(0, 256, (256, 3)), 8)
+    _assert_same(tmp_path, d[:-2], name="t.gif")  # no terminator: decodes
+    for cut in (len(d) - 40, 800):
+        _assert_same(tmp_path, d[:cut], decodes=False, name="t.gif")
+    for mode in ("P", "L", "RGB"):
+        img = g.integers(0, 256, (33, 47, 3)).astype(np.uint8)
+        im = Image.fromarray(img) if mode == "RGB" else \
+            Image.fromarray(img // 64 * 64).convert(mode)
+        for interlace in (0, 1):
+            b = io.BytesIO()
+            im.save(b, "GIF", interlace=interlace)
+            _assert_same(tmp_path, b.getvalue(), name="t.gif")
+
+
+@pytest.mark.parametrize("fn", ["lzw_pred2.tif", "deflate_tiles.tif",
+                                "float_pred3_mm.tif", "jpeg_ycbcr.tif",
+                                "rgba_assoc.tif", "pal4_lzw.tif",
+                                "local_trans.gif", "bumps.gif",
+                                "checker_lzw.tif", "projector.gif"])
+@pytest.mark.parametrize("color_space", ["srgb", "linear"])
+def test_tiff_gif_load_image_matches_jax(fn, color_space):
+    """`load_image` of the committed TIFF and GIF files: the JAX package's
+    PIL decode, linearised the same way, bit for bit."""
+    p = os.path.join(ASSETS, fn)
+    np.testing.assert_array_equal(ttex.load_image(p, color_space),
+                                  jtex.load_image(p, color_space))
+
+
+# ---------------------------------------------------------------------------
+# C20: the reader picked by the file's extension
+# ---------------------------------------------------------------------------
+
+def _cv2_load(path):
+    """The JAX package's .hdr / .exr reader, or None where OpenCV refuses."""
+    a = cv2.imread(path, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+    if a is None:
+        return None
+    a = a.astype(np.float32)
+    if a.ndim == 2:
+        a = np.stack([a] * 3, -1)
+    return np.ascontiguousarray(a[..., :3][..., ::-1])
+
+
+@pytest.mark.parametrize("ext", [".hdr", ".exr", ".HDR"])
+@pytest.mark.parametrize("kind", PNG_KINDS, ids=lambda k: f"c{k[0]}d{k[1]}")
+def test_png_under_opencv_names_matches_jax(tmp_path, kind, ext):
+    """A PNG named .hdr / .exr (any case) goes to OpenCV in the JAX
+    package: its samples as float32, no /255, no linearisation; 16-bit
+    samples whole (PIL would clip or cut them), grey replicated, alpha
+    dropped. The port gives the same, in both colour spaces."""
+    ct, depth = kind
+    g = np.random.default_rng(ct * 100 + depth)
+    v = g.integers(0, 1 << depth, (9, 17, NCH[ct]))
+    pal = g.integers(0, 256, (max(1, (1 << depth) - 3), 3)) if ct == 3 \
+        else None
+    p = str(tmp_path / f"x{ext}")
+    with open(p, "wb") as f:
+        f.write(ga.png_bytes(v, depth, ct, False, pal))
+    want = _cv2_load(p)
+    for cs in ("srgb", "linear"):
+        got = ttex.load_image(p, cs)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, jtex.load_image(p, cs))
+
+
+@pytest.mark.parametrize("fn", ["grey.jpg", "strip.jpg", "tiles.jpg",
+                                "progressive.jpg", "rgb_adobe.jpg",
+                                "lossless.jpg", "arith_progressive.jpg"])
+def test_jpeg_under_opencv_names_matches_jax(tmp_path, fn):
+    """A grey, YCbCr or RGB JPEG named .exr: OpenCV's libjpeg-turbo gives
+    PIL's samples, taken as float32 without /255."""
+    p = str(tmp_path / "x.exr")
+    with open(os.path.join(ASSETS, fn), "rb") as f, open(p, "wb") as o:
+        o.write(f.read())
+    np.testing.assert_array_equal(ttex.load_image(p), _cv2_load(p))
+    np.testing.assert_array_equal(ttex.load_image(p, "linear"),
+                                  jtex.load_image(p, "linear"))
+
+
+@pytest.mark.parametrize("fn, what", [
+    ("cmyk.jpg", "CMYK"), ("ycck.jpg", "CMYK"), ("topdown24.bmp", "BMP"),
+    ("tiny.tif", "TIFF"), ("code2.gif", "GIF")])
+def test_opencv_readers_under_hdr_names_name_7e(tmp_path, fn, what):
+    """Under a .hdr name OpenCV's own BMP, TIFF and GIF readers and its
+    CMYK JPEG path (one off from PIL's) decode: not ported, 7e."""
+    p = str(tmp_path / "x.hdr")
+    with open(os.path.join(ASSETS, fn), "rb") as f, open(p, "wb") as o:
+        o.write(f.read())
+    assert _cv2_load(p) is not None
+    with pytest.raises(NotImplementedError, match=f"{what}.*7e"):
+        ttex.load_image(p)
+
+
+@pytest.mark.parametrize("fn, name", [
+    ("rle24.tga", "x.hdr"), ("sky_a.hdr", "sky.png"), ("sky_a.hdr", "sky"),
+    ("piz_half.exr", "x.tif"), ("sky_b.exr", "x.jpg")])
+def test_files_under_names_the_reference_refuses(tmp_path, fn, name):
+    """Content the extension's library cannot read: a TGA named .hdr
+    (OpenCV returns None, the JAX package raises), a Radiance or OpenEXR
+    file under any other name (PIL cannot identify it). The port raises
+    ValueError, so a scene's slot takes its default as in the JAX
+    package."""
+    p = str(tmp_path / name)
+    with open(os.path.join(ASSETS, fn), "rb") as f, open(p, "wb") as o:
+        o.write(f.read())
+    with pytest.raises(Exception):
+        jtex.load_image(p)
+    with pytest.raises(ValueError):
+        ttex.load_image(p)
+
+
+# ---------------------------------------------------------------------------
+# the twin scenes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["cbox_tex", "env_sphere"])
+def test_twin_scenes_render_as_their_originals(name):
+    """`cbox_tex_files` / `env_sphere_files` read their images from TIFF,
+    GIF and OpenEXR files of the same pixels: the same atlas and lights,
+    the same render, bit for bit (16^2, 1 spp on the CPU)."""
+    import torch
+    import vision_tpu_torch as vt
+    from tests import torch_scenes as ts
+    make = {"cbox_tex": (ts.cbox_tex, ts.cbox_tex_files, {}),
+            "env_sphere": (ts.env_sphere, ts.env_sphere_files,
+                           dict(sub_div=8))}[name]
+    a = vt.load_scene(make[0](16, **make[2]), device="cpu")
+    b = vt.load_scene(make[1](16, **make[2]), device="cpu")
+    assert torch.equal(a.data.atlas.data, b.data.atlas.data)
+    assert torch.equal(vt.render(a, spp=1), vt.render(b, spp=1))

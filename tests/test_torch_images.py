@@ -286,8 +286,8 @@ def test_jpeg_raises_naming_7b(tmp_path):
     """A JPEG image raised NotImplementedError naming slice 7b before the
     port had a decoder. A baseline JPEG now loads as the JAX package loads
     it through PIL, from `load_image` and from a scene's image slot; so
-    does a progressive one (slice 7c); a TIFF raises naming 7d, from
-    both."""
+    does a progressive one (slice 7c) and a TIFF, which raised naming 7d
+    before slice 7d."""
     p = tmp_path / "t.jpg"
     Image.fromarray(_rand((8, 8, 3), 9)).save(p)
     np.testing.assert_array_equal(ttex.load_image(str(p)),
@@ -308,10 +308,11 @@ def test_jpeg_raises_naming_7b(tmp_path):
     t = tmp_path / "t.tif"
     Image.fromarray(_rand((8, 8, 3), 9)).save(t)
     s["materials"][0]["param"]["color"] = {"fn": str(t)}
-    with pytest.raises(NotImplementedError, match="7d"):
-        ttex.load_image(str(t))
-    with pytest.raises(NotImplementedError, match="7d"):
-        vt.load_scene(s, device="cpu")
+    np.testing.assert_array_equal(ttex.load_image(str(t)),
+                                  jtex.load_image(str(t)))
+    atlas = vt.load_scene(s, device="cpu").data.atlas
+    np.testing.assert_array_equal(atlas.data.numpy()[:64, :3],
+                                  jtex.load_image(str(t)).reshape(64, 3))
 
 
 def test_missing_file_raises_file_not_found(tmp_path):

@@ -269,17 +269,20 @@ def _env(fn):
 
 
 OUT_OF_SLICE = {
-    "tiff_image": (lambda: _edit(lambda s: s["materials"][0][
-        "param"].update(color={"fn": asset("tiny.tif")})), "7d"),
+    "webp_image": (lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"fn": asset("tiny.webp")})), "7e"),
 }
 
-# features out of the slice before slice 7c (a progressive JPEG), before
+# features out of the slice before slice 7d (a TIFF), before slice 7c (a
+# progressive JPEG), before
 # slice 1b (the next three), before slice 4 (the next three), before
 # slices 4c, 4d and 7a (the next ones, on the image and IES files of
 # tests/assets_torch) and before slice 7 (a mesh file; this one is
 # missing, so both packages skip its shape with a warning), which now load
 # as the JAX package loads them
 PORTED = {
+    "tiff_image": lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"fn": asset("tiny.tif")})),
     "progressive_jpeg": lambda: _edit(lambda s: s["materials"][0][
         "param"].update(color={"fn": asset("progressive.jpg")})),
     "mesh_file": lambda: _edit(lambda s: _shape(s, {
@@ -338,11 +341,11 @@ BVH_SCENES = {
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
                          + sorted(PORTED))
 def test_out_of_slice_raises(name):
-    """A feature outside the ported slices (a TIFF image) raises
+    """A feature outside the ported slices (a WebP image) raises
     NotImplementedError naming its slice; the two scenes of BVH_SCENES,
     out of the slice before slices 2 and 3, load and carry the tree their
     kernel walks; the scenes of PORTED, out of it before slice 1b, 4, 4c,
-    4d, 7a, 7 or 7c, load as the JAX package does."""
+    4d, 7a, 7, 7c or 7d (the TIFF), load as the JAX package does."""
     if name in PORTED:
         s = PORTED[name]()
         with warnings.catch_warnings():

@@ -280,6 +280,41 @@ def cbox_tex(res=512):
     return s
 
 
+def _swap_files(desc, twins):
+    """`desc` with each image path whose file name is a key of `twins`
+    replaced by the twin file's path (tests/assets_torch)."""
+    if isinstance(desc, dict):
+        return {k: (asset(twins[os.path.basename(v)]) if k in ("fn", "ies")
+                    and isinstance(v, str) and os.path.basename(v) in twins
+                    else _swap_files(v, twins)) for k, v in desc.items()}
+    if isinstance(desc, list):
+        return [_swap_files(v, twins) for v in desc]
+    return desc
+
+
+# slice 7d: each PNG / .hdr of the textured scenes and its twin in another
+# format, written by tools/gen_torch_assets.py / gen_torch_exr.py with the
+# same pixels
+CBOX_TEX_TWINS = {"checker.png": "checker_lzw.tif", "bumps.png": "bumps.gif"}
+ENV_SPHERE_TWINS = {"sky_a.hdr": "sky_a.exr", "sky_b.hdr": "sky_b.exr",
+                    "checker.png": "checker_lzw.tif",
+                    "projector.png": "projector.gif"}
+
+
+def cbox_tex_files(res=512):
+    """`cbox_tex` with its images read from TIFF (LZW, predictor 2) and
+    GIF files of the same pixels: it renders as `cbox_tex` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_TWINS)
+
+
+def env_sphere_files(res=512, sub_div=40):
+    """`env_sphere` with its skies read from OpenEXR files (FLOAT; PIZ
+    scanlines, RLE mip-mapped tiles), its checker from an LZW TIFF and its
+    projector image from a GIF, each of the same pixels as the original:
+    it renders as `env_sphere` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_TWINS)
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

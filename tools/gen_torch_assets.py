@@ -31,12 +31,23 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
     PNG; TGA (run-length, colour-mapped, grey, 16-bit) and BMP (RLE8,
     RLE4, 1-bit, 565 bitfields, top-down, 32-bit with alpha) written by
     the small encoders here (PIL writes none of these PNG, TGA and BMP
-    variants); and `tiny.tif`, which the port does not decode (7d).
+    variants); `tiny.tif` (PIL's TIFF writer).
+  * The TIFF and GIF files of slice 7d (`tiff_gif_files`): LZW with
+    predictor 2 (old-style LZW too), Deflate tiles, planar PackBits,
+    big-endian float with predictor 3 and 16-bit grey, 4-bit
+    min-is-white in fill order 2, bilevel, palette, CMYK, associated
+    alpha, 16-bit RGB, JPEG strips (YCbCr with JPEGTables, and PIL's RGB);
+    GIFs interlaced, with a local table, a transparent index and a frame
+    inside a larger screen, and of LZW code size 2; the twins
+    `checker_lzw.tif`, `projector.gif` and `bumps.gif` of the scenes'
+    PNGs (the same pixels); `lzw_2048.tif`, the TIFF timing case.
 
 The output is deterministic: running it again writes the same bytes.
 """
 import os
+import struct
 import sys
+import zlib
 
 import numpy as np
 
@@ -784,6 +795,258 @@ def arith_jpeg_bytes(coef, sampling, q=4, progressive=False, restart=0,
     return out + b"\xff\xd9"
 
 
+def lzw_encode(data, min_bits=8, msb=True):
+    """LZW of `data` as TIFF writes it (msb: codes most significant bit
+    first, 9 to 12 bits, the width raised one code early) or as GIF and
+    old-style TIFF write it (least significant bit first, codes from
+    min_bits + 1 bits): a clear code first, a clear whenever the table
+    fills, the end code last."""
+    clear, eoi = 1 << min_bits, (1 << min_bits) + 1
+    early = 1 if msb else 0
+    out = bytearray()
+    acc = n = 0
+
+    def emit(code, width):
+        nonlocal acc, n
+        if msb:
+            acc = (acc << width) | code
+            n += width
+            while n >= 8:
+                out.append((acc >> (n - 8)) & 0xFF)
+                n -= 8
+        else:
+            acc |= code << n
+            n += width
+            while n >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                n -= 8
+
+    def reset():
+        return {bytes([i]): i for i in range(clear)}, eoi + 1, min_bits + 1
+
+    table, nxt, width = reset()
+    emit(clear, width)
+    w = b""
+    for byte in bytes(data):
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w], width)
+        table[wc] = nxt
+        nxt += 1
+        # the decoder adds its entry one code later: it reads the next
+        # code at the width its table then asks for
+        if nxt - 1 + early >= 1 << width and width < 12:
+            width += 1
+        if nxt >= 4093:
+            emit(clear, width)
+            table, nxt, width = reset()
+        w = bytes([byte])
+    if w:
+        emit(table[w], width)
+    emit(eoi, width)
+    if n:
+        out.append(((acc << (8 - n)) & 0xFF) if msb else acc & 0xFF)
+    return bytes(out)
+
+
+def packbits_encode(data):
+    """TIFF PackBits: runs of 3 or more repeats, literals between."""
+    data = bytes(data)
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        j = i
+        while j + 1 < len(data) and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i + 1), data[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and not (
+                j + 2 < len(data) and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+_BITREV = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _tiff_pack(v, bits, bo, predictor):
+    """Samples [rows, cols, spp] -> the chunk's bytes, differenced by the
+    predictor (2: horizontal; 3: floating point byte planes)."""
+    rows, cols, spp = v.shape
+    if predictor == 3:
+        nb = bits // 8
+        b = np.ascontiguousarray(v.astype(f">f{nb}")).view(np.uint8)
+        b = b.reshape(rows, cols * spp, nb).transpose(0, 2, 1).reshape(
+            rows, -1, spp).astype(np.int64)
+        d = b.copy()
+        d[:, 1:] = (b[:, 1:] - b[:, :-1]) & 0xFF
+        return d.astype(np.uint8).tobytes()
+    if predictor == 2:
+        v = v.view(f"u{bits // 8}") if v.dtype.kind == "f" else v
+        v = v.astype(np.int64)
+        d = v.copy()
+        d[:, 1:] = (v[:, 1:] - v[:, :-1]) & ((1 << bits) - 1)
+        v = d
+    if bits < 8:
+        flat = v.reshape(rows, cols * spp).astype(np.uint8)
+        bitsarr = ((flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1)
+        return np.packbits(bitsarr.reshape(rows, -1).astype(np.uint8),
+                           axis=1).tobytes()
+    if v.dtype.kind == "f":
+        return np.ascontiguousarray(v.astype(bo + f"f{bits // 8}")).tobytes()
+    return np.ascontiguousarray(v.astype(bo + f"u{bits // 8}")).tobytes()
+
+
+def tiff_bytes(samples, bits, photometric, compression=1, predictor=1,
+               rows_per_strip=None, tile=None, planar=False, fill=1, bo="<",
+               extra=(), sampleformat=None, colormap=None, jpeg_chunks=None,
+               jpeg_tables=None, ycbcr_sub=None, lzw_old=False):
+    """A classic TIFF of samples [h, w, spp] (ints, or floats for
+    sampleformat 3): strips of rows_per_strip rows or (tw, th) tiles
+    (edge tiles padded), chunky or planar, compression 1 (none), 5 (LZW;
+    lzw_old: old-style, least significant bit first), 8 / 32946
+    (Deflate), 32773 (PackBits) or 7 (JPEG: the chunks given, with
+    `jpeg_tables`), predictors 1-3, fill order 2 (each chunk's bytes
+    bit-reversed), either byte order."""
+    samples = np.asarray(samples)
+    h, w, spp = samples.shape
+    if tile:
+        tw, th = tile
+    else:
+        tw, th = w, rows_per_strip or h
+    chunks = []
+    planes = range(spp) if planar else [None]
+    for pl in planes:
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                if jpeg_chunks is not None:
+                    chunks.append(jpeg_chunks[len(chunks)])
+                    continue
+                v = samples[y0:y0 + th, x0:x0 + tw]
+                if pl is not None:
+                    v = v[..., pl:pl + 1]
+                if tile:
+                    pad = np.zeros((th, tw, v.shape[2]), v.dtype)
+                    pad[:v.shape[0], :v.shape[1]] = v
+                    v = pad
+                raw = _tiff_pack(v, bits, bo, predictor)
+                if compression == 5:
+                    raw = lzw_encode(raw, 8, msb=not lzw_old)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw, 9)
+                elif compression == 32773:
+                    raw = packbits_encode(raw)
+                if fill == 2:
+                    raw = raw.translate(_BITREV)
+                chunks.append(raw)
+    body = bytearray(b"II*\0" if bo == "<" else b"MM\0*")
+    body += b"\0\0\0\0"
+    offsets = []
+    for c in chunks:
+        offsets.append(len(body))
+        body += c
+        if len(body) % 2:
+            body += b"\0"
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+            259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [spp]), 284: (3, [2 if planar else 1])}
+    if fill != 1:
+        tags[266] = (3, [fill])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra:
+        tags[338] = (3, list(extra))
+    if sampleformat is not None:
+        tags[339] = (3, [sampleformat] * spp)
+    if colormap is not None:
+        tags[320] = (3, list(np.asarray(colormap).T.ravel()))
+    if jpeg_tables is not None:
+        tags[347] = (7, jpeg_tables)
+    if ycbcr_sub is not None:
+        tags[530] = (3, list(ycbcr_sub))
+    if tile:
+        tags[322], tags[323] = (3, [tw]), (3, [th])
+        tags[324] = (4, offsets)
+        tags[325] = (4, [len(c) for c in chunks])
+    else:
+        tags[273] = (4, offsets)
+        tags[278] = (3, [th])
+        tags[279] = (4, [len(c) for c in chunks])
+    entries, blobs = [], bytearray()
+    ifd_at = len(body)
+    end = ifd_at + 2 + 12 * len(tags) + 4
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        if typ == 7:
+            data = bytes(vals)
+            count = len(data)
+        else:
+            data = struct.pack(bo + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+            count = len(vals)
+        if len(data) <= 4:
+            field = data.ljust(4, b"\0")
+        else:
+            field = struct.pack(bo + "I", end + len(blobs))
+            blobs += data
+            if len(blobs) % 2:
+                blobs += b"\0"
+        entries.append(struct.pack(bo + "HHI", tag, typ, count) + field)
+    body[4:8] = struct.pack(bo + "I", ifd_at)
+    body += struct.pack(bo + "H", len(tags)) + b"".join(entries) + bytes(4)
+    body += blobs
+    return bytes(body)
+
+
+def gif_bytes(idx, palette=None, min_bits=None, interlace=False,
+              transparency=None, local=False, screen=None, offset=(0, 0),
+              lzw=None):
+    """A GIF of one frame: indices [h, w] through `palette` [n, 3] (the
+    global table, or the frame's local one), LZW of min_bits (default:
+    the palette's bits, at least 2), rows interlaced if asked, a graphic
+    control extension with a transparent index, the frame at `offset` on
+    a screen of `screen` (w, h); `lzw` replaces the coded data."""
+    idx = np.asarray(idx, np.uint8)
+    fh, fw = idx.shape
+    sw, sh = screen or (fw, fh)
+    table = b""
+    tbits = 0
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)
+        tbits = max(1, (len(pal) - 1).bit_length())
+        table = pal.tobytes() + bytes(3 * ((1 << tbits) - len(pal)))
+    gflags = 0x80 | (tbits - 1) if table and not local else 0
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, gflags, 0, 0)
+    if table and not local:
+        out += table
+    if transparency is not None:
+        out += b"!\xf9\x04\x01\x00\x00" + bytes([transparency]) + b"\0"
+    rows = idx
+    if interlace:
+        order = np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                np.arange(2, fh, 4), np.arange(1, fh, 2)])
+        rows = idx[order]
+    lflags = (0x40 if interlace else 0) | (
+        (0x80 | (tbits - 1)) if table and local else 0)
+    out += b"," + struct.pack("<HHHHB", offset[0], offset[1], fw, fh, lflags)
+    if table and local:
+        out += table
+    mb = min_bits or max(2, tbits)
+    data = lzw if lzw is not None else lzw_encode(rows.tobytes(), mb,
+                                                  msb=False)
+    out += bytes([mb])
+    for i in range(0, len(data), 255):
+        out += bytes([len(data[i:i + 255])]) + data[i:i + 255]
+    return out + b"\0;"
+
+
 def _pil_jpeg(img, mode=None, **opts):
     import io
     from PIL import Image
@@ -869,21 +1132,138 @@ def image_files():
     b = io.BytesIO()
     Image.fromarray(rgb[:8, :8]).save(b, "TIFF")
     files["tiny.tif"] = b.getvalue()
+    files.update(tiff_gif_files(rgb, idx, pal16))
     return files
+
+
+def _jpeg_split(data):
+    """A JPEG -> (its tables as an abbreviated stream: SOI, DQT, DHT, EOI;
+    the rest, as TIFF's JPEG strips store it)."""
+    pos, seg = 2, []
+    while pos < len(data):
+        m = data[pos + 1]
+        if m == 0xDA:
+            seg.append((m, data[pos:]))
+            break
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        seg.append((m, data[pos:pos + 2 + n]))
+        pos += 2 + n
+    tables = b"\xff\xd8" + b"".join(b for m, b in seg if m in (0xDB, 0xC4))
+    return tables + b"\xff\xd9", b"\xff\xd8" + b"".join(
+        b for m, b in seg if m not in (0xDB, 0xC4))
+
+
+def _palette_of(img):
+    """An RGB image of at most 256 colours -> (indices, palette)."""
+    cols, inv = np.unique(img.reshape(-1, 3), axis=0, return_inverse=True)
+    assert len(cols) <= 256
+    return inv.reshape(img.shape[:2]).astype(np.uint8), cols
+
+
+def tiff_gif_files(rgb, idx, pal16):
+    """The TIFF and GIF files of slice 7d (name -> bytes), written by the
+    encoders above (tiles, planar, predictor 3, fill order, old-style LZW
+    and JPEG strips are hand-built: PIL writes none of them) and by PIL;
+    and the twins of the scenes' PNGs (`tests/torch_scenes.py`
+    `env_sphere_files`, `cbox_tex_files`), which hold the same pixels."""
+    import io
+    from PIL import Image
+    g = np.random.RandomState(13)
+    h, w = rgb.shape[:2]
+    grey16 = (np.add.outer(np.arange(h), np.arange(w)) * 811 % 65536)
+    fl = (rgb[..., :1].astype(np.float32) - 40) * np.float32(1.37)
+    fl[0, :4, 0] = [np.nan, np.inf, -np.inf, 300.0]
+    alpha = (np.arange(w)[None, :, None] * 255 // (w - 1)).repeat(h, 0)
+    assoc = np.concatenate([rgb * alpha // 255, alpha], -1)
+    cmap = np.zeros((256, 3), np.int64)
+    cmap[:16] = pal16 * 257
+    ycc_chunks, ycc_tables = [], None
+    for y0 in range(0, h, 16):
+        b = io.BytesIO()
+        Image.fromarray(rgb[y0:y0 + 16]).save(b, "JPEG", quality=85,
+                                              subsampling=2)
+        ycc_tables, strip = _jpeg_split(b.getvalue())
+        ycc_chunks.append(strip)
+    files = {
+        "lzw_pred2.tif": tiff_bytes(rgb, 8, 2, 5, predictor=2,
+                                    rows_per_strip=10),
+        "deflate_tiles.tif": tiff_bytes(rgb, 8, 2, 32946, predictor=2,
+                                        tile=(16, 16)),
+        "planar_packbits.tif": tiff_bytes(rgb, 8, 2, 32773, planar=True,
+                                          rows_per_strip=7),
+        "float_pred3_mm.tif": tiff_bytes(fl, 32, 1, 8, predictor=3,
+                                         sampleformat=3, bo=">",
+                                         rows_per_strip=16),
+        "grey16_lzw_mm.tif": tiff_bytes(grey16[..., None], 16, 1, 5,
+                                        predictor=2, bo=">"),
+        "minwhite4_fill2.tif": tiff_bytes(rgb[..., 1:2] >> 4, 4, 0, 5,
+                                          fill=2, rows_per_strip=9),
+        "bilevel.tif": tiff_bytes(idx[..., None] & 1, 1, 1, 1),
+        "pal4_lzw.tif": tiff_bytes(idx[..., None], 4, 3, 5, colormap=cmap[:16],
+                                   tile=(16, 16)),
+        "cmyk_deflate.tif": tiff_bytes(np.concatenate(
+            [255 - rgb, rgb[..., :1] // 3], -1), 8, 5, 8),
+        "rgba_assoc.tif": tiff_bytes(assoc, 8, 2, 8, extra=(1,)),
+        "rgb16_packbits.tif": tiff_bytes(rgb.astype(np.int64) * 257 + g.randint(
+            0, 256, rgb.shape), 16, 2, 32773),
+        "lzw_old.tif": tiff_bytes(rgb, 8, 2, 5, lzw_old=True,
+                                  rows_per_strip=20),
+        "jpeg_ycbcr.tif": tiff_bytes(rgb, 8, 6, 7, rows_per_strip=16,
+                                     jpeg_chunks=ycc_chunks,
+                                     jpeg_tables=ycc_tables,
+                                     ycbcr_sub=(2, 2)),
+        "interlaced.gif": gif_bytes(idx, pal16, interlace=True),
+        "local_trans.gif": gif_bytes(idx, pal16, local=True, transparency=3,
+                                     screen=(w + 6, h + 4), offset=(2, 1)),
+        "code2.gif": gif_bytes(idx & 3, pal16[:4], min_bits=2),
+    }
+    b = io.BytesIO()
+    Image.fromarray(rgb).save(b, "TIFF", compression="jpeg", quality=90)
+    files["jpeg_rgb.tif"] = b.getvalue()
+    # the scenes' twins
+    files["checker_lzw.tif"] = tiff_bytes(checker(), 8, 2, 5, predictor=2,
+                                          rows_per_strip=16)
+    for name, img in (("projector.gif", projector()[..., :3]),
+                      ("bumps.gif", bumps())):
+        i, p = _palette_of(img)
+        files[name] = gif_bytes(i, p)
+    return files
+
+
+def timing_tiff(n=2048):
+    """A 2048 x 2048 RGB LZW TIFF (predictor 2) of smooth procedural
+    content, written by PIL (libtiff): the TIFF decoder's timing case."""
+    import io
+    from PIL import Image
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(x / 150.0 + k) * np.cos(y / 97.0 - k)
+                    for k in range(3)], -1).astype(np.uint8)
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, "TIFF", compression="tiff_lzw",
+                              tiffinfo={317: 2})
+    return b.getvalue()
 
 
 def write_image_files(out):
     """The files of `image_files` and `image_decodes.npz`, what PIL decodes
-    from each (`Image.open(p).convert("RGB")`), keyed by file name; the
-    TIFF has none (the port does not decode it)."""
+    from each (`Image.open(p).convert("RGB")`), keyed by file name; and
+    `lzw_2048.tif` (`timing_tiff`), whose decode's sha256 and 128 x 128
+    corner the .npz keeps under "lzw_2048.tif:sha256" / ":corner"."""
+    import hashlib
     from PIL import Image
     dec = {}
     for fn, data in image_files().items():
         p = os.path.join(out, fn)
         with open(p, "wb") as f:
             f.write(data)
-        if not fn.endswith(".tif"):
-            dec[fn] = np.asarray(Image.open(p).convert("RGB"))
+        dec[fn] = np.asarray(Image.open(p).convert("RGB"))
+    p = os.path.join(out, "lzw_2048.tif")
+    with open(p, "wb") as f:
+        f.write(timing_tiff())
+    full = np.asarray(Image.open(p).convert("RGB"))
+    dec["lzw_2048.tif:sha256"] = np.frombuffer(
+        hashlib.sha256(full.tobytes()).digest(), np.uint8)
+    dec["lzw_2048.tif:corner"] = full[:128, :128]
     np.savez_compressed(os.path.join(out, "image_decodes.npz"), **dec)
 
 
@@ -902,6 +1282,9 @@ def main():
         f.write(IES)
     write_jpegs(out)
     write_image_files(out)
+    # a format the port leaves for ROADMAP 7e (tests/test_torch_scene.py)
+    Image.fromarray(checker()[:8, :8]).save(os.path.join(out, "tiny.webp"),
+                                           lossless=True)
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

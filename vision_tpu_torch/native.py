@@ -1,10 +1,11 @@
 """ctypes bindings of the port's host library: the SAH BVH builder
-(`native/bvh_builder.cpp`), the OBJ parser (`csrc/mesh_io.cpp`) and the
-JPEG entropy decoder (`csrc/jpeg_huff.cpp`).
+(`native/bvh_builder.cpp`), the OBJ parser (`csrc/mesh_io.cpp`), the
+JPEG entropy decoder (`csrc/jpeg_huff.cpp`) and the serial stages of the
+OpenEXR, TIFF and GIF codecs (`csrc/image_codecs.cpp`).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
 `build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
-import the JAX package. At first use the three sources are compiled with
+import the JAX package. At first use the four sources are compiled with
 g++ into `vision_tpu_torch/_build/` (the tracked `native/libvision_native.so`
 is neither loaded nor rebuilt). The OBJ parser is the port's own copy of
 `native/mesh_io.cpp`'s: its vertex cache keys on the exact index triple
@@ -24,7 +25,8 @@ from .accel.cuda_build import compile_library
 _HERE = os.path.dirname(__file__)
 SOURCES = [os.path.join(_HERE, "..", "native", "bvh_builder.cpp"),
            os.path.join(_HERE, "csrc", "mesh_io.cpp"),
-           os.path.join(_HERE, "csrc", "jpeg_huff.cpp")]
+           os.path.join(_HERE, "csrc", "jpeg_huff.cpp"),
+           os.path.join(_HERE, "csrc", "image_codecs.cpp")]
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lib = None
@@ -70,6 +72,19 @@ def _library():
             P, ctypes.c_int64, ctypes.c_int32, P, P, P, P] + \
             [ctypes.c_int32] * 5
         lib.vt_jpeg_decode_lossless.restype = ctypes.c_int64
+        for name, args in (("vt_exr_huf_decode", [P, ctypes.c_int64, P,
+                                                  ctypes.c_int64]),
+                           ("vt_exr_rle_decode", [P, ctypes.c_int64, P,
+                                                  ctypes.c_int64]),
+                           ("vt_dwa_unrle_ac", [P, ctypes.c_int64,
+                                                ctypes.c_int64, P, P]),
+                           ("vt_lzw_decode", [P, ctypes.c_int64, P,
+                                              ctypes.c_int64, ctypes.c_int32,
+                                              ctypes.c_int32]),
+                           ("vt_packbits_decode", [P, ctypes.c_int64, P,
+                                                   ctypes.c_int64])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -207,6 +222,74 @@ def jpeg_decode_lossless(data, start, tables, planes, bits, vals, restart,
         tables.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data, w, h,
         restart, psv, pt)
     return start + _scan_end(rc)
+
+
+def _bytes(data):
+    return np.frombuffer(data, np.uint8) if len(data) else np.zeros(1, np.uint8)
+
+
+def exr_huf_decode(data, n_out):
+    """OpenEXR's Huffman decoder (PIZ, DWA's AC coefficients): the coded
+    bytes -> uint16 [n_out]. Raises ValueError where libOpenEXR throws."""
+    buf = _bytes(data)
+    out = np.zeros(max(n_out, 1), np.uint16)
+    if _library().vt_exr_huf_decode(buf.ctypes.data, len(data),
+                                    out.ctypes.data, n_out) < 0:
+        raise ValueError("corrupt OpenEXR Huffman data")
+    return out[:n_out]
+
+
+def exr_rle_decode(data, n_out):
+    """OpenEXR's byte run-length decoder -> uint8 [n_out]. Raises
+    ValueError for a stream of another length, as libOpenEXR does."""
+    buf = _bytes(data)
+    out = np.zeros(max(n_out, 1), np.uint8)
+    n = _library().vt_exr_rle_decode(buf.ctypes.data, len(data),
+                                     out.ctypes.data, n_out)
+    if n != n_out:
+        raise ValueError("corrupt OpenEXR run-length data")
+    return out[:n_out]
+
+
+def dwa_unrle_ac(ac, n_blocks):
+    """DWA's AC run-length decoder: uint16 values -> (uint16 [n_blocks, 64]
+    halves in zig-zag order, index 0 zero; int32 [n_blocks], the index of
+    each block's last value; the values read). Raises ValueError where the
+    values run out."""
+    ac = np.ascontiguousarray(ac, np.uint16)
+    if not ac.size:
+        ac = np.zeros(1, np.uint16)[:0]
+    blocks = np.zeros((max(n_blocks, 1), 64), np.uint16)
+    last = np.zeros(max(n_blocks, 1), np.int32)
+    n = _library().vt_dwa_unrle_ac(ac.ctypes.data, ac.size, n_blocks,
+                                   blocks.ctypes.data, last.ctypes.data)
+    if n < 0:
+        raise ValueError("corrupt OpenEXR DWA AC data")
+    return blocks[:n_blocks], last[:n_blocks], n
+
+
+def lzw_decode(data, n_out, min_bits=8, msb=True):
+    """LZW -> uint8 [at most n_out]: msb=True, TIFF's (9- to 12-bit codes,
+    most significant bit first, the early width change); msb=False, GIF's
+    and old-style TIFF's (least significant bit first, codes from
+    min_bits + 1 bits). Stops at the end code, at n_out bytes or where the
+    data ends. Raises ValueError for a code not yet in the table."""
+    buf = _bytes(data)
+    out = np.zeros(max(n_out, 1), np.uint8)
+    n = _library().vt_lzw_decode(buf.ctypes.data, len(data), out.ctypes.data,
+                                 n_out, min_bits, int(msb))
+    if n < 0:
+        raise ValueError("corrupt LZW data: a code not yet in the table")
+    return out[:n]
+
+
+def packbits_decode(data, n_out):
+    """TIFF PackBits -> uint8 [at most n_out] (fewer where the data ends)."""
+    buf = _bytes(data)
+    out = np.zeros(max(n_out, 1), np.uint8)
+    n = _library().vt_packbits_decode(buf.ctypes.data, len(data),
+                                      out.ctypes.data, n_out)
+    return out[:n]
 
 
 def _run(fn, inputs, n, max_leaf):

@@ -1,18 +1,23 @@
 """Image files without PIL, OpenCV or OpenEXR: the standard library's zlib
-and struct, numpy, and the port's host library (`native.py`) for JPEG's
-entropy decoding.
+and struct, numpy, and the port's host library (`native.py`) for the
+serial stages: JPEG's entropy decoding (`csrc/jpeg_huff.cpp`), OpenEXR's
+Huffman and run-length coding, LZW and PackBits
+(`csrc/image_codecs.cpp`).
 
-The JAX package reads PNG, JPEG, BMP, TGA and the other LDR files through
-PIL and Radiance .hdr and OpenEXR through OpenCV
-(`vision_tpu/scene/texture.py` `load_image`). This module decodes what
-those libraries give for the files a scene names, and refuses, with
-ValueError, what they refuse:
+The JAX package (`vision_tpu/scene/texture.py` `load_image`) picks its
+reader by the file's extension: ".hdr" and ".exr" through OpenCV
+(`cv2.imread`, IMREAD_ANYCOLOR | IMREAD_ANYDEPTH), every other name
+through PIL (`Image.open(p).convert("RGB")`). `read_image` picks the same
+way (ROADMAP C20) and, by the file's content, decodes what that library
+gives for the files a scene names, and refuses, with ValueError, what it
+refuses:
 
   * PNG (`read_png`): every colour type at every bit depth PNG defines,
     Adam7-interlaced or not, every filter type, any number of IDAT chunks.
     The result is `PIL.Image.open(p).convert("RGB")`: alpha dropped (not
     composited), a palette expanded, 1/2/4-bit grey scaled up, 16-bit grey
-    clipped at 255 and other 16-bit samples cut to their high byte.
+    clipped at 255 and other 16-bit samples cut to their high byte
+    (OpenCV, under a .hdr / .exr name, keeps 16-bit samples whole).
   * JPEG (`read_jpeg`): sequential and progressive files of 8-bit
     samples, Huffman- or arithmetic-coded, and lossless Huffman files (1x1
     sampling); any sampling factors, restart intervals, any size; grey,
@@ -23,27 +28,33 @@ ValueError, what they refuse:
     h2v2 chroma (`jdsample.c`), the YCbCr -> RGB tables (`jdcolor.c`),
     PIL's inverted CMYK and its CMYK -> RGB. Arithmetic-coded lossless and
     subsampled lossless files raise NotImplementedError naming ROADMAP
-    queue A, 7d; 12-bit, hierarchical and fractionally sampled ones are
+    queue A, 7e; 12-bit, hierarchical and fractionally sampled ones are
     refused.
   * BMP (`read_bmp`) and TGA (`read_tga`): as PIL's plugins read them
     (their docstrings list the variants), quirks included.
+  * TIFF (`read_tiff`) and GIF (`read_gif`): as PIL (libtiff for
+    compressed TIFF) reads page / frame 0; their docstrings list the
+    variants and the quirks copied.
   * Radiance .hdr (`read_hdr`): the `#?RADIANCE` / `#?RGBE` header, the
     `-Y H +X W` orientation (OpenCV refuses the others, and so does this
     module), new-style run-length and flat scanlines, decoded as OpenCV
     decodes them: m * 2^(e - 136), no +0.5, e = 0 is 0; RGB order.
-  * OpenEXR (`read_exr`): single-part scanline files, compression NONE,
-    ZIPS and ZIP, HALF and FLOAT channels; R, G, B (A dropped) or Y
-    (replicated). PIZ and the other compressions, tiled, deep and
-    multi-part files raise NotImplementedError (7d).
+  * OpenEXR (`read_exr`): as Imf::InputFile, which OpenCV reads through,
+    decodes them: scanline and tiled files (level (0, 0)), part 0 of a
+    multi-part file; every compression (NONE, RLE, ZIPS, ZIP, PIZ, PXR24,
+    B44, B44A, DWAA, DWAB), HALF and FLOAT channels; R, G, B (A dropped)
+    or Y (replicated).
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-TIFF, GIF, WebP and the other formats PIL opens raise NotImplementedError
-naming ROADMAP queue A, 7d.
+WebP, luminance-chroma and UINT OpenEXR files, the rarer TIFF codecs,
+what OpenCV's own readers decode under a .hdr / .exr name and the other
+formats PIL opens raise NotImplementedError naming ROADMAP queue A, 7e.
 """
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 
@@ -63,8 +74,7 @@ def _not_ported(what, slice_):
 # magic numbers of the formats PIL opens that this module does not decode
 # (checked before TGA, which has none: an icon's header would pass for one,
 # and a TGA's header can read as an icon directory of 0 entries)
-_OTHER_FORMATS = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"II+\0", "TIFF"),
-                  (b"MM\0+", "TIFF"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+_OTHER_FORMATS = ((b"II+\0", "BigTIFF"), (b"MM\0+", "BigTIFF"),
                   (b"\0\0\1\0", "ICO"), (b"\0\0\2\0", "CUR"),
                   (b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"qoif", "QOI"),
                   (b"icns", "ICNS"), (b"\0\0\0\x0cjP  ", "JPEG 2000"),
@@ -82,33 +92,97 @@ def _other_format(data):
 
 
 def read_image(path):
-    """Decode `path` by its content: (array, kind) where kind is "ldr" (a
-    uint8 [H, W, 3] RGB array) or "hdr" (float32 [H, W, 3] RGB). TGA, which
-    has no magic number, is tried last, with PIL's header checks. Raises
-    FileNotFoundError for a missing file, NotImplementedError for a format
-    or a variant this module does not decode, ValueError for a corrupt
-    file or one the reference's library refuses too."""
+    """Decode `path` as the JAX package's `load_image` does, picking the
+    library by the lowercased extension: (array, kind). ".hdr" and ".exr"
+    follow OpenCV (`_read_opencv`): kind "hdr", float32 [H, W, 3] RGB
+    taken as the samples are (no /255). Every other name follows PIL
+    (`_read_pil`): kind "ldr", uint8 [H, W, 3] RGB. Raises
+    FileNotFoundError for a missing file, NotImplementedError for a
+    format or a variant this module does not decode, ValueError for a
+    corrupt file or one the reference's library refuses too."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == PNG_SIGNATURE:
-        return read_png(data), "ldr"
-    if data[:2] == b"#?":
-        return read_hdr(data), "hdr"
-    if len(data) >= 4 and struct.unpack("<i", data[:4])[0] == EXR_MAGIC:
-        return read_exr(data), "hdr"
-    if data[:3] == b"\xff\xd8\xff":
-        return read_jpeg(data), "ldr"
-    if data[:2] == b"BM":
-        return read_bmp(data), "ldr"
     name = os.path.basename(path)
+    if os.path.splitext(path)[1].lower() in (".hdr", ".exr"):
+        return _read_opencv(data, name), "hdr"
+    return _read_pil(data, name), "ldr"
+
+
+def _is_exr(data):
+    return len(data) >= 4 and struct.unpack("<i", data[:4])[0] == EXR_MAGIC
+
+
+def _read_pil(data, name):
+    """What `PIL.Image.open(p).convert("RGB")` gives, by the file's
+    content. TGA, which has no magic number, is tried last, with PIL's
+    header checks. Radiance and OpenEXR files, which PIL cannot identify,
+    raise ValueError."""
+    if data[:8] == PNG_SIGNATURE:
+        return read_png(data)
+    if data[:3] == b"\xff\xd8\xff":
+        return read_jpeg(data)
+    if data[:2] == b"BM":
+        return read_bmp(data)
+    if data[:4] in (b"II*\0", b"MM\0*"):
+        return read_tiff(data)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return read_gif(data)
+    if data[:2] == b"#?" or _is_exr(data):
+        raise ValueError(f"'{name}': a Radiance or OpenEXR file under "
+                         "another name: PIL (the JAX package's reader for "
+                         "it) cannot identify it either")
     other = _other_format(data)
     if other is not None:
-        raise _not_ported(f"'{name}': decoding {other} files", "7d")
+        raise _not_ported(f"'{name}': decoding {other} files", "7e")
     if _tga_header(data) is not None:
-        return read_tga(data), "ldr"
+        return read_tga(data)
     raise NotImplementedError(
-        f"'{name}': not a PNG, JPEG, BMP, TGA, Radiance .hdr or OpenEXR "
-        "file: other formats (TIFF, GIF, WebP, ...) are ROADMAP queue A, 7d")
+        f"'{name}': not a PNG, JPEG, BMP, TGA, TIFF or GIF file: other "
+        "formats (WebP, ICO, PSD, ...) are ROADMAP queue A, 7e")
+
+
+# magic numbers of the formats OpenCV's own readers take that this module
+# does not decode under a .hdr / .exr name
+_OPENCV_OTHER = ((b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
+                 (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
+                 (b"\x59\xa6\x6a\x95", "Sun raster"), (b"PF", "PFM"),
+                 (b"Pf", "PFM"), (b"\0\0\0\x0cjP  ", "JPEG 2000"),
+                 (b"\xffO\xffQ", "JPEG 2000"))
+
+
+def _read_opencv(data, name):
+    """What the JAX package's `cv2.imread(p, IMREAD_ANYCOLOR |
+    IMREAD_ANYDEPTH)` path gives for a .hdr / .exr name, by the file's
+    content: float32 [H, W, 3] RGB with no /255. Radiance and OpenEXR as
+    `read_hdr` / `read_exr`; a PNG as PIL decodes it, but 16-bit samples
+    whole; a grey, YCbCr or RGB JPEG as PIL decodes it (OpenCV's
+    libjpeg-turbo gives the same samples). OpenCV's own BMP, TIFF, GIF,
+    WebP, PNM and other readers and its CMYK JPEG path (one off from
+    PIL's) raise NotImplementedError (7e); content OpenCV cannot read
+    raises ValueError."""
+    if data[:2] == b"#?":
+        return read_hdr(data)
+    if _is_exr(data):
+        return read_exr(data)
+    if data[:8] == PNG_SIGNATURE:
+        return read_png(data, full_depth=True).astype(np.float32)
+    if data[:3] == b"\xff\xd8\xff":
+        if len(_jpeg_sampling(data)) == 4:
+            raise _not_ported(f"'{name}': decoding CMYK / YCCK JPEG files "
+                              "as OpenCV does", "7e")
+        return read_jpeg(data).astype(np.float32)
+    other = next((n for magic, n in _OPENCV_OTHER if data.startswith(magic)),
+                 None)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        other = "WebP"
+    if len(data) > 2 and data[0] == ord("P") and data[1] in b"1234567" \
+            and data[2] in b" \t\r\n":
+        other = "PNM"
+    if other is not None:
+        raise _not_ported(f"'{name}': decoding {other} files as OpenCV does",
+                          "7e")
+    raise ValueError(f"'{name}': not a format OpenCV (the JAX package's "
+                     "reader for .hdr / .exr names) reads")
 
 
 # ---------------------------------------------------------------------------
@@ -187,13 +261,15 @@ def _png_samples(raw, h, w, depth, nch):
     return v.reshape(h, w, nch), n
 
 
-def read_png(data):
+def read_png(data, full_depth=False):
     """PNG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
     alpha dropped (not composited), a palette expanded (missing entries
     black), 1/2/4-bit grey scaled to 0..255, 16-bit grey clipped at 255
     (PIL's I;16 -> RGB), other 16-bit samples cut to their high byte.
     Adam7 files are de-interlaced. A colour type and bit depth that PNG
-    does not define is refused, as PIL refuses it (ValueError)."""
+    does not define is refused, as PIL refuses it (ValueError).
+    full_depth: a 16-bit file's samples whole (uint16, grey replicated),
+    as OpenCV's IMREAD_ANYDEPTH gives them."""
     ihdr, plte, idat = None, None, []
     for kind, body in _png_chunks(data):
         if kind == b"IHDR":
@@ -229,6 +305,9 @@ def read_png(data):
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(plte)] = plte[:256]
         return pal[v[..., 0]]
+    if depth == 16 and full_depth:
+        rgb = np.repeat(v[..., :1], 3, -1) if ctype in (0, 4) else v[..., :3]
+        return np.ascontiguousarray(rgb).astype(np.uint16)
     if ctype == 0 and depth == 16:
         g = np.minimum(v[..., 0], 255)                 # PIL's I;16 -> RGB
     elif depth == 16:
@@ -720,13 +799,37 @@ def _lossless_rgb(planes, pt, jfif, adobe):
                         out[3][..., None])
 
 
-def read_jpeg(data):
+def _jpeg_sampling(data):
+    """The (h, v) sampling factors of each component of a JPEG's frame
+    header ([] if none is found)."""
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            return []
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if 0xD0 <= marker <= 0xD9 or marker == 0x01:
+            pos += 2
+            continue
+        n, = struct.unpack(">H", data[pos + 2:pos + 4])
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            nc = data[pos + 9] if pos + 9 < len(data) else 0
+            f = data[pos + 10:pos + 10 + 3 * nc]
+            return [(f[3 * k + 1] >> 4, f[3 * k + 1] & 15)
+                    for k in range(len(f) // 3)]
+        pos += 2 + n
+    return []
+
+
+def read_jpeg(data, force_ycc=False):
     """JPEG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
     sequential and progressive files of 8-bit samples, Huffman- or
     arithmetic-coded (DAC conditioning), and lossless Huffman files (1x1
     sampling); grey, YCbCr, RGB, CMYK and YCCK, the colour space chosen as
     libjpeg chooses it (JFIF, the Adobe APP14 transform, the component
-    ids); PIL's CMYK -> RGB. Raises NotImplementedError (7d) for
+    ids); PIL's CMYK -> RGB. Raises NotImplementedError (7e) for
     arithmetic-coded lossless and subsampled lossless files; ValueError
     for what PIL
     refuses too (12- and 16-bit samples, 2 or more than 4 components,
@@ -804,7 +907,7 @@ def read_jpeg(data):
                 raise _jpeg_refused("hierarchical")
             if marker == 0xCB:
                 raise _not_ported("decoding arithmetic-coded lossless JPEG "
-                                  "files", "7d")
+                                  "files", "7e")
             if H == 0 or W == 0:
                 raise ValueError("JPEG without a height or width (DNL)")
             progressive = marker in (0xC2, 0xCA)
@@ -816,7 +919,7 @@ def read_jpeg(data):
                      for k in range(nc)]
             if lossless and any((c["h"], c["v"]) != (1, 1) for c in comps):
                 raise _not_ported("decoding subsampled lossless JPEG files",
-                                  "7d")
+                                  "7e")
             if not all(1 <= c["h"] <= 4 and 1 <= c["v"] <= 4 for c in comps):
                 raise ValueError("corrupt JPEG sampling factors")
             hmax = max(c["h"] for c in comps)
@@ -924,8 +1027,8 @@ def read_jpeg(data):
     ids = [c["id"] for c in comps]
     # libjpeg's colour space (jdapimin.c default_decompress_parms)
     if len(comps) == 3:
-        rgb = (not jfif and adobe == 0) or (not jfif and adobe is None
-                                              and ids == [82, 71, 66])
+        rgb = not force_ycc and ((not jfif and adobe == 0) or (
+            not jfif and adobe is None and ids == [82, 71, 66]))
         if rgb:
             return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
         return _ycc_to_rgb(*out)
@@ -942,6 +1045,495 @@ _ZIGZAG = np.array([
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+
+# ---------------------------------------------------------------------------
+# TIFF (as PIL's TiffImagePlugin and libtiff read it)
+# ---------------------------------------------------------------------------
+
+# the compressions decoded here (none, LZW, JPEG, Deflate twice, PackBits),
+# and those left for 7e
+_TIFF_CODECS = (1, 5, 7, 8, 32946, 32773)
+_TIFF_LATER = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
+               6: "old-style JPEG", 32771: "raw 16", 32809: "ThunderScan",
+               34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
+               50000: "ZSTD", 50001: "WebP"}
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B",
+               8: "h", 9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q"}
+
+
+def _pil_bomb_check(w, h):
+    """PIL refuses an image of more than twice its MAX_IMAGE_PIXELS
+    (89,478,485) pixels as a decompression bomb."""
+    if w * h > 2 * 89478485:
+        raise ValueError(f"an image of {w} x {h} pixels: PIL refuses it as "
+                         "a decompression bomb")
+
+
+def _tiff_refused(what):
+    return ValueError(f"TIFF {what} (PIL refuses it too)")
+
+
+def _tiff_ifd(data, bo):
+    """IFD 0 -> {tag: tuple of values}."""
+    try:
+        pos, = struct.unpack(bo + "I", data[4:8])
+        n, = struct.unpack(bo + "H", data[pos:pos + 2])
+        tags = {}
+        for k in range(n):
+            e = pos + 2 + 12 * k
+            tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
+            fmt = _TIFF_TYPES.get(typ)
+            if fmt is None or count == 0:
+                continue
+            size = struct.calcsize(bo + fmt) * count
+            at = e + 8 if size <= 4 else struct.unpack(bo + "I",
+                                                       data[e + 8:e + 12])[0]
+            if at + size > len(data):
+                raise _tiff_refused("with a tag past the end of the file")
+            v = struct.unpack(bo + fmt * count, data[at:at + size])
+            if typ in (5, 10):
+                v = tuple(v[i] / v[i + 1] if v[i + 1] else 0.0
+                          for i in range(0, len(v), 2))
+            tags[tag] = v if typ != 7 else data[at:at + size]
+        return tags
+    except struct.error:
+        raise ValueError("truncated TIFF directory") from None
+
+
+def _tiff_layout(tags):
+    """PIL's choice of mode from the tags (TiffImagePlugin._setup): the
+    photometric, sample format, fill order, bits and extra samples ->
+    (photometric, bits tuple, sample format, extra samples). Raises where
+    PIL finds no mode."""
+    photo = tags.get(262, (0,))[0]
+    comp = tags.get(259, (1,))[0]
+    spp = tags.get(277, (3 if comp == 6 and photo in (2, 6) else 1,))[0]
+    sf = tags.get(339, (1,))
+    if len(sf) > 1 and max(sf) == min(sf) == 1:
+        sf = (1,)
+    bps = tags.get(258, (1,))
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        raise _tiff_refused("of an unknown data organization")
+    return photo, tuple(bps), tuple(sf), tuple(tags.get(338, ()))
+
+
+def _tiff_mode(bo, photo, sf, fill, bps, extra):
+    """The subset of PIL's OPEN_INFO decoded here: (kind, bits) or None
+    where PIL has no mode. kind: "grey" (inverted for photometric 0),
+    "u16" (clipped at 255), "s16" / "s32" / "u32" (clipped to 0..255, the
+    last read as signed), "float" (truncated, clipped), "la", "rgb",
+    "rgba" (extra samples dropped), "rgba_assoc" (alpha undone), "rgb16"
+    (high bytes), "pal", "cmyk", "cmyk16", "ycbcr"."""
+    n = len(bps)
+    b0 = bps[0]
+    if any(b != b0 for b in bps):
+        return None
+    if fill == 2 and not ((photo in (0, 1, 3) and n == 1 and b0 <= 8
+                           and sf == (1,))
+                          or (photo == 2 and bps == (8, 8, 8) and not extra
+                              and sf == (1,))
+                          or (bo == "<" and photo == 1 and bps == (16,)
+                              and sf == (1,))):
+        return None
+    if n == 1 and not extra:
+        if photo in (0, 1) and sf == (1,) and b0 in (1, 2, 4, 8):
+            return "grey", b0
+        if photo == 1 and sf == (2,) and b0 == 8:
+            return "grey", 8
+        if b0 == 16 and sf == (1,) and (photo == 1 or (photo == 0
+                                                      and bo == "<")):
+            return "u16", 16
+        if b0 == 16 and sf == (2,) and photo == 1:
+            return "s16", 16
+        if b0 == 32 and sf == (3,) and photo in (0, 1):
+            return "float", 32
+        if b0 == 32 and sf == (1,) and photo == 1 and bo == "<":
+            return "u32", 32
+        if b0 == 32 and sf == (2,) and photo == 1:
+            return "s32", 32
+        if photo == 3 and sf == (1,) and b0 in (1, 2, 4, 8):
+            return "pal", b0
+        if photo == 6 and sf == (1,) and b0 == 8:
+            return "grey", 8
+        return None
+    if sf != (1,):
+        return None
+    if photo == 1 and bps == (8, 8) and extra == (2,):
+        return "la", 8
+    if photo == 3 and bps == (8, 8) and extra in ((0,), (2,)):
+        return "pal", 8
+    if photo == 2 and b0 in (8, 16):
+        if n == 3 and not extra:
+            return ("rgb" if b0 == 8 else "rgb16"), b0
+        if n == 4 and not extra:
+            return ("rgba" if b0 == 8 else "rgb16"), b0
+        if b0 == 8 and n in (4, 5, 6) and len(extra) == n - 3 and \
+                extra[1:] == (0,) * (n - 4) and extra[0] in (0, 1, 2):
+            return ("rgba_assoc" if extra[0] == 1 else "rgba"), 8
+        if b0 == 8 and n == 4 and extra == (999,):
+            return "rgba", 8
+        if b0 == 16 and n == 4 and extra in ((0,), (2,)):
+            return "rgb16", 16
+        if b0 == 16 and n == 4 and extra == (1,):
+            return "rgba_assoc16", 16
+        return None
+    if photo == 5 and b0 == 8 and (n, extra) in ((4, ()), (5, (0,)),
+                                                 (6, (0, 0))):
+        return "cmyk", 8
+    if photo == 5 and bps == (16,) * 4 and not extra:
+        return "cmyk16", 16
+    if photo == 6 and bps == (8, 8, 8) and not extra:
+        return "ycbcr", 8
+    return None
+
+
+_BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                        np.uint8)
+
+
+def _tiff_chunk(data, comp, off, count, n_bytes, fill):
+    """One strip or tile -> its decoded bytes (at most n_bytes), as
+    libtiff gives them. A chunk that decodes short raises ValueError, as
+    libtiff stops there."""
+    # PIL reads an uncompressed chunk itself, from its offset, whatever
+    # its byte count says; libtiff reads a compressed one's count
+    raw = data[off:off + (n_bytes if comp == 1 else count)]
+    if fill == 2:
+        raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+    if comp == 1:
+        out = raw
+    elif comp == 5:
+        msb = not (len(raw) >= 2 and raw[0] == 0 and raw[1] & 1)
+        out = native.lzw_decode(raw, n_bytes, 8, msb).tobytes()
+    elif comp in (8, 32946):
+        try:
+            out = zlib.decompressobj().decompress(raw, n_bytes)
+        except zlib.error:
+            raise _tiff_refused("Deflate data that is corrupt") from None
+    elif comp == 32773:
+        out = native.packbits_decode(raw, n_bytes).tobytes()
+    else:
+        raise AssertionError(comp)
+    if len(out) < n_bytes:
+        raise _tiff_refused("chunk that ends before its pixels")
+    return out[:n_bytes]
+
+
+def _tiff_samples(buf, rows, width, spp, bits, bo):
+    """Decoded bytes of `rows` rows -> samples [rows, width, spp] (numbers
+    in their type; sub-byte samples unpacked, each row padded to a
+    byte)."""
+    if bits < 8:
+        stride = -(-width * spp * bits // 8)
+        b = np.unpackbits(np.frombuffer(buf, np.uint8)[:rows * stride]
+                          .reshape(rows, stride), axis=1)[:, :width * spp * bits]
+        v = b.reshape(rows, width * spp, bits).astype(np.int64)
+        v = (v << np.arange(bits - 1, -1, -1)).sum(-1)
+        return v.reshape(rows, width, spp)
+    dt = {8: "u1", 16: "u2", 32: "u4"}[bits]
+    v = np.frombuffer(buf, bo + dt, rows * width * spp)
+    return v.reshape(rows, width, spp).astype(np.int64)
+
+
+def _undo_predictor(v, bits):
+    """libtiff's horizontal predictor on one chunk's samples [rows, width,
+    spp]: each sample the sum of the differences before it in its row
+    (mod 2^bits)."""
+    if bits < 8:
+        raise _tiff_refused(f"horizontal predictor at {bits} bits")
+    return np.cumsum(v, axis=1) & ((1 << bits) - 1)
+
+
+def _tiff_fp_predictor(buf, rows, width, spp, nb):
+    """libtiff's floating-point predictor on one chunk's bytes: each row's
+    bytes summed with a stride of spp (mod 256), then read as nb byte
+    planes, most significant first -> big-endian sample bytes."""
+    b = np.frombuffer(buf, np.uint8)[:rows * width * spp * nb].reshape(
+        rows, width * nb, spp).astype(np.int64)
+    b = (np.cumsum(b, axis=1) & 0xFF).astype(np.uint8).reshape(rows, -1)
+    planes = b.reshape(rows, nb, width * spp)
+    return np.ascontiguousarray(planes.transpose(0, 2, 1)).tobytes()
+
+
+def read_tiff(data):
+    """TIFF bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them
+    (PIL reads compressed files through libtiff): page 0, orientation not
+    applied; classic TIFF in either byte order, strips or tiles, chunky or
+    planar; no compression, PackBits, LZW (old-style too), Deflate and
+    JPEG (with JPEGTables; YCbCr decoded to RGB as libtiff's JPEG colour
+    mode asks); predictors 1, 2 and 3; 1-, 2-, 4-, 8- and 16-bit integer
+    and 32-bit integer and float samples; min-is-white / min-is-black,
+    RGB(A) with extra samples (associated alpha undone as PIL does),
+    palette, CMYK; fill order 2. 16-bit samples reach 8 bits as PIL's
+    modes take them (grey clipped at 255, colour cut to the high byte),
+    floats truncated and clipped. What PIL has no mode for raises
+    ValueError; other compressions and BigTIFF raise NotImplementedError
+    naming ROADMAP queue A, 7e."""
+    bo = {b"II*\0": "<", b"MM\0*": ">"}.get(data[:4])
+    if bo is None:
+        raise ValueError("not a TIFF file")
+    tags = _tiff_ifd(data, bo)
+    comp = tags.get(259, (1,))[0]
+    if comp in _TIFF_LATER:
+        raise _not_ported(f"decoding {_TIFF_LATER[comp]} TIFF files", "7e")
+    if comp not in _TIFF_CODECS:
+        raise _tiff_refused(f"compression {comp}")
+    try:
+        w, h = tags[256][0], tags[257][0]
+    except KeyError:
+        raise _tiff_refused("without its dimensions") from None
+    _pil_bomb_check(w, h)
+    photo, bps, sf, extra = _tiff_layout(tags)
+    fill = tags.get(266, (1,))[0]
+    mode = _tiff_mode(bo, photo, sf, fill, bps, extra)
+    if mode is None:
+        raise _tiff_refused(f"of photometric {photo}, bits {bps}, sample "
+                            f"format {sf}, extra samples {extra}")
+    kind, bits = mode
+    spp = len(bps)
+    planar = tags.get(284, (1,))[0] == 2
+    # libtiff runs the predictor in its LZW and Deflate codecs only
+    pred = tags.get(317, (1,))[0] if comp in (5, 8, 32946) else 1
+    if comp == 7 and kind not in ("ycbcr", "rgb", "grey"):
+        raise _not_ported("decoding JPEG TIFF files other than grey, RGB "
+                          "and YCbCr", "7e")
+    if kind == "ycbcr" and comp != 7:
+        raise _not_ported("decoding YCbCr TIFF files that are not JPEG",
+                          "7e")
+    if planar and (comp == 7 or (comp == 1 and bits > 8)):
+        raise _not_ported("decoding planar JPEG TIFF files, and planar "
+                          "uncompressed ones of more than 8 bits", "7e")
+    # PIL's planar unpackers: one band's raw mode each, none for padding
+    # (X) and, reading without libtiff, none for associated alpha or LA's
+    if planar and (extra == (0,) or (comp == 1 and (
+            extra == (1,) or kind == "la"))):
+        raise _tiff_refused("planar file of this band layout")
+    if comp == 1 and fill == 2 and kind == "pal" and bits == 4:
+        raise _tiff_refused("4-bit palette file of fill order 2")
+    if pred == 3 and not (kind == "float" and comp != 7):
+        raise _tiff_refused("floating-point predictor on integer samples")
+    if 322 in tags:
+        tw, th = tags[322][0], tags.get(323, (0,))[0]
+        offsets, counts = tags.get(324, ()), tags.get(325, ())
+    else:
+        tw, th = w, tags.get(278, (h,))[0]
+        th = min(th, h) if th else h
+        offsets, counts = tags.get(273, ()), tags.get(279, ())
+    if not offsets or len(counts) != len(offsets) or tw <= 0 or th <= 0:
+        raise _tiff_refused("of an unknown data organization")
+    ntx, nty = -(-w // tw), -(-h // th)
+    nplanes = spp if planar else 1
+    cs = 1 if planar else spp                 # samples in a chunk's pixel
+    if len(offsets) < ntx * nty * nplanes:
+        raise _tiff_refused("with fewer chunks than its size needs")
+    tables = tags.get(347, b"")
+    dt = {"float": "f4", "s32": "i4", "u32": "i4"}.get(kind)
+    out = np.zeros((h, w, spp), np.float64 if kind == "float" else np.int64)
+    k = 0
+    for plane in range(nplanes):
+        for ty in range(nty):
+            for tx in range(ntx):
+                y0, x0 = ty * th, tx * tw
+                rows = th if 322 in tags else min(th, h - y0)
+                n_bytes = rows * (-(-tw * cs * bits // 8))
+                off, count = offsets[k], counts[k]
+                k += 1
+                if comp == 7:
+                    v = _tiff_jpeg(data[off:off + count], tables, kind, tags)
+                    v = v[:rows, :tw, :cs].astype(np.int64)
+                else:
+                    buf = _tiff_chunk(data, comp, off, count, n_bytes, fill)
+                    if pred == 3:
+                        buf = _tiff_fp_predictor(buf, rows, tw, cs, bits // 8)
+                        bo_chunk = ">"
+                    else:
+                        bo_chunk = bo
+                    if kind == "float" or bits == 32:
+                        v = np.frombuffer(buf, bo_chunk + dt,
+                                          rows * tw * cs).reshape(rows, tw, cs)
+                        if pred == 2:
+                            v = _undo_predictor(v.view(bo_chunk + "u4").astype(
+                                np.int64), 32).astype("u4").view(dt)
+                        if bo == ">" and comp != 1:
+                            # libtiff hands PIL native (little-endian)
+                            # words, which PIL's big-endian raw mode reads
+                            # swapped
+                            v = v.astype(dt).byteswap()
+                        with np.errstate(invalid="ignore"):
+                            v = v.astype(np.float64 if kind == "float"
+                                         else np.int64)
+                    else:
+                        v = _tiff_samples(buf, rows, tw, cs, bits, bo_chunk)
+                        if pred == 2:
+                            v = _undo_predictor(v, bits)
+                        if kind == "s16" and bo == ">" and comp != 1:
+                            # PIL's big-endian signed raw mode reads
+                            # libtiff's native words swapped, as above
+                            v = (v & 0xFF) << 8 | v >> 8
+                ye, xe = min(h, y0 + rows), min(w, x0 + tw)
+                sl = slice(plane, plane + 1) if planar else slice(None)
+                out[y0:ye, x0:xe, sl] = v[:ye - y0, :xe - x0]
+    return _tiff_to_rgb(out, kind, bits, photo, tags)
+
+
+def _tiff_jpeg(strip, tables, kind, tags):
+    """A JPEG-compressed strip or tile -> int samples [rows, cols, 3]: the
+    JPEGTables' segments before the strip's own; a YCbCr file's colour
+    converted to RGB (libtiff's JPEGCOLORMODE_RGB, as PIL asks)."""
+    if tables[:2] == b"\xff\xd8" and strip[:2] == b"\xff\xd8":
+        end = tables.rfind(b"\xff\xd9")
+        strip = tables[:end if end > 0 else len(tables)] + strip[2:]
+    if kind == "ycbcr":
+        sub = tuple(tags.get(530, (2, 2))[:2])
+        got = _jpeg_sampling(strip)[:1]
+        if got != [sub]:
+            raise _tiff_refused(f"JPEG data sampled {got} under "
+                                f"YCbCrSubsampling {sub} (libtiff)")
+    try:
+        return read_jpeg(strip, force_ycc=kind == "ycbcr")
+    except (struct.error, IndexError):
+        raise _tiff_refused("JPEG data that is corrupt") from None
+
+
+def _tiff_to_rgb(v, kind, bits, photo, tags):
+    """Samples [H, W, spp] -> uint8 RGB, as PIL's mode and convert("RGB")
+    take them."""
+    if kind == "grey":
+        g = v[..., 0]
+        if photo == 0:
+            g = (1 << bits) - 1 - g
+        g = g * (255 // ((1 << bits) - 1)) if bits < 8 else g
+        return np.repeat(g[..., None], 3, -1).astype(np.uint8)
+    if kind == "u16":
+        return np.repeat(np.minimum(v[..., :1], 255), 3, -1).astype(np.uint8)
+    if kind in ("s16", "s32", "u32"):
+        x = v[..., :1]
+        if kind == "s16":
+            x = (x ^ 0x8000) - 0x8000
+        return np.repeat(np.clip(x, 0, 255), 3, -1).astype(np.uint8)
+    if kind == "float":
+        f = v[..., :1]
+        with np.errstate(invalid="ignore"):
+            g = np.where(f >= 255, 255, np.where(f > 0, np.trunc(
+                np.nan_to_num(f)), 0))
+        return np.repeat(g, 3, -1).astype(np.uint8)
+    if kind == "la":
+        return np.repeat(v[..., :1], 3, -1).astype(np.uint8)
+    if kind in ("rgb", "rgba", "ycbcr"):
+        return v[..., :3].astype(np.uint8)
+    if kind == "rgb16":
+        return (v[..., :3] >> 8).astype(np.uint8)
+    if kind in ("rgba_assoc", "rgba_assoc16"):
+        if kind == "rgba_assoc16":
+            v = v >> 8
+        a = v[..., 3:4]
+        rgb = np.where(a == 0, 0, np.minimum(
+            v[..., :3] * 255 // np.maximum(a, 1), 255))
+        return np.where(a == 255, v[..., :3], rgb).astype(np.uint8)
+    if kind == "pal":
+        cmap = np.asarray(tags.get(320, ()), np.int64)
+        pal = np.zeros((256, 3), np.uint8)
+        if len(cmap):
+            n = len(cmap) // 3
+            pal[:min(n, 256)] = (cmap.reshape(3, n).T // 256)[:256]
+        return pal[v[..., 0]]
+    if kind in ("cmyk", "cmyk16"):
+        if kind == "cmyk16":
+            v = v >> 8
+        return _cmyk_to_rgb(v[..., :3], 255 - v[..., 3:4])
+    raise AssertionError(kind)
+
+
+# ---------------------------------------------------------------------------
+# GIF (as PIL's GifImagePlugin reads frame 0)
+# ---------------------------------------------------------------------------
+
+def _gif_blocks(data, pos):
+    """Data sub-blocks from `pos` -> (their bytes, the offset after the
+    terminator, whether the terminator was found)."""
+    out = bytearray()
+    while pos < len(data):
+        n = data[pos]
+        pos += 1
+        if n == 0:
+            return bytes(out), pos, True
+        out += data[pos:pos + n]
+        pos += n
+    return bytes(out), pos, False
+
+
+def read_gif(data):
+    """GIF bytes -> uint8 [H, W, 3], frame 0 as PIL's convert("RGB") gives
+    it: the local colour table, else the global one (indices past it
+    black; no table: the index as grey), interlaced rows, LZW minimum code
+    sizes 2-8 (least significant bit first, `csrc/image_codecs.cpp`); a
+    transparent index keeps its palette colour, and is the colour of the
+    screen outside the frame (else index 0). Data that ends before the
+    frame's pixels is refused, as PIL refuses it (ValueError)."""
+    if data[:6] not in (b"GIF87a", b"GIF89a") or len(data) < 13:
+        raise ValueError("not a GIF file")
+    sw, sh, flags = struct.unpack("<HHB", data[6:11])
+    pos = 13
+    pal = None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        pal = np.frombuffer(data[pos:pos + n], np.uint8)
+        pos += n
+    trans = None
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise ValueError("GIF without an image: PIL refuses it too")
+        c = data[pos]
+        pos += 1
+        if c == 0x21:                            # an extension
+            label = data[pos] if pos < len(data) else 0
+            body, pos, _ = _gif_blocks(data, pos + 1)
+            if label == 0xF9 and len(body) >= 4 and body[0] & 1:
+                trans = body[3]
+        elif c == 0x2C:                          # the image descriptor
+            if pos + 9 > len(data):
+                raise ValueError("truncated GIF image descriptor")
+            x0, y0, fw, fh, fl = struct.unpack("<HHHHB", data[pos:pos + 9])
+            pos += 9
+            if fl & 0x80:
+                n = 3 << ((fl & 7) + 1)
+                pal = np.frombuffer(data[pos:pos + n], np.uint8)
+                pos += n
+            break
+        else:
+            raise ValueError("corrupt GIF block")
+    if pos >= len(data):
+        raise ValueError("truncated GIF image: PIL refuses it too")
+    bits = data[pos]
+    if not 2 <= bits <= 8:
+        raise _not_ported(f"decoding GIF LZW minimum code size {bits}", "7e")
+    lzw, _, _ = _gif_blocks(data, pos + 1)
+    n_px = fw * fh
+    idx = native.lzw_decode(lzw, n_px, bits, msb=False)
+    if len(idx) < n_px:
+        raise ValueError("truncated GIF image data: PIL refuses it too")
+    frame = idx.reshape(fh, fw)
+    if fl & 0x40:                                # interlaced rows
+        order = np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                np.arange(2, fh, 4), np.arange(1, fh, 2)])
+        inter = np.empty_like(frame)
+        inter[order] = frame
+        frame = inter
+    W, H = max(sw, x0 + fw), max(sh, y0 + fh)
+    _pil_bomb_check(W, H)
+    screen = np.full((H, W), trans if trans is not None else 0, np.uint8)
+    screen[y0:y0 + fh, x0:x0 + fw] = frame
+    if pal is None or all(pal[3 * i] == pal[3 * i + 1] == pal[3 * i + 2] == i
+                          for i in range(len(pal) // 3)):
+        return np.repeat(screen[..., None], 3, -1)   # PIL's mode L
+    table = np.zeros((256, 3), np.uint8)
+    table[:len(pal) // 3] = pal[:len(pal) // 3 * 3].reshape(-1, 3)[:256]
+    return table[screen]
 
 
 # ---------------------------------------------------------------------------
@@ -1018,10 +1610,14 @@ def read_hdr(data):
 # OpenEXR
 # ---------------------------------------------------------------------------
 
-_EXR_NONE, _EXR_ZIPS, _EXR_ZIP = 0, 2, 3
-_EXR_HALF, _EXR_FLOAT = 1, 2
+(_EXR_NONE, _EXR_RLE, _EXR_ZIPS, _EXR_ZIP, _EXR_PIZ, _EXR_PXR24, _EXR_B44,
+ _EXR_B44A, _EXR_DWAA, _EXR_DWAB) = range(10)
+_EXR_HALF, _EXR_FLOAT = 1, 2             # pixel types (0 is UINT)
 _EXR_DTYPE = {_EXR_HALF: np.dtype("<f2"), _EXR_FLOAT: np.dtype("<f4")}
-_EXR_LINES = {_EXR_NONE: 1, _EXR_ZIPS: 1, _EXR_ZIP: 16}
+# the scanlines of a block of each compression
+_EXR_LINES = {_EXR_NONE: 1, _EXR_RLE: 1, _EXR_ZIPS: 1, _EXR_ZIP: 16,
+              _EXR_PIZ: 32, _EXR_PXR24: 16, _EXR_B44: 32, _EXR_B44A: 32,
+              _EXR_DWAA: 32, _EXR_DWAB: 256}
 
 
 def _cstr(data, pos):
@@ -1029,15 +1625,10 @@ def _cstr(data, pos):
     return data[pos:end].decode("latin-1"), end + 1
 
 
-def _exr_header(data):
-    magic, version = struct.unpack("<ii", data[:8])
-    if magic != EXR_MAGIC:
-        raise ValueError("not an OpenEXR file")
-    if version & 0x200:
-        raise _not_ported("decoding tiled OpenEXR files", "7d")
-    if version & 0x1800:
-        raise _not_ported("decoding deep or multi-part OpenEXR files", "7d")
-    pos, attrs = 8, {}
+def _exr_attrs(data, pos):
+    """One header's attributes from `pos` -> (dict name -> (type, body),
+    the offset after the header's terminating null byte)."""
+    attrs = {}
     while data[pos] != 0:
         name, pos = _cstr(data, pos)
         typ, pos = _cstr(data, pos)
@@ -1047,48 +1638,544 @@ def _exr_header(data):
     return attrs, pos + 1
 
 
-def _exr_channels(body):
+def _exr_header(data):
+    """A single-part file's header -> (attributes, the offset of its chunk
+    offset table)."""
+    attrs, pos, _ = _exr_part0(data)
+    return attrs, pos
+
+
+def _exr_part0(data):
+    """The header that Imf::InputFile reads -> (attributes, the offset of
+    its chunk offset table, whether chunks carry a part number). A
+    multi-part file gives its part 0 (its headers come one after another,
+    an empty one ends them, then each part's offset table); a deep part,
+    which InputFile refuses, raises ValueError."""
+    if len(data) < 8:
+        raise ValueError("truncated OpenEXR file")
+    magic, version = struct.unpack("<ii", data[:8])
+    if magic != EXR_MAGIC:
+        raise ValueError("not an OpenEXR file")
+    multipart = bool(version & 0x1000)
+    try:
+        attrs, pos = _exr_attrs(data, 8)
+        if multipart:                    # skip the other parts' headers
+            while data[pos] != 0:
+                pos = _exr_attrs(data, pos)[1]
+            pos += 1
+    except (IndexError, ValueError, struct.error):
+        raise ValueError("corrupt OpenEXR header") from None
+    part_type = attrs.get("type", ("", b"scanlineimage"))[1].rstrip(b"\0")
+    if (version & 0x800 and not multipart) or part_type.startswith(b"deep"):
+        names = set(re.findall(rb"([^\0]+)\0.{16}",
+                               attrs.get("channels", ("", b""))[1], re.S))
+        if part_type == b"deepscanline" and {b"A", b"Z"} <= names:
+            raise _not_ported("compositing deep OpenEXR scanlines (as "
+                              "Imf::InputFile does)", "7e")
+        raise ValueError("deep OpenEXR data without Z and A channels, or "
+                         "tiled: Imf::InputFile (OpenCV's reader) refuses it "
+                         "too")
+    return attrs, pos, multipart
+
+
+def _exr_channels(body, linear=None):
+    """A chlist attribute -> [(name, dtype)], sorted by name as the file
+    stores them; the names of the channels marked perceptually linear
+    are added to the set `linear`. UINT and sub-sampled channels raise
+    NotImplementedError (7e): OpenCV converts them with its own code."""
     chans, pos = [], 0
     while body[pos] != 0:
         name, pos = _cstr(body, pos)
-        ptype, _, xs, ys = struct.unpack("<iB3xii", body[pos:pos + 16])
+        ptype, plinear, xs, ys = struct.unpack("<iB3xii", body[pos:pos + 16])
         pos += 16
         if ptype not in _EXR_DTYPE:
             raise _not_ported(f"decoding OpenEXR channel '{name}' of pixel "
-                              f"type {ptype} (only HALF and FLOAT are)", "7d")
+                              f"type {ptype} (only HALF and FLOAT are)", "7e")
         if (xs, ys) != (1, 1):
-            raise _not_ported("decoding sub-sampled OpenEXR channels", "7d")
+            raise _not_ported("decoding sub-sampled (luminance-chroma) "
+                              "OpenEXR channels", "7e")
         chans.append((name, _EXR_DTYPE[ptype]))
+        if plinear and linear is not None:
+            linear.add(name)
     return chans
 
 
-def _exr_unzip(block, n_bytes):
-    """A ZIP / ZIPS block -> its raw bytes: inflate, undo the predictor,
-    then the interleave of the two halves."""
-    if len(block) >= n_bytes:  # stored raw: it did not compress
-        return block
-    d = np.frombuffer(zlib.decompress(block), np.uint8).astype(np.int64)
-    if d.size != n_bytes:
-        raise ValueError("OpenEXR ZIP block size")
-    # the predictor: t[0] = d[0], t[i] = t[i-1] + d[i] - 128 (mod 256)
+def _exr_unpredict(d):
+    """The ZIP / RLE / DWA-DC reordering undone: the running sum
+    t[i] = t[i-1] + d[i] - 128 (mod 256), then the two halves interleaved
+    (the first half holds the even bytes)."""
+    d = np.asarray(d, np.uint8).astype(np.int64)
     d[1:] -= 128
     t = (np.cumsum(d) & 0xFF).astype(np.uint8)
-    half = (n_bytes + 1) // 2
-    out = np.empty(n_bytes, np.uint8)
+    half = (len(t) + 1) // 2
+    out = np.empty(len(t), np.uint8)
     out[0::2] = t[:half]
     out[1::2] = t[half:]
     return out.tobytes()
 
 
+def _inflate(block, n_bytes, what):
+    try:
+        d = zlib.decompress(block)
+    except zlib.error:
+        raise ValueError(f"corrupt OpenEXR {what} data") from None
+    if len(d) != n_bytes:
+        raise ValueError(f"OpenEXR {what} block size")
+    return d
+
+
+def _exr_unzip(block, n_bytes):
+    """A ZIP / ZIPS block -> its raw bytes."""
+    return _exr_unpredict(np.frombuffer(_inflate(block, n_bytes, "ZIP"),
+                                        np.uint8))
+
+
+def _exr_unrle(block, n_bytes):
+    """An RLE block -> its raw bytes: run-length decoded, then reordered
+    as a ZIP block."""
+    return _exr_unpredict(native.exr_rle_decode(block, n_bytes))
+
+
+def _exr_rows(planes, chans):
+    """Channel planes (each a uint8 [ny, w * size]) -> a block's raw bytes:
+    each scanline's channels one after another."""
+    return np.concatenate([planes[c] for c, _ in chans], 1).tobytes()
+
+
+def _exr_pxr24(block, chans, w, ny):
+    """A PXR24 block: zlib, then per scanline and channel the samples'
+    byte planes (most significant first; FLOAT keeps its top 24 bits)
+    holding differences along the row."""
+    nb = {2: 2, 4: 3}
+    line = sum(w * nb[dt.itemsize] for _, dt in chans)
+    d = np.frombuffer(_inflate(block, ny * line, "PXR24"), np.uint8)
+    d = d.reshape(ny, line)
+    planes, col = {}, 0
+    for c, dt in chans:
+        k = nb[dt.itemsize]
+        b = d[:, col:col + k * w].reshape(ny, k, w).astype(np.uint32)
+        col += k * w
+        diff = sum(b[:, i] << (8 * (dt.itemsize - 1 - i)) for i in range(k))
+        v = np.cumsum(diff, axis=1, dtype=np.uint64) & (
+            (1 << (8 * dt.itemsize)) - 1)
+        planes[c] = v.astype(f"<u{dt.itemsize}").view(np.uint8).reshape(ny, -1)
+    return _exr_rows(planes, chans)
+
+
+def _wdec(l, h, w14):
+    """PIZ's inverse wavelet step of low / high values (int64 arrays of
+    16-bit values) -> (a, b): 14-bit (signed) or 16-bit (modular)."""
+    if w14:
+        ls = (l ^ 0x8000) - 0x8000
+        hs = (h ^ 0x8000) - 0x8000
+        ai = ls + (hs & 1) + (hs >> 1)
+        return ai & 0xFFFF, (ai - hs) & 0xFFFF
+    b = (l - (h >> 1)) & 0xFFFF
+    return (h + b - 0x8000) & 0xFFFF, b
+
+
+def _wav2_decode(a, w14):
+    """PIZ's 2D inverse wavelet (ImfWav.cpp wav2Decode) of a [ny, nx]
+    int64 array, in place: from the coarsest level, every 2 x 2 group of a
+    level at once, then the odd column and the odd row."""
+    ny, nx = a.shape
+    n = min(nx, ny)
+    p = 1
+    while p <= n:
+        p <<= 1
+    p >>= 1
+    p2, p = p, p >> 1
+    while p >= 1:
+        ys = np.arange(0, ny - p2 + 1, p2)
+        xs = np.arange(0, nx - p2 + 1, p2)
+        Y, X = np.ix_(ys, xs)
+        i00, i10 = _wdec(a[Y, X], a[Y + p, X], w14)
+        i01, i11 = _wdec(a[Y, X + p], a[Y + p, X + p], w14)
+        a[Y, X], a[Y, X + p] = _wdec(i00, i01, w14)
+        a[Y + p, X], a[Y + p, X + p] = _wdec(i10, i11, w14)
+        if nx & p:                       # the odd column
+            px = len(xs) * p2
+            a[ys, px], a[ys + p, px] = _wdec(a[ys, px], a[ys + p, px], w14)
+        if ny & p:                       # the odd row
+            py = len(ys) * p2
+            a[py, xs], a[py, xs + p] = _wdec(a[py, xs], a[py, xs + p], w14)
+        p2, p = p, p >> 1
+
+
+def _exr_piz(block, chans, w, ny):
+    """A PIZ block: the bitmap of the 16-bit values used, the Huffman-coded
+    values (`csrc/image_codecs.cpp`), the wavelet of each channel's 16-bit
+    words undone, the values mapped back through the bitmap's table."""
+    n_words = ny * sum(w * dt.itemsize for _, dt in chans) // 2
+    if len(block) < 4:
+        raise ValueError("truncated OpenEXR PIZ block")
+    lo, hi = struct.unpack("<HH", block[:4])
+    if hi >= 8192:
+        raise ValueError("corrupt OpenEXR PIZ bitmap")
+    bitmap = np.zeros(8192, np.uint8)
+    pos = 4
+    if lo <= hi:
+        bitmap[lo:hi + 1] = np.frombuffer(block, np.uint8, hi - lo + 1, pos)
+        pos += hi - lo + 1
+    used = np.unpackbits(bitmap, bitorder="little").astype(bool)
+    used[0] = True
+    lut = np.zeros(65536, np.int64)
+    values = np.flatnonzero(used)
+    lut[:len(values)] = values
+    length, = struct.unpack("<i", block[pos:pos + 4])
+    pos += 4
+    if length > len(block) - pos:
+        raise ValueError("truncated OpenEXR PIZ block")
+    words = native.exr_huf_decode(block[pos:pos + length],
+                                  n_words).astype(np.int64)
+    planes, off = {}, 0
+    for c, dt in chans:
+        size = dt.itemsize // 2
+        a = words[off:off + ny * w * size].reshape(ny, w, size)
+        off += ny * w * size
+        for j in range(size):
+            comp = np.ascontiguousarray(a[:, :, j])
+            _wav2_decode(comp, len(values) - 1 < (1 << 14))
+            a[:, :, j] = comp
+        planes[c] = lut[a].astype("<u2").view(np.uint8).reshape(ny, -1)
+    return _exr_rows(planes, chans)
+
+
+def _b44_unpack14(b):
+    """B44's 14-byte blocks uint8 [n, 14] -> their 16 values [n, 16] (row
+    by row), as ImfB44Compressor.cpp unpack14."""
+    b = b.astype(np.int64)
+    s = np.zeros((len(b), 16), np.int64)
+    shift = b[:, 2] >> 2
+    bias = 0x20 << shift
+
+    def step(prev, bits):
+        return (prev + ((bits & 0x3F) << shift) - bias) & 0xFFFF
+
+    s[:, 0] = b[:, 0] << 8 | b[:, 1]
+    s[:, 4] = step(s[:, 0], b[:, 2] << 4 | b[:, 3] >> 4)
+    s[:, 8] = step(s[:, 4], b[:, 3] << 2 | b[:, 4] >> 6)
+    s[:, 12] = step(s[:, 8], b[:, 4])
+    for row, k in ((1, 5), (2, 8), (3, 11)):
+        s[:, row] = step(s[:, row - 1], b[:, k] >> 2)
+        s[:, row + 4] = step(s[:, row + 3], b[:, k] << 4 | b[:, k + 1] >> 4)
+        s[:, row + 8] = step(s[:, row + 7], b[:, k + 1] << 2 | b[:, k + 2] >> 6)
+        s[:, row + 12] = step(s[:, row + 11], b[:, k + 2])
+    return s
+
+
+def _b44_ordered_to_half(s):
+    return np.where(s & 0x8000, s & 0x7FFF, ~s & 0xFFFF)
+
+
+def _exr_b44(block, chans, w, ny, linear):
+    """A B44 / B44A block: per channel, HALF samples in 4 x 4 blocks of 14
+    bytes (3 for a flat block, B44A), row by row of blocks; other channels
+    stored as they are."""
+    planes, pos = {}, 0
+    for c, dt in chans:
+        if dt.itemsize != 2:
+            n = ny * w * dt.itemsize
+            if pos + n > len(block):
+                raise ValueError("truncated OpenEXR B44 block")
+            planes[c] = np.frombuffer(block, np.uint8, n, pos).reshape(ny, -1)
+            pos += n
+            continue
+        if c in linear:
+            raise _not_ported("decoding B44 channels marked perceptually "
+                              "linear", "7e")
+        nbx, nby = -(-w // 4), -(-ny // 4)
+        starts = np.empty(nbx * nby, np.int64)
+        for i in range(nbx * nby):        # a flat block is 3 bytes long
+            if pos + 3 > len(block):
+                raise ValueError("truncated OpenEXR B44 block")
+            starts[i] = pos
+            pos += 3 if block[pos + 2] >= 13 << 2 else 14
+        if pos > len(block):
+            raise ValueError("truncated OpenEXR B44 block")
+        buf = np.frombuffer(block + bytes(14), np.uint8)
+        flat = buf[starts + 2] >= 13 << 2
+        s = np.empty((len(starts), 16), np.int64)
+        s[~flat] = _b44_unpack14(buf[starts[~flat, None] + np.arange(14)])
+        first = buf[starts[flat]].astype(np.int64) << 8 | buf[starts[flat] + 1]
+        s[flat] = first[:, None]
+        s = _b44_ordered_to_half(s)
+        img = s.reshape(nby, nbx, 4, 4).transpose(0, 2, 1, 3).reshape(
+            nby * 4, nbx * 4)[:ny, :w]
+        planes[c] = img.astype("<u2").view(np.uint8).reshape(ny, -1)
+    return _exr_rows(planes, chans)
+
+
+
+# DWA's channel schemes (ImfDwaCompressor.cpp CompressorScheme)
+_DWA_UNKNOWN, _DWA_LOSSY_DCT, _DWA_RLE = 0, 1, 2
+
+
+# the inverse DCT's constants as ImfDwaCompressorSimd.h writes them:
+# .5 cos(k pi / 16), k = 4, 1, 2, 3, 5, 6, 7
+_DWA_A, _DWA_B, _DWA_C, _DWA_D, _DWA_E, _DWA_F, _DWA_G = np.float32(
+    [3.535536e-01, 4.903927e-01, 4.619398e-01, 4.157349e-01, 2.777855e-01,
+     1.913422e-01, 9.754573e-02])
+
+
+def _dwa_matrix():
+    """The even inputs' (x0, x2, x4, x6) and the odd inputs' (x1, x3, x5,
+    x7) coefficients [4, 4] of the first four outputs of an 8-point
+    inverse DCT."""
+    a, b, c, d, e, f, g = (_DWA_A, _DWA_B, _DWA_C, _DWA_D, _DWA_E, _DWA_F,
+                           _DWA_G)
+    even = np.array([[a, a, a, a], [c, f, -f, -c], [a, -a, -a, a],
+                     [f, -c, c, -f]], np.float32)
+    odd = np.array([[b, d, e, g], [d, -g, -b, -e], [e, -b, g, d],
+                    [g, -e, d, -b]], np.float32)
+    return even, odd
+
+
+_DWA_EVEN, _DWA_ODD = _dwa_matrix()
+
+
+def _dwa_idct_pass(x, order):
+    """One pass of the 8-point inverse DCT over the last axis of float32
+    x [..., 8], as libOpenEXR's AVX code (dctInverse8x8_avx) computes it:
+    four products each of the even and of the odd inputs, summed in pairs
+    in `order`; outputs 0-3 are even + odd, 7-4 even - odd."""
+    i, j, k, m = order
+    ev = [x[..., 2 * n, None] * _DWA_EVEN[n] for n in range(4)]
+    od = [x[..., 2 * n + 1, None] * _DWA_ODD[n] for n in range(4)]
+    even = (ev[i] + ev[j]) + (ev[k] + ev[m])
+    odd = (od[i] + od[j]) + (od[k] + od[m])
+    return np.concatenate([even + odd, (even - odd)[..., ::-1]], -1)
+
+
+def _dwa_idct(blk, last):
+    """DWA's inverse DCT of float32 blocks [n, 8, 8] as libOpenEXR runs it
+    on a CPU with AVX: the rows (products summed (0 + 1) + (2 + 3)), then
+    the columns ((0 + 2) + (1 + 3)); a block whose only coefficient is its
+    DC (`last` == 0) takes the DC-only shortcut, dc * 3.535536e-01f *
+    3.535536e-01f."""
+    rows = _dwa_idct_pass(blk, (0, 1, 2, 3))
+    out = _dwa_idct_pass(rows.swapaxes(1, 2), (0, 2, 1, 3)).swapaxes(1, 2)
+    dc = (blk[:, 0, 0] * _DWA_A) * _DWA_A
+    return np.where((last == 0)[:, None, None], dc[:, None, None], out)
+
+
+def _dwa_to_linear_table():
+    """DWA's 16-bit table from its perceptual half values back to linear
+    ones (dwaLookups.cpp): x^2.2 up to 1, (e^2.2)^(x - 1) above, sign kept;
+    inf, NaN and -0 map to 0."""
+    bits = np.arange(65536, dtype=np.uint32).astype(np.uint16)
+    ax = np.abs(bits.view(np.float16).astype(np.float64))
+    sign = np.where(bits & 0x8000, np.float32(-1), np.float32(1))
+    log_base = np.float64(np.float32(2.7182818 ** 2.2))
+    with np.errstate(over="ignore", invalid="ignore"):
+        y = np.where(ax <= 1, ax ** np.float64(np.float32(2.2)),
+                     log_base ** (ax - 1))
+        out = (sign * y.astype(np.float32)).astype(np.float16).view(np.uint16)
+    out = np.where((bits & 0x7C00) == 0x7C00, 0, out).astype(np.uint16)
+    out[[0, 0x8000]] = 0
+    return out
+
+
+_DWA_TO_LINEAR = _dwa_to_linear_table()
+
+
+def _dwa_rules(block, pos):
+    """A version-2 DWA block's channel rules from `pos` -> ([(suffix,
+    scheme, csc index, case-insensitive, pixel type)], next pos)."""
+    size, = struct.unpack("<H", block[pos:pos + 2])
+    end, pos = pos + size, pos + 2
+    rules = []
+    while pos < end:
+        suffix, pos = _cstr(block, pos)
+        flags, ptype = block[pos], block[pos + 1]
+        pos += 2
+        rules.append((suffix, (flags >> 2) & 3, (flags >> 4) - 1, flags & 1,
+                      ptype))
+    return rules, end
+
+
+def _dwa_decode_set(ac, dc, n_comp, w, ny, to_linear=True):
+    """One LossyDctDecoder(Csc) of n_comp (1 or 3) channels: ac the AC
+    values from this decoder's first (uint16), dc its DC halves
+    [n_comp, blocks] -> (half planes uint16 [n_comp, ny, w], AC values
+    read). to_linear: through the table back to linear values (a channel
+    not marked perceptually linear)."""
+    nbx, nby = -(-w // 8), -(-ny // 8)
+    nb = nbx * nby
+    zig, last, used = native.dwa_unrle_ac(ac, nb * n_comp)
+    zig = zig.reshape(nb, n_comp, 64).transpose(1, 0, 2).copy()
+    last = last.reshape(nb, n_comp).T
+    zig[:, :, 0] = dc
+    coef = np.empty_like(zig)
+    coef[:, :, _ZIGZAG] = zig
+    f = coef.view(np.float16).astype(np.float32).reshape(n_comp * nb, 8, 8)
+    px = _dwa_idct(f, last.reshape(-1)).reshape(n_comp, nb, 64)
+    if n_comp == 3:                      # csc709Inverse
+        y, cb, cr = px
+        f32 = np.float32
+        px = np.stack([y + f32(1.5747) * cr,
+                       y - f32(0.1873) * cb - f32(0.4682) * cr,
+                       y + f32(1.8556) * cb])
+    hb = px.astype(np.float16).view(np.uint16)
+    if to_linear:
+        hb = _DWA_TO_LINEAR[hb]
+    img = hb.reshape(n_comp, nby, nbx, 8, 8).transpose(0, 1, 3, 2, 4).reshape(
+        n_comp, nby * 8, nbx * 8)[:, :ny, :w]
+    return img, used
+
+
+def _exr_dwa(block, chans, w, ny, linear):
+    """A DWAA / DWAB block: a header of 11 sizes, the channel rules, then
+    zlib'd channels the rules do not name, Huffman-coded AC coefficients,
+    zlib'd DC coefficients and zlib'd run-length channels. R, G, B of one
+    prefix (lossy whether HALF or FLOAT: DWA decodes halves and widens a
+    FLOAT channel's) are decoded through the inverse DCT and the colour
+    transform together, other lossy channels alone; the result goes
+    through the table back to linear values."""
+    if len(block) < 88:
+        raise ValueError("truncated OpenEXR DWA block")
+    (version, unk_raw, unk_size, ac_size, dc_size, rle_size, rle_raw,
+     rle_len, ac_count, dc_count, ac_method) = struct.unpack("<11Q",
+                                                             block[:88])
+    if version != 2:
+        raise _not_ported(f"decoding DWA blocks of version {version}", "7e")
+    n_raw = ny * w * sum(dt.itemsize for _, dt in chans)
+    most = 64 * -(-w // 8) * -(-ny // 8) * len(chans)
+    if max(unk_raw, rle_raw, rle_len) > n_raw or max(ac_count,
+                                                     dc_count) > most:
+        raise ValueError("corrupt OpenEXR DWA block sizes")
+    rules, pos = _dwa_rules(block, 88)
+    scheme, csc, dtypes = {}, {}, dict(chans)
+    for c, dt in chans:
+        prefix, _, suffix = c.rpartition(".")
+        scheme[c] = _DWA_UNKNOWN
+        ptype = _EXR_HALF if dt.itemsize == 2 else _EXR_FLOAT
+        for sfx, sch, idx, nocase, rtype in rules:
+            same = suffix.lower() == sfx.lower() if nocase else suffix == sfx
+            if same and rtype == ptype:
+                scheme[c] = sch
+                if idx >= 0:
+                    csc.setdefault(prefix, [None] * 3)[idx] = c
+    sets = [v for v in csc.values() if None not in v]
+    in_set = {c for v in sets for c in v}
+    if in_set & linear:
+        raise _not_ported("decoding DWA colour channels marked perceptually "
+                          "linear", "7e")
+    sizes = (unk_size, ac_size, dc_size, rle_size)
+    if pos + sum(sizes) > len(block):
+        raise ValueError("truncated OpenEXR DWA block")
+    parts = []
+    for n in sizes:
+        parts.append(block[pos:pos + n])
+        pos += n
+    unknown = _inflate(parts[0], unk_raw, "DWA") if unk_size else b""
+    if ac_method == 0:
+        ac = native.exr_huf_decode(parts[1], ac_count) if ac_size else \
+            np.zeros(0, np.uint16)
+    else:
+        ac = np.frombuffer(_inflate(parts[1], 2 * ac_count, "DWA"), "<u2")
+    dc = np.frombuffer(_exr_unzip(parts[2], 2 * dc_count), "<u2") \
+        if dc_size else np.zeros(0, np.uint16)
+    rle = native.exr_rle_decode(_inflate(parts[3], rle_raw, "DWA"), rle_len) \
+        if rle_size else np.zeros(0, np.uint8)
+    planes = {}
+    nb = -(-w // 8) * -(-ny // 8)
+    at_ac = at_dc = 0
+    groups = sets + [[c] for c, _ in chans
+                     if scheme[c] == _DWA_LOSSY_DCT and c not in in_set]
+    for grp in groups:
+        n = len(grp)
+        if at_dc + n * nb > len(dc):
+            raise ValueError("truncated OpenEXR DWA DC data")
+        img, used = _dwa_decode_set(ac[at_ac:], dc[at_dc:at_dc + n * nb]
+                                    .reshape(n, nb), n, w, ny,
+                                    grp[0] not in linear)
+        at_ac += used
+        at_dc += n * nb
+        for c, v in zip(grp, img):
+            if dtypes[c].itemsize == 4:  # FLOAT: the decoded half, widened
+                v = v.astype(np.uint16).view(np.float16).astype("<f4")
+            else:
+                v = v.astype("<u2")
+            planes[c] = np.ascontiguousarray(v).view(np.uint8).reshape(ny, -1)
+    at_rle = at_unk = 0
+    for c, dt in chans:
+        n = ny * w * dt.itemsize
+        if scheme[c] == _DWA_RLE:
+            b = rle[at_rle:at_rle + n].reshape(dt.itemsize, ny, w)
+            at_rle += n
+            planes[c] = b.transpose(1, 2, 0).reshape(ny, -1)
+        elif scheme[c] == _DWA_UNKNOWN:
+            planes[c] = np.frombuffer(unknown, np.uint8, n,
+                                      at_unk).reshape(ny, -1)
+            at_unk += n
+    return _exr_rows(planes, chans)
+
+
+# compression -> fn(block, channels, w, ny, raw size, linear channels)
+_EXR_CODECS = {_EXR_ZIPS: lambda b, ch, w, ny, n, lin: _exr_unzip(b, n),
+               _EXR_ZIP: lambda b, ch, w, ny, n, lin: _exr_unzip(b, n),
+               _EXR_RLE: lambda b, ch, w, ny, n, lin: _exr_unrle(b, n),
+               _EXR_PIZ: lambda b, ch, w, ny, n, lin: _exr_piz(b, ch, w, ny),
+               _EXR_PXR24: lambda b, ch, w, ny, n, lin: _exr_pxr24(b, ch, w,
+                                                                   ny),
+               _EXR_B44: lambda b, ch, w, ny, n, lin: _exr_b44(b, ch, w, ny,
+                                                               lin),
+               _EXR_B44A: lambda b, ch, w, ny, n, lin: _exr_b44(b, ch, w, ny,
+                                                                lin),
+               _EXR_DWAA: lambda b, ch, w, ny, n, lin: _exr_dwa(b, ch, w, ny,
+                                                                lin),
+               _EXR_DWAB: lambda b, ch, w, ny, n, lin: _exr_dwa(b, ch, w, ny,
+                                                                lin)}
+
+
+def _exr_block(comp, block, chans, w, ny, linear=frozenset()):
+    """One chunk's bytes -> its raw bytes (ny scanlines of w pixels, each
+    scanline's channels one after another). A chunk no smaller than its
+    raw size is stored raw, as the library writes it."""
+    n = ny * w * sum(dt.itemsize for _, dt in chans)
+    if comp == _EXR_NONE or len(block) >= n:
+        raw = block
+    else:
+        try:
+            raw = _EXR_CODECS[comp](block, chans, w, ny, n, linear)
+        except (struct.error, IndexError):
+            raise ValueError("corrupt OpenEXR block") from None
+    if len(raw) != n:
+        raise ValueError("OpenEXR block size")
+    return raw
+
+
+def _exr_chunks(data, pos, n):
+    """The chunk offset table at `pos`: n offsets."""
+    try:
+        offsets = struct.unpack(f"<{n}Q", data[pos:pos + 8 * n])
+    except struct.error:
+        raise ValueError("truncated OpenEXR offset table") from None
+    return offsets
+
+
 def read_exr(data):
-    """OpenEXR bytes (single part, scanlines, NONE / ZIPS / ZIP) -> float32
-    [H, W, 3] RGB; A is dropped, Y alone is replicated."""
-    attrs, pos = _exr_header(data)
-    comp = attrs["compression"][1][0]
+    """OpenEXR bytes -> float32 [H, W, 3] RGB, as OpenCV's EXR decoder
+    (Imf::InputFile) gives them: A is dropped, Y alone is replicated.
+    Scanline and tiled files (level (0, 0) of a mip- or ripmap), part 0
+    of a multi-part file; every compression (NONE, RLE, ZIPS, ZIP, PIZ,
+    PXR24, B44, B44A, DWAA, DWAB); HALF and FLOAT channels. Deep data
+    raises ValueError (InputFile refuses it); luminance-chroma files,
+    UINT channels and other channel sets raise NotImplementedError
+    (ROADMAP queue A, 7e)."""
+    attrs, pos, multipart = _exr_part0(data)
+    linear = set()
+    try:
+        comp = attrs["compression"][1][0]
+        chans = _exr_channels(attrs["channels"][1], linear)
+        x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
+    except (KeyError, IndexError, struct.error):
+        raise ValueError("OpenEXR header without its required "
+                         "attributes") from None
     if comp not in _EXR_LINES:
-        raise _not_ported(f"decoding OpenEXR compression {comp} (only NONE, "
-                          "ZIPS and ZIP are)", "7d")
-    chans = _exr_channels(attrs["channels"][1])
+        raise ValueError(f"OpenEXR compression {comp}: unknown to "
+                         "libOpenEXR")
     names = [c for c, _ in chans]
     if set(names) - {"A"} == {"R", "G", "B"}:
         pick = ("R", "G", "B")
@@ -1096,27 +2183,59 @@ def read_exr(data):
         pick = ("Y", "Y", "Y")
     else:
         raise _not_ported(f"decoding OpenEXR channels {names} (only R, G, B "
-                          "or Y, and A, are)", "7d")
-    x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
+                          "or Y, and A, are)", "7e")
     w, h = x1 - x0 + 1, y1 - y0 + 1
-    lines = _EXR_LINES[comp]
-    n_chunks = (h + lines - 1) // lines
-    offsets = struct.unpack(f"<{n_chunks}Q", data[pos:pos + 8 * n_chunks])
-    planes = {c: np.zeros((h, w), np.float32) for c, _ in chans}
-    for off in offsets:
-        y, size = struct.unpack("<ii", data[off:off + 8])
-        block = data[off + 8:off + 8 + size]
-        ny = min(lines, y1 - y + 1)
-        row_bytes = sum(w * dt.itemsize for _, dt in chans)
-        raw = block if comp == _EXR_NONE else _exr_unzip(block, ny * row_bytes)
-        if len(raw) != ny * row_bytes:
-            raise ValueError("OpenEXR block size")
-        p = 0
-        for r in range(ny):
-            for c, dt in chans:
-                planes[c][y - y0 + r] = np.frombuffer(raw, dt, w, p)
-                p += w * dt.itemsize
+    if w <= 0 or h <= 0 or w * h > 1 << 30:
+        raise ValueError("OpenEXR data window empty or past OpenCV's limit "
+                         "of 2^30 pixels")
+    planes = {c: np.zeros((h, w), np.float32) for c in names}
+    tiles = attrs.get("tiles")
+    skip = 4 if multipart else 0       # a chunk's part number
+    if tiles is None:
+        lines = _EXR_LINES[comp]
+        n_chunks = -(-h // lines)
+        for off in _exr_chunks(data, pos, n_chunks):
+            try:
+                y, size = struct.unpack("<ii", data[off + skip:off + skip + 8])
+            except struct.error:
+                raise ValueError("truncated OpenEXR chunk") from None
+            if (y - y0) % lines or not y0 <= y <= y1:
+                raise ValueError("corrupt OpenEXR chunk header")
+            ny = min(lines, y1 - y + 1)
+            block = data[off + skip + 8:off + skip + 8 + size]
+            _exr_put(planes, _exr_block(comp, block, chans, w, ny, linear),
+                     chans, y - y0, 0, w, ny)
+    else:
+        if len(tiles[1]) < 9:
+            raise ValueError("corrupt OpenEXR tile description")
+        tx, ty, mode = struct.unpack("<IIB", tiles[1][:9])
+        if mode & 0xF > 2 or tx == 0 or ty == 0:
+            raise ValueError("corrupt OpenEXR tile description")
+        ntx, nty = -(-w // tx), -(-h // ty)
+        for off in _exr_chunks(data, pos, ntx * nty):
+            try:
+                dx, dy, lx, ly, size = struct.unpack(
+                    "<iiiii", data[off + skip:off + skip + 20])
+            except struct.error:
+                raise ValueError("truncated OpenEXR chunk") from None
+            if (lx, ly) != (0, 0) or not (0 <= dx < ntx and 0 <= dy < nty):
+                raise ValueError("corrupt OpenEXR tile header")
+            tw, th = min(tx, w - dx * tx), min(ty, h - dy * ty)
+            block = data[off + skip + 20:off + skip + 20 + size]
+            _exr_put(planes, _exr_block(comp, block, chans, tw, th, linear),
+                     chans, dy * ty, dx * tx, tw, th)
     return np.ascontiguousarray(np.stack([planes[c] for c in pick], -1))
+
+
+def _exr_put(planes, raw, chans, row, col, w, ny):
+    """A block's raw bytes into the channel planes at (row, col)."""
+    line = np.frombuffer(raw, np.uint8).reshape(ny, -1)
+    p = 0
+    for c, dt in chans:
+        n = w * dt.itemsize
+        planes[c][row:row + ny, col:col + w] = np.ascontiguousarray(
+            line[:, p:p + n]).view(dt)
+        p += n
 
 
 def _attr(name, typ, body):

@@ -14,8 +14,9 @@ the global medium; a subsurface material's interior medium; the camera in
 the global medium), images (textured and node-graph material slots, normal
 maps, textured emission, projector images, spherical environment maps and
 the `mix` environment, which blends two maps at load time, all packed into
-one texture atlas; `scene/imageio.py` decodes PNG, baseline JPEG,
-Radiance .hdr and OpenEXR), IES profiles on spot and projector lights, and
+one texture atlas; `scene/imageio.py` decodes PNG, JPEG, BMP, TGA, TIFF,
+GIF, Radiance .hdr and OpenEXR, picked by extension as in the JAX
+package), IES profiles on spot and projector lights, and
 the normal and light-field frame buffers (`framebuffer_type`, `lf_grid`).
 A mesh file that cannot be read skips its shape with a warning, and an
 image that cannot be read takes its slot's default with a warning, as in

@@ -1,10 +1,11 @@
 """Texture atlas: all scene images packed into one flat tensor.
 
 Counterpart of `vision_tpu/scene/texture.py`. Image files are decoded by
-`imageio.py` (standard library, numpy and, for JPEG's entropy decoding,
-the port's host library; no PIL, no OpenCV) into the arrays the JAX
-package's PIL / OpenCV loader gives, then linearised in its
-numpy operation order, so both packages build the same atlas bit for bit.
+`imageio.py` (standard library, numpy and, for the serial stages of the
+codecs, the port's host library; no PIL, no OpenCV, no OpenEXR) into the
+arrays the JAX package's PIL / OpenCV loader gives, then linearised in
+its numpy operation order, so both packages build the same atlas bit for
+bit.
 """
 from __future__ import annotations
 
@@ -23,9 +24,11 @@ def _srgb_to_linear(x):
 
 
 def load_image(path, color_space="srgb"):
-    """Load an image -> float32 RGB [H, W, 3], linearised: 8-bit data is
-    /255 and, for `color_space` "srgb", decoded from sRGB; HDR data (.hdr,
-    .exr) is taken as it is."""
+    """Load an image -> float32 RGB [H, W, 3], linearised. As the JAX
+    package, the extension picks the reader (`imageio.read_image`): a
+    .hdr / .exr name is taken as OpenCV reads it, whatever the content
+    (no /255, no linearisation); any other name as PIL reads it, 8-bit
+    data /255 and, for `color_space` "srgb", decoded from sRGB."""
     img, kind = read_image(path)
     if kind == "hdr":
         return np.ascontiguousarray(img, np.float32)
