@@ -119,18 +119,21 @@ phase, one JSON line each:
     cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
     the uninterrupted run; `scene_memory_stats` of cbox_sphere;
     `overlay_rays` of 16 pixels at 512^2.
-  * the image files of slices 7c and 7d (`phase_image_files`):
+  * the image files of slices 7c, 7d and 7e.1 (`phase_image_files`):
     progressive, CMYK, YCCK, RGB, lossless and arithmetic-coded JPEG,
-    Adam7, low-depth and 16-bit PNG, TGA, BMP, TIFF and GIF files of
+    Adam7, low-depth and 16-bit PNG, TGA, BMP, TIFF, GIF and WebP files of
     tests/assets_torch/, each decoded on the card's host, timed and held
-    bit for bit against its committed PIL decode (image_decodes.npz); the
-    OpenEXR files (every compression, tiled, multi-part) against their
-    libOpenEXR decodes (exr_decodes.npz); the timing files `lzw_2048.tif`
-    and `piz_2048.exr`; the deep and luminance-chroma refusals.
-  * the twin scenes of slice 7d (`phase_image_twins`): `cbox_tex_files`
-    through K1 and `env_sphere_files` through K2 at 512^2, their images
-    read from TIFF, GIF and OpenEXR files, each bit for bit with its
-    original's render in the same run.
+    bit for bit against its committed PIL decode (image_decodes.npz,
+    webp_decodes.npz); the OpenEXR files (every compression, tiled,
+    multi-part) against their libOpenEXR decodes (exr_decodes.npz); the
+    timing files `lzw_2048.tif`, `piz_2048.exr`, `grain_2048.webp` and
+    `smooth_2048.webp`; the deep and luminance-chroma refusals.
+  * the twin scenes of slices 7d and 7e.1 (`phase_image_twins`):
+    `cbox_tex_files` and `cbox_tex_webp` through K1, `env_sphere_files`
+    and `env_sphere_webp` through K2 at 512^2, their images read from
+    TIFF, GIF, OpenEXR and WebP files, each bit for bit with its
+    original's render in the same run (`cbox_tex_webp`'s original reads
+    PIL's decode of its lossy checker).
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -2193,24 +2196,28 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c and 7d on the card's host: every file of
+    """Slices 7c, 7d and 7e.1 on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
-    BMP; TIFF and GIF, `tiny.tif` among them) held bit for bit against its
-    committed PIL decode, and every file of exr_decodes.npz (every OpenEXR
-    compression, tiled and multi-part files) against its committed
-    libOpenEXR decode, each with its seconds; the timing files
-    `lzw_2048.tif` and `piz_2048.exr` against their decodes' sha256; the
-    deep files refused (ValueError) and a luminance-chroma file raising
+    BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
+    (lossless, lossy, alpha, VP8X, animated WebP; hand-built ALPH, VP8 and
+    VP8L variants) held bit for bit against its committed PIL decode, and
+    every file of exr_decodes.npz (every OpenEXR compression, tiled and
+    multi-part files) against its committed libOpenEXR decode, each with
+    its seconds; the timing files `lzw_2048.tif`, `piz_2048.exr`,
+    `grain_2048.webp` and `smooth_2048.webp` against their decodes' sha256;
+    the deep files refused (ValueError) and a luminance-chroma file raising
     naming ROADMAP 7e; no image library imported."""
     import hashlib
     from vision_tpu_torch.scene import imageio
     assets = os.path.join(ROOT, "tests", "assets_torch")
-    for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz",
-                                                      "hdr")):
+    for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
+                      ("webp_decodes.npz", "ldr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
-        check(kind == "hdr" or "tiny.tif" in files, "tiny.tif's PIL decode")
+        must = {"image_decodes.npz": "tiny.tif",
+                "webp_decodes.npz": "projector.webp"}.get(npz)
+        check(must is None or must in files, f"{npz}'s files")
         for fn in files:
             t0 = time.perf_counter()
             got, got_kind = imageio.read_image(os.path.join(assets, fn))
@@ -2244,28 +2251,44 @@ def phase_image_files(card):
           "an image library was imported")
 
 
+# the twin scenes: (name, maker, kernel, the render it must equal)
+IMAGE_TWINS = (
+    ("cbox_tex_files", "cbox_tex_files", "dense_isect", "cbox_tex"),
+    ("env_sphere_files", "env_sphere_files", "packet_isect", "env_sphere"),
+    ("cbox_tex_webp_ref", "cbox_tex_webp_ref", "dense_isect", None),
+    ("cbox_tex_webp", "cbox_tex_webp", "dense_isect", "cbox_tex_webp_ref"),
+    ("env_sphere_webp", "env_sphere_webp", "packet_isect", "env_sphere"))
+
+
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slice 7d through the kernels: `env_sphere_files` (its skies from
-    OpenEXR files, PIZ and tiled RLE; its checker from an LZW TIFF; its
-    projector image from a GIF) through K2 and `cbox_tex_files` (its
-    images from TIFF and GIF files) through K1, at 512^2 and the seeds of
-    `phase_images`: each bit for bit with its original's render of this
-    run. Returns each render's launch counts."""
+    """Slices 7d and 7e.1 through the kernels, at 512^2 and the seeds of
+    `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
+    and tiled RLE; its checker from an LZW TIFF; its projector image from a
+    GIF) and `env_sphere_webp` (checker and projector from lossless WebP
+    files) through K2, bit for bit with `env_sphere`'s render of this run;
+    `cbox_tex_files` (TIFF and GIF) through K1, bit for bit with
+    `cbox_tex`; `cbox_tex_webp` (a lossy WebP checker, a lossless WebP
+    normal map) through K1, bit for bit with `cbox_tex_webp_ref` (the
+    checker read from PIL's decode of the lossy file, a PNG). Returns each
+    render's launch counts."""
     per_render = {}
-    for name, make, kernel in (("cbox_tex_files", scenes.cbox_tex_files,
-                                "dense_isect"),
-                               ("env_sphere_files", scenes.env_sphere_files,
-                                "packet_isect")):
+    renders = dict(originals)
+    for name, maker, kernel, ref in IMAGE_TWINS:
         t0 = time.perf_counter()
-        sc = vt.load_scene(make(RES), device=DEV)
+        sc = vt.load_scene(getattr(scenes, maker)(RES), device=DEV)
         load_s = time.perf_counter() - t0
         img, rec = render(vt, modules, sc, name)
-        orig = originals[name[:-len("_files")]]
-        rec.update(load_s=load_s, card=card,
-                   bit_equal_to_original=bool(np.array_equal(img, orig)),
-                   max_abs_diff_to_original=float(np.abs(img - orig).max()))
+        renders[name] = img
+        rec.update(load_s=load_s, card=card)
+        if ref is not None:
+            rec.update(equal_to=ref,
+                       bit_equal_to_original=bool(np.array_equal(
+                           img, renders[ref])),
+                       max_abs_diff_to_original=float(
+                           np.abs(img - renders[ref]).max()))
         emit(rec)
-        check(rec["bit_equal_to_original"], f"{name} against its original")
+        check(ref is None or rec["bit_equal_to_original"],
+              f"{name} against {ref}")
         check(all(rec["launches"][f"{kernel}.{k}"] > 0
                   for k in ("closest", "anyhit")), f"{name} {rec['launches']}")
         per_render[name] = rec["launches"]
@@ -2564,8 +2587,9 @@ def main():
     per_render.update(phase_dist(vt, [di, pi], vt_pt, scene, smi))
     per_render.update(phase_utils(vt, [di, pi], scene, sphere, cbox_img, smi))
 
-    # ---- slices 7c and 7d: the image files PIL and OpenCV (libOpenEXR)
-    # decode for the JAX package, and the scenes that read them ----
+    # ---- slices 7c, 7d and 7e.1: the image files PIL and OpenCV
+    # (libOpenEXR, libwebp) decode for the JAX package, and the scenes that
+    # read them ----
     phase_image_files(smi)
     per_render.update(phase_image_twins(vt, [di, pi], scenes, originals, smi))
 

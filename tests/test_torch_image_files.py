@@ -682,14 +682,15 @@ def test_load_image_matches_jax(fn, color_space):
     (b"II*\0" + bytes(30), "TIFF"), (b"\0\0\1\0\1\0" + bytes(30), "ICO"),
     (b"\x0a\x05\x01\x08" + bytes(40), "PNG, JPEG, BMP, TGA")])
 def test_other_formats_name_7d(tmp_path, head, what):
-    """WebP, an icon (a directory of one entry: PIL's ICO plugin takes it)
-    and a file of no known format raise NotImplementedError naming the
-    slice after 7d, 7e: TGA, which has no magic number, is tried last. GIF
-    and TIFF, which named 7d before it was done, are decoded now: these
-    empty bodies are refused (ValueError) as PIL refuses them."""
+    """An icon (a directory of one entry: PIL's ICO plugin takes it) and a
+    file of no known format raise NotImplementedError naming the slice
+    after 7d, 7e: TGA, which has no magic number, is tried last. GIF and
+    TIFF, which named 7d before it was done, and WebP, which named 7e
+    before slice 7e.1, are decoded now: these empty bodies are refused
+    (ValueError) as PIL refuses them."""
     p = tmp_path / "x.img"
     p.write_bytes(head)
-    if what in ("GIF", "TIFF"):
+    if what in ("GIF", "TIFF", "WebP"):
         _assert_same(tmp_path, head, decodes=False, name="x.img")
         return
     with pytest.raises(NotImplementedError, match=f"{what}.*7e"):

@@ -269,18 +269,20 @@ def _env(fn):
 
 
 OUT_OF_SLICE = {
-    "webp_image": (lambda: _edit(lambda s: s["materials"][0][
-        "param"].update(color={"fn": asset("tiny.webp")})), "7e"),
+    "ycc_exr_image": (lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"fn": asset("yc.exr")})), "7e"),
 }
 
-# features out of the slice before slice 7d (a TIFF), before slice 7c (a
-# progressive JPEG), before
+# features out of the slice before slice 7e.1 (a WebP image), before slice
+# 7d (a TIFF), before slice 7c (a progressive JPEG), before
 # slice 1b (the next three), before slice 4 (the next three), before
 # slices 4c, 4d and 7a (the next ones, on the image and IES files of
 # tests/assets_torch) and before slice 7 (a mesh file; this one is
 # missing, so both packages skip its shape with a warning), which now load
 # as the JAX package loads them
 PORTED = {
+    "webp_image": lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"fn": asset("tiny.webp")})),
     "tiff_image": lambda: _edit(lambda s: s["materials"][0][
         "param"].update(color={"fn": asset("tiny.tif")})),
     "progressive_jpeg": lambda: _edit(lambda s: s["materials"][0][
@@ -341,11 +343,12 @@ BVH_SCENES = {
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
                          + sorted(PORTED))
 def test_out_of_slice_raises(name):
-    """A feature outside the ported slices (a WebP image) raises
-    NotImplementedError naming its slice; the two scenes of BVH_SCENES,
-    out of the slice before slices 2 and 3, load and carry the tree their
-    kernel walks; the scenes of PORTED, out of it before slice 1b, 4, 4c,
-    4d, 7a, 7, 7c or 7d (the TIFF), load as the JAX package does."""
+    """A feature outside the ported slices (a luminance-chroma OpenEXR
+    image) raises NotImplementedError naming its slice; the two scenes of
+    BVH_SCENES, out of the slice before slices 2 and 3, load and carry the
+    tree their kernel walks; the scenes of PORTED, out of it before slice
+    1b, 4, 4c, 4d, 7a, 7, 7c, 7d (the TIFF) or 7e.1 (the WebP), load as the
+    JAX package does."""
     if name in PORTED:
         s = PORTED[name]()
         with warnings.catch_warnings():

@@ -239,6 +239,8 @@ _spec = importlib.util.spec_from_file_location(
                                         "tools", "gen_torch_assets.py"))
 gen_assets = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(gen_assets)
+# its WebP writers (tools/gen_torch_webp.py)
+gen_webp = gen_assets._webp_module()
 
 
 def asset(fn):
@@ -313,6 +315,36 @@ def env_sphere_files(res=512, sub_div=40):
     projector image from a GIF, each of the same pixels as the original:
     it renders as `env_sphere` does."""
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_TWINS)
+
+
+# slice 7e.1: WebP twins, written by tools/gen_torch_webp.py. The lossy
+# checker decodes to other pixels, so its scene is held against `cbox_tex`
+# reading PIL's decode of it (checker_lossy_pil.png); the lossless files
+# hold the PNGs' pixels.
+CBOX_TEX_WEBP = {"checker.png": "checker_lossy.webp", "bumps.png": "bumps.webp"}
+CBOX_TEX_WEBP_REF = {"checker.png": "checker_lossy_pil.png"}
+ENV_SPHERE_WEBP = {"checker.png": "checker.webp",
+                   "projector.png": "projector.webp"}
+
+
+def cbox_tex_webp(res=512):
+    """`cbox_tex` with its checker from a lossy WebP file (VP8, quality 80)
+    and its normal map from a lossless one (VP8L): it renders as
+    `cbox_tex_webp_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_WEBP)
+
+
+def cbox_tex_webp_ref(res=512):
+    """`cbox_tex` with its checker read from PIL's decode of
+    checker_lossy.webp, written as a PNG."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_WEBP_REF)
+
+
+def env_sphere_webp(res=512, sub_div=40):
+    """`env_sphere` with its checker from a lossless WebP file and its
+    projector image from a lossless WebP file with alpha in a VP8X
+    container: it renders as `env_sphere` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_WEBP)
 
 
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)

@@ -41,6 +41,9 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
     inside a larger screen, and of LZW code size 2; the twins
     `checker_lzw.tif`, `projector.gif` and `bumps.gif` of the scenes'
     PNGs (the same pixels); `lzw_2048.tif`, the TIFF timing case.
+  * The WebP files of slice 7e.1 and `webp_decodes.npz`, written by
+    `tools/gen_torch_webp.py` (its docstring lists them), `tiny.webp`
+    among them.
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1267,6 +1270,17 @@ def write_image_files(out):
     np.savez_compressed(os.path.join(out, "image_decodes.npz"), **dec)
 
 
+def _webp_module():
+    """`tools/gen_torch_webp.py`, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_webp", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_webp.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main():
     from PIL import Image
     import cv2
@@ -1282,9 +1296,8 @@ def main():
         f.write(IES)
     write_jpegs(out)
     write_image_files(out)
-    # a format the port leaves for ROADMAP 7e (tests/test_torch_scene.py)
-    Image.fromarray(checker()[:8, :8]).save(os.path.join(out, "tiny.webp"),
-                                           lossless=True)
+    _webp_module().write_webp_files(out, checker(), bumps(), projector(),
+                                    grain())
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

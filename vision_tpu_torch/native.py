@@ -1,11 +1,12 @@
 """ctypes bindings of the port's host library: the SAH BVH builder
 (`native/bvh_builder.cpp`), the OBJ parser (`csrc/mesh_io.cpp`), the
-JPEG entropy decoder (`csrc/jpeg_huff.cpp`) and the serial stages of the
-OpenEXR, TIFF and GIF codecs (`csrc/image_codecs.cpp`).
+JPEG entropy decoder (`csrc/jpeg_huff.cpp`), the serial stages of the
+OpenEXR, TIFF and GIF codecs (`csrc/image_codecs.cpp`) and the WebP
+bitstream decoders (`csrc/webp_codec.cpp`).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
 `build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
-import the JAX package. At first use the four sources are compiled with
+import the JAX package. At first use the five sources are compiled with
 g++ into `vision_tpu_torch/_build/` (the tracked `native/libvision_native.so`
 is neither loaded nor rebuilt). The OBJ parser is the port's own copy of
 `native/mesh_io.cpp`'s: its vertex cache keys on the exact index triple
@@ -26,7 +27,8 @@ _HERE = os.path.dirname(__file__)
 SOURCES = [os.path.join(_HERE, "..", "native", "bvh_builder.cpp"),
            os.path.join(_HERE, "csrc", "mesh_io.cpp"),
            os.path.join(_HERE, "csrc", "jpeg_huff.cpp"),
-           os.path.join(_HERE, "csrc", "image_codecs.cpp")]
+           os.path.join(_HERE, "csrc", "image_codecs.cpp"),
+           os.path.join(_HERE, "csrc", "webp_codec.cpp")]
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lib = None
@@ -85,6 +87,13 @@ def _library():
                                                    ctypes.c_int64])):
             getattr(lib, name).argtypes = args
             getattr(lib, name).restype = ctypes.c_int64
+        for name in ("vt_webp_vp8l_decode", "vt_webp_alph_decode",
+                     "vt_webp_vp8_decode"):
+            getattr(lib, name).argtypes = [P, ctypes.c_int64, ctypes.c_int32,
+                                           ctypes.c_int32, P]
+            getattr(lib, name).restype = ctypes.c_int64
+        lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
+        lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
     return _lib
 
@@ -289,6 +298,68 @@ def packbits_decode(data, n_out):
     out = np.zeros(max(n_out, 1), np.uint8)
     n = _library().vt_packbits_decode(buf.ctypes.data, len(data),
                                       out.ctypes.data, n_out)
+    return out[:n]
+
+
+_WEBP_ERRORS = {
+    "vt_webp_vp8l_decode": {-1: "a bad VP8L header", -2: "a VP8L image of "
+                            "another size than its header's",
+                            -3: "bad VP8L prefix codes or transforms",
+                            -4: "bad VP8L pixel data"},
+    "vt_webp_alph_decode": {-1: "a bad ALPH header", -2: "raw ALPH data "
+                            "shorter than the image", -3: "bad VP8L-coded "
+                            "ALPH data"},
+    "vt_webp_vp8_decode": {-1: "a truncated VP8 header", -2: "a bad VP8 "
+                           "frame tag or start code", -3: "a VP8 first "
+                           "partition past the data", -4: "a bad VP8 "
+                           "segment or filter header", -5: "VP8 token "
+                           "partitions past the data", -6: "a premature "
+                           "end of the VP8 first partition", -7: "a "
+                           "premature end of a VP8 token partition",
+                           -9: "a VP8 frame of another size than its "
+                           "header's"}}
+
+
+def _webp_call(name, data, width, height, out):
+    buf = _bytes(data)
+    rc = getattr(_library(), name)(buf.ctypes.data, len(data), width, height,
+                                   out.ctypes.data)
+    if rc < 0:
+        raise ValueError(f"corrupt WebP data: {_WEBP_ERRORS[name][rc]}")
+    return out
+
+
+def webp_vp8l_decode(data, width, height):
+    """A VP8L bitstream (the chunk's payload, signature byte first, through
+    the end of the data libwebp is given) -> uint32 [height, width]
+    0xAARRGGBB, as libwebp decodes it. Raises ValueError where libwebp
+    fails."""
+    return _webp_call("vt_webp_vp8l_decode", data, width, height,
+                      np.zeros((height, width), np.uint32))
+
+
+def webp_alph_decode(data, width, height):
+    """An ALPH chunk's payload -> uint8 [height, width] alpha, as libwebp
+    decodes it (raw or VP8L-coded, unfiltered). Raises ValueError where
+    libwebp fails."""
+    return _webp_call("vt_webp_alph_decode", data, width, height,
+                      np.zeros((height, width), np.uint8))
+
+
+def webp_vp8_decode(data, width, height):
+    """A VP8 key frame (the chunk's payload through the end of the data
+    libwebp is given) -> uint8 [height, width, 3] RGB, as libwebp decodes
+    it (loop filter, "fancy" chroma upsampling). Raises ValueError where
+    libwebp fails."""
+    return _webp_call("vt_webp_vp8_decode", data, width, height,
+                      np.zeros((height, width, 3), np.uint8))
+
+
+def webp_coverage(reset=False):
+    """The WebP decoders' path counters since the last reset: int64 [66]
+    (the layout is `csrc/webp_codec.cpp`'s `Cov`)."""
+    out = np.zeros(66, np.int64)
+    n = _library().vt_webp_coverage(out.ctypes.data, int(reset))
     return out[:n]
 
 

@@ -2,7 +2,8 @@
 and struct, numpy, and the port's host library (`native.py`) for the
 serial stages: JPEG's entropy decoding (`csrc/jpeg_huff.cpp`), OpenEXR's
 Huffman and run-length coding, LZW and PackBits
-(`csrc/image_codecs.cpp`).
+(`csrc/image_codecs.cpp`), WebP's bitstreams (`csrc/webp_codec.cpp`, its
+container in `webp.py`).
 
 The JAX package (`vision_tpu/scene/texture.py` `load_image`) picks its
 reader by the file's extension: ".hdr" and ".exr" through OpenCV
@@ -35,6 +36,10 @@ refuses:
   * TIFF (`read_tiff`) and GIF (`read_gif`): as PIL (libtiff for
     compressed TIFF) reads page / frame 0; their docstrings list the
     variants and the quirks copied.
+  * WebP (`webp.decode`): lossless (VP8L) and lossy (VP8) images, alpha
+    (VP8L's own or an ALPH chunk, dropped), extended (VP8X) files and frame
+    0 of an animation on its canvas, as PIL decodes them through libwebp's
+    WebPAnimDecoder; what its demuxer or decoder refuses raises ValueError.
   * Radiance .hdr (`read_hdr`): the `#?RADIANCE` / `#?RGBE` header, the
     `-Y H +X W` orientation (OpenCV refuses the others, and so does this
     module), new-style run-length and flat scanlines, decoded as OpenCV
@@ -47,9 +52,10 @@ refuses:
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-WebP, luminance-chroma and UINT OpenEXR files, the rarer TIFF codecs,
-what OpenCV's own readers decode under a .hdr / .exr name and the other
-formats PIL opens raise NotImplementedError naming ROADMAP queue A, 7e.
+Luminance-chroma and UINT OpenEXR files, the rarer TIFF codecs, what
+OpenCV's own readers decode under a .hdr / .exr name (but WebP) and the
+other formats PIL opens raise NotImplementedError naming ROADMAP queue A,
+7e.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ import zlib
 import numpy as np
 
 from .. import native
+from . import webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -82,8 +89,6 @@ _OTHER_FORMATS = ((b"II+\0", "BigTIFF"), (b"MM\0+", "BigTIFF"),
 
 
 def _other_format(data):
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
     name = next((name for magic, name in _OTHER_FORMATS
                  if data.startswith(magic)), None)
     if name in ("ICO", "CUR") and data[4:6] == b"\0\0":
@@ -127,6 +132,8 @@ def _read_pil(data, name):
         return read_tiff(data)
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return read_gif(data)
+    if webp.is_webp(data):
+        return webp.decode(data, name)[0]
     if data[:2] == b"#?" or _is_exr(data):
         raise ValueError(f"'{name}': a Radiance or OpenEXR file under "
                          "another name: PIL (the JAX package's reader for "
@@ -138,7 +145,7 @@ def _read_pil(data, name):
         return read_tga(data)
     raise NotImplementedError(
         f"'{name}': not a PNG, JPEG, BMP, TGA, TIFF or GIF file: other "
-        "formats (WebP, ICO, PSD, ...) are ROADMAP queue A, 7e")
+        "formats (ICO, PSD, ...) are ROADMAP queue A, 7e")
 
 
 # magic numbers of the formats OpenCV's own readers take that this module
@@ -156,10 +163,11 @@ def _read_opencv(data, name):
     content: float32 [H, W, 3] RGB with no /255. Radiance and OpenEXR as
     `read_hdr` / `read_exr`; a PNG as PIL decodes it, but 16-bit samples
     whole; a grey, YCbCr or RGB JPEG as PIL decodes it (OpenCV's
-    libjpeg-turbo gives the same samples). OpenCV's own BMP, TIFF, GIF,
-    WebP, PNM and other readers and its CMYK JPEG path (one off from
-    PIL's) raise NotImplementedError (7e); content OpenCV cannot read
-    raises ValueError."""
+    libjpeg-turbo gives the same samples); a WebP file as OpenCV's libwebp
+    decodes it (`webp.decode_opencv`). OpenCV's own BMP, TIFF, GIF, PNM
+    and other readers and its CMYK JPEG path (one off from PIL's) raise
+    NotImplementedError (7e); content OpenCV cannot read raises
+    ValueError."""
     if data[:2] == b"#?":
         return read_hdr(data)
     if _is_exr(data):
@@ -171,10 +179,10 @@ def _read_opencv(data, name):
             raise _not_ported(f"'{name}': decoding CMYK / YCCK JPEG files "
                               "as OpenCV does", "7e")
         return read_jpeg(data).astype(np.float32)
+    if webp.is_webp(data):
+        return webp.decode_opencv(data, name)[0].astype(np.float32)
     other = next((n for magic, n in _OPENCV_OTHER if data.startswith(magic)),
                  None)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        other = "WebP"
     if len(data) > 2 and data[0] == ord("P") and data[1] in b"1234567" \
             and data[2] in b" \t\r\n":
         other = "PNM"

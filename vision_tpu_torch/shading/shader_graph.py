@@ -21,8 +21,9 @@ context-dependent node folds to a neutral 1.0 with a warning, as in the
 JAX package.
 
 A slot whose image cannot be read takes the slot's default with a warning,
-as in the JAX package; an image format this package does not decode (a
-progressive JPEG, BMP, TGA, TIFF: ROADMAP 7c) raises NotImplementedError.
+as in the JAX package; an image format or variant this package does not
+decode (luminance-chroma and UINT OpenEXR, the rarer TIFF codecs, ICO,
+PSD and the other formats of ROADMAP 7e) raises NotImplementedError.
 """
 from __future__ import annotations
 
