@@ -127,13 +127,20 @@ phase, one JSON line each:
     webp_decodes.npz); the OpenEXR files (every compression, tiled,
     multi-part) against their libOpenEXR decodes (exr_decodes.npz); the
     timing files `lzw_2048.tif`, `piz_2048.exr`, `grain_2048.webp` and
-    `smooth_2048.webp`; the deep and luminance-chroma refusals.
-  * the twin scenes of slices 7d and 7e.1 (`phase_image_twins`):
-    `cbox_tex_files` and `cbox_tex_webp` through K1, `env_sphere_files`
-    and `env_sphere_webp` through K2 at 512^2, their images read from
-    TIFF, GIF, OpenEXR and WebP files, each bit for bit with its
-    original's render in the same run (`cbox_tex_webp`'s original reads
-    PIL's decode of its lossy checker).
+    `smooth_2048.webp`; the deep refusals. Slices 7e.2 and 7e.3a: the
+    OpenEXR files OpenCV converts with its own code against OpenCV
+    4.6.0's decodes (exr_cv_decodes.npz; `yc_2048.exr` and `deep_512.exr`
+    timed), the PNM, PAM, PFM, Sun raster, BMP and YCCK JPEG files under
+    .hdr / .exr names against the pip cv2's (cv_decodes.npz), an AVIF
+    file under a .hdr name raising naming 7e.
+  * the twin scenes of slices 7d, 7e.1, 7e.2 and 7e.3a
+    (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp` and
+    `cbox_sky_yc` through K1, `env_sphere_files`, `env_sphere_webp` and
+    `env_sphere_cv` through K2 at 512^2, their images read from TIFF, GIF,
+    OpenEXR (plain, luminance-chroma, deep), WebP and PFM files, each bit
+    for bit with its original's render in the same run (`cbox_tex_webp`'s
+    original reads PIL's decode of its lossy checker, `cbox_sky_yc`'s
+    OpenCV's decode of its sky).
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -170,6 +177,7 @@ import importlib.util
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -2196,7 +2204,7 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d and 7e.1 on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2 and 7e.3a on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2206,17 +2214,27 @@ def phase_image_files(card):
     multi-part files) against its committed libOpenEXR decode, each with
     its seconds; the timing files `lzw_2048.tif`, `piz_2048.exr`,
     `grain_2048.webp` and `smooth_2048.webp` against their decodes' sha256;
-    the deep files refused (ValueError) and a luminance-chroma file raising
-    naming ROADMAP 7e; no image library imported."""
+    the deep files refused (ValueError); slices 7e.2 and 7e.3a: every file
+    of exr_cv_decodes.npz (luminance-chroma, UINT, channel sets, deep
+    composites, perceptually linear B44 / DWA, DWA version 1) against its
+    committed OpenCV 4.6.0 decode and of cv_decodes.npz (PNM, PAM, PFM, Sun
+    raster, BMP, YCCK JPEG under .hdr / .exr names) against the pip cv2's,
+    the timing files `yc_2048.exr` and `deep_512.exr` (and B44's log table)
+    against their sha256; an AVIF file under a .hdr name raising naming
+    ROADMAP 7e; no image library imported."""
     import hashlib
+    import tempfile
     from vision_tpu_torch.scene import imageio
     assets = os.path.join(ROOT, "tests", "assets_torch")
     for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
-                      ("webp_decodes.npz", "ldr")):
+                      ("webp_decodes.npz", "ldr"),
+                      ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
         must = {"image_decodes.npz": "tiny.tif",
-                "webp_decodes.npz": "projector.webp"}.get(npz)
+                "webp_decodes.npz": "projector.webp",
+                "exr_cv_decodes.npz": "deep_composite.exr",
+                "cv_decodes.npz": "cv_ycck.exr"}.get(npz)
         check(must is None or must in files, f"{npz}'s files")
         for fn in files:
             t0 = time.perf_counter()
@@ -2238,15 +2256,26 @@ def phase_image_files(card):
             emit(rec)
             check(rec["bit_equal"] and rec["sha256_equal"]
                   and rec["max_abs_diff"] == 0, f"{fn} {rec}")
-    for fn, err, what in (("yc.exr", NotImplementedError, "7e"),
-                          ("deep_scanline.exr", ValueError, "deep"),
-                          ("deep_tiled.exr", ValueError, "deep")):
-        try:
-            imageio.read_image(os.path.join(assets, fn))
-            raised = ""
-        except err as e:
-            raised = str(e)
-        check(what in raised, f"{fn}: {raised!r}")
+    got = imageio.read_image(os.path.join(assets, "yc.exr"))[0]
+    check(np.array_equal(got.view(np.uint32), np.load(os.path.join(
+        assets, "exr_cv_decodes.npz"))["yc.exr"].view(np.uint32)),
+        "yc.exr against OpenCV 4.6.0's decode")
+    with tempfile.TemporaryDirectory() as tmp:
+        avif = os.path.join(tmp, "avif.hdr")
+        with open(avif, "wb") as f:   # the ISO-BMFF box that names AVIF
+            f.write(struct.pack(">I", 28) + b"ftypavif" + bytes(4)
+                    + b"avifmif1miaf")
+        for path, err, what in ((avif, NotImplementedError, "7e"),
+                                (os.path.join(assets, "deep_scanline.exr"),
+                                 ValueError, "deep"),
+                                (os.path.join(assets, "deep_tiled.exr"),
+                                 ValueError, "deep")):
+            try:
+                imageio.read_image(path)
+                raised = ""
+            except err as e:
+                raised = str(e)
+            check(what in raised, f"{os.path.basename(path)}: {raised!r}")
     check(not {"PIL", "cv2", "OpenEXR", "Imath"} & set(sys.modules),
           "an image library was imported")
 
@@ -2257,11 +2286,14 @@ IMAGE_TWINS = (
     ("env_sphere_files", "env_sphere_files", "packet_isect", "env_sphere"),
     ("cbox_tex_webp_ref", "cbox_tex_webp_ref", "dense_isect", None),
     ("cbox_tex_webp", "cbox_tex_webp", "dense_isect", "cbox_tex_webp_ref"),
-    ("env_sphere_webp", "env_sphere_webp", "packet_isect", "env_sphere"))
+    ("env_sphere_webp", "env_sphere_webp", "packet_isect", "env_sphere"),
+    ("cbox_sky_yc_ref", "cbox_sky_yc_ref", "dense_isect", None),
+    ("cbox_sky_yc", "cbox_sky_yc", "dense_isect", "cbox_sky_yc_ref"),
+    ("env_sphere_cv", "env_sphere_cv", "packet_isect", "env_sphere"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d and 7e.1 through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2 and 7e.3a through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2269,8 +2301,12 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     `cbox_tex_files` (TIFF and GIF) through K1, bit for bit with
     `cbox_tex`; `cbox_tex_webp` (a lossy WebP checker, a lossless WebP
     normal map) through K1, bit for bit with `cbox_tex_webp_ref` (the
-    checker read from PIL's decode of the lossy file, a PNG). Returns each
-    render's launch counts."""
+    checker read from PIL's decode of the lossy file, a PNG); slices 7e.2
+    and 7e.3a: `cbox_sky_yc` (a luminance-chroma OpenEXR sky) through K1,
+    bit for bit with `cbox_sky_yc_ref` (OpenCV 4.6.0's decode of that sky
+    in a plain FLOAT file), and `env_sphere_cv` (its skies from a PFM named
+    .hdr and a deep OpenEXR file with Z and A) through K2, bit for bit with
+    `env_sphere`. Returns each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:
@@ -2587,9 +2623,9 @@ def main():
     per_render.update(phase_dist(vt, [di, pi], vt_pt, scene, smi))
     per_render.update(phase_utils(vt, [di, pi], scene, sphere, cbox_img, smi))
 
-    # ---- slices 7c, 7d and 7e.1: the image files PIL and OpenCV
-    # (libOpenEXR, libwebp) decode for the JAX package, and the scenes that
-    # read them ----
+    # ---- slices 7c, 7d, 7e.1, 7e.2 and 7e.3a: the image files PIL and
+    # OpenCV (libOpenEXR, libwebp and its own readers) decode for the JAX
+    # package, and the scenes that read them ----
     phase_image_files(smi)
     per_render.update(phase_image_twins(vt, [di, pi], scenes, originals, smi))
 

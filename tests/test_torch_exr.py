@@ -6,10 +6,11 @@ through, decodes them. The files and their InputFile decodes
 which writes them with libOpenEXR 3.1: every compression (RLE, PIZ, PXR24,
 B44, B44A, DWAA, DWAB) on HALF and FLOAT channels, tiled files (one level,
 mip- and ripmaps, partial edge tiles, every line order), multi-part files,
-and the deep, luminance-chroma and UINT files the port refuses. The
-tolerance is exact everywhere, DWA included: 0 of the four DWA files'
-82,890 samples differ (the port's inverse DCT sums its products in the
-order libOpenEXR's AVX code does)."""
+and the deep files InputFile refuses; the luminance-chroma, UINT and deep
+composite files of slice 7e.2 against OpenCV 4.6.0's decodes
+(`exr_cv_decodes.npz`; `tests/test_torch_exr_opencv.py` holds the rest).
+The tolerance is exact everywhere, DWA included (the port's inverse DCT
+sums its products in the order libOpenEXR's AVX code does)."""
 import hashlib
 import os
 import struct
@@ -79,24 +80,31 @@ def test_deep_files_are_refused(fn):
         tio.read_exr(_read(fn))
 
 
+CV = np.load(os.path.join(ASSETS, "exr_cv_decodes.npz"))
+
+
 @pytest.mark.parametrize("fn, what", [
     ("yc.exr", "luminance-chroma"), ("uint.exr", "pixel type 0"),
     ("deep_composite.exr", "compositing deep")])
 def test_files_for_7e_name_it(fn, what):
     """Luminance-chroma files, UINT channels and deep scanlines InputFile
-    composites are converted by OpenCV's own code: not ported, never a
-    different image."""
-    with pytest.raises(NotImplementedError, match=f"{what}.*7e"):
-        tio.read_exr(_read(fn))
+    composites, which OpenCV converts with its own code (slice 7e.2): each
+    decodes bit for bit to OpenCV 4.6.0's decode (ROADMAP C22)."""
+    got = tio.read_exr(_read(fn))
+    assert got.shape == CV[fn].shape, what
+    np.testing.assert_array_equal(got.view(np.uint32), CV[fn].view(np.uint32))
 
 
 def test_other_channel_sets_name_7e():
-    """A file of R and G only is not R, G, B[, A] or Y: 7e."""
+    """A file of R and G only (B renamed Q, which OpenCV ignores) decodes
+    with B 0, as OpenCV 4.6.0 fills a missing channel (slice 7e.2)."""
     data = _read("rle_half.exr")
     assert data.count(b"B\0\x01\0\0\0") == 1
     bad = data.replace(b"B\0\x01\0\0\0", b"Q\0\x01\0\0\0")
-    with pytest.raises(NotImplementedError, match="channels.*7e"):
-        tio.read_exr(bad)
+    want = DEC["rle_half.exr"].copy()
+    want[..., 2] = 0
+    np.testing.assert_array_equal(tio.read_exr(bad).view(np.uint32),
+                                  want.view(np.uint32))
 
 
 def _multipart(single):

@@ -347,6 +347,41 @@ def env_sphere_webp(res=512, sub_div=40):
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_WEBP)
 
 
+# slices 7e.2 and 7e.3a: files OpenCV decodes with its own code, written by
+# tools/gen_torch_exr.py. The luminance-chroma sky decodes through OpenCV's
+# chroma conversion, so its scene is held against one reading OpenCV's
+# decode of it from a plain FLOAT OpenEXR file (sky_yc_ref.exr); the PFM
+# and deep files hold the .hdr skies' own decodes.
+ENV_SPHERE_CV = {"sky_a.hdr": "sky_a_pfm.hdr", "sky_b.hdr": "sky_b_deep.exr"}
+
+
+def _cbox_sky_file(res, fn):
+    s = cbox_sky(res)
+    s["light_sampler"]["param"]["lights"][0]["param"]["color"]["fn"] = \
+        asset(fn)
+    return s
+
+
+def cbox_sky_yc(res=512):
+    """`cbox_sky` lit by a luminance-chroma OpenEXR sky (RgbaOutputFile's
+    Y, RY, BY, PIZ) instead of its missing one: it renders as
+    `cbox_sky_yc_ref` does."""
+    return _cbox_sky_file(res, "sky_yc.exr")
+
+
+def cbox_sky_yc_ref(res=512):
+    """`cbox_sky` lit by OpenCV 4.6.0's decode of sky_yc.exr, written as an
+    uncompressed FLOAT OpenEXR file."""
+    return _cbox_sky_file(res, "sky_yc_ref.exr")
+
+
+def env_sphere_cv(res=512, sub_div=40):
+    """`env_sphere` with its skies from a PFM file named .hdr (OpenCV's
+    PFM reader) and from a deep scanline OpenEXR file with Z and A (1-3
+    samples a pixel, composited): it renders as `env_sphere` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_CV)
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

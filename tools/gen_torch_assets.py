@@ -44,6 +44,10 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
   * The WebP files of slice 7e.1 and `webp_decodes.npz`, written by
     `tools/gen_torch_webp.py` (its docstring lists them), `tiny.webp`
     among them.
+  * The files of slice 7e.3a (`opencv_reader_files`: PPM, PGM, PAM, PFM,
+    Sun raster, BMP and YCCK JPEG under .hdr / .exr names) and
+    `cv_decodes.npz`, what the JAX package's loader gets for each through
+    the pip cv2.
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1281,6 +1285,62 @@ def _webp_module():
     return mod
 
 
+def opencv_reader_files():
+    """The files of slice 7e.3a (name -> bytes), each under a .hdr / .exr
+    name, so the JAX package reads it through OpenCV's own reader: a
+    16-bit binary PPM, an ASCII PGM with a comment, an RGB PAM, a grey PFM
+    of scale -2.5, an 8-bit Sun raster with a colour map, an RLE4 BMP and
+    a YCCK JPEG (PIL's CMYK file with the Adobe transform set to 2)."""
+    g = np.random.default_rng(7300)
+    f = {}
+    v = g.integers(0, 1001, (9, 13, 3))
+    f["cv_p6_16.hdr"] = b"P6\n13 9\n1000\n" + v.astype(">u2").tobytes()
+    v = g.integers(0, 101, (7, 11))
+    f["cv_p2.hdr"] = b"P2\n# a comment\n11 7\n100\n" + b"\n".join(
+        b" ".join(b"%d" % x for x in row) for row in v) + b"\n"
+    v = g.integers(0, 256, (6, 10, 3), dtype=np.uint8)
+    f["cv_pam_rgb.exr"] = (b"P7\nWIDTH 10\nHEIGHT 6\nDEPTH 3\nMAXVAL 255\n"
+                           b"TUPLTYPE RGB\nENDHDR\n" + v.tobytes())
+    v = (g.standard_normal((8, 12)) * 10).astype("<f4")
+    f["cv_pfm_grey.hdr"] = b"Pf\n12 8\n-2.5\n" + v[::-1].tobytes()
+    cmap = g.integers(0, 256, 3 * 256, dtype=np.uint8).tobytes()
+    body = g.integers(0, 256, (5, 10), dtype=np.uint8).tobytes()
+    f["cv_sun_map.hdr"] = struct.pack(">8I", 0x59A66A95, 9, 5, 8, len(body),
+                                      1, 1, len(cmap)) + cmap + body
+    idx = (np.add.outer(np.arange(7), np.arange(15)) // 3 % 16).astype(
+        np.uint8)
+    pal = np.concatenate([g.integers(0, 256, (16, 3), dtype=np.uint8),
+                          np.zeros((16, 1), np.uint8)], 1)
+    f["cv_bmp_rle4.hdr"] = bmp_bytes(15, 7, 4, None, pal, 2,
+                                     data=bmp_rle(idx, rle4=True))
+    img4 = g.integers(0, 256, (12, 20, 4), dtype=np.uint8)
+    img4[2:9, 3:15] = g.integers(0, 256, 4, dtype=np.uint8)
+    import io
+    from PIL import Image
+    b = io.BytesIO()
+    Image.fromarray(img4, "CMYK").save(b, "JPEG", quality=85, subsampling=2)
+    f["cv_ycck.exr"] = _adobe_transform(b.getvalue(), 2)
+    return f
+
+
+def write_opencv_reader_files(out):
+    """The files of slice 7e.3a and `cv_decodes.npz`: what the JAX
+    package's loader gives for each through the pip cv2 (float32 [H, W,
+    3] RGB, no /255)."""
+    import cv2
+    dec = {}
+    for fn, data in opencv_reader_files().items():
+        p = os.path.join(out, fn)
+        with open(p, "wb") as f:
+            f.write(data)
+        a = cv2.imread(p, cv2.IMREAD_ANYCOLOR | cv2.IMREAD_ANYDEPTH)
+        a = a.astype(np.float32)
+        if a.ndim == 2:
+            a = np.stack([a] * 3, -1)
+        dec[fn] = np.ascontiguousarray(a[..., :3][..., ::-1])
+    np.savez_compressed(os.path.join(out, "cv_decodes.npz"), **dec)
+
+
 def main():
     from PIL import Image
     import cv2
@@ -1298,6 +1358,7 @@ def main():
     write_image_files(out)
     _webp_module().write_webp_files(out, checker(), bumps(), projector(),
                                     grain())
+    write_opencv_reader_files(out)
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

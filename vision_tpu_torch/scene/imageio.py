@@ -44,18 +44,21 @@ refuses:
     `-Y H +X W` orientation (OpenCV refuses the others, and so does this
     module), new-style run-length and flat scanlines, decoded as OpenCV
     decodes them: m * 2^(e - 136), no +0.5, e = 0 is 0; RGB order.
-  * OpenEXR (`read_exr`): as Imf::InputFile, which OpenCV reads through,
-    decodes them: scanline and tiled files (level (0, 0)), part 0 of a
-    multi-part file; every compression (NONE, RLE, ZIPS, ZIP, PIZ, PXR24,
-    B44, B44A, DWAA, DWAB), HALF and FLOAT channels; R, G, B (A dropped)
-    or Y (replicated).
+  * OpenEXR (`read_exr`): as OpenCV 4.6.0's EXR decoder gives them
+    (ROADMAP C22): read as Imf::InputFile reads them (scanline and tiled
+    files, level (0, 0); part 0 of a multi-part file; deep scanlines with Z
+    and A, composited; every compression, DWA blocks of version 1 and 2,
+    perceptually linear channels; HALF, FLOAT and UINT channels,
+    sub-sampled ones included), then converted by OpenCV's rules: R, G, B
+    (missing ones 0), or luminance-chroma converted, or Y replicated.
+  * Under a .hdr / .exr name, OpenCV's own BMP, Sun raster, PNM, PFM and
+    PAM readers and its CMYK / YCCK JPEG conversion (`cvread.py`).
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-Luminance-chroma and UINT OpenEXR files, the rarer TIFF codecs, what
-OpenCV's own readers decode under a .hdr / .exr name (but WebP) and the
-other formats PIL opens raise NotImplementedError naming ROADMAP queue A,
-7e.
+The rarer TIFF codecs, OpenCV's TIFF, GIF, JPEG 2000 and AVIF readers
+under a .hdr / .exr name, and the other formats PIL opens (AVIF among
+them) raise NotImplementedError naming ROADMAP queue A, 7e.
 """
 from __future__ import annotations
 
@@ -67,7 +70,7 @@ import zlib
 import numpy as np
 
 from .. import native
-from . import webp
+from . import cvread, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -138,7 +141,7 @@ def _read_pil(data, name):
         raise ValueError(f"'{name}': a Radiance or OpenEXR file under "
                          "another name: PIL (the JAX package's reader for "
                          "it) cannot identify it either")
-    other = _other_format(data)
+    other = "AVIF" if _is_avif(data) else _other_format(data)
     if other is not None:
         raise _not_ported(f"'{name}': decoding {other} files", "7e")
     if _tga_header(data) is not None:
@@ -149,12 +152,24 @@ def _read_pil(data, name):
 
 
 # magic numbers of the formats OpenCV's own readers take that this module
-# does not decode under a .hdr / .exr name
-_OPENCV_OTHER = ((b"BM", "BMP"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
+# does not decode under a .hdr / .exr name (ROADMAP 7e.3b)
+_OPENCV_OTHER = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
                  (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                 (b"\x59\xa6\x6a\x95", "Sun raster"), (b"PF", "PFM"),
-                 (b"Pf", "PFM"), (b"\0\0\0\x0cjP  ", "JPEG 2000"),
-                 (b"\xffO\xffQ", "JPEG 2000"))
+                 (b"\0\0\0\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"))
+
+
+def _is_avif(data):
+    """An ISO-BMFF file whose `ftyp` box names AVIF (`avif` / `avis`)."""
+    return data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis")
+
+
+def _from_cv(img):
+    """An OpenCV image ([H, W] or [H, W, 3] B, G, R) -> what the JAX
+    package's loader makes of it: float32 [H, W, 3] R, G, B."""
+    img = img.astype(np.float32)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, -1)
+    return np.ascontiguousarray(img[..., ::-1])
 
 
 def _read_opencv(data, name):
@@ -163,11 +178,12 @@ def _read_opencv(data, name):
     content: float32 [H, W, 3] RGB with no /255. Radiance and OpenEXR as
     `read_hdr` / `read_exr`; a PNG as PIL decodes it, but 16-bit samples
     whole; a grey, YCbCr or RGB JPEG as PIL decodes it (OpenCV's
-    libjpeg-turbo gives the same samples); a WebP file as OpenCV's libwebp
-    decodes it (`webp.decode_opencv`). OpenCV's own BMP, TIFF, GIF, PNM
-    and other readers and its CMYK JPEG path (one off from PIL's) raise
-    NotImplementedError (7e); content OpenCV cannot read raises
-    ValueError."""
+    libjpeg-turbo gives the same samples), a CMYK or YCCK one through
+    OpenCV's own conversion; a WebP file as OpenCV's libwebp decodes it
+    (`webp.decode_opencv`); BMP, Sun raster, PNM, PFM and PAM files by
+    OpenCV's own readers (`cvread`). OpenCV's TIFF, GIF, JPEG 2000 and
+    AVIF readers raise NotImplementedError (7e); content OpenCV cannot
+    read raises ValueError."""
     if data[:2] == b"#?":
         return read_hdr(data)
     if _is_exr(data):
@@ -176,16 +192,23 @@ def _read_opencv(data, name):
         return read_png(data, full_depth=True).astype(np.float32)
     if data[:3] == b"\xff\xd8\xff":
         if len(_jpeg_sampling(data)) == 4:
-            raise _not_ported(f"'{name}': decoding CMYK / YCCK JPEG files "
-                              "as OpenCV does", "7e")
+            return _from_cv(cvread.cmyk_to_bgr(read_jpeg(data, cmyk=True)))
         return read_jpeg(data).astype(np.float32)
     if webp.is_webp(data):
         return webp.decode_opencv(data, name)[0].astype(np.float32)
+    if data[:2] == b"BM":
+        return _from_cv(cvread.read_bmp_cv(data))
+    if data[:4] == cvread.SUNRAS_MAGIC:
+        return _from_cv(cvread.read_sunras(data))
+    if len(data) > 2 and data[0] == ord("P") and data[2] in b" \t\n\v\f\r":
+        if data[1] in b"123456":
+            return _from_cv(cvread.read_pnm(data))
+        if data[1] in b"fF":
+            return _from_cv(cvread.read_pfm(data))
+        if data[1] == ord("7"):
+            return _from_cv(cvread.read_pam(data))
     other = next((n for magic, n in _OPENCV_OTHER if data.startswith(magic)),
-                 None)
-    if len(data) > 2 and data[0] == ord("P") and data[1] in b"1234567" \
-            and data[2] in b" \t\r\n":
-        other = "PNM"
+                 "AVIF" if _is_avif(data) else None)
     if other is not None:
         raise _not_ported(f"'{name}': decoding {other} files as OpenCV does",
                           "7e")
@@ -790,13 +813,15 @@ def _cmyk_to_rgb(x, k):
     return np.clip(k - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
-def _lossless_rgb(planes, pt, jfif, adobe):
+def _lossless_rgb(planes, pt, jfif, adobe, cmyk=False):
     """A lossless file's samples -> RGB as PIL gets them: each sample
     shifted back by its point transform into 8 bits; grey, RGB or CMYK
     (libjpeg converts no colour in lossless mode and refuses to: a YCbCr or
-    YCCK file is refused)."""
+    YCCK file is refused). `cmyk`: a CMYK file's 4 samples as they are."""
     out = [((p.astype(np.int64) << pt[ci]) & 0xFF).astype(np.uint8)
            for ci, p in enumerate(planes)]
+    if cmyk and len(out) == 4 and not (adobe is not None and adobe != 0):
+        return np.stack(out, -1)
     if len(out) == 1:
         return np.repeat(out[0][..., None], 3, axis=-1)
     if (jfif and len(out) == 3) or (adobe is not None and adobe != 0):
@@ -831,7 +856,7 @@ def _jpeg_sampling(data):
     return []
 
 
-def read_jpeg(data, force_ycc=False):
+def read_jpeg(data, force_ycc=False, cmyk=False):
     """JPEG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
     sequential and progressive files of 8-bit samples, Huffman- or
     arithmetic-coded (DAC conditioning), and lossless Huffman files (1x1
@@ -842,7 +867,8 @@ def read_jpeg(data, force_ycc=False):
     for what PIL
     refuses too (12- and 16-bit samples, 2 or more than 4 components,
     hierarchical coding, fractional sampling, lossless YCbCr) and for a
-    corrupt file."""
+    corrupt file. `cmyk`: a 4-component file's samples as libjpeg gives
+    them for JCS_CMYK (uint8 [H, W, 4]; a YCCK file converted to CMYK)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     qt = {}
@@ -1020,7 +1046,7 @@ def read_jpeg(data, force_ycc=False):
         if any(ci not in latched for ci in range(len(comps))):
             raise ValueError("a lossless JPEG component without a scan: PIL "
                              "(libjpeg-turbo) refuses it too")
-        return _lossless_rgb(planes, latched, jfif, adobe)
+        return _lossless_rgb(planes, latched, jfif, adobe, cmyk)
     out = []
     for ci, c in enumerate(comps):
         # a component no scan named latched no table: libjpeg's zeroed
@@ -1044,6 +1070,9 @@ def read_jpeg(data, force_ycc=False):
         ink = _ycc_to_rgb(*out[:3])
     else:                                 # CMYK
         ink = 255 - np.stack(out[:3], -1).astype(np.int64)
+    if cmyk:    # the samples libjpeg gives for JCS_CMYK (ycck_cmyk_convert)
+        return np.concatenate([255 - ink, out[3][..., None]], -1).astype(
+            np.uint8)
     return _cmyk_to_rgb(ink, out[3][..., None])
 
 
@@ -1620,8 +1649,10 @@ def read_hdr(data):
 
 (_EXR_NONE, _EXR_RLE, _EXR_ZIPS, _EXR_ZIP, _EXR_PIZ, _EXR_PXR24, _EXR_B44,
  _EXR_B44A, _EXR_DWAA, _EXR_DWAB) = range(10)
-_EXR_HALF, _EXR_FLOAT = 1, 2             # pixel types (0 is UINT)
-_EXR_DTYPE = {_EXR_HALF: np.dtype("<f2"), _EXR_FLOAT: np.dtype("<f4")}
+_EXR_UINT, _EXR_HALF, _EXR_FLOAT = 0, 1, 2  # pixel types
+_EXR_DTYPE = {_EXR_UINT: np.dtype("<u4"), _EXR_HALF: np.dtype("<f2"),
+              _EXR_FLOAT: np.dtype("<f4")}
+_EXR_PTYPE = {dt: t for t, dt in _EXR_DTYPE.items()}
 # the scanlines of a block of each compression
 _EXR_LINES = {_EXR_NONE: 1, _EXR_RLE: 1, _EXR_ZIPS: 1, _EXR_ZIP: 16,
               _EXR_PIZ: 32, _EXR_PXR24: 16, _EXR_B44: 32, _EXR_B44A: 32,
@@ -1657,8 +1688,9 @@ def _exr_part0(data):
     """The header that Imf::InputFile reads -> (attributes, the offset of
     its chunk offset table, whether chunks carry a part number). A
     multi-part file gives its part 0 (its headers come one after another,
-    an empty one ends them, then each part's offset table); a deep part,
-    which InputFile refuses, raises ValueError."""
+    an empty one ends them, then each part's offset table). A deep part
+    that InputFile refuses (tiled, or without Z and A) raises ValueError;
+    InputFile composites the others (`_exr_read_deep`)."""
     if len(data) < 8:
         raise ValueError("truncated OpenEXR file")
     magic, version = struct.unpack("<ii", data[:8])
@@ -1673,39 +1705,88 @@ def _exr_part0(data):
             pos += 1
     except (IndexError, ValueError, struct.error):
         raise ValueError("corrupt OpenEXR header") from None
-    part_type = attrs.get("type", ("", b"scanlineimage"))[1].rstrip(b"\0")
-    if (version & 0x800 and not multipart) or part_type.startswith(b"deep"):
+    if _exr_deep(attrs, version, multipart):
         names = set(re.findall(rb"([^\0]+)\0.{16}",
                                attrs.get("channels", ("", b""))[1], re.S))
-        if part_type == b"deepscanline" and {b"A", b"Z"} <= names:
-            raise _not_ported("compositing deep OpenEXR scanlines (as "
-                              "Imf::InputFile does)", "7e")
-        raise ValueError("deep OpenEXR data without Z and A channels, or "
-                         "tiled: Imf::InputFile (OpenCV's reader) refuses it "
-                         "too")
+        if attrs.get("type", ("", b""))[1].rstrip(b"\0") != b"deepscanline" \
+                or not {b"A", b"Z"} <= names:
+            raise ValueError("deep OpenEXR data without Z and A channels, or "
+                             "tiled: Imf::InputFile (OpenCV's reader) refuses "
+                             "it too")
     return attrs, pos, multipart
 
 
-def _exr_channels(body, linear=None):
+def _exr_deep(attrs, version, multipart):
+    """Whether the part holds deep data."""
+    part_type = attrs.get("type", ("", b"scanlineimage"))[1].rstrip(b"\0")
+    return bool(version & 0x800 and not multipart) or \
+        part_type.startswith(b"deep")
+
+
+def _exr_channels(body, linear=None, sampling=None):
     """A chlist attribute -> [(name, dtype)], sorted by name as the file
     stores them; the names of the channels marked perceptually linear
-    are added to the set `linear`. UINT and sub-sampled channels raise
-    NotImplementedError (7e): OpenCV converts them with its own code."""
+    are added to the set `linear`, each channel's (x, y) sampling to the
+    dict `sampling`."""
     chans, pos = [], 0
     while body[pos] != 0:
         name, pos = _cstr(body, pos)
         ptype, plinear, xs, ys = struct.unpack("<iB3xii", body[pos:pos + 16])
         pos += 16
-        if ptype not in _EXR_DTYPE:
-            raise _not_ported(f"decoding OpenEXR channel '{name}' of pixel "
-                              f"type {ptype} (only HALF and FLOAT are)", "7e")
-        if (xs, ys) != (1, 1):
-            raise _not_ported("decoding sub-sampled (luminance-chroma) "
-                              "OpenEXR channels", "7e")
+        if ptype not in _EXR_DTYPE or xs < 1 or ys < 1:
+            raise ValueError(f"OpenEXR channel '{name}': pixel type {ptype} "
+                             f"or sampling ({xs}, {ys}) unknown to "
+                             "libOpenEXR")
         chans.append((name, _EXR_DTYPE[ptype]))
         if plinear and linear is not None:
             linear.add(name)
+        if sampling is not None:
+            sampling[name] = (xs, ys)
     return chans
+
+
+def _exr_geometry(chans, sampling, x, w, y, ny):
+    """The layout of a block of w pixels from x and ny lines from y ->
+    [(name, dtype, samples a line, the block's lines holding it)]: a
+    channel sampled every xs pixels and ys lines holds the pixels and
+    lines whose coordinate its sampling divides."""
+    geo = []
+    for c, dt in chans:
+        xs, ys = sampling.get(c, (1, 1))
+        nx = (x + w - 1) // xs - -(-x // xs) + 1
+        rows = np.flatnonzero(np.arange(y, y + ny) % ys == 0)
+        geo.append((c, dt, nx, rows))
+    return geo
+
+
+def _exr_size(geo, size=None):
+    """The bytes of a block (`size`: bytes a sample where not its dtype's)."""
+    size = size or {}
+    return sum(len(rows) * nx * size.get(c, dt.itemsize)
+               for c, dt, nx, rows in geo)
+
+
+def _exr_split(buf, geo, ny, size=None):
+    """A block's bytes, each line's channels one after another (a
+    sub-sampled channel on its own lines only) -> {name: uint8 [lines,
+    samples * bytes]} (`size`: bytes a sample where not its dtype's)."""
+    size = size or {}
+    d = np.frombuffer(buf, np.uint8)
+    span = [(c, nx * size.get(c, dt.itemsize), rows) for c, dt, nx, rows in geo]
+    if all(len(rows) == ny for _, _, rows in span):
+        cols = np.cumsum([0] + [n for _, n, _ in span])
+        d = d.reshape(ny, -1)
+        return {c: d[:, a:b] for (c, _, _), a, b in zip(span, cols, cols[1:])}
+    out = {c: np.empty((len(rows), n), np.uint8) for c, n, rows in span}
+    at = dict.fromkeys(out, 0)
+    pos = 0
+    for i in range(ny):
+        for c, n, rows in span:
+            if i in rows:
+                out[c][at[c]] = d[pos:pos + n]
+                at[c] += 1
+                pos += n
+    return out
 
 
 def _exr_unpredict(d):
@@ -1744,30 +1825,24 @@ def _exr_unrle(block, n_bytes):
     return _exr_unpredict(native.exr_rle_decode(block, n_bytes))
 
 
-def _exr_rows(planes, chans):
-    """Channel planes (each a uint8 [ny, w * size]) -> a block's raw bytes:
-    each scanline's channels one after another."""
-    return np.concatenate([planes[c] for c, _ in chans], 1).tobytes()
-
-
-def _exr_pxr24(block, chans, w, ny):
+def _exr_pxr24(block, geo, ny):
     """A PXR24 block: zlib, then per scanline and channel the samples'
-    byte planes (most significant first; FLOAT keeps its top 24 bits)
-    holding differences along the row."""
-    nb = {2: 2, 4: 3}
-    line = sum(w * nb[dt.itemsize] for _, dt in chans)
-    d = np.frombuffer(_inflate(block, ny * line, "PXR24"), np.uint8)
-    d = d.reshape(ny, line)
-    planes, col = {}, 0
-    for c, dt in chans:
-        k = nb[dt.itemsize]
-        b = d[:, col:col + k * w].reshape(ny, k, w).astype(np.uint32)
-        col += k * w
+    byte planes (most significant first; FLOAT keeps its top 24 bits,
+    UINT all 32) holding differences along the row."""
+    nb = {"f2": 2, "f4": 3, "u4": 4}
+    size = {c: nb[dt.str[1:]] for c, dt, _, _ in geo}
+    split = _exr_split(_inflate(block, _exr_size(geo, size), "PXR24"), geo,
+                       ny, size)
+    planes = {}
+    for c, dt, _, _ in geo:
+        k = size[c]
+        b = split[c].reshape(len(split[c]), k, -1).astype(np.uint32)
         diff = sum(b[:, i] << (8 * (dt.itemsize - 1 - i)) for i in range(k))
         v = np.cumsum(diff, axis=1, dtype=np.uint64) & (
             (1 << (8 * dt.itemsize)) - 1)
-        planes[c] = v.astype(f"<u{dt.itemsize}").view(np.uint8).reshape(ny, -1)
-    return _exr_rows(planes, chans)
+        planes[c] = v.astype(f"<u{dt.itemsize}").view(np.uint8).reshape(
+            len(b), -1)
+    return planes
 
 
 def _wdec(l, h, w14):
@@ -1810,11 +1885,11 @@ def _wav2_decode(a, w14):
         p2, p = p, p >> 1
 
 
-def _exr_piz(block, chans, w, ny):
+def _exr_piz(block, geo):
     """A PIZ block: the bitmap of the 16-bit values used, the Huffman-coded
     values (`csrc/image_codecs.cpp`), the wavelet of each channel's 16-bit
     words undone, the values mapped back through the bitmap's table."""
-    n_words = ny * sum(w * dt.itemsize for _, dt in chans) // 2
+    n_words = _exr_size(geo) // 2
     if len(block) < 4:
         raise ValueError("truncated OpenEXR PIZ block")
     lo, hi = struct.unpack("<HH", block[:4])
@@ -1837,16 +1912,16 @@ def _exr_piz(block, chans, w, ny):
     words = native.exr_huf_decode(block[pos:pos + length],
                                   n_words).astype(np.int64)
     planes, off = {}, 0
-    for c, dt in chans:
-        size = dt.itemsize // 2
-        a = words[off:off + ny * w * size].reshape(ny, w, size)
-        off += ny * w * size
+    for c, dt, nx, rows in geo:
+        size, ly = dt.itemsize // 2, len(rows)
+        a = words[off:off + ly * nx * size].reshape(ly, nx, size)
+        off += ly * nx * size
         for j in range(size):
             comp = np.ascontiguousarray(a[:, :, j])
             _wav2_decode(comp, len(values) - 1 < (1 << 14))
             a[:, :, j] = comp
-        planes[c] = lut[a].astype("<u2").view(np.uint8).reshape(ny, -1)
-    return _exr_rows(planes, chans)
+        planes[c] = lut[a].astype("<u2").view(np.uint8).reshape(ly, -1)
+    return planes
 
 
 def _b44_unpack14(b):
@@ -1876,12 +1951,30 @@ def _b44_ordered_to_half(s):
     return np.where(s & 0x8000, s & 0x7FFF, ~s & 0xFFFF)
 
 
-def _exr_b44(block, chans, w, ny, linear):
+def _b44_log_table():
+    """B44's table from a perceptually linear channel's stored half values
+    back to linear ones (b44ExpLogTable.cpp logTable): 8 ln(x) rounded to
+    half; 0 for inf, NaN and negative x (-0 included: ln gives -inf)."""
+    bits = np.arange(65536, dtype=np.uint32).astype(np.uint16)
+    h = bits.view(np.float16).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        y = (np.float32(8) * np.log(h.astype(np.float64)).astype(np.float32))
+    out = y.astype(np.float16).view(np.uint16)
+    return np.where(~np.isfinite(h) | (bits > 0x8000), 0, out).astype(
+        np.uint16)
+
+
+_B44_TO_LINEAR = _b44_log_table()
+
+
+def _exr_b44(block, geo, linear):
     """A B44 / B44A block: per channel, HALF samples in 4 x 4 blocks of 14
-    bytes (3 for a flat block, B44A), row by row of blocks; other channels
-    stored as they are."""
+    bytes (3 for a flat block, B44A), row by row of blocks, through B44's
+    log table where the channel is marked perceptually linear; other
+    channels stored as they are."""
     planes, pos = {}, 0
-    for c, dt in chans:
+    for c, dt, w, rows in geo:
+        ny = len(rows)
         if dt.itemsize != 2:
             n = ny * w * dt.itemsize
             if pos + n > len(block):
@@ -1889,9 +1982,6 @@ def _exr_b44(block, chans, w, ny, linear):
             planes[c] = np.frombuffer(block, np.uint8, n, pos).reshape(ny, -1)
             pos += n
             continue
-        if c in linear:
-            raise _not_ported("decoding B44 channels marked perceptually "
-                              "linear", "7e")
         nbx, nby = -(-w // 4), -(-ny // 4)
         starts = np.empty(nbx * nby, np.int64)
         for i in range(nbx * nby):        # a flat block is 3 bytes long
@@ -1908,10 +1998,12 @@ def _exr_b44(block, chans, w, ny, linear):
         first = buf[starts[flat]].astype(np.int64) << 8 | buf[starts[flat] + 1]
         s[flat] = first[:, None]
         s = _b44_ordered_to_half(s)
+        if c in linear:
+            s = _B44_TO_LINEAR[s]
         img = s.reshape(nby, nbx, 4, 4).transpose(0, 2, 1, 3).reshape(
             nby * 4, nbx * 4)[:ny, :w]
         planes[c] = img.astype("<u2").view(np.uint8).reshape(ny, -1)
-    return _exr_rows(planes, chans)
+    return planes
 
 
 
@@ -1943,10 +2035,11 @@ _DWA_EVEN, _DWA_ODD = _dwa_matrix()
 
 
 def _dwa_idct_pass(x, order):
-    """One pass of the 8-point inverse DCT over the last axis of float32
-    x [..., 8], as libOpenEXR's AVX code (dctInverse8x8_avx) computes it:
-    four products each of the even and of the odd inputs, summed in pairs
-    in `order`; outputs 0-3 are even + odd, 7-4 even - odd."""
+    """The row pass of the 8-point inverse DCT over the last axis of
+    float32 x [..., 8], as libOpenEXR's AVX code (dctInverse8x8_avx)
+    computes it: four products each of the even and of the odd inputs,
+    summed in pairs in `order`; outputs 0-3 are even + odd, 7-4 even -
+    odd."""
     i, j, k, m = order
     ev = [x[..., 2 * n, None] * _DWA_EVEN[n] for n in range(4)]
     od = [x[..., 2 * n + 1, None] * _DWA_ODD[n] for n in range(4)]
@@ -1955,14 +2048,31 @@ def _dwa_idct_pass(x, order):
     return np.concatenate([even + odd, (even - odd)[..., ::-1]], -1)
 
 
+def _dwa_idct_cols(x):
+    """The column pass of libOpenEXR's AVX inverse DCT (dctInverse8x8_avx,
+    read from its machine code) over float32 x [n, 8 rows, 8 columns]:
+    each output's products paired in the library's own order."""
+    r = [x[:, i] for i in range(8)]
+    a, b, c, d, e, f, g = (_DWA_A, _DWA_B, _DWA_C, _DWA_D, _DWA_E, _DWA_F,
+                           _DWA_G)
+    odd = ((r[1] * b + r[3] * d) + (r[5] * e + r[7] * g),
+           (r[1] * d - (r[5] * b + r[3] * g)) - r[7] * e,
+           ((r[1] * e - r[3] * b) + r[5] * g) + r[7] * d,
+           (r[1] * g + r[5] * d) - (r[3] * e + r[7] * b))
+    plus, minus = r[0] * a + r[4] * a, r[0] * a - r[4] * a
+    s, t = r[2] * c + r[6] * f, r[2] * f - r[6] * c
+    even = (plus + s, minus + t, minus - t, plus - s)
+    return np.stack([even[k] + odd[k] for k in range(4)]
+                    + [even[k] - odd[k] for k in (3, 2, 1, 0)], 1)
+
+
 def _dwa_idct(blk, last):
     """DWA's inverse DCT of float32 blocks [n, 8, 8] as libOpenEXR runs it
     on a CPU with AVX: the rows (products summed (0 + 1) + (2 + 3)), then
-    the columns ((0 + 2) + (1 + 3)); a block whose only coefficient is its
+    the columns (`_dwa_idct_cols`); a block whose only coefficient is its
     DC (`last` == 0) takes the DC-only shortcut, dc * 3.535536e-01f *
     3.535536e-01f."""
-    rows = _dwa_idct_pass(blk, (0, 1, 2, 3))
-    out = _dwa_idct_pass(rows.swapaxes(1, 2), (0, 2, 1, 3)).swapaxes(1, 2)
+    out = _dwa_idct_cols(_dwa_idct_pass(blk, (0, 1, 2, 3)))
     dc = (blk[:, 0, 0] * _DWA_A) * _DWA_A
     return np.where((last == 0)[:, None, None], dc[:, None, None], out)
 
@@ -2032,43 +2142,55 @@ def _dwa_decode_set(ac, dc, n_comp, w, ny, to_linear=True):
     return img, used
 
 
-def _exr_dwa(block, chans, w, ny, linear):
-    """A DWAA / DWAB block: a header of 11 sizes, the channel rules, then
-    zlib'd channels the rules do not name, Huffman-coded AC coefficients,
-    zlib'd DC coefficients and zlib'd run-length channels. R, G, B of one
-    prefix (lossy whether HALF or FLOAT: DWA decodes halves and widens a
-    FLOAT channel's) are decoded through the inverse DCT and the colour
-    transform together, other lossy channels alone; the result goes
-    through the table back to linear values."""
+# DWA's rules for version-1 blocks, which carry none (ImfDwaCompressor.cpp
+# sLegacyChannelRules): (suffix, scheme, csc index, case-insensitive, type)
+_DWA_LEGACY_RULES = [
+    (sfx, _DWA_LOSSY_DCT, idx, 1, t)
+    for sfx, idx in (("r", 0), ("red", 0), ("g", 1), ("grn", 1), ("green", 1),
+                     ("b", 2), ("blu", 2), ("blue", 2), ("y", -1), ("by", -1),
+                     ("ry", -1))
+    for t in (_EXR_HALF, _EXR_FLOAT)] + [
+    ("a", _DWA_RLE, -1, 1, t) for t in (_EXR_UINT, _EXR_HALF, _EXR_FLOAT)]
+
+
+def _exr_dwa(block, geo, linear):
+    """A DWAA / DWAB block: a header of 11 sizes, the channel rules (the
+    legacy set in a version-1 block), then zlib'd channels the rules do
+    not name, Huffman-coded AC coefficients, zlib'd DC coefficients and
+    zlib'd run-length channels. R, G, B of one prefix (lossy whether HALF
+    or FLOAT: DWA decodes halves and widens a FLOAT channel's) are decoded
+    through the inverse DCT and the colour transform together, then
+    through the table back to linear values; other lossy channels alone,
+    through the table unless marked perceptually linear."""
     if len(block) < 88:
         raise ValueError("truncated OpenEXR DWA block")
     (version, unk_raw, unk_size, ac_size, dc_size, rle_size, rle_raw,
      rle_len, ac_count, dc_count, ac_method) = struct.unpack("<11Q",
                                                              block[:88])
-    if version != 2:
-        raise _not_ported(f"decoding DWA blocks of version {version}", "7e")
-    n_raw = ny * w * sum(dt.itemsize for _, dt in chans)
-    most = 64 * -(-w // 8) * -(-ny // 8) * len(chans)
+    if version > 2:
+        raise ValueError(f"OpenEXR DWA block of version {version}: "
+                         "libOpenEXR refuses it too")
+    n_raw = _exr_size(geo)
+    most = sum(64 * -(-nx // 8) * -(-len(rows) // 8)
+               for _, _, nx, rows in geo)
     if max(unk_raw, rle_raw, rle_len) > n_raw or max(ac_count,
                                                      dc_count) > most:
         raise ValueError("corrupt OpenEXR DWA block sizes")
-    rules, pos = _dwa_rules(block, 88)
-    scheme, csc, dtypes = {}, {}, dict(chans)
-    for c, dt in chans:
+    rules, pos = (_DWA_LEGACY_RULES, 88) if version < 2 else \
+        _dwa_rules(block, 88)
+    scheme, csc, dims = {}, {}, {}
+    for c, dt, nx, rows in geo:
         prefix, _, suffix = c.rpartition(".")
         scheme[c] = _DWA_UNKNOWN
-        ptype = _EXR_HALF if dt.itemsize == 2 else _EXR_FLOAT
+        dims[c] = (dt, nx, len(rows))
         for sfx, sch, idx, nocase, rtype in rules:
-            same = suffix.lower() == sfx.lower() if nocase else suffix == sfx
-            if same and rtype == ptype:
+            same = suffix.lower() == sfx if nocase else suffix == sfx
+            if same and rtype == _EXR_PTYPE[dt]:
                 scheme[c] = sch
                 if idx >= 0:
                     csc.setdefault(prefix, [None] * 3)[idx] = c
-    sets = [v for v in csc.values() if None not in v]
+    sets = [csc[p] for p in sorted(csc) if None not in csc[p]]
     in_set = {c for v in sets for c in v}
-    if in_set & linear:
-        raise _not_ported("decoding DWA colour channels marked perceptually "
-                          "linear", "7e")
     sizes = (unk_size, ac_size, dc_size, rle_size)
     if pos + sum(sizes) > len(block):
         raise ValueError("truncated OpenEXR DWA block")
@@ -2087,71 +2209,72 @@ def _exr_dwa(block, chans, w, ny, linear):
     rle = native.exr_rle_decode(_inflate(parts[3], rle_raw, "DWA"), rle_len) \
         if rle_size else np.zeros(0, np.uint8)
     planes = {}
-    nb = -(-w // 8) * -(-ny // 8)
     at_ac = at_dc = 0
-    groups = sets + [[c] for c, _ in chans
+    groups = sets + [[c] for c, _, _, _ in geo
                      if scheme[c] == _DWA_LOSSY_DCT and c not in in_set]
     for grp in groups:
         n = len(grp)
+        _, w, ny = dims[grp[0]]
+        nb = -(-w // 8) * -(-ny // 8)
         if at_dc + n * nb > len(dc):
             raise ValueError("truncated OpenEXR DWA DC data")
         img, used = _dwa_decode_set(ac[at_ac:], dc[at_dc:at_dc + n * nb]
                                     .reshape(n, nb), n, w, ny,
-                                    grp[0] not in linear)
+                                    n == 3 or grp[0] not in linear)
         at_ac += used
         at_dc += n * nb
         for c, v in zip(grp, img):
-            if dtypes[c].itemsize == 4:  # FLOAT: the decoded half, widened
+            if dims[c][0].itemsize == 4:  # FLOAT: the decoded half, widened
                 v = v.astype(np.uint16).view(np.float16).astype("<f4")
             else:
                 v = v.astype("<u2")
             planes[c] = np.ascontiguousarray(v).view(np.uint8).reshape(ny, -1)
     at_rle = at_unk = 0
-    for c, dt in chans:
+    for c, dt, w, rows in geo:
+        ny = len(rows)
         n = ny * w * dt.itemsize
         if scheme[c] == _DWA_RLE:
+            if at_rle + n > len(rle):
+                raise ValueError("truncated OpenEXR DWA RLE data")
             b = rle[at_rle:at_rle + n].reshape(dt.itemsize, ny, w)
             at_rle += n
             planes[c] = b.transpose(1, 2, 0).reshape(ny, -1)
         elif scheme[c] == _DWA_UNKNOWN:
+            if at_unk + n > len(unknown):
+                raise ValueError("truncated OpenEXR DWA data")
             planes[c] = np.frombuffer(unknown, np.uint8, n,
                                       at_unk).reshape(ny, -1)
             at_unk += n
-    return _exr_rows(planes, chans)
+    return planes
 
 
-# compression -> fn(block, channels, w, ny, raw size, linear channels)
-_EXR_CODECS = {_EXR_ZIPS: lambda b, ch, w, ny, n, lin: _exr_unzip(b, n),
-               _EXR_ZIP: lambda b, ch, w, ny, n, lin: _exr_unzip(b, n),
-               _EXR_RLE: lambda b, ch, w, ny, n, lin: _exr_unrle(b, n),
-               _EXR_PIZ: lambda b, ch, w, ny, n, lin: _exr_piz(b, ch, w, ny),
-               _EXR_PXR24: lambda b, ch, w, ny, n, lin: _exr_pxr24(b, ch, w,
-                                                                   ny),
-               _EXR_B44: lambda b, ch, w, ny, n, lin: _exr_b44(b, ch, w, ny,
-                                                               lin),
-               _EXR_B44A: lambda b, ch, w, ny, n, lin: _exr_b44(b, ch, w, ny,
-                                                                lin),
-               _EXR_DWAA: lambda b, ch, w, ny, n, lin: _exr_dwa(b, ch, w, ny,
-                                                                lin),
-               _EXR_DWAB: lambda b, ch, w, ny, n, lin: _exr_dwa(b, ch, w, ny,
-                                                                lin)}
+# compression -> fn(block, geometry, lines, raw size, perceptually linear
+# channels) -> {channel: uint8 [lines, samples * bytes]}
+_EXR_CODECS = {
+    _EXR_ZIPS: lambda b, g, ny, n, lin: _exr_split(_exr_unzip(b, n), g, ny),
+    _EXR_ZIP: lambda b, g, ny, n, lin: _exr_split(_exr_unzip(b, n), g, ny),
+    _EXR_RLE: lambda b, g, ny, n, lin: _exr_split(_exr_unrle(b, n), g, ny),
+    _EXR_PIZ: lambda b, g, ny, n, lin: _exr_piz(b, g),
+    _EXR_PXR24: lambda b, g, ny, n, lin: _exr_pxr24(b, g, ny),
+    _EXR_B44: lambda b, g, ny, n, lin: _exr_b44(b, g, lin),
+    _EXR_B44A: lambda b, g, ny, n, lin: _exr_b44(b, g, lin),
+    _EXR_DWAA: lambda b, g, ny, n, lin: _exr_dwa(b, g, lin),
+    _EXR_DWAB: lambda b, g, ny, n, lin: _exr_dwa(b, g, lin)}
 
 
-def _exr_block(comp, block, chans, w, ny, linear=frozenset()):
-    """One chunk's bytes -> its raw bytes (ny scanlines of w pixels, each
-    scanline's channels one after another). A chunk no smaller than its
-    raw size is stored raw, as the library writes it."""
-    n = ny * w * sum(dt.itemsize for _, dt in chans)
+def _exr_block(comp, block, geo, ny, linear=frozenset()):
+    """One chunk's bytes -> {channel: uint8 [lines, samples * bytes]} (the
+    block's ny lines laid out by `_exr_geometry`). A chunk no smaller than
+    its raw size is stored raw, as the library writes it."""
+    n = _exr_size(geo)
     if comp == _EXR_NONE or len(block) >= n:
-        raw = block
-    else:
-        try:
-            raw = _EXR_CODECS[comp](block, chans, w, ny, n, linear)
-        except (struct.error, IndexError):
-            raise ValueError("corrupt OpenEXR block") from None
-    if len(raw) != n:
-        raise ValueError("OpenEXR block size")
-    return raw
+        if len(block) != n:
+            raise ValueError("OpenEXR block size")
+        return _exr_split(block, geo, ny)
+    try:
+        return _EXR_CODECS[comp](block, geo, ny, n, linear)
+    except (struct.error, IndexError):
+        raise ValueError("corrupt OpenEXR block") from None
 
 
 def _exr_chunks(data, pos, n):
@@ -2164,19 +2287,21 @@ def _exr_chunks(data, pos, n):
 
 
 def read_exr(data):
-    """OpenEXR bytes -> float32 [H, W, 3] RGB, as OpenCV's EXR decoder
-    (Imf::InputFile) gives them: A is dropped, Y alone is replicated.
-    Scanline and tiled files (level (0, 0) of a mip- or ripmap), part 0
-    of a multi-part file; every compression (NONE, RLE, ZIPS, ZIP, PIZ,
-    PXR24, B44, B44A, DWAA, DWAB); HALF and FLOAT channels. Deep data
-    raises ValueError (InputFile refuses it); luminance-chroma files,
-    UINT channels and other channel sets raise NotImplementedError
-    (ROADMAP queue A, 7e)."""
+    """OpenEXR bytes -> float32 [H, W, 3] RGB, as the JAX package's loader
+    gets them from `cv2.imread` through OpenCV 4.6.0's EXR decoder, which
+    reads the file with Imf::InputFile and converts its channels with its
+    own code (ROADMAP C22). Scanline and tiled files (level (0, 0) of a
+    mip- or ripmap), part 0 of a multi-part file, deep scanlines with Z
+    and A (composited as InputFile composites them); every compression
+    (NONE, RLE, ZIPS, ZIP, PIZ, PXR24, B44, B44A, DWAA, DWAB; DWA blocks
+    of version 1 and 2; perceptually linear channels); HALF, FLOAT and
+    UINT channels, sub-sampled ones included. What InputFile refuses, and
+    what OpenCV returns no image for, raises ValueError."""
     attrs, pos, multipart = _exr_part0(data)
-    linear = set()
+    linear, sampling = set(), {}
     try:
         comp = attrs["compression"][1][0]
-        chans = _exr_channels(attrs["channels"][1], linear)
+        chans = _exr_channels(attrs["channels"][1], linear, sampling)
         x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
     except (KeyError, IndexError, struct.error):
         raise ValueError("OpenEXR header without its required "
@@ -2184,66 +2309,220 @@ def read_exr(data):
     if comp not in _EXR_LINES:
         raise ValueError(f"OpenEXR compression {comp}: unknown to "
                          "libOpenEXR")
-    names = [c for c, _ in chans]
-    if set(names) - {"A"} == {"R", "G", "B"}:
-        pick = ("R", "G", "B")
-    elif set(names) - {"A"} == {"Y"}:
-        pick = ("Y", "Y", "Y")
-    else:
-        raise _not_ported(f"decoding OpenEXR channels {names} (only R, G, B "
-                          "or Y, and A, are)", "7e")
     w, h = x1 - x0 + 1, y1 - y0 + 1
     if w <= 0 or h <= 0 or w * h > 1 << 30:
         raise ValueError("OpenEXR data window empty or past OpenCV's limit "
                          "of 2^30 pixels")
-    planes = {c: np.zeros((h, w), np.float32) for c in names}
     tiles = attrs.get("tiles")
+    deep = _exr_deep(attrs, struct.unpack("<i", data[4:8])[0], multipart)
+    for c, (xs, ys) in sampling.items():
+        if (xs, ys) != (1, 1) and (tiles is not None or deep or x0 % xs
+                                   or y0 % ys or w % xs or h % ys):
+            raise ValueError(f"OpenEXR channel '{c}' sampled ({xs}, {ys}) "
+                             "in a tiled or deep part, or off its data "
+                             "window's grid: InputFile refuses it")
     skip = 4 if multipart else 0       # a chunk's part number
-    if tiles is None:
-        lines = _EXR_LINES[comp]
-        n_chunks = -(-h // lines)
-        for off in _exr_chunks(data, pos, n_chunks):
-            try:
-                y, size = struct.unpack("<ii", data[off + skip:off + skip + 8])
-            except struct.error:
-                raise ValueError("truncated OpenEXR chunk") from None
-            if (y - y0) % lines or not y0 <= y <= y1:
-                raise ValueError("corrupt OpenEXR chunk header")
-            ny = min(lines, y1 - y + 1)
-            block = data[off + skip + 8:off + skip + 8 + size]
-            _exr_put(planes, _exr_block(comp, block, chans, w, ny, linear),
-                     chans, y - y0, 0, w, ny)
+    if deep:
+        planes = _exr_read_deep(data, pos, skip, comp, chans, x0, y0, w, h)
+    elif tiles is None:
+        planes = _exr_read_lines(data, pos, skip, comp, chans, sampling,
+                                 linear, x0, y0, w, h)
     else:
-        if len(tiles[1]) < 9:
-            raise ValueError("corrupt OpenEXR tile description")
-        tx, ty, mode = struct.unpack("<IIB", tiles[1][:9])
-        if mode & 0xF > 2 or tx == 0 or ty == 0:
-            raise ValueError("corrupt OpenEXR tile description")
-        ntx, nty = -(-w // tx), -(-h // ty)
-        for off in _exr_chunks(data, pos, ntx * nty):
-            try:
-                dx, dy, lx, ly, size = struct.unpack(
-                    "<iiiii", data[off + skip:off + skip + 20])
-            except struct.error:
-                raise ValueError("truncated OpenEXR chunk") from None
-            if (lx, ly) != (0, 0) or not (0 <= dx < ntx and 0 <= dy < nty):
-                raise ValueError("corrupt OpenEXR tile header")
-            tw, th = min(tx, w - dx * tx), min(ty, h - dy * ty)
-            block = data[off + skip + 20:off + skip + 20 + size]
-            _exr_put(planes, _exr_block(comp, block, chans, tw, th, linear),
-                     chans, dy * ty, dx * tx, tw, th)
-    return np.ascontiguousarray(np.stack([planes[c] for c in pick], -1))
+        planes = _exr_read_tiles(data, pos, skip, comp, chans, sampling,
+                                 linear, tiles[1], w, h)
+    return _exr_opencv(planes, sampling, attrs, (x0, y0), h, w)
 
 
-def _exr_put(planes, raw, chans, row, col, w, ny):
-    """A block's raw bytes into the channel planes at (row, col)."""
-    line = np.frombuffer(raw, np.uint8).reshape(ny, -1)
-    p = 0
-    for c, dt in chans:
-        n = w * dt.itemsize
-        planes[c][row:row + ny, col:col + w] = np.ascontiguousarray(
-            line[:, p:p + n]).view(dt)
-        p += n
+def _exr_planes(chans, sampling, w, h):
+    """Zeroed float32 planes, each channel at its own sampling."""
+    return {c: np.zeros((h // sampling[c][1], w // sampling[c][0]),
+                        np.float32) for c, _ in chans}
+
+
+def _exr_read_lines(data, pos, skip, comp, chans, sampling, linear, x0, y0,
+                    w, h):
+    """A scanline part's chunks -> its float32 channel planes."""
+    planes = _exr_planes(chans, sampling, w, h)
+    lines = _EXR_LINES[comp]
+    for off in _exr_chunks(data, pos, -(-h // lines)):
+        try:
+            y, size = struct.unpack("<ii", data[off + skip:off + skip + 8])
+        except struct.error:
+            raise ValueError("truncated OpenEXR chunk") from None
+        if (y - y0) % lines or not y0 <= y <= y0 + h - 1:
+            raise ValueError("corrupt OpenEXR chunk header")
+        ny = min(lines, y0 + h - y)
+        block = data[off + skip + 8:off + skip + 8 + size]
+        geo = _exr_geometry(chans, sampling, x0, w, y, ny)
+        _exr_put(planes, _exr_block(comp, block, geo, ny, linear), geo,
+                 y - y0, 0, sampling)
+    return planes
+
+
+def _exr_read_tiles(data, pos, skip, comp, chans, sampling, linear, desc, w,
+                    h):
+    """A tiled part's level (0, 0) -> its float32 channel planes."""
+    if len(desc) < 9:
+        raise ValueError("corrupt OpenEXR tile description")
+    tx, ty, mode = struct.unpack("<IIB", desc[:9])
+    if mode & 0xF > 2 or tx == 0 or ty == 0:
+        raise ValueError("corrupt OpenEXR tile description")
+    planes = _exr_planes(chans, sampling, w, h)
+    ntx, nty = -(-w // tx), -(-h // ty)
+    for off in _exr_chunks(data, pos, ntx * nty):
+        try:
+            dx, dy, lx, ly, size = struct.unpack(
+                "<iiiii", data[off + skip:off + skip + 20])
+        except struct.error:
+            raise ValueError("truncated OpenEXR chunk") from None
+        if (lx, ly) != (0, 0) or not (0 <= dx < ntx and 0 <= dy < nty):
+            raise ValueError("corrupt OpenEXR tile header")
+        tw, th = min(tx, w - dx * tx), min(ty, h - dy * ty)
+        block = data[off + skip + 20:off + skip + 20 + size]
+        geo = _exr_geometry(chans, sampling, 0, tw, 0, th)
+        _exr_put(planes, _exr_block(comp, block, geo, th, linear), geo,
+                 dy * ty, dx * tx, sampling)
+    return planes
+
+
+def _exr_put(planes, block, geo, row, col, sampling):
+    """A block's channels ({name: uint8 [lines, samples * bytes]}) into
+    the float32 channel planes (each at its own sampling) at pixel (row,
+    col); UINT samples rounded to float32 as InputFile converts them."""
+    for c, dt, nx, rows in geo:
+        xs, ys = sampling[c]
+        v = np.ascontiguousarray(block[c]).view(dt)
+        planes[c][(row + rows) // ys, col // xs:col // xs + nx] = v
+
+
+def _exr_read_deep(data, pos, skip, comp, chans, x0, y0, w, h):
+    """A deep scanline part -> its float32 channel planes [h, w],
+    composited as Imf::InputFile composites a single deep part for OpenCV
+    (ImfCompositeDeepScanLine.cpp, DeepCompositing::composite_pixel):
+    each pixel's samples in the file's order (one source is not sorted),
+    front to back, out += (1 - alpha) * sample for every channel, alpha
+    being A's sum so far; a pixel stops at the first sample met with
+    alpha >= 1; a pixel without samples is 0."""
+    if comp not in (_EXR_NONE, _EXR_RLE, _EXR_ZIPS):
+        raise ValueError(f"deep OpenEXR data of compression {comp}: "
+                         "libOpenEXR takes only NONE, RLE and ZIPS")
+    lines = 1
+    unpack = {_EXR_NONE: lambda b, n: b, _EXR_RLE: _exr_unrle,
+              _EXR_ZIPS: _exr_unzip}[comp]
+
+    def raw(b, n):
+        return b if len(b) >= n else unpack(b, n)
+
+    counts = np.zeros((h, w), np.int64)
+    found = [None] * h                   # each line's samples, per channel
+    line_bytes = sum(dt.itemsize for _, dt in chans)
+    for off in _exr_chunks(data, pos, -(-h // lines)):
+        try:
+            y, n_table, n_packed, n_raw = struct.unpack(
+                "<iQQQ", data[off + skip:off + skip + 28])
+        except struct.error:
+            raise ValueError("truncated OpenEXR chunk") from None
+        if (y - y0) % lines or not y0 <= y <= y0 + h - 1:
+            raise ValueError("corrupt OpenEXR chunk header")
+        ny = min(lines, y0 + h - y)
+        at = off + skip + 28
+        table = data[at:at + n_table]
+        body = data[at + n_table:at + n_table + n_packed]
+        if len(table) != n_table or len(body) != n_packed:
+            raise ValueError("truncated OpenEXR deep chunk")
+        cum = np.frombuffer(raw(table, 4 * ny * w), "<i4")
+        if len(cum) != ny * w:
+            raise ValueError("OpenEXR deep sample count table size")
+        cum = cum.reshape(ny, w).astype(np.int64)
+        n = np.diff(cum, axis=1, prepend=0)
+        if (n < 0).any():
+            raise ValueError("corrupt OpenEXR deep sample counts: "
+                             "InputFile refuses them too")
+        total = int(cum[:, -1].sum())
+        if n_raw != total * line_bytes:
+            raise ValueError("OpenEXR deep data size does not match its "
+                             "sample counts")
+        body = np.frombuffer(raw(body, n_raw), np.uint8)
+        if len(body) != n_raw:
+            raise ValueError("OpenEXR deep data size")
+        p = 0
+        for i in range(ny):
+            k = int(cum[i, -1])
+            line = {}
+            for c, dt in chans:
+                line[c] = body[p:p + k * dt.itemsize].view(dt).astype(
+                    np.float32)
+                p += k * dt.itemsize
+            counts[y - y0 + i] = n[i]
+            found[y - y0 + i] = line
+    if any(f is None for f in found):
+        raise ValueError("OpenEXR deep lines missing")
+    samples = {c: np.concatenate([f[c] for f in found]) for c, _ in chans}
+    flat = counts.ravel()
+    start = np.cumsum(flat) - flat
+    out = {c: np.zeros(h * w, np.float32) for c, _ in chans}
+    done = np.zeros(h * w, bool)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for k in range(int(flat.max(initial=0))):
+            live = (flat > k) & ~done
+            done |= live & (out["A"] >= 1)
+            live &= ~done
+            idx = start[live] + k
+            f = np.float32(1) - out["A"][live]
+            for c in out:
+                out[c][live] += f * samples[c][idx]
+    return {c: v.reshape(h, w) for c, v in out.items()}
+
+
+# Imf::Chromaticities' defaults (Rec. ITU-R BT.709): red, green, blue, white
+_EXR_REC709 = np.float32([0.64, 0.33, 0.3, 0.6, 0.15, 0.06, 0.3127, 0.329])
+
+
+def _exr_opencv(planes, sampling, attrs, origin, h, w):
+    """Decoded channel planes -> the JAX package's [H, W, 3] RGB, by
+    OpenCV 4.6.0's rules (grfmt_exr.cpp; ROADMAP C22), taken from its
+    decodes: R, G and B where any is present, the others 0; else Y with
+    RY / BY converted by OpenCV's own chroma code (RY and BY up-sampled by
+    repetition; a missing one 0) in float64: r = (RY + 1) Y, b = (BY + 1)
+    Y, g = (Y - b y_blue - r y_red) / y_green with the file's
+    chromaticities (Rec. 709's by default); Y with A (OpenCV reads Y into
+    its third slot only) is zeros; Y alone is replicated; Z without any of
+    these is zeros; other files give no image (ValueError). A and the
+    channels OpenCV does not name are ignored."""
+    names = set(planes)
+    if names & {"R", "G", "B"}:
+        slots = ("R", "G", "B")
+    elif "Y" in names and names & {"RY", "BY"}:
+        slots = ("RY", "Y", "BY")
+    elif "Y" in names and "A" not in names:
+        slots = ("Y", "Y", "Y")
+    elif "Y" in names or "Z" in names:
+        return np.zeros((h, w, 3), np.float32)
+    else:
+        raise ValueError("OpenEXR file without R, G, B, Y or Z channels: "
+                         "OpenCV (the JAX package's reader) returns no "
+                         "image for it")
+    full = {}
+    for c in set(slots) & names:
+        xs, ys = sampling[c]
+        if (xs, ys) != (1, 1) and origin != (0, 0):
+            raise ValueError(f"OpenEXR channel '{c}' sub-sampled in a data "
+                             "window not at (0, 0): OpenCV 4.6.0 writes "
+                             "outside its image there (ROADMAP C22)")
+        full[c] = np.repeat(np.repeat(planes[c], ys, 0), xs, 1)
+    if slots[0] != "RY":
+        zero = np.zeros((h, w), np.float32)
+        return np.stack([full.get(c, zero) for c in slots], -1)
+    chroma = attrs.get("chromaticities")
+    cy = np.frombuffer(chroma[1], "<f4") if chroma and len(chroma[1]) >= 32 \
+        else _EXR_REC709
+    y_red, y_green, y_blue = (np.float64(v) for v in cy[[1, 3, 5]])
+    y = full["Y"].astype(np.float64)
+    with np.errstate(invalid="ignore", over="ignore"):
+        r = (full["RY"].astype(np.float64) + 1 if "RY" in full else 1) * y
+        b = (full["BY"].astype(np.float64) + 1 if "BY" in full else 1) * y
+        g = (y - b * y_blue - r * y_red) / y_green
+        return np.stack([r, g, b], -1).astype(np.float32)
 
 
 def _attr(name, typ, body):
