@@ -119,7 +119,7 @@ phase, one JSON line each:
     cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
     the uninterrupted run; `scene_memory_stats` of cbox_sphere;
     `overlay_rays` of 16 pixels at 512^2.
-  * the image files of slices 7c, 7d and 7e.1 (`phase_image_files`):
+  * the image files of slices 7c, 7d, 7e.1 and 7e.6a (`phase_image_files`):
     progressive, CMYK, YCCK, RGB, lossless and arithmetic-coded JPEG,
     Adam7, low-depth and 16-bit PNG, TGA, BMP, TIFF, GIF and WebP files of
     tests/assets_torch/, each decoded on the card's host, timed and held
@@ -132,14 +132,20 @@ phase, one JSON line each:
     4.6.0's decodes (exr_cv_decodes.npz; `yc_2048.exr` and `deep_512.exr`
     timed), the PNM, PAM, PFM, Sun raster, BMP and YCCK JPEG files under
     .hdr / .exr names against the pip cv2's (cv_decodes.npz), an AVIF
-    file under a .hdr name raising naming 7e.
-  * the twin scenes of slices 7d, 7e.1, 7e.2 and 7e.3a
-    (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp` and
-    `cbox_sky_yc` through K1, `env_sphere_files`, `env_sphere_webp` and
-    `env_sphere_cv` through K2 at 512^2, their images read from TIFF, GIF,
-    OpenEXR (plain, luminance-chroma, deep), WebP and PFM files, each bit
-    for bit with its original's render in the same run (`cbox_tex_webp`'s
-    original reads PIL's decode of its lossy checker, `cbox_sky_yc`'s
+    file under a .hdr name raising naming 7e. Slice 7e.6a: the files of
+    the small formats PIL opens (PCX, SGI, MSP, PSD, XPM, DDS with BC1-BC7
+    blocks, Sun raster, ICNS, CUR, QOI, PPM, ICO) against PIL's decodes
+    (pil_decodes.npz), and a 2048^2 BC7 file built from a seed against its
+    decode's sha256.
+  * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a and 7e.6a
+    (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp`,
+    `cbox_sky_yc`, `cbox_tex_pil` and `cbox_tex_dds` through K1,
+    `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv` and
+    `env_sphere_pil` through K2 at 512^2, their images read from TIFF,
+    GIF, OpenEXR (plain, luminance-chroma, deep), WebP, PFM, QOI, PPM,
+    SGI, ICO and BC7 DDS files, each bit for bit with its original's
+    render in the same run (`cbox_tex_webp`'s and `cbox_tex_dds`'s
+    originals read PIL's decode of their lossy checker, `cbox_sky_yc`'s
     OpenCV's decode of its sky).
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
@@ -2204,7 +2210,7 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d, 7e.1, 7e.2 and 7e.3a on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a and 7e.6a on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2221,20 +2227,33 @@ def phase_image_files(card):
     raster, BMP, YCCK JPEG under .hdr / .exr names) against the pip cv2's,
     the timing files `yc_2048.exr` and `deep_512.exr` (and B44's log table)
     against their sha256; an AVIF file under a .hdr name raising naming
-    ROADMAP 7e; no image library imported."""
+    ROADMAP 7e; slice 7e.6a: every file of pil_decodes.npz (PCX, SGI, MSP,
+    PSD, XPM, DDS of every pixel format, BC6H and BC7 blocks of every
+    mode, Sun raster, ICNS, CUR, the twins' QOI, PPM, SGI, ICO and BC7
+    files) against its committed PIL decode, and `bc7_2048.dds` (2048^2
+    random BC7 blocks built here from its seed, `tools/gen_torch_pil.py`
+    `bc7_timing`) against its decode's sha256; no image library
+    imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
     assets = os.path.join(ROOT, "tests", "assets_torch")
+    built_dir = tempfile.mkdtemp()
+    gen_pil = _load_by_path("vt_gen_torch_pil", "tools/gen_torch_pil.py")
+    with open(os.path.join(built_dir, "bc7_2048.dds"), "wb") as f:
+        f.write(gen_pil.bc7_timing())
+    built = {"bc7_2048.dds": built_dir}  # timing files built from a seed
     for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
                       ("webp_decodes.npz", "ldr"),
-                      ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr")):
+                      ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr"),
+                      ("pil_decodes.npz", "ldr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
         must = {"image_decodes.npz": "tiny.tif",
                 "webp_decodes.npz": "projector.webp",
                 "exr_cv_decodes.npz": "deep_composite.exr",
-                "cv_decodes.npz": "cv_ycck.exr"}.get(npz)
+                "cv_decodes.npz": "cv_ycck.exr",
+                "pil_decodes.npz": "checker_bc7.dds"}.get(npz)
         check(must is None or must in files, f"{npz}'s files")
         for fn in files:
             t0 = time.perf_counter()
@@ -2246,7 +2265,8 @@ def phase_image_files(card):
                   and rec["max_abs_diff"] == 0, f"{fn} against its decode {rec}")
         for fn in sorted({k.split(":")[0] for k in dec.files if ":" in k}):
             t0 = time.perf_counter()
-            got, got_kind = imageio.read_image(os.path.join(assets, fn))
+            got, got_kind = imageio.read_image(os.path.join(
+                built.get(fn, assets), fn))
             seconds = time.perf_counter() - t0
             rec = _image_file_rec(fn, got[:128, :128], dec[fn + ":corner"],
                                   seconds, card, got_kind)
@@ -2276,6 +2296,8 @@ def phase_image_files(card):
             except err as e:
                 raised = str(e)
             check(what in raised, f"{os.path.basename(path)}: {raised!r}")
+    os.remove(os.path.join(built_dir, "bc7_2048.dds"))
+    os.rmdir(built_dir)
     check(not {"PIL", "cv2", "OpenEXR", "Imath"} & set(sys.modules),
           "an image library was imported")
 
@@ -2289,11 +2311,15 @@ IMAGE_TWINS = (
     ("env_sphere_webp", "env_sphere_webp", "packet_isect", "env_sphere"),
     ("cbox_sky_yc_ref", "cbox_sky_yc_ref", "dense_isect", None),
     ("cbox_sky_yc", "cbox_sky_yc", "dense_isect", "cbox_sky_yc_ref"),
-    ("env_sphere_cv", "env_sphere_cv", "packet_isect", "env_sphere"))
+    ("env_sphere_cv", "env_sphere_cv", "packet_isect", "env_sphere"),
+    ("cbox_tex_pil", "cbox_tex_pil", "dense_isect", "cbox_tex"),
+    ("env_sphere_pil", "env_sphere_pil", "packet_isect", "env_sphere"),
+    ("cbox_tex_dds_ref", "cbox_tex_dds_ref", "dense_isect", None),
+    ("cbox_tex_dds", "cbox_tex_dds", "dense_isect", "cbox_tex_dds_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d, 7e.1, 7e.2 and 7e.3a through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2, 7e.3a and 7e.6a through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2306,7 +2332,12 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     bit for bit with `cbox_sky_yc_ref` (OpenCV 4.6.0's decode of that sky
     in a plain FLOAT file), and `env_sphere_cv` (its skies from a PFM named
     .hdr and a deep OpenEXR file with Z and A) through K2, bit for bit with
-    `env_sphere`. Returns each render's launch counts."""
+    `env_sphere`; slice 7e.6a: `cbox_tex_pil` (a QOI checker, a PPM normal
+    map) through K1, bit for bit with `cbox_tex`, `env_sphere_pil` (a
+    run-length SGI checker, an icon projector holding a 32-bit BMP)
+    through K2, bit for bit with `env_sphere`, and `cbox_tex_dds` (a BC7
+    checker) through K1, bit for bit with `cbox_tex_dds_ref` (PIL's decode
+    of that checker in a PNG). Returns each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:
@@ -2623,9 +2654,9 @@ def main():
     per_render.update(phase_dist(vt, [di, pi], vt_pt, scene, smi))
     per_render.update(phase_utils(vt, [di, pi], scene, sphere, cbox_img, smi))
 
-    # ---- slices 7c, 7d, 7e.1, 7e.2 and 7e.3a: the image files PIL and
-    # OpenCV (libOpenEXR, libwebp and its own readers) decode for the JAX
-    # package, and the scenes that read them ----
+    # ---- slices 7c, 7d, 7e.1, 7e.2, 7e.3a and 7e.6a: the image files PIL
+    # and OpenCV (libOpenEXR, libwebp and its own readers) decode for the
+    # JAX package, and the scenes that read them ----
     phase_image_files(smi)
     per_render.update(phase_image_twins(vt, [di, pi], scenes, originals, smi))
 

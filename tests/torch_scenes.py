@@ -241,6 +241,8 @@ gen_assets = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(gen_assets)
 # its WebP writers (tools/gen_torch_webp.py)
 gen_webp = gen_assets._webp_module()
+# the encoders of slice 7e.6a's formats (tools/gen_torch_pil.py)
+gen_pil = gen_assets._pil_module()
 
 
 def asset(fn):
@@ -380,6 +382,43 @@ def env_sphere_cv(res=512, sub_div=40):
     PFM reader) and from a deep scanline OpenEXR file with Z and A (1-3
     samples a pixel, composited): it renders as `env_sphere` does."""
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_CV)
+
+
+# slice 7e.6a: twins in the small formats PIL opens, written by
+# tools/gen_torch_pil.py. The QOI, PPM, run-length SGI and icon files hold
+# the PNGs' pixels; the BC7 checker decodes to other pixels, so its scene
+# is held against `cbox_tex` reading PIL's decode of it
+# (checker_bc7_pil.png).
+CBOX_TEX_PIL = {"checker.png": "checker.qoi", "bumps.png": "bumps.ppm"}
+ENV_SPHERE_PIL = {"checker.png": "checker_rle.sgi",
+                  "projector.png": "projector_bmp.ico"}
+CBOX_TEX_DDS = {"checker.png": "checker_bc7.dds"}
+CBOX_TEX_DDS_REF = {"checker.png": "checker_bc7_pil.png"}
+
+
+def cbox_tex_pil(res=512):
+    """`cbox_tex` with its checker from a QOI file and its normal map from
+    a binary PPM (P6): it renders as `cbox_tex` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_PIL)
+
+
+def env_sphere_pil(res=512, sub_div=40):
+    """`env_sphere` with its checker from a run-length SGI file and its
+    projector image from an icon holding a 32-bit BMP: it renders as
+    `env_sphere` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_PIL)
+
+
+def cbox_tex_dds(res=512):
+    """`cbox_tex` with its checker from a BC7 DDS file: it renders as
+    `cbox_tex_dds_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_DDS)
+
+
+def cbox_tex_dds_ref(res=512):
+    """`cbox_tex` with its checker read from PIL's decode of
+    checker_bc7.dds, written as a PNG."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_DDS_REF)
 
 
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)

@@ -48,6 +48,8 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
     Sun raster, BMP and YCCK JPEG under .hdr / .exr names) and
     `cv_decodes.npz`, what the JAX package's loader gets for each through
     the pip cv2.
+  * The files of slice 7e.6a and `pil_decodes.npz`, written by
+    `tools/gen_torch_pil.py` (its docstring lists them).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1285,6 +1287,17 @@ def _webp_module():
     return mod
 
 
+def _pil_module():
+    """`tools/gen_torch_pil.py`, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_pil", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_pil.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def opencv_reader_files():
     """The files of slice 7e.3a (name -> bytes), each under a .hdr / .exr
     name, so the JAX package reads it through OpenCV's own reader: a
@@ -1359,6 +1372,7 @@ def main():
     _webp_module().write_webp_files(out, checker(), bumps(), projector(),
                                     grain())
     write_opencv_reader_files(out)
+    _pil_module().write_pil_files(out, checker(), bumps(), projector())
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

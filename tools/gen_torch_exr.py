@@ -288,10 +288,11 @@ class CvRead:
         self.tmp = tmp
         self.exe = build_cv_read(tmp)
 
-    def read(self, path):
+    def read(self, path, env=None):
         out = os.path.join(self.tmp, "cv.raw")
         r = subprocess.run([self.exe, path, out], capture_output=True,
-                           text=True, check=True)
+                           text=True, check=True,
+                           env=None if env is None else {**os.environ, **env})
         if r.stdout.split()[0] == "empty":
             return None
         h, w, c, depth = (int(v) for v in r.stdout.split())
@@ -583,6 +584,90 @@ def deep_timing_planes(n=512):
     return np.concatenate([counts[None], a, *col, z]).astype(np.float32)
 
 
+# ROADMAP C25: single-byte edits of one small file a codec (NONE, RLE,
+# ZIPS, ZIP, PIZ, PXR24, B44, B44A, DWAA, DWAB; scanlines and tiles), each
+# held against OpenCV 4.6.0 (`exr_edits.json`)
+EDIT_FILES = ("yc_none.exr", "rle_half.exr", "yc_zips.exr", "tiled_one.exr",
+              "piz_half.exr", "pxr24_half.exr", "b44_half.exr",
+              "b44a_half.exr", "dwaa_half.exr", "dwab_half.exr",
+              "tiled_mipmap.exr", "tiled_ripmap.exr")
+EDIT_SEED = 2025
+# edits a file: in its header, its chunk offset table, its chunks
+EDIT_COUNTS = (8, 6, 12)
+# glibc's MALLOC_PERTURB_ values of the two reads: an outcome that differs
+# between them was read from memory the decoder never wrote
+PERTURB = ("85", "170")
+
+
+def edit_regions(data):
+    """(start, end) of a single-part file's header, its offset table and
+    its chunks."""
+    from vision_tpu_torch.scene import imageio as tio
+    table = tio._exr_header(data)[1]
+    first = struct.unpack("<Q", data[table:table + 8])[0]
+    return (8, table), (table, first), (first, len(data))
+
+
+def edits(files, seed=EDIT_SEED):
+    """The seeded single-byte edits: (file name, offset, new byte), each
+    byte set to 0, 1 or 255 or one of its bits flipped, at offsets drawn
+    in each region of each file of `files` ({name: bytes}) in
+    EDIT_FILES' order."""
+    g = np.random.default_rng(seed)
+    out = []
+    for fn in EDIT_FILES:
+        data = files[fn]
+        for (lo, hi), n in zip(edit_regions(data), EDIT_COUNTS):
+            for _ in range(n):
+                off = int(g.integers(lo, hi))
+                kind = int(g.integers(4))
+                bit = int(g.integers(8))
+                out.append((fn, off, (0, 1, 255, data[off] ^ 1 << bit)[kind]))
+    return out
+
+
+def edited(data, off, value):
+    d = bytearray(data)
+    d[off] = value
+    return bytes(d)
+
+
+def write_edits(out, cv):
+    """exr_edits.json: each edit's outcome in OpenCV 4.6.0 (the sha256 of
+    its decode as the JAX package's loader returns it, float32 [H, W, 3];
+    "empty"; "crash" where cv_read dies (the JAX package's process would);
+    or "undefined" where the two reads under PERTURB differ)."""
+    import json
+    files = {}
+    for fn in EDIT_FILES:
+        with open(os.path.join(out, fn), "rb") as f:
+            files[fn] = f.read()
+    rows = []
+    p = os.path.join(cv.tmp, "edited.exr")
+    for fn, off, value in edits(files):
+        with open(p, "wb") as f:
+            f.write(edited(files[fn], off, value))
+        got = []
+        for v in PERTURB:
+            try:
+                d = cv.read(p, env={"MALLOC_PERTURB_": v})
+            except subprocess.CalledProcessError:   # OpenCV aborts
+                got.append("crash")
+                continue
+            got.append("empty" if d is None
+                       else hashlib.sha256(d.tobytes()).hexdigest())
+        rows.append([fn, off, value, got[0] if got[0] == got[1]
+                     else "undefined"])
+    with open(os.path.join(out, "exr_edits.json"), "w") as f:
+        json.dump({"seed": EDIT_SEED, "reference": "OpenCV 4.6.0 over "
+                   "libOpenEXR 3.1 (tools/cv_read.cpp)", "edits": rows}, f,
+                  indent=0)
+    kinds = [r[3] if r[3] in ("empty", "crash", "undefined") else "decoded"
+             for r in rows]
+    print(f"exr_edits.json: {len(rows)} edits,",
+          {k: kinds.count(k) for k in sorted(set(kinds))})
+
+
 def main():
     out = sys.argv[1] if len(sys.argv) > 1 else OUT
     os.makedirs(out, exist_ok=True)
@@ -590,7 +675,9 @@ def main():
     try:
         tool = Tool(tmp)
         write_all(out, tool)
-        write_cv(out, tool, CvRead(tmp))
+        cv = CvRead(tmp)
+        write_cv(out, tool, cv)
+        write_edits(out, cv)
     finally:
         shutil.rmtree(tmp)
     for fn in sorted(os.listdir(out)):

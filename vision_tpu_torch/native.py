@@ -92,6 +92,10 @@ def _library():
             getattr(lib, name).argtypes = [P, ctypes.c_int64, ctypes.c_int32,
                                            ctypes.c_int32, P]
             getattr(lib, name).restype = ctypes.c_int64
+        lib.vt_bc7_decode.argtypes = [P, ctypes.c_int64, P]
+        lib.vt_bc7_decode.restype = None
+        lib.vt_bc6h_decode.argtypes = [P, ctypes.c_int64, ctypes.c_int32, P]
+        lib.vt_bc6h_decode.restype = None
         lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
         lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
@@ -361,6 +365,26 @@ def webp_coverage(reset=False):
     out = np.zeros(66, np.int64)
     n = _library().vt_webp_coverage(out.ctypes.data, int(reset))
     return out[:n]
+
+
+def bc7_decode(blocks):
+    """BC7 blocks (uint8 [n, 16]) -> RGBA uint8 [n, 16, 4], as PIL's
+    BcnDecode.c decodes them."""
+    blocks = np.ascontiguousarray(blocks, np.uint8)
+    out = np.zeros((max(len(blocks), 1), 16, 4), np.uint8)
+    _library().vt_bc7_decode(blocks.ctypes.data, len(blocks), out.ctypes.data)
+    return out[:len(blocks)]
+
+
+def bc6h_decode(blocks, signed):
+    """BC6H blocks (uint8 [n, 16]), unsigned or signed -> RGB uint8
+    [n, 16, 3], as PIL's BcnDecode.c gives them: each half clamped to
+    [0, 1] and scaled to 8 bits."""
+    blocks = np.ascontiguousarray(blocks, np.uint8)
+    out = np.zeros((max(len(blocks), 1), 16, 3), np.uint8)
+    _library().vt_bc6h_decode(blocks.ctypes.data, len(blocks), int(signed),
+                              out.ctypes.data)
+    return out[:len(blocks)]
 
 
 def _run(fn, inputs, n, max_leaf):

@@ -49,16 +49,20 @@ refuses:
     files, level (0, 0); part 0 of a multi-part file; deep scanlines with Z
     and A, composited; every compression, DWA blocks of version 1 and 2,
     perceptually linear channels; HALF, FLOAT and UINT channels,
-    sub-sampled ones included), then converted by OpenCV's rules: R, G, B
-    (missing ones 0), or luminance-chroma converted, or Y replicated.
+    sub-sampled ones included; a corrupt file as libOpenEXR 3.1 reads it:
+    ROADMAP C25), then converted by OpenCV's rules: R, G, B (missing ones
+    0), or luminance-chroma converted, or Y replicated.
   * Under a .hdr / .exr name, OpenCV's own BMP, Sun raster, PNM, PFM and
     PAM readers and its CMYK / YCCK JPEG conversion (`cvread.py`).
+  * Under any other name, the plugins of PIL tried in PIL's order, and
+    the small formats of PIL's own plugins (`pilread.py`).
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
 The rarer TIFF codecs, OpenCV's TIFF, GIF, JPEG 2000 and AVIF readers
-under a .hdr / .exr name, and the other formats PIL opens (AVIF among
-them) raise NotImplementedError naming ROADMAP queue A, 7e.
+under a .hdr / .exr name, and the formats PIL opens that `pilread.py`
+does not decode yet raise NotImplementedError naming their item of
+ROADMAP queue A, 7e.
 """
 from __future__ import annotations
 
@@ -70,7 +74,7 @@ import zlib
 import numpy as np
 
 from .. import native
-from . import cvread, webp
+from . import cvread, pilread, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -79,24 +83,6 @@ EXR_MAGIC = 20000630
 def _not_ported(what, slice_):
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP queue A, slice {slice_}")
-
-
-# magic numbers of the formats PIL opens that this module does not decode
-# (checked before TGA, which has none: an icon's header would pass for one,
-# and a TGA's header can read as an icon directory of 0 entries)
-_OTHER_FORMATS = ((b"II+\0", "BigTIFF"), (b"MM\0+", "BigTIFF"),
-                  (b"\0\0\1\0", "ICO"), (b"\0\0\2\0", "CUR"),
-                  (b"8BPS", "PSD"), (b"DDS ", "DDS"), (b"qoif", "QOI"),
-                  (b"icns", "ICNS"), (b"\0\0\0\x0cjP  ", "JPEG 2000"),
-                  (b"\xffO\xffQ", "JPEG 2000"))
-
-
-def _other_format(data):
-    name = next((name for magic, name in _OTHER_FORMATS
-                 if data.startswith(magic)), None)
-    if name in ("ICO", "CUR") and data[4:6] == b"\0\0":
-        return None  # no icons: PIL's plugins pass it on (a TGA's header)
-    return name
 
 
 def read_image(path):
@@ -122,33 +108,8 @@ def _is_exr(data):
 
 def _read_pil(data, name):
     """What `PIL.Image.open(p).convert("RGB")` gives, by the file's
-    content. TGA, which has no magic number, is tried last, with PIL's
-    header checks. Radiance and OpenEXR files, which PIL cannot identify,
-    raise ValueError."""
-    if data[:8] == PNG_SIGNATURE:
-        return read_png(data)
-    if data[:3] == b"\xff\xd8\xff":
-        return read_jpeg(data)
-    if data[:2] == b"BM":
-        return read_bmp(data)
-    if data[:4] in (b"II*\0", b"MM\0*"):
-        return read_tiff(data)
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return read_gif(data)
-    if webp.is_webp(data):
-        return webp.decode(data, name)[0]
-    if data[:2] == b"#?" or _is_exr(data):
-        raise ValueError(f"'{name}': a Radiance or OpenEXR file under "
-                         "another name: PIL (the JAX package's reader for "
-                         "it) cannot identify it either")
-    other = "AVIF" if _is_avif(data) else _other_format(data)
-    if other is not None:
-        raise _not_ported(f"'{name}': decoding {other} files", "7e")
-    if _tga_header(data) is not None:
-        return read_tga(data)
-    raise NotImplementedError(
-        f"'{name}': not a PNG, JPEG, BMP, TGA, TIFF or GIF file: other "
-        "formats (ICO, PSD, ...) are ROADMAP queue A, 7e")
+    content: PIL's plugins tried in PIL's order (`pilread.read`)."""
+    return pilread.read(data, name)
 
 
 # magic numbers of the formats OpenCV's own readers take that this module
@@ -229,7 +190,10 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def _png_chunks(data):
+def _png_chunks(data, cut_idat=False):
+    """(type, body) of each chunk to IEND. `cut_idat`: an IDAT cut by the
+    file's end is taken as far as it goes (PIL reads image data until its
+    decoder has every row)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
@@ -237,6 +201,9 @@ def _png_chunks(data):
         n, = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + n]
+        if len(body) != n and cut_idat and kind == b"IDAT":
+            yield kind, body
+            return
         if len(body) != n:
             raise ValueError("truncated PNG chunk")
         yield kind, body
@@ -292,6 +259,25 @@ def _png_samples(raw, h, w, depth, nch):
     return v.reshape(h, w, nch), n
 
 
+def _png_pil_checks(data):
+    """PngImageFile._open's checks of the chunks before the first IDAT:
+    each type four word characters, each CRC right (else PIL's
+    SyntaxError: no plugin identifies the file)."""
+    pos = 8
+    while pos + 8 <= len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        if not re.match(rb"\w\w\w\w", kind):
+            raise ValueError(f"broken PNG file (chunk {kind!r})")
+        if kind == b"IDAT":
+            return
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or zlib.crc32(data[pos + 4:pos + 8 + n]) != \
+                struct.unpack(">I", crc)[0]:
+            raise ValueError(f"broken PNG file (bad checksum in {kind!r})")
+        pos += 12 + n
+
+
 def read_png(data, full_depth=False):
     """PNG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
     alpha dropped (not composited), a palette expanded (missing entries
@@ -300,9 +286,13 @@ def read_png(data, full_depth=False):
     Adam7 files are de-interlaced. A colour type and bit depth that PNG
     does not define is refused, as PIL refuses it (ValueError).
     full_depth: a 16-bit file's samples whole (uint16, grey replicated),
-    as OpenCV's IMREAD_ANYDEPTH gives them."""
+    as OpenCV's IMREAD_ANYDEPTH gives them; otherwise the chunks before
+    the first IDAT are checked as PIL checks them (a type of four letters
+    or digits, the CRC)."""
+    if not full_depth:
+        _png_pil_checks(data)
     ihdr, plte, idat = None, None, []
-    for kind, body in _png_chunks(data):
+    for kind, body in _png_chunks(data, cut_idat=not full_depth):
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
@@ -312,13 +302,22 @@ def read_png(data, full_depth=False):
     if ihdr is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     w, h, depth, ctype, comp, filt, interlace = ihdr
+    if w == 0 or h == 0:
+        raise ValueError("PNG of no pixels")
     if ctype not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[ctype]:
         raise ValueError(f"PNG colour type {ctype} at bit depth {depth} is "
                          "not defined (PIL refuses it too)")
     if comp != 0 or filt != 0 or interlace > 1:
         raise ValueError("PNG compression, filter or interlace method")
     nch = _PNG_CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if full_depth:
+        raw = zlib.decompress(b"".join(idat))
+    else:   # PIL stops at the last row, whether or not the stream ends
+        try:
+            raw = zlib.decompressobj().decompress(b"".join(idat))
+        except zlib.error as e:
+            raise ValueError(f"corrupt PNG image data ({e})") from None
+    raw = np.frombuffer(raw, np.uint8)
     if interlace == 0:
         v = _png_samples(raw, h, w, depth, nch)[0]
     else:
@@ -564,11 +563,24 @@ def read_bmp(data):
     palette, data that ends early) raises ValueError."""
     if data[:2] != b"BM" or len(data) < 18:
         raise ValueError("not a BMP file")
-    offset, hsize = struct.unpack("<II", data[10:18])
-    hd = data[18:14 + hsize]
-    if len(hd) != hsize - 4:
+    return bmp_bitmap(data, 14, struct.unpack("<I", data[10:14])[0])[0]
+
+
+def bmp_bitmap(data, hpos, offset, halve=False, by_path=True):
+    """The bitmap whose info header starts at `hpos`, as BmpImagePlugin's
+    `_bitmap` reads it (`offset`: the file header's pixel offset, 0 for a
+    DIB, a cursor or an icon, whose pixels follow the palette). `halve`:
+    only the upper half of the stated height (CUR and ICO: the colour
+    image above the AND mask); `by_path`: PIL
+    memory-maps the file (an icon's bitmap is read from its stream
+    instead). Returns (the image, (its pixels' offset, width, height))."""
+    if len(data) < hpos + 4:
         raise ValueError("truncated BMP header")
-    pos = 14 + hsize
+    hsize, = struct.unpack("<I", data[hpos:hpos + 4])
+    hd = data[hpos + 4:hpos + hsize]
+    if hsize < 4 or len(hd) != hsize - 4:
+        raise ValueError("truncated BMP header")
+    pos = hpos + hsize
     masks = None
     if hsize == 12:
         w, h, _, bits = struct.unpack("<HHHH", hd[:8])
@@ -591,6 +603,10 @@ def read_bmp(data):
         raise _bmp_refused(f"header of {hsize} bytes")
     if w <= 0 or not 0 < h < 2 ** 31:
         raise _bmp_refused(f"size {w} x {h}")
+    if halve:
+        h //= 2
+        if h <= 0:
+            raise _bmp_refused(f"size {w} x {h}")
     colors = colors or 1 << bits
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
@@ -624,6 +640,8 @@ def read_bmp(data):
         if len(p) >= len(ramp) and all((p[i, :3] == v).all()
                                        for i, v in enumerate(ramp)):
             grey = "1" if colors == 2 else "L"
+        elif len(p) > 256:
+            raise _bmp_refused(f"palette of {len(p)} entries")
         pal = np.zeros((max(256, len(p)), 3), np.uint8)
         pal[:len(p)] = p[:, 2::-1]
     elif rle:
@@ -636,6 +654,8 @@ def read_bmp(data):
         out = np.repeat(idx[..., None], 3, -1) if grey else pal[idx]
     else:
         stride = ((w * bits + 31) >> 3) & ~3
+        if grey == "L" and stride < w and not by_path:
+            raise _bmp_refused("grey-ramp palette below 8 bits in an icon")
         if grey == "L" and stride < w:
             # a grey ramp below 8 bits read as 8-bit grey: PIL memory-maps
             # the file, w bytes a row every `stride` bytes (zeros past its
@@ -673,7 +693,7 @@ def read_bmp(data):
             out = rows[:, :w * bits // 8].reshape(h, w, bits // 8)[..., order]
     if not flip:                                 # stored bottom-up
         out = out[::-1]
-    return np.ascontiguousarray(out)
+    return np.ascontiguousarray(out), (start, w, h)
 
 
 # ---------------------------------------------------------------------------
@@ -1664,17 +1684,100 @@ def _cstr(data, pos):
     return data[pos:end].decode("latin-1"), end + 1
 
 
+# attribute types libOpenEXR reads with their own size: the size a file
+# states is not used to find the next attribute (TypedAttribute's
+# readValueFrom)
+_EXR_FIXED = {"box2i": 16, "box2f": 16, "chromaticities": 32,
+              "compression": 1, "double": 8, "envmap": 1, "float": 4,
+              "int": 4, "keycode": 28, "lineOrder": 1, "m33f": 36,
+              "m33d": 72, "m44f": 64, "m44d": 128, "rational": 8,
+              "tiledesc": 9, "timecode": 8, "v2i": 8, "v2f": 8, "v2d": 16,
+              "v3i": 12, "v3f": 12, "v3d": 24, "deepImageState": 1}
+# the attributes every Header starts with (Imf::Header's constructor),
+# with their types and default values
+_EXR_PREDEFINED = {
+    "displayWindow": ("box2i", struct.pack("<4i", 0, 0, 63, 63)),
+    "dataWindow": ("box2i", struct.pack("<4i", 0, 0, 63, 63)),
+    "pixelAspectRatio": ("float", struct.pack("<f", 1.0)),
+    "screenWindowCenter": ("v2f", struct.pack("<2f", 0.0, 0.0)),
+    "screenWindowWidth": ("float", struct.pack("<f", 1.0)),
+    "lineOrder": ("lineOrder", b"\0"),
+    "compression": ("compression", b"\3"),
+    "channels": ("chlist", b"\0")}
+
+
+def _exr_name(data, pos):
+    """Xdr::read of a name: at most 255 bytes, then its null byte."""
+    end = data.find(b"\0", pos, pos + 256)
+    if end < 0:
+        raise ValueError("OpenEXR attribute name without its null byte")
+    return data[pos:end].decode("latin-1"), end + 1
+
+
 def _exr_attrs(data, pos):
-    """One header's attributes from `pos` -> (dict name -> (type, body),
-    the offset after the header's terminating null byte)."""
-    attrs = {}
-    while data[pos] != 0:
-        name, pos = _cstr(data, pos)
-        typ, pos = _cstr(data, pos)
+    """One header's attributes from `pos`, as Imf::Header::readFrom reads
+    them -> (dict name -> (type, body), the offset after the header's
+    terminating null byte). A predefined attribute (Imf::Header's own)
+    keeps its default unless the file gives it, and must keep its type;
+    a value of a fixed-size type takes that size whatever size the file
+    states; a channel list runs to its empty name."""
+    attrs = dict(_EXR_PREDEFINED)
+    while True:
+        if pos >= len(data):
+            raise ValueError("truncated OpenEXR header")
+        name, pos = _exr_name(data, pos)
+        if not name:
+            return attrs, pos
+        typ, pos = _exr_name(data, pos)
+        if len(data) < pos + 4:
+            raise ValueError("truncated OpenEXR header")
         size, = struct.unpack("<i", data[pos:pos + 4])
-        attrs[name] = (typ, data[pos + 4:pos + 4 + size])
-        pos += 4 + size
-    return attrs, pos + 1
+        pos += 4
+        if size < 0:
+            raise ValueError("OpenEXR attribute of a negative size")
+        if name in _EXR_PREDEFINED and typ != _EXR_PREDEFINED[name][0]:
+            raise ValueError(f"OpenEXR attribute '{name}' of type '{typ}'")
+        if typ in _EXR_FIXED:
+            size = _EXR_FIXED[typ]
+        elif typ == "chlist":
+            end = pos
+            while True:
+                cname, end = _exr_name(data, end)
+                if not cname:
+                    break
+                end += 16
+            size = end - pos
+        body = data[pos:pos + size]
+        if len(body) < size:
+            raise ValueError("truncated OpenEXR header")
+        attrs[name] = (typ, body)
+        pos += size
+
+
+def _exr_sanity(attrs, tiled):
+    """Imf::Header::sanityCheck as libOpenEXR 3.1 makes it."""
+    half = (1 << 31) // 2 - 1                      # INT_MAX / 2
+    for win in ("displayWindow", "dataWindow"):
+        x0, y0, x1, y1 = struct.unpack("<4i", attrs[win][1])
+        if x0 > x1 or y0 > y1 or min(x0, y0) <= -half or max(x1, y1) >= half:
+            raise ValueError(f"OpenEXR {win} invalid")
+    par, = struct.unpack("<f", attrs["pixelAspectRatio"][1])
+    if not 1e-6 <= par <= 1e6:
+        raise ValueError("OpenEXR pixel aspect ratio invalid")
+    if struct.unpack("<f", attrs["screenWindowWidth"][1])[0] < 0:
+        raise ValueError("OpenEXR screen window width invalid")
+    if attrs["lineOrder"][1][0] > 2:
+        raise ValueError("OpenEXR line order invalid")
+    if attrs["compression"][1][0] > 9:
+        raise ValueError("OpenEXR compression invalid")
+    if tiled:
+        tiles = attrs.get("tiles")
+        if tiles is None or tiles[0] != "tiledesc":
+            raise ValueError("tiled OpenEXR file without its tile size")
+        tx, ty, mode = struct.unpack("<iiB", tiles[1])
+        if not (0 < tx <= half // 2 and 0 < ty <= half // 2) or \
+                mode & 15 > 2 or mode >> 4 > 1:
+            raise ValueError("OpenEXR tile description invalid")
 
 
 def _exr_header(data):
@@ -1696,6 +1799,8 @@ def _exr_part0(data):
     magic, version = struct.unpack("<ii", data[:8])
     if magic != EXR_MAGIC:
         raise ValueError("not an OpenEXR file")
+    if version & 0xFF != 2 or version & ~0x1EFF:
+        raise ValueError("OpenEXR file of another version or flags")
     multipart = bool(version & 0x1000)
     try:
         attrs, pos = _exr_attrs(data, 8)
@@ -1703,6 +1808,9 @@ def _exr_part0(data):
             while data[pos] != 0:
                 pos = _exr_attrs(data, pos)[1]
             pos += 1
+        part_type = attrs.get("type", ("", b""))[1].rstrip(b"\0")
+        _exr_sanity(attrs, bool(version & 0x200 and not multipart)
+                    or part_type == b"tiledimage")
     except (IndexError, ValueError, struct.error):
         raise ValueError("corrupt OpenEXR header") from None
     if _exr_deep(attrs, version, multipart):
@@ -1728,11 +1836,14 @@ def _exr_channels(body, linear=None, sampling=None):
     stores them; the names of the channels marked perceptually linear
     are added to the set `linear`, each channel's (x, y) sampling to the
     dict `sampling`."""
-    chans, pos = [], 0
-    while body[pos] != 0:
+    entries, pos = {}, 0
+    while body[pos] != 0:      # a map by name: the last entry of a name kept
         name, pos = _cstr(body, pos)
-        ptype, plinear, xs, ys = struct.unpack("<iB3xii", body[pos:pos + 16])
+        entries[name] = struct.unpack("<iB3xii", body[pos:pos + 16])
         pos += 16
+    chans = []
+    for name in sorted(entries, key=lambda n: n.encode("latin-1")):
+        ptype, plinear, xs, ys = entries[name]
         if ptype not in _EXR_DTYPE or xs < 1 or ys < 1:
             raise ValueError(f"OpenEXR channel '{name}': pixel type {ptype} "
                              f"or sampling ({xs}, {ys}) unknown to "
@@ -1971,7 +2082,8 @@ def _exr_b44(block, geo, linear):
     """A B44 / B44A block: per channel, HALF samples in 4 x 4 blocks of 14
     bytes (3 for a flat block, B44A), row by row of blocks, through B44's
     log table where the channel is marked perceptually linear; other
-    channels stored as they are."""
+    channels stored as they are. Bytes left over are refused, as
+    libOpenEXR refuses them."""
     planes, pos = {}, 0
     for c, dt, w, rows in geo:
         ny = len(rows)
@@ -2003,6 +2115,8 @@ def _exr_b44(block, geo, linear):
         img = s.reshape(nby, nbx, 4, 4).transpose(0, 2, 1, 3).reshape(
             nby * 4, nbx * 4)[:ny, :w]
         planes[c] = img.astype("<u2").view(np.uint8).reshape(ny, -1)
+    if pos < len(block):       # B44Compressor::uncompress's tooMuchData
+        raise ValueError("OpenEXR B44 data longer than its block")
     return planes
 
 
@@ -2313,8 +2427,11 @@ def read_exr(data):
     if w <= 0 or h <= 0 or w * h > 1 << 30:
         raise ValueError("OpenEXR data window empty or past OpenCV's limit "
                          "of 2^30 pixels")
-    tiles = attrs.get("tiles")
-    deep = _exr_deep(attrs, struct.unpack("<i", data[4:8])[0], multipart)
+    version = struct.unpack("<i", data[4:8])[0]
+    tiled = bool(version & 0x200 and not multipart) or \
+        attrs.get("type", ("", b""))[1].rstrip(b"\0") == b"tiledimage"
+    tiles = attrs.get("tiles") if tiled else None
+    deep = _exr_deep(attrs, version, multipart)
     for c, (xs, ys) in sampling.items():
         if (xs, ys) != (1, 1) and (tiles is not None or deep or x0 % xs
                                    or y0 % ys or w % xs or h % ys):
@@ -2326,7 +2443,8 @@ def read_exr(data):
         planes = _exr_read_deep(data, pos, skip, comp, chans, x0, y0, w, h)
     elif tiles is None:
         planes = _exr_read_lines(data, pos, skip, comp, chans, sampling,
-                                 linear, x0, y0, w, h)
+                                 linear, x0, y0, w, h,
+                                 attrs["lineOrder"][1][0])
     else:
         planes = _exr_read_tiles(data, pos, skip, comp, chans, sampling,
                                  linear, tiles[1], w, h)
@@ -2339,23 +2457,57 @@ def _exr_planes(chans, sampling, w, h):
                         np.float32) for c, _ in chans}
 
 
+def _exr_line_offsets(data, pos, n, skip, order):
+    """The chunk offset table at `pos` as ScanLineInputFile reads it: a
+    table with a zero entry is rebuilt from a walk over the chunks that
+    follow it (readLineOffsets, reconstructLineOffsets)."""
+    offsets = list(_exr_chunks(data, pos, n))
+    if min(offsets) > 0:
+        return offsets
+    at = pos + 8 * n
+    for i in range(n):
+        if len(data) < at + skip + 8:
+            break
+        size, = struct.unpack("<i", data[at + skip + 4:at + skip + 8])
+        offsets[i if order == 0 else n - 1 - i] = at
+        at += skip + 8 + size
+    return offsets
+
+
 def _exr_read_lines(data, pos, skip, comp, chans, sampling, linear, x0, y0,
-                    w, h):
-    """A scanline part's chunks -> its float32 channel planes."""
+                    w, h, order=0):
+    """A scanline part's chunks -> its float32 channel planes, read as
+    ScanLineInputFile reads them from the top: each chunk from its table
+    offset, but a file of increasing y from the first one on chunk after
+    chunk (it seeks only when the next chunk is not the one that follows);
+    a chunk must hold its own y and at most a full buffer's bytes."""
     planes = _exr_planes(chans, sampling, w, h)
     lines = _EXR_LINES[comp]
-    for off in _exr_chunks(data, pos, -(-h // lines)):
+    n = -(-h // lines)
+    offsets = _exr_line_offsets(data, pos, n, skip, order)
+    # lineBufferSize: the most bytes a line holds, times the lines a chunk
+    limit = lines * sum(nx * dt.itemsize for _, dt, nx, _ in
+                        _exr_geometry(chans, sampling, x0, w, 0, 1))
+    at = None
+    for k in range(n):
+        if at is None or order != 0:
+            at = offsets[k]
+            if at == 0:
+                raise ValueError("OpenEXR scan line missing")
         try:
-            y, size = struct.unpack("<ii", data[off + skip:off + skip + 8])
+            y, size = struct.unpack("<ii", data[at + skip:at + skip + 8])
         except struct.error:
             raise ValueError("truncated OpenEXR chunk") from None
-        if (y - y0) % lines or not y0 <= y <= y0 + h - 1:
+        ny = min(lines, h - k * lines)
+        geo = _exr_geometry(chans, sampling, x0, w, y0 + k * lines, ny)
+        if y != y0 + k * lines or not 0 <= size <= limit:
             raise ValueError("corrupt OpenEXR chunk header")
-        ny = min(lines, y0 + h - y)
-        block = data[off + skip + 8:off + skip + 8 + size]
-        geo = _exr_geometry(chans, sampling, x0, w, y, ny)
+        block = data[at + skip + 8:at + skip + 8 + size]
+        if len(block) < size:
+            raise ValueError("truncated OpenEXR chunk")
         _exr_put(planes, _exr_block(comp, block, geo, ny, linear), geo,
-                 y - y0, 0, sampling)
+                 k * lines, 0, sampling)
+        at += skip + 8 + size
     return planes
 
 
