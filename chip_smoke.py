@@ -119,7 +119,8 @@ phase, one JSON line each:
     cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
     the uninterrupted run; `scene_memory_stats` of cbox_sphere;
     `overlay_rays` of 16 pixels at 512^2.
-  * the image files of slices 7c, 7d, 7e.1 and 7e.6a (`phase_image_files`):
+  * the image files of slices 7c, 7d, 7e.1, 7e.6a and 7e.3b
+    (`phase_image_files`):
     progressive, CMYK, YCCK, RGB, lossless and arithmetic-coded JPEG,
     Adam7, low-depth and 16-bit PNG, TGA, BMP, TIFF, GIF and WebP files of
     tests/assets_torch/, each decoded on the card's host, timed and held
@@ -135,18 +136,22 @@ phase, one JSON line each:
     file under a .hdr name raising naming 7e. Slice 7e.6a: the files of
     the small formats PIL opens (PCX, SGI, MSP, PSD, XPM, DDS with BC1-BC7
     blocks, Sun raster, ICNS, CUR, QOI, PPM, ICO) against PIL's decodes
-    (pil_decodes.npz), and a 2048^2 BC7 file built from a seed against its
-    decode's sha256.
-  * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a and 7e.6a
+    (pil_decodes.npz, IM's rarer types among them), and a 2048^2 BC7 file
+    built from a seed against its decode's sha256. Slice 7e.3b: TIFF and
+    GIF files under .hdr / .exr names against the pip cv2's decodes
+    (cvtiff_decodes.npz), and a 2048^2 float32 LZW TIFF built from a seed
+    (`sky_2048.exr`) against its decode's sha256.
+  * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a and 7e.3b
     (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp`,
-    `cbox_sky_yc`, `cbox_tex_pil` and `cbox_tex_dds` through K1,
-    `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv` and
-    `env_sphere_pil` through K2 at 512^2, their images read from TIFF,
-    GIF, OpenEXR (plain, luminance-chroma, deep), WebP, PFM, QOI, PPM,
-    SGI, ICO and BC7 DDS files, each bit for bit with its original's
-    render in the same run (`cbox_tex_webp`'s and `cbox_tex_dds`'s
-    originals read PIL's decode of their lossy checker, `cbox_sky_yc`'s
-    OpenCV's decode of its sky).
+    `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds` and `cbox_sky_cvtiff`
+    through K1, `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
+    `env_sphere_pil` and `env_sphere_cvgif` through K2 at 512^2, their
+    images read from TIFF, GIF, OpenEXR (plain, luminance-chroma, deep),
+    WebP, PFM, QOI, PPM, SGI, ICO and BC7 DDS files and OpenCV's TIFF and
+    GIF readers, each bit for bit with its original's render in the same
+    run (`cbox_tex_webp`'s and `cbox_tex_dds`'s originals read PIL's
+    decode of their lossy checker, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s
+    and `env_sphere_cvgif`'s the OpenCV decode of their image).
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -2210,7 +2215,7 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a and 7e.6a on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a and 7e.3b on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2230,31 +2235,47 @@ def phase_image_files(card):
     ROADMAP 7e; slice 7e.6a: every file of pil_decodes.npz (PCX, SGI, MSP,
     PSD, XPM, DDS of every pixel format, BC6H and BC7 blocks of every
     mode, Sun raster, ICNS, CUR, the twins' QOI, PPM, SGI, ICO and BC7
-    files) against its committed PIL decode, and `bc7_2048.dds` (2048^2
-    random BC7 blocks built here from its seed, `tools/gen_torch_pil.py`
-    `bc7_timing`) against its decode's sha256; no image library
-    imported."""
+    files; the IM files of PIL's bit decoder, RGB3 / RYB3 and YCC types)
+    against its committed PIL decode, and `bc7_2048.dds` (2048^2 random
+    BC7 blocks built here from its seed, `tools/gen_torch_pil.py`
+    `bc7_timing`) against its decode's sha256; slice 7e.3b: every file of
+    cvtiff_decodes.npz (TIFF on both of OpenCV's routes, GIF, under .hdr /
+    .exr names) against the pip cv2's decode, and `sky_2048.exr` (a 2048^2
+    float32 TIFF, LZW with the floating-point predictor, built here from
+    its seed, `tools/gen_torch_cvtiff.py` `float_timing`) against its
+    decode's sha256; no image library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
     assets = os.path.join(ROOT, "tests", "assets_torch")
     built_dir = tempfile.mkdtemp()
     gen_pil = _load_by_path("vt_gen_torch_pil", "tools/gen_torch_pil.py")
-    with open(os.path.join(built_dir, "bc7_2048.dds"), "wb") as f:
-        f.write(gen_pil.bc7_timing())
-    built = {"bc7_2048.dds": built_dir}  # timing files built from a seed
+    gen_cv = _load_by_path("vt_gen_torch_cvtiff", "tools/gen_torch_cvtiff.py")
+    t0 = time.perf_counter()
+    for fn, make in (("bc7_2048.dds", gen_pil.bc7_timing),
+                     ("sky_2048.exr", gen_cv.float_timing)):
+        with open(os.path.join(built_dir, fn), "wb") as f:
+            f.write(make())
+    emit(dict(phase="image_files_built", seconds=time.perf_counter() - t0,
+              card=card))
+    # timing files built from a seed
+    built = {"bc7_2048.dds": built_dir, "sky_2048.exr": built_dir}
     for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
                       ("webp_decodes.npz", "ldr"),
                       ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr"),
-                      ("pil_decodes.npz", "ldr")):
+                      ("pil_decodes.npz", "ldr"),
+                      ("cvtiff_decodes.npz", "hdr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
-        must = {"image_decodes.npz": "tiny.tif",
-                "webp_decodes.npz": "projector.webp",
-                "exr_cv_decodes.npz": "deep_composite.exr",
-                "cv_decodes.npz": "cv_ycck.exr",
-                "pil_decodes.npz": "checker_bc7.dds"}.get(npz)
-        check(must is None or must in files, f"{npz}'s files")
+        must = {"image_decodes.npz": ("tiny.tif",),
+                "webp_decodes.npz": ("projector.webp",),
+                "exr_cv_decodes.npz": ("deep_composite.exr",),
+                "cv_decodes.npz": ("cv_ycck.exr",),
+                "pil_decodes.npz": ("checker_bc7.dds", "im_ycc.im",
+                                    "psd_lab_raw.psd"),
+                "cvtiff_decodes.npz": ("sky_a_f32.exr",
+                                       "projector_gif.hdr")}.get(npz, ())
+        check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
             t0 = time.perf_counter()
             got, got_kind = imageio.read_image(os.path.join(assets, fn))
@@ -2296,7 +2317,8 @@ def phase_image_files(card):
             except err as e:
                 raised = str(e)
             check(what in raised, f"{os.path.basename(path)}: {raised!r}")
-    os.remove(os.path.join(built_dir, "bc7_2048.dds"))
+    for fn in built:
+        os.remove(os.path.join(built_dir, fn))
     os.rmdir(built_dir)
     check(not {"PIL", "cv2", "OpenEXR", "Imath"} & set(sys.modules),
           "an image library was imported")
@@ -2315,11 +2337,17 @@ IMAGE_TWINS = (
     ("cbox_tex_pil", "cbox_tex_pil", "dense_isect", "cbox_tex"),
     ("env_sphere_pil", "env_sphere_pil", "packet_isect", "env_sphere"),
     ("cbox_tex_dds_ref", "cbox_tex_dds_ref", "dense_isect", None),
-    ("cbox_tex_dds", "cbox_tex_dds", "dense_isect", "cbox_tex_dds_ref"))
+    ("cbox_tex_dds", "cbox_tex_dds", "dense_isect", "cbox_tex_dds_ref"),
+    ("cbox_sky_cvtiff_ref", "cbox_sky_cvtiff_ref", "dense_isect", None),
+    ("cbox_sky_cvtiff", "cbox_sky_cvtiff", "dense_isect",
+     "cbox_sky_cvtiff_ref"),
+    ("env_sphere_cvgif_ref", "env_sphere_cvgif_ref", "packet_isect", None),
+    ("env_sphere_cvgif", "env_sphere_cvgif", "packet_isect",
+     "env_sphere_cvgif_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d, 7e.1, 7e.2, 7e.3a and 7e.6a through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a and 7e.3b through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2337,7 +2365,12 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     run-length SGI checker, an icon projector holding a 32-bit BMP)
     through K2, bit for bit with `env_sphere`, and `cbox_tex_dds` (a BC7
     checker) through K1, bit for bit with `cbox_tex_dds_ref` (PIL's decode
-    of that checker in a PNG). Returns each render's launch counts."""
+    of that checker in a PNG); slice 7e.3b: `cbox_sky_cvtiff` (sky_a as a
+    float32 LZW TIFF named .exr) through K1, bit for bit with
+    `cbox_sky_cvtiff_ref` (the pip cv2's decode in a FLOAT OpenEXR file),
+    and `env_sphere_cvgif` (its projector image a GIF named .hdr) through
+    K2, bit for bit with `env_sphere_cvgif_ref` (the pip cv2's decode in a
+    PFM named .hdr). Returns each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:

@@ -1036,18 +1036,14 @@ def test_jpeg_under_opencv_names_matches_jax(tmp_path, fn):
     ("tiny.tif", "TIFF"), ("code2.gif", "GIF")])
 def test_opencv_readers_under_hdr_names_name_7e(tmp_path, fn, what):
     """Under a .hdr name OpenCV's own readers decode: its CMYK JPEG path
-    (one off from PIL's) and its BMP reader (slice 7e.3a) as the JAX
-    package's loader gives them, bit for bit; its TIFF and GIF readers are
-    not ported (7e.3b) and raise NotImplementedError naming 7e."""
+    (one off from PIL's), its BMP reader (slice 7e.3a) and its TIFF and
+    GIF readers (slice 7e.3b) as the JAX package's loader gives them, bit
+    for bit."""
     p = str(tmp_path / "x.hdr")
     with open(os.path.join(ASSETS, fn), "rb") as f, open(p, "wb") as o:
         o.write(f.read())
     want = _cv2_load(p)
     assert want is not None
-    if what in ("TIFF", "GIF"):
-        with pytest.raises(NotImplementedError, match=f"{what}.*7e"):
-            ttex.load_image(p)
-        return
     got = ttex.load_image(p)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, jtex.load_image(p))

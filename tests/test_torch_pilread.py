@@ -529,11 +529,11 @@ def test_sgi_rle_quirks(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["1", "L", "LA", "P", "PA", "RGB", "RGBA",
-                                  "RGBX", "CMYK", "I", "F", "I;16", "I;16B"])
+                                  "RGBX", "CMYK", "I", "F", "I;16", "I;16B",
+                                  "YCbCr"])
 def test_im_written_by_pil(tmp_path, mode):
-    """IM as PIL writes it, every mode it writes but YCbCr (PIL's
-    YCbCr -> RGB is ROADMAP 7e.6a): planar layouts, the Lut as a palette,
-    bottom-up rows."""
+    """IM as PIL writes it, every mode it writes (YCbCr through PIL's
+    YCbCr -> RGB): planar layouts, the Lut as a palette, bottom-up rows."""
     g = np.random.default_rng(len(mode))
     for h, w in SIZES:
         a = _image(g, h, w, 4)
@@ -588,10 +588,48 @@ def test_im_headers(tmp_path, itype, lut):
 def test_im_header_refusals(tmp_path, head):
     """IM headers PIL passes on or refuses: no size or a scalar size,
     non-integer sizes, a number that is none, no type, a line without a
-    key, a 12-bit type (PIL's bit decoder: ROADMAP 7e.6a, here without
-    its pixels, so refused)."""
+    key, a 12-bit type (PIL's bit decoder, here without its pixels, so
+    refused)."""
     data = (b"Image type: L 8 image\r\n" + head).ljust(511, b"\0") + b"\x1a"
     _assert_same(tmp_path, data + bytes(40), decodes=False)
+
+
+IM_LEFTOVERS = [f"L*{n} image" for n in (2, 3, 4, 5, 7, 9, 12, 15, 17, 24,
+                                          25, 31)] + \
+    ["RLB image", "RYB image", "RGB3 image", "RYB3 image", "YCC image"]
+
+
+@pytest.mark.parametrize("itype", IM_LEFTOVERS)
+def test_im_rare_types(tmp_path, itype):
+    """The IM types PIL reads through its bit decoder (N-bit samples, the
+    unused bits of a row's last byte ORed into the next row's first),
+    the old three-plane RGB3 / RYB3 files (G, R, B planes), YCC (PIL's
+    YCbCr -> RGB), and RLB / RYB (no raw mode in PIL: refused); random
+    data at odd sizes, and cut one byte short."""
+    g = np.random.default_rng(len(itype))
+    head = f"Image type: {itype}\r\n".encode()
+    for h, w in SIZES + ((4, 11),):
+        data = (head + f"Image size (x*y): {w}*{h}\r\n".encode()).ljust(
+            511, b"\0") + b"\x1a"
+        n = int(itype[2:-6]) if itype.startswith("L*") else 8
+        need = h * ((w * n + 7) // 8) if itype.startswith("L*") else 3 * w * h
+        body = g.integers(0, 256, need, np.uint8).tobytes()
+        decodes = not itype.startswith(("RLB", "RYB "))
+        _assert_same(tmp_path, data + body, decodes=decodes)
+        _assert_same(tmp_path, data + body[:-1], decodes=False)
+
+
+def test_ycbcr_to_rgb_matches_pil():
+    """PIL's YCbCr -> RGB (its integer tables, ConvertYCbCr.c) on a
+    seeded share of the 2^24 triples and every corner of the cube."""
+    g = np.random.default_rng(24)
+    x = g.integers(0, 256, (1 << 16, 3), np.uint8)
+    corners = np.array(np.meshgrid(*[[0, 1, 127, 128, 129, 254, 255]] * 3)
+                       ).reshape(3, -1).T.astype(np.uint8)
+    x = np.concatenate([x, corners])
+    want = np.asarray(Image.frombytes("YCbCr", (len(x), 1), x.tobytes())
+                      .convert("RGB"))[0]
+    np.testing.assert_array_equal(pilread._ycbcr_to_rgb(x), want)
 
 
 @pytest.mark.parametrize("version", [1, 2])
@@ -803,17 +841,33 @@ def test_psd(tmp_path, pmode, bits, channels, comp):
 
 
 def test_psd_lab_names_7e6a(tmp_path):
-    """A Lab PSD, which PIL converts through LittleCMS: NotImplementedError
-    naming ROADMAP 7e.6a, after its planes are read (a cut file is
-    refused, as PIL refuses it)."""
-    planes = [np.full((3, 5), 100, np.uint8)] * 3
-    data = gp.psd_bytes(9, 8, planes, 5, 3)
-    p = tmp_path / "lab.psd"
-    p.write_bytes(data)
-    assert _pil(str(p)) is not None
-    with pytest.raises(NotImplementedError, match=r"Lab.*7e\.6a"):
-        tio.read_image(str(p))
-    _assert_same(tmp_path, data[:-1], decodes=False)
+    """A Lab PSD, which PIL converts through LittleCMS (ImageCms, the Lab
+    v2 identity profile to sRGB; slice 7e.6a's last item): decoded bit for
+    bit, raw and PackBits (random planes at odd sizes); a cut file
+    refused, as PIL refuses it."""
+    g = np.random.default_rng(9)
+    for comp in (0, 1):
+        for h, w in SIZES + ((6, 17),):
+            planes = [g.integers(0, 256, (h, w), np.uint8) for _ in range(3)]
+            data = gp.psd_bytes(9, 8, planes, w, h, comp)
+            _assert_same(tmp_path, data, decodes=True)
+            _assert_same(tmp_path, data[:-1], decodes=False)
+
+
+def test_lab_to_rgb_matches_littlecms():
+    """PIL's LAB -> RGB (LittleCMS 2.17's optimised 8-bit transform) on a
+    seeded share of the 2^24 triples and the cube's corners and middle
+    values (PIL keeps a and b signed: LittleCMS reads them offset by
+    128). `tools/gen_torch_lab.py --check` holds all 2^24."""
+    g = np.random.default_rng(17)
+    x = g.integers(0, 256, (1 << 16, 3), np.uint8)
+    corners = np.array(np.meshgrid(*[[0, 1, 127, 128, 129, 254, 255]] * 3)
+                       ).reshape(3, -1).T.astype(np.uint8)
+    x = np.concatenate([x, corners])
+    want = np.asarray(Image.frombytes("LAB", (len(x), 1), x.tobytes())
+                      .convert("RGB"))[0]
+    got = pilread.lab_to_rgb(x ^ np.array([0, 128, 128], np.uint8))
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

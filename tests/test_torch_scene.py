@@ -268,20 +268,22 @@ def _env(fn):
     return {"type": "spherical", "param": {"color": {"fn": asset(fn)}}}
 
 
-def _named_exr(fn):
-    """A copy of the asset `fn` under a .exr name (OpenCV's reader for
-    its content, by the JAX package's rule)."""
-    import shutil
+def _j2k_exr():
+    """A JPEG 2000 codestream (its SOC and SIZ markers) under a .exr name:
+    OpenCV's JPEG 2000 reader by the JAX package's rule."""
     import tempfile
-    p = os.path.join(tempfile.mkdtemp(), os.path.splitext(fn)[0] + ".exr")
-    shutil.copyfile(asset(fn), p)
+    p = os.path.join(tempfile.mkdtemp(), "j2k.exr")
+    with open(p, "wb") as f:
+        f.write(b"\xffO\xffQ\x00\x29" + bytes(39))
     return p
 
 
 OUT_OF_SLICE = {
-    # a YCbCr JPEG-in-TIFF named .exr: OpenCV's TIFF reader (slice 7e.3b)
+    # an image under a .exr name that OpenCV decodes and the port does not
+    # yet: a JPEG 2000 codestream (slice 7e.7; until slice 7e.3b this case
+    # named a YCbCr JPEG-in-TIFF, which OpenCV's TIFF reader now decodes)
     "ycc_exr_image": (lambda: _edit(lambda s: s["materials"][0][
-        "param"].update(color={"fn": _named_exr("jpeg_ycbcr.tif")})), "7e"),
+        "param"].update(color={"fn": _j2k_exr()})), "7e.7"),
 }
 
 # features out of the slice before slice 7e.1 (a WebP image), before slice
@@ -354,8 +356,8 @@ BVH_SCENES = {
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
                          + sorted(PORTED))
 def test_out_of_slice_raises(name):
-    """A feature outside the ported slices (a YCbCr TIFF under a .exr
-    name, which OpenCV's TIFF reader decodes) raises NotImplementedError
+    """A feature outside the ported slices (a JPEG 2000 codestream under a
+    .exr name, which OpenCV's JPEG 2000 reader decodes) raises NotImplementedError
     naming its slice; the two scenes of
     BVH_SCENES, out of the slice before slices 2 and 3, load and carry the
     tree their kernel walks; the scenes of PORTED, out of it before slice

@@ -421,6 +421,45 @@ def cbox_tex_dds_ref(res=512):
     return _swap_files(cbox_tex(res), CBOX_TEX_DDS_REF)
 
 
+# slice 7e.3b: TIFF and GIF files under .hdr / .exr names, read through
+# OpenCV's own readers (tools/gen_torch_cvtiff.py). The float TIFF holds
+# sky_a's floats; each scene is held against one reading the pip cv2's
+# decode of its file from a FLOAT OpenEXR file or a PFM named .hdr. Under
+# a .hdr name the GIF's samples come as 0-255 with no /255, so the
+# projector's scale is divided by 255.
+def cbox_sky_cvtiff(res=512):
+    """`cbox_sky` lit by sky_a as a float32 TIFF (LZW, floating-point
+    predictor) named .exr: it renders as `cbox_sky_cvtiff_ref` does."""
+    return _cbox_sky_file(res, "sky_a_f32.exr")
+
+
+def cbox_sky_cvtiff_ref(res=512):
+    """`cbox_sky` lit by the pip cv2's decode of sky_a_f32.exr, written as
+    an uncompressed FLOAT OpenEXR file."""
+    return _cbox_sky_file(res, "sky_a_f32_ref.exr")
+
+
+def _env_sphere_projector(res, sub_div, fn):
+    s = env_sphere(res, sub_div)
+    proj = s["light_sampler"]["param"]["lights"][1]["param"]
+    proj["color"]["fn"] = asset(fn)
+    proj["scale"] = 40.0 / 255.0
+    return s
+
+
+def env_sphere_cvgif(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a GIF named .hdr (0-255
+    samples, the projector's scale divided by 255): it renders as
+    `env_sphere_cvgif_ref` does."""
+    return _env_sphere_projector(res, sub_div, "projector_gif.hdr")
+
+
+def env_sphere_cvgif_ref(res=512, sub_div=40):
+    """`env_sphere_cvgif` with the pip cv2's decode of its GIF read from a
+    PFM file named .hdr."""
+    return _env_sphere_projector(res, sub_div, "projector_gif_pfm.hdr")
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

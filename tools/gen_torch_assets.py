@@ -50,6 +50,9 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
     the pip cv2.
   * The files of slice 7e.6a and `pil_decodes.npz`, written by
     `tools/gen_torch_pil.py` (its docstring lists them).
+  * The files of slice 7e.3b (TIFF and GIF under .hdr / .exr names) and
+    `cvtiff_decodes.npz`, written by `tools/gen_torch_cvtiff.py` (its
+    docstring lists them).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1287,6 +1290,17 @@ def _webp_module():
     return mod
 
 
+def _cvtiff_module():
+    """`tools/gen_torch_cvtiff.py`, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_cvtiff", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_cvtiff.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _pil_module():
     """`tools/gen_torch_pil.py`, loaded by path."""
     import importlib.util
@@ -1373,6 +1387,7 @@ def main():
                                     grain())
     write_opencv_reader_files(out)
     _pil_module().write_pil_files(out, checker(), bumps(), projector())
+    _cvtiff_module().write_cv_files(out)
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

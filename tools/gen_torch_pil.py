@@ -20,11 +20,12 @@ which it reads.) The encoders here are the tests' too
   * `dds_bytes` / `dds_dx10`: DirectDraw surfaces of any pixel format;
     `bc7_encode`, a BC7 encoder (mode 6: one subset, 7-bit endpoints and
     a p-bit each, 4-bit indices);
-  * `sun_bytes`, `icns_bytes`, `cur_bytes`.
+  * `sun_bytes`, `icns_bytes`, `cur_bytes`, `im_bytes`.
 
 The files: `pcx_*`, `sgi_*`, `msp_*`, `psd_*`, `xpm_*`, `dds_*` (every
 DDS pixel format; `dds_bc6h*` and `dds_bc7_random` of random blocks, so
-every BC6H and BC7 mode), `sun_*`, `icns_*`, `cur_*`; the twins of the
+every BC6H and BC7 mode), `sun_*`, `icns_*`, `cur_*`, `im_*` (IM's N-bit,
+RGB3 / RYB3 and YCC types), `psd_lab_*`; the twins of the
 scenes' PNGs (`tests/torch_scenes.py`): `checker.qoi`, `bumps.ppm`,
 `checker_rle.sgi`, `projector_bmp.ico` (the same pixels), `checker_bc7.dds`
 (lossy) and `checker_bc7_pil.png` (PIL's decode of it); and
@@ -355,6 +356,13 @@ def cur_bytes(img, mode):
 # the files
 # ---------------------------------------------------------------------------
 
+def im_bytes(itype, w, h, body):
+    """An IFUNC IM file of type `itype` (its header text to 0x1A) and the
+    pixel bytes `body`."""
+    head = f"Image type: {itype}\r\nImage size (x*y): {w}*{h}\r\n".encode()
+    return head.ljust(511, b"\0") + b"\x1a" + body
+
+
 def _save(img, fmt, **kw):
     from PIL import Image
     b = io.BytesIO()
@@ -404,7 +412,7 @@ def pil_files(checker, bumps, projector):
     bits[2] = True
     files["msp_v2.msp"] = msp_bytes(bits)
     files["msp_v1.msp"] = msp_bytes(bits, v2=False)
-    # PSD: every mode PIL maps but Lab (ROADMAP 7e.6a), raw and PackBits
+    # PSD: every mode PIL maps but Lab (below), raw and PackBits
     for pmode, nb, nch, name in ((0, 1, 1, "bitmap"), (1, 8, 1, "grey"),
                                  (2, 8, 1, "indexed"), (3, 8, 3, "rgb"),
                                  (3, 8, 4, "rgba"), (3, 8, 5, "rgb5"),
@@ -496,6 +504,22 @@ def pil_files(checker, bumps, projector):
     rgba = np.concatenate([checker, np.full(checker.shape[:2] + (1,), 255,
                                             np.uint8)], -1)
     files["checker_bc7.dds"] = dds_dx10(64, 64, 98, bc7_encode(rgba))
+    # IM: the types PIL reads through its bit decoder, the three-plane and
+    # the YCC ones (their own seed, after the files above)
+    gi = np.random.default_rng(1701)
+    for itype, name, nbytes in (("L*12 image", "l12", (w * 12 + 7) // 8 * h),
+                                ("L*5 image", "l5", (w * 5 + 7) // 8 * h),
+                                ("L*24 image", "l24", w * 3 * h),
+                                ("RGB3 image", "rgb3", 3 * w * h),
+                                ("RYB3 image", "ryb3", 3 * w * h),
+                                ("YCC image", "ycc", 3 * w * h)):
+        files[f"im_{name}.im"] = im_bytes(itype, w, h, gi.integers(
+            0, 256, nbytes, np.uint8).tobytes())
+    # PSD in Lab mode (PIL converts it through LittleCMS)
+    lab = [gi.integers(0, 256, (h, w), np.uint8) for _ in range(3)]
+    for comp in (0, 1):
+        files[f"psd_lab_{('raw', 'packbits')[comp]}.psd"] = psd_bytes(
+            9, 8, lab, w, h, comp)
     return files
 
 

@@ -859,9 +859,10 @@ int64_t vt_dwa_unrle_ac(const uint16_t *ac, int64_t n_ac, int64_t n_blocks,
 // early width change (codes 256 clear, 257 end, 9 to 12 bits); else GIF's
 // and old-style TIFF's (least significant bit first, clear 2^min_bits,
 // widths from min_bits + 1 to 12, changed when the table fills a width).
-// Returns the bytes written; -2 for a code not yet in the table (both
-// libraries stop with an error there). A stream that ends without its end
-// code returns the bytes it gave.
+// Returns the bytes written; -2 - k for a code not yet in the table after
+// k bytes (both libraries stop with an error there; the k bytes stay in
+// `out`). A stream that ends without its end code returns the bytes it
+// gave.
 int64_t vt_lzw_decode(const uint8_t *in, int64_t n_in, uint8_t *out,
                       int64_t n_out, int32_t min_bits, int32_t msb) {
   const int clear = 1 << min_bits, eoi = clear + 1;
@@ -888,7 +889,7 @@ int64_t vt_lzw_decode(const uint8_t *in, int64_t n_in, uint8_t *out,
     }
     int cur;
     if (prev < 0) {
-      if (code >= next) return -2;
+      if (code >= next) return -2 - k;
       cur = int(code);
     } else if (code < next) {
       cur = int(code);
@@ -906,7 +907,7 @@ int64_t vt_lzw_decode(const uint8_t *in, int64_t n_in, uint8_t *out,
       length[next] = length[prev] + 1;
       cur = next++;
     } else {
-      return -2;
+      return -2 - k;
     }
     int n = length[cur];
     int c = cur;

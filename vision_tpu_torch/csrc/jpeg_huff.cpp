@@ -10,7 +10,7 @@
 // As libjpeg decodes: 0xFF 0x00 is a stuffed 0xFF; a marker met inside the
 // data ends it and zeros are read in its place; at each restart interval
 // the bit buffer is dropped, the DC predictions and the end-of-band run
-// reset, and the RSTn marker skipped.
+// reset, and the RSTn marker read as libjpeg reads it (`read_restart`).
 //
 // C ABI, bound with ctypes.
 
@@ -33,6 +33,12 @@ struct Bits {
   uint64_t acc = 0;
   int n = 0;
   bool at_marker = false;
+  // the bits of `acc` read from the file (the rest are zeros fed at a
+  // marker or at the file's end), and whether the decoder took more:
+  // libjpeg's insufficient_data at a marker; at the file's end PIL's
+  // suspended libjpeg waits for more data, and then refuses the file
+  int real = 0;
+  bool short_data = false, past_end = false;
 
   void fill() {
     while (n <= 56) {
@@ -43,12 +49,17 @@ struct Bits {
           uint32_t next = p + 1 < end ? p[1] : 0xD9;
           if (next == 0x00) {
             p += 2;
-          } else {
+            real += 8;
+          } else if (p + 1 < end) {
             at_marker = true;  // leave p on the marker; feed zeros
+            c = 0;
+          } else {
+            p = end;  // a lone 0xFF at the file's end
             c = 0;
           }
         } else {
           ++p;
+          real += 8;
         }
       }
       acc |= (uint64_t)c << (56 - n);
@@ -60,6 +71,13 @@ struct Bits {
     return (uint32_t)(acc >> 48);
   }
   void skip(int k) {
+    if (k > real) {
+      if (at_marker)
+        short_data = true;
+      else
+        past_end = true;
+    }
+    real = k > real ? 0 : real - k;
     acc <<= k;
     n -= k;
   }
@@ -70,33 +88,51 @@ struct Bits {
     skip(k);
     return v;
   }
+  void reset() {
+    acc = 0;
+    n = 0;
+    real = 0;
+    at_marker = false;
+    short_data = false;
+  }
 };
 
-// A 16-bit lookup: entry = length << 8 | value, 0 for no code.
+// A 16-bit lookup: entry = length << 8 | value, 0 for no code. build()
+// refuses what libjpeg's jpeg_make_d_derived_tbl refuses: codes that do
+// not fit their length (the all-ones code included) and, for a DC table,
+// symbols past 15 (16 in a lossless scan).
 struct Table {
   std::vector<uint16_t> lut;
-  bool build(const uint8_t *bits, const uint8_t *vals) {
+  bool build(const uint8_t *bits, const uint8_t *vals, int max_symbol = 255) {
     lut.assign(1 << 16, 0);
     uint32_t code = 0;
     int k = 0;
     for (int len = 1; len <= 16; ++len) {
       for (int i = 0; i < bits[len - 1]; ++i) {
-        if (code >= (1u << len)) return false;
+        if (vals[k] > max_symbol) return false;
         uint32_t lo = code << (16 - len), hi = (code + 1) << (16 - len);
-        for (uint32_t c = lo; c < hi; ++c)
+        for (uint32_t c = lo; c < hi && c < (1u << 16); ++c)
           lut[c] = (uint16_t)(len << 8 | vals[k]);
         ++code;
         ++k;
       }
+      if (bits[len - 1] && code >= (1u << len)) return false;
       code <<= 1;
     }
     return true;
   }
 };
 
+// A code that is not in the table reads 17 bits and decodes as symbol 0,
+// as libjpeg's jpeg_huff_decode does ("corrupt data: bad Huffman code",
+// a warning).
 inline int decode(Bits &b, const Table &t) {
   uint16_t e = t.lut[b.peek16()];
-  if (e == 0) return -1;
+  if (e == 0) {
+    b.skip(16);
+    b.get(1);
+    return 0;
+  }
   b.skip(e >> 8);
   return e & 0xFF;
 }
@@ -105,8 +141,9 @@ inline int32_t extend(int32_t v, int s) {
   return v < (1 << (s - 1)) ? v + (int32_t)((~0u) << s) + 1 : v;
 }
 
-// Decode one block of a scan into `blk` (natural order). Returns false on a
-// bad Huffman code. Sequential scans (prog false) decode a whole block;
+// Decode one block of a scan into `blk` (natural order); always true (a
+// bad Huffman code decodes as symbol 0). Sequential scans (prog false)
+// decode a whole block;
 // progressive ones (prog true) one band of it as libjpeg's jdphuff.c does:
 // DC first (Ah = 0) or refinement, AC first or refinement with end-of-band
 // runs carried in `eobrun` across blocks.
@@ -122,7 +159,6 @@ bool decode_block(Bits &b, const Table &dc, const Table &ac, const Scan &sc,
       if (b.get(1)) blk[0] |= (int16_t)(1 << sc.al);
     } else {
       int s = decode(b, dc);
-      if (s < 0) return false;
       pred += s ? extend(b.get(s), s) : 0;
       blk[0] = (int16_t)(pred * (1 << sc.al));
     }
@@ -131,7 +167,6 @@ bool decode_block(Bits &b, const Table &dc, const Table &ac, const Scan &sc,
   if (!sc.prog) {
     for (int k = 1; k < 64; ++k) {
       int rs = decode(b, ac);
-      if (rs < 0) return false;
       int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
@@ -151,7 +186,6 @@ bool decode_block(Bits &b, const Table &dc, const Table &ac, const Scan &sc,
     }
     for (int k = sc.ss; k <= sc.se; ++k) {
       int rs = decode(b, ac);
-      if (rs < 0) return false;
       int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
@@ -177,7 +211,6 @@ bool decode_block(Bits &b, const Table &dc, const Table &ac, const Scan &sc,
   if (eobrun == 0) {
     for (; k <= sc.se; ++k) {
       int rs = decode(b, ac);
-      if (rs < 0) return false;
       int r = rs >> 4, s = rs & 15;
       if (s) {
         s = b.get(1) ? p1 : m1;  // a new coefficient's size is always 1
@@ -208,26 +241,46 @@ bool decode_block(Bits &b, const Table &dc, const Table &ac, const Scan &sc,
   return true;
 }
 
-// Skip to the RSTn marker that ends a restart interval: from `p`, past
-// fill bytes (and, for the arithmetic decoder, which reads ahead, any data
-// before the marker, as libjpeg's next_marker does). Null if it is not
-// there.
-const uint8_t *skip_restart(const uint8_t *p, const uint8_t *end,
-                            bool search) {
-  while (search && p + 1 < end &&
-         !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF))
-    ++p;
-  while (p < end && *p == 0xFF && p + 1 < end && p[1] == 0xFF) ++p;
-  if (p + 1 < end && p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7)
-    return p + 2;
-  return nullptr;
+// libjpeg's read_restart_marker at the end of a restart interval: the
+// next marker from `q` on, past any data left, stuffed zeros and fill
+// bytes (next_marker), held against RSTn of the number `desired`, and where
+// it is not that one, jpeg_resync_to_restart's choice: a marker below SOF0
+// or one of the two RSTn before the desired one is passed over for the
+// next marker; any other non-RST marker, or one of the next two RSTn,
+// stays where it is (`left`: the interval decodes from no data); any
+// other RSTn is taken as the desired one. Returns where decoding resumes,
+// or null at the file's end (PIL refuses the file).
+const uint8_t *read_restart(const uint8_t *q, const uint8_t *end,
+                            int desired, bool &left) {
+  for (;;) {
+    while (q + 1 < end && !(q[0] == 0xFF && q[1] != 0x00 && q[1] != 0xFF))
+      ++q;
+    if (q + 1 >= end) return nullptr;
+    const int m = q[1];
+    auto rst = [desired](int k) { return 0xD0 + ((desired + k) & 7); };
+    bool pass_over = false;
+    if (m == rst(0)) {
+      left = false;
+    } else if (m < 0xC0) {
+      pass_over = true;
+    } else if (m < 0xD0 || m > 0xD7 || m == rst(1) || m == rst(2)) {
+      left = true;
+    } else if (m == rst(-1) || m == rst(-2)) {
+      pass_over = true;
+    } else {
+      left = false;
+    }
+    if (!pass_over) return left ? q : q + 2;
+    q += 2;
+  }
 }
 
 // Walk the MCUs of a scan. `cd` decodes: cd.restart() at the end of each
 // restart interval (false: the marker is missing), cd.block(c, blk) one
 // block of the scan's component c (false: corrupt data), and cd.pos() is
 // where it reads. Returns the offset of the marker that ends the scan, or
-// -1 / -3 as vt_jpeg_decode_scan.
+// -1 / -3 as vt_jpeg_decode_scan. An MCU met once `cd.out_of_data()` is
+// left as it is.
 template <class Coder>
 int64_t walk_scan(Coder &cd, const uint8_t *data, int32_t ncomp,
                   const int32_t *comp, int16_t **coef, int32_t mcux,
@@ -243,6 +296,8 @@ int64_t walk_scan(Coder &cd, const uint8_t *data, int32_t ncomp,
   for (int64_t m = 0; m < n_mcu; ++m) {
     if (restart > 0 && m > 0 && m % restart == 0 && !cd.restart()) return -3;
     int64_t my = m / per_row, mx = m % per_row;
+    // out of data (libjpeg's insufficient_data): the MCU is left as it is
+    if (cd.out_of_data()) continue;
     for (int c = 0; c < ncomp; ++c) {
       const int32_t *ci = comp + c * 7;
       int h = ncomp == 1 ? 1 : ci[2], v = ncomp == 1 ? 1 : ci[3];
@@ -270,16 +325,26 @@ struct HuffCoder {
   int32_t pred[4] = {0, 0, 0, 0};
   int32_t eobrun = 0;
 
+  int next_rst = 0;
+
+  // libjpeg's process_restart: the bit buffer dropped, read_restart; a
+  // marker left in place makes the interval decode from zeros (and keeps
+  // an out-of-data flag). False at the file's end.
   bool restart() {
-    b.acc = 0;
-    b.n = 0;
-    b.at_marker = false;
-    b.p = skip_restart(b.p, b.end, false);
-    if (b.p == nullptr) return false;
+    bool left;
+    const uint8_t *q = read_restart(b.p, b.end, next_rst, left);
+    next_rst = (next_rst + 1) & 7;
+    if (q == nullptr) return false;
+    const bool was_short = b.short_data;
+    b.reset();
+    b.p = q;
+    b.at_marker = left;
+    b.short_data = left && was_short;
     memset(pred, 0, sizeof(pred));
     eobrun = 0;
     return true;
   }
+  bool out_of_data() const { return b.short_data; }
   bool block(int c, int16_t *blk) {
     const int32_t *ci = comp + c * 7;
     return decode_block(b, tables[ci[0]], tables[4 + ci[1]], sc, pred[c],
@@ -302,9 +367,11 @@ int64_t decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
     if (need_ac) used[4 + comp[c * 7 + 1]] = true;
   }
   for (int t = 0; t < 8; ++t)
-    if (used[t] && !cd.tables[t].build(bits + 16 * t, vals + 256 * t))
+    if (used[t] &&
+        !cd.tables[t].build(bits + 16 * t, vals + 256 * t, t < 4 ? 15 : 255))
       return -2;
-  return walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart);
+  int64_t end = walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart);
+  return cd.b.past_end ? -6 : end;
 }
 
 // The QM coder's probability estimation (ITU-T T.81 Table D.2, libjpeg's
@@ -475,15 +542,23 @@ struct ArithCoder {
     v += 1;
     return true;
   }
+  int next_rst = 0;
+
+  // jdarith.c's process_restart: read_restart (the decoder reads ahead, so
+  // data left before the marker is passed over); a marker left in place
+  // feeds zeros. False at the file's end.
   bool restart() {
-    p = skip_restart(p, end_, !marker);
+    bool left;
+    p = read_restart(p, end_, next_rst, left);
+    next_rst = (next_rst + 1) & 7;
     if (p == nullptr) return false;
-    marker = false;
+    marker = left;
     reset();
     return true;
   }
   bool block(int ci, int16_t *blk);
   const uint8_t *pos() const { return p; }
+  bool out_of_data() const { return false; }
   const uint8_t *end() const { return end_; }
 };
 
@@ -581,29 +656,32 @@ int64_t decode_lossless(const uint8_t *data, int64_t len, int32_t ncomp,
   bool used[4] = {false};
   for (int c = 0; c < ncomp; ++c) used[dc_table[c]] = true;
   for (int t = 0; t < 4; ++t)
-    if (used[t] && !tables[t].build(bits + 16 * t, vals + 256 * t)) return -2;
+    if (used[t] && !tables[t].build(bits + 16 * t, vals + 256 * t, 16))
+      return -2;
   if (restart > 0 && restart % w != 0) return -4;  // not whole rows
   const int64_t rows = restart > 0 ? restart / w : 0;
   const int32_t initial = 1 << (8 - pt - 1);
   Bits b{data, data + len};
-  for (int64_t y = 0; y < h; ++y) {
+  for (int64_t y = 0, next_rst = 0; y < h; ++y) {
     if (rows > 0 && y > 0 && y % rows == 0) {
-      b.acc = 0;
-      b.n = 0;
-      b.at_marker = false;
-      while (b.p < b.end && *b.p == 0xFF && b.p + 1 < b.end && b.p[1] == 0xFF)
-        ++b.p;
-      if (b.p + 1 < b.end && b.p[0] == 0xFF && b.p[1] >= 0xD0 && b.p[1] <= 0xD7)
-        b.p += 2;
-      else
-        return -3;
+      bool left;
+      const uint8_t *q = read_restart(b.p, b.end, int(next_rst), left);
+      next_rst = (next_rst + 1) & 7;
+      if (q == nullptr) return -3;
+      const bool was_short = b.short_data;
+      b.reset();
+      b.p = q;
+      b.at_marker = left;
+      b.short_data = left && was_short;
     }
+    // a row begun out of data (libjpeg's insufficient_data) has zero
+    // differences and restarts the undifferencer: a first row
+    const bool empty = b.short_data;
     // the first row of the image or of a restart interval: from the left
-    const bool first = y == 0 || (rows > 0 && y % rows == 0);
+    const bool first = empty || y == 0 || (rows > 0 && y % rows == 0);
     for (int64_t x = 0; x < w; ++x) {
       for (int c = 0; c < ncomp; ++c) {
-        int s = decode(b, tables[dc_table[c]]);
-        if (s < 0) return -1;
+        int s = empty ? 0 : decode(b, tables[dc_table[c]]);
         int32_t diff = s == 0 ? 0 : s == 16 ? 32768 : extend(b.get(s), s);
         uint16_t *row = out[c] + y * w;
         const uint16_t *up = y > 0 ? row - w : row;
@@ -660,9 +738,12 @@ extern "C" {
 //   prog: 0 for a sequential scan (the whole of each block), 1 for one scan
 //     of a progressive file: the band ss..se at successive approximation
 //     ah (0 on a first scan), al; its coefficients add to the planes'
-// Returns the offset of the marker that ends the scan, or -1 for a bad
-// Huffman code, -2 for a bad table, -3 for a missing restart marker, -5
-// for a scan of no or more than 4 components or a table outside 0-3.
+// Returns the offset of the marker that ends the scan, or -2 for a bad
+// table, -3 for a restart interval the file ends in, -5 for a scan of no
+// or more than 4 components or a table outside 0-3, -6 for data the file
+// ends in (PIL's libjpeg waits for more and PIL refuses the file). Data
+// that meets a marker early decodes as libjpeg decodes it: zeros, then
+// the MCUs after the one that ran short left as they are.
 int64_t vt_jpeg_decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
                             const int32_t *comp, int16_t **coef,
                             const uint8_t *bits, const uint8_t *vals,

@@ -188,7 +188,9 @@ def _scan_end(rc):
                           -4: "a lossless JPEG restart interval of part of "
                               "a row (libjpeg refuses it)",
                           -5: "a JPEG scan of no or more than 4 components, "
-                              "or a table outside 0-3"}[rc])
+                              "or a table outside 0-3",
+                          -6: "JPEG data cut short by the file's end (PIL "
+                              "refuses it as truncated)"}[rc])
     return rc
 
 
@@ -282,18 +284,17 @@ def dwa_unrle_ac(ac, n_blocks):
 
 
 def lzw_decode(data, n_out, min_bits=8, msb=True):
-    """LZW -> uint8 [at most n_out]: msb=True, TIFF's (9- to 12-bit codes,
-    most significant bit first, the early width change); msb=False, GIF's
-    and old-style TIFF's (least significant bit first, codes from
-    min_bits + 1 bits). Stops at the end code, at n_out bytes or where the
-    data ends. Raises ValueError for a code not yet in the table."""
+    """LZW -> (uint8 [at most n_out], whether it decoded without an error):
+    msb=True, TIFF's (9- to 12-bit codes, most significant bit first, the
+    early width change); msb=False, GIF's and old-style TIFF's (least
+    significant bit first, codes from min_bits + 1 bits). Stops at the end
+    code, at n_out bytes or where the data ends; at a code not yet in the
+    table it gives the bytes before it and False."""
     buf = _bytes(data)
     out = np.zeros(max(n_out, 1), np.uint8)
     n = _library().vt_lzw_decode(buf.ctypes.data, len(data), out.ctypes.data,
                                  n_out, min_bits, int(msb))
-    if n < 0:
-        raise ValueError("corrupt LZW data: a code not yet in the table")
-    return out[:n]
+    return (out[:n], True) if n >= 0 else (out[:-2 - n], False)
 
 
 def packbits_decode(data, n_out):

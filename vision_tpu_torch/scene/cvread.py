@@ -15,7 +15,10 @@ those readers of OpenCV 5.0 (the JAX package's `cv2`) give for
   * Sun raster (`read_sunras`, grfmt_sunras.cpp);
   * BMP (`read_bmp_cv`, grfmt_bmp.cpp), OpenCV's rules, not PIL's;
   * CMYK and YCCK JPEG (`read_jpeg_cmyk`): libjpeg-turbo's CMYK samples
-    converted by OpenCV's icvCvt_CMYK2BGR_8u_C4C3R.
+    converted by OpenCV's icvCvt_CMYK2BGR_8u_C4C3R;
+  * GIF (`read_gif_cv`, grfmt_gif.cpp): frame 0 on the logical screen.
+
+OpenCV's TIFF reader, which runs libtiff, is `cvtiff.py`.
 
 Each returns OpenCV's image as the loader takes it: [H, W] for one
 channel, [H, W, 3] in OpenCV's B, G, R order, uint8 / uint16 / float32.
@@ -27,6 +30,8 @@ import re
 import struct
 
 import numpy as np
+
+from .. import native
 
 # OpenCV's limits on a decoded image (loadsave.cpp validateInputImageSize)
 _MAX_SIDE, _MAX_PIXELS = 1 << 20, 1 << 30
@@ -622,3 +627,132 @@ def cmyk_to_bgr(cmyk):
     c, m, y = (k - (((255 - cmyk[..., i].astype(np.int64)) * k) >> 8)
                for i in range(3))
     return np.stack([y, m, c], -1).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# GIF
+# ---------------------------------------------------------------------------
+
+def _gif_skip_blocks(data, pos):
+    """Past a chain of data sub-blocks and its terminator; refused where
+    the file ends first."""
+    while True:
+        if pos >= len(data):
+            raise _refused("GIF", "cut in a data block")
+        n = data[pos]
+        pos += 1 + n
+        if n == 0:
+            return pos
+
+
+def read_gif_cv(data):
+    """GIF bytes -> frame 0 as OpenCV 5.0's own GIF reader (grfmt_gif.cpp)
+    gives it, B, G, R uint8 [H, W, 3]. Read from the pip cv2's decodes of
+    generated files: the header's walk over every block to the trailer
+    (any other byte, or the file's end, refused); a screen of the global
+    table's background colour (black without a global table; a background
+    index past the table refused); the frame, which must lie inside the
+    screen, drawn over it but for its transparent index; its local table,
+    else the global one, else a grey ramp with index 1 white (an index
+    past the table refused); a graphic control block of other than 4
+    bytes refused; LZW minimum code sizes 2-11; codes that give fewer
+    pixels than the frame holds refused, and a stream that goes on past
+    its last pixel (more pixels or a bad code after them, which OpenCV
+    decodes in some cases) NotImplementedError naming ROADMAP C27;
+    interlaced rows."""
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise _refused("GIF", "of another signature")
+    if len(data) < 13:
+        raise _refused("GIF", "cut in its header")
+    sw, sh, flags, bg = struct.unpack_from("<HHBB", data, 6)
+    pos = 13
+    table = None
+    if flags & 0x80:
+        n = 2 << (flags & 7)
+        if pos + 3 * n > len(data):
+            raise _refused("GIF", "cut in its colour table")
+        table = np.frombuffer(data, np.uint8, 3 * n, pos).reshape(n, 3)
+        pos += 3 * n
+        if bg >= n:
+            raise _refused("GIF", f"of background index {bg} past its table")
+    start = pos
+    frames = 0
+    while True:                              # readHeader's frame count
+        if pos >= len(data):
+            raise _refused("GIF", "without its trailer")
+        c = data[pos]
+        pos += 1
+        if c == 0x3B:
+            break
+        if c == 0x21:
+            pos = _gif_skip_blocks(data, pos + 1)
+        elif c == 0x2C:
+            if pos + 9 > len(data):
+                raise _refused("GIF", "cut in an image descriptor")
+            fl = data[pos + 8]
+            pos += 9 + (3 * (2 << (fl & 7)) if fl & 0x80 else 0) + 1
+            pos = _gif_skip_blocks(data, pos)
+            frames += 1
+        else:
+            raise _refused("GIF", f"of a block 0x{c:02X}")
+    if not frames:
+        raise _refused("GIF", "without an image")
+    _check_size("GIF", sw, sh)
+    pos, trans = start, None
+    while data[pos] == 0x21:                 # frame 0's extensions
+        if data[pos + 1] == 0xF9:
+            if data[pos + 2] != 4:
+                raise _refused("GIF", "of a graphic control block of other "
+                               "than 4 bytes")
+            if data[pos + 3] & 1:
+                trans = data[pos + 6]
+        pos = _gif_skip_blocks(data, pos + 2)
+    x0, y0, fw, fh, fl = struct.unpack_from("<HHHHB", data, pos + 1)
+    pos += 10
+    if not (fw > 0 and fh > 0 and x0 + fw <= sw and y0 + fh <= sh):
+        raise _refused("GIF", "of a frame outside its screen")
+    pal = table
+    if fl & 0x80:
+        n = 2 << (fl & 7)
+        pal = np.frombuffer(data, np.uint8, 3 * n, pos).reshape(n, 3)
+        pos += 3 * n
+    if pal is None:      # no table: the grey ramp, but index 1 white
+        pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+        pal[1] = 255
+    bits = data[pos]
+    if not 2 <= bits <= 11:
+        raise _refused("GIF", f"of LZW minimum code size {bits}")
+    lzw = bytearray()
+    pos += 1
+    while data[pos]:
+        lzw += data[pos + 1:pos + 1 + data[pos]]
+        pos += 1 + data[pos]
+    n_px = fw * fh
+    idx, ok = native.lzw_decode(bytes(lzw), n_px + 4096, bits, msb=False)
+    if len(idx) >= n_px and (len(idx) > n_px or not ok):
+        # OpenCV decodes some streams that go on past the frame's last
+        # pixel and refuses others; its rule is not modelled yet
+        raise NotImplementedError(
+            "decoding GIF code streams that run past the frame's last pixel "
+            "as OpenCV does is not ported yet: ROADMAP C27")
+    if not ok:
+        raise _refused("GIF", "of corrupt LZW data")
+    if len(idx) != n_px:
+        raise _refused("GIF", f"whose codes give {len(idx)} pixels for "
+                       f"{n_px}")
+    idx = idx.astype(np.int64).reshape(fh, fw)
+    if idx.max() >= len(pal):
+        raise _refused("GIF", "of an index past its colour table")
+    if fl & 0x40:                            # interlaced rows
+        order = np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                np.arange(2, fh, 4), np.arange(1, fh, 2)])
+        frame = np.empty_like(idx)
+        frame[order] = idx
+        idx = frame
+    screen = np.zeros((sh, sw, 3), np.uint8)
+    if table is not None:
+        screen[:] = table[bg]
+    view = screen[y0:y0 + fh, x0:x0 + fw]
+    draw = idx != trans if trans is not None else np.ones_like(idx, bool)
+    view[draw] = pal[idx[draw]]
+    return np.ascontiguousarray(screen[..., ::-1])

@@ -27,10 +27,12 @@ refuses:
     decodes them, in libjpeg's integer arithmetic: the ISLOW IDCT
     (`jidctint.c`), "fancy" triangle-filter upsampling of h2v1, h1v2 and
     h2v2 chroma (`jdsample.c`), the YCbCr -> RGB tables (`jdcolor.c`),
-    PIL's inverted CMYK and its CMYK -> RGB. Arithmetic-coded lossless and
-    subsampled lossless files raise NotImplementedError naming ROADMAP
-    queue A, 7e; 12-bit, hierarchical and fractionally sampled ones are
-    refused.
+    PIL's inverted CMYK and its CMYK -> RGB; corrupt files as PIL and
+    libjpeg-turbo read them (PIL's marker walk, libjpeg's segment rules,
+    its standard Huffman tables, a bad code as symbol 0, data that meets a
+    marker early: ROADMAP C26). Arithmetic-coded lossless and subsampled
+    lossless files raise NotImplementedError naming ROADMAP queue A, 7e;
+    12-bit, hierarchical and fractionally sampled ones are refused.
   * BMP (`read_bmp`) and TGA (`read_tga`): as PIL's plugins read them
     (their docstrings list the variants), quirks included.
   * TIFF (`read_tiff`) and GIF (`read_gif`): as PIL (libtiff for
@@ -52,17 +54,17 @@ refuses:
     sub-sampled ones included; a corrupt file as libOpenEXR 3.1 reads it:
     ROADMAP C25), then converted by OpenCV's rules: R, G, B (missing ones
     0), or luminance-chroma converted, or Y replicated.
-  * Under a .hdr / .exr name, OpenCV's own BMP, Sun raster, PNM, PFM and
-    PAM readers and its CMYK / YCCK JPEG conversion (`cvread.py`).
+  * Under a .hdr / .exr name, OpenCV's own BMP, Sun raster, PNM, PFM,
+    PAM and GIF readers and its CMYK / YCCK JPEG conversion
+    (`cvread.py`), and its TIFF reader over libtiff (`cvtiff.py`).
   * Under any other name, the plugins of PIL tried in PIL's order, and
     the small formats of PIL's own plugins (`pilread.py`).
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-The rarer TIFF codecs, OpenCV's TIFF, GIF, JPEG 2000 and AVIF readers
-under a .hdr / .exr name, and the formats PIL opens that `pilread.py`
-does not decode yet raise NotImplementedError naming their item of
-ROADMAP queue A, 7e.
+The rarer TIFF codecs, OpenCV's JPEG 2000 and AVIF readers under a .hdr /
+.exr name, and the formats PIL opens that `pilread.py` does not decode
+yet raise NotImplementedError naming their item of ROADMAP queue A, 7e.
 """
 from __future__ import annotations
 
@@ -74,7 +76,7 @@ import zlib
 import numpy as np
 
 from .. import native
-from . import cvread, pilread, webp
+from . import cvread, cvtiff, pilread, tiffdir, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -114,9 +116,7 @@ def _read_pil(data, name):
 
 # magic numbers of the formats OpenCV's own readers take that this module
 # does not decode under a .hdr / .exr name (ROADMAP 7e.3b)
-_OPENCV_OTHER = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"),
-                 (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                 (b"\0\0\0\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"))
+_OPENCV_OTHER = ((b"\0\0\0\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"))
 
 
 def _is_avif(data):
@@ -141,10 +141,11 @@ def _read_opencv(data, name):
     whole; a grey, YCbCr or RGB JPEG as PIL decodes it (OpenCV's
     libjpeg-turbo gives the same samples), a CMYK or YCCK one through
     OpenCV's own conversion; a WebP file as OpenCV's libwebp decodes it
-    (`webp.decode_opencv`); BMP, Sun raster, PNM, PFM and PAM files by
-    OpenCV's own readers (`cvread`). OpenCV's TIFF, GIF, JPEG 2000 and
-    AVIF readers raise NotImplementedError (7e); content OpenCV cannot
-    read raises ValueError."""
+    (`webp.decode_opencv`); BMP, Sun raster, PNM, PFM, PAM and GIF files
+    by OpenCV's own readers (`cvread`), TIFF by its libtiff reader
+    (`cvtiff`). OpenCV's JPEG 2000 and AVIF readers raise
+    NotImplementedError (7e.7, 7e.8); content OpenCV cannot read raises
+    ValueError."""
     if data[:2] == b"#?":
         return read_hdr(data)
     if _is_exr(data):
@@ -159,6 +160,10 @@ def _read_opencv(data, name):
         return webp.decode_opencv(data, name)[0].astype(np.float32)
     if data[:2] == b"BM":
         return _from_cv(cvread.read_bmp_cv(data))
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return _from_cv(cvtiff.read_tiff_cv(data))
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return _from_cv(cvread.read_gif_cv(data))
     if data[:4] == cvread.SUNRAS_MAGIC:
         return _from_cv(cvread.read_sunras(data))
     if len(data) > 2 and data[0] == ord("P") and data[2] in b" \t\n\v\f\r":
@@ -172,7 +177,7 @@ def _read_opencv(data, name):
                  "AVIF" if _is_avif(data) else None)
     if other is not None:
         raise _not_ported(f"'{name}': decoding {other} files as OpenCV does",
-                          "7e")
+                          "7e.7" if other == "JPEG 2000" else "7e.8")
     raise ValueError(f"'{name}': not a format OpenCV (the JAX package's "
                      "reader for .hdr / .exr names) reads")
 
@@ -573,9 +578,12 @@ def bmp_bitmap(data, hpos, offset, halve=False, by_path=True):
     only the upper half of the stated height (CUR and ICO: the colour
     image above the AND mask); `by_path`: PIL
     memory-maps the file (an icon's bitmap is read from its stream
-    instead). Returns (the image, (its pixels' offset, width, height))."""
+    instead). Returns (the image, (its pixels' offset, width, height)).
+    Where `_bitmap` fails as PIL takes for "not this format" (a short read
+    of the header's size or of its bitfield masks, struct.error; an image
+    of no pixels) it raises `pilread._PassOn`: the next plugin is tried."""
     if len(data) < hpos + 4:
-        raise ValueError("truncated BMP header")
+        raise pilread._PassOn                      # i32(read(4))
     hsize, = struct.unpack("<I", data[hpos:hpos + 4])
     hd = data[hpos + 4:hpos + hsize]
     if hsize < 4 or len(hd) != hsize - 4:
@@ -596,17 +604,21 @@ def bmp_bitmap(data, hpos, offset, halve=False, by_path=True):
                 n = 4 if len(hd) >= 52 else 3
                 masks = struct.unpack(f"<{n}I", hd[36:36 + 4 * n])
             else:
+                if len(data) < pos + 12:
+                    raise pilread._PassOn              # i32(read(4))
                 masks = struct.unpack("<3I", data[pos:pos + 12])
                 pos += 12
             masks = tuple(masks) + (0,) * (4 - len(masks))
     else:
         raise _bmp_refused(f"header of {hsize} bytes")
-    if w <= 0 or not 0 < h < 2 ** 31:
+    if w == 0 or h == 0:
+        raise pilread._PassOn                      # no pixels
+    if w < 0 or not 0 < h < 2 ** 31:
         raise _bmp_refused(f"size {w} x {h}")
     if halve:
         h //= 2
         if h <= 0:
-            raise _bmp_refused(f"size {w} x {h}")
+            raise pilread._PassOn                  # no pixels
     colors = colors or 1 << bits
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
@@ -876,77 +888,218 @@ def _jpeg_sampling(data):
     return []
 
 
-def read_jpeg(data, force_ycc=False, cmyk=False):
-    """JPEG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
-    sequential and progressive files of 8-bit samples, Huffman- or
-    arithmetic-coded (DAC conditioning), and lossless Huffman files (1x1
-    sampling); grey, YCbCr, RGB, CMYK and YCCK, the colour space chosen as
-    libjpeg chooses it (JFIF, the Adobe APP14 transform, the component
-    ids); PIL's CMYK -> RGB. Raises NotImplementedError (7e) for
-    arithmetic-coded lossless and subsampled lossless files; ValueError
-    for what PIL
-    refuses too (12- and 16-bit samples, 2 or more than 4 components,
-    hierarchical coding, fractional sampling, lossless YCbCr) and for a
-    corrupt file. `cmyk`: a 4-component file's samples as libjpeg gives
-    them for JCS_CMYK (uint8 [H, W, 4]; a YCCK file converted to CMYK)."""
+def _std_huff(hexes):
+    b = bytes.fromhex(hexes)
+    bits = np.frombuffer(b, np.uint8, 16)
+    vals = np.zeros(256, np.uint8)
+    vals[:len(b) - 16] = np.frombuffer(b, np.uint8, offset=16)
+    return bits, vals
+
+
+# JPEG's standard tables (T.81 K.3), as libjpeg-turbo's jstdhuff.c: the
+# DC tables 0, 1 and the AC tables 0, 1 (rows 4, 5 of huff_bits)
+_JPEG_STD_HUFF = {
+    0: _std_huff("00010501010101010100000000000000000102030405060708090a0b"),
+    1: _std_huff("00030101010101010101010000000000000102030405060708090a0b"),
+    4: _std_huff(
+        "0002010303020403050504040000017d01020300041105122131410613516107"
+        "227114328191a1082342b1c11552d1f02433627282090a161718191a25262728"
+        "292a3435363738393a434445464748494a535455565758595a63646566676869"
+        "6a737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7"
+        "a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+        "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    5: _std_huff(
+        "0002010204040304070504040001027700010203110405213106124151076171"
+        "1322328108144291a1b1c109233352f0156272d10a162434e125f11718191a26"
+        "2728292a35363738393a434445464748494a535455565758595a636465666768"
+        "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5"
+        "a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+        "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")}
+
+
+def _jpeg_next_marker(data, pos):
+    """libjpeg's next_marker from `pos`: bytes up to an 0xFF skipped, fill
+    0xFFs swallowed, a stuffed 0xFF 0x00 skipped -> (the marker's code,
+    the offset after it). Running off the file's end is PIL's refusal
+    ("image file is truncated")."""
+    n = len(data)
+    while True:
+        while pos < n and data[pos] != 0xFF:
+            pos += 1
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            raise ValueError("JPEG data ends before its EOI marker: PIL "
+                             "refuses it as truncated")
+        c = data[pos]
+        pos += 1
+        if c != 0:
+            return c, pos
+
+
+def _jpeg_whole(data, pos, single_scan):
+    """Whether PIL has every line once a scan ends at `pos`: a sequential
+    scan of every component that ended at a marker. libjpeg then reads the
+    markers after it in jpeg_finish_decompress, where PIL takes running
+    out of data (a segment or the search for EOI past the file's end) as
+    the end; an error there still refuses the file."""
+    return single_scan and pos + 1 < len(data) and data[pos] == 0xFF
+
+
+def _pil_jpeg_open(data):
+    """PIL's JpegImageFile._open, which walks the markers to the first SOS
+    before libjpeg reads the file: ValueError where it raises (a short
+    read, a marker not in its table, a frame of other than 8 bits or of
+    other than 1, 3 or 4 components, a short JFIF, Adobe or quantisation
+    table segment, no frame before the scan)."""
+    def refuse(what):
+        return ValueError(f"JPEG {what}: PIL refuses it")
+    n = len(data)
+    s, pos, mode = 0xFF, 3, None
+    while True:
+        if s != 0xFF:                      # junk before a marker: skipped
+            if s is None or pos >= n:
+                raise refuse("that ends before its scan")
+            s, pos = data[pos], pos + 1
+            continue
+        if pos >= n:
+            raise refuse("that ends in a marker")
+        m = data[pos]
+        pos += 1
+        if m == 0xFF:                      # fill byte
+            continue
+        if m == 0x00:                      # a stuffed 0xFF
+            s, pos = (data[pos], pos + 1) if pos < n else (None, pos)
+            continue
+        if m < 0xC0:
+            raise refuse(f"marker 0x{m:02X} (not in PIL's table)")
+        if m != 0xC8 and not 0xD0 <= m <= 0xD9:  # a handler reads a length
+            if pos + 2 > n:
+                raise refuse("segment length cut short")
+            ln = struct.unpack(">H", data[pos:pos + 2])[0] - 2
+            body = data[pos + 2:pos + 2 + max(ln, 0)]
+            if len(body) < ln:
+                raise refuse("segment cut short")
+            pos += 2 + max(ln, 0)
+            if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):  # SOF
+                if len(body) < 6 or body[0] != 8 or body[5] not in (1, 3, 4) \
+                        or (len(body) - 6) % 3:
+                    raise refuse("frame header")
+                mode = body[5]
+                size = struct.unpack(">HH", body[1:5])
+            elif m == 0xDB:
+                i = 0
+                while i < len(body):
+                    i += 1 + 64 * (1 if body[i] < 16 else 2)
+                    if i > len(body):
+                        raise refuse("quantisation table segment")
+            elif m in (0xE0, 0xEE) and body.startswith(
+                    b"JFIF" if m == 0xE0 else b"Adobe") and len(body) < 7:
+                raise refuse("JFIF or Adobe segment")
+            elif m == 0xE2 and body.startswith(b"ICC_PROFILE\0") and \
+                    len(body) < 14:
+                raise refuse("ICC profile segment")
+        if m == 0xDA:
+            if mode is None or 0 in size:
+                raise refuse("scan before a frame with pixels")
+            return
+        s, pos = (data[pos], pos + 1) if pos < n else (None, pos)
+
+
+def _jpeg_scans(data):
+    """JPEG bytes -> (frame, components, their coefficient planes, the
+    quantisation table latched for each, JFIF, Adobe transform, lossless):
+    the markers walked and every scan entropy-decoded as libjpeg-turbo
+    does (`read_jpeg`'s refusals)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
+    _pil_jpeg_open(data)
     qt = {}
     huff_bits = np.zeros((8, 16), np.uint8)
     huff_vals = np.zeros((8, 256), np.uint8)
+    defined = set()         # the Huffman tables a DHT has defined
     frame, comps, planes, latched = None, None, None, {}
     restart, jfif, adobe, progressive, lossless = 0, False, None, False, False
     scanned = single_scan = False
     arith = None  # the conditioning of an arithmetic-coded file (DAC)
+    coef_bits = np.full((4, 10), -1)   # -1: not yet sent; else its Al
     pos = 2
+    whole = False   # PIL has every line: see _jpeg_whole
     while True:
-        while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
-                and data[pos + 1] == 0xFF:
-            pos += 1  # fill bytes before a marker
-        if pos + 2 > len(data) or data[pos] != 0xFF:
-            raise ValueError("corrupt JPEG: expected a marker")
-        marker = data[pos + 1]
+        try:
+            marker, pos = _jpeg_next_marker(data, pos)
+        except ValueError:
+            if whole:
+                break
+            raise
         if marker == 0xD9:  # EOI
             break
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:
-            pos += 2
             continue
-        n, = struct.unpack(">H", data[pos + 2:pos + 4])
-        body = data[pos + 4:pos + 2 + n]
-        if len(body) != n - 2:
+        if marker == 0xD8:
+            raise _jpeg_refused("a second SOI marker in")
+        if marker < 0xC0 or marker in (0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
+            raise _jpeg_refused(f"a reserved marker 0x{marker:02X} in")
+        if pos + 2 > len(data):
+            if whole:
+                break
             raise ValueError("truncated JPEG segment")
-        pos += 2 + n
-        if marker == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\0":
-            jfif = True
-        elif marker == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
-            adobe = body[11]  # the colour transform
-        elif marker == 0xDB:  # DQT
+        n, = struct.unpack(">H", data[pos:pos + 2])
+        if 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC):
+            # libjpeg's skip_variable: a length under 2 skips nothing
+            body = data[pos + 2:pos + max(n, 2)]
+            if len(body) != max(n, 2) - 2:
+                if whole:
+                    break
+                raise ValueError("truncated JPEG segment")
+            pos += max(n, 2)
+            if marker == 0xE0 and len(body) >= 14 and body[:5] == b"JFIF\0":
+                jfif = True
+            elif marker == 0xEE and len(body) >= 12 and body[:5] == b"Adobe":
+                adobe = body[11]  # the colour transform
+            continue
+        body = data[pos + 2:pos + n]
+        if len(body) != n - 2:
+            raise _jpeg_refused("a segment longer than the file, or shorter "
+                                "than 2 bytes, in")
+        pos += n
+        if marker == 0xDB:  # DQT, as libjpeg's get_dqt
             i = 0
             while i < len(body):
                 pq, tq = body[i] >> 4, body[i] & 15
                 size = 128 if pq else 64
+                if tq > 3 or i + 1 + size > len(body):
+                    raise _jpeg_refused("a bad quantisation table in")
                 zz = np.frombuffer(body, ">u2" if pq else "u1", 64, i + 1)
                 q = np.empty(64, np.int64)
                 q[_ZIGZAG] = zz
                 qt[tq] = q
                 i += 1 + size
-        elif marker == 0xC4:  # DHT
+        elif marker == 0xC4:  # DHT, as libjpeg's get_dht
             i = 0
-            while i < len(body):
-                tc, th = body[i] >> 4, body[i] & 15
-                if tc > 1 or th > 3:
-                    raise ValueError("corrupt JPEG Huffman table id")
+            while len(body) - i > 16:
+                idx = body[i]
                 bits = np.frombuffer(body, np.uint8, 16, i + 1)
                 nv = int(bits.sum())
-                if nv > 256:
-                    raise ValueError("corrupt JPEG Huffman table")
-                huff_bits[4 * tc + th] = bits
-                huff_vals[4 * tc + th] = 0
-                huff_vals[4 * tc + th, :nv] = np.frombuffer(body, np.uint8, nv,
-                                                             i + 17)
-                i += 17 + nv
+                i += 17
+                if nv > 256 or nv > len(body) - i:
+                    raise _jpeg_refused("a bad Huffman table in")
+                t = (4 + idx - 0x10) if idx & 0x10 else idx
+                if not (0 <= idx < 4 or 0x10 <= idx < 0x14):
+                    raise _jpeg_refused("a Huffman table id past 3 in")
+                huff_bits[t] = bits
+                huff_vals[t] = 0
+                huff_vals[t, :nv] = np.frombuffer(body, np.uint8, nv, i)
+                defined.add(t)
+                i += nv
+            if i != len(body):
+                raise _jpeg_refused("a Huffman table segment of the wrong "
+                                    "length in")
         elif marker == 0xDD:  # DRI
-            restart, = struct.unpack(">H", body[:2])
+            if len(body) != 2:
+                raise _jpeg_refused("a restart interval of the wrong length "
+                                    "in")
+            restart, = struct.unpack(">H", body)
         elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             if frame is not None:
                 raise _jpeg_refused("a second frame header in")
@@ -1010,6 +1163,20 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
             if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
                 raise _jpeg_refused("a scan header of the wrong length or of "
                                     f"{ns} components in")
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+            if not scanned and arith is None and not progressive:
+                # libjpeg-turbo's std_huff_tables, when its sequential or
+                # lossless decoder starts (not the progressive one): tables
+                # 0 and 1 that no DHT has defined are the standard ones
+                # (Motion-JPEG leaves them out)
+                for t in (0, 1, 4, 5):
+                    if t not in defined:
+                        huff_bits[t], huff_vals[t] = _JPEG_STD_HUFF[t]
+                        defined.add(t)
+            # the Huffman tables the scan decodes with (libjpeg builds only
+            # these, and refuses a missing one)
+            use_dc = not (progressive and (ss != 0 or a >> 4))
+            use_ac = not lossless and (not progressive or ss != 0)
             rows, sel = [], []
             for k in range(ns):
                 cid, tables = body[1 + 2 * k], body[2 + 2 * k]
@@ -1019,8 +1186,17 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
                            if c["id"] == cid and j >= k and j not in sel), None)
                 if ci is None:
                     raise _jpeg_refused("a scan of a bad component id in")
-                if tables >> 4 > 3 or tables & 15 > 3:
-                    raise ValueError("corrupt JPEG scan header")
+                if arith is not None:
+                    if tables >> 4 > 3 or tables & 15 > 3:
+                        raise ValueError("corrupt JPEG scan header")
+                else:
+                    tdc = tables >> 4 if use_dc else 0
+                    tac = tables & 15 if use_ac else 0
+                    if (use_dc and tdc not in defined) or \
+                            (use_ac and 4 + tac not in defined):
+                        raise _jpeg_refused("a scan of a missing Huffman "
+                                            "table in")
+                    tables = tdc << 4 | tac
                 c = comps[ci]
                 if lossless:
                     latched.setdefault(ci, body[3 + 2 * ns] & 15)  # its Pt
@@ -1031,7 +1207,6 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
                 sel.append(ci)
                 rows.append([tables >> 4, tables & 15, c["h"], c["v"], c["bw"],
                              -(-c["w"] // 8), -(-c["h_px"] // 8)])
-            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
             ah, al = a >> 4, a & 15
             # a first scan of every component makes a single-scan image
             # (libjpeg's has_multiple_scans): no scan may follow it
@@ -1043,6 +1218,7 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
                 pos = native.jpeg_decode_lossless(
                     data, pos, [r[0] for r in rows], [planes[i] for i in sel],
                     huff_bits, huff_vals, restart, ss, al)
+                whole = _jpeg_whole(data, pos, single_scan)
                 continue
             prog = None
             if progressive:  # libjpeg's checks of the scan's band
@@ -1050,17 +1226,47 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
                         or (ah != 0 and al != ah - 1) or al > 13:
                     raise _jpeg_refused("bad progression")
                 prog = (ss, se, ah, al)
+                for ci in sel:      # libjpeg's coef_bits of the first ten
+                    coef_bits[ci][ss:min(se, 9) + 1] = al
             if arith is not None:
                 pos = native.jpeg_decode_arith_scan(
                     data, pos, np.asarray(rows, np.int32),
                     [planes[i] for i in sel], arith, frame[4], frame[5],
                     restart, prog)
+                whole = _jpeg_whole(data, pos, single_scan)
                 continue
             pos = native.jpeg_decode_scan(
                 data, pos, np.asarray(rows, np.int32), [planes[i] for i in sel],
                 huff_bits, huff_vals, frame[4], frame[5], restart, prog)
+            whole = _jpeg_whole(data, pos, single_scan)
     if frame is None:
         raise ValueError("JPEG without a frame header")
+    if progressive and len(latched) == len(comps) and \
+            (coef_bits[:len(comps), 0] >= 0).all() and \
+            (coef_bits[:len(comps), 1:] != 0).any() and \
+            all(latched[ci][_ZIGZAG[:10]].all() for ci in latched):
+        # libjpeg's smoothing_ok: coefficients 1-9 left unfinished are
+        # estimated from the neighbouring blocks' DC (block smoothing)
+        raise _not_ported("decoding progressive JPEG files whose scans "
+                          "leave any of coefficients 1-9 unfinished", "7e.5")
+    return frame, comps, planes, latched, jfif, adobe, lossless
+
+
+def read_jpeg(data, force_ycc=False, cmyk=False):
+    """JPEG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
+    sequential and progressive files of 8-bit samples, Huffman- or
+    arithmetic-coded (DAC conditioning), and lossless Huffman files (1x1
+    sampling); grey, YCbCr, RGB, CMYK and YCCK, the colour space chosen as
+    libjpeg chooses it (JFIF, the Adobe APP14 transform, the component
+    ids); PIL's CMYK -> RGB. Raises NotImplementedError (7e) for
+    arithmetic-coded lossless and subsampled lossless files, and (7e.5)
+    for progressive files that leave coefficients for libjpeg's block
+    smoothing; ValueError for what PIL refuses too (12- and 16-bit
+    samples, 2 or more than 4 components,
+    hierarchical coding, fractional sampling, lossless YCbCr) and for a
+    corrupt file. `cmyk`: a 4-component file's samples as libjpeg gives
+    them for JCS_CMYK (uint8 [H, W, 4]; a YCCK file converted to CMYK)."""
+    frame, comps, planes, latched, jfif, adobe, lossless = _jpeg_scans(data)
     H, W, hmax, vmax = frame[:4]
     if lossless:
         if any(ci not in latched for ci in range(len(comps))):
@@ -1096,6 +1302,16 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
     return _cmyk_to_rgb(ink, out[3][..., None])
 
 
+def jpeg_coefficients(data):
+    """A DCT JPEG's components as ((h, v) its sampling factors, int64
+    [rows, cols, 64] its dequantised coefficients in natural order): the
+    input of the IDCT (ROADMAP C19)."""
+    _, comps, planes, latched, *_ = _jpeg_scans(data)
+    return [((c["h"], c["v"]), planes[ci].astype(np.int64) *
+             latched.get(ci, np.zeros(64, np.int64)))
+            for ci, c in enumerate(comps)]
+
+
 # zig-zag position k -> natural (row-major) index
 _ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -1108,15 +1324,12 @@ _ZIGZAG = np.array([
 # TIFF (as PIL's TiffImagePlugin and libtiff read it)
 # ---------------------------------------------------------------------------
 
-# the compressions decoded here (none, LZW, JPEG, Deflate twice, PackBits),
-# and those left for 7e
-_TIFF_CODECS = (1, 5, 7, 8, 32946, 32773)
+# the compressions PIL names that are left for 7e (the rest: none, LZW,
+# JPEG, Deflate twice and PackBits, are decoded here)
 _TIFF_LATER = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
                6: "old-style JPEG", 32771: "raw 16", 32809: "ThunderScan",
                34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
                50000: "ZSTD", 50001: "WebP"}
-_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B",
-               8: "h", 9: "i", 10: "ii", 11: "f", 12: "d", 16: "Q", 17: "q"}
 
 
 def _pil_bomb_check(w, h):
@@ -1131,54 +1344,6 @@ def _tiff_refused(what):
     return ValueError(f"TIFF {what} (PIL refuses it too)")
 
 
-def _tiff_ifd(data, bo):
-    """IFD 0 -> {tag: tuple of values}."""
-    try:
-        pos, = struct.unpack(bo + "I", data[4:8])
-        n, = struct.unpack(bo + "H", data[pos:pos + 2])
-        tags = {}
-        for k in range(n):
-            e = pos + 2 + 12 * k
-            tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
-            fmt = _TIFF_TYPES.get(typ)
-            if fmt is None or count == 0:
-                continue
-            size = struct.calcsize(bo + fmt) * count
-            at = e + 8 if size <= 4 else struct.unpack(bo + "I",
-                                                       data[e + 8:e + 12])[0]
-            if at + size > len(data):
-                raise _tiff_refused("with a tag past the end of the file")
-            v = struct.unpack(bo + fmt * count, data[at:at + size])
-            if typ in (5, 10):
-                v = tuple(v[i] / v[i + 1] if v[i + 1] else 0.0
-                          for i in range(0, len(v), 2))
-            tags[tag] = v if typ != 7 else data[at:at + size]
-        return tags
-    except struct.error:
-        raise ValueError("truncated TIFF directory") from None
-
-
-def _tiff_layout(tags):
-    """PIL's choice of mode from the tags (TiffImagePlugin._setup): the
-    photometric, sample format, fill order, bits and extra samples ->
-    (photometric, bits tuple, sample format, extra samples). Raises where
-    PIL finds no mode."""
-    photo = tags.get(262, (0,))[0]
-    comp = tags.get(259, (1,))[0]
-    spp = tags.get(277, (3 if comp == 6 and photo in (2, 6) else 1,))[0]
-    sf = tags.get(339, (1,))
-    if len(sf) > 1 and max(sf) == min(sf) == 1:
-        sf = (1,)
-    bps = tags.get(258, (1,))
-    if spp < len(bps):
-        bps = bps[:spp]
-    elif spp > len(bps) and len(bps) == 1:
-        bps = bps * spp
-    if len(bps) != spp:
-        raise _tiff_refused("of an unknown data organization")
-    return photo, tuple(bps), tuple(sf), tuple(tags.get(338, ()))
-
-
 def _tiff_mode(bo, photo, sf, fill, bps, extra):
     """The subset of PIL's OPEN_INFO decoded here: (kind, bits) or None
     where PIL has no mode. kind: "grey" (inverted for photometric 0),
@@ -1187,6 +1352,8 @@ def _tiff_mode(bo, photo, sf, fill, bps, extra):
     "rgba" (extra samples dropped), "rgba_assoc" (alpha undone), "rgb16"
     (high bytes), "pal", "cmyk", "cmyk16", "ycbcr"."""
     n = len(bps)
+    if n == 0:
+        return None
     b0 = bps[0]
     if any(b != b0 for b in bps):
         return None
@@ -1253,32 +1420,66 @@ _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                         np.uint8)
 
 
-def _tiff_chunk(data, comp, off, count, n_bytes, fill):
-    """One strip or tile -> its decoded bytes (at most n_bytes), as
-    libtiff gives them. A chunk that decodes short raises ValueError, as
-    libtiff stops there."""
-    # PIL reads an uncompressed chunk itself, from its offset, whatever
-    # its byte count says; libtiff reads a compressed one's count
-    raw = data[off:off + (n_bytes if comp == 1 else count)]
+def _tiff_decode(raw, comp, n, fill, keep=False):
+    """One strip or tile's stored bytes -> (its n decoded bytes, whether
+    libtiff's codec gave all n without an error), the fill order undone
+    first. Where it did not: with `keep` the bytes the codec gave before
+    its error and zeros after, else n zeros. The caller refuses the file
+    where its library does."""
     if fill == 2:
         raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+    good = True
     if comp == 1:
-        out = raw
+        out = raw[:n] if len(raw) >= n else b""
     elif comp == 5:
-        msb = not (len(raw) >= 2 and raw[0] == 0 and raw[1] & 1)
-        out = native.lzw_decode(raw, n_bytes, 8, msb).tobytes()
+        out, good = _tiff_lzw(raw, n)
     elif comp in (8, 32946):
-        try:
-            out = zlib.decompressobj().decompress(raw, n_bytes)
-        except zlib.error:
-            raise _tiff_refused("Deflate data that is corrupt") from None
+        out, good = _tiff_inflate(raw, n)
     elif comp == 32773:
-        out = native.packbits_decode(raw, n_bytes).tobytes()
+        out = native.packbits_decode(raw, n).tobytes()
     else:
-        raise AssertionError(comp)
-    if len(out) < n_bytes:
-        raise _tiff_refused("chunk that ends before its pixels")
-    return out[:n_bytes]
+        out = b""
+    ok = good and len(out) == n
+    return (out[:n] if ok or keep else b"").ljust(n, b"\0"), ok
+
+
+def _tiff_lzw(raw, n):
+    """libtiff's LZW (new style, or old style where the data starts 0x00
+    and an odd byte) -> (at most n bytes, whether it decoded without an
+    error). libtiff's decoder fails on a first code other than the clear
+    code (its table has no entry before it), before any output."""
+    msb = not (len(raw) >= 2 and raw[0] == 0 and raw[1] & 1)
+    if len(raw) < 2:
+        return b"", False
+    first = (raw[0] << 1 | raw[1] >> 7) if msb else (raw[0] | (raw[1] & 1) << 8)
+    if first != 256:
+        return b"", False
+    out, ok = native.lzw_decode(raw, n, 8, msb)
+    return out.tobytes(), ok
+
+
+def _tiff_inflate(raw, n):
+    """libtiff's ZIPDecode -> (at most n bytes, whether inflate gave them
+    without an error). inflate goes on past the last byte that fills the
+    strip to the stream's end and its checksum, where those come next; on
+    an error the bytes it gave before it (fed a byte at a time)."""
+    z = zlib.decompressobj()
+    try:
+        out = z.decompress(raw, n)
+        if len(out) == n:
+            z.decompress(z.unconsumed_tail, 1)
+        return out, True
+    except zlib.error:
+        pass
+    z, out = zlib.decompressobj(), b""
+    for i in range(len(raw)):
+        if len(out) >= n:
+            break
+        try:
+            out += z.decompress(raw[i:i + 1], n - len(out))
+        except zlib.error:
+            break
+    return out[:n], False
 
 
 def _tiff_samples(buf, rows, width, spp, bits, bo):
@@ -1328,34 +1529,58 @@ def read_tiff(data):
     RGB(A) with extra samples (associated alpha undone as PIL does),
     palette, CMYK; fill order 2. 16-bit samples reach 8 bits as PIL's
     modes take them (grey clipped at 255, colour cut to the high byte),
-    floats truncated and clipped. What PIL has no mode for raises
-    ValueError; other compressions and BigTIFF raise NotImplementedError
-    naming ROADMAP queue A, 7e."""
+    floats truncated and clipped. The directory is read as PIL reads it,
+    and for a compressed file as libtiff reads it too (`tiffdir`; edited
+    files: ROADMAP C26). What PIL has no mode for raises ValueError (or
+    passes the file on to PIL's next plugin); other compressions and
+    BigTIFF raise NotImplementedError naming ROADMAP queue A, 7e."""
     bo = {b"II*\0": "<", b"MM\0*": ">"}.get(data[:4])
     if bo is None:
         raise ValueError("not a TIFF file")
-    tags = _tiff_ifd(data, bo)
-    comp = tags.get(259, (1,))[0]
+    ptags = tiffdir.pil_ifd(data, bo)
+    st = tiffdir.PilSetup(ptags)
+    comp = st.compression
     if comp in _TIFF_LATER:
         raise _not_ported(f"decoding {_TIFF_LATER[comp]} TIFF files", "7e")
-    if comp not in _TIFF_CODECS:
-        raise _tiff_refused(f"compression {comp}")
-    try:
-        w, h = tags[256][0], tags[257][0]
-    except KeyError:
-        raise _tiff_refused("without its dimensions") from None
-    _pil_bomb_check(w, h)
-    photo, bps, sf, extra = _tiff_layout(tags)
-    fill = tags.get(266, (1,))[0]
+    w, h = st.xsize, st.ysize
+    photo, bps, sf, extra, fill = st.photo, st.bps, st.sample_format, \
+        st.extra, st.fill
     mode = _tiff_mode(bo, photo, sf, fill, bps, extra)
-    if mode is None:
-        raise _tiff_refused(f"of photometric {photo}, bits {bps}, sample "
-                            f"format {sf}, extra samples {extra}")
+    if mode is None:                          # OPEN_INFO has no key for it
+        raise pilread._PassOn
     kind, bits = mode
+    if kind in ("pal",) and 320 not in ptags:
+        raise pilread._PassOn                 # tag_v2[COLORMAP]: KeyError
+    if w <= 0 or h <= 0:
+        raise pilread._PassOn                 # no pixels
+    _pil_bomb_check(w, h)
     spp = len(bps)
-    planar = tags.get(284, (1,))[0] == 2
-    # libtiff runs the predictor in its LZW and Deflate codecs only
-    pred = tags.get(317, (1,))[0] if comp in (5, 8, 32946) else 1
+    planar = st.planar == 2
+    tags = {320: tuple(ptags.get(320, ()))}
+    if comp == 1:
+        chunks = [(x0, y0, x1 - x0, y1 - y0, plane, off, stride)
+                  for x0, y0, x1, y1, plane, off, stride
+                  in tiffdir.pil_strips(ptags, st)]
+        pred, tables = 1, b""
+    else:
+        d = tiffdir.LibtiffDir(data, bo)
+        if (d.width, d.length) != (w, h) or d.planar != st.planar or \
+                d.spp != spp or d.bps != bits or d.fill != fill:
+            raise _tiff_refused("whose directory libtiff reads otherwise "
+                                "than PIL")
+        if kind == "ycbcr" and comp != 7 and d.photometric != 6:
+            # PIL unpacks RGBX rows from libtiff's RGBA interface, which
+            # libtiff takes only for its own YCbCr: shorter rows refused
+            raise _tiff_refused("YCbCr to PIL and not to libtiff")
+        # libtiff runs the predictor in its LZW and Deflate codecs only
+        pred = d.predictor
+        if pred not in (1, 2, 3) or (pred == 2 and bits not in (8, 16, 32)) \
+                or (pred == 3 and (d.sample_format != 3 or bits not in
+                                   (16, 24, 32, 64))):
+            raise _tiff_refused(f"predictor {pred} (libtiff refuses it)")
+        tables = d.jpegtables or b""
+        tags[530] = tuple(d.subsampling)
+        chunks = [c + (0,) for c in d.chunks()]
     if comp == 7 and kind not in ("ycbcr", "rgb", "grey"):
         raise _not_ported("decoding JPEG TIFF files other than grey, RGB "
                           "and YCbCr", "7e")
@@ -1374,68 +1599,69 @@ def read_tiff(data):
         raise _tiff_refused("4-bit palette file of fill order 2")
     if pred == 3 and not (kind == "float" and comp != 7):
         raise _tiff_refused("floating-point predictor on integer samples")
-    if 322 in tags:
-        tw, th = tags[322][0], tags.get(323, (0,))[0]
-        offsets, counts = tags.get(324, ()), tags.get(325, ())
-    else:
-        tw, th = w, tags.get(278, (h,))[0]
-        th = min(th, h) if th else h
-        offsets, counts = tags.get(273, ()), tags.get(279, ())
-    if not offsets or len(counts) != len(offsets) or tw <= 0 or th <= 0:
-        raise _tiff_refused("of an unknown data organization")
-    ntx, nty = -(-w // tw), -(-h // th)
-    nplanes = spp if planar else 1
     cs = 1 if planar else spp                 # samples in a chunk's pixel
-    if len(offsets) < ntx * nty * nplanes:
-        raise _tiff_refused("with fewer chunks than its size needs")
-    tables = tags.get(347, b"")
     dt = {"float": "f4", "s32": "i4", "u32": "i4"}.get(kind)
     out = np.zeros((h, w, spp), np.float64 if kind == "float" else np.int64)
-    k = 0
-    for plane in range(nplanes):
-        for ty in range(nty):
-            for tx in range(ntx):
-                y0, x0 = ty * th, tx * tw
-                rows = th if 322 in tags else min(th, h - y0)
-                n_bytes = rows * (-(-tw * cs * bits // 8))
-                off, count = offsets[k], counts[k]
-                k += 1
-                if comp == 7:
-                    v = _tiff_jpeg(data[off:off + count], tables, kind, tags)
-                    v = v[:rows, :tw, :cs].astype(np.int64)
-                else:
-                    buf = _tiff_chunk(data, comp, off, count, n_bytes, fill)
-                    if pred == 3:
-                        buf = _tiff_fp_predictor(buf, rows, tw, cs, bits // 8)
-                        bo_chunk = ">"
-                    else:
-                        bo_chunk = bo
-                    if kind == "float" or bits == 32:
-                        v = np.frombuffer(buf, bo_chunk + dt,
-                                          rows * tw * cs).reshape(rows, tw, cs)
-                        if pred == 2:
-                            v = _undo_predictor(v.view(bo_chunk + "u4").astype(
-                                np.int64), 32).astype("u4").view(dt)
-                        if bo == ">" and comp != 1:
-                            # libtiff hands PIL native (little-endian)
-                            # words, which PIL's big-endian raw mode reads
-                            # swapped
-                            v = v.astype(dt).byteswap()
-                        with np.errstate(invalid="ignore"):
-                            v = v.astype(np.float64 if kind == "float"
-                                         else np.int64)
-                    else:
-                        v = _tiff_samples(buf, rows, tw, cs, bits, bo_chunk)
-                        if pred == 2:
-                            v = _undo_predictor(v, bits)
-                        if kind == "s16" and bo == ">" and comp != 1:
-                            # PIL's big-endian signed raw mode reads
-                            # libtiff's native words swapped, as above
-                            v = (v & 0xFF) << 8 | v >> 8
-                ye, xe = min(h, y0 + rows), min(w, x0 + tw)
-                sl = slice(plane, plane + 1) if planar else slice(None)
-                out[y0:ye, x0:xe, sl] = v[:ye - y0, :xe - x0]
+    for x0, y0, tw, rows, plane, where, stride in chunks:
+        line = -(-tw * cs * bits // 8)
+        if comp == 1:
+            # PIL's raw decoder: `rows` lines of `line` bytes, one every
+            # `stride` (or `line`) bytes from the offset
+            buf = _tiff_raw(data, where, rows, line, stride or line, fill)
+        elif comp == 7:
+            v = _tiff_jpeg(d.chunk(where), tables, kind, tags)
+            v = v[:rows, :tw, :cs].astype(np.int64)
+        else:
+            buf, ok = _tiff_decode(d.chunk(where), comp, rows * line, fill)
+            if not ok:
+                raise _tiff_refused("strip or tile that libtiff fails to "
+                                    "decode")
+        if comp != 7:
+            if pred == 3:
+                buf = _tiff_fp_predictor(buf, rows, tw, cs, bits // 8)
+                bo_chunk = ">"
+            else:
+                bo_chunk = bo
+            if kind == "float" or bits == 32:
+                v = np.frombuffer(buf, bo_chunk + dt,
+                                  rows * tw * cs).reshape(rows, tw, cs)
+                if pred == 2:
+                    v = _undo_predictor(v.view(bo_chunk + "u4").astype(
+                        np.int64), 32).astype("u4").view(dt)
+                if bo == ">" and comp != 1:
+                    # libtiff hands PIL native (little-endian) words,
+                    # which PIL's big-endian raw mode reads swapped
+                    v = v.astype(dt).byteswap()
+                with np.errstate(invalid="ignore"):
+                    v = v.astype(np.float64 if kind == "float" else np.int64)
+            else:
+                v = _tiff_samples(buf, rows, tw, cs, bits, bo_chunk)
+                if pred == 2:
+                    v = _undo_predictor(v, bits)
+                if kind == "s16" and bo == ">" and comp != 1:
+                    # PIL's big-endian signed raw mode reads libtiff's
+                    # native words swapped, as above
+                    v = (v & 0xFF) << 8 | v >> 8
+        ye, xe = min(h, y0 + rows), min(w, x0 + tw)
+        sl = slice(plane, plane + 1) if planar else slice(None)
+        out[y0:ye, x0:xe, sl] = v[:ye - y0, :xe - x0]
     return _tiff_to_rgb(out, kind, bits, photo, tags)
+
+
+def _tiff_raw(data, off, rows, line, pitch, fill):
+    """An uncompressed strip or tile as PIL's raw decoder reads it:
+    `rows` lines of `line` bytes, one every `pitch` bytes from `off`; a
+    file that ends before the last line is refused (PIL: "image file is
+    truncated")."""
+    if type(off) is not int or off < 0 or \
+            len(data) < off + (rows - 1) * pitch + line:
+        raise _tiff_refused("strip or tile cut by the file's end")
+    raw = np.lib.stride_tricks.as_strided(
+        np.frombuffer(data, np.uint8, offset=off), (rows, line), (pitch, 1),
+        writeable=False)
+    if fill == 2:
+        raw = _BIT_REVERSE[raw]
+    return raw.tobytes()
 
 
 def _tiff_jpeg(strip, tables, kind, tags):
@@ -1510,25 +1736,45 @@ def _tiff_to_rgb(v, kind, bits, photo, tags):
 # GIF (as PIL's GifImagePlugin reads frame 0)
 # ---------------------------------------------------------------------------
 
-def _gif_blocks(data, pos):
+def _gif_blocks(data, pos, whole=False):
     """Data sub-blocks from `pos` -> (their bytes, the offset after the
-    terminator, whether the terminator was found)."""
+    terminator, whether the terminator was found). `whole`: a sub-block
+    the file's end cuts is left out."""
     out = bytearray()
     while pos < len(data):
         n = data[pos]
         pos += 1
         if n == 0:
             return bytes(out), pos, True
+        if whole and pos + n > len(data):
+            break
         out += data[pos:pos + n]
         pos += n
     return bytes(out), pos, False
+
+
+def _gif_narrow_codes(lzw, n_px, bits):
+    """PIL's GIF decoder (GifDecode.c) for LZW minimum code sizes 0 and 1:
+    its table's first free entry starts past the code mask, so the codes
+    never widen from bits + 1, and every code is a literal (an index), the
+    clear code or, for 1, the end code -> the indices up to the end code
+    (at most n_px)."""
+    width = bits + 1
+    b = np.unpackbits(np.frombuffer(lzw, np.uint8), bitorder="little")
+    b = b[:len(b) // width * width].reshape(-1, width)
+    codes = (b.astype(np.int64) << np.arange(width)).sum(-1)
+    end = np.nonzero(codes == (1 << bits) + 1)[0]
+    if len(end):
+        codes = codes[:end[0]]
+    return codes[codes < 1 << bits][:n_px].astype(np.uint8)
 
 
 def read_gif(data):
     """GIF bytes -> uint8 [H, W, 3], frame 0 as PIL's convert("RGB") gives
     it: the local colour table, else the global one (indices past it
     black; no table: the index as grey), interlaced rows, LZW minimum code
-    sizes 2-8 (least significant bit first, `csrc/image_codecs.cpp`); a
+    sizes 0-12 (least significant bit first, `csrc/image_codecs.cpp`; 0
+    and 1 as PIL's decoder reads them, `_gif_narrow_codes`); a
     transparent index keeps its palette colour, and is the colour of the
     screen outside the frame (else index 0). Data that ends before the
     frame's pixels is refused, as PIL refuses it (ValueError)."""
@@ -1548,10 +1794,19 @@ def read_gif(data):
         c = data[pos]
         pos += 1
         if c == 0x21:                            # an extension
-            label = data[pos] if pos < len(data) else 0
-            body, pos, _ = _gif_blocks(data, pos + 1)
-            if label == 0xF9 and len(body) >= 4 and body[0] & 1:
-                trans = body[3]
+            if pos >= len(data):
+                raise ValueError("GIF cut in an extension: PIL refuses it")
+            label = data[pos]
+            # PIL reads the graphic control from the first sub-block only
+            n = data[pos + 1] if pos + 1 < len(data) else 0
+            first = data[pos + 2:pos + 2 + n]
+            if label == 0xF9 and n:
+                if len(first) < 3 or (first[0] & 1 and len(first) < 4):
+                    raise ValueError("GIF graphic control block too short: "
+                                     "PIL refuses it")
+                if first[0] & 1:
+                    trans = first[3]
+            _, pos, _ = _gif_blocks(data, pos + 1)
         elif c == 0x2C:                          # the image descriptor
             if pos + 9 > len(data):
                 raise ValueError("truncated GIF image descriptor")
@@ -1562,16 +1817,31 @@ def read_gif(data):
                 pal = np.frombuffer(data[pos:pos + n], np.uint8)
                 pos += n
             break
-        else:
-            raise ValueError("corrupt GIF block")
+        # any other byte is skipped, as PIL skips it
     if pos >= len(data):
         raise ValueError("truncated GIF image: PIL refuses it too")
     bits = data[pos]
-    if not 2 <= bits <= 8:
-        raise _not_ported(f"decoding GIF LZW minimum code size {bits}", "7e")
-    lzw, _, _ = _gif_blocks(data, pos + 1)
+    if bits > 12:
+        raise ValueError(f"GIF LZW minimum code size {bits}: PIL refuses "
+                         "it")
+    # PIL's decoder takes a sub-block only once the whole of it is there
+    lzw, _, _ = _gif_blocks(data, pos + 1, whole=True)
+    W, H = max(sw, x0 + fw), max(sh, y0 + fh)
+    _pil_bomb_check(W, H)
+    if fw == 0 and x0 == 0:
+        # PIL's setimage reads extents with x0 == x1 == 0 as the whole image
+        x0, y0, fw, fh = 0, 0, W, H
+    elif fw == 0 or fh == 0:
+        raise ValueError("GIF frame of no pixels: PIL refuses it (tile "
+                         "cannot extend outside image)")
     n_px = fw * fh
-    idx = native.lzw_decode(lzw, n_px, bits, msb=False)
+    if bits < 2:
+        idx = _gif_narrow_codes(lzw, n_px, bits)
+    else:
+        idx, ok = native.lzw_decode(lzw, n_px, bits, msb=False)
+        if not ok:
+            raise ValueError("corrupt GIF LZW data: a code not yet in the "
+                             "table")
     if len(idx) < n_px:
         raise ValueError("truncated GIF image data: PIL refuses it too")
     frame = idx.reshape(fh, fw)
@@ -1581,8 +1851,6 @@ def read_gif(data):
         inter = np.empty_like(frame)
         inter[order] = frame
         frame = inter
-    W, H = max(sw, x0 + fw), max(sh, y0 + fh)
-    _pil_bomb_check(W, H)
     screen = np.full((H, W), trans if trans is not None else 0, np.uint8)
     screen[y0:y0 + fh, x0:x0 + fw] = frame
     if pal is None or all(pal[3 * i] == pal[3 * i + 1] == pal[3 * i + 2] == i

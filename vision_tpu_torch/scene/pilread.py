@@ -22,16 +22,16 @@ refusal. `read` walks the same order (`_PLUGINS`) and returns uint8
     a format this package does not yet: 7e.6b (BLP, FITS, FLI, FTEX, GBR,
     IMT, IPTC, MCIDAS, PCD, PIXAR, XVTHUMB; their headers, and the raw
     data of the raw ones, are checked as PIL checks them first), 7e.7
-    (JPEG 2000), 7e.8 (AVIF), and 7e.6a for the rare variants listed in
-    ROADMAP.
+    (JPEG 2000) and 7e.8 (AVIF).
 
 Decoded here, each as its plugin and its decoder in libImaging read it,
 then through `convert("RGB")` of the mode it gives (`_rgb`): PNM and PFM
 (`PpmImagePlugin`), Sun raster, DIB, ICO and CUR (BMP or PNG inside),
-ICNS, QOI, PCX (and DCX's first page), SGI, IM, MSP, XBM, XPM, SPIDER,
-DDS (bit masks, L, LA, P,
-BC1-BC7; BC6H and BC7 blocks in `csrc/image_codecs.cpp`) and PSD (the
-merged image). PNG, JPEG, BMP, TIFF, GIF, WebP and TGA go to their
+ICNS, QOI, PCX (and DCX's first page), SGI, IM (its N-bit types through
+PIL's bit decoder, YCC through PIL's YCbCr -> RGB tables), MSP, XBM, XPM,
+SPIDER, DDS (bit masks, L, LA, P, BC1-BC7; BC6H and BC7 blocks in
+`csrc/image_codecs.cpp`) and PSD (the merged image; Lab through
+LittleCMS's transform, `lab_to_rgb`). PNG, JPEG, BMP, TIFF, GIF, WebP and TGA go to their
 readers in `imageio.py` and `webp.py`.
 """
 from __future__ import annotations
@@ -880,6 +880,98 @@ _IM_PLANAR = {"RGB;L": 3, "LA;L": 2, "PA;L": 2, "RGBA;L": 4, "RGBX;L": 4,
               "CMYK;L": 4}
 
 
+def _im_bits(rows, w, n):
+    """PIL's "bit" decoder as ImImagePlugin sets it up for its N-bit types
+    (bits n, pad 8, fill 3, unsigned): each row's samples from its own
+    bytes, least significant bit first; at a row's end the bit count is
+    reset but the unused high bits of its last byte stay in the buffer and
+    are ORed into the next row's first byte. -> float32 [h, w] in file
+    order."""
+    out = np.empty((len(rows), w), np.float32)
+    carry = 0
+    for y, row in enumerate(rows):
+        row = row.copy()
+        row[0] |= carry
+        bits = np.unpackbits(row, bitorder="little")
+        v = bits[:w * n].reshape(w, n).astype(np.int64) << np.arange(n)
+        out[y] = v.sum(-1)
+        left = bits[w * n:]
+        carry = int((left.astype(np.int64) << np.arange(len(left))).sum())
+    return out
+
+
+# PIL's YCbCr -> RGB (libImaging's ConvertYCbCr.c, read from PIL's
+# conversion of every YCbCr triple): each offset table
+# trunc((i - 128) * coefficient * 64 + 0.5), summed, shifted right by 6
+_YCC_I = np.arange(256) - 128
+_YCC_R_CR, _YCC_G_CB, _YCC_G_CR, _YCC_B_CB = (
+    np.trunc(_YCC_I * c * 64 + 0.5).astype(np.int64)
+    for c in (1.40200, -0.34414, -0.71414, 1.77200))
+
+
+def _ycbcr_to_rgb(x):
+    """PIL's convert("RGB") of a YCbCr image, uint8 [..., 3]."""
+    y, cb, cr = (x[..., i].astype(np.int64) for i in range(3))
+    rgb = np.stack([y + (_YCC_R_CR[cr] >> 6),
+                    y + ((_YCC_G_CB[cb] + _YCC_G_CR[cr]) >> 6),
+                    y + (_YCC_B_CB[cb] >> 6)], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+_LAB_NODES = None
+
+
+def lab_to_rgb(x):
+    """PIL's LAB -> RGB (LittleCMS 2.17's optimised 8-bit transform from
+    the Lab v2 identity profile to sRGB) of x uint8 [..., 3], Lab as
+    LittleCMS reads PIL's bytes (L, then a and b offset by 128) -> uint8
+    [..., 3]. Each byte v becomes the v4 16-bit value min(v * 257 * 257 >>
+    8, 65535) (FomLabV2ToLabV4); the 33^3 table of 16-bit RGB nodes
+    (`data/lab_srgb.npz`, read from LittleCMS by
+    `tools/gen_torch_lab.py`) is interpolated as its Eval3Inputs does,
+    tetrahedrally in 16.16 fixed point; 16 -> 8 bits as FROM_16_TO_8."""
+    global _LAB_NODES
+    if _LAB_NODES is None:
+        import os
+        path = os.path.join(os.path.dirname(__file__), "..", "data",
+                            "lab_srgb.npz")
+        _LAB_NODES = np.load(path)["nodes"].astype(np.int64).reshape(-1)
+    t = _LAB_NODES
+    shape = x.shape
+    x = x.reshape(-1, 3).astype(np.int64) * 257
+    v = np.minimum(((x << 8) | x) >> 8, 0xFFFF)
+    f = v * 32
+    f = f + (f + 0x7FFF) // 0xFFFF                 # _cmsToFixedDomain
+    i0, r = f >> 16, f & 0xFFFF
+    step = np.array([3 * 33 * 33, 3 * 33, 3])
+    base = (i0 * step).sum(-1)
+    one = np.where(v == 0xFFFF, 0, step)           # the next node, or none
+    rx, ry, rz = r[:, 0], r[:, 1], r[:, 2]
+    dx, dy, dz = one[:, 0], one[:, 1], one[:, 2]
+    # the tetrahedron's corners: after the base, the axis of the largest
+    # rest, then of the two largest, then all three
+    xy, yz, xz = rx >= ry, ry >= rz, rx >= rz
+    first = np.where(xy & xz, dx, np.where(~xy & yz, dy, dz))
+    last = np.where(xy & yz, dz, np.where(~xy & xz, dz, np.where(
+        xy & ~xz, dy, np.where(~xy & ~yz & ~xz, dx, np.where(xy, dy, dx)))))
+    second = first + (dx + dy + dz - first - last)
+    r_first = np.where(xy & xz, rx, np.where(~xy & yz, ry, rz))
+    r_last = np.where(xy & yz, rz, np.where(~xy & xz, rz, np.where(
+        xy & ~xz, ry, np.where(~xy & ~yz & ~xz, rx, np.where(xy, ry, rx)))))
+    r_mid = rx + ry + rz - r_first - r_last
+    out = np.empty((len(x), 3), np.int64)
+    for c in range(3):
+        c0 = t[base + c]
+        c1 = t[base + first + c]
+        c2 = t[base + second + c]
+        c3 = t[base + dx + dy + dz + c]
+        rest = (c1 - c0) * r_first + (c2 - c1) * r_mid + (c3 - c2) * r_last \
+            + 0x8001
+        out[:, c] = (c0 + ((rest + (rest >> 16)) >> 16)) & 0xFFFF
+    out = ((out * 65281 + 8388608) >> 24) & 0xFF
+    return out.astype(np.uint8).reshape(shape)
+
+
 def _im_number(s):
     try:
         return int(s)
@@ -962,13 +1054,19 @@ def read_im(data):
     _opened("IM", w, h)
     if rawmode.startswith("F;") and rawmode[2:].isdigit() and \
             int(rawmode[2:]) not in (8, 16, 32):     # PIL's bit decoder
-        _raw(data, pos, h, (w * int(rawmode[2:]) + 7) // 8, fmt="IM")
-        raise _later(f"IM files of {rawmode[2:]}-bit samples", "7e.6a")
-    if mode == "YCbCr":      # the planes are read, then PIL's conversion
-        _raw(data, pos, h, 3 * w, fmt="IM")
-        raise _later("IM files of type 'YCC image'", "7e.6a")
-    if rawmode in ("RLB", "RGB;T", "RYB;T"):
-        raise _later(f"IM files of type {info['Image type']!r}", "7e.6a")
+        n = int(rawmode[2:])
+        rows = _raw(data, pos, h, (w * n + 7) // 8, fmt="IM")
+        return _rgb("F", _im_bits(rows, w, n)[::-1])
+    if mode == "YCbCr":      # the planes, then PIL's conversion
+        rows = _raw(data, pos, h, 3 * w, fmt="IM")[::-1]
+        return _ycbcr_to_rgb(rows.reshape(h, 3, w).transpose(0, 2, 1))
+    if rawmode == "RLB":
+        raise _refused("IM", "of type 'RLB image' or 'RYB image' (no raw "
+                       "mode RLB in PIL's unpackers)")
+    if rawmode in ("RGB;T", "RYB;T"):
+        # three whole planes, bottom-up: G, then R, then B
+        planes = _raw(data, pos, 3 * h, w, fmt="IM").reshape(3, h, w)
+        return np.ascontiguousarray(planes[[1, 0, 2], ::-1].transpose(1, 2, 0))
     if mode not in ("1", "L", "P", "PA", "LA", "RGB", "RGBA", "CMYK", "I",
                     "F", "I;16", "I;16L", "I;16B"):
         raise _refused("IM", f"of mode {mode!r}")
@@ -1446,7 +1544,8 @@ def read_psd(data):
     """Photoshop files as PsdImagePlugin reads them: the merged image
     after the colour mode data, the resources and the layers; raw or
     PackBits channels in bitmap, grey, indexed, RGB(A), CMYK (through
-    PIL's CMYK -> RGB), multichannel and duotone modes."""
+    PIL's CMYK -> RGB), Lab (through LittleCMS: `lab_to_rgb`),
+    multichannel and duotone modes."""
     if len(data) < 26:
         raise _PassOn
     if _u16(data, 4, ">") != 1:
@@ -1515,8 +1614,8 @@ def read_psd(data):
             pos += int(counts[c * h:(c + 1) * h].sum())
     else:
         raise _refused("PSD", f"of compression {comp}")
-    if mode == "LAB":        # the planes are read, then LittleCMS's Lab
-        raise _later("PSD files in Lab mode", "7e.6a")
+    if mode == "LAB":        # through LittleCMS, as PIL's convert("RGB")
+        return lab_to_rgb(np.stack(planes, -1))
     if mode == "1":
         return _grey(255 * _bits(planes[0], w, 1))
     x = np.stack(planes, -1)
