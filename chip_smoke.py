@@ -119,7 +119,7 @@ phase, one JSON line each:
     cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
     the uninterrupted run; `scene_memory_stats` of cbox_sphere;
     `overlay_rays` of 16 pixels at 512^2.
-  * the image files of slices 7c, 7d, 7e.1, 7e.6a and 7e.3b
+  * the image files of slices 7c, 7d, 7e.1, 7e.6a, 7e.3b and 7e.4
     (`phase_image_files`):
     progressive, CMYK, YCCK, RGB, lossless and arithmetic-coded JPEG,
     Adam7, low-depth and 16-bit PNG, TGA, BMP, TIFF, GIF and WebP files of
@@ -140,18 +140,23 @@ phase, one JSON line each:
     built from a seed against its decode's sha256. Slice 7e.3b: TIFF and
     GIF files under .hdr / .exr names against the pip cv2's decodes
     (cvtiff_decodes.npz), and a 2048^2 float32 LZW TIFF built from a seed
-    (`sky_2048.exr`) against its decode's sha256.
-  * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a and 7e.3b
-    (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp`,
-    `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds` and `cbox_sky_cvtiff`
-    through K1, `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
-    `env_sphere_pil` and `env_sphere_cvgif` through K2 at 512^2, their
-    images read from TIFF, GIF, OpenEXR (plain, luminance-chroma, deep),
+    (`sky_2048.exr`) against its decode's sha256. Slice 7e.4: the rarer
+    TIFF codecs and layouts on both routes against PIL's and the pip
+    cv2's decodes (tiff_decodes.npz), and the committed 2048^2 Group 4
+    page `g4_2048.tif` against its decode's sha256.
+  * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b and
+    7e.4 (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp`,
+    `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`, `cbox_sky_cvtiff` and
+    `cbox_sky_bigtiff` through K1, `env_sphere_files`, `env_sphere_webp`,
+    `env_sphere_cv`, `env_sphere_pil`, `env_sphere_cvgif` and
+    `env_sphere_zstd` through K2 at 512^2, their images read from TIFF
+    (LZW, BigTIFF, ZSTD), GIF, OpenEXR (plain, luminance-chroma, deep),
     WebP, PFM, QOI, PPM, SGI, ICO and BC7 DDS files and OpenCV's TIFF and
     GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s and `cbox_tex_dds`'s originals read PIL's
-    decode of their lossy checker, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s
-    and `env_sphere_cvgif`'s the OpenCV decode of their image).
+    decode of their lossy checker, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
+    `cbox_sky_bigtiff`'s and `env_sphere_cvgif`'s the OpenCV decode of
+    their image).
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -2215,7 +2220,7 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a and 7e.3b on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b and 7e.4 on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2243,7 +2248,12 @@ def phase_image_files(card):
     .exr names) against the pip cv2's decode, and `sky_2048.exr` (a 2048^2
     float32 TIFF, LZW with the floating-point predictor, built here from
     its seed, `tools/gen_torch_cvtiff.py` `float_timing`) against its
-    decode's sha256; no image library imported."""
+    decode's sha256; slice 7e.4: every file of tiff_decodes.npz (CCITT,
+    LZMA, ZSTD, ThunderScan, BigTIFF, CIELab, YCbCr, 10- to 14-bit, CMYK
+    and planar JPEG TIFF, under .tif names against PIL's decode and under
+    .hdr / .exr names against the pip cv2's) and the committed 2048^2
+    Group 4 page `g4_2048.tif` against its decode's sha256; no image
+    library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2264,7 +2274,8 @@ def phase_image_files(card):
                       ("webp_decodes.npz", "ldr"),
                       ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr"),
                       ("pil_decodes.npz", "ldr"),
-                      ("cvtiff_decodes.npz", "hdr")):
+                      ("cvtiff_decodes.npz", "hdr"),
+                      ("tiff_decodes.npz", None)):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
         must = {"image_decodes.npz": ("tiny.tif",),
@@ -2274,7 +2285,10 @@ def phase_image_files(card):
                 "pil_decodes.npz": ("checker_bc7.dds", "im_ycc.im",
                                     "psd_lab_raw.psd"),
                 "cvtiff_decodes.npz": ("sky_a_f32.exr",
-                                       "projector_gif.hdr")}.get(npz, ())
+                                       "projector_gif.hdr"),
+                "tiff_decodes.npz": ("sky_a_big.exr", "projector_zstd.tif",
+                                     "tf_g4.tif", "tf_zstd_pred2.tif",
+                                     "tf_cv_lab.hdr")}.get(npz, ())
         check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
             t0 = time.perf_counter()
@@ -2282,7 +2296,9 @@ def phase_image_files(card):
             rec = _image_file_rec(fn, got, dec[fn], time.perf_counter() - t0,
                                   card, got_kind)
             emit(rec)
-            check(got_kind == kind and rec["bit_equal"]
+            want_kind = kind or ("hdr" if fn.endswith((".hdr", ".exr"))
+                                 else "ldr")
+            check(got_kind == want_kind and rec["bit_equal"]
                   and rec["max_abs_diff"] == 0, f"{fn} against its decode {rec}")
         for fn in sorted({k.split(":")[0] for k in dec.files if ":" in k}):
             t0 = time.perf_counter()
@@ -2343,11 +2359,14 @@ IMAGE_TWINS = (
      "cbox_sky_cvtiff_ref"),
     ("env_sphere_cvgif_ref", "env_sphere_cvgif_ref", "packet_isect", None),
     ("env_sphere_cvgif", "env_sphere_cvgif", "packet_isect",
-     "env_sphere_cvgif_ref"))
+     "env_sphere_cvgif_ref"),
+    ("cbox_sky_bigtiff", "cbox_sky_bigtiff", "dense_isect",
+     "cbox_sky_cvtiff_ref"),
+    ("env_sphere_zstd", "env_sphere_zstd", "packet_isect", "env_sphere"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a and 7e.3b through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b and 7e.4 through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2370,7 +2389,11 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     `cbox_sky_cvtiff_ref` (the pip cv2's decode in a FLOAT OpenEXR file),
     and `env_sphere_cvgif` (its projector image a GIF named .hdr) through
     K2, bit for bit with `env_sphere_cvgif_ref` (the pip cv2's decode in a
-    PFM named .hdr). Returns each render's launch counts."""
+    PFM named .hdr); slice 7e.4: `cbox_sky_bigtiff` (sky_a as a float32
+    BigTIFF, Deflate with the floating-point predictor, named .exr)
+    through K1, bit for bit with `cbox_sky_cvtiff_ref`, and
+    `env_sphere_zstd` (its projector image an RGB ZSTD TIFF) through K2,
+    bit for bit with `env_sphere`. Returns each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:

@@ -243,6 +243,8 @@ _spec.loader.exec_module(gen_assets)
 gen_webp = gen_assets._webp_module()
 # the encoders of slice 7e.6a's formats (tools/gen_torch_pil.py)
 gen_pil = gen_assets._pil_module()
+# slice 7e.4's TIFF encoders and files (tools/gen_torch_tiff.py)
+gen_tiff = gen_assets._tiff_module()
 
 
 def asset(fn):
@@ -458,6 +460,27 @@ def env_sphere_cvgif_ref(res=512, sub_div=40):
     """`env_sphere_cvgif` with the pip cv2's decode of its GIF read from a
     PFM file named .hdr."""
     return _env_sphere_projector(res, sub_div, "projector_gif_pfm.hdr")
+
+
+# slice 7e.4: the rarer TIFF codecs and layouts (tools/gen_torch_tiff.py).
+# The BigTIFF holds sky_a's floats, so its scene is held against the one
+# reading the pip cv2's decode of sky_a_f32.exr; the ZSTD TIFF holds the
+# projector PNG's RGB, which is all PIL's convert("RGB") keeps of it.
+ENV_SPHERE_ZSTD = {"projector.png": "projector_zstd.tif"}
+
+
+def cbox_sky_bigtiff(res=512):
+    """`cbox_sky` lit by sky_a as a float32 BigTIFF (Deflate, the
+    floating-point predictor) named .exr: it renders as
+    `cbox_sky_cvtiff_ref` does."""
+    return _cbox_sky_file(res, "sky_a_big.exr")
+
+
+def env_sphere_zstd(res=512, sub_div=40):
+    """`env_sphere` with its projector image from an RGB ZSTD TIFF (the
+    horizontal predictor) on PIL's route: it renders as `env_sphere`
+    does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_ZSTD)
 
 
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)

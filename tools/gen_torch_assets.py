@@ -914,33 +914,92 @@ def _tiff_pack(v, bits, bo, predictor):
                            axis=1).tobytes()
     if v.dtype.kind == "f":
         return np.ascontiguousarray(v.astype(bo + f"f{bits // 8}")).tobytes()
+    if bits % 8:
+        # 10-, 12- and 14-bit samples: packed most significant bit first,
+        # each row padded to a byte, as TIFF stores them
+        flat = v.reshape(rows, cols * spp).astype(np.int64)
+        b = (flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+        return np.packbits(b.reshape(rows, -1).astype(np.uint8),
+                           axis=1).tobytes()
     return np.ascontiguousarray(v.astype(bo + f"u{bits // 8}")).tobytes()
+
+
+# entry type -> struct code of one value (rationals: two)
+_TIFF_CODES = {3: "H", 4: "I", 5: "I", 6: "b", 8: "h", 9: "i", 10: "i",
+               11: "f", 12: "d", 16: "Q"}
+
+
+def bigtiff(data, long8=True):
+    """A classic TIFF of `tiff_bytes` (or any one-directory classic file)
+    laid out again as BigTIFF: the 16-byte header, the body after it moved
+    by 8 bytes, directory 0 rewritten at the end with 20-byte entries
+    (values of up to 8 bytes inside them); the strip or tile offsets and
+    byte counts as LONG8 (`long8`) or LONG."""
+    bo = "<" if data[:2] == b"II" else ">"
+    off, = struct.unpack(bo + "I", data[4:8])
+    n, = struct.unpack(bo + "H", data[off:off + 2])
+    body = bytearray(struct.pack(bo + "2sHHHQ", data[:2], 43, 8, 0, 0))
+    body += data[8:]
+    body += bytes(len(body) % 2)
+    units = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
+             11: 4, 12: 8, 16: 8}
+    entries = []
+    for k in range(n):
+        e = off + 2 + 12 * k
+        tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
+        size = units[typ] * count
+        at = e + 8 if size <= 4 else struct.unpack(bo + "I",
+                                                   data[e + 8:e + 12])[0]
+        raw = data[at:at + size]
+        if tag in (273, 279, 324, 325):
+            vals = struct.unpack(bo + {3: "H", 4: "I"}[typ] * count, raw)
+            if tag in (273, 324):
+                vals = [v + 8 for v in vals]
+            typ = 16 if long8 else 4
+            raw = struct.pack(bo + ("Q" if long8 else "I") * count, *vals)
+        entries.append((tag, typ, count, raw))
+    ifd = len(body)
+    blob_at = ifd + 8 + 20 * n + 8
+    out, blobs = bytearray(), bytearray()
+    for tag, typ, count, raw in entries:
+        if len(raw) <= 8:
+            field = raw.ljust(8, b"\0")
+        else:
+            field = struct.pack(bo + "Q", blob_at + len(blobs))
+            blobs += raw + bytes(len(raw) % 2)
+        out += struct.pack(bo + "HHQ", tag, typ, count) + field
+    body[8:16] = struct.pack(bo + "Q", ifd)
+    return bytes(body + struct.pack(bo + "Q", n) + out + bytes(8) + blobs)
 
 
 def tiff_bytes(samples, bits, photometric, compression=1, predictor=1,
                rows_per_strip=None, tile=None, planar=False, fill=1, bo="<",
                extra=(), sampleformat=None, colormap=None, jpeg_chunks=None,
-               jpeg_tables=None, ycbcr_sub=None, lzw_old=False):
+               jpeg_tables=None, ycbcr_sub=None, lzw_old=False, chunks=None,
+               tags=None):
     """A classic TIFF of samples [h, w, spp] (ints, or floats for
     sampleformat 3): strips of rows_per_strip rows or (tw, th) tiles
     (edge tiles padded), chunky or planar, compression 1 (none), 5 (LZW;
     lzw_old: old-style, least significant bit first), 8 / 32946
-    (Deflate), 32773 (PackBits) or 7 (JPEG: the chunks given, with
-    `jpeg_tables`), predictors 1-3, fill order 2 (each chunk's bytes
-    bit-reversed), either byte order."""
+    (Deflate), 32773 (PackBits), 50000 (ZSTD, needs the `zstandard`
+    module) or any other with its `chunks` (or
+    `jpeg_chunks`: 7, JPEG, with `jpeg_tables`) given coded, predictors
+    1-3, fill order 2 (each chunk's bytes bit-reversed), either byte
+    order; `tags` {tag: (type, values)} added or replacing the writer's."""
     samples = np.asarray(samples)
     h, w, spp = samples.shape
     if tile:
         tw, th = tile
     else:
         tw, th = w, rows_per_strip or h
+    given = chunks if chunks is not None else jpeg_chunks
     chunks = []
     planes = range(spp) if planar else [None]
     for pl in planes:
         for y0 in range(0, h, th):
             for x0 in range(0, w, tw):
-                if jpeg_chunks is not None:
-                    chunks.append(jpeg_chunks[len(chunks)])
+                if given is not None:
+                    chunks.append(given[len(chunks)])
                     continue
                 v = samples[y0:y0 + th, x0:x0 + tw]
                 if pl is not None:
@@ -956,6 +1015,9 @@ def tiff_bytes(samples, bits, photometric, compression=1, predictor=1,
                     raw = zlib.compress(raw, 9)
                 elif compression == 32773:
                     raw = packbits_encode(raw)
+                elif compression == 50000:
+                    import zstandard
+                    raw = zstandard.ZstdCompressor(level=9).compress(raw)
                 if fill == 2:
                     raw = raw.translate(_BITREV)
                 chunks.append(raw)
@@ -967,9 +1029,9 @@ def tiff_bytes(samples, bits, photometric, compression=1, predictor=1,
         body += c
         if len(body) % 2:
             body += b"\0"
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
-            259: (3, [compression]), 262: (3, [photometric]),
-            277: (3, [spp]), 284: (3, [2 if planar else 1])}
+    tags, more = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
+                  259: (3, [compression]), 262: (3, [photometric]),
+                  277: (3, [spp]), 284: (3, [2 if planar else 1])}, tags
     if fill != 1:
         tags[266] = (3, [fill])
     if predictor != 1:
@@ -992,17 +1054,18 @@ def tiff_bytes(samples, bits, photometric, compression=1, predictor=1,
         tags[273] = (4, offsets)
         tags[278] = (3, [th])
         tags[279] = (4, [len(c) for c in chunks])
+    tags.update(more or {})
     entries, blobs = [], bytearray()
     ifd_at = len(body)
     end = ifd_at + 2 + 12 * len(tags) + 4
     for tag in sorted(tags):
         typ, vals = tags[tag]
-        if typ == 7:
+        if typ in (1, 2, 7):
             data = bytes(vals)
             count = len(data)
         else:
-            data = struct.pack(bo + {3: "H", 4: "I"}[typ] * len(vals), *vals)
-            count = len(vals)
+            data = struct.pack(bo + _TIFF_CODES[typ] * len(vals), *vals)
+            count = len(vals) // (2 if typ in (5, 10) else 1)
         if len(data) <= 4:
             field = data.ljust(4, b"\0")
         else:
@@ -1301,6 +1364,17 @@ def _cvtiff_module():
     return mod
 
 
+def _tiff_module():
+    """`tools/gen_torch_tiff.py` (slice 7e.4's files), by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_tiff", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_tiff.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _pil_module():
     """`tools/gen_torch_pil.py`, loaded by path."""
     import importlib.util
@@ -1388,6 +1462,7 @@ def main():
     write_opencv_reader_files(out)
     _pil_module().write_pil_files(out, checker(), bumps(), projector())
     _cvtiff_module().write_cv_files(out)
+    _tiff_module().write_tiff_files(out)
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

@@ -962,3 +962,1308 @@ void vt_bc6h_decode(const uint8_t *in, int64_t n, int32_t sign,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// CCITT RLE, RLEW, Group 3 and Group 4 (libtiff's tif_fax3.c / tif_fax3.h)
+// ---------------------------------------------------------------------------
+//
+// The decoder keeps libtiff's state as libtiff keeps it: a bit accumulator
+// filled a byte at a time with the first bit of the stream lowest (bytes
+// bit-reversed), lookup tables of 7 (modes), 12 (white) and 13 (black) bits
+// indexed by that accumulator, the run arrays of the current and reference
+// rows side by side in one buffer that lives as long as the directory, and
+// its macros' control flow: a bad code word ends the row (libtiff logs
+// it and goes on), a row of the wrong length is cut or padded with white,
+// the data's end pads with zero bits while any are left.
+
+namespace {
+
+enum FaxState { S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW,
+                S_TermB, S_MakeUpW, S_MakeUpB, S_MakeUp, S_EOL };
+
+struct FaxEnt {
+  uint8_t state = S_Null, width = 0;
+  uint32_t param = 0;
+};
+
+struct FaxCode {
+  const char *bits;
+  uint32_t run;
+};
+
+const FaxCode kWhiteTerm[] = {
+    {"00110101", 0}, {"000111", 1}, {"0111", 2}, {"1000", 3}, {"1011", 4},
+    {"1100", 5}, {"1110", 6}, {"1111", 7}, {"10011", 8}, {"10100", 9},
+    {"00111", 10}, {"01000", 11}, {"001000", 12}, {"000011", 13},
+    {"110100", 14}, {"110101", 15}, {"101010", 16}, {"101011", 17},
+    {"0100111", 18}, {"0001100", 19}, {"0001000", 20}, {"0010111", 21},
+    {"0000011", 22}, {"0000100", 23}, {"0101000", 24}, {"0101011", 25},
+    {"0010011", 26}, {"0100100", 27}, {"0011000", 28}, {"00000010", 29},
+    {"00000011", 30}, {"00011010", 31}, {"00011011", 32}, {"00010010", 33},
+    {"00010011", 34}, {"00010100", 35}, {"00010101", 36}, {"00010110", 37},
+    {"00010111", 38}, {"00101000", 39}, {"00101001", 40}, {"00101010", 41},
+    {"00101011", 42}, {"00101100", 43}, {"00101101", 44}, {"00000100", 45},
+    {"00000101", 46}, {"00001010", 47}, {"00001011", 48}, {"01010010", 49},
+    {"01010011", 50}, {"01010100", 51}, {"01010101", 52}, {"00100100", 53},
+    {"00100101", 54}, {"01011000", 55}, {"01011001", 56}, {"01011010", 57},
+    {"01011011", 58}, {"01001010", 59}, {"01001011", 60}, {"00110010", 61},
+    {"00110011", 62}, {"00110100", 63}};
+const FaxCode kWhiteMakeUp[] = {
+    {"11011", 64}, {"10010", 128}, {"010111", 192}, {"0110111", 256},
+    {"00110110", 320}, {"00110111", 384}, {"01100100", 448},
+    {"01100101", 512}, {"01101000", 576}, {"01100111", 640},
+    {"011001100", 704}, {"011001101", 768}, {"011010010", 832},
+    {"011010011", 896}, {"011010100", 960}, {"011010101", 1024},
+    {"011010110", 1088}, {"011010111", 1152}, {"011011000", 1216},
+    {"011011001", 1280}, {"011011010", 1344}, {"011011011", 1408},
+    {"010011000", 1472}, {"010011001", 1536}, {"010011010", 1600},
+    {"011000", 1664}, {"010011011", 1728}};
+const FaxCode kBlackTerm[] = {
+    {"0000110111", 0}, {"010", 1}, {"11", 2}, {"10", 3}, {"011", 4},
+    {"0011", 5}, {"0010", 6}, {"00011", 7}, {"000101", 8}, {"000100", 9},
+    {"0000100", 10}, {"0000101", 11}, {"0000111", 12}, {"00000100", 13},
+    {"00000111", 14}, {"000011000", 15}, {"0000010111", 16},
+    {"0000011000", 17}, {"0000001000", 18}, {"00001100111", 19},
+    {"00001101000", 20}, {"00001101100", 21}, {"00000110111", 22},
+    {"00000101000", 23}, {"00000010111", 24}, {"00000011000", 25},
+    {"000011001010", 26}, {"000011001011", 27}, {"000011001100", 28},
+    {"000011001101", 29}, {"000001101000", 30}, {"000001101001", 31},
+    {"000001101010", 32}, {"000001101011", 33}, {"000011010010", 34},
+    {"000011010011", 35}, {"000011010100", 36}, {"000011010101", 37},
+    {"000011010110", 38}, {"000011010111", 39}, {"000001101100", 40},
+    {"000001101101", 41}, {"000011011010", 42}, {"000011011011", 43},
+    {"000001010100", 44}, {"000001010101", 45}, {"000001010110", 46},
+    {"000001010111", 47}, {"000001100100", 48}, {"000001100101", 49},
+    {"000001010010", 50}, {"000001010011", 51}, {"000000100100", 52},
+    {"000000110111", 53}, {"000000111000", 54}, {"000000100111", 55},
+    {"000000101000", 56}, {"000001011000", 57}, {"000001011001", 58},
+    {"000000101011", 59}, {"000000101100", 60}, {"000001011010", 61},
+    {"000001100110", 62}, {"000001100111", 63}};
+const FaxCode kBlackMakeUp[] = {
+    {"0000001111", 64}, {"000011001000", 128}, {"000011001001", 192},
+    {"000001011011", 256}, {"000000110011", 320}, {"000000110100", 384},
+    {"000000110101", 448}, {"0000001101100", 512}, {"0000001101101", 576},
+    {"0000001001010", 640}, {"0000001001011", 704}, {"0000001001100", 768},
+    {"0000001001101", 832}, {"0000001110010", 896}, {"0000001110011", 960},
+    {"0000001110100", 1024}, {"0000001110101", 1088},
+    {"0000001110110", 1152}, {"0000001110111", 1216},
+    {"0000001010010", 1280}, {"0000001010011", 1344},
+    {"0000001010100", 1408}, {"0000001010101", 1472},
+    {"0000001011010", 1536}, {"0000001011011", 1600},
+    {"0000001100100", 1664}, {"0000001100101", 1728}};
+// the extended make-up codes, shared by both colours
+const FaxCode kMakeUp[] = {
+    {"00000001000", 1792}, {"00000001100", 1856}, {"00000001101", 1920},
+    {"000000010010", 1984}, {"000000010011", 2048}, {"000000010100", 2112},
+    {"000000010101", 2176}, {"000000010110", 2240}, {"000000010111", 2304},
+    {"000000011100", 2368}, {"000000011101", 2432}, {"000000011110", 2496},
+    {"000000011111", 2560}};
+
+FaxEnt kMainTab[128], kWhiteTab[4096], kBlackTab[8192];
+uint8_t kRev[256];
+
+// every index of a `wid`-bit table whose low bits are `code` (its first
+// bit lowest)
+void fax_put(FaxEnt *tab, int wid, const char *code, int state,
+             uint32_t param) {
+  int n = int(std::strlen(code));
+  uint32_t r = 0;
+  for (int i = 0; i < n; ++i)
+    if (code[i] == '1') r |= 1u << i;
+  for (uint32_t h = 0; h < (1u << (wid - n)); ++h)
+    tab[r | h << n] = FaxEnt{uint8_t(state), uint8_t(n), param};
+}
+
+bool fax_tables() {
+  for (int i = 0; i < 256; ++i) {
+    int r = 0;
+    for (int b = 0; b < 8; ++b)
+      if (i & (1 << b)) r |= 0x80 >> b;
+    kRev[i] = uint8_t(r);
+  }
+  // libtiff's mkg3states: the mode codes, then EOL as 7 zero bits
+  fax_put(kMainTab, 7, "0001", S_Pass, 0);
+  fax_put(kMainTab, 7, "001", S_Horiz, 0);
+  fax_put(kMainTab, 7, "1", S_V0, 0);
+  fax_put(kMainTab, 7, "011", S_VR, 1);
+  fax_put(kMainTab, 7, "000011", S_VR, 2);
+  fax_put(kMainTab, 7, "0000011", S_VR, 3);
+  fax_put(kMainTab, 7, "010", S_VL, 1);
+  fax_put(kMainTab, 7, "000010", S_VL, 2);
+  fax_put(kMainTab, 7, "0000010", S_VL, 3);
+  fax_put(kMainTab, 7, "0000001", S_Ext, 0);
+  fax_put(kMainTab, 7, "0000000", S_EOL, 0);
+  for (const FaxCode &c : kWhiteMakeUp)
+    fax_put(kWhiteTab, 12, c.bits, S_MakeUpW, c.run);
+  for (const FaxCode &c : kMakeUp) {
+    fax_put(kWhiteTab, 12, c.bits, S_MakeUp, c.run);
+    fax_put(kBlackTab, 13, c.bits, S_MakeUp, c.run);
+  }
+  for (const FaxCode &c : kWhiteTerm)
+    fax_put(kWhiteTab, 12, c.bits, S_TermW, c.run);
+  fax_put(kWhiteTab, 12, "00000000000", S_EOL, 0);
+  for (const FaxCode &c : kBlackMakeUp)
+    fax_put(kBlackTab, 13, c.bits, S_MakeUpB, c.run);
+  for (const FaxCode &c : kBlackTerm)
+    fax_put(kBlackTab, 13, c.bits, S_TermB, c.run);
+  fax_put(kBlackTab, 13, "00000000000", S_EOL, 0);
+  return true;
+}
+
+// _TIFFFax3fillruns: white runs clear bits, black runs set them; a run
+// past the row's end is cut there (in the run array too)
+void fax_fillruns(uint8_t *buf, uint32_t *runs, uint32_t *erun,
+                  uint32_t lastx) {
+  if ((erun - runs) & 1) *erun++ = 0;
+  uint32_t x = 0;
+  for (; runs < erun; runs += 2) {
+    for (int k = 0; k < 2; ++k) {
+      uint32_t run = runs[k];
+      if (x + run > lastx || run > lastx) run = runs[k] = lastx - x;
+      for (uint32_t i = x; i < x + run; ++i) {
+        if (k) buf[i >> 3] |= uint8_t(0x80 >> (i & 7));
+        else buf[i >> 3] &= uint8_t(~(0x80 >> (i & 7)));
+      }
+      x += run;
+    }
+  }
+}
+
+struct Fax {
+  const uint8_t *cp, *ep, *bp;
+  int64_t parity;         // the strip's first byte's address, mod 2
+  uint32_t BitAcc = 0;
+  int BitsAvail = 0, EOLcnt = 0;
+  uint32_t *runs;
+  uint32_t nruns;
+  uint32_t *curruns, *refruns = nullptr;
+  uint32_t *noeol;        // libtiff's FAXMODE_NOEOL, kept by the directory
+  int lastx;
+};
+
+#define GETBITS(n) (BitAcc & ((1u << (n)) - 1))
+#define CLRBITS(n) do { BitsAvail -= (n); BitAcc >>= (n); } while (0)
+#define EOD() (cp >= ep)
+#define NEEDBITS8(n, L)                                                      \
+  do {                                                                       \
+    if (BitsAvail < (n)) {                                                   \
+      if (EOD()) {                                                           \
+        if (BitsAvail == 0) goto L;                                          \
+        BitsAvail = (n);                                                     \
+      } else {                                                               \
+        BitAcc |= uint32_t(kRev[*cp++]) << BitsAvail;                        \
+        BitsAvail += 8;                                                      \
+      }                                                                      \
+    }                                                                        \
+  } while (0)
+#define NEEDBITS16(n, L)                                                     \
+  do {                                                                       \
+    if (BitsAvail < (n)) {                                                   \
+      if (EOD()) {                                                           \
+        if (BitsAvail == 0) goto L;                                          \
+        BitsAvail = (n);                                                     \
+      } else {                                                               \
+        BitAcc |= uint32_t(kRev[*cp++]) << BitsAvail;                        \
+        if ((BitsAvail += 8) < (n)) {                                        \
+          if (EOD()) {                                                       \
+            BitsAvail = (n);                                                 \
+          } else {                                                           \
+            BitAcc |= uint32_t(kRev[*cp++]) << BitsAvail;                    \
+            BitsAvail += 8;                                                  \
+          }                                                                  \
+        }                                                                    \
+      }                                                                      \
+    }                                                                        \
+  } while (0)
+#define LOOKUP8(wid, tab, L)                                                 \
+  do {                                                                       \
+    NEEDBITS8(wid, L);                                                       \
+    te = &tab[GETBITS(wid)];                                                 \
+    CLRBITS(te->width);                                                      \
+  } while (0)
+#define LOOKUP16(wid, tab, L)                                                \
+  do {                                                                       \
+    NEEDBITS16(wid, L);                                                      \
+    te = &tab[GETBITS(wid)];                                                 \
+    CLRBITS(te->width);                                                      \
+  } while (0)
+#define SETVALUE(x)                                                          \
+  do {                                                                       \
+    if (pa >= thisrun + s.nruns) return -1;                                  \
+    *pa++ = uint32_t(RunLength + (x));                                       \
+    a0 += (x);                                                               \
+    RunLength = 0;                                                           \
+  } while (0)
+// the run array after a row: cut at, or padded with white to, lastx
+#define CLEANUP_RUNS()                                                       \
+  do {                                                                       \
+    if (RunLength) SETVALUE(0);                                              \
+    if (a0 != lastx) {                                                       \
+      while (a0 > lastx && pa > thisrun) a0 -= int(*--pa);                   \
+      if (a0 < lastx) {                                                      \
+        if (a0 < 0) a0 = 0;                                                  \
+        if ((pa - thisrun) & 1) SETVALUE(0);                                 \
+        SETVALUE(lastx - a0);                                                \
+      } else if (a0 > lastx) {                                               \
+        SETVALUE(lastx);                                                     \
+        SETVALUE(0);                                                         \
+      }                                                                      \
+    }                                                                        \
+  } while (0)
+// one row of white and black runs (T.4 1-D)
+#define EXPAND1D(eoflab)                                                     \
+  do {                                                                       \
+    for (;;) {                                                               \
+      for (;;) {                                                             \
+        LOOKUP16(12, kWhiteTab, eof1d);                                      \
+        switch (te->state) {                                                 \
+          case S_EOL: EOLcnt = 1; goto done1d;                               \
+          case S_TermW: SETVALUE(int(te->param)); goto doneWhite1d;          \
+          case S_MakeUpW: case S_MakeUp:                                     \
+            a0 += int(te->param); RunLength += int(te->param); break;        \
+          default: goto done1d;                                              \
+        }                                                                    \
+      }                                                                      \
+    doneWhite1d:                                                             \
+      if (a0 >= lastx) goto done1d;                                          \
+      for (;;) {                                                             \
+        LOOKUP16(13, kBlackTab, eof1d);                                      \
+        switch (te->state) {                                                 \
+          case S_EOL: EOLcnt = 1; goto done1d;                               \
+          case S_TermB: SETVALUE(int(te->param)); goto doneBlack1d;          \
+          case S_MakeUpB: case S_MakeUp:                                     \
+            a0 += int(te->param); RunLength += int(te->param); break;        \
+          default: goto done1d;                                              \
+        }                                                                    \
+      }                                                                      \
+    doneBlack1d:                                                             \
+      if (a0 >= lastx) goto done1d;                                          \
+      if (*(pa - 1) == 0 && *(pa - 2) == 0) pa -= 2;                         \
+    }                                                                        \
+  eof1d:                                                                     \
+    CLEANUP_RUNS();                                                          \
+    goto eoflab;                                                             \
+  done1d:                                                                    \
+    CLEANUP_RUNS();                                                          \
+  } while (0)
+#define CHECK_B1                                                             \
+  do {                                                                       \
+    if (pa != thisrun)                                                       \
+      while (b1 <= a0 && b1 < lastx) {                                       \
+        if (pb + 1 >= s.refruns + s.nruns) return -1;                        \
+        b1 += int(pb[0] + pb[1]);                                            \
+        pb += 2;                                                             \
+      }                                                                      \
+  } while (0)
+// one row of modes against the reference row (T.4 2-D, T.6)
+#define EXPAND2D(eoflab)                                                     \
+  do {                                                                       \
+    while (a0 < lastx) {                                                     \
+      if (pa >= thisrun + s.nruns) return -1;                                \
+      LOOKUP8(7, kMainTab, eof2d);                                           \
+      switch (te->state) {                                                   \
+        case S_Pass:                                                         \
+          CHECK_B1;                                                          \
+          if (pb >= s.refruns + s.nruns) return -1;                          \
+          b1 += int(*pb++);                                                  \
+          RunLength += b1 - a0;                                              \
+          a0 = b1;                                                           \
+          b1 += int(*pb++);                                                  \
+          break;                                                             \
+        case S_Horiz:                                                        \
+          if ((pa - thisrun) & 1) {                                          \
+            for (;;) {                                                       \
+              LOOKUP16(13, kBlackTab, eof2d);                                \
+              switch (te->state) {                                           \
+                case S_TermB: SETVALUE(int(te->param)); goto doneWhite2da;   \
+                case S_MakeUpB: case S_MakeUp:                               \
+                  a0 += int(te->param); RunLength += int(te->param); break;  \
+                default: goto eol2d;                                         \
+              }                                                              \
+            }                                                                \
+          doneWhite2da:;                                                     \
+            for (;;) {                                                       \
+              LOOKUP16(12, kWhiteTab, eof2d);                                \
+              switch (te->state) {                                           \
+                case S_TermW: SETVALUE(int(te->param)); goto doneBlack2da;   \
+                case S_MakeUpW: case S_MakeUp:                               \
+                  a0 += int(te->param); RunLength += int(te->param); break;  \
+                default: goto eol2d;                                         \
+              }                                                              \
+            }                                                                \
+          doneBlack2da:;                                                     \
+          } else {                                                           \
+            for (;;) {                                                       \
+              LOOKUP16(12, kWhiteTab, eof2d);                                \
+              switch (te->state) {                                           \
+                case S_TermW: SETVALUE(int(te->param)); goto doneWhite2db;   \
+                case S_MakeUpW: case S_MakeUp:                               \
+                  a0 += int(te->param); RunLength += int(te->param); break;  \
+                default: goto eol2d;                                         \
+              }                                                              \
+            }                                                                \
+          doneWhite2db:;                                                     \
+            for (;;) {                                                       \
+              LOOKUP16(13, kBlackTab, eof2d);                                \
+              switch (te->state) {                                           \
+                case S_TermB: SETVALUE(int(te->param)); goto doneBlack2db;   \
+                case S_MakeUpB: case S_MakeUp:                               \
+                  a0 += int(te->param); RunLength += int(te->param); break;  \
+                default: goto eol2d;                                         \
+              }                                                              \
+            }                                                                \
+          doneBlack2db:;                                                     \
+          }                                                                  \
+          CHECK_B1;                                                          \
+          break;                                                             \
+        case S_V0:                                                           \
+          CHECK_B1;                                                          \
+          SETVALUE(b1 - a0);                                                 \
+          if (pb >= s.refruns + s.nruns) return -1;                          \
+          b1 += int(*pb++);                                                  \
+          break;                                                             \
+        case S_VR:                                                           \
+          CHECK_B1;                                                          \
+          SETVALUE(b1 - a0 + int(te->param));                                \
+          if (pb >= s.refruns + s.nruns) return -1;                          \
+          b1 += int(*pb++);                                                  \
+          break;                                                             \
+        case S_VL:                                                           \
+          CHECK_B1;                                                          \
+          if (b1 < int(a0 + te->param)) goto eol2d;                          \
+          SETVALUE(b1 - a0 - int(te->param));                                \
+          b1 -= int(*--pb);                                                  \
+          break;                                                             \
+        case S_Ext:                                                          \
+          *pa++ = uint32_t(lastx - a0);                                      \
+          goto eol2d;                                                        \
+        case S_EOL:                                                          \
+          *pa++ = uint32_t(lastx - a0);                                      \
+          NEEDBITS8(4, eof2d);                                               \
+          CLRBITS(4);                                                        \
+          EOLcnt = 1;                                                        \
+          goto eol2d;                                                        \
+        default:                                                             \
+          goto eol2d;                                                        \
+      }                                                                      \
+    }                                                                        \
+    if (RunLength) {                                                         \
+      if (RunLength + a0 < lastx) {                                          \
+        NEEDBITS8(1, eof2d);                                                 \
+        if (!GETBITS(1)) goto eol2d;                                         \
+        CLRBITS(1);                                                          \
+      }                                                                      \
+      SETVALUE(0);                                                           \
+    }                                                                        \
+    goto eol2d;                                                              \
+  eof2d:                                                                     \
+    CLEANUP_RUNS();                                                          \
+    goto eoflab;                                                             \
+  eol2d:                                                                     \
+    CLEANUP_RUNS();                                                          \
+  } while (0)
+// the search for an EOL before a G3 row (and its fill bits). Where the
+// data ends after an EOL's zeros, libtiff takes the file for one without
+// EOLs and skips the search in every later row of the directory
+#define SYNC_EOL(eoflab)                                                     \
+  do {                                                                       \
+    if (!*s.noeol) {                                                         \
+      if (EOLcnt == 0) {                                                     \
+        for (;;) {                                                           \
+          NEEDBITS16(11, eoflab);                                            \
+          if (GETBITS(11) == 0) break;                                       \
+          CLRBITS(1);                                                        \
+        }                                                                    \
+      }                                                                      \
+      for (;;) {                                                             \
+        NEEDBITS8(8, eoflab##NoEOL);                                         \
+        if (GETBITS(8)) break;                                               \
+        CLRBITS(8);                                                          \
+      }                                                                      \
+      while (GETBITS(1) == 0) CLRBITS(1);                                    \
+      CLRBITS(1);                                                            \
+      EOLcnt = 0;                                                            \
+      break;                                                                 \
+    }                                                                        \
+  eoflab##NoEOL:                                                             \
+    *s.noeol = 1;                                                            \
+  } while (0)
+
+#define FAX_LOCALS                                                           \
+  const uint8_t *cp = s.cp, *ep = s.ep;                                      \
+  uint32_t BitAcc = s.BitAcc;                                                \
+  int BitsAvail = s.BitsAvail, EOLcnt = s.EOLcnt;                            \
+  const int lastx = s.lastx;                                                 \
+  int a0, RunLength, b1 = 0;                                                 \
+  uint32_t *pa, *thisrun, *pb = nullptr;                                     \
+  const FaxEnt *te;                                                          \
+  (void)b1; (void)pb; (void)EOLcnt
+
+// CCITT RLE (byte-aligned rows) and RLEW (word-aligned): Fax3DecodeRLE
+int fax_rle(Fax &s, uint8_t *buf, int64_t occ, int64_t rowbytes, bool word) {
+  FAX_LOCALS;
+  thisrun = s.curruns;
+  while (occ > 0) {
+    a0 = 0;
+    RunLength = 0;
+    pa = thisrun;
+    EXPAND1D(EOFRLE);
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    if (!word) {
+      int n = BitsAvail - (BitsAvail & ~7);
+      CLRBITS(n);
+    } else {
+      int n = BitsAvail - (BitsAvail & ~15);
+      CLRBITS(n);
+      if (BitsAvail == 0 && ((cp - s.bp) + s.parity) & 1) cp++;
+    }
+    buf += rowbytes;
+    occ -= rowbytes;
+    continue;
+  EOFRLE:
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    return -1;
+  }
+  return 1;
+}
+
+// Group 3, 1-D: Fax3Decode1D. The data's end ends the strip with success
+// (PIL and the pip cv2 show it; their rows after it are not written)
+int fax_g3_1d(Fax &s, uint8_t *buf, int64_t occ, int64_t rowbytes,
+              int64_t *rows_done) {
+  FAX_LOCALS;
+  int64_t line = 0;
+  thisrun = s.curruns;
+  while (occ > 0) {
+    a0 = 0;
+    RunLength = 0;
+    pa = thisrun;
+    SYNC_EOL(EOF1D);
+    EXPAND1D(EOF1Da);
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    buf += rowbytes;
+    occ -= rowbytes;
+    line++;
+    continue;
+  EOF1D:
+    CLEANUP_RUNS();
+  EOF1Da:
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    *rows_done = line + 1;
+    return 2;
+  }
+  return 1;
+}
+
+// Group 3, 2-D (a tag bit before each row picks 1-D or 2-D): Fax3Decode2D.
+// The data's end while looking for a row's EOL ends the strip with success
+// (rows after it not written), inside a row with failure, as PIL and the
+// pip cv2 show it
+int fax_g3_2d(Fax &s, uint8_t *buf, int64_t occ, int64_t rowbytes,
+              int64_t *rows_done) {
+  FAX_LOCALS;
+  int64_t line = 0;
+  while (occ > 0) {
+    a0 = 0;
+    RunLength = 0;
+    pa = thisrun = s.curruns;
+    SYNC_EOL(EOF2D);
+    NEEDBITS8(1, EOF2D);
+    {
+      int is1d = GETBITS(1);
+      CLRBITS(1);
+      pb = s.refruns;
+      b1 = int(*pb++);
+      if (is1d) goto row1d;
+    }
+    EXPAND2D(EOF2Da);
+    goto rowdone;
+  row1d:
+    EXPAND1D(EOF2Da);
+  rowdone:
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    if (pa < thisrun + s.nruns) SETVALUE(0);   // the reference's last change
+    std::swap(s.curruns, s.refruns);
+    buf += rowbytes;
+    occ -= rowbytes;
+    line++;
+    continue;
+  EOF2D:
+    CLEANUP_RUNS();
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    *rows_done = line + 1;
+    return 2;
+  EOF2Da:
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    return -1;
+  }
+  return 1;
+}
+
+// Group 4: Fax4Decode. An EOFB, or the data's end, ends the strip with
+// success once a row is done (its rows after are not written)
+int fax_g4(Fax &s, uint8_t *buf, int64_t occ, int64_t rowbytes,
+           int64_t *rows_done) {
+  FAX_LOCALS;
+  int64_t line = 0;
+  while (occ > 0) {
+    a0 = 0;
+    RunLength = 0;
+    pa = thisrun = s.curruns;
+    pb = s.refruns;
+    b1 = int(*pb++);
+    EXPAND2D(EOFG4);
+    if (EOLcnt) goto EOFG4;
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    SETVALUE(0);
+    std::swap(s.curruns, s.refruns);
+    buf += rowbytes;
+    occ -= rowbytes;
+    *rows_done = ++line;
+    continue;
+  EOFG4:
+    fax_fillruns(buf, thisrun, pa, uint32_t(lastx));
+    *rows_done = line + 1;
+    return line ? 2 : -1;
+  }
+  return 1;
+}
+
+#undef GETBITS
+#undef CLRBITS
+#undef EOD
+#undef NEEDBITS8
+#undef NEEDBITS16
+#undef LOOKUP8
+#undef LOOKUP16
+#undef SETVALUE
+#undef CLEANUP_RUNS
+#undef EXPAND1D
+#undef CHECK_B1
+#undef EXPAND2D
+#undef SYNC_EOL
+#undef FAX_LOCALS
+
+}  // namespace
+
+extern "C" {
+
+// One strip or tile of CCITT data -> its rows in `out` (n_out bytes,
+// rows of `rowbytes`, `rowpixels` pixels each; black 1). `kind`: 2 (RLE),
+// 32771 (RLEW), 3 (Group 3; `opts` its T4Options) or 4 (Group 4).
+// `runs` (2 * nruns words and a flag word) is the directory's run buffer
+// and its no-EOL mode, kept from one strip to the next as libtiff keeps
+// them. `parity`: the strip's first
+// byte's file offset mod 2 (RLEW aligns rows to the address of a word).
+// Returns 1 where libtiff's codec succeeds, -1 where it fails (the rows
+// written so far stay in `out`), 2 where a Group 4 strip ends early with
+// success (Group 4 and Group 3: rows past *rows_done left as they were),
+// -2 for a fraction of a row.
+int32_t vt_fax_decode(const uint8_t *in, int64_t n_in, int64_t parity,
+                      uint8_t *out, int64_t n_out, int32_t rowpixels,
+                      int64_t rowbytes, int32_t kind, int32_t opts,
+                      uint32_t *runs, int32_t nruns, int64_t *rows_done) {
+  static const bool ready = fax_tables();
+  (void)ready;
+  if (rowbytes <= 0 || n_out % rowbytes) return -2;
+  Fax s;
+  s.cp = s.bp = in;
+  s.ep = in + n_in;
+  s.parity = parity & 1;
+  s.runs = runs;
+  s.nruns = uint32_t(nruns);
+  s.curruns = runs;
+  s.noeol = runs + 2 * int64_t(nruns);
+  s.lastx = rowpixels;
+  *rows_done = n_out / rowbytes;
+  if (kind == 4 || (kind == 3 && (opts & 1))) {
+    s.refruns = runs + nruns;
+    s.refruns[0] = uint32_t(rowpixels);
+    s.refruns[1] = 0;
+  }
+  if (kind == 2 || kind == 32771)
+    return fax_rle(s, out, n_out, rowbytes, kind == 32771);
+  if (kind == 4) return fax_g4(s, out, n_out, rowbytes, rows_done);
+  if (opts & 1) return fax_g3_2d(s, out, n_out, rowbytes, rows_done);
+  return fax_g3_1d(s, out, n_out, rowbytes, rows_done);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Zstandard frames (RFC 8878), as libtiff's tif_zstd.c meets them through
+// libzstd's ZSTD_decompressStream: blocks until the strip is full or the
+// frame ends, each block checked whole
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct ZErr {};   // libzstd returns an error code
+
+// a backward bit stream (BIT_DStream_t): the last byte's highest set bit
+// marks its end; bits past its start read as zeros, or, for the Huffman
+// streams libzstd's fast decoder reads, as the `below` bytes before it
+// (a zero last byte is then data too: the stream holds all its bits)
+struct BackBits {
+  const uint8_t *p;
+  int64_t total, used = 0, below = 0;   // bits in the stream, consumed
+  BackBits(const uint8_t *src, int64_t n, bool fast = false,
+           int64_t below_ = 0)
+      : p(src), below(below_) {
+    if (n <= 0 || (src[n - 1] == 0 && !fast)) throw ZErr();
+    int last = src[n - 1], hb = 7;
+    while (last && !(last >> hb)) --hb;
+    total = last ? (n - 1) * 8 + hb : n * 8;
+  }
+  uint32_t peek(int k) const {   // the next k bits (k <= 24)
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) {
+      int64_t pos = total - 1 - used - i;   // bit index from the start
+      int b = pos >= -below * 8 ? (p[pos >> 3] >> (pos & 7)) & 1 : 0;
+      v = v << 1 | uint32_t(b);
+    }
+    return v;
+  }
+  uint32_t read(int k) {
+    uint32_t v = peek(k);
+    used += k;
+    return v;
+  }
+  bool overflow() const { return used > total; }
+  bool done() const { return used == total; }
+};
+
+struct FseEnt {
+  uint16_t symbol;
+  uint8_t bits;
+  uint32_t base;
+};
+
+struct Fse {
+  int log = 0;
+  std::vector<FseEnt> t;
+};
+
+int highbit(uint32_t v) {
+  int r = 0;
+  while (v >>= 1) ++r;
+  return r;
+}
+
+// the decoding table of normalised counts (-1: "less than one")
+Fse fse_build(const std::vector<int> &norm, int log) {
+  Fse f;
+  f.log = log;
+  uint32_t size = 1u << log, high = size - 1;
+  f.t.assign(size, FseEnt{0, 0, 0});
+  std::vector<uint32_t> next(norm.size());
+  for (size_t s = 0; s < norm.size(); ++s) {
+    if (norm[s] == -1) {
+      f.t[high--].symbol = uint16_t(s);
+      next[s] = 1;
+    } else {
+      next[s] = uint32_t(norm[s]);
+    }
+  }
+  uint32_t step = (size >> 1) + (size >> 3) + 3, mask = size - 1, pos = 0;
+  for (size_t s = 0; s < norm.size(); ++s)
+    for (int i = 0; i < norm[s]; ++i) {
+      f.t[pos].symbol = uint16_t(s);
+      do pos = (pos + step) & mask; while (pos > high);
+    }
+  if (pos != 0) throw ZErr();
+  for (uint32_t u = 0; u < size; ++u) {
+    uint32_t ns = next[f.t[u].symbol]++;
+    int nb = log - highbit(ns);
+    f.t[u].bits = uint8_t(nb);
+    f.t[u].base = (ns << nb) - size;
+  }
+  return f;
+}
+
+// FSE_readNCount: a table description from src -> (counts, log); *used
+// the bytes it takes
+std::vector<int> fse_read_counts(const uint8_t *src, int64_t n, int max_log,
+                                 int max_symbol, int *log, int64_t *used) {
+  int64_t bitpos = 0;
+  auto bits = [&](int k) -> uint32_t {   // little-endian, k <= 24
+    uint32_t v = 0;
+    for (int i = 0; i < k; ++i) {
+      int64_t q = bitpos + i;
+      int b = (q >> 3) < n ? (src[q >> 3] >> (q & 7)) & 1 : 0;
+      v |= uint32_t(b) << i;
+    }
+    return v;
+  };
+  int al = int(bits(4)) + 5;
+  bitpos += 4;
+  if (al > max_log) throw ZErr();
+  *log = al;
+  int remaining = (1 << al) + 1, threshold = 1 << al, nb = al + 1;
+  std::vector<int> norm;
+  bool prev0 = false;
+  while (remaining > 1 && int(norm.size()) <= max_symbol) {
+    if (prev0) {
+      int rep;
+      do {
+        rep = int(bits(2));
+        bitpos += 2;
+        for (int i = 0; i < rep; ++i) norm.push_back(0);
+      } while (rep == 3);
+      if (int(norm.size()) > max_symbol) throw ZErr();
+    }
+    int mx = (2 * threshold - 1) - remaining;
+    int v = int(bits(nb));
+    int count;
+    if ((v & (threshold - 1)) < mx) {
+      count = v & (threshold - 1);
+      bitpos += nb - 1;
+    } else {
+      count = v & (2 * threshold - 1);
+      if (count >= threshold) count -= mx;
+      bitpos += nb;
+    }
+    count -= 1;
+    remaining -= count < 0 ? -count : count;
+    norm.push_back(count);
+    prev0 = count == 0;
+    while (remaining < threshold) {
+      nb--;
+      threshold >>= 1;
+    }
+  }
+  if (remaining != 1 || int(norm.size()) > max_symbol + 1) throw ZErr();
+  *used = (bitpos + 7) >> 3;
+  if (*used > n) throw ZErr();
+  return norm;
+}
+
+struct Huf {
+  int max_bits = 0;
+  std::vector<uint8_t> sym, len;   // by the next max_bits bits
+};
+
+// a Huffman tree description -> the table; returns the bytes it takes
+int64_t huf_read(const uint8_t *src, int64_t n, Huf *h) {
+  if (n < 1) throw ZErr();
+  int hb = src[0];
+  std::vector<int> w;
+  int64_t used;
+  if (hb >= 128) {
+    int nw = hb - 127;
+    used = 1 + (nw + 1) / 2;
+    if (used > n) throw ZErr();
+    for (int i = 0; i < nw; ++i)
+      w.push_back(i & 1 ? src[1 + i / 2] & 15 : src[1 + i / 2] >> 4);
+  } else {
+    used = 1 + hb;
+    if (used > n) throw ZErr();
+    int log;
+    int64_t hdr;
+    std::vector<int> norm = fse_read_counts(src + 1, hb, 6, 12, &log, &hdr);
+    Fse f = fse_build(norm, log);
+    BackBits br(src + 1 + hdr, hb - hdr);
+    uint32_t s1 = br.read(log), s2 = br.read(log);
+    auto emit = [&](uint32_t &st, bool update) {
+      // FSE_decompress's room check (255 weights), not before the last
+      if (update && int(w.size()) > 255 - 2) throw ZErr();
+      const FseEnt &e = f.t[st];
+      w.push_back(e.symbol);
+      if (update) st = e.base + br.read(e.bits);
+    };
+    for (;;) {
+      emit(s1, true);
+      if (br.overflow()) { emit(s2, false); break; }
+      emit(s2, true);
+      if (br.overflow()) { emit(s1, false); break; }
+    }
+  }
+  uint32_t total = 0;
+  std::vector<int> rank(16, 0);
+  for (int x : w) {
+    if (x > 12) throw ZErr();
+    rank[x]++;
+    if (x) total += 1u << (x - 1);
+  }
+  if (total == 0) throw ZErr();
+  int max_bits = highbit(total) + 1;
+  if (max_bits > 12) throw ZErr();
+  uint32_t rest = (1u << max_bits) - total;
+  if (rest != (1u << highbit(rest))) throw ZErr();
+  int last = highbit(rest) + 1;
+  w.push_back(last);
+  rank[last]++;
+  if (rank[1] < 2 || (rank[1] & 1)) throw ZErr();
+  h->max_bits = max_bits;
+  h->sym.assign(size_t(1) << max_bits, 0);
+  h->len.assign(size_t(1) << max_bits, 0);
+  // codes of each length in symbol order, longest codes first (lowest)
+  uint32_t code = 0;
+  for (int nbits = max_bits; nbits >= 1; --nbits) {
+    int wt = max_bits + 1 - nbits;
+    for (size_t s = 0; s < w.size(); ++s) {
+      if (w[s] != wt) continue;
+      uint32_t span = 1u << (max_bits - nbits);
+      for (uint32_t i = 0; i < span; ++i) {
+        h->sym[code + i] = uint8_t(s);
+        h->len[code + i] = uint8_t(nbits);
+      }
+      code += span;
+    }
+  }
+  return used;
+}
+
+// one Huffman literal stream. libzstd's fast 4-stream decoder (each
+// stream of 8 bytes or more, codes of 11 bits or fewer) reads past a
+// stream's start into the streams before it and checks no stream's end;
+// its other decoders check each stream ends exactly
+void huf_stream(const uint8_t *src, int64_t n, const Huf &h, uint8_t *out,
+                int64_t count, bool fast = false, int64_t below = 0) {
+  BackBits br(src, n, fast, below);
+  for (int64_t i = 0; i < count; ++i) {
+    uint32_t v = br.peek(h.max_bits);
+    out[i] = h.sym[v];
+    br.used += h.len[v];
+  }
+  if (!fast && !br.done()) throw ZErr();
+}
+
+const uint32_t kLLBase[36] = {
+    0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11,  12,  13,   14,   15,
+    16, 18, 20, 22, 24, 28, 32, 40, 48, 64, 128, 256, 512, 1024, 2048, 4096,
+    8192, 16384, 32768, 65536};
+const uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3,
+                             4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const uint32_t kMLBase[53] = {
+    3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+    21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 37, 39, 41,
+    43, 47, 51, 59, 67, 83, 99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387,
+    32771, 65539};
+const uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4,
+                             5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const int kLLDefault[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                            2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2,
+                            2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+const int kMLDefault[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1,
+                            1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                            1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                            1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+const int kOFDefault[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+                            1, 1, 1, 1, 1, 1, 1, 1, 1, -1, -1, -1, -1, -1};
+
+struct ZFrame {
+  Huf huf;
+  bool have_huf = false;
+  Fse ll, of, ml;
+  bool have_ll = false, have_of = false, have_ml = false;
+  uint64_t rep[3] = {1, 4, 8};
+};
+
+// one table of the sequences section (mode 0-3) -> bytes taken
+int64_t seq_table(const uint8_t *src, int64_t n, int mode, int max_log,
+                  int max_symbol, const int *def, int def_n, int def_log,
+                  Fse *t, bool *have) {
+  if (mode == 0) {
+    *t = fse_build(std::vector<int>(def, def + def_n), def_log);
+  } else if (mode == 1) {
+    if (n < 1 || src[0] > max_symbol) throw ZErr();
+    t->log = 0;
+    t->t.assign(1, FseEnt{src[0], 0, 0});
+    *have = true;
+    return 1;
+  } else if (mode == 2) {
+    int log;
+    int64_t used;
+    std::vector<int> norm = fse_read_counts(src, n, max_log, max_symbol, &log,
+                                            &used);
+    *t = fse_build(norm, log);
+    *have = true;
+    return used;
+  } else if (!*have) {
+    throw ZErr();
+  }
+  *have = true;
+  return 0;
+}
+
+// one compressed block -> appended to out (the frame's output so far)
+void zstd_block(const uint8_t *src, int64_t n, ZFrame &z,
+                std::vector<uint8_t> &out, int64_t block_max) {
+  if (n < 1) throw ZErr();
+  // literals
+  int ltype = src[0] & 3, sf = (src[0] >> 2) & 3;
+  int64_t lh, regen, csize = 0;
+  int streams = 1;
+  if (ltype < 2) {
+    if (sf == 0 || sf == 2) { lh = 1; regen = src[0] >> 3; }
+    else if (sf == 1) {
+      lh = 2;
+      if (n < 2) throw ZErr();
+      regen = (src[0] | src[1] << 8) >> 4;
+    } else {
+      lh = 3;
+      if (n < 3) throw ZErr();
+      regen = (src[0] | src[1] << 8 | int64_t(src[2]) << 16) >> 4;
+    }
+  } else {
+    lh = sf < 2 ? 3 : sf == 2 ? 4 : 5;
+    if (n < lh) throw ZErr();
+    uint64_t v = 0;
+    for (int i = 0; i < lh; ++i) v |= uint64_t(src[i]) << (8 * i);
+    int b = sf < 2 ? 10 : sf == 2 ? 14 : 18;
+    regen = int64_t((v >> 4) & ((1u << b) - 1));
+    csize = int64_t((v >> (4 + b)) & ((1u << b) - 1));
+    streams = sf == 0 ? 1 : 4;
+    if (streams == 4 && regen < 6) throw ZErr();
+  }
+  if (regen > block_max) throw ZErr();
+  std::vector<uint8_t> lit(size_t(regen) + 1);
+  int64_t pos = lh;
+  if (ltype == 0) {
+    if (pos + regen > n) throw ZErr();
+    std::memcpy(lit.data(), src + pos, size_t(regen));
+    pos += regen;
+  } else if (ltype == 1) {
+    if (pos + 1 > n) throw ZErr();
+    std::memset(lit.data(), src[pos], size_t(regen));
+    pos += 1;
+  } else {
+    if (pos + csize > n) throw ZErr();
+    const uint8_t *c = src + pos;
+    int64_t cn = csize;
+    if (ltype == 2) {
+      int64_t used = huf_read(c, cn, &z.huf);
+      z.have_huf = true;
+      c += used;
+      cn -= used;
+    } else if (!z.have_huf) {
+      throw ZErr();
+    }
+    if (streams == 1) {
+      huf_stream(c, cn, z.huf, lit.data(), regen);
+    } else {
+      if (cn < 6) throw ZErr();
+      int64_t s1 = c[0] | c[1] << 8, s2 = c[2] | c[3] << 8,
+              s3 = c[4] | c[5] << 8;
+      int64_t s4 = cn - 6 - s1 - s2 - s3;
+      if (s4 < 0) throw ZErr();
+      int64_t seg = (regen + 3) / 4;
+      const uint8_t *q = c + 6;
+      bool fast = z.huf.max_bits <= 11 && s1 >= 8 && s2 >= 8 && s3 >= 8 &&
+                  s4 >= 8 && 3 * seg < regen;
+      huf_stream(q, s1, z.huf, lit.data(), seg, fast, 0);
+      huf_stream(q + s1, s2, z.huf, lit.data() + seg, seg, fast, s1);
+      huf_stream(q + s1 + s2, s3, z.huf, lit.data() + 2 * seg, seg, fast,
+                 s1 + s2);
+      huf_stream(q + s1 + s2 + s3, s4, z.huf, lit.data() + 3 * seg,
+                 regen - 3 * seg, fast, s1 + s2 + s3);
+    }
+    pos += csize;
+  }
+  // sequences
+  if (pos >= n) throw ZErr();
+  int64_t nseq = src[pos++];
+  if (nseq >= 128) {
+    if (nseq < 255) {
+      if (pos >= n) throw ZErr();
+      nseq = ((nseq - 128) << 8) + src[pos++];
+    } else {
+      if (pos + 2 > n) throw ZErr();
+      nseq = src[pos] + (src[pos + 1] << 8) + 0x7F00;
+      pos += 2;
+    }
+  }
+  int64_t litpos = 0, start = int64_t(out.size());
+  if (nseq > 0) {
+    if (pos >= n) throw ZErr();
+    int modes = src[pos++];
+    if (modes & 3) throw ZErr();
+    pos += seq_table(src + pos, n - pos, modes >> 6, 9, 35, kLLDefault, 36, 6,
+                     &z.ll, &z.have_ll);
+    pos += seq_table(src + pos, n - pos, (modes >> 4) & 3, 8, 31, kOFDefault,
+                     29, 5, &z.of, &z.have_of);
+    pos += seq_table(src + pos, n - pos, (modes >> 2) & 3, 9, 52, kMLDefault,
+                     53, 6, &z.ml, &z.have_ml);
+    if (pos > n) throw ZErr();
+    BackBits br(src + pos, n - pos);
+    uint32_t sll = br.read(z.ll.log), sof = br.read(z.of.log),
+             sml = br.read(z.ml.log);
+    for (int64_t i = 0; i < nseq; ++i) {
+      const FseEnt &eo = z.of.t[sof], &em = z.ml.t[sml], &el = z.ll.t[sll];
+      int ocode = eo.symbol;
+      uint64_t ov = (uint64_t(1) << ocode) + br.read(ocode > 24 ? 0 : ocode);
+      if (ocode > 24)   // read in two parts, as libzstd's long offsets
+        ov = (uint64_t(1) << ocode) + (uint64_t(br.read(ocode - 24)) << 24) +
+             br.read(24);
+      if (em.symbol > 52 || el.symbol > 35) throw ZErr();
+      uint64_t ml = kMLBase[em.symbol] + br.read(kMLBits[em.symbol]);
+      uint64_t ll = kLLBase[el.symbol] + br.read(kLLBits[el.symbol]);
+      uint64_t off;
+      if (ov > 3) {
+        off = ov - 3;
+        z.rep[2] = z.rep[1];
+        z.rep[1] = z.rep[0];
+        z.rep[0] = off;
+      } else {
+        int idx = int(ov) - 1 + (ll == 0 ? 1 : 0);
+        if (idx == 0) {
+          off = z.rep[0];
+        } else {
+          off = idx == 3 ? z.rep[0] - 1 : z.rep[idx];
+          if (off == 0) off = ~uint64_t(0);   // libzstd: corruption
+          if (idx != 1) z.rep[2] = z.rep[1];
+          z.rep[1] = z.rep[0];
+          z.rep[0] = off;
+        }
+      }
+      if (i + 1 < nseq) {
+        sll = el.base + br.read(el.bits);
+        sml = em.base + br.read(em.bits);
+        sof = eo.base + br.read(eo.bits);
+      }
+      if (br.overflow()) throw ZErr();
+      if (ll > uint64_t(regen - litpos)) throw ZErr();
+      out.insert(out.end(), lit.begin() + litpos, lit.begin() + litpos +
+                 int64_t(ll));
+      litpos += int64_t(ll);
+      if (off > out.size()) throw ZErr();
+      if (int64_t(out.size()) - start + int64_t(ml) > block_max) throw ZErr();
+      size_t from = out.size() - size_t(off);
+      for (uint64_t k = 0; k < ml; ++k) out.push_back(out[from + k]);
+    }
+    if (!br.done()) throw ZErr();
+  } else if (pos != n) {
+    throw ZErr();
+  }
+  out.insert(out.end(), lit.begin() + litpos, lit.begin() + regen);
+  if (int64_t(out.size()) - start > block_max) throw ZErr();
+}
+
+uint64_t rotl(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+
+uint64_t xxh64(const uint8_t *p, size_t n) {
+  const uint64_t P1 = 11400714785074694791ULL, P2 = 14029467366897019727ULL,
+                 P3 = 1609587929392839161ULL, P4 = 9650029242287828579ULL,
+                 P5 = 2870177450012600261ULL;
+  auto rd64 = [](const uint8_t *q) { uint64_t v; std::memcpy(&v, q, 8); return v; };
+  auto rd32 = [](const uint8_t *q) { uint32_t v; std::memcpy(&v, q, 4); return v; };
+  auto round = [&](uint64_t acc, uint64_t in) {
+    return rotl(acc + in * P2, 31) * P1;
+  };
+  const uint8_t *end = p + n;
+  uint64_t h;
+  if (n >= 32) {
+    uint64_t v1 = P1 + P2, v2 = P2, v3 = 0, v4 = 0 - P1;
+    while (p + 32 <= end) {
+      v1 = round(v1, rd64(p)); v2 = round(v2, rd64(p + 8));
+      v3 = round(v3, rd64(p + 16)); v4 = round(v4, rd64(p + 24));
+      p += 32;
+    }
+    h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+    for (uint64_t v : {v1, v2, v3, v4}) h = (h ^ round(0, v)) * P1 + P4;
+  } else {
+    h = P5;
+  }
+  h += uint64_t(n);
+  while (p + 8 <= end) {
+    h = rotl(h ^ round(0, rd64(p)), 27) * P1 + P4;
+    p += 8;
+  }
+  if (p + 4 <= end) {
+    h = rotl(h ^ (uint64_t(rd32(p)) * P1), 23) * P2 + P3;
+    p += 4;
+  }
+  while (p < end) {
+    h = rotl(h ^ (uint64_t(*p) * P5), 11) * P1;
+    ++p;
+  }
+  h ^= h >> 33; h *= P2; h ^= h >> 29; h *= P3; h ^= h >> 32;
+  return h;
+}
+
+// the first frame of src until `want` bytes are out: 0, or -1 where
+// libzstd errs (the caller then refuses the strip)
+int zstd_frame(const uint8_t *src, int64_t n, int64_t want,
+               std::vector<uint8_t> &out) {
+  if (n < 4) return -1;
+  uint32_t magic = uint32_t(src[0]) | src[1] << 8 | src[2] << 16 |
+                   uint32_t(src[3]) << 24;
+  if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) return 0;   // skippable: ends
+  if (magic != 0xFD2FB528u) return -1;
+  int64_t pos = 4;
+  if (pos >= n) return -1;
+  int fhd = src[pos++];
+  int fcs_flag = fhd >> 6, single = (fhd >> 5) & 1, check = (fhd >> 2) & 1,
+      did = fhd & 3;
+  if (fhd & 8) return -1;
+  uint64_t window = 0;
+  if (!single) {
+    if (pos >= n) return -1;
+    int wd = src[pos++];
+    int wlog = 10 + (wd >> 3);
+    if (wlog > 31) return -1;
+    uint64_t base = uint64_t(1) << wlog;
+    window = base + (base / 8) * uint64_t(wd & 7);
+  }
+  static const int kDid[4] = {0, 1, 2, 4};
+  pos += kDid[did];
+  int fcs_bytes = fcs_flag == 0 ? (single ? 1 : 0) : 1 << fcs_flag;
+  if (pos + fcs_bytes > n) return -1;
+  bool has_fcs = fcs_bytes > 0;
+  uint64_t fcs = 0;
+  for (int i = 0; i < fcs_bytes; ++i) fcs |= uint64_t(src[pos + i]) << (8 * i);
+  if (fcs_bytes == 2) fcs += 256;
+  pos += fcs_bytes;
+  if (single) window = fcs;
+  if (window < 1024) window = 1024;
+  if (window > (uint64_t(1) << 27)) return -1;   // ZSTD_d_windowLogMax 27
+  int64_t block_max = int64_t(window < 131072 ? window : 131072);
+  // libzstd decodes a frame whose every block is in the input and whose
+  // size fits the output at once; otherwise block by block until full
+  bool whole = false;
+  if (has_fcs && fcs <= uint64_t(want)) {
+    int64_t q = pos;
+    for (;;) {
+      if (q + 3 > n) break;
+      uint32_t bh = src[q] | src[q + 1] << 8 | src[q + 2] << 16;
+      int64_t sz = (bh >> 1 & 3) == 1 ? 1 : int64_t(bh >> 3);
+      q += 3 + sz;
+      if (q > n) break;
+      if (bh & 1) {
+        whole = q + (check ? 4 : 0) <= n;
+        break;
+      }
+    }
+  }
+  ZFrame z;
+  try {
+    for (;;) {
+      if (!whole && int64_t(out.size()) >= want) return 0;
+      if (pos + 3 > n) return -1;
+      uint32_t bh = src[pos] | src[pos + 1] << 8 | src[pos + 2] << 16;
+      pos += 3;
+      int last = bh & 1, type = (bh >> 1) & 3;
+      int64_t sz = int64_t(bh >> 3);
+      if (type == 3) return -1;
+      if (type == 1) {
+        if (pos + 1 > n || sz > block_max) return -1;
+        out.insert(out.end(), size_t(sz), src[pos]);
+        pos += 1;
+      } else {
+        if (sz > block_max || pos + sz > n) return -1;
+        if (type == 0) out.insert(out.end(), src + pos, src + pos + sz);
+        else zstd_block(src + pos, sz, z, out, block_max);
+        pos += sz;
+      }
+      if (has_fcs && out.size() > fcs) return -1;
+      if (last) break;
+    }
+  } catch (const ZErr &) {
+    return -1;
+  }
+  if (has_fcs && out.size() != fcs) return -1;
+  if (check && pos + 4 <= n) {
+    uint32_t want_sum = uint32_t(src[pos]) | src[pos + 1] << 8 |
+                        src[pos + 2] << 16 | uint32_t(src[pos + 3]) << 24;
+    if (uint32_t(xxh64(out.data(), out.size())) != want_sum) return -1;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// libtiff's ZSTDDecode of one strip or tile: at most n_out bytes of the
+// frame at the start of `in`. Returns the bytes written, or -1 where
+// libzstd errs.
+int64_t vt_zstd_decode(const uint8_t *in, int64_t n_in, uint8_t *out,
+                       int64_t n_out) {
+  std::vector<uint8_t> buf;
+  if (zstd_frame(in, n_in, n_out, buf) < 0) return -1;
+  int64_t k = int64_t(buf.size()) < n_out ? int64_t(buf.size()) : n_out;
+  std::memcpy(out, buf.data(), size_t(k));
+  return k;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// ThunderScan 4-bit (libtiff's tif_thunder.c)
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// One strip of ThunderScan codes -> rows of `width` 4-bit pixels (high
+// nibble first) in `out` (n_out bytes, rows of `rowbytes`). Each row reads
+// codes until it has `width` pixels: runs of the last pixel, three 2-bit
+// or two 3-bit deltas, a raw pixel. A run that would pass the row's end is
+// counted and not written. Returns 1, or 0 where
+// libtiff's decoder fails (a row of too few or too many pixels; the rows
+// before it are written).
+int32_t vt_thunder_decode(const uint8_t *in, int64_t n_in, uint8_t *out,
+                          int64_t n_out, int64_t width, int64_t rowbytes) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  if (rowbytes <= 0 || n_out % rowbytes) return 0;
+  const uint8_t *bp = in;
+  int64_t cc = n_in;
+  for (int64_t r = 0; r < n_out / rowbytes; ++r) {
+    uint8_t *op = out + r * rowbytes;
+    unsigned lastpixel = 0;
+    int64_t npixels = 0;
+    auto setpixel = [&](unsigned v) {
+      lastpixel = v & 0xf;
+      if (npixels < width) {
+        if (npixels++ & 1) *op++ |= uint8_t(lastpixel);
+        else op[0] = uint8_t(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < width) {
+      int n = *bp++, delta;
+      cc--;
+      switch (n & 0xc0) {
+        case 0x00:              // run
+          if (npixels & 1) {
+            op[0] |= uint8_t(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            n--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += n;
+          if (npixels <= width)
+            for (; n > 0; n -= 2) *op++ = uint8_t(lastpixel);
+          if (n == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        case 0x40:              // 2-bit deltas
+          if ((delta = (n >> 4) & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + two[delta]));
+          if ((delta = (n >> 2) & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + two[delta]));
+          if ((delta = n & 3) != 2)
+            setpixel(unsigned(int(lastpixel) + two[delta]));
+          break;
+        case 0x80:              // 3-bit deltas
+          if ((delta = (n >> 3) & 7) != 4)
+            setpixel(unsigned(int(lastpixel) + three[delta]));
+          if ((delta = n & 7) != 4)
+            setpixel(unsigned(int(lastpixel) + three[delta]));
+          break;
+        default:                // raw
+          setpixel(unsigned(n));
+          break;
+      }
+    }
+    if (npixels != width) return 0;
+  }
+  return 1;
+}
+
+}  // extern "C"

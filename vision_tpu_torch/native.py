@@ -96,6 +96,17 @@ def _library():
         lib.vt_bc7_decode.restype = None
         lib.vt_bc6h_decode.argtypes = [P, ctypes.c_int64, ctypes.c_int32, P]
         lib.vt_bc6h_decode.restype = None
+        lib.vt_fax_decode.argtypes = [P, ctypes.c_int64, ctypes.c_int64, P,
+                                      ctypes.c_int64, ctypes.c_int32,
+                                      ctypes.c_int64, ctypes.c_int32,
+                                      ctypes.c_int32, P, ctypes.c_int32, P]
+        lib.vt_fax_decode.restype = ctypes.c_int32
+        lib.vt_zstd_decode.argtypes = [P, ctypes.c_int64, P, ctypes.c_int64]
+        lib.vt_zstd_decode.restype = ctypes.c_int64
+        lib.vt_thunder_decode.argtypes = [P, ctypes.c_int64, P,
+                                          ctypes.c_int64, ctypes.c_int64,
+                                          ctypes.c_int64]
+        lib.vt_thunder_decode.restype = ctypes.c_int32
         lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
         lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
@@ -304,6 +315,53 @@ def packbits_decode(data, n_out):
     n = _library().vt_packbits_decode(buf.ctypes.data, len(data),
                                       out.ctypes.data, n_out)
     return out[:n]
+
+
+def fax_runs(rowpixels, two_d):
+    """libtiff's CCITT state of a directory (Fax3SetupState): 2 x nruns
+    zeroed run words, nruns the row's pixels + 1 rounded up to 32, doubled
+    where rows refer to the row before; then its no-EOL flag."""
+    nruns = -(-(rowpixels + 1) // 32) * 32 * (2 if two_d else 1)
+    return np.zeros(2 * nruns + 1, np.uint32)
+
+
+def fax_decode(data, n_out, rowpixels, rowbytes, kind, opts, runs, parity):
+    """One strip or tile of CCITT RLE (kind 2), RLEW (32771), Group 3 (3,
+    `opts` its T4Options) or Group 4 (4) data, as libtiff's tif_fax3.c
+    decodes it -> (uint8 [n_out], libtiff's result: 1 success, -1 failure
+    (the rows before it written), 2 a Group 4 strip ended early with
+    success, -2 a fraction of a row; the rows written). `runs`: the
+    directory's `fax_runs` buffer, updated in place; `parity`: the strip's
+    file offset mod 2."""
+    buf = _bytes(data)
+    out = np.zeros(max(n_out, 1), np.uint8)
+    done = np.zeros(1, np.int64)
+    rc = _library().vt_fax_decode(buf.ctypes.data, len(data), parity,
+                                  out.ctypes.data, n_out, rowpixels, rowbytes,
+                                  kind, opts, runs.ctypes.data,
+                                  (len(runs) - 1) // 2, done.ctypes.data)
+    return out[:n_out], rc, int(done[0])
+
+
+def zstd_decode(data, n_out):
+    """libtiff's ZSTDDecode (libzstd's streaming decoder, RFC 8878) of one
+    strip or tile -> (uint8 [at most n_out], whether libzstd decoded it
+    without an error)."""
+    buf = _bytes(data)
+    out = np.zeros(max(n_out, 1), np.uint8)
+    n = _library().vt_zstd_decode(buf.ctypes.data, len(data),
+                                  out.ctypes.data, n_out)
+    return (out[:n], True) if n >= 0 else (out[:0], False)
+
+
+def thunder_decode(data, n_out, width, rowbytes):
+    """libtiff's ThunderScan decoder of one strip -> (uint8 [n_out], rows
+    of 4-bit pixels as far as written, whether it succeeded)."""
+    buf = _bytes(data)
+    out = np.zeros(max(n_out, 1), np.uint8)
+    rc = _library().vt_thunder_decode(buf.ctypes.data, len(data),
+                                      out.ctypes.data, n_out, width, rowbytes)
+    return out[:n_out], rc == 1
 
 
 _WEBP_ERRORS = {

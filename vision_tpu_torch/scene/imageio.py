@@ -31,7 +31,7 @@ refuses:
     libjpeg-turbo read them (PIL's marker walk, libjpeg's segment rules,
     its standard Huffman tables, a bad code as symbol 0, data that meets a
     marker early: ROADMAP C26). Arithmetic-coded lossless and subsampled
-    lossless files raise NotImplementedError naming ROADMAP queue A, 7e;
+    lossless files raise NotImplementedError naming ROADMAP queue A, 7e.5;
     12-bit, hierarchical and fractionally sampled ones are refused.
   * BMP (`read_bmp`) and TGA (`read_tga`): as PIL's plugins read them
     (their docstrings list the variants), quirks included.
@@ -62,12 +62,14 @@ refuses:
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-The rarer TIFF codecs, OpenCV's JPEG 2000 and AVIF readers under a .hdr /
-.exr name, and the formats PIL opens that `pilread.py` does not decode
-yet raise NotImplementedError naming their item of ROADMAP queue A, 7e.
+Old-style JPEG TIFF on PIL's route and SGILog TIFF on OpenCV's (7e.4b),
+OpenCV's JPEG 2000 and AVIF readers under a .hdr / .exr name, and the
+formats PIL opens that `pilread.py` does not decode yet raise
+NotImplementedError naming their item of ROADMAP queue A.
 """
 from __future__ import annotations
 
+import lzma
 import os
 import re
 import struct
@@ -1114,7 +1116,7 @@ def _jpeg_scans(data):
                 raise _jpeg_refused("hierarchical")
             if marker == 0xCB:
                 raise _not_ported("decoding arithmetic-coded lossless JPEG "
-                                  "files", "7e")
+                                  "files", "7e.5")
             if H == 0 or W == 0:
                 raise ValueError("JPEG without a height or width (DNL)")
             progressive = marker in (0xC2, 0xCA)
@@ -1126,7 +1128,7 @@ def _jpeg_scans(data):
                      for k in range(nc)]
             if lossless and any((c["h"], c["v"]) != (1, 1) for c in comps):
                 raise _not_ported("decoding subsampled lossless JPEG files",
-                                  "7e")
+                                  "7e.5")
             if not all(1 <= c["h"] <= 4 and 1 <= c["v"] <= 4 for c in comps):
                 raise ValueError("corrupt JPEG sampling factors")
             hmax = max(c["h"] for c in comps)
@@ -1258,9 +1260,9 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
     arithmetic-coded (DAC conditioning), and lossless Huffman files (1x1
     sampling); grey, YCbCr, RGB, CMYK and YCCK, the colour space chosen as
     libjpeg chooses it (JFIF, the Adobe APP14 transform, the component
-    ids); PIL's CMYK -> RGB. Raises NotImplementedError (7e) for
-    arithmetic-coded lossless and subsampled lossless files, and (7e.5)
-    for progressive files that leave coefficients for libjpeg's block
+    ids); PIL's CMYK -> RGB. Raises NotImplementedError (7e.5) for
+    arithmetic-coded lossless and subsampled lossless files, and for
+    progressive files that leave coefficients for libjpeg's block
     smoothing; ValueError for what PIL refuses too (12- and 16-bit
     samples, 2 or more than 4 components,
     hierarchical coding, fractional sampling, lossless YCbCr) and for a
@@ -1324,12 +1326,12 @@ _ZIGZAG = np.array([
 # TIFF (as PIL's TiffImagePlugin and libtiff read it)
 # ---------------------------------------------------------------------------
 
-# the compressions PIL names that are left for 7e (the rest: none, LZW,
-# JPEG, Deflate twice and PackBits, are decoded here)
-_TIFF_LATER = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-               6: "old-style JPEG", 32771: "raw 16", 32809: "ThunderScan",
-               34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
-               50000: "ZSTD", 50001: "WebP"}
+# the compressions PIL names that are left for slice 7e.4b (the rest are
+# decoded here or refused as PIL refuses them)
+_TIFF_LATER = {6: "old-style JPEG"}
+# libtiff's CCITT codecs: RLE, Group 3, Group 4 and RLEW (PIL's
+# "tiff_raw_16")
+TIFF_FAX = (2, 3, 4, 32771)
 
 
 def _pil_bomb_check(w, h):
@@ -1350,7 +1352,8 @@ def _tiff_mode(bo, photo, sf, fill, bps, extra):
     "u16" (clipped at 255), "s16" / "s32" / "u32" (clipped to 0..255, the
     last read as signed), "float" (truncated, clipped), "la", "rgb",
     "rgba" (extra samples dropped), "rgba_assoc" (alpha undone), "rgb16"
-    (high bytes), "pal", "cmyk", "cmyk16", "ycbcr"."""
+    (high bytes), "pal", "cmyk", "cmyk16", "ycbcr", "lab" (CIELab, a* and
+    b* signed)."""
     n = len(bps)
     if n == 0:
         return None
@@ -1372,6 +1375,8 @@ def _tiff_mode(bo, photo, sf, fill, bps, extra):
         if b0 == 16 and sf == (1,) and (photo == 1 or (photo == 0
                                                       and bo == "<")):
             return "u16", 16
+        if b0 == 12 and sf == (1,) and photo == 1 and bo == "<":
+            return "u16", 12                  # raw mode I;12 -> I;16
         if b0 == 16 and sf == (2,) and photo == 1:
             return "s16", 16
         if b0 == 32 and sf == (3,) and photo in (0, 1):
@@ -1413,6 +1418,8 @@ def _tiff_mode(bo, photo, sf, fill, bps, extra):
         return "cmyk16", 16
     if photo == 6 and bps == (8, 8, 8) and not extra:
         return "ycbcr", 8
+    if photo == 8 and bps == (8, 8, 8) and not extra:
+        return "lab", 8
     return None
 
 
@@ -1420,13 +1427,33 @@ _BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                         np.uint8)
 
 
-def _tiff_decode(raw, comp, n, fill, keep=False):
-    """One strip or tile's stored bytes -> (its n decoded bytes, whether
-    libtiff's codec gave all n without an error), the fill order undone
-    first. Where it did not: with `keep` the bytes the codec gave before
-    its error and zeros after, else n zeros. The caller refuses the file
-    where its library does."""
-    if fill == 2:
+def _tiff_codec_setup(d):
+    """libtiff's setup of the decoder of directory d (its codec's
+    SetupDecode): ValueError where it fails, as the library then refuses
+    every strip."""
+    comp = d.compression
+    if comp in TIFF_FAX and d.bps != 1:
+        raise tiffdir._refused(f"CCITT of {d.bps}-bit samples")
+    if comp == 32766 and d.bps != 2:
+        raise tiffdir._refused(f"NeXT of {d.bps}-bit samples")
+    if comp == 32809 and d.bps != 4:
+        raise tiffdir._refused(f"ThunderScan of {d.bps}-bit samples")
+    if comp in (34676, 34677) and d.photometric not in (32844, 32845):
+        raise tiffdir._refused(f"SGILog of photometric {d.photometric}")
+    if comp == 50001:
+        # PIL 12.1.0's libtiff (and the pip cv2's) has no WebP codec
+        raise ValueError("TIFF of WebP compression: PIL's libtiff has no "
+                         "WebP codec, so PIL refuses it too")
+
+
+def _tiff_decode(d, k, n, keep=False):
+    """Strip or tile k of directory d, its stored bytes -> (its n decoded
+    bytes, whether libtiff's codec gave all n without an error), the fill
+    order undone first. Where it did not: with `keep` the bytes the codec
+    gave before its error and zeros after, else n zeros. The caller
+    refuses the file where its library does."""
+    raw, comp = d.chunk(k), d.compression
+    if d.fill == 2:
         raw = _BIT_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
     good = True
     if comp == 1:
@@ -1437,10 +1464,65 @@ def _tiff_decode(raw, comp, n, fill, keep=False):
         out, good = _tiff_inflate(raw, n)
     elif comp == 32773:
         out = native.packbits_decode(raw, n).tobytes()
+    elif comp in TIFF_FAX:
+        out, good = _tiff_fax(d, k, raw, n)
+    elif comp == 34925:
+        out, good = _tiff_lzma(raw, n)
+    elif comp == 50000:
+        out, good = native.zstd_decode(raw, n)
+        out = out.tobytes()
+    elif comp == 32809:
+        out, good = native.thunder_decode(raw, n, d.width, d.chunk_size(1))
+        out = out.tobytes()
     else:
         out = b""
     ok = good and len(out) == n
     return (out[:n] if ok or keep else b"").ljust(n, b"\0"), ok
+
+
+def _tiff_fax(d, k, raw, n):
+    """libtiff's CCITT decoders (tif_fax3.c) of one strip or tile: (every
+    row as far as the codec wrote it, whether it succeeded). A Group 4 or
+    Group 3 strip whose data ends before its last row (Group 3 2-D: while
+    looking for a row's EOL) succeeds in libtiff with its later rows never
+    written: the library's image there is whatever its buffer held, so
+    such a strip is refused (ROADMAP C28)."""
+    cols = d.tile[0] if d.tile else d.width
+    rowbytes = d.chunk_size(1)
+    opts = d.t4options if d.compression == 3 else 0
+    if d.fax_runs is None:
+        d.fax_runs = native.fax_runs(cols, d.compression == 4 or opts & 1)
+    out, rc, done = native.fax_decode(raw, n, cols, rowbytes, d.compression,
+                                      opts, d.fax_runs, d.offsets[k] & 1)
+    if rc == 2 and done * rowbytes < n:
+        raise tiffdir._refused("CCITT strip whose data ends before its last "
+                               "row (libtiff succeeds, its rows after are "
+                               "undefined: ROADMAP C28)")
+    return out.tobytes(), rc in (1, 2)
+
+
+def _tiff_lzma(raw, n):
+    """libtiff's LZMADecode: an .xz stream -> (at most n bytes, whether
+    liblzma gave all n before any error). After an error the stream is
+    decoded again a byte of output at a time, which keeps every byte
+    liblzma gave before it."""
+    z = lzma.LZMADecompressor(lzma.FORMAT_XZ)
+    try:
+        out = z.decompress(raw, n)
+        return out, len(out) == n
+    except lzma.LZMAError:
+        pass
+    z, out, data = lzma.LZMADecompressor(lzma.FORMAT_XZ), bytearray(), raw
+    try:
+        while len(out) < n:
+            b = z.decompress(data, 1)
+            data = b""
+            if not b:
+                break
+            out += b
+    except lzma.LZMAError:
+        pass
+    return bytes(out), len(out) == n
 
 
 def _tiff_lzw(raw, n):
@@ -1486,7 +1568,8 @@ def _tiff_samples(buf, rows, width, spp, bits, bo):
     """Decoded bytes of `rows` rows -> samples [rows, width, spp] (numbers
     in their type; sub-byte samples unpacked, each row padded to a
     byte)."""
-    if bits < 8:
+    if bits not in (8, 16, 32):
+        # packed most significant bit first (PIL's I;12 too)
         stride = -(-width * spp * bits // 8)
         b = np.unpackbits(np.frombuffer(buf, np.uint8)[:rows * stride]
                           .reshape(rows, stride), axis=1)[:, :width * spp * bits]
@@ -1521,27 +1604,37 @@ def _tiff_fp_predictor(buf, rows, width, spp, nb):
 def read_tiff(data):
     """TIFF bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them
     (PIL reads compressed files through libtiff): page 0, orientation not
-    applied; classic TIFF in either byte order, strips or tiles, chunky or
-    planar; no compression, PackBits, LZW (old-style too), Deflate and
-    JPEG (with JPEGTables; YCbCr decoded to RGB as libtiff's JPEG colour
-    mode asks); predictors 1, 2 and 3; 1-, 2-, 4-, 8- and 16-bit integer
-    and 32-bit integer and float samples; min-is-white / min-is-black,
-    RGB(A) with extra samples (associated alpha undone as PIL does),
-    palette, CMYK; fill order 2. 16-bit samples reach 8 bits as PIL's
-    modes take them (grey clipped at 255, colour cut to the high byte),
-    floats truncated and clipped. The directory is read as PIL reads it,
-    and for a compressed file as libtiff reads it too (`tiffdir`; edited
-    files: ROADMAP C26). What PIL has no mode for raises ValueError (or
-    passes the file on to PIL's next plugin); other compressions and
-    BigTIFF raise NotImplementedError naming ROADMAP queue A, 7e."""
-    bo = {b"II*\0": "<", b"MM\0*": ">"}.get(data[:4])
-    if bo is None:
+    applied; classic TIFF and BigTIFF in either byte order under PIL's six
+    headers, strips or tiles, chunky or planar; no compression, PackBits,
+    LZW (old-style too), Deflate, LZMA, ZSTD, CCITT RLE / RLEW / Group 3 /
+    Group 4, ThunderScan and JPEG (with JPEGTables; YCbCr decoded to RGB as
+    libtiff's JPEG colour mode asks; CMYK; planar); predictors 1, 2 and 3;
+    1-, 2-, 4-, 8-, 12- and 16-bit integer and 32-bit integer and float
+    samples; min-is-white / min-is-black, RGB(A) with extra samples
+    (associated alpha undone as PIL does), palette, CMYK, CIELab (PIL's
+    LAB through LittleCMS), YCbCr (uncompressed as PIL's raw mode RGBX
+    reads it, compressed through libtiff's RGBA reader); fill order 2.
+    16-bit samples reach 8 bits as PIL's modes take them (grey clipped at
+    255, colour cut to the high byte), floats truncated and clipped. The
+    directory is read as PIL reads it, and for a compressed file as
+    libtiff reads it too (`tiffdir`; edited files: ROADMAP C26, C28). What
+    PIL has no mode for raises ValueError (or passes the file on to PIL's
+    next plugin), as does what PIL's libtiff refuses (SGILog outside LogL /
+    LogLuv, which PIL has no mode for, WebP, which it lacks); old-style
+    JPEG raises NotImplementedError naming ROADMAP queue A, 7e.4b."""
+    if data[:4] not in pilread.TIFF_PREFIXES:
         raise ValueError("not a TIFF file")
-    ptags = tiffdir.pil_ifd(data, bo)
+    # PIL takes the byte order from bytes 0-1 and BigTIFF from byte 2
+    bo = "<" if data[:2] == b"II" else ">"
+    big = data[2] == 43
+    if len(data) < (16 if big else 8):
+        raise pilread._PassOn                 # the header's struct.error
+    ptags = tiffdir.pil_ifd(data, bo, big)
     st = tiffdir.PilSetup(ptags)
     comp = st.compression
     if comp in _TIFF_LATER:
-        raise _not_ported(f"decoding {_TIFF_LATER[comp]} TIFF files", "7e")
+        raise _not_ported(f"decoding {_TIFF_LATER[comp]} TIFF files",
+                          "7e.4b")
     w, h = st.xsize, st.ysize
     photo, bps, sf, extra, fill = st.photo, st.bps, st.sample_format, \
         st.extra, st.fill
@@ -1564,6 +1657,7 @@ def read_tiff(data):
         pred, tables = 1, b""
     else:
         d = tiffdir.LibtiffDir(data, bo)
+        _tiff_codec_setup(d)
         if (d.width, d.length) != (w, h) or d.planar != st.planar or \
                 d.spp != spp or d.bps != bits or d.fill != fill:
             raise _tiff_refused("whose directory libtiff reads otherwise "
@@ -1581,22 +1675,37 @@ def read_tiff(data):
         tables = d.jpegtables or b""
         tags[530] = tuple(d.subsampling)
         chunks = [c + (0,) for c in d.chunks()]
-    if comp == 7 and kind not in ("ycbcr", "rgb", "grey"):
-        raise _not_ported("decoding JPEG TIFF files other than grey, RGB "
-                          "and YCbCr", "7e")
-    if kind == "ycbcr" and comp != 7:
-        raise _not_ported("decoding YCbCr TIFF files that are not JPEG",
-                          "7e")
-    if planar and (comp == 7 or (comp == 1 and bits > 8)):
-        raise _not_ported("decoding planar JPEG TIFF files, and planar "
-                          "uncompressed ones of more than 8 bits", "7e")
+    if comp == 7 and kind not in ("ycbcr", "rgb", "grey", "cmyk"):
+        raise _tiff_refused(f"JPEG of PIL's mode for {kind} samples")
+    if kind == "ycbcr" and (comp not in (1, 7) or (comp == 7 and planar)):
+        # PIL reads it through libtiff's RGBA reader, which converts it
+        return _tiff_rgba_ycbcr(d)
     # PIL's planar unpackers: one band's raw mode each, none for padding
     # (X) and, reading without libtiff, none for associated alpha or LA's
     if planar and (extra == (0,) or (comp == 1 and (
             extra == (1,) or kind == "la"))):
         raise _tiff_refused("planar file of this band layout")
-    if comp == 1 and fill == 2 and kind == "pal" and bits == 4:
-        raise _tiff_refused("4-bit palette file of fill order 2")
+    read = None
+    if planar and comp == 1 and bits > 8:
+        # PIL's raw decoder reads each plane with the unpacker of its raw
+        # mode's letter: R, G, B, A, C, M, Y, K copy bytes; I and F read
+        # native (little-endian) 32-bit words; no other mode has one
+        read = {"rgb16": "u1", "cmyk16": "u1", "s16": "<i4", "u32": "<i4",
+                "s32": "<i4", "float": "<f4"}.get(kind)
+        if read is None:
+            raise _tiff_refused(f"planar file of {bits}-bit {kind} samples")
+        kind = {"rgb16": "rgb", "cmyk16": "cmyk"}.get(kind, kind)
+        if read == "<i4" and kind == "s16":
+            kind = "s32"
+    if kind == "ycbcr" and comp == 1 and not planar:
+        # PIL's raw mode RGBX: four bytes a pixel, the YCbCr bytes taken
+        # as R, G and B
+        read = "rgbx"
+    # reading without libtiff, PIL has no unpacker for the raw modes
+    # P;1R, P;2R, P;4R and L;IR (fill order 2)
+    if comp == 1 and fill == 2 and ((kind == "pal" and bits < 8) or (
+            kind == "grey" and photo == 0 and bits == 8)):
+        raise _tiff_refused(f"{bits}-bit {kind} file of fill order 2")
     if pred == 3 and not (kind == "float" and comp != 7):
         raise _tiff_refused("floating-point predictor on integer samples")
     cs = 1 if planar else spp                 # samples in a chunk's pixel
@@ -1604,19 +1713,30 @@ def read_tiff(data):
     out = np.zeros((h, w, spp), np.float64 if kind == "float" else np.int64)
     for x0, y0, tw, rows, plane, where, stride in chunks:
         line = -(-tw * cs * bits // 8)
-        if comp == 1:
+        if read is not None:
+            line = tw * (4 if read == "rgbx" else np.dtype(read).itemsize)
+            buf = _tiff_raw(data, where, rows, line, stride or line, fill)
+            if read == "rgbx":
+                v = np.frombuffer(buf, np.uint8).reshape(rows, tw, 4)[
+                    ..., :3].astype(np.int64)
+            else:
+                v = np.frombuffer(buf, read).reshape(rows, tw, 1)
+                v = v.astype(np.float64 if read == "<f4" else np.int64)
+        elif comp == 1:
             # PIL's raw decoder: `rows` lines of `line` bytes, one every
             # `stride` (or `line`) bytes from the offset
             buf = _tiff_raw(data, where, rows, line, stride or line, fill)
         elif comp == 7:
-            v = _tiff_jpeg(d.chunk(where), tables, kind, tags)
+            # a plane's JPEG data is one grey component
+            v = _tiff_jpeg(d.chunk(where), tables,
+                           "grey" if planar else kind, tags)
             v = v[:rows, :tw, :cs].astype(np.int64)
         else:
-            buf, ok = _tiff_decode(d.chunk(where), comp, rows * line, fill)
+            buf, ok = _tiff_decode(d, where, rows * line)
             if not ok:
                 raise _tiff_refused("strip or tile that libtiff fails to "
                                     "decode")
-        if comp != 7:
+        if comp != 7 and read is None:
             if pred == 3:
                 buf = _tiff_fp_predictor(buf, rows, tw, cs, bits // 8)
                 bo_chunk = ">"
@@ -1645,7 +1765,23 @@ def read_tiff(data):
         ye, xe = min(h, y0 + rows), min(w, x0 + tw)
         sl = slice(plane, plane + 1) if planar else slice(None)
         out[y0:ye, x0:xe, sl] = v[:ye - y0, :xe - x0]
+    if kind == "lab" and not planar:
+        # PIL's raw mode LAB flips a* and b*'s sign bits into its LAB
+        # mode's offset bytes (LittleCMS's); its planar bands A and B copy
+        # the bytes as they are
+        out ^= np.array([0, 128, 128])
     return _tiff_to_rgb(out, kind, bits, photo, tags)
+
+
+def _tiff_rgba_ycbcr(d):
+    """A YCbCr file that is neither uncompressed nor chunky JPEG, as PIL
+    reads it through libtiff's RGBA reader (TIFFReadRGBAStrip / Tile,
+    which goes on past a codec's error): its YCbCr conversion, uint8 [H,
+    W, 3]."""
+    if not cvtiff.ycbcr_has_routine(d):
+        raise _tiff_refused("YCbCr of a layout libtiff's RGBA reader has "
+                            "no routine for")
+    return cvtiff.ycbcr_to_rgb(d, cvtiff.ycbcr_units(d)).astype(np.uint8)
 
 
 def _tiff_raw(data, off, rows, line, pitch, fill):
@@ -1678,6 +1814,13 @@ def _tiff_jpeg(strip, tables, kind, tags):
             raise _tiff_refused(f"JPEG data sampled {got} under "
                                 f"YCbCrSubsampling {sub} (libtiff)")
     try:
+        if kind == "cmyk":
+            # libtiff's JPEG codec hands the CMYK samples over as libjpeg
+            # gives them
+            if len(_jpeg_sampling(strip)) != 4:
+                raise _tiff_refused("JPEG data of other than four "
+                                    "components under CMYK")
+            return read_jpeg(strip, cmyk=True)
         return read_jpeg(strip, force_ycc=kind == "ycbcr")
     except (struct.error, IndexError):
         raise _tiff_refused("JPEG data that is corrupt") from None
@@ -1729,6 +1872,8 @@ def _tiff_to_rgb(v, kind, bits, photo, tags):
         if kind == "cmyk16":
             v = v >> 8
         return _cmyk_to_rgb(v[..., :3], 255 - v[..., 3:4])
+    if kind == "lab":
+        return pilread.lab_to_rgb(v[..., :3])
     raise AssertionError(kind)
 
 

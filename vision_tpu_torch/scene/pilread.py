@@ -1971,9 +1971,12 @@ def _from(module_reader):
 
 def _tiff(data, name):
     from . import imageio
-    if data[2:4] in (b"+\0", b"\0+"):
-        raise _later("BigTIFF", "7e.4")
     return imageio.read_tiff(data)
+
+
+# TiffImagePlugin.PREFIXES: the byte order from bytes 0-1, BigTIFF where
+# byte 2 is 43 (so "MM\0+" is read as classic TIFF)
+TIFF_PREFIXES = (b"MM\0*", b"II*\0", b"MM*\0", b"II\0*", b"MM\0+", b"II+\0")
 
 
 def _webp(data, name):
@@ -2045,8 +2048,7 @@ _PLUGINS = (
     ("IPTC", None, _iptc),
     ("MCIDAS", lambda p: p.startswith(b"\0\0\0\0\0\0\0\4"), _mcidas),
     ("MPEG", lambda p: p.startswith(b"\0\0\1\xb3"), _mpeg),
-    ("TIFF", lambda p: p.startswith((b"MM\0*", b"II*\0", b"MM\0+", b"II+\0")),
-     _tiff),
+    ("TIFF", lambda p: p.startswith(TIFF_PREFIXES), _tiff),
     ("MSP", lambda p: p.startswith((b"DanM", b"LinS")), _plain(read_msp)),
     ("PCD", None, _pcd),
     ("PIXAR", lambda p: p.startswith(b"\x80\xe8\0\0"), _pixar),

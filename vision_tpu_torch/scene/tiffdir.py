@@ -19,6 +19,8 @@ from __future__ import annotations
 import struct
 from fractions import Fraction
 
+import numpy as np
+
 from . import pilread
 
 # entry type -> (struct code, bytes) of the types PIL's directory loads
@@ -48,36 +50,40 @@ def _rational(n, d):
     return float("nan") if d == 0 else Fraction(n, d)
 
 
-def pil_ifd(data, bo):
+def pil_ifd(data, bo, big=False):
     """IFD 0 as PIL's ImageFileDirectory_v2 loads it and `tag_v2` gives
-    each value: {tag: value}. An entry of a type PIL does not load, or of
-    no values, is skipped; an entry whose data lies past the file's end,
-    or a directory cut by it, ends the reading with the tags read so far
-    (PIL warns). BYTE and UNDEFINED values are bytes, ASCII a str,
-    rationals fractions; a tag of one spec'd value is that value (the
-    first of several), any other a tuple (one value of a tag PIL does not
-    know: that value)."""
+    each value: {tag: value}. `big`: BigTIFF's layout (8-byte counts and
+    offsets, 20-byte entries, values of up to 8 bytes in the entry). An
+    entry of a type PIL does not load, or of no values, is skipped; an
+    entry whose data lies past the file's end, or a directory cut by it,
+    ends the reading with the tags read so far (PIL warns). BYTE and
+    UNDEFINED values are bytes, ASCII a str, rationals fractions; a tag of
+    one spec'd value is that value (the first of several), any other a
+    tuple (one value of a tag PIL does not know: that value)."""
     n_data = len(data)
     tags = {}
-    pos, = struct.unpack(bo + "I", data[4:8])
-    if pos + 2 > n_data:
+    word, entry, inline = ("Q", 20, 8) if big else ("I", 12, 4)
+    pos, = struct.unpack(bo + word, data[8:16] if big else data[4:8])
+    head = 8 if big else 2
+    if pos + head > n_data:
         return tags
-    n, = struct.unpack(bo + "H", data[pos:pos + 2])
+    n, = struct.unpack(bo + ("Q" if big else "H"), data[pos:pos + head])
     for k in range(n):
-        e = pos + 2 + 12 * k
-        if e + 12 > n_data:
+        e = pos + head + entry * k
+        if e + entry > n_data:
             break
-        tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
+        tag, typ, count = struct.unpack(bo + "HH" + word,
+                                        data[e:e + 4 + inline])
         if typ not in PIL_TYPES:
             continue
         fmt, unit = PIL_TYPES[typ]
         size = unit * count
-        if size > 4:
-            at, = struct.unpack(bo + "I", data[e + 8:e + 12])
+        if size > inline:
+            at, = struct.unpack(bo + word, data[e + 4 + inline:e + entry])
             if at + size > n_data:
                 break                         # _safe_read: OSError, caught
         else:
-            at = e + 8
+            at = e + 4 + inline
         if size == 0:
             continue
         raw = data[at:at + size]
@@ -227,21 +233,40 @@ class LibtiffDir:
     def __init__(self, data, bo):
         self.data, self.bo = data, bo
         n_data = len(data)
-        pos, = struct.unpack(bo + "I", data[4:8])
-        if pos + 2 > n_data:
+        # TIFFClientOpen's header checks: version 42, or 43 (BigTIFF) with
+        # an offset size of 8 and a zero word after it
+        if len(data) < 8:
+            raise _refused("header cut by the file's end")
+        version, = struct.unpack(bo + "H", data[2:4])
+        self.big = version == 43
+        if version not in (42, 43):
+            raise _refused(f"of version {version}")
+        if self.big and (len(data) < 16 or struct.unpack(
+                bo + "HH", data[4:8]) != (8, 0)):
+            raise _refused("BigTIFF header")
+        word, entry = ("Q", 20) if self.big else ("I", 12)
+        self.word, self.inline = word, 8 if self.big else 4
+        pos, = struct.unpack(bo + word, data[8:16] if self.big else data[4:8])
+        head = 8 if self.big else 2
+        if pos + head > n_data:
             raise _refused("directory count past the file's end")
-        n, = struct.unpack(bo + "H", data[pos:pos + 2])
-        if n > 4096 or pos + 2 + 12 * n > n_data:
+        n, = struct.unpack(bo + ("Q" if self.big else "H"),
+                           data[pos:pos + head])
+        if n > 4096 or pos + head + entry * n > n_data:
             raise _refused("directory past the file's end")
         self.n_entries = n
         entries = {}
         self.all_entries = []
         for k in range(n):
-            e = pos + 2 + 12 * k
-            tag, typ, count = struct.unpack(bo + "HHI", data[e:e + 8])
+            e = pos + head + entry * k
+            tag, typ, count = struct.unpack(bo + "HH" + word,
+                                            data[e:e + 4 + self.inline])
             self.all_entries.append((typ, count))
-            entries.setdefault(tag, (typ, count, e + 8))   # first one wins
+            entries.setdefault(tag, (typ, count, e + 4 + self.inline))
         self.entries = entries
+        # libtiff's CCITT decoder state, kept from one strip to the next
+        # (`imageio._tiff_fax`)
+        self.fax_runs = None
         self._read()
 
     # -- TIFFReadDirEntry* --------------------------------------------------
@@ -255,10 +280,11 @@ class LibtiffDir:
         unit = _WIDTH[typ]
         # the entry's own count (up to 10) decides whether its values sit
         # in the entry or at the offset it holds (ArrayWithLimit)
-        if min(count, 10) * unit <= 4 and n * unit <= 4:
+        if min(count, 10) * unit <= self.inline and n * unit <= self.inline:
             at = vpos
         else:
-            at, = struct.unpack(self.bo + "I", self.data[vpos:vpos + 4])
+            at, = struct.unpack(self.bo + self.word,
+                                self.data[vpos:vpos + self.inline])
         if at + n * unit > len(self.data):
             raise _Err("io")
         v = struct.unpack(self.bo + types[typ] * n,
@@ -266,6 +292,30 @@ class LibtiffDir:
         if any(x < 0 for x in v):
             raise _Err("range")
         return v
+
+    def floats(self, tag, n, default):
+        """A float tag of n values as libtiff's TIFFReadDirEntryFloatArray
+        gives them (a rational as float(num) / float(den), 0 for a zero
+        denominator), or `default` where the entry is missing or not of n
+        values."""
+        if tag not in self.entries:
+            return default
+        typ, count, vpos = self.entries[tag]
+        codes = {5: "II", 10: "ii", 11: "f", 12: "d"}
+        if count != n or typ not in codes and typ not in _INT_TYPES:
+            return default
+        unit = _WIDTH[typ]
+        at = vpos if n * unit <= self.inline else struct.unpack(
+            self.bo + self.word, self.data[vpos:vpos + self.inline])[0]
+        if at + n * unit > len(self.data):
+            return default
+        code = codes.get(typ) or _INT_TYPES[typ]
+        v = struct.unpack(self.bo + code * n, self.data[at:at + n * unit])
+        f32 = np.float32
+        if typ in (5, 10):
+            return [f32(0) if v[2 * i + 1] == 0 else
+                    f32(v[2 * i]) / f32(v[2 * i + 1]) for i in range(n)]
+        return [f32(x) for x in v]
 
     def _scalar(self, tag, bits):
         typ, count, _ = self.entries[tag]
@@ -387,6 +437,8 @@ class LibtiffDir:
         self.orientation = self._fetch(274, 1, check=lambda v: 1 <= v <= 8)
         self.predictor = self._fetch(317, 1) if self.compression in (
             5, 8, 32946, 34925, 50000) else 1
+        self.t4options = self._fetch(292, 0, bits=32) \
+            if self.compression == 3 else 0
         self.colormap = None
         if 320 in ent and 258 in ent and self.bps <= 24:
             if ent[320][1] == 3 << self.bps:
@@ -397,8 +449,8 @@ class LibtiffDir:
         self.jpegtables = None
         if 347 in ent and ent[347][0] == 7:
             typ, count, vpos = ent[347]
-            at = vpos if count <= 4 else struct.unpack(
-                self.bo + "I", self.data[vpos:vpos + 4])[0]
+            at = vpos if count <= self.inline else struct.unpack(
+                self.bo + self.word, self.data[vpos:vpos + self.inline])[0]
             if at + count <= len(self.data):
                 self.jpegtables = self.data[at:at + count]
         self.subsampling = (2, 2)
@@ -469,12 +521,15 @@ class LibtiffDir:
         """EstimateStripByteCounts."""
         size = len(self.data)
         if self.compression != 1:
-            space = 8 + 2 + self.n_entries * 12 + 4
+            if self.big:
+                space = 16 + 8 + self.n_entries * 20 + 8
+            else:
+                space = 8 + 2 + self.n_entries * 12 + 4
             for typ, count in self.all_entries:
                 if typ not in _WIDTH:
                     raise _refused(f"entry of unknown type {typ}")
                 d = _WIDTH[typ] * count
-                space += d if d > 4 else 0
+                space += d if d > self.inline else 0
             space = size if size < space else size - space
             if self.planar == 2:
                 space //= self.spp
