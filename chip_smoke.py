@@ -119,7 +119,7 @@ phase, one JSON line each:
     cbox at 512^2, 16 spp, stopped at 8 and resumed, bit for bit against
     the uninterrupted run; `scene_memory_stats` of cbox_sphere;
     `overlay_rays` of 16 pixels at 512^2.
-  * the image files of slices 7c, 7d, 7e.1, 7e.6a, 7e.3b and 7e.4
+  * the image files of slices 7c, 7d, 7e.1, 7e.6a, 7e.3b, 7e.4 and 7e.6b
     (`phase_image_files`):
     progressive, CMYK, YCCK, RGB, lossless and arithmetic-coded JPEG,
     Adam7, low-depth and 16-bit PNG, TGA, BMP, TIFF, GIF and WebP files of
@@ -143,16 +143,21 @@ phase, one JSON line each:
     (`sky_2048.exr`) against its decode's sha256. Slice 7e.4: the rarer
     TIFF codecs and layouts on both routes against PIL's and the pip
     cv2's decodes (tiff_decodes.npz), and the committed 2048^2 Group 4
-    page `g4_2048.tif` against its decode's sha256.
-  * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b and
-    7e.4 (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp`,
-    `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`, `cbox_sky_cvtiff` and
-    `cbox_sky_bigtiff` through K1, `env_sphere_files`, `env_sphere_webp`,
-    `env_sphere_cv`, `env_sphere_pil`, `env_sphere_cvgif` and
-    `env_sphere_zstd` through K2 at 512^2, their images read from TIFF
+    page `g4_2048.tif` against its decode's sha256. Slice 7e.6b: the
+    rarer formats PIL opens (BLP, FLI / FLC, FITS, FTEX, GBR, IMT, IPTC,
+    McIdas, PIXAR, XV thumbnails) against PIL's decodes
+    (pil_rare_decodes.npz), a 2048^2 BLP2 DXT5 file and a PhotoCD file
+    built from seeds against their decodes' sha256.
+  * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
+    and 7e.6b (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp`,
+    `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`, `cbox_sky_cvtiff`,
+    `cbox_sky_bigtiff` and `cbox_tex_rare` through K1,
+    `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
+    `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd` and
+    `env_sphere_rare` through K2 at 512^2, their images read from TIFF
     (LZW, BigTIFF, ZSTD), GIF, OpenEXR (plain, luminance-chroma, deep),
-    WebP, PFM, QOI, PPM, SGI, ICO and BC7 DDS files and OpenCV's TIFF and
-    GIF readers, each bit for bit with its original's render in the same
+    WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
+    and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s and `cbox_tex_dds`'s originals read PIL's
     decode of their lossy checker, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
     `cbox_sky_bigtiff`'s and `env_sphere_cvgif`'s the OpenCV decode of
@@ -2220,7 +2225,7 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b and 7e.4 on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4 and 7e.6b on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2252,8 +2257,14 @@ def phase_image_files(card):
     LZMA, ZSTD, ThunderScan, BigTIFF, CIELab, YCbCr, 10- to 14-bit, CMYK
     and planar JPEG TIFF, under .tif names against PIL's decode and under
     .hdr / .exr names against the pip cv2's) and the committed 2048^2
-    Group 4 page `g4_2048.tif` against its decode's sha256; no image
-    library imported."""
+    Group 4 page `g4_2048.tif` against its decode's sha256; slice 7e.6b:
+    every file of pil_rare_decodes.npz (BLP, FLI / FLC, FITS, FTEX, GBR,
+    IMT, IPTC, McIdas, PIXAR, XV thumbnails; the twins' BLP, GBR, FLC
+    and PIXAR files) against its committed PIL decode, and `blp_2048.blp`
+    (2048^2 random BLP2 DXT5 blocks through PIL's Python decoders) and
+    `photocd.pcd` (a PhotoCD base image), both built here from their
+    seeds (`tools/gen_torch_pil.py` `blp_dxt_timing`, `pcd_file`),
+    against their decodes' sha256; no image library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2263,17 +2274,21 @@ def phase_image_files(card):
     gen_cv = _load_by_path("vt_gen_torch_cvtiff", "tools/gen_torch_cvtiff.py")
     t0 = time.perf_counter()
     for fn, make in (("bc7_2048.dds", gen_pil.bc7_timing),
-                     ("sky_2048.exr", gen_cv.float_timing)):
+                     ("sky_2048.exr", gen_cv.float_timing),
+                     ("blp_2048.blp", gen_pil.blp_dxt_timing),
+                     ("photocd.pcd", gen_pil.pcd_file)):
         with open(os.path.join(built_dir, fn), "wb") as f:
             f.write(make())
     emit(dict(phase="image_files_built", seconds=time.perf_counter() - t0,
               card=card))
     # timing files built from a seed
-    built = {"bc7_2048.dds": built_dir, "sky_2048.exr": built_dir}
+    built = {fn: built_dir for fn in ("bc7_2048.dds", "sky_2048.exr",
+                                      "blp_2048.blp", "photocd.pcd")}
     for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
                       ("webp_decodes.npz", "ldr"),
                       ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr"),
                       ("pil_decodes.npz", "ldr"),
+                      ("pil_rare_decodes.npz", "ldr"),
                       ("cvtiff_decodes.npz", "hdr"),
                       ("tiff_decodes.npz", None)):
         dec = np.load(os.path.join(assets, npz))
@@ -2284,6 +2299,11 @@ def phase_image_files(card):
                 "cv_decodes.npz": ("cv_ycck.exr",),
                 "pil_decodes.npz": ("checker_bc7.dds", "im_ycc.im",
                                     "psd_lab_raw.psd"),
+                "pil_rare_decodes.npz": ("checker.blp", "bumps.gbr",
+                                         "checker.flc", "projector.pxr",
+                                         "blp1_jpeg_cmyk.blp",
+                                         "fits_gz16.fits",
+                                         "iptc_jpeg_rgb.iim"),
                 "cvtiff_decodes.npz": ("sky_a_f32.exr",
                                        "projector_gif.hdr"),
                 "tiff_decodes.npz": ("sky_a_big.exr", "projector_zstd.tif",
@@ -2362,11 +2382,13 @@ IMAGE_TWINS = (
      "env_sphere_cvgif_ref"),
     ("cbox_sky_bigtiff", "cbox_sky_bigtiff", "dense_isect",
      "cbox_sky_cvtiff_ref"),
-    ("env_sphere_zstd", "env_sphere_zstd", "packet_isect", "env_sphere"))
+    ("env_sphere_zstd", "env_sphere_zstd", "packet_isect", "env_sphere"),
+    ("cbox_tex_rare", "cbox_tex_rare", "dense_isect", "cbox_tex"),
+    ("env_sphere_rare", "env_sphere_rare", "packet_isect", "env_sphere"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b and 7e.4 through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4 and 7e.6b through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2393,7 +2415,11 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     BigTIFF, Deflate with the floating-point predictor, named .exr)
     through K1, bit for bit with `cbox_sky_cvtiff_ref`, and
     `env_sphere_zstd` (its projector image an RGB ZSTD TIFF) through K2,
-    bit for bit with `env_sphere`. Returns each render's launch counts."""
+    bit for bit with `env_sphere`; slice 7e.6b: `cbox_tex_rare` (a BLP2
+    palette checker, a GIMP brush normal map) through K1, bit for bit
+    with `cbox_tex`, and `env_sphere_rare` (an FLC checker, a PIXAR
+    projector image) through K2, bit for bit with `env_sphere`. Returns
+    each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:

@@ -183,16 +183,17 @@ def _minimal(fmt):
 # or decoder here); or the ROADMAP item that ports it
 PLUGINS = {
     "BMP": "decoded", "DIB": "decoded", "GIF": "decoded", "JPEG": "decoded",
-    "PPM": "decoded", "PNG": "decoded", "AVIF": "7e.8", "BLP": "7e.6b",
+    "PPM": "decoded", "PNG": "decoded", "AVIF": "7e.8", "BLP": "decoded",
     "BUFR": "refused", "CUR": "decoded", "PCX": "decoded", "DCX": "decoded",
-    "DDS": "decoded", "EPS": "refused", "FITS": "7e.6b", "FLI": "7e.6b",
-    "FTEX": "7e.6b", "GBR": "7e.6b", "GRIB": "refused", "HDF5": "refused",
+    "DDS": "decoded", "EPS": "refused", "FITS": "decoded", "FLI": "decoded",
+    "FTEX": "decoded", "GBR": "decoded", "GRIB": "refused", "HDF5": "refused",
     "JPEG2000": "7e.7", "ICNS": "decoded", "ICO": "decoded", "IM": "decoded",
-    "IMT": "7e.6b", "IPTC": "7e.6b", "MCIDAS": "7e.6b", "MPEG": "refused",
-    "TIFF": "decoded", "MSP": "decoded", "PCD": "7e.6b", "PIXAR": "7e.6b",
-    "PSD": "decoded", "QOI": "decoded", "SGI": "decoded", "SPIDER": "decoded",
-    "SUN": "decoded", "TGA": "decoded", "WEBP": "decoded", "WMF": "refused",
-    "XBM": "decoded", "XPM": "decoded", "XVTHUMB": "7e.6b"}
+    "IMT": "decoded", "IPTC": "decoded", "MCIDAS": "decoded",
+    "MPEG": "refused", "TIFF": "decoded", "MSP": "decoded", "PCD": "decoded",
+    "PIXAR": "decoded", "PSD": "decoded", "QOI": "decoded", "SGI": "decoded",
+    "SPIDER": "decoded", "SUN": "decoded", "TGA": "decoded",
+    "WEBP": "decoded", "WMF": "refused", "XBM": "decoded", "XPM": "decoded",
+    "XVTHUMB": "decoded"}
 
 
 def test_plugin_order_is_pils():

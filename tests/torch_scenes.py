@@ -241,7 +241,7 @@ gen_assets = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(gen_assets)
 # its WebP writers (tools/gen_torch_webp.py)
 gen_webp = gen_assets._webp_module()
-# the encoders of slice 7e.6a's formats (tools/gen_torch_pil.py)
+# the encoders of slices 7e.6a's and 7e.6b's formats (tools/gen_torch_pil.py)
 gen_pil = gen_assets._pil_module()
 # slice 7e.4's TIFF encoders and files (tools/gen_torch_tiff.py)
 gen_tiff = gen_assets._tiff_module()
@@ -421,6 +421,28 @@ def cbox_tex_dds_ref(res=512):
     """`cbox_tex` with its checker read from PIL's decode of
     checker_bc7.dds, written as a PNG."""
     return _swap_files(cbox_tex(res), CBOX_TEX_DDS_REF)
+
+
+# slice 7e.6b: twins in the rarer formats PIL opens, written by
+# tools/gen_torch_pil.py; each holds the PNG's pixels (the checker's two
+# colours in a palette).
+CBOX_TEX_RARE = {"checker.png": "checker.blp", "bumps.png": "bumps.gbr"}
+ENV_SPHERE_RARE = {"checker.png": "checker.flc",
+                   "projector.png": "projector.pxr"}
+
+
+def cbox_tex_rare(res=512):
+    """`cbox_tex` with its checker from a BLP2 palette file and its normal
+    map from a GIMP brush (version 2, RGBA): it renders as `cbox_tex`
+    does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_RARE)
+
+
+def env_sphere_rare(res=512, sub_div=40):
+    """`env_sphere` with its checker from an FLC animation (a colour chunk
+    and a BRUN frame) and its projector image from a PIXAR raster: it
+    renders as `env_sphere` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_RARE)
 
 
 # slice 7e.3b: TIFF and GIF files under .hdr / .exr names, read through

@@ -48,8 +48,9 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
     Sun raster, BMP and YCCK JPEG under .hdr / .exr names) and
     `cv_decodes.npz`, what the JAX package's loader gets for each through
     the pip cv2.
-  * The files of slice 7e.6a and `pil_decodes.npz`, written by
-    `tools/gen_torch_pil.py` (its docstring lists them).
+  * The files of slices 7e.6a and 7e.6b, `pil_decodes.npz` and
+    `pil_rare_decodes.npz`, written by `tools/gen_torch_pil.py` (its
+    docstring lists them).
   * The files of slice 7e.3b (TIFF and GIF under .hdr / .exr names) and
     `cvtiff_decodes.npz`, written by `tools/gen_torch_cvtiff.py` (its
     docstring lists them).
@@ -1461,6 +1462,7 @@ def main():
                                     grain())
     write_opencv_reader_files(out)
     _pil_module().write_pil_files(out, checker(), bumps(), projector())
+    _pil_module().write_pil_rare_files(out, checker(), bumps(), projector())
     _cvtiff_module().write_cv_files(out)
     _tiff_module().write_tiff_files(out)
     for fn in sorted(os.listdir(out)):

@@ -45,6 +45,8 @@ import numpy as np
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 OUT = os.path.join(ROOT, "tests", "assets_torch")
 BC7_TIMING_SEED = 2048
+BLP_TIMING_SEED = 2049
+PCD_SEED = 7607
 CORNER = 128
 
 
@@ -353,6 +355,279 @@ def cur_bytes(img, mode):
 
 
 # ---------------------------------------------------------------------------
+# encoders of slice 7e.6b's formats (PIL writes none of them but BLP's
+# palette files)
+# ---------------------------------------------------------------------------
+
+def blp_bytes(w, h, level, version=2, comp=1, enc=1, alpha=0, alpha_enc=0,
+              palette=None, offset=None, length=None, jpeg_header=None):
+    """BLP bytes: the header (BLP1's 28 or BLP2's 20 bytes; `alpha` the
+    alpha depth), the 16 mip offsets and lengths (the first `offset` /
+    `length`, by default where `level` lies and its size), BLP2's or a
+    palette BLP1's 256 BGRA palette entries (`palette` bytes), or BLP1
+    JPEG's header size and `jpeg_header`; then `level`."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIii", comp, alpha, w, h, enc, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", comp, enc, alpha, alpha_enc,
+                                     0, w, h)
+    if jpeg_header is not None:
+        mid = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        mid = palette if palette is not None else bytes(1024)
+    at = len(head) + 128 + len(mid)
+    offsets = [at if offset is None else offset] + [0] * 15
+    lengths = [len(level) if length is None else length] + [0] * 15
+    return head + struct.pack("<16I", *offsets) + \
+        struct.pack("<16I", *lengths) + mid + level
+
+
+def blp_dxt_timing(n=2048, seed=BLP_TIMING_SEED):
+    """A BLP2 DXT5 file of n x n pixels of random blocks, from the PCG64
+    stream of `seed` (PIL decodes it with its Python decoder)."""
+    raw = np.random.PCG64(seed).random_raw(n * n // 8)
+    return blp_bytes(n, n, raw.astype("<u8").tobytes(), enc=2, alpha=8,
+                     alpha_enc=7)
+
+
+def fli_chunk(kind, body):
+    """A FLI subchunk: its size (6 + the body), its type, the body."""
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_colour(entries, six_bit=False, skip=0):
+    """A colour chunk (11 at 6 bits, else 4) of one packet: `skip`
+    entries, then the RGB rows `entries` (uint8 [n, 3], n <= 256)."""
+    body = struct.pack("<HBB", 1, skip, len(entries) % 256) + \
+        np.asarray(entries, np.uint8).tobytes()
+    return fli_chunk(11 if six_bit else 4, body)
+
+
+def fli_brun(img):
+    """A BRUN chunk (15) of img uint8 [h, w]: each line runs of one value
+    (n < 128) and literal runs (256 - n bytes), its packet count 0."""
+    body = bytearray()
+    for row in img:
+        body.append(0)
+        x = 0
+        while x < len(row):
+            j = x
+            while j < len(row) and row[j] == row[x] and j - x < 127:
+                j += 1
+            if j - x >= 3:
+                body += bytes((j - x, row[x]))
+                x = j
+                continue
+            k = x
+            while k < len(row) and k - x < 128 and not (
+                    k + 2 < len(row) and row[k] == row[k + 1] == row[k + 2]):
+                k += 1
+            k = max(k, x + 1)
+            body += bytes((256 - (k - x),)) + bytes(row[x:k])
+            x = k
+    return fli_chunk(15, bytes(body))
+
+
+def fli_lc(img, y0, base):
+    """An LC chunk (12): the lines of img from y0 on as byte deltas from
+    `base` (skips over equal bytes, literal copies of the rest)."""
+    body = bytearray(struct.pack("<HH", y0, len(img) - y0))
+    for y in range(y0, len(img)):
+        packets = bytearray()
+        n = 0
+        x = 0
+        row, old = img[y], base[y]
+        while x < len(row):
+            s = x
+            while s < len(row) and row[s] == old[s] and s - x < 255:
+                s += 1
+            if s == len(row):
+                break
+            k = s
+            while k < len(row) and row[k] != old[k] and k - s < 127:
+                k += 1
+            packets += bytes((s - x, k - s)) + bytes(row[s:k])
+            n += 1
+            x = k
+        body += bytes((n,)) + packets
+    return fli_chunk(12, bytes(body))
+
+
+def fli_ss2(img, base):
+    """An SS2 chunk (7): each line (of an even width) as word deltas from
+    `base` (skips of byte pairs, literal words)."""
+    h, w = img.shape
+    body = bytearray(struct.pack("<H", h))
+    for y in range(h):
+        packets = bytearray()
+        n = 0
+        x = 0
+        while x < w:
+            s = x
+            while s < w and (img[y, s:s + 2] == base[y, s:s + 2]).all() and \
+                    s - x < 254:
+                s += 2
+            if s >= w:
+                break
+            k = s
+            while k < w and k - s < 254:
+                k += 2
+            packets += bytes((s - x, (k - s) // 2)) + bytes(img[y, s:k])
+            n += 1
+            x = k
+        body += struct.pack("<H", n) + packets
+    return fli_chunk(7, bytes(body))
+
+
+def fli_bytes(w, h, chunks, magic=0xAF12, prefix=None, frames=()):
+    """A FLI (0xAF11) or FLC (0xAF12) file: the 128-byte header, an
+    optional 0xF100 prefix chunk of `prefix` bytes, the first frame of
+    `chunks`, then `frames` (more frames' chunk lists)."""
+    def frame(cs):
+        body = b"".join(cs)
+        return struct.pack("<IHH8x", 16 + len(body), 0xF1FA, len(cs)) + body
+    body = b""
+    if prefix is not None:
+        body = struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix
+    body += frame(chunks) + b"".join(frame(cs) for cs in frames)
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHH", head, 0, 128 + len(body), magic,
+                     1 + len(frames), w, h, 8, 0)
+    return bytes(head) + body
+
+
+def fits_bytes(bits, x, cards=(), naxis=2):
+    """A FITS file: SIMPLE, BITPIX, NAXIS (NAXIS1 = x's width, NAXIS2 its
+    height), `cards` ((key, value) pairs), END, padded to 2880 bytes;
+    then x's bytes as they are (big-endian as FITS stores them) in file
+    order, padded."""
+    h, w = x.shape[:2]
+    keys = [("SIMPLE", "T"), ("BITPIX", str(bits)), ("NAXIS", str(naxis))]
+    keys += [("NAXIS1", str(w)), ("NAXIS2", str(h))][:naxis]
+    keys += list(cards)
+    head = b"".join(f"{k:8s}= {v:>20s}".ljust(80).encode() for k, v in keys)
+    head += b"END".ljust(80)
+    body = np.ascontiguousarray(x).tobytes()
+    return head.ljust(-(-len(head) // 2880) * 2880) + \
+        body.ljust(-(-len(body) // 2880) * 2880, b"\0")
+
+
+def fits_gzip_bytes(zbits, values, table_rows=1, level=6):
+    """A FITS file of an empty primary header and a compressed image
+    extension (BINTABLE, ZIMAGE = T, ZCMPTYPE GZIP_1): a table of
+    `table_rows` 8-byte rows, then the gzip of `values` (big-endian int32
+    [h, w], 4 bytes a sample as PIL's decoder reads them)."""
+    import gzip
+    h, w = values.shape
+    prim = [("SIMPLE", "T"), ("BITPIX", "8"), ("NAXIS", "0")]
+    ext = [("XTENSION", "'BINTABLE'"), ("BITPIX", "8"), ("NAXIS", "2"),
+           ("NAXIS1", "8"), ("NAXIS2", str(table_rows)),
+           ("ZIMAGE", "T"), ("ZCMPTYPE", "'GZIP_1  '"),
+           ("ZBITPIX", str(zbits)), ("ZNAXIS", "2"),
+           ("ZNAXIS1", str(w)), ("ZNAXIS2", str(h))]
+
+    def unit(keys):
+        s = b"".join(f"{k:8s}= {v:>20s}".ljust(80).encode() for k, v in keys)
+        s += b"END".ljust(80)
+        return s.ljust(-(-len(s) // 2880) * 2880)
+    z = gzip.compress(values.astype(">i4").tobytes(), level, mtime=0)
+    return unit(prim) + unit(ext) + bytes(8 * table_rows) + z
+
+
+def ftex_bytes(fmt, w, h, payload, size=None):
+    """A FTEX file of one format (0 DXT1, 1 raw RGB) and one mip level."""
+    return b"FTEX" + struct.pack("<7i", 1, w, h, 1, 1, fmt, 32) + \
+        struct.pack("<i", len(payload) if size is None else size) + payload
+
+
+def gbr_bytes(img, version=2, comment=b"brush\0", spacing=10):
+    """A GIMP brush of img (uint8 [h, w] grey, or [h, w, 4] RGBA)."""
+    h, w = img.shape[:2]
+    depth = 1 if img.ndim == 2 else 4
+    if version == 1:
+        head = struct.pack(">5I", 20 + len(comment), 1, w, h, depth)
+    else:
+        head = struct.pack(">5I", 28 + len(comment), 2, w, h, depth) + \
+            b"GIMP" + struct.pack(">I", spacing)
+    return head + comment + np.ascontiguousarray(img, np.uint8).tobytes()
+
+
+def imt_bytes(v, fields=None):
+    """An IM Tools file of grey pixels v (uint8 [h, w])."""
+    h, w = v.shape
+    head = fields if fields is not None else \
+        b"* IM Tools\nwidth %d\nheight %d\npixel n8\n" % (w, h)
+    return head + b"\x0c" + v.tobytes()
+
+
+def iptc_field(rec, tag, data, ext=None):
+    """An IPTC field: 0x1C, record, tag, its size (16 bits, or `ext` bytes
+    of an extended size), the data."""
+    if ext:
+        return bytes((0x1C, rec, tag, 0x80 + ext)) + \
+            len(data).to_bytes(ext, "big") + data
+    return bytes((0x1C, rec, tag)) + struct.pack(">H", len(data)) + data
+
+
+def iptc_bytes(w, h, image, layers=1, component=0, comp=1, band=None,
+               split=3000):
+    """An IPTC/NAA file: the image's layers, size and compression fields,
+    then `image` in (8, 10) records of at most `split` bytes."""
+    f = iptc_field(2, 0, b"\0\2") + iptc_field(3, 60, bytes((layers,
+                                                             component)))
+    f += iptc_field(3, 20, struct.pack(">I", w)) + \
+        iptc_field(3, 30, struct.pack(">H", h)) + \
+        iptc_field(3, 120, bytes((comp,)))
+    if band is not None:
+        f += iptc_field(3, 65, bytes((band,)))
+    return f + b"".join(iptc_field(8, 10, image[i:i + split])
+                        for i in range(0, max(len(image), 1), split))
+
+
+def mcidas_bytes(x, prefix=0, offset=256):
+    """A McIdas area file of x (uint8, >u2 or >i4 [h, w]): each line
+    behind `prefix` bytes, the data at `offset`."""
+    h, w = x.shape
+    nb = x.dtype.itemsize
+    v = [0] * 65
+    v[2] = 4
+    v[9], v[10], v[11], v[14], v[15], v[34] = h, w, nb, 1, prefix, offset
+    head = struct.pack(">64i", *v[1:])
+    lines = b"".join(bytes(prefix) + r.tobytes() for r in x)
+    return head.ljust(offset, b"\0") + lines
+
+
+def pcd_bytes(seed, orientation=0, ycc=None):
+    """A PhotoCD file of 96 x 2048 + 256 x 2304 bytes: its "PCD_IPI"
+    signature, the orientation byte, the base image's luma rows and half
+    chroma rows (PcdDecode.c's layout) from `ycc` (uint8 [256, 2304]) or
+    the PCG64 stream of `seed`."""
+    g = np.random.Generator(np.random.PCG64(seed))
+    body = g.integers(0, 256, (256, 2304), np.uint8) if ycc is None else ycc
+    head = bytearray(96 * 2048)
+    head[2048:2055] = b"PCD_IPI"
+    head[2048 + 1538] = orientation
+    return bytes(head) + body.tobytes()
+
+
+def pixar_bytes(img):
+    """A PIXAR raster file of RGB pixels img (uint8 [h, w, 3])."""
+    h, w = img.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\0\0"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, 14, 2)
+    return bytes(head) + np.ascontiguousarray(img, np.uint8).tobytes()
+
+
+def xvthumb_bytes(v, comments=(b"#XVVERSION:Version 2.28",)):
+    """An XV thumbnail of 3-3-2 indices v (uint8 [h, w])."""
+    h, w = v.shape
+    return b"P7 332\n" + b"".join(c + b"\n" for c in comments) + \
+        b"#END_OF_COMMENTS\n%d %d 255\n" % (w, h) + v.tobytes()
+
+
+# ---------------------------------------------------------------------------
 # the files
 # ---------------------------------------------------------------------------
 
@@ -523,6 +798,165 @@ def pil_files(checker, bumps, projector):
     return files
 
 
+def _jpeg(img, mode, **kw):
+    """PIL's JPEG of img converted to `mode` -> (the bytes before the first
+    scan, the rest)."""
+    from PIL import Image
+    data = _save(Image.fromarray(img).convert(mode), "JPEG", **kw)
+    k = data.index(b"\xff\xda")
+    return data[:k], data[k:]
+
+
+def _palette_of(img):
+    """img uint8 [h, w, 3] of at most 256 colours -> (uint8 [n, 3] its
+    colours, uint8 [h, w] each pixel's index)."""
+    cols, idx = np.unique(img.reshape(-1, 3), axis=0, return_inverse=True)
+    return cols.astype(np.uint8), idx.reshape(img.shape[:2]).astype(np.uint8)
+
+
+def pcd_file(seed=PCD_SEED):
+    """The PhotoCD file `chip_smoke.py` and the tests build (786,432 bytes:
+    a base image of random PhotoYCC samples), turned 90 degrees."""
+    return pcd_bytes(seed, 1)
+
+
+def pil_rare_files(checker, bumps, projector):
+    """name -> bytes of slice 7e.6b's committed files (each format's
+    variants at odd sizes, from seed 7606, and the twins of the scenes'
+    PNGs)."""
+    g = np.random.default_rng(7606)
+    files = {}
+    h, w = 7, 13
+    pal = g.integers(0, 256, 1024, np.uint8).tobytes()
+    idx = g.integers(0, 256, w * h, np.uint8).tobytes()
+    # BLP: BLP2 palettes at each alpha depth, BLP1 palette encodings 4 / 5
+    for alpha in (0, 1, 8):
+        files[f"blp2_pal_a{alpha}.blp"] = blp_bytes(w, h, idx, alpha=alpha,
+                                                    palette=pal)
+    for enc, alpha in ((4, 0), (5, 8)):
+        files[f"blp1_pal{enc}.blp"] = blp_bytes(w, h, idx, 1, enc=enc,
+                                                alpha=alpha, palette=pal)
+    # BLP2 DXT1 / 3 / 5 through PIL's Python decoders, with and without
+    # alpha (RGBA blocks read as RGB where the header sets no alpha)
+    for ae, size in ((0, 8), (1, 16), (7, 16)):
+        for alpha in (0, 8):
+            n = ((w + 3) // 4) * ((h + 3) // 4) * size
+            files[f"blp2_dxt{(1, 3, 5)[size // 16 + ae // 7]}_a{alpha}.blp"] = blp_bytes(
+                w, h, g.integers(0, 256, n, np.uint8).tobytes(), enc=2,
+                alpha=alpha, alpha_enc=ae, palette=pal)
+    # BLP1 JPEG: PIL's JPEG split into the header and the level; grey,
+    # colour, and CMYK (read as CMYK, its samples inverted, then as BGR)
+    img = g.integers(0, 256, (16, 24, 3), np.uint8)
+    img[:, :12] = img[:, :1]
+    for mode in ("L", "RGB", "CMYK"):
+        head, level = _jpeg(img, mode, quality=90)
+        files[f"blp1_jpeg_{mode.lower()}.blp"] = blp_bytes(
+            24, 16, level, 1, comp=0, jpeg_header=head)
+    head, level = _jpeg(img, "RGB", quality=90)
+    files["blp1_jpeg_w20.blp"] = blp_bytes(20, 15, level, 1, comp=0,
+                                           alpha=1, jpeg_header=head)
+    # FLI / FLC: the first frame's chunks, the palette search
+    fh, fw = 9, 14
+    a = g.integers(0, 256, (fh, fw), np.uint8)
+    a[:, 3:11] = a[:, 3:4]
+    b = a.copy()
+    b[2:6, 4:10] = g.integers(0, 256, (4, 6))
+    p8 = g.integers(0, 256, (256, 3), np.uint8)
+    files["fli_brun_6bit.fli"] = fli_bytes(fw, fh, [
+        fli_colour(p8 // 4, six_bit=True), fli_brun(a)], 0xAF11)
+    files["flc_lc.flc"] = fli_bytes(fw, fh, [
+        fli_brun(a), fli_lc(b, 2, a), fli_colour(p8[:40], skip=7)])
+    files["flc_ss2.flc"] = fli_bytes(fw, fh, [
+        fli_colour(p8), fli_chunk(16, a.tobytes()), fli_ss2(b, a),
+        fli_chunk(18, bytes(12))])
+    files["flc_black.flc"] = fli_bytes(fw, fh, [
+        fli_colour(p8), fli_brun(a), fli_chunk(13, b""), fli_lc(b, 3, a)],
+        frames=[[fli_lc(a, 0, b)]])
+    # FITS: every BITPIX, gzip tiles
+    for bits, dt in ((8, np.uint8), (16, ">i2"), (32, ">i4"), (-32, ">f4"),
+                     (-64, ">f8")):
+        if bits > 8:
+            x = g.integers(-400, 400, (h, w)).astype(dt)
+        elif bits == 8:
+            x = g.integers(0, 256, (h, w)).astype(dt)
+        else:
+            x = g.normal(100, 150, (h, w)).astype(dt)
+        files[f"fits_{bits}.fits".replace("-", "f")] = fits_bytes(
+            bits, x, [("BZERO", "32768"), ("BSCALE", "2")])
+    for zb in (16, 32):
+        files[f"fits_gz{zb}.fits"] = fits_gzip_bytes(
+            zb, g.integers(-70000, 70000, (h, w)))
+    # FTEX, GBR, IMT, McIdas, PIXAR, XV thumbnails
+    nbk = ((w + 3) // 4) * ((h + 3) // 4)
+    files["ftex_dxt1.ftc"] = ftex_bytes(0, w, h, g.integers(
+        0, 256, 8 * nbk, np.uint8).tobytes())
+    files["ftex_rgb.ftu"] = ftex_bytes(1, w, h, g.integers(
+        0, 256, 3 * w * h, np.uint8).tobytes())
+    files["gbr_v1_grey.gbr"] = gbr_bytes(g.integers(0, 256, (h, w),
+                                                    np.uint8), 1)
+    files["gbr_v2_rgba.gbr"] = gbr_bytes(g.integers(0, 256, (h, w, 4),
+                                                    np.uint8))
+    files["imt_grey.imt"] = imt_bytes(g.integers(0, 256, (h, w), np.uint8))
+    for dt in (np.uint8, ">u2", ">i4"):
+        nb = np.dtype(dt).itemsize
+        x = g.integers(0, 300, (h, w)) if nb < 4 else \
+            g.integers(-200, 400, (h, w))
+        files[f"mcidas_{8 * nb}.area"] = mcidas_bytes(x.astype(dt), 2 * nb)
+    files["pixar_rgb.pxr"] = pixar_bytes(g.integers(0, 256, (h, w, 3),
+                                                    np.uint8))
+    files["xvthumb.xvt"] = xvthumb_bytes(g.integers(0, 256, (h, w),
+                                                    np.uint8))
+    # IPTC: raw grey, raw into a CMYK file's band, a grey JPEG into an RGB
+    # file's band, a colour JPEG as a grey file's image
+    v = g.integers(0, 256, (h, w), np.uint8)
+    files["iptc_raw_grey.iim"] = iptc_bytes(w, h, v.tobytes(), split=40)
+    files["iptc_raw_cmyk.iim"] = iptc_bytes(w, h, v.tobytes(), 4, 1, band=2)
+    head, level = _jpeg(img, "L", quality=90)
+    files["iptc_jpeg_rgb.iim"] = iptc_bytes(24, 16, head + level, 3, 1,
+                                            comp=5, band=3, split=300)
+    head, level = _jpeg(img, "RGB", quality=90)
+    files["iptc_jpeg_grey.iim"] = iptc_bytes(24, 16, head + level, comp=5)
+    # the twins of the scenes' PNGs: the same pixels
+    cols, ci = _palette_of(checker)
+    bgra = np.zeros((256, 4), np.uint8)
+    bgra[:len(cols), :3] = cols[:, ::-1]
+    files["checker.blp"] = blp_bytes(checker.shape[1], checker.shape[0],
+                                     ci.tobytes(), palette=bgra.tobytes())
+    files["checker.flc"] = fli_bytes(checker.shape[1], checker.shape[0],
+                                     [fli_colour(cols), fli_brun(ci)])
+    files["bumps.gbr"] = gbr_bytes(np.concatenate(
+        [bumps, np.full(bumps.shape[:2] + (1,), 255, np.uint8)], -1))
+    files["projector.pxr"] = pixar_bytes(projector[..., :3])
+    return files
+
+
+def write_pil_rare_files(out, checker, bumps, projector):
+    """The files of `pil_rare_files` and `pil_rare_decodes.npz`: PIL's
+    decode of each (by path), and the sha256 and corner of PIL's decodes
+    of `blp_dxt_timing()` and `pcd_file()` (built at run time, not
+    committed)."""
+    from PIL import Image
+    dec = {}
+    for fn, data in pil_rare_files(checker, bumps, projector).items():
+        p = os.path.join(out, fn)
+        with open(p, "wb") as f:
+            f.write(data)
+        with Image.open(p) as im:
+            dec[fn] = np.asarray(im.convert("RGB"))
+    for fn, want in (("checker.blp", checker), ("checker.flc", checker),
+                     ("bumps.gbr", bumps),
+                     ("projector.pxr", projector[..., :3])):
+        assert np.array_equal(dec[fn], want), fn
+    for fn, make in (("blp_2048.blp", blp_dxt_timing),
+                     ("photocd.pcd", pcd_file)):
+        with Image.open(io.BytesIO(make())) as im:
+            full = np.asarray(im.convert("RGB"))
+        dec[fn + ":sha256"] = np.frombuffer(
+            hashlib.sha256(full.tobytes()).digest(), np.uint8)
+        dec[fn + ":corner"] = full[:CORNER, :CORNER]
+    np.savez_compressed(os.path.join(out, "pil_rare_decodes.npz"), **dec)
+
+
 def write_pil_files(out, checker, bumps, projector):
     """The files of `pil_files`, `checker_bc7_pil.png` and
     `pil_decodes.npz`: PIL's decode of each (by path), and the sha256 and
@@ -549,6 +983,62 @@ def write_pil_files(out, checker, bumps, projector):
     np.savez_compressed(os.path.join(out, "pil_decodes.npz"), **dec)
 
 
+def pcd_ycc_tables():
+    """PIL's "YCC;P" unpacker (PhotoCD's PhotoYCC -> RGB) read back as its
+    five tables: every (Y, C1, C2) triple through PIL, then R = L[Y] +
+    CR[C2], B = L[Y] + CB[C1] and G = L[Y] + GB[C1] + GR[C2] (each clipped
+    to 0..255) solved on the unclipped samples, L[0] and GB[156] taken as
+    0 (a constant moved between tables changes no sum). Checked against
+    all 2^24 triples."""
+    from PIL import Image
+    i = np.arange(1 << 24, dtype=np.uint32)
+    trip = np.stack([i >> 16, (i >> 8) & 255, i & 255], -1).astype(np.uint8)
+    out = np.asarray(Image.frombytes("RGB", (4096, 4096), trip.tobytes(),
+                                     "raw", "YCC;P")).reshape(256, 256, 256, 3)
+    out = out.astype(np.int64)
+
+    none = np.iinfo(np.int64).min
+
+    def split(t, ok):
+        """t[a, b] = A[a] + B[b] where ok -> (A, B), A[0] = 0."""
+        a = np.full(256, none)
+        b = a.copy()
+        a[0] = 0
+        while True:
+            was = (a.copy(), b.copy())
+            got = np.where(ok & (a != none)[:, None], t - a[:, None], none)
+            b = np.where(b == none, got.max(0), b)
+            got = np.where(ok & (b != none)[None, :], t - b[None, :], none)
+            a = np.where(a == none, got.max(1), a)
+            if (a == was[0]).all() and (b == was[1]).all():
+                break
+        assert (a != none).all() and (b != none).all()
+        return a, b
+
+    def unclipped(t):
+        return (t > 0) & (t < 255)
+
+    lum, cr = split(out[:, 0, :, 0], unclipped(out[:, 0, :, 0]))
+    lum_b, cb = split(out[:, :, 0, 2], unclipped(out[:, :, 0, 2]))
+    assert (lum == lum_b).all()
+    g = out[..., 1] - lum[:, None, None]
+    pair = np.where(unclipped(out[..., 1]), g, none).max(0)   # [c1, c2]
+    gb, gr = split(pair, pair != none)
+    gb, gr = gb - gb[156], gr + gb[156]
+    t = dict(L=lum, CB=cb, GB=gb, CR=cr, GR=gr)
+    y = lum[:, None, None]
+    rgb = np.stack(np.broadcast_arrays(
+        y + cr[None, None, :], y + gb[None, :, None] + gr[None, None, :],
+        y + cb[None, :, None]), -1)
+    assert (np.clip(rgb, 0, 255) == out).all()
+    return {k: v.astype(np.int16) for k, v in t.items()}
+
+
+def write_pcd_ycc(path=os.path.join(ROOT, "vision_tpu_torch", "data",
+                                    "pcd_ycc.npz")):
+    np.savez_compressed(path, **pcd_ycc_tables())
+
+
 def main():
     from PIL import Image
     out = sys.argv[1] if len(sys.argv) > 1 else OUT
@@ -560,6 +1050,7 @@ def main():
     with Image.open(os.path.join(out, "projector.png")) as im:
         projector = np.asarray(im)
     write_pil_files(out, checker, bumps, projector)
+    write_pil_rare_files(out, checker, bumps, projector)
 
 
 if __name__ == "__main__":

@@ -2267,3 +2267,168 @@ int32_t vt_thunder_decode(const uint8_t *in, int64_t n_in, uint8_t *out,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// FLI / FLC frames (PIL's libImaging FliDecode.c)
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// One call of PIL's FLI decoder on `buf` (the `n` bytes PIL's loader has
+// read of the frame so far) into the 8-bit image `img` (h rows of w bytes,
+// kept between calls). Returns the bytes consumed (>= 0) where the decoder
+// asks for more data, -1 at the frame's end, -2 where it fails (a
+// truncated or malformed chunk, an unknown chunk type, a zero advance).
+// The chunks: colour (4, 11) and postage stamp (18) skipped, SS2 (7), LC
+// (12), BLACK (13), BRUN (15) and COPY (16), each with FliDecode.c's bounds
+// checks against the bytes left in `buf`.
+int64_t vt_fli_decode(const uint8_t *buf, int64_t n, uint8_t *img,
+                      int64_t w, int64_t h) {
+  auto i16 = [](const uint8_t *p) { return int(p[0]) | int(p[1]) << 8; };
+  auto i32 = [](const uint8_t *p) {
+    return int32_t(uint32_t(p[0]) | uint32_t(p[1]) << 8 |
+                   uint32_t(p[2]) << 16 | uint32_t(p[3]) << 24);
+  };
+  if (n < 4) return 0;
+  const uint8_t *ptr = buf;
+  int64_t bytes = n;
+  int64_t framesize = uint32_t(i32(ptr));   // unsigned: a size past 2^31
+  if (bytes + bytes % 2 < framesize) return 0;   // waits for more data
+  if (bytes < 8) return -2;
+  if (i16(ptr + 4) != 0xF1FA) return -2;
+  int chunks = i16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+  const int64_t xs = w, ys = h;
+  for (int c = 0; c < chunks; ++c) {
+    if (bytes < 10) return -2;
+    const uint8_t *data = ptr + 6;
+    auto oob = [&](int64_t k) { return data + k > ptr + bytes; };
+    int64_t i = 0, x = 0, y = 0;
+    switch (i16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {                 // SS2, word delta
+        int lines = i16(data);
+        data += 2;
+        int l = 0;
+        for (l = 0, y = 0; l < lines && y < ys; ++l, ++y) {
+          uint8_t *out = img + y * xs;
+          if (oob(2)) return -2;
+          int packets = i16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= ys) return -2;
+              out = img + y * xs;
+            } else {
+              out[xs - 1] = uint8_t(packets);
+            }
+            if (oob(2)) return -2;
+            packets = i16(data);
+            data += 2;
+          }
+          int p = 0;
+          for (p = 0, x = 0; p < packets; ++p) {
+            if (oob(2)) return -2;
+            x += data[0];
+            if (data[1] >= 128) {
+              if (oob(4)) return -2;
+              i = 256 - data[1];
+              if (x + i + i > xs) break;
+              for (int64_t j = 0; j < i; ++j) {
+                out[x++] = data[2];
+                out[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * int64_t(data[1]);
+              if (x + i > xs) break;
+              if (oob(2 + i)) return -2;
+              std::memcpy(out + x, data + 2, size_t(i));
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return -2;
+        break;
+      }
+      case 12: {                // LC, byte delta
+        y = i16(data);
+        int64_t ymax = y + i16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ys; ++y) {
+          uint8_t *out = img + y * xs;
+          if (oob(1)) return -2;
+          int packets = *data++;
+          int p = 0;
+          for (p = 0, x = 0; p < packets; ++p, x += i) {
+            if (oob(2)) return -2;
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xs) break;
+              if (oob(3)) return -2;
+              std::memset(out + x, data[2], size_t(i));
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xs) break;
+              if (oob(2 + i)) return -2;
+              std::memcpy(out + x, data + 2, size_t(i));
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return -2;
+        break;
+      }
+      case 13:                  // BLACK
+        std::memset(img, 0, size_t(xs * ys));
+        break;
+      case 15:                  // BRUN
+        for (y = 0; y < ys; ++y) {
+          uint8_t *out = img + y * xs;
+          data += 1;            // the packet count, ignored
+          for (x = 0; x < xs; x += i) {
+            if (oob(2)) return -2;
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xs) break;
+              if (oob(i + 1)) return -2;
+              std::memcpy(out + x, data + 1, size_t(i));
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xs) break;
+              std::memset(out + x, data[1], size_t(i));
+              data += 2;
+            }
+          }
+          if (x != xs) return -2;
+        }
+        break;
+      case 16:                  // COPY
+        if (INT32_MAX / xs < ys) return -2;
+        if (data + xs * ys > ptr + bytes) return ptr - buf;
+        std::memcpy(img, data, size_t(xs * ys));
+        break;
+      default:
+        return -2;
+    }
+    int32_t advance = i32(ptr);
+    if (advance == 0) return -2;
+    if (advance < 0 || advance > bytes) return -2;
+    ptr += advance;
+    bytes -= advance;
+  }
+  return -1;
+}
+
+}  // extern "C"

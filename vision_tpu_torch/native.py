@@ -107,6 +107,9 @@ def _library():
                                           ctypes.c_int64, ctypes.c_int64,
                                           ctypes.c_int64]
         lib.vt_thunder_decode.restype = ctypes.c_int32
+        lib.vt_fli_decode.argtypes = [P, ctypes.c_int64, P, ctypes.c_int64,
+                                      ctypes.c_int64]
+        lib.vt_fli_decode.restype = ctypes.c_int64
         lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
         lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
@@ -362,6 +365,17 @@ def thunder_decode(data, n_out, width, rowbytes):
     rc = _library().vt_thunder_decode(buf.ctypes.data, len(data),
                                       out.ctypes.data, n_out, width, rowbytes)
     return out[:n_out], rc == 1
+
+
+def fli_decode(buf, img):
+    """One call of PIL's FLI frame decoder (FliDecode.c) on the bytes
+    `buf` into `img` (uint8 [h, w], written in place) -> the bytes it
+    consumed (>= 0) where it asks for more data, -1 at the frame's end,
+    -2 where it fails."""
+    data = _bytes(buf)
+    return int(_library().vt_fli_decode(data.ctypes.data, len(buf),
+                                        img.ctypes.data, img.shape[1],
+                                        img.shape[0]))
 
 
 _WEBP_ERRORS = {

@@ -1254,7 +1254,7 @@ def _jpeg_scans(data):
     return frame, comps, planes, latched, jfif, adobe, lossless
 
 
-def read_jpeg(data, force_ycc=False, cmyk=False):
+def read_jpeg(data, force_ycc=False, cmyk=False, raw4=False):
     """JPEG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
     sequential and progressive files of 8-bit samples, Huffman- or
     arithmetic-coded (DAC conditioning), and lossless Huffman files (1x1
@@ -1267,13 +1267,17 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
     samples, 2 or more than 4 components,
     hierarchical coding, fractional sampling, lossless YCbCr) and for a
     corrupt file. `cmyk`: a 4-component file's samples as libjpeg gives
-    them for JCS_CMYK (uint8 [H, W, 4]; a YCCK file converted to CMYK)."""
+    them for JCS_CMYK (uint8 [H, W, 4]; a YCCK file converted to CMYK).
+    `raw4`: a 4-component file's samples with libjpeg told that the file
+    is CMYK (no YCCK conversion, whatever its Adobe transform)."""
     frame, comps, planes, latched, jfif, adobe, lossless = _jpeg_scans(data)
     H, W, hmax, vmax = frame[:4]
     if lossless:
         if any(ci not in latched for ci in range(len(comps))):
             raise ValueError("a lossless JPEG component without a scan: PIL "
                              "(libjpeg-turbo) refuses it too")
+        if raw4 and len(comps) == 4:
+            return _lossless_rgb(planes, latched, jfif, None, True)
         return _lossless_rgb(planes, latched, jfif, adobe, cmyk)
     out = []
     for ci, c in enumerate(comps):
@@ -1286,6 +1290,8 @@ def read_jpeg(data, force_ycc=False, cmyk=False):
         out.append(up[:H, :W])
     if len(comps) == 1:
         return np.repeat(out[0][..., None].astype(np.uint8), 3, axis=-1)
+    if raw4 and len(comps) == 4:
+        return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
     ids = [c["id"] for c in comps]
     # libjpeg's colour space (jdapimin.c default_decompress_parms)
     if len(comps) == 3:

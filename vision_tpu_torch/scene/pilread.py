@@ -19,10 +19,7 @@ refusal. `read` walks the same order (`_PLUGINS`) and returns uint8
     it and refuses it (its header, its data, or a handler PIL has not here:
     EPS without Ghostscript, the BUFR, GRIB and HDF5 stubs, MPEG, WMF);
   * NotImplementedError naming ROADMAP queue A's item where PIL decodes
-    a format this package does not yet: 7e.6b (BLP, FITS, FLI, FTEX, GBR,
-    IMT, IPTC, MCIDAS, PCD, PIXAR, XVTHUMB; their headers, and the raw
-    data of the raw ones, are checked as PIL checks them first), 7e.7
-    (JPEG 2000) and 7e.8 (AVIF).
+    a format this package does not yet: 7e.7 (JPEG 2000) and 7e.8 (AVIF).
 
 Decoded here, each as its plugin and its decoder in libImaging read it,
 then through `convert("RGB")` of the mode it gives (`_rgb`): PNM and PFM
@@ -31,8 +28,14 @@ ICNS, QOI, PCX (and DCX's first page), SGI, IM (its N-bit types through
 PIL's bit decoder, YCC through PIL's YCbCr -> RGB tables), MSP, XBM, XPM,
 SPIDER, DDS (bit masks, L, LA, P, BC1-BC7; BC6H and BC7 blocks in
 `csrc/image_codecs.cpp`) and PSD (the merged image; Lab through
-LittleCMS's transform, `lab_to_rgb`). PNG, JPEG, BMP, TIFF, GIF, WebP and TGA go to their
-readers in `imageio.py` and `webp.py`.
+LittleCMS's transform, `lab_to_rgb`); and the rarer ones: BLP (BLP1 JPEG
+and palettes, BLP2 palettes and PIL's own Python DXT1 / 3 / 5 decoders),
+FLI / FLC (the first frame, FliDecode.c in `csrc/image_codecs.cpp`),
+FITS (raw and gzip tiles), FTEX, GBR, IMT, IPTC, McIdas, PhotoCD (PIL's
+PhotoYCC tables), PIXAR and XV thumbnails. PNG, JPEG, BMP, TIFF, GIF,
+WebP and TGA go to their readers in `imageio.py` and `webp.py`. Opened by
+path, PIL maps raw pixels of modes L, P, I;16 and the like from the file
+(`_mapped`): the whole image must lie in it.
 """
 from __future__ import annotations
 
@@ -1385,14 +1388,14 @@ def _bc3_alpha(blk, signed=False):
     return np.take_along_axis(pal, idx, 1)
 
 
-def _bcn(data, off, w, h, n, fmt):
+def _bcn(data, off, w, h, n, fmt, name="DDS"):
     """The `bcn` decoder: 4 x 4 blocks, row by row, cut at the image's
     edge -> RGB [h, w, 3] (or grey for BC4)."""
     size = 8 if n in (1, 4) else 16
     bw, bh = (w + 3) // 4, (h + 3) // 4
     raw = data[off:off + size * bw * bh]
     if off < 0 or len(raw) < size * bw * bh:
-        raise _refused("DDS", "cut short")
+        raise _refused(name, "cut short")
     blk = np.frombuffer(raw, np.uint8).reshape(-1, size)
     if n == 1:
         px = _bc1(blk, False)
@@ -1626,39 +1629,8 @@ def read_psd(data):
 
 
 # ---------------------------------------------------------------------------
-# the plugins this module does not decode: their header checks, so that
-# only what PIL would identify raises NotImplementedError
+# DCX (DcxImagePlugin)
 # ---------------------------------------------------------------------------
-
-def _later_if_data(fmt, data, off, need, item="7e.6b"):
-    """A format still to port whose header PIL takes: PIL refuses it where
-    its raw pixels are cut short, else decodes it (so NotImplementedError
-    naming the item)."""
-    if off < 0 or len(data) < off + need:
-        raise _refused(fmt, "cut short")
-    raise _later(fmt, item)
-
-
-def _blp(data, name):
-    """BlpImagePlugin's header, and the compressions and encodings its
-    decoders refuse."""
-    blp1 = data[:4] == b"BLP1"
-    if len(data) < (28 if blp1 else 20):
-        raise _PassOn
-    comp = struct.unpack_from("<i", data, 4)[0]
-    w, h = struct.unpack_from("<II", data, 8 if blp1 else 12)
-    _opened("BLP", w, h)
-    if blp1:
-        enc = struct.unpack_from("<i", data, 20)[0]
-        ok = comp == 0 or (comp == 1 and enc in (4, 5))
-    else:
-        enc, alpha_enc = data[8], data[10]
-        ok = comp == 1 and (enc == 1 or (enc == 2 and alpha_enc in
-                                         (0, 1, 7)))
-    if not ok:
-        raise _refused("BLP", f"of compression {comp}, encoding {enc}")
-    raise _later("BLP", "7e.6b")
-
 
 def read_dcx(data):
     """A DCX file's first page: the PCX file its first offset points to,
@@ -1678,70 +1650,387 @@ def read_dcx(data):
     return read_pcx(page)
 
 
-def _fli(data, name):
+# ---------------------------------------------------------------------------
+# BLP (BlpImagePlugin: its own Python DXT decoders)
+# ---------------------------------------------------------------------------
+
+def _blp_565(c):
+    """BlpImagePlugin.unpack_565: each channel's bits shifted to the top
+    of a byte, the low bits left 0."""
+    return np.stack([((c >> 11) & 31) << 3, ((c >> 5) & 63) << 2,
+                     (c & 31) << 3], -1)
+
+
+def _blp_colours(blk, three):
+    """The colour half of BLP's DXT blocks (uint8 [n, 8]) -> RGBA int
+    [n, 16, 4]: `three` allows DXT1's three-colour mode (c0 <= c1: the
+    mean, then transparent black); otherwise always four colours, each
+    interpolant (2 a + b) // 3 of the unreplicated 5- and 6-bit values."""
+    c0 = blk[:, 0].astype(np.int64) | blk[:, 1].astype(np.int64) << 8
+    c1 = blk[:, 2].astype(np.int64) | blk[:, 3].astype(np.int64) << 8
+    p0, p1 = _blp_565(c0), _blp_565(c1)
+    four = (c0 > c1)[:, None] | (not three)
+    p2 = np.where(four, (2 * p0 + p1) // 3, (p0 + p1) // 2)
+    p3 = np.where(four, (2 * p1 + p0) // 3, 0)
+    a3 = np.where(four[:, 0], 255, 0)
+    pal = np.stack([p0, p1, p2, p3], 1)
+    pal = np.concatenate([pal, np.full(pal.shape[:2] + (1,), 255)], -1)
+    pal[:, 3, 3] = a3
+    bits = blk[:, 4:8].copy().view("<u4")[:, 0].astype(np.int64)
+    idx = (bits[:, None] >> (2 * np.arange(16))) & 3
+    return np.take_along_axis(pal, idx[..., None], 1)
+
+
+def _blp_dxt5_alpha(blk):
+    """decode_dxt5's alpha of blocks (uint8 [n, 8]) -> [n, 16]: a0, a1,
+    then six interpolants ((8 - c) a0 + (c - 1) a1) // 7 where a0 > a1,
+    else four ((6 - c) a0 + (c - 1) a1) // 5, 0 and 255."""
+    a0 = blk[:, :1].astype(np.int64)
+    a1 = blk[:, 1:2].astype(np.int64)
+    c = np.arange(2, 8)
+    six = ((8 - c) * a0 + (c - 1) * a1) // 7
+    four = ((6 - c) * a0 + (c - 1) * a1) // 5
+    four[:, 4], four[:, 5] = 0, 255
+    pal = np.concatenate([a0, a1, np.where(a0 > a1, six, four)], 1)
+    b = blk[:, 2:8].astype(np.int64)
+    bits = b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16 | b[:, 3] << 24 | \
+        b[:, 4] << 32 | b[:, 5] << 40
+    return np.take_along_axis(pal, (bits[:, None] >> (3 * np.arange(16))) & 7,
+                              1)
+
+
+def blp_dxt(blocks, kind, alpha):
+    """BlpImagePlugin's `decode_dxt1` / `decode_dxt3` / `decode_dxt5` of
+    blocks (uint8 [n, 8 or 16]) -> the pixels of each block, uint8
+    [n, 16, bands]: R, G, B (and A where `alpha`, or always for DXT3 and
+    DXT5)."""
+    if kind == 1:
+        px = _blp_colours(blocks, True)
+        return px[..., :4 if alpha else 3].astype(np.uint8)
+    px = _blp_colours(blocks[:, 8:], False)
+    if kind == 3:
+        a = np.unpackbits(blocks[:, :8, None], axis=-1, bitorder="little")
+        a = a.reshape(len(blocks), 16, 4) << np.arange(4)
+        px[..., 3] = a.sum(-1) * 17
+    else:
+        px[..., 3] = _blp_dxt5_alpha(blocks[:, :8])
+    return px.astype(np.uint8)
+
+
+def _blp_palette(data, pos):
+    """BLP's 256 BGRA palette entries at `pos` -> RGB uint8 [256, 3] (a
+    short palette fails PIL's safe read)."""
+    raw = data[pos:pos + 1024]
+    if len(raw) < 1024:
+        raise _refused("BLP", "with its palette cut short")
+    return np.frombuffer(raw, np.uint8).reshape(256, 4)[:, 2::-1]
+
+
+def _blp_need(data, pos, n):
+    """ImageFile._safe_read of n bytes at pos (n <= 0 reads nothing)."""
+    if n <= 0:
+        return b""
+    if len(data) < pos + n:
+        raise _refused("BLP", "cut short")
+    return data[pos:pos + n]
+
+
+def _set_as_raw(stream, w, h, bands, fmt):
+    """ImageFile.set_as_raw: the raw decoder's first h lines of w pixels of
+    `bands` bytes from `stream` (uint8, flat), or PIL's "not enough image
+    data" -> uint8 [h, w, bands]."""
+    if len(stream) < w * h * bands:
+        raise _refused(fmt, "with not enough image data")
+    return stream[:w * h * bands].reshape(h, w, bands)
+
+
+def read_blp(data, name):
+    """Blizzard mipmaps as BlpImagePlugin reads them (the first mip
+    level): BLP1 JPEG (the header's bytes before the level's, through
+    PIL's JPEG plugin, a 4-component file as CMYK whatever its Adobe
+    transform, then its RGB bytes read as BGR at the BLP's width), BLP1 palette encodings 4
+    and 5 (the pixels right after the palette, wherever the offset table
+    points), BLP2 palette pixels and BLP2 DXT1 / 3 / 5 through PIL's own
+    Python decoders (its rows of blocks read as raw pixels at the image's
+    width, RGBA blocks as RGB where the header sets no alpha)."""
+    blp1 = data[:4] == b"BLP1"
+    if len(data) < (28 if blp1 else 20):
+        raise _PassOn
+    comp = struct.unpack_from("<i", data, 4)[0]
+    if blp1:
+        alpha = struct.unpack_from("<I", data, 8)[0] != 0
+        enc = struct.unpack_from("<i", data, 20)[0]
+        pos = 28
+    else:
+        enc, alpha, alpha_enc = struct.unpack_from("<bbb", data, 8)
+        alpha = alpha != 0
+        pos = 20
+    w, h = struct.unpack_from("<II", data, 12)
+    _opened("BLP", w, h)
+    bands = 4 if alpha else 3
+    offsets = struct.unpack("<16I", _blp_need(data, pos, 64))
+    lengths = struct.unpack("<16I", _blp_need(data, pos + 64, 64))
+    pos += 128
+    if blp1 and comp == 0:
+        return _blp_jpeg(data, pos, offsets[0], lengths[0], w, h)
+    if blp1 and not (comp == 1 and enc in (4, 5)):
+        raise _refused("BLP", f"of compression {comp}, encoding {enc}")
+    pal = _blp_palette(data, pos)
+    pos = pos + 1024 if blp1 else offsets[0]
+    if blp1 or (comp == 1 and enc == 1):
+        idx = np.frombuffer(_blp_need(data, pos, lengths[0]), np.uint8)
+        if len(idx) < w * h:
+            raise _refused("BLP", "with not enough image data")
+        return np.ascontiguousarray(pal[idx[:w * h]].reshape(h, w, 3))
+    if comp != 1 or enc != 2 or alpha_enc not in (0, 1, 7):
+        raise _refused("BLP", f"of compression {comp}, encoding {enc}")
+    size = 8 if alpha_enc == 0 else 16
+    bw, bh = (w + 3) // 4, (h + 3) // 4
+    blocks = np.frombuffer(_blp_need(data, pos, bw * bh * size), np.uint8)
+    px = blp_dxt(blocks.reshape(-1, size), {0: 1, 1: 3, 7: 5}[alpha_enc],
+                 alpha)
+    # each row of blocks gives 4 rows of 4 * bw pixels, in that order
+    rows = px.reshape(bh, bw, 4, 4, -1).transpose(0, 2, 1, 3, 4)
+    return np.ascontiguousarray(
+        _set_as_raw(rows.reshape(-1), w, h, bands, "BLP")[..., :3])
+
+
+def _blp_jpeg(data, pos, offset, length, w, h):
+    """BLP1Decoder._decode_jpeg_stream: the JPEG header (its size in the
+    4 bytes at `pos`), the bytes up to the level's offset skipped, the
+    level appended; PIL's JPEG plugin opens the whole (a 4-component file
+    read as CMYK whatever its Adobe transform, its samples inverted); its
+    RGB bytes are read as BGR into the BLP's size."""
+    from . import imageio
+    size = struct.unpack("<I", _blp_need(data, pos, 4))[0]
+    pos += 4
+    head = _blp_need(data, pos, size)
+    pos += len(head)
+    pos += len(_blp_need(data, pos, offset - pos))
+    jpeg = head + _blp_need(data, pos, length)
+    if not jpeg.startswith(b"\xff\xd8\xff"):
+        raise _refused("BLP", "whose JPEG level is not a JPEG file")
+    x = imageio.read_jpeg(jpeg, raw4=True)
+    if x.shape[-1] == 4:             # "CMYK;I": each sample inverted
+        x = _cmyk(*(255 - x[..., i].astype(np.int64) for i in range(4)))
+    bgr = _set_as_raw(x.reshape(-1), w, h, 3, "BLP")
+    return np.ascontiguousarray(bgr[..., ::-1])
+
+
+# ---------------------------------------------------------------------------
+# FLI / FLC (FliImagePlugin, FliDecode.c in `csrc/image_codecs.cpp`)
+# ---------------------------------------------------------------------------
+
+def _fli_palette(data, pos, pal, shift):
+    """FliImageFile._palette: packets of (skip, count) and count RGB
+    triples (0 is 256), each value shifted left by `shift` (6-bit chunk
+    11) and kept to 8 bits; a packet past the 256 entries or a triple cut
+    short passes the file on (IndexError)."""
+    if len(data) < pos + 2:
+        raise _PassOn
+    n = _u16(data, pos)
+    pos += 2
+    i = 0
+    for _ in range(n):
+        s = data[pos:pos + 2]
+        pos += len(s)
+        if len(s) < 2:
+            raise _PassOn
+        i += s[0]
+        k = s[1] or 256
+        t = data[pos:pos + 3 * k]
+        pos += len(t)
+        if len(t) % 3 or i + len(t) // 3 > 256:
+            raise _PassOn
+        v = np.frombuffer(t, np.uint8).reshape(-1, 3).astype(np.int64)
+        pal[i:i + len(v)] = (v << shift) & 255
+        i += len(v)
+
+
+def read_fli(data, name):
+    """Autodesk FLI / FLC animations as FliImagePlugin reads them: the
+    first frame (the one the JAX package's convert("RGB") loads), decoded
+    into mode P by FliDecode.c from offset 128 (a prefix chunk there is
+    the decoder's to refuse), its loader reading the frame's size at a
+    time; the palette is the first colour chunk of the first frame (after
+    a 0xF100 prefix chunk, 8-bit chunk 4 or 6-bit chunk 11), else grey."""
     s = data[:128]
     if len(s) < 128 or s[20:22] != bytes(2) or s[42:80] != bytes(38) or \
             s[88:] != bytes(40):
         raise _PassOn
-    _opened("FLI", *struct.unpack_from("<HH", s, 8))
-    raise _later("FLI", "7e.6b")
+    w, h = struct.unpack_from("<HH", s, 8)
+    pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    s = data[128:144]
+    pos = 128 + len(s)
+    if _u16(s, 4) == 0xF100:
+        at = 128 + _u32(s, 0)
+        s = data[at:at + 16]
+        pos = at + len(s)
+    if _u16(s, 4) == 0xF1FA:
+        size = None
+        for _ in range(_u16(s, 6)):
+            if size is not None:
+                pos += size - 6
+            c = data[pos:pos + 6]
+            pos += len(c)
+            kind = _u16(c, 4)
+            if kind in (4, 11):
+                _fli_palette(data, pos, pal, 2 if kind == 11 else 0)
+                break
+            size = _u32(c, 0)
+            if not size:
+                break
+    framesize = _u32(data, 128)
+    _opened("FLI", w, h)
+    img = np.zeros((h, w), np.uint8)
+    pos, buf = 128, b""
+    while True:                                      # ImageFile.load
+        s = data[pos:pos + framesize]
+        pos += len(s)
+        if not s:
+            raise _refused("FLI", "cut short")
+        buf += s
+        n = native.fli_decode(buf, img)
+        if n < 0:
+            break
+        buf = buf[n:]
+    if n != -1:
+        raise _refused("FLI", "with a truncated or malformed frame chunk")
+    return pal[img]
 
 
-def _ftex(data, name):
-    if len(data) < 32:
+# ---------------------------------------------------------------------------
+# FTEX, GBR, IMT, McIdas, PIXAR, XV thumbnails: raw pixels behind a header
+# ---------------------------------------------------------------------------
+
+def read_ftex(data, name):
+    """Texture File Format files as FtexImagePlugin reads them: the one
+    format's first mip level (its size a signed number: -1 reads the rest
+    of the file, less is refused), DXT1 through the `bcn` decoder (as DDS's BC1) or
+    raw RGB."""
+    if len(data) < 24:
         raise _PassOn
-    w, h, _, count, fmt, where = struct.unpack_from("<6i", data, 8)
+    w, h, _, count = struct.unpack_from("<4i", data, 8)
     if count != 1:
         raise _refused("FTEX", "of more than one format")
-    if where < 0 or len(data) < where + 4:
+    if len(data) < 32:
+        raise _PassOn
+    fmt, where = struct.unpack_from("<2i", data, 24)
+    if where < 0:
+        raise _refused("FTEX", "with a negative mip level offset")
+    if len(data) < where + 4:
         raise _PassOn
     size = struct.unpack_from("<i", data, where)[0]
+    if size < -1:
+        raise _refused("FTEX", "of a negative mip level size")
+    mip = data[where + 4:] if size < 0 else data[where + 4:where + 4 + size]
     if fmt not in (0, 1):
         raise _refused("FTEX", f"of format {fmt}")
     _opened("FTEX", w, h)
-    need = ((w + 3) // 4) * ((h + 3) // 4) * 8 if fmt == 0 else 3 * w * h
-    if min(max(size, 0), len(data) - where - 4) < need:
-        raise _refused("FTEX", "cut short")
-    raise _later("FTEX", "7e.6b")
+    if fmt == 0:
+        return _bcn(mip, 0, w, h, 1, "BC1", "FTEX")
+    return np.ascontiguousarray(_raw(mip, 0, h, 3 * w, fmt="FTEX")
+                                .reshape(h, w, 3))
 
 
-def _gbr(data, name):
+def read_gbr(data, name):
+    """GIMP brushes as GbrImagePlugin reads them: version 1 and 2 headers
+    (the comment skipped; a version 2 header shorter than 28 bytes reads
+    the rest of the file as its comment), then the pixels, grey (depth 1)
+    or RGBA (depth 4, whose alpha convert("RGB") drops)."""
     if len(data) < 20:
         raise _PassOn
     hsize, version, w, h, depth = struct.unpack_from(">5I", data)
     if hsize < 20 or version not in (1, 2) or w == 0 or h == 0 or \
-            depth not in (1, 4) or (version == 2 and data[20:24] != b"GIMP"):
+            depth not in (1, 4):
         raise _PassOn
+    pos = 20
+    if version == 2:
+        if data[20:24] != b"GIMP" or len(data) < 28:
+            raise _PassOn
+        pos = 28
+    skip = hsize - pos
+    pos = len(data) if skip < 0 else min(pos + skip, len(data))
     _opened("GBR", w, h)
-    _later_if_data("GBR", data, hsize, w * h * depth)
+    px = data[pos:pos + w * h * depth]
+    if len(px) < w * h * depth:
+        raise _refused("GBR", "with not enough image data")
+    v = np.frombuffer(px, np.uint8).reshape(h, w, depth)
+    return _rgb("RGBA" if depth == 4 else "L", v)
 
 
-def _mcidas(data, name):
-    if len(data) < 256:
+def _mapped(data, off, h, line, fmt):
+    """A raw image PIL maps from the file (opened by path, its rows
+    `line` bytes apart): the whole of it must lie in the file."""
+    if off < 0 or len(data) < off + h * line:
+        raise _refused(fmt, "cut short")
+    return np.frombuffer(data, np.uint8, h * line, off).reshape(h, line)
+
+
+def read_mcidas(data, name):
+    """McIdas area files as McIdasImagePlugin reads them: 8-bit (L),
+    16-bit (I;16B) or 32-bit (I;32B to I) samples at the header's line
+    stride. Opened by path, PIL maps the L and I;16B ones from the file
+    (a stride of 0 or less taken as the line's width, overlapping lines
+    where it is shorter) unless the lines run past its end, where its raw
+    decoder reads them (the last line's padding may be missing; a stride
+    shorter than the line is refused)."""
+    if len(data) < 256 or not data.startswith(b"\0\0\0\0\0\0\0\4"):
         raise _PassOn
     v = (0,) + struct.unpack_from(">64i", data)
     if v[11] not in (1, 2, 4):
         raise _PassOn
-    w, h = v[10], v[9]
+    w, h, nb = v[10], v[9], v[11]
+    off = v[34] + v[15]
+    stride = v[15] + w * nb * v[14]
     _opened("MCIDAS", w, h)
-    stride = v[15] + w * v[11] * v[14]
-    if stride < w * v[11]:
-        raise _refused("MCIDAS", "with a line longer than its stride")
-    _later_if_data("MCIDAS", data, v[34] + v[15],
-                   (h - 1) * stride + w * v[11])
+    line = w * nb
+    if not -2 ** 31 <= stride < 2 ** 31:
+        raise _refused("MCIDAS", "with a line stride past 32 bits")
+    if off < 0:
+        raise _refused("MCIDAS", "with a negative data offset")
+    if nb < 4 and off + h * stride <= len(data):     # the memory map
+        step = stride if stride > 0 else line
+        if off + h * step > len(data):
+            raise _refused("MCIDAS", "cut short")
+        if off + (h - 1) * step + line > len(data):
+            raise _refused("MCIDAS", "whose overlapping lines run past "
+                           "its end (PIL reads past the mapped file: "
+                           "ROADMAP C29)")
+        at = off + step * np.arange(h)[:, None] + np.arange(line)
+        rows = np.frombuffer(data, np.uint8)[at]
+    else:
+        if stride < 0 or 0 < stride < line:
+            raise _refused("MCIDAS", "with a line longer than its stride")
+        rows = _raw(data, off, h, line, stride, "MCIDAS")
+    x = np.ascontiguousarray(rows).view({1: np.uint8, 2: ">u2",
+                                        4: ">i4"}[nb]).reshape(h, w)
+    return _rgb("I", x.astype(np.int64))
 
 
-def _pixar(data, name):
+def read_pixar(data, name):
+    """PIXAR raster images as PixarImagePlugin reads them: raw RGB at
+    offset 1024 (channel / depth (14, 2) only)."""
     if len(data) < 428:
         raise _PassOn
     if struct.unpack_from("<HH", data, 424) != (14, 2):
         raise _PassOn                                # no mode
     w, h = _u16(data, 418), _u16(data, 416)
     _opened("PIXAR", w, h)
-    _later_if_data("PIXAR", data, 1024, 3 * w * h)
+    return np.ascontiguousarray(_raw(data, 1024, h, 3 * w, fmt="PIXAR")
+                                .reshape(h, w, 3))
 
 
-def _xvthumb(data, name):
+# XVThumbImagePlugin.PALETTE: 3 bits of red and green, 2 of blue
+_XV_PALETTE = np.array([(r * 255 // 7, g * 255 // 7, b * 255 // 3)
+                        for r in range(8) for g in range(8) for b in range(4)],
+                       np.uint8)
+
+
+def read_xvthumb(data, name):
+    """XV thumbnails as XVThumbImagePlugin reads them: mode P through the
+    fixed 3-3-2 palette, the pixels (mapped from the file) after the size
+    line."""
     pos = _lines(data, 6)[1]
     while True:
         s, pos = _lines(data, pos)
@@ -1754,73 +2043,16 @@ def _xvthumb(data, name):
         raise _refused("XVTHUMB", "without its size")
     w, h = _int(f[0], "XVTHUMB"), _int(f[1], "XVTHUMB")
     _opened("XVTHUMB", w, h)
-    _later_if_data("XVTHUMB", data, pos, w * h)
+    return _XV_PALETTE[_mapped(data, pos, h, w, "XVTHUMB")]
 
 
 _IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
 
 
-def _fits_size(headers, prefix):
-    naxis = _int(headers[prefix + b"NAXIS"], "FITS")
-    if naxis == 0:
-        return None
-    if naxis == 1:
-        return 1, _int(headers[prefix + b"NAXIS1"], "FITS")
-    return (_int(headers[prefix + b"NAXIS1"], "FITS"),
-            _int(headers[prefix + b"NAXIS2"], "FITS"))
-
-
-def _fits(data, name):
-    """FitsImagePlugin's header walk (80-byte cards, each header to its END
-    and the next 2880-byte boundary): what it passes on or refuses, and a
-    raw image cut short."""
-    headers, in_header, parsed = {}, False, None
-    pos = 0
-    try:
-        while True:
-            card = data[pos:pos + 80]
-            pos += len(card)
-            if not card:
-                raise _refused("FITS", "cut short")
-            key = card[:8].strip()
-            if key in (b"SIMPLE", b"XTENSION"):
-                in_header = True
-            elif headers and not in_header:
-                break
-            elif key == b"END":
-                pos = -(-pos // 2880) * 2880
-                if not parsed:
-                    if headers.get(b"XTENSION") == b"'BINTABLE'" and \
-                            headers.get(b"ZIMAGE") == b"T" and \
-                            headers[b"ZCMPTYPE"] == b"'GZIP_1  '":
-                        raise _later("FITS files of gzip tiles", "7e.6b")
-                    size = _fits_size(headers, b"")
-                    parsed = size and (size, _int(headers[b"BITPIX"], "FITS"))
-                in_header = False
-                continue
-            if parsed:
-                continue
-            value = card[8:].split(b"/")[0].strip()
-            if value.startswith(b"="):
-                value = value[1:].strip()
-            if not headers and (not key.startswith(b"SIMPLE")
-                                or value != b"T"):
-                raise _PassOn
-            headers[key] = value
-    except KeyError:
-        raise _PassOn from None
-    if not parsed:
-        raise _refused("FITS", "without image data")
-    (w, h), bits = parsed
-    if bits not in (8, 16, 32, -32, -64):
-        raise _PassOn                                # no mode
-    _opened("FITS", w, h)
-    _later_if_data("FITS", data, pos - 80, w * h * {8: 1, 16: 2}.get(bits, 4))
-
-
-def _imt(data, name):
-    """ImtImagePlugin's header walk: only a header with its form feed, an
-    "n8" pixel type and a size is an image PIL decodes."""
+def read_imt(data, name):
+    """IM Tools files as ImtImagePlugin reads them: the header's fields up
+    to its form feed; an "n8" pixel type and a size give grey pixels,
+    mapped from the file, right after the form feed."""
     buffer = data[:100]
     pos = len(buffer)
     if b"\n" not in buffer:
@@ -1865,19 +2097,135 @@ def _imt(data, name):
     _opened("IMT", w, h)
     if not tile:
         raise _refused("IMT", "without image data")
-    _later_if_data("IMT", data, start, w * h)
+    return _grey(_mapped(data, start, h, w, "IMT"))
 
 
-def _iptc_field(data, pos):
-    """IptcImageFile.field: (tag or None, data size, next pos)."""
+# ---------------------------------------------------------------------------
+# FITS (FitsImagePlugin, its FitsGzipDecoder)
+# ---------------------------------------------------------------------------
+
+def _fits_size(headers, prefix):
+    naxis = _int(headers[prefix + b"NAXIS"], "FITS")
+    if naxis == 0:
+        return None
+    if naxis == 1:
+        return 1, _int(headers[prefix + b"NAXIS1"], "FITS")
+    return (_int(headers[prefix + b"NAXIS1"], "FITS"),
+            _int(headers[prefix + b"NAXIS2"], "FITS"))
+
+
+# BITPIX -> (PIL's mode, the bytes a sample it reads, numpy's type of its
+# raw mode: little-endian, whatever FITS stores)
+_FITS_MODES = {8: ("L", 1, np.uint8), 16: ("I;16", 2, "<u2"),
+               32: ("I", 4, "<i4"), -32: ("F", 4, "<f4"),
+               -64: ("F", 4, "<f4")}
+
+
+def _fits_parse(headers):
+    """FitsImageFile._parse_headers -> None (no image yet), or (size,
+    BITPIX, the tile's offset from the data, whether gzip tiles)."""
+    gz = headers.get(b"XTENSION") == b"'BINTABLE'" and \
+        headers.get(b"ZIMAGE") == b"T" and \
+        headers[b"ZCMPTYPE"] == b"'GZIP_1  '"
+    offset = 0
+    if gz:
+        plain = _fits_size(headers, b"") or (0, 0)
+        offset = plain[0] * plain[1] * (_int(headers[b"BITPIX"], "FITS") // 8)
+    prefix = b"Z" if gz else b""
+    size = _fits_size(headers, prefix)
+    if not size:
+        return None
+    return size, _int(headers[prefix + b"BITPIX"], "FITS"), offset, gz
+
+
+def read_fits(data, name):
+    """FITS images as FitsImagePlugin reads them: 80-byte cards, each
+    header to its END and the next 2880-byte boundary; BITPIX 8, 16, 32,
+    -32 and -64 read as the raw modes L, I;16, I and F (little-endian,
+    whatever the file's order; -64 four bytes a sample), bottom-up, from
+    the card after the header (fewer than 80 bytes there move the start
+    back); BZERO and BSCALE ignored. ZIMAGE GZIP_1 tiles: the rest of the
+    file from the table's end through gzip, each sample the low bytes of
+    its 4-byte value."""
+    headers, in_header, parsed = {}, False, None
+    pos = 0
+    try:
+        while True:
+            card = data[pos:pos + 80]
+            pos += len(card)
+            if not card:
+                raise _refused("FITS", "cut short")
+            key = card[:8].strip()
+            if key in (b"SIMPLE", b"XTENSION"):
+                in_header = True
+            elif headers and not in_header:
+                break
+            elif key == b"END":
+                pos = -(-pos // 2880) * 2880
+                if not parsed:
+                    parsed = _fits_parse(headers)
+                in_header = False
+                continue
+            if parsed:
+                continue
+            value = card[8:].split(b"/")[0].strip()
+            if value.startswith(b"="):
+                value = value[1:].strip()
+            if not headers and (not key.startswith(b"SIMPLE")
+                                or value != b"T"):
+                raise _PassOn
+            headers[key] = value
+    except KeyError:
+        raise _PassOn from None
+    if not parsed:
+        raise _refused("FITS", "without image data")
+    (w, h), bits, offset, gz = parsed
+    if bits not in _FITS_MODES:
+        raise _PassOn                                # no mode
+    _opened("FITS", w, h)
+    mode, nb, dt = _FITS_MODES[bits]
+    start = offset + pos - 80
+    if not gz:
+        if start < 0 or len(data) < start + h * w * nb:
+            raise _refused("FITS", "cut short")
+        x = np.frombuffer(data, dt, h * w, start).reshape(h, w)[::-1]
+    else:
+        import gzip
+        import zlib
+        if start < 0:
+            raise _refused("FITS", "with a negative tile offset")
+        try:
+            value = gzip.decompress(data[start:])
+        except (OSError, EOFError, zlib.error) as e:
+            raise _refused("FITS", f"with bad gzip tiles ({e})") from None
+        take = min(bits // 8, 4)
+        if take <= 0 or len(value) < 4 * w * h:
+            raise _refused("FITS", "with not enough image data")
+        v = np.frombuffer(value, np.uint8, 4 * w * h).reshape(h, w, 4)
+        x = np.ascontiguousarray(v[::-1, :, 4 - take:]).view(dt)[..., 0]
+    if mode == "F":
+        return _rgb("F", x)
+    return _rgb("I" if mode != "L" else "L", x.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# IPTC (IptcImagePlugin)
+# ---------------------------------------------------------------------------
+
+def _iptc_field(data, pos, loading=False):
+    """IptcImageFile.field -> (tag or None, data size, next pos). A field
+    PIL cannot read passes the file on while it opens it, refuses it while
+    it loads the image."""
+    def fail():
+        return _refused("IPTC", "with a bad image field") if loading \
+            else _PassOn
     s = data[pos:pos + 5]
     pos += len(s)
     if not s.strip(b"\0"):
         return None, 0, pos
-    if len(s) < 5:
-        raise _PassOn                                # s[n] / i16 of a cut
-    if s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-        raise _PassOn
+    if len(s) < 3 or s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9,
+                                                    240) or len(s) < 4:
+        raise fail()
     size = s[3]
     if size > 132:
         raise _refused("IPTC", "with a field of an illegal length")
@@ -1886,15 +2234,42 @@ def _iptc_field(data, pos):
     elif size > 128:
         ext = data[pos:pos + size - 128]
         pos += len(ext)
-        size = int.from_bytes(ext[-4:], "big")
+        size = int.from_bytes((b"\0" * 4 + ext)[-4:], "big")
+    elif len(s) < 5:
+        raise fail()
     else:
         size = struct.unpack_from(">H", s, 3)[0]
     return (s[1], s[2]), size, pos
 
 
-def _iptc(data, name):
-    """IptcImagePlugin's walk over its fields: what it passes on or
-    refuses, and raw pixels cut short."""
+def _iptc_grey(inner):
+    """The one band an RGB or CMYK IPTC file's image gives: it must be of
+    mode L (`Image.merge`); the port reads it from an 8-bit grey JPEG or
+    PGM (ROADMAP C29)."""
+    from . import imageio
+    if inner.startswith(b"\xff\xd8\xff"):
+        if len(imageio._jpeg_scans(inner)[1]) == 1:
+            return imageio.read_jpeg(inner)[..., 0]
+    elif inner[:2] in (b"P5", b"P2") and inner[2:3] in b" \t\n\v\f\r" \
+            and len(inner) > 2:
+        img = read_ppm(inner)
+        pos = 3                              # width, height, maxval
+        for _ in range(3):
+            tok, pos = _ppm_token(inner, pos)
+        if int(tok) < 256:
+            return img[..., 0]
+    raise _refused("IPTC", "whose colour image is not an 8-bit grey JPEG "
+                   "or PGM (ROADMAP C29)")
+
+
+def read_iptc(data, name):
+    """IPTC/NAA files as IptcImagePlugin reads them: the fields up to the
+    first (8, 10) record; the image is the (8, 10) records' data joined
+    (behind a P5 header of the header's size for compression 1, "raw";
+    as it is for compression 5, "jpeg", read by whichever plugin takes
+    it, so through `read` itself). Grey files (layers 1, component 0)
+    give that image; RGB and CMYK ones `Image.merge` it into the band
+    that (3, 65) names (the first by default), the others 0."""
     info = {}
     pos = 0
     while True:
@@ -1904,46 +2279,122 @@ def _iptc(data, name):
             break
         body = data[pos:pos + size] if size else None
         pos += len(body or b"")
-        info[tag] = [info[tag], body] if tag in info else body
+        if tag not in info:
+            info[tag] = body
+        elif isinstance(info[tag], list):
+            info[tag].append(body)
+        else:
+            info[tag] = [info[tag], body]
 
     def getint(key):
-        v = info.get(key)
+        v = info[key]
         if not isinstance(v, bytes):
-            raise _PassOn                            # KeyError / TypeError
-        return int.from_bytes(v[-4:], "big")
+            raise _PassOn                            # TypeError
+        return int.from_bytes((b"\0" * 4 + v)[-4:], "big")
 
-    layers = info.get((3, 60))
-    if not isinstance(layers, bytes) or len(layers) < 2:
-        raise _PassOn
-    if layers[0] == 1 and not layers[1]:
-        bands = 1
-    elif layers[0] in (3, 4) and layers[1]:
-        bands = layers[0]
-    else:
-        raise _PassOn                                # no mode
-    w, h = getint((3, 20)), getint((3, 30))
+    def item(v, i):
+        if v is None or len(v) <= i:
+            raise _PassOn                            # TypeError / IndexError
+        return v[i]
+
+    try:
+        layers_v = info[(3, 60)]
+        layers, component = item(layers_v, 0), item(layers_v, 1)
+        band = None
+        mode = ""
+        if layers == 1 and not component:
+            mode = "L"
+        else:
+            if layers == 3 and component:
+                mode = "RGB"
+            elif layers == 4 and component:
+                mode = "CMYK"
+            band = 0
+            if (3, 65) in info:
+                b = item(info[(3, 65)], 0)
+                if not isinstance(b, int):
+                    raise _PassOn                    # bytes - 1
+                band = b - 1
+        w, h = getint((3, 20)), getint((3, 30))
+    except KeyError:
+        raise _PassOn from None
+    if (3, 120) not in info:
+        raise _refused("IPTC", "without a compression")
     comp = getint((3, 120))
     if comp not in (1, 5):
         raise _refused("IPTC", f"of compression {comp}")
+    if not mode:
+        raise _PassOn
+    _opened("IPTC", w, h)
     if tag != (8, 10):
         raise _refused("IPTC", "without image data")
-    _opened("IPTC", w, h)
-    if comp == 5:
-        raise _later("IPTC", "7e.6b")
-    got, pos = 0, start                              # the image's fields
+    inner = b"P5\n%d %d\n255\n" % (w, h) if comp == 1 else b""
+    pos = start
     while True:
-        tag, size, pos = _iptc_field(data, pos)
+        tag, size, pos = _iptc_field(data, pos, loading=True)
         if tag != (8, 10):
             break
-        n = len(data[pos:pos + size])
-        got, pos = got + n, pos + n
-    _later_if_data("IPTC", b"", 0, w * h - got if bands else 0)
+        chunk = data[pos:pos + size]
+        pos += len(chunk)
+        inner += chunk
+    if band is None:
+        return read(inner, name)
+    n = len(mode)
+    if not -n <= band < n:
+        raise _refused("IPTC", f"naming band {band + 1} of {n}")
+    grey = _iptc_grey(inner)
+    x = np.zeros(grey.shape + (n,), np.uint8)
+    x[..., band] = grey
+    return _rgb(mode, x)
 
 
-def _pcd(data, name):
-    if not data[2048:2052] == b"PCD_":
+# ---------------------------------------------------------------------------
+# PhotoCD (PcdImagePlugin, PcdDecode.c)
+# ---------------------------------------------------------------------------
+
+_PCD_YCC = None
+
+
+def pcd_ycc_to_rgb(y, c1, c2):
+    """PIL's "YCC;P" unpacker (PhotoYCC -> RGB, UnpackYCC.c): each channel
+    the sum of its tables' entries (`data/pcd_ycc.npz`: L[y]; R + CR[c2],
+    G + GB[c1] + GR[c2], B + CB[c1]), clipped to 0..255."""
+    global _PCD_YCC
+    if _PCD_YCC is None:
+        import os
+        path = os.path.join(os.path.dirname(__file__), "..", "data",
+                            "pcd_ycc.npz")
+        with np.load(path) as t:
+            _PCD_YCC = {k: t[k].astype(np.int64) for k in t.files}
+    t = _PCD_YCC
+    lum = t["L"][y]
+    rgb = np.stack([lum + t["CR"][c2], lum + t["GB"][c1] + t["GR"][c2],
+                    lum + t["CB"][c1]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def read_pcd(data, name):
+    """Kodak PhotoCD files as PcdImagePlugin reads them: the 768 x 512 base
+    image at 96 x 2048 bytes, PcdDecode.c's pairs of luma rows sharing one
+    row of half-width C1 and C2, PhotoYCC through PIL's tables
+    (`pcd_ycc_to_rgb`); turned 90 or 270 degrees (anticlockwise) by the
+    orientation's low bits."""
+    if data[2048:2052] != b"PCD_" or len(data) < 2048 + 1539:
         raise _PassOn
-    raise _later("PCD", "7e.6b")
+    turn = data[2048 + 1538] & 3
+    _opened("PCD", 768, 512)
+    off, chunk = 96 * 2048, 3 * 768
+    if len(data) < off + 256 * chunk:
+        raise _refused("PCD", "cut short")
+    b = np.frombuffer(data, np.uint8, 256 * chunk, off).reshape(256, chunk)
+    y = b[:, :1536].reshape(512, 768)
+    half = np.arange(768) // 2
+    c1 = np.repeat(b[:, 1536 + half], 2, 0)
+    c2 = np.repeat(b[:, 1920 + half], 2, 0)
+    img = pcd_ycc_to_rgb(y, c1, c2)
+    if turn in (1, 3):
+        img = np.rot90(img, 1 if turn == 1 else -1)
+    return np.ascontiguousarray(img)
 
 
 def _mpeg(data, name):
@@ -2020,7 +2471,7 @@ _PLUGINS = (
      _plain(read_ppm)),
     ("PNG", lambda p: p.startswith(b"\x89PNG\r\n\x1a\n"), _from("read_png")),
     ("AVIF", _avif_accept, _not_yet("AVIF", "7e.8")),
-    ("BLP", lambda p: p.startswith((b"BLP1", b"BLP2")), _blp),
+    ("BLP", lambda p: p.startswith((b"BLP1", b"BLP2")), read_blp),
     ("BUFR", lambda p: p.startswith((b"BUFR", b"ZCZC")), _stub("BUFR")),
     ("CUR", lambda p: p.startswith(b"\0\0\2\0"), _plain(read_cur)),
     ("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5),
@@ -2029,12 +2480,12 @@ _PLUGINS = (
     ("DDS", lambda p: p.startswith(b"DDS "), _plain(read_dds)),
     ("EPS", lambda p: p.startswith(b"%!PS") or _i32(p) == 0xC6D3D0C5,
      _stub("EPS")),
-    ("FITS", lambda p: p.startswith(b"SIMPLE"), _fits),
+    ("FITS", lambda p: p.startswith(b"SIMPLE"), read_fits),
     ("FLI", lambda p: len(p) >= 16 and struct.unpack_from("<H", p, 4)[0] in
-     (0xAF11, 0xAF12) and struct.unpack_from("<H", p, 14)[0] in (0, 3), _fli),
-    ("FTEX", lambda p: p.startswith(b"FTEX"), _ftex),
+     (0xAF11, 0xAF12) and struct.unpack_from("<H", p, 14)[0] in (0, 3), read_fli),
+    ("FTEX", lambda p: p.startswith(b"FTEX"), read_ftex),
     ("GBR", lambda p: len(p) >= 8 and _i32(p, ">") >= 20 and
-     struct.unpack_from(">I", p, 4)[0] in (1, 2), _gbr),
+     struct.unpack_from(">I", p, 4)[0] in (1, 2), read_gbr),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
      _stub("GRIB")),
     ("HDF5", lambda p: p.startswith(b"\x89HDF\r\n\x1a\n"), _stub("HDF5")),
@@ -2044,14 +2495,14 @@ _PLUGINS = (
     ("ICNS", lambda p: p.startswith(b"icns"), _plain(read_icns)),
     ("ICO", lambda p: p.startswith(b"\0\0\1\0"), _plain(read_ico)),
     ("IM", None, _plain(read_im)),
-    ("IMT", None, _imt),
-    ("IPTC", None, _iptc),
-    ("MCIDAS", lambda p: p.startswith(b"\0\0\0\0\0\0\0\4"), _mcidas),
+    ("IMT", None, read_imt),
+    ("IPTC", None, read_iptc),
+    ("MCIDAS", lambda p: p.startswith(b"\0\0\0\0\0\0\0\4"), read_mcidas),
     ("MPEG", lambda p: p.startswith(b"\0\0\1\xb3"), _mpeg),
     ("TIFF", lambda p: p.startswith(TIFF_PREFIXES), _tiff),
     ("MSP", lambda p: p.startswith((b"DanM", b"LinS")), _plain(read_msp)),
-    ("PCD", None, _pcd),
-    ("PIXAR", lambda p: p.startswith(b"\x80\xe8\0\0"), _pixar),
+    ("PCD", None, read_pcd),
+    ("PIXAR", lambda p: p.startswith(b"\x80\xe8\0\0"), read_pixar),
     ("PSD", lambda p: p.startswith(b"8BPS"), _plain(read_psd)),
     ("QOI", lambda p: p.startswith(b"qoif"), _plain(read_qoi)),
     ("SGI", lambda p: len(p) >= 2 and p[:2] == b"\x01\xda", _plain(read_sgi)),
@@ -2064,7 +2515,7 @@ _PLUGINS = (
      _stub("WMF")),
     ("XBM", lambda p: p.lstrip().startswith(b"#define"), _plain(read_xbm)),
     ("XPM", lambda p: p.startswith(b"/* XPM */"), _plain(read_xpm)),
-    ("XVTHUMB", lambda p: p.startswith(b"P7 332"), _xvthumb),
+    ("XVTHUMB", lambda p: p.startswith(b"P7 332"), read_xvthumb),
 )
 
 
