@@ -2225,7 +2225,8 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4 and 7e.6b on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b and 7e.5
+    on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2264,7 +2265,17 @@ def phase_image_files(card):
     (2048^2 random BLP2 DXT5 blocks through PIL's Python decoders) and
     `photocd.pcd` (a PhotoCD base image), both built here from their
     seeds (`tools/gen_torch_pil.py` `blp_dxt_timing`, `pcd_file`),
-    against their decodes' sha256; no image library imported."""
+    against their decodes' sha256; slice 7e.5: every file of
+    jpeg_7e5_decodes.npz (progressive files cut between or inside their
+    scans, through libjpeg's block smoothing, Huffman- and
+    arithmetic-coded; subsampled lossless files; the twins' JPEGs)
+    against its committed PIL decode, the committed 2048^2 progressive
+    `smooth_2048.jpg` whole and cut here after its DC scan and after its
+    first AC scan (`tools/gen_torch_assets.py` `smooth_cuts`), each cut's
+    smoothing pass timed on its own, and a 2048^2 4:2:0 lossless file
+    built here from its seed (`lossless_timing`), against their decodes'
+    sha256; the SOF11 file `ll_arith.jpg` refused (ValueError); no image
+    library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2272,25 +2283,33 @@ def phase_image_files(card):
     built_dir = tempfile.mkdtemp()
     gen_pil = _load_by_path("vt_gen_torch_pil", "tools/gen_torch_pil.py")
     gen_cv = _load_by_path("vt_gen_torch_cvtiff", "tools/gen_torch_cvtiff.py")
+    gen_assets = _load_by_path("vt_gen_torch_assets",
+                               "tools/gen_torch_assets.py")
+    with open(os.path.join(assets, "smooth_2048.jpg"), "rb") as f:
+        cuts = gen_assets.smooth_cuts(f.read())
     t0 = time.perf_counter()
     for fn, make in (("bc7_2048.dds", gen_pil.bc7_timing),
                      ("sky_2048.exr", gen_cv.float_timing),
                      ("blp_2048.blp", gen_pil.blp_dxt_timing),
-                     ("photocd.pcd", gen_pil.pcd_file)):
+                     ("photocd.pcd", gen_pil.pcd_file),
+                     ("lossless_2048.jpg", gen_assets.lossless_timing),
+                     *((fn, lambda d=d: d) for fn, d in cuts.items())):
         with open(os.path.join(built_dir, fn), "wb") as f:
             f.write(make())
     emit(dict(phase="image_files_built", seconds=time.perf_counter() - t0,
               card=card))
-    # timing files built from a seed
+    # timing files built from a seed (and the cuts of a committed one)
     built = {fn: built_dir for fn in ("bc7_2048.dds", "sky_2048.exr",
-                                      "blp_2048.blp", "photocd.pcd")}
+                                      "blp_2048.blp", "photocd.pcd",
+                                      "lossless_2048.jpg", *cuts)}
     for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
                       ("webp_decodes.npz", "ldr"),
                       ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr"),
                       ("pil_decodes.npz", "ldr"),
                       ("pil_rare_decodes.npz", "ldr"),
                       ("cvtiff_decodes.npz", "hdr"),
-                      ("tiff_decodes.npz", None)):
+                      ("tiff_decodes.npz", None),
+                      ("jpeg_7e5_decodes.npz", "ldr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
         must = {"image_decodes.npz": ("tiny.tif",),
@@ -2308,7 +2327,12 @@ def phase_image_files(card):
                                        "projector_gif.hdr"),
                 "tiff_decodes.npz": ("sky_a_big.exr", "projector_zstd.tif",
                                      "tf_g4.tif", "tf_zstd_pred2.tif",
-                                     "tf_cv_lab.hdr")}.get(npz, ())
+                                     "tf_cv_lab.hdr"),
+                "jpeg_7e5_decodes.npz": ("checker_smooth.jpg",
+                                         "projector_lossless.jpg",
+                                         "cut_arith_mid.jpg", "cut_440_dc.jpg",
+                                         "ll_planes.jpg", "ll_cmyk.jpg")
+                }.get(npz, ())
         check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
             t0 = time.perf_counter()
@@ -2333,6 +2357,16 @@ def phase_image_files(card):
             emit(rec)
             check(rec["bit_equal"] and rec["sha256_equal"]
                   and rec["max_abs_diff"] == 0, f"{fn} {rec}")
+    # slice 7e.5: block smoothing's share of a cut 2k file's decode
+    for fn, data in cuts.items():
+        scans = imageio._jpeg_scans(data)
+        t0 = time.perf_counter()
+        imageio._block_smoothing(*scans[:4], scans[-1])
+        emit(dict(phase="jpeg_smoothing", file=fn, card=card,
+                  smoothing_s=time.perf_counter() - t0,
+                  coef_bits=scans[-1][0].tolist(),
+                  last_good_imcu_row=scans[-1][2]))
+        check(scans[-1] is not None, f"{fn} leaves no coefficient to smooth")
     got = imageio.read_image(os.path.join(assets, "yc.exr"))[0]
     check(np.array_equal(got.view(np.uint32), np.load(os.path.join(
         assets, "exr_cv_decodes.npz"))["yc.exr"].view(np.uint32)),
@@ -2343,6 +2377,8 @@ def phase_image_files(card):
             f.write(struct.pack(">I", 28) + b"ftypavif" + bytes(4)
                     + b"avifmif1miaf")
         for path, err, what in ((avif, NotImplementedError, "7e"),
+                                (os.path.join(assets, "ll_arith.jpg"),
+                                 ValueError, "arithmetic-coded lossless"),
                                 (os.path.join(assets, "deep_scanline.exr"),
                                  ValueError, "deep"),
                                 (os.path.join(assets, "deep_tiled.exr"),
@@ -2384,11 +2420,19 @@ IMAGE_TWINS = (
      "cbox_sky_cvtiff_ref"),
     ("env_sphere_zstd", "env_sphere_zstd", "packet_isect", "env_sphere"),
     ("cbox_tex_rare", "cbox_tex_rare", "dense_isect", "cbox_tex"),
-    ("env_sphere_rare", "env_sphere_rare", "packet_isect", "env_sphere"))
+    ("env_sphere_rare", "env_sphere_rare", "packet_isect", "env_sphere"),
+    ("cbox_tex_smooth_ref", "cbox_tex_smooth_ref", "dense_isect", None),
+    ("cbox_tex_smooth", "cbox_tex_smooth", "dense_isect",
+     "cbox_tex_smooth_ref"),
+    ("env_sphere_lossless_ref", "env_sphere_lossless_ref", "packet_isect",
+     None),
+    ("env_sphere_lossless", "env_sphere_lossless", "packet_isect",
+     "env_sphere_lossless_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4 and 7e.6b through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b and 7e.5
+    through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2418,8 +2462,13 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     bit for bit with `env_sphere`; slice 7e.6b: `cbox_tex_rare` (a BLP2
     palette checker, a GIMP brush normal map) through K1, bit for bit
     with `cbox_tex`, and `env_sphere_rare` (an FLC checker, a PIXAR
-    projector image) through K2, bit for bit with `env_sphere`. Returns
-    each render's launch counts."""
+    projector image) through K2, bit for bit with `env_sphere`; slice
+    7e.5: `cbox_tex_smooth` (its checker a progressive JPEG cut inside a
+    scan, through libjpeg's block smoothing) through K1, bit for bit with
+    `cbox_tex_smooth_ref` (PIL's decode of that JPEG in a PNG), and
+    `env_sphere_lossless` (its projector image a 4:2:0 lossless JPEG)
+    through K2, bit for bit with `env_sphere_lossless_ref` (PIL's decode
+    in a PNG). Returns each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:
@@ -2736,7 +2785,7 @@ def main():
     per_render.update(phase_dist(vt, [di, pi], vt_pt, scene, smi))
     per_render.update(phase_utils(vt, [di, pi], scene, sphere, cbox_img, smi))
 
-    # ---- slices 7c, 7d, 7e.1, 7e.2, 7e.3a and 7e.6a: the image files PIL
+    # ---- slices 7c, 7d and 7e: the image files PIL
     # and OpenCV (libOpenEXR, libwebp and its own readers) decode for the
     # JAX package, and the scenes that read them ----
     phase_image_files(smi)

@@ -4,13 +4,13 @@ and run-length, GIF, TIFF uncompressed, LZW, Deflate and PackBits),
 drawn from a seed: the port (`vision_tpu_torch/scene/imageio.py`,
 `tiffdir.py`, `pilread.py`) decodes each edited file as
 `PIL.Image.open(p).convert("RGB")` decodes it, by path, bit for bit, or
-refuses it (ValueError) where PIL raises; never NotImplementedError. The
-one deviation is C19's: PIL's libjpeg-turbo runs a SIMD integer IDCT in
-16-bit lanes, which wraps for dequantised coefficients past 8-bit JPEG's
-range (|c| > 1023, as an edited quantisation table or Huffman symbol
-makes them), where the port keeps the C ISLOW IDCT; those files are
-counted, and their pixels differ only inside the blocks that hold such a
-coefficient. Also the bitmap plugins' handing on (CUR, ICO and DIB pass
+refuses it (ValueError) where PIL raises; never NotImplementedError.
+PIL's libjpeg-turbo runs a SIMD integer IDCT in 16-bit lanes, which
+wraps for dequantised coefficients past 8-bit JPEG's range (|c| > 1023,
+as an edited quantisation table or Huffman symbol makes them); the port
+computes that IDCT as the SIMD code does (ROADMAP C19), so no edit is
+left whose pixels differ inside the blocks that hold such a coefficient
+(the count of such edits, once 2 a JPEG, is 0). Also the bitmap plugins' handing on (CUR, ICO and DIB pass
 a file on to the next plugin where PIL's `_bitmap` raises struct.error or
 finds no pixels): a TGA whose first bytes read as a cursor directory
 decodes as PIL's TGA. And edits of restart markers inside the scans of
@@ -86,8 +86,9 @@ def _files():
 
 
 FILES = _files()
-# the edits of each JPEG whose decode shows C19 (PIL's wrapping SIMD IDCT)
-C19_EDITS = {"jpeg": 2, "jpeg_progressive": 2}
+# the edits of each JPEG whose decode shows C19 (PIL's wrapping SIMD IDCT,
+# which the port now computes as PIL does)
+C19_EDITS = {"jpeg": 0, "jpeg_progressive": 0}
 
 
 def _wide_blocks(data, shape):
@@ -161,9 +162,6 @@ RESTART_FILES = _restart_files()
 # below SOF0, others that are not RSTn, a stuffed zero and a fill byte
 RESTART_CODES = [0xD0 + k for k in range(8)] + [0x01, 0xBF, 0xC4, 0xD9,
                                                 0xDA, 0xFE, 0x00, 0xFF]
-# edits that end a progressive file inside a scan (an RSTn made EOI),
-# which leaves coefficients for libjpeg's block smoothing (7e.5)
-SMOOTHED_EDITS = {"progressive": 2}
 
 
 @pytest.mark.parametrize("name", sorted(RESTART_FILES))
@@ -174,8 +172,8 @@ def test_restart_marker_edits_match_pil(tmp_path, name):
     or a marker below SOF0 passed over, one of the next two or another
     marker left in place for the intervals to decode from no data, a far
     one taken as expected) and decodes each file as PIL does, or refuses
-    it where PIL raises; a progressive file ended inside a scan raises
-    NotImplementedError naming 7e.5, counted."""
+    it where PIL raises; a progressive file ended inside a scan (an RSTn
+    made EOI) too, through libjpeg's block smoothing."""
     data = RESTART_FILES[name]
     sos = data.index(b"\xff\xda")
     rst = [i for i in range(sos, len(data) - 1)
@@ -183,7 +181,6 @@ def test_restart_marker_edits_match_pil(tmp_path, name):
     assert len(rst) >= 3
     g = np.random.default_rng(sum(map(ord, name)))
     p = str(tmp_path / "r.jpg")
-    smoothed = 0
     for k in range(48):
         d = bytearray(data)
         d[rst[int(g.integers(len(rst)))] + 1] = \
@@ -195,22 +192,16 @@ def test_restart_marker_edits_match_pil(tmp_path, name):
             with pytest.raises(ValueError):
                 tio.read_image(p)
             continue
-        try:
-            got, _ = tio.read_image(p)
-        except NotImplementedError as e:
-            assert "7e.5" in str(e), k
-            smoothed += 1
-            continue
+        got, _ = tio.read_image(p)
         np.testing.assert_array_equal(got, want, err_msg=f"edit {k}")
-    assert smoothed == SMOOTHED_EDITS.get(name, 0)
 
 
 def test_unfinished_progressive_files_name_7e5(tmp_path):
     """A progressive file cut after each of its scans but the last (an EOI
-    put in place of the next SOS): libjpeg estimates the coefficients left
-    unfinished from the neighbouring blocks (block smoothing), which is not
-    ported, so the port raises NotImplementedError naming 7e.5; the whole
-    file decodes as PIL's."""
+    put in place of the next SOS), which named 7e.5 until it was done:
+    libjpeg estimates the coefficients left unfinished from the
+    neighbouring blocks (block smoothing), and so does the port; each cut
+    and the whole file decode as PIL's."""
     data = _save(Image.fromarray(np.random.default_rng(1).integers(
         0, 256, (20, 28, 3), np.uint8)), "JPEG", quality=90, progressive=True)
     sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
@@ -218,8 +209,8 @@ def test_unfinished_progressive_files_name_7e5(tmp_path):
     p = tmp_path / "p.jpg"
     for cut in sos[1:]:
         p.write_bytes(data[:cut] + b"\xff\xd9")
-        with pytest.raises(NotImplementedError, match="7e.5"):
-            tio.read_image(str(p))
+        np.testing.assert_array_equal(tio.read_image(str(p))[0],
+                                      _pil(str(p)), err_msg=f"cut {cut}")
     p.write_bytes(data)
     np.testing.assert_array_equal(tio.read_image(str(p))[0], _pil(str(p)))
 

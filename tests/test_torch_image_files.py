@@ -573,11 +573,12 @@ def test_jpeg_scan_decoders_refuse_more_than_four_components():
     for n in (0, 5):
         assert native._library().vt_jpeg_decode_scan(
             buf.ctypes.data, len(buf), n, rows.ctypes.data, ptrs,
-            bits.ctypes.data, vals.ctypes.data, 1, 1, 0, 0, 0, 63, 0, 0) == -5
+            bits.ctypes.data, vals.ctypes.data, 1, 1, 0, 0, 0, 63, 0, 0,
+            None) == -5
         assert native._library().vt_jpeg_decode_arith_scan(
             buf.ctypes.data, len(buf), n, rows.ctypes.data, ptrs,
             np.zeros(12, np.int32).ctypes.data, 1, 1, 0, 0, 0, 63, 0,
-            0) == -5
+            0, None) == -5
 
 JFIF = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
 
@@ -623,19 +624,22 @@ def test_arithmetic_jpeg_matches_pil(tmp_path, progressive, sampling, cond):
             cond=cond))
 
 
-def test_jpeg_cases_left_name_7d():
-    """Arithmetic-coded lossless (SOF11) and subsampled lossless files are
-    not decoded yet: they named slice 7d until it was done, and now raise
-    NotImplementedError naming the slice after it, ROADMAP queue A, 7e;
-    never a wrong image."""
+def test_jpeg_cases_left_name_7d(tmp_path):
+    """The lossless cases slice 7d left, which later named ROADMAP queue A
+    7e.5 until it was done: a lossless file relabelled with its first
+    component sampled 2x2 decodes as PIL decodes it (its data read as
+    interleaved MCUs of 4 + 1 + 1 samples); the same file under the
+    arithmetic-coded lossless frame marker (SOF11) is refused as PIL
+    (libjpeg-turbo, which has no arithmetic-coded lossless decoder)
+    refuses it, with ValueError."""
     d = bytearray(ga.lossless_jpeg_bytes(_image(8, 8, 3, 2)))
     i = d.index(b"\xff\xc3")
     d[i + 11] = 0x22
-    with pytest.raises(NotImplementedError, match="lossless.*7e"):
-        tio.read_jpeg(bytes(d))
+    _assert_same(tmp_path, bytes(d))
     d[i + 1], d[i + 11] = 0xCB, 0x11
-    with pytest.raises(NotImplementedError, match="arithmetic.*7e"):
+    with pytest.raises(ValueError, match="arithmetic-coded lossless"):
         tio.read_jpeg(bytes(d))
+    _assert_same(tmp_path, bytes(d), decodes=False)
 
 
 # ---------------------------------------------------------------------------

@@ -505,6 +505,42 @@ def env_sphere_zstd(res=512, sub_div=40):
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_ZSTD)
 
 
+# slice 7e.5 (tools/gen_torch_assets.py `jpeg_7e5_files`): the checker as a
+# progressive JPEG cut inside a scan, decoded through libjpeg's block
+# smoothing, and the projector's RGB as a 4:2:0 lossless JPEG; each decodes
+# to other pixels than its PNG, so its scene is held against one reading
+# PIL's decode of the file from a PNG.
+CBOX_TEX_SMOOTH = {"checker.png": "checker_smooth.jpg"}
+CBOX_TEX_SMOOTH_REF = {"checker.png": "checker_smooth_pil.png"}
+ENV_SPHERE_LOSSLESS = {"projector.png": "projector_lossless.jpg"}
+ENV_SPHERE_LOSSLESS_REF = {"projector.png": "projector_lossless_pil.png"}
+
+
+def cbox_tex_smooth(res=512):
+    """`cbox_tex` with its checker from a progressive JPEG cut inside its
+    third scan: it renders as `cbox_tex_smooth_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_SMOOTH)
+
+
+def cbox_tex_smooth_ref(res=512):
+    """`cbox_tex` with its checker read from PIL's decode of
+    checker_smooth.jpg, written as a PNG."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_SMOOTH_REF)
+
+
+def env_sphere_lossless(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a lossless JPEG, 4:2:0
+    (the first component 2x2): it renders as `env_sphere_lossless_ref`
+    does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_LOSSLESS)
+
+
+def env_sphere_lossless_ref(res=512, sub_div=40):
+    """`env_sphere` with its projector image read from PIL's decode of
+    projector_lossless.jpg, written as a PNG."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_LOSSLESS_REF)
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

@@ -370,82 +370,112 @@ def write_jpegs(out):
     np.savez_compressed(os.path.join(out, "jpeg_decodes.npz"), **dec)
 
 
-def _lossless_diffs(x, psv, pt, restart_rows):
+def _lossless_diffs(x, psv, pt, first):
     """The differences (mod 2^16, in -32767..32768) of one component's
-    samples x int [h, w] >> pt under predictor `psv`, with the first row
-    of each restart interval predicted from its left alone."""
+    samples x int [h, w] >> pt under predictor `psv`; the rows where
+    `first` (bool [h], row 0 among them) is true are predicted from their
+    left alone, their first sample from 2^(7 - pt)."""
     x = x.astype(np.int64) >> pt
-    h, w = x.shape
-    pred = np.zeros_like(x)
-    for y in range(h):
-        first = y == 0 or (restart_rows and y % restart_rows == 0)
-        for i in range(w):
-            if first:
-                p = (1 << (8 - pt - 1)) if i == 0 else x[y, i - 1]
-            elif i == 0:
-                p = x[y - 1, 0]
-            else:
-                ra, rb, rc = x[y, i - 1], x[y - 1, i], x[y - 1, i - 1]
-                p = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
-                     5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
-                     7: (ra + rb) >> 1}[psv]
-            pred[y, i] = p
+    up = np.concatenate([x[:1], x[:-1]])
+    ra, rb, rc = x[:, :-1], up[:, 1:], up[:, :-1]
+    pred = np.empty_like(x)
+    pred[:, 0] = up[:, 0]
+    pred[:, 1:] = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                   5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                   7: (ra + rb) >> 1}[psv]
+    pred[first, 0] = 1 << (8 - pt - 1)
+    pred[first, 1:] = x[first, :-1]
     d = (x - pred) & 0xFFFF
     return np.where(d > 32768, d - 65536, d)
 
 
-def lossless_jpeg_bytes(img, psv=1, pt=0, restart_rows=0, app=b""):
-    """A lossless (SOF3) Huffman JPEG of img uint8 [h, w, nc] (nc 1 or 3,
-    sampling 1x1, interleaved): predictor `psv` (1-7), point transform
-    `pt`, a restart marker every `restart_rows` rows, the segments `app`
-    after SOI. One DC table codes the 17 difference categories in 5 bits
-    each."""
+def _lossless_segment(diffs):
+    """The entropy-coded bytes of the differences `diffs` (int, in coding
+    order) under `lossless_jpeg_bytes`' table: each its category in 5 bits,
+    then its extra bits; padded with 1 bits to a byte, 0xFF stuffed."""
+    d = np.asarray(diffs, np.int64).reshape(-1)
+    cat = np.where(d == 32768, 16, np.frexp(np.abs(d))[1]).astype(np.int64)
+    n = np.where(cat < 16, cat, 0)
+    extra = np.where(d > 0, d, d - 1) & ((1 << n) - 1)
+    length = 5 + n
+    word = ((cat << n) | extra) << (32 - length)    # left-aligned in 32 bits
+    bits = []
+    for k in range(0, len(d), 1 << 20):
+        w = word[k:k + (1 << 20)].astype(">u4")
+        m = np.unpackbits(w.view(np.uint8)).reshape(-1, 32)
+        bits.append(m[np.arange(32) < length[k:k + (1 << 20), None]])
+    bits = np.concatenate(bits + [np.ones((-sum(map(len, bits))) % 8,
+                                          np.uint8)])
+    out = np.packbits(bits)
+    ff = np.nonzero(out == 0xFF)[0]
+    return np.insert(out, ff + 1, 0).tobytes()
+
+
+def lossless_jpeg_bytes(img, psv=1, pt=0, restart_rows=0, app=b"",
+                        sampling=None, per_component=False):
+    """A lossless (SOF3) Huffman JPEG of img uint8 [h, w, nc] (nc 1, 3 or
+    4): predictor `psv` (1-7), point transform `pt`, the segments `app`
+    after SOI. sampling: each component's (h, v) factors (1x1 when None),
+    its samples img[::vmax // v, ::hmax // h]; one interleaved scan (an MCU
+    of h x v samples of each component, the right and bottom edges padded
+    with zero differences), or with `per_component` one scan a component
+    (an MCU one sample). A restart marker every `restart_rows` MCU rows of
+    the first scan (the DRI segment's MCUs serve every scan); each restart
+    interval's first row, in each component, predicted from its left. One
+    DC table codes the 17 difference categories in 5 bits each."""
     import struct
     h, w, nc = img.shape
-    diffs = np.stack([_lossless_diffs(img[..., c], psv, pt, restart_rows)
-                      for c in range(nc)], -1)
+    sampling = list(sampling or [(1, 1)] * nc)
+    hmax = max(f[0] for f in sampling)
+    vmax = max(f[1] for f in sampling)
+    planes = [img[::vmax // v, ::hmax // hh, c]
+              for c, (hh, v) in enumerate(sampling)]
+    mcux, mcuy = -(-w // hmax), -(-h // vmax)
+    scans = [[c] for c in range(nc)] if per_component else [list(range(nc))]
+    per_row = mcux if len(scans[0]) > 1 else planes[scans[0][0]].shape[1]
+    interval = restart_rows * per_row
 
     def seg(m, body):
         return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
 
-    out, acc, n = bytearray(), 0, 0
-
-    def put(v, k):
-        nonlocal acc, n
-        acc, n = acc << k | (v & ((1 << k) - 1)), n + k
-        while n >= 8:
-            b = (acc >> (n - 8)) & 0xFF
-            out.append(b)
-            if b == 0xFF:
-                out.append(0)
-            n -= 8
-
-    def flush():
-        nonlocal n
-        if n:
-            put((1 << (8 - n)) - 1, 8 - n)
-
-    for y in range(h):
-        if restart_rows and y and y % restart_rows == 0:
-            flush()
-            out.extend(bytes([0xFF, 0xD0 + (y // restart_rows - 1) % 8]))
-        for x in range(w):
-            for c in range(nc):
-                d = int(diffs[y, x, c])
-                cat = 16 if d == 32768 else abs(d).bit_length()
-                put(cat, 5)
-                if 0 < cat < 16:
-                    put(d if d > 0 else d - 1, cat)
-    flush()
+    out = b""
+    for comps in scans:
+        if len(comps) > 1:            # MCU rows of every component's v rows
+            units, rows_a_mcu, rst_rows = mcux * mcuy, 1, \
+                interval // mcux if interval else 0
+        else:
+            units = planes[comps[0]].size
+            rst_rows = interval // planes[comps[0]].shape[1] if interval \
+                else 0
+        coded = []
+        for c in comps:
+            p = planes[c]
+            hh, v = sampling[c] if len(comps) > 1 else (1, 1)
+            rows = np.arange(p.shape[0]) // v
+            first = rows % rst_rows == 0 if rst_rows else rows == 0
+            d = _lossless_diffs(p, psv, pt, first & (np.arange(len(rows)) % v
+                                                     == 0))
+            if len(comps) > 1:        # padded, in MCU order
+                d = np.pad(d, ((0, mcuy * v - d.shape[0]),
+                               (0, mcux * hh - d.shape[1])))
+                d = d.reshape(mcuy, v, mcux, hh).transpose(0, 2, 1, 3)
+                d = d.reshape(mcuy * mcux, v * hh)
+            coded.append(d.reshape(units, -1))
+        coded = np.concatenate(coded, 1)
+        step = interval or units
+        body = b"".join(
+            (bytes([0xFF, 0xD0 + (k // step - 1) % 8]) if k else b"")
+            + _lossless_segment(coded[k:k + step])
+            for k in range(0, units, step))
+        head = bytes([len(comps)]) + b"".join(bytes([c + 1, 0])
+                                              for c in comps)
+        out += seg(0xDA, head + bytes([psv, 0, pt])) + body
     frame = struct.pack(">BHHB", 8, h, w, nc) + b"".join(
-        bytes([c + 1, 0x11, 0]) for c in range(nc))
+        bytes([c + 1, hh << 4 | v, 0]) for c, (hh, v) in enumerate(sampling))
     dht = bytes([0x00]) + bytes([0, 0, 0, 0, 17] + [0] * 11) + bytes(range(17))
-    sos = bytes([nc]) + b"".join(bytes([c + 1, 0]) for c in range(nc)) + \
-        bytes([psv, 0, pt])
-    dri = seg(0xDD, struct.pack(">H", restart_rows * w)) if restart_rows \
-        else b""
+    dri = seg(0xDD, struct.pack(">H", interval)) if interval else b""
     return (b"\xff\xd8" + app + seg(0xC3, frame) + seg(0xC4, dht) + dri
-            + seg(0xDA, sos) + bytes(out) + b"\xff\xd9")
+            + out + b"\xff\xd9")
 
 
 # ITU-T T.81 Table D.2 as libjpeg packs it (jaricom.c): (Qe, Next_Index_LPS,
@@ -1343,6 +1373,178 @@ def write_image_files(out):
     np.savez_compressed(os.path.join(out, "image_decodes.npz"), **dec)
 
 
+# ---------------------------------------------------------------------------
+# Slice 7e.5: unfinished progressive JPEG (libjpeg's block smoothing),
+# subsampled lossless JPEG, arithmetic-coded lossless JPEG (refused)
+# ---------------------------------------------------------------------------
+
+LOSSLESS_TIMING_SEED = 75   # `lossless_timing`'s grain
+
+
+def cut_jpeg(data, scan, at=None):
+    """`data` cut where its scan number `scan` (from 0) starts, an EOI in
+    place of that SOS; or, with `at`, `at` bytes into that scan's
+    entropy-coded data, an EOI appended."""
+    import struct
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    if at is None:
+        return data[:sos[scan]] + b"\xff\xd9"
+    start = sos[scan] + 2 + struct.unpack(">H", data[sos[scan] + 2:
+                                                    sos[scan] + 4])[0]
+    end = next(i for i in range(start, len(data) - 1) if data[i] == 0xFF
+               and data[i + 1] != 0 and not 0xD0 <= data[i + 1] <= 0xD7)
+    assert 0 < at < end - start, "the cut must fall inside the scan's data"
+    return data[:start + at] + b"\xff\xd9"
+
+
+def _waves(h, w, seed):
+    """Smooth colour waves with a little noise, uint8 [h, w, 3]."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    g = np.random.RandomState(seed)
+    base = np.stack([128 + 100 * np.sin(x * 0.19 + c) * np.cos(y * 0.13 - c)
+                     for c in range(3)], -1)
+    return np.clip(np.round(base + g.randint(-12, 13, base.shape)), 0,
+                   255).astype(np.uint8)
+
+
+def _cv_jpeg(img, factor, restart=0):
+    """The pip cv2's progressive JPEG of img (RGB) at quality 85, its
+    chroma sampled as `factor` (cv2.IMWRITE_JPEG_SAMPLING_FACTOR_*), a
+    restart interval of `restart` MCU rows."""
+    import cv2
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 85,
+              cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor,
+              cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    return cv2.imencode(".jpg", img[..., ::-1], params)[1].tobytes()
+
+
+def smooth_2048():
+    """The 2048 x 2048 progressive JPEG of smooth waves (PIL, 4:2:0,
+    quality 90) that `chip_smoke.py` cuts after its DC scan and after its
+    first AC scan."""
+    from PIL import Image
+    n = 2048
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    waves = np.stack([np.sin(7.0 * x + 3.0 * y), np.cos(5.0 * y - 2.0 * x),
+                      np.sin(11.0 * x * y + 1.0)], -1)
+    img = np.clip(np.round(128 + 90 * waves), 0, 255).astype(np.uint8)
+    return _pil_jpeg(img, progressive=True, quality=90)
+
+
+def smooth_cuts(data):
+    """name -> `smooth_2048.jpg` cut after its DC scan and after its first
+    AC scan (an EOI in place of the next SOS)."""
+    return {"smooth_2048_dc.jpg": cut_jpeg(data, 1),
+            "smooth_2048_ac.jpg": cut_jpeg(data, 2)}
+
+
+def lossless_timing(n=2048, seed=LOSSLESS_TIMING_SEED):
+    """A 2048 x 2048 lossless JPEG, 4:2:0 (the first component 2x2),
+    predictor 6, of smooth waves under a grain, built from a seed (7 MB:
+    not committed)."""
+    img = grain(n)
+    img = np.clip(img.astype(np.int64) + np.random.RandomState(seed).randint(
+        -3, 4, img.shape), 0, 255).astype(np.uint8)
+    return lossless_jpeg_bytes(img, 6, sampling=((2, 2), (1, 1), (1, 1)))
+
+
+def jpeg_7e5_files(checker_rgb, projector_rgb):
+    """name -> bytes: slice 7e.5's files. Progressive files cut after a scan
+    or inside one (PIL's, the pip cv2's for 4:4:0 and 4:1:1 and restart
+    intervals, and arithmetic-coded ones), from 1 to 8+ block rows and
+    columns; subsampled lossless files (interleaved and one scan a
+    component, restarts, predictors, point transforms, 1, 3 and 4
+    components); `ll_arith.jpg`, a lossless file relabelled SOF11 (which
+    PIL refuses); the twins `checker_smooth.jpg` (the checker as a
+    progressive JPEG cut inside its first AC scan) and
+    `projector_lossless.jpg` (the projector's RGB, lossless 4:2:0)."""
+    f = {}
+    f["cut_grey_dc.jpg"] = cut_jpeg(_pil_jpeg(_waves(9, 13, 1)[..., 0],
+                                              progressive=True, quality=80), 1)
+    f["cut_grey_tall.jpg"] = cut_jpeg(_pil_jpeg(
+        _waves(70, 8, 2)[..., 0], progressive=True, quality=95), 2, 9)
+    f["cut_444_ac.jpg"] = cut_jpeg(_pil_jpeg(
+        _waves(33, 47, 3), progressive=True, quality=75, subsampling=0), 2)
+    f["cut_420_mid.jpg"] = cut_jpeg(_pil_jpeg(
+        _waves(20, 28, 4), progressive=True, quality=90), 1, 20)
+    f["cut_420_refine.jpg"] = cut_jpeg(_pil_jpeg(
+        _waves(40, 70, 5), progressive=True, quality=60), 5, 30)
+    f["cut_422_wide.jpg"] = cut_jpeg(_pil_jpeg(
+        _waves(17, 150, 6), progressive=True, quality=50, subsampling=1), 3)
+    import cv2
+    f["cut_440_dc.jpg"] = cut_jpeg(_cv_jpeg(
+        _waves(45, 31, 7), cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440), 1)
+    f["cut_411_mid.jpg"] = cut_jpeg(_cv_jpeg(
+        _waves(26, 61, 8), cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411), 2, 25)
+    f["cut_rst_mid.jpg"] = cut_jpeg(_cv_jpeg(
+        _waves(50, 44, 9), cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420, 2), 1, 60)
+    sampling = ((2, 2), (1, 1), (1, 1))
+    arith = arith_jpeg_bytes(_coefficients(sampling, (3, 4), 6, 10),
+                             sampling, q=6, progressive=True, restart=2)
+    f["cut_arith_dc.jpg"] = cut_jpeg(arith, 1)
+    f["cut_arith_mid.jpg"] = cut_jpeg(arith, 4, 40)
+    # subsampled lossless
+    w = _waves(23, 37, 11)
+    f["ll_420.jpg"] = lossless_jpeg_bytes(w, 1, sampling=sampling)
+    f["ll_422_rst.jpg"] = lossless_jpeg_bytes(
+        w, 5, restart_rows=2, sampling=((2, 1), (1, 1), (1, 1)))
+    f["ll_planes.jpg"] = lossless_jpeg_bytes(w, 7, 1, sampling=sampling,
+                                             per_component=True)
+    f["ll_grey22.jpg"] = lossless_jpeg_bytes(w[..., :1], 4, restart_rows=3,
+                                             sampling=((2, 2),))
+    cmyk = np.concatenate([w, w[..., :1] // 2 + 60], -1)
+    f["ll_cmyk.jpg"] = lossless_jpeg_bytes(
+        cmyk, 2, sampling=((2, 2), (1, 1), (1, 1), (2, 2)),
+        per_component=True)
+    f["ll_441.jpg"] = lossless_jpeg_bytes(
+        _waves(19, 30, 12), 3, 2, sampling=((4, 1), (1, 1), (2, 1)))
+    d = bytearray(f["ll_420.jpg"])
+    d[d.index(b"\xff\xc3") + 1] = 0xCB
+    f["ll_arith.jpg"] = bytes(d)
+    # the twins
+    f["checker_smooth.jpg"] = cut_jpeg(_pil_jpeg(
+        checker_rgb, progressive=True, quality=90), 2, 15)
+    f["projector_lossless.jpg"] = lossless_jpeg_bytes(
+        np.ascontiguousarray(projector_rgb), 1, sampling=sampling)
+    return f
+
+
+def write_jpeg_7e5_files(out, checker_rgb, projector_rgb):
+    """Slice 7e.5's files (`jpeg_7e5_files`), `smooth_2048.jpg`, the
+    twins' PIL decodes `checker_smooth_pil.png` and
+    `projector_lossless_pil.png`, and `jpeg_7e5_decodes.npz`: what PIL
+    decodes from each file it decodes (`Image.open(p).convert("RGB")`, by
+    path), and the sha256 and 128 x 128 corner of its decodes of
+    `smooth_2048.jpg`, of its two cuts (`smooth_cuts`) and of
+    `lossless_timing`'s file, under "<name>:sha256" / ":corner"."""
+    import hashlib
+    import io
+    from PIL import Image
+    dec = {}
+    for fn, data in jpeg_7e5_files(checker_rgb, projector_rgb).items():
+        p = os.path.join(out, fn)
+        with open(p, "wb") as fh:
+            fh.write(data)
+        try:
+            dec[fn] = np.asarray(Image.open(p).convert("RGB"))
+        except OSError:
+            continue          # ll_arith.jpg: PIL refuses it
+    for fn in ("checker_smooth", "projector_lossless"):
+        Image.fromarray(dec[fn + ".jpg"]).save(os.path.join(
+            out, fn + "_pil.png"))
+    big = smooth_2048()
+    with open(os.path.join(out, "smooth_2048.jpg"), "wb") as fh:
+        fh.write(big)
+    built = dict(smooth_cuts(big), **{"smooth_2048.jpg": big,
+                                      "lossless_2048.jpg": lossless_timing()})
+    for fn, data in built.items():
+        full = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        dec[fn + ":sha256"] = np.frombuffer(
+            hashlib.sha256(full.tobytes()).digest(), np.uint8)
+        dec[fn + ":corner"] = full[:CORNER, :CORNER]
+    np.savez_compressed(os.path.join(out, "jpeg_7e5_decodes.npz"), **dec)
+
+
 def _webp_module():
     """`tools/gen_torch_webp.py`, loaded by path."""
     import importlib.util
@@ -1465,6 +1667,7 @@ def main():
     _pil_module().write_pil_rare_files(out, checker(), bumps(), projector())
     _cvtiff_module().write_cv_files(out)
     _tiff_module().write_tiff_files(out)
+    write_jpeg_7e5_files(out, checker(), projector()[..., :3])
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

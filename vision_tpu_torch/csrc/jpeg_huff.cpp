@@ -280,20 +280,24 @@ const uint8_t *read_restart(const uint8_t *q, const uint8_t *end,
 // block of the scan's component c (false: corrupt data), and cd.pos() is
 // where it reads. Returns the offset of the marker that ends the scan, or
 // -1 / -3 as vt_jpeg_decode_scan. An MCU met once `cd.out_of_data()` is
-// left as it is.
+// left as it is. `good` (if not null) gets libjpeg's last_good_iMCU_row:
+// the iMCU row of the last MCU begun before the data ran out.
 template <class Coder>
 int64_t walk_scan(Coder &cd, const uint8_t *data, int32_t ncomp,
                   const int32_t *comp, int16_t **coef, int32_t mcux,
-                  int32_t mcuy, int32_t restart) {
-  int64_t n_mcu, per_row;
+                  int32_t mcuy, int32_t restart, int32_t *good = nullptr) {
+  int64_t n_mcu, per_row, rows_per_imcu = 1;
   if (ncomp == 1) {
     per_row = comp[5];
     n_mcu = (int64_t)comp[5] * comp[6];
+    rows_per_imcu = comp[3];  // a one-component scan: v MCU rows an iMCU row
   } else {
     per_row = mcux;
     n_mcu = (int64_t)mcux * mcuy;
   }
   for (int64_t m = 0; m < n_mcu; ++m) {
+    if (good != nullptr && !cd.out_of_data())
+      *good = (int32_t)(m / per_row / rows_per_imcu);
     if (restart > 0 && m > 0 && m % restart == 0 && !cd.restart()) return -3;
     int64_t my = m / per_row, mx = m % per_row;
     // out of data (libjpeg's insufficient_data): the MCU is left as it is
@@ -357,7 +361,7 @@ struct HuffCoder {
 int64_t decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
                     const int32_t *comp, int16_t **coef, const uint8_t *bits,
                     const uint8_t *vals, int32_t mcux, int32_t mcuy,
-                    int32_t restart, const Scan &sc) {
+                    int32_t restart, const Scan &sc, int32_t *good) {
   HuffCoder cd{Bits{data, data + len}, {}, comp, sc};
   bool used[8] = {false};
   bool need_dc = !sc.prog || (sc.ss == 0 && sc.ah == 0);
@@ -370,7 +374,8 @@ int64_t decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
     if (used[t] &&
         !cd.tables[t].build(bits + 16 * t, vals + 256 * t, t < 4 ? 15 : 255))
       return -2;
-  int64_t end = walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart);
+  int64_t end =
+      walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart, good);
   return cd.b.past_end ? -6 : end;
 }
 
@@ -645,64 +650,114 @@ bool ArithCoder::block(int ci, int16_t *blk) {
   return true;
 }
 
-// A lossless (SOF3) scan, every component sampled 1x1 (an interleaved MCU
-// is one sample of each): Huffman-coded differences undifferenced as
-// libjpeg's jdlossls.c does, 16-bit modular, into each component's plane.
+// A lossless (SOF3) scan, decoded as libjpeg-turbo's jddiffct.c, jdlhuff.c
+// and jdlossls.c do: an iMCU row at a time, its MCU rows entropy-decoded
+// into a buffer of differences (an interleaved MCU holds h x v samples of
+// each component, padding at the right and bottom edges included; a
+// one-component scan's MCU is one sample, v MCU rows an iMCU row), then
+// each component's rows of it undifferenced (16-bit modular) into its
+// plane, the padding dropped. The first row of the scan, and the first of
+// an iMCU row in which a restart was processed or the data ran out, is
+// predicted from the left (libjpeg resets its undifferencers there).
+// comp: 5 int32 a component: DC table, h, v, the plane's width and height.
 int64_t decode_lossless(const uint8_t *data, int64_t len, int32_t ncomp,
-                        const int32_t *dc_table, uint16_t **out,
-                        const uint8_t *bits, const uint8_t *vals, int32_t w,
-                        int32_t h, int32_t restart, int32_t psv, int32_t pt) {
+                        const int32_t *comp, uint16_t **out,
+                        const uint8_t *bits, const uint8_t *vals, int32_t mcux,
+                        int32_t mcuy, int32_t restart, int32_t psv,
+                        int32_t pt) {
   Table tables[4];
   bool used[4] = {false};
-  for (int c = 0; c < ncomp; ++c) used[dc_table[c]] = true;
+  for (int c = 0; c < ncomp; ++c) used[comp[c * 5]] = true;
   for (int t = 0; t < 4; ++t)
     if (used[t] && !tables[t].build(bits + 16 * t, vals + 256 * t, 16))
       return -2;
-  if (restart > 0 && restart % w != 0) return -4;  // not whole rows
-  const int64_t rows = restart > 0 ? restart / w : 0;
+  const bool inter = ncomp > 1;
+  // MCUs a row; an MCU's samples of component c: mh[c] x mv[c]
+  const int64_t per_row = inter ? mcux : comp[3];
+  int mh[4], mv[4];
+  std::vector<int32_t> diff[4];
+  for (int c = 0; c < ncomp; ++c) {
+    mh[c] = inter ? comp[c * 5 + 1] : 1;
+    mv[c] = inter ? comp[c * 5 + 2] : 1;
+    diff[c].assign((size_t)per_row * mh[c] * comp[c * 5 + 2], 0);
+  }
+  if (restart > 0 && restart % per_row != 0) return -4;  // not whole rows
+  const int64_t rst_rows = restart > 0 ? restart / per_row : 0;
+  int64_t rows_to_go = rst_rows;
+  int next_rst = 0;
+  bool first[4] = {true, true, true, true};
   const int32_t initial = 1 << (8 - pt - 1);
   Bits b{data, data + len};
-  for (int64_t y = 0, next_rst = 0; y < h; ++y) {
-    if (rows > 0 && y > 0 && y % rows == 0) {
-      bool left;
-      const uint8_t *q = read_restart(b.p, b.end, int(next_rst), left);
-      next_rst = (next_rst + 1) & 7;
-      if (q == nullptr) return -3;
-      const bool was_short = b.short_data;
-      b.reset();
-      b.p = q;
-      b.at_marker = left;
-      b.short_data = left && was_short;
+  for (int64_t r = 0; r < mcuy; ++r) {
+    // MCU rows of this iMCU row, and each component's rows to output
+    // (libjpeg's last_row_height in the last one)
+    int rows[4];
+    for (int c = 0; c < ncomp; ++c) {
+      const int v = comp[c * 5 + 2], hc = comp[c * 5 + 4];
+      rows[c] = r < mcuy - 1 ? v : (hc % v ? hc % v : v);
     }
-    // a row begun out of data (libjpeg's insufficient_data) has zero
-    // differences and restarts the undifferencer: a first row
-    const bool empty = b.short_data;
-    // the first row of the image or of a restart interval: from the left
-    const bool first = empty || y == 0 || (rows > 0 && y % rows == 0);
-    for (int64_t x = 0; x < w; ++x) {
-      for (int c = 0; c < ncomp; ++c) {
-        int s = empty ? 0 : decode(b, tables[dc_table[c]]);
-        int32_t diff = s == 0 ? 0 : s == 16 ? 32768 : extend(b.get(s), s);
-        uint16_t *row = out[c] + y * w;
-        const uint16_t *up = y > 0 ? row - w : row;
-        int32_t pred;
-        if (first) {
-          pred = x == 0 ? initial : row[x - 1];
-        } else if (x == 0) {
-          pred = up[0];
-        } else {
-          int32_t ra = row[x - 1], rb = up[x], rc = up[x - 1];
-          switch (psv) {
-            case 1: pred = ra; break;
-            case 2: pred = rb; break;
-            case 3: pred = rc; break;
-            case 4: pred = ra + rb - rc; break;
-            case 5: pred = ra + ((rb - rc) >> 1); break;
-            case 6: pred = rb + ((ra - rc) >> 1); break;
-            default: pred = (ra + rb) >> 1; break;
+    const int mcu_rows = inter ? 1 : rows[0];
+    for (int y = 0; y < mcu_rows; ++y) {
+      if (rst_rows > 0 && rows_to_go == 0) {  // jddiffct.c process_restart
+        bool left;
+        const uint8_t *q = read_restart(b.p, b.end, next_rst, left);
+        next_rst = (next_rst + 1) & 7;
+        if (q == nullptr) return -3;
+        const bool was_short = b.short_data;
+        b.reset();
+        b.p = q;
+        b.at_marker = left;
+        b.short_data = left && was_short;
+        for (int c = 0; c < 4; ++c) first[c] = true;
+        rows_to_go = rst_rows;
+      }
+      // an MCU row begun out of data (libjpeg's insufficient_data): zero
+      // differences, the undifferencers reset
+      const bool empty = b.short_data;
+      if (empty)
+        for (int c = 0; c < 4; ++c) first[c] = true;
+      for (int64_t x = 0; x < per_row; ++x) {
+        for (int c = 0; c < ncomp; ++c) {
+          const int64_t w = per_row * mh[c];
+          for (int yy = 0; yy < mv[c]; ++yy) {
+            int32_t *d = diff[c].data() + (y + yy) * w + x * mh[c];
+            for (int xx = 0; xx < mh[c]; ++xx) {
+              int s = empty ? 0 : decode(b, tables[comp[c * 5]]);
+              d[xx] = s == 0 ? 0 : s == 16 ? 32768 : extend(b.get(s), s);
+            }
           }
         }
-        row[x] = (uint16_t)((diff + pred) & 0xFFFF);
+      }
+      if (rst_rows > 0) --rows_to_go;
+    }
+    for (int c = 0; c < ncomp; ++c) {
+      const int v = comp[c * 5 + 2];
+      const int64_t wc = comp[c * 5 + 3], w = per_row * mh[c];
+      for (int row = 0; row < rows[c]; ++row) {
+        const int32_t *d = diff[c].data() + row * w;
+        uint16_t *o = out[c] + (r * v + row) * wc;
+        const uint16_t *up = o - wc;
+        for (int64_t x = 0; x < wc; ++x) {
+          int32_t pred;
+          if (first[c]) {
+            pred = x == 0 ? initial : o[x - 1];
+          } else if (x == 0) {
+            pred = up[0];
+          } else {
+            int32_t ra = o[x - 1], rb = up[x], rc = up[x - 1];
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+          }
+          o[x] = (uint16_t)((d[x] + pred) & 0xFFFF);
+        }
+        first[c] = false;
       }
     }
   }
@@ -743,47 +798,58 @@ extern "C" {
 // or more than 4 components or a table outside 0-3, -6 for data the file
 // ends in (PIL's libjpeg waits for more and PIL refuses the file). Data
 // that meets a marker early decodes as libjpeg decodes it: zeros, then
-// the MCUs after the one that ran short left as they are.
+// the MCUs after the one that ran short left as they are. `good`, if not
+// null, gets the iMCU row of the last MCU begun before the data ran out
+// (libjpeg's last_good_iMCU_row, which its block smoothing reads).
 int64_t vt_jpeg_decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
                             const int32_t *comp, int16_t **coef,
                             const uint8_t *bits, const uint8_t *vals,
                             int32_t mcux, int32_t mcuy, int32_t restart,
                             int32_t prog, int32_t ss, int32_t se, int32_t ah,
-                            int32_t al) {
+                            int32_t al, int32_t *good) {
   if (!valid_scan(ncomp, comp, 7, 2)) return -5;
   return decode_scan(data, len, ncomp, comp, coef, bits, vals, mcux, mcuy,
-                     restart, Scan{prog != 0, ss, se, ah, al});
+                     restart, Scan{prog != 0, ss, se, ah, al}, good);
 }
 
-// Decode one lossless scan (1x1 sampling) into uint16 planes [h][w] of its
-// `ncomp` components (their DC tables in `dc_table`): predictor psv (1-7),
-// point transform pt, restart every `restart` MCUs (whole rows). Returns as
-// vt_jpeg_decode_scan, or -4 for a restart interval that is not whole rows.
+// Decode one lossless scan into uint16 planes [height][width] of its
+// `ncomp` components: comp, 5 int32 a component (DC table, h, v, the
+// plane's width and height); mcux, mcuy: the frame's MCUs (hmax x vmax
+// samples each) a row and its rows; predictor psv (1-7), point transform
+// pt, restart every `restart` MCUs (whole MCU rows). Returns as
+// vt_jpeg_decode_scan, or -4 for a restart interval of part of a row.
 int64_t vt_jpeg_decode_lossless(const uint8_t *data, int64_t len,
-                                int32_t ncomp, const int32_t *dc_table,
+                                int32_t ncomp, const int32_t *comp,
                                 uint16_t **out, const uint8_t *bits,
-                                const uint8_t *vals, int32_t w, int32_t h,
-                                int32_t restart, int32_t psv, int32_t pt) {
-  if (!valid_scan(ncomp, dc_table, 1, 1)) return -5;
-  return decode_lossless(data, len, ncomp, dc_table, out, bits, vals, w, h,
+                                const uint8_t *vals, int32_t mcux,
+                                int32_t mcuy, int32_t restart, int32_t psv,
+                                int32_t pt) {
+  if (!valid_scan(ncomp, comp, 5, 1)) return -5;
+  for (int c = 0; c < ncomp; ++c) {
+    const int32_t *k = comp + c * 5;
+    if (k[1] < 1 || k[1] > 4 || k[2] < 1 || k[2] > 4 || k[3] < 1 || k[4] < 1)
+      return -5;
+  }
+  return decode_lossless(data, len, ncomp, comp, out, bits, vals, mcux, mcuy,
                          restart, psv, pt);
 }
 
 // Decode one arithmetic-coded scan (SOF9, or SOF10 with prog = 1), with
-// the arguments of vt_jpeg_decode_scan less the Huffman tables, plus cond:
-// 12 int32, the DAC segment's DC conditioning L and U of tables 0-3, then
-// AC K of tables 0-3 (T.81's defaults 0, 1, 5).
+// the arguments of vt_jpeg_decode_scan less the Huffman tables, plus
+// cond: 12 int32, the DAC segment's DC conditioning L and U of tables 0-3,
+// then AC K of tables 0-3 (T.81's defaults 0, 1, 5).
 int64_t vt_jpeg_decode_arith_scan(const uint8_t *data, int64_t len,
                                   int32_t ncomp, const int32_t *comp,
                                   int16_t **coef, const int32_t *cond,
                                   int32_t mcux, int32_t mcuy,
                                   int32_t restart, int32_t prog, int32_t ss,
-                                  int32_t se, int32_t ah, int32_t al) {
+                                  int32_t se, int32_t ah, int32_t al,
+                                  int32_t *good) {
   if (!valid_scan(ncomp, comp, 7, 2)) return -5;
   ArithCoder cd{data, data + len, comp, Scan{prog != 0, ss, se, ah, al}, cond,
                 ncomp};
   cd.reset();
-  return walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart);
+  return walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart, good);
 }
 
 }  // extern "C"

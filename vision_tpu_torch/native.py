@@ -65,10 +65,12 @@ def _library():
         lib.vt_obj_key.restype = None
         P = ctypes.c_void_p
         lib.vt_jpeg_decode_scan.argtypes = [P, ctypes.c_int64, ctypes.c_int32,
-                                            P, P, P, P] + [ctypes.c_int32] * 8
+                                            P, P, P, P] + \
+            [ctypes.c_int32] * 8 + [P]
         lib.vt_jpeg_decode_scan.restype = ctypes.c_int64
         lib.vt_jpeg_decode_arith_scan.argtypes = [
-            P, ctypes.c_int64, ctypes.c_int32, P, P, P] + [ctypes.c_int32] * 8
+            P, ctypes.c_int64, ctypes.c_int32, P, P, P] + \
+            [ctypes.c_int32] * 8 + [P]
         lib.vt_jpeg_decode_arith_scan.restype = ctypes.c_int64
         lib.vt_jpeg_decode_lossless.argtypes = [
             P, ctypes.c_int64, ctypes.c_int32, P, P, P, P] + \
@@ -165,19 +167,22 @@ def jpeg_decode_scan(data, start, comps, planes, bits, vals, mcux, mcuy,
     row, 64] coefficients, written in place (a progressive scan adds its
     band to them); bits uint8 [8, 16], vals uint8 [8, 256]: the DC tables
     0-3 then the AC tables; prog: None for a sequential scan, else (Ss,
-    Se, Ah, Al) of a progressive one. Returns the offset in `data` of the
-    marker that ends the scan."""
+    Se, Ah, Al) of a progressive one. Returns (the offset in `data` of the
+    marker that ends the scan, the iMCU row of the last MCU begun before
+    the data ran out: libjpeg's last_good_iMCU_row)."""
     buf = np.frombuffer(data, np.uint8)
     comps = np.ascontiguousarray(comps, np.int32)
     bits = np.ascontiguousarray(bits, np.uint8)
     vals = np.ascontiguousarray(vals, np.uint8)
     _check_planes(planes, comps)
     ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
+    good = ctypes.c_int32(0)
     rc = _library().vt_jpeg_decode_scan(
         buf.ctypes.data + start, len(buf) - start, len(planes),
         comps.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data,
-        mcux, mcuy, restart, prog is not None, *(prog or (0, 63, 0, 0)))
-    return start + _scan_end(rc)
+        mcux, mcuy, restart, prog is not None, *(prog or (0, 63, 0, 0)),
+        ctypes.byref(good))
+    return start + _scan_end(rc), good.value
 
 
 def _check_planes(planes, comps):
@@ -219,21 +224,26 @@ def jpeg_decode_arith_scan(data, start, comps, planes, cond, mcux, mcuy,
     cond = np.ascontiguousarray(cond, np.int32)
     _check_planes(planes, comps)
     ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
+    good = ctypes.c_int32(0)
     rc = _library().vt_jpeg_decode_arith_scan(
         buf.ctypes.data + start, len(buf) - start, len(planes),
         comps.ctypes.data, ptrs, cond.ctypes.data, mcux, mcuy, restart,
-        prog is not None, *(prog or (0, 63, 0, 0)))
-    return start + _scan_end(rc)
+        prog is not None, *(prog or (0, 63, 0, 0)), ctypes.byref(good))
+    return start + _scan_end(rc), good.value
 
 
 def jpeg_decode_lossless(data, start, tables, planes, bits, vals, restart,
-                         psv, pt):
-    """Decode one lossless JPEG scan (`csrc/jpeg_huff.cpp`) of components
-    sampled 1x1: tables, each component's DC table (0-3); planes, each
-    component's uint16 [h, w] samples, written in place; bits / vals as
-    for `jpeg_decode_scan`; restart: MCUs an interval (0 none); psv: the
-    predictor (1-7); pt: the point transform. Returns the offset in `data`
-    of the marker that ends the scan."""
+                         psv, pt, sampling=None, mcus=None):
+    """Decode one lossless JPEG scan (`csrc/jpeg_huff.cpp`) as libjpeg-turbo
+    does: tables, each component's DC table (0-3); planes, each
+    component's uint16 [height, width] samples at its own size, written in
+    place; bits / vals as for `jpeg_decode_scan`; restart: MCUs an
+    interval (0 none); psv: the predictor (1-7); pt: the point transform;
+    sampling: each component's (h, v) (1x1 when None); mcus: the frame's
+    (MCUs a row, MCU rows), an MCU hmax x vmax samples (the first plane's
+    width and height when None). A scan of one component is
+    non-interleaved (an MCU one sample, v rows an iMCU row). Returns the
+    offset in `data` of the marker that ends the scan."""
     buf = np.frombuffer(data, np.uint8)
     tables = np.ascontiguousarray(tables, np.int32)
     bits = np.ascontiguousarray(bits, np.uint8)
@@ -241,15 +251,19 @@ def jpeg_decode_lossless(data, start, tables, planes, bits, vals, restart,
     if not 1 <= len(planes) <= 4 or tables.shape != (len(planes),):
         raise ValueError("a JPEG scan holds 1 to 4 components, a DC table "
                          "each")
-    h, w = planes[0].shape
     for p in planes:
-        if p.dtype != np.uint16 or not p.flags.c_contiguous or p.shape != (h, w):
-            raise ValueError("sample planes must be C-contiguous uint16 [h, w]")
+        if p.dtype != np.uint16 or not p.flags.c_contiguous or p.ndim != 2:
+            raise ValueError("sample planes must be C-contiguous uint16 "
+                             "[height, width]")
+    sampling = sampling or [(1, 1)] * len(planes)
+    mcux, mcuy = mcus or (planes[0].shape[1], planes[0].shape[0])
+    comp = np.array([[t, h, v, p.shape[1], p.shape[0]] for t, (h, v), p in
+                     zip(tables, sampling, planes)], np.int32)
     ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
     rc = _library().vt_jpeg_decode_lossless(
         buf.ctypes.data + start, len(buf) - start, len(planes),
-        tables.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data, w, h,
-        restart, psv, pt)
+        comp.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data, mcux,
+        mcuy, restart, psv, pt)
     return start + _scan_end(rc)
 
 

@@ -20,19 +20,22 @@ refuses:
     clipped at 255 and other 16-bit samples cut to their high byte
     (OpenCV, under a .hdr / .exr name, keeps 16-bit samples whole).
   * JPEG (`read_jpeg`): sequential and progressive files of 8-bit
-    samples, Huffman- or arithmetic-coded, and lossless Huffman files (1x1
-    sampling); any sampling factors, restart intervals, any size; grey,
-    YCbCr, RGB, CMYK and YCCK chosen as libjpeg chooses (JFIF, the Adobe
-    APP14 transform, the component ids); decoded as PIL (libjpeg-turbo)
-    decodes them, in libjpeg's integer arithmetic: the ISLOW IDCT
-    (`jidctint.c`), "fancy" triangle-filter upsampling of h2v1, h1v2 and
-    h2v2 chroma (`jdsample.c`), the YCbCr -> RGB tables (`jdcolor.c`),
-    PIL's inverted CMYK and its CMYK -> RGB; corrupt files as PIL and
-    libjpeg-turbo read them (PIL's marker walk, libjpeg's segment rules,
-    its standard Huffman tables, a bad code as symbol 0, data that meets a
-    marker early: ROADMAP C26). Arithmetic-coded lossless and subsampled
-    lossless files raise NotImplementedError naming ROADMAP queue A, 7e.5;
-    12-bit, hierarchical and fractionally sampled ones are refused.
+    samples, Huffman- or arithmetic-coded, and lossless Huffman files;
+    any integral sampling factors (lossless components replicated up to
+    full size), restart intervals, any size; grey, YCbCr, RGB, CMYK and
+    YCCK chosen as libjpeg chooses (JFIF, the Adobe APP14 transform, the
+    component ids); decoded as PIL (libjpeg-turbo) decodes them, in its
+    integer arithmetic: the ISLOW IDCT as its SIMD code computes it
+    (16-bit lanes: ROADMAP C19), "fancy" triangle-filter upsampling of
+    h2v1, h1v2 and h2v2 chroma (`jdsample.c`), the YCbCr -> RGB tables
+    (`jdcolor.c`), PIL's inverted CMYK and its CMYK -> RGB; a progressive
+    file cut between or inside its scans through libjpeg-turbo's block
+    smoothing (`jdcoefct.c`); corrupt files as PIL and libjpeg-turbo read
+    them (PIL's marker walk, libjpeg's segment rules, its standard Huffman
+    tables, a bad code as symbol 0, data that meets a marker early:
+    ROADMAP C26). Arithmetic-coded lossless (SOF11), 12-bit, hierarchical
+    and fractionally sampled files, and interleaved MCUs of more than 10
+    blocks, are refused as libjpeg-turbo refuses them.
   * BMP (`read_bmp`) and TGA (`read_tga`): as PIL's plugins read them
     (their docstrings list the variants), quirks included.
   * TIFF (`read_tiff`) and GIF (`read_gif`): as PIL (libtiff for
@@ -726,26 +729,31 @@ _CONST_BITS, _PASS1_BITS = 13, 2
                             16069, 16819, 20995, 25172)
 
 
+def _w16(x):
+    """x wrapped to a signed 16-bit lane."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
 def _idct_1d(x, n):
-    """One pass of the ISLOW IDCT over x[0..7] (int64 arrays), descaled by
-    n bits with rounding: the eight outputs."""
-    z1 = (x[2] + x[6]) * _F0541
-    tmp2 = z1 - x[6] * _F1847
-    tmp3 = z1 + x[2] * _F0765
-    tmp0 = (x[0] + x[4]) << _CONST_BITS
-    tmp1 = (x[0] - x[4]) << _CONST_BITS
+    """One pass of libjpeg-turbo's SIMD ISLOW IDCT (jidctint-sse2.asm /
+    -avx2.asm) over x[0..7] (int64 arrays of 16-bit values), descaled by n
+    bits with rounding: the eight outputs, before they are packed to 16
+    bits. Its products are 16 x 16 -> 32-bit multiply-adds of the ISLOW
+    constants folded pairwise (the same integers as jidctint.c's), and its
+    sums of two inputs are 16-bit adds that wrap."""
+    tmp2 = x[2] * _F0541 + x[6] * (_F0541 - _F1847)
+    tmp3 = x[2] * (_F0541 + _F0765) + x[6] * _F0541
+    tmp0 = _w16(x[0] + x[4]) << _CONST_BITS
+    tmp1 = _w16(x[0] - x[4]) << _CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-    t0, t1, t2, t3 = x[7], x[5], x[3], x[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * _F1175
-    t0, t1, t2, t3 = t0 * _F0298, t1 * _F2053, t2 * _F3072, t3 * _F1501
-    z1, z2 = z1 * -_F0899, z2 * -_F2562
-    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
-    t0 += z1 + z3
-    t1 += z2 + z4
-    t2 += z2 + z3
-    t3 += z1 + z4
+    z3, z4 = _w16(x[7] + x[3]), _w16(x[5] + x[1])
+    z3, z4 = (z3 * (_F1175 - _F1961) + z4 * _F1175,
+              z3 * _F1175 + z4 * (_F1175 - _F0390))
+    t0 = x[7] * (_F0298 - _F0899) - x[1] * _F0899 + z3
+    t3 = -x[7] * _F0899 + x[1] * (_F1501 - _F0899) + z4
+    t1 = x[5] * (_F2053 - _F2562) - x[3] * _F2562 + z4
+    t2 = -x[5] * _F2562 + x[3] * (_F3072 - _F2562) + z3
     r = 1 << (n - 1)
     return [(tmp10 + t3 + r) >> n, (tmp11 + t2 + r) >> n,
             (tmp12 + t1 + r) >> n, (tmp13 + t0 + r) >> n,
@@ -754,19 +762,25 @@ def _idct_1d(x, n):
 
 
 def _idct_islow(coef, q):
-    """libjpeg's jpeg_idct_islow on every block at once: coef int16
+    """libjpeg-turbo's ISLOW IDCT as its SIMD code (which PIL's and the pip
+    cv2's builds run) computes it, on every block at once: coef int16
     [..., 64] in natural order, q the quantisation table [64] -> uint8
-    [..., 8, 8] samples. Columns first, then rows, in int64 (libjpeg's
-    JLONG); libjpeg's zero-AC shortcuts give the same numbers. The output
-    wraps as libjpeg's range-limit table does (mod 1024 around the
-    centre, then clamped)."""
-    c = coef.reshape(-1, 8, 8).astype(np.int64) * q.reshape(8, 8).astype(np.int64)
+    [..., 8, 8] samples. Dequantised in 16 bits (wrapping); columns first:
+    a block whose AC rows 1-7 are all zero gives DC << 2 (16-bit) in every
+    column, any other the pass above; each pass's outputs saturate to 16
+    bits, the last to 8 around 128. Where nothing wraps or saturates this
+    is jidctint.c's C IDCT exactly (ROADMAP C19)."""
+    c = _w16(coef.reshape(-1, 8, 8).astype(np.int64) *
+             q.reshape(8, 8).astype(np.int64))
     ws = np.stack(_idct_1d([c[:, k, :] for k in range(8)],
                            _CONST_BITS - _PASS1_BITS), 1)        # [B, row, col]
+    ws = np.clip(ws, -32768, 32767)
+    dc_only = ~c[:, 1:, :].any((1, 2))
+    ws[dc_only] = _w16(c[dc_only, :1, :] << _PASS1_BITS)
     out = np.stack(_idct_1d([ws[:, :, k] for k in range(8)],
                             _CONST_BITS + _PASS1_BITS + 3), 2)
-    out = np.clip(((out + 512) & 1023) - 384, 0, 255).astype(np.uint8)
-    return out.reshape(coef.shape[:-1] + (8, 8))
+    out = np.clip(out, -128, 127) + 128
+    return out.astype(np.uint8).reshape(coef.shape[:-1] + (8, 8))
 
 
 def _edge(plane, h, w):
@@ -847,13 +861,16 @@ def _cmyk_to_rgb(x, k):
     return np.clip(k - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
-def _lossless_rgb(planes, pt, jfif, adobe, cmyk=False):
+def _lossless_rgb(planes, pt, jfif, adobe, cmyk=False, raw=False):
     """A lossless file's samples -> RGB as PIL gets them: each sample
     shifted back by its point transform into 8 bits; grey, RGB or CMYK
     (libjpeg converts no colour in lossless mode and refuses to: a YCbCr or
-    YCCK file is refused). `cmyk`: a CMYK file's 4 samples as they are."""
+    YCCK file is refused). `cmyk`: a CMYK file's 4 samples as they are;
+    `raw`: every file's samples as they are."""
     out = [((p.astype(np.int64) << pt[ci]) & 0xFF).astype(np.uint8)
            for ci, p in enumerate(planes)]
+    if raw:
+        return np.stack(out, -1)
     if cmyk and len(out) == 4 and not (adobe is not None and adobe != 0):
         return np.stack(out, -1)
     if len(out) == 1:
@@ -1024,7 +1041,12 @@ def _jpeg_scans(data):
     restart, jfif, adobe, progressive, lossless = 0, False, None, False, False
     scanned = single_scan = False
     arith = None  # the conditioning of an arithmetic-coded file (DAC)
-    coef_bits = np.full((4, 10), -1)   # -1: not yet sent; else its Al
+    # libjpeg's coef_bits of coefficients 0-9 (-1: not yet sent; else the
+    # Al of the last scan that sent it) and their values before each
+    # component's last scan (the second half of its table)
+    coef_bits = np.full((4, 10), -1)
+    prev_bits = np.zeros((4, 10), np.int64)
+    n_scans, last_good = 0, 0
     pos = 2
     whole = False   # PIL has every line: see _jpeg_whole
     while True:
@@ -1115,8 +1137,9 @@ def _jpeg_scans(data):
             if marker in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
                 raise _jpeg_refused("hierarchical")
             if marker == 0xCB:
-                raise _not_ported("decoding arithmetic-coded lossless JPEG "
-                                  "files", "7e.5")
+                # libjpeg-turbo's lossless decoder takes Huffman coding
+                # only (JERR_ARITH_NOTIMPL), whatever the data
+                raise _jpeg_refused("arithmetic-coded lossless")
             if H == 0 or W == 0:
                 raise ValueError("JPEG without a height or width (DNL)")
             progressive = marker in (0xC2, 0xCA)
@@ -1126,9 +1149,6 @@ def _jpeg_scans(data):
             comps = [dict(id=body[6 + 3 * k], h=body[7 + 3 * k] >> 4,
                           v=body[7 + 3 * k] & 15, tq=body[8 + 3 * k])
                      for k in range(nc)]
-            if lossless and any((c["h"], c["v"]) != (1, 1) for c in comps):
-                raise _not_ported("decoding subsampled lossless JPEG files",
-                                  "7e.5")
             if not all(1 <= c["h"] <= 4 and 1 <= c["v"] <= 4 for c in comps):
                 raise ValueError("corrupt JPEG sampling factors")
             hmax = max(c["h"] for c in comps)
@@ -1140,8 +1160,11 @@ def _jpeg_scans(data):
                 c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
                 c["w"] = -(-W * c["h"] // hmax)
                 c["h_px"] = -(-H * c["v"] // vmax)
-            planes = [np.zeros((H, W), np.uint16) if lossless else
-                      np.zeros((c["bh"], c["bw"], 64), np.int16) for c in comps]
+            if lossless:   # an MCU of hmax x vmax samples, planes unpadded
+                mcux, mcuy = -(-W // hmax), -(-H // vmax)
+            planes = [np.zeros((c["h_px"], c["w"]), np.uint16) if lossless
+                      else np.zeros((c["bh"], c["bw"], 64), np.int16)
+                      for c in comps]
             frame = (H, W, hmax, vmax, mcux, mcuy)
         elif marker == 0xC8:  # the JPEG extension
             raise _jpeg_refused("JPEG-extension")
@@ -1210,6 +1233,10 @@ def _jpeg_scans(data):
                 rows.append([tables >> 4, tables & 15, c["h"], c["v"], c["bw"],
                              -(-c["w"] // 8), -(-c["h_px"] // 8)])
             ah, al = a >> 4, a & 15
+            if ns > 1 and sum(comps[i]["h"] * comps[i]["v"] for i in sel) > 10:
+                # jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+                raise _jpeg_refused("an interleaved MCU of more than 10 "
+                                    "blocks (or samples) in")
             # a first scan of every component makes a single-scan image
             # (libjpeg's has_multiple_scans): no scan may follow it
             single_scan = not scanned and not progressive and ns == len(comps)
@@ -1219,7 +1246,8 @@ def _jpeg_scans(data):
                     raise _jpeg_refused("bad lossless parameters")
                 pos = native.jpeg_decode_lossless(
                     data, pos, [r[0] for r in rows], [planes[i] for i in sel],
-                    huff_bits, huff_vals, restart, ss, al)
+                    huff_bits, huff_vals, restart, ss, al,
+                    [(r[2], r[3]) for r in rows], frame[4:6])
                 whole = _jpeg_whole(data, pos, single_scan)
                 continue
             prog = None
@@ -1228,56 +1256,201 @@ def _jpeg_scans(data):
                         or (ah != 0 and al != ah - 1) or al > 13:
                     raise _jpeg_refused("bad progression")
                 prog = (ss, se, ah, al)
-                for ci in sel:      # libjpeg's coef_bits of the first ten
+                n_scans += 1
+                for ci in sel:   # jdphuff.c / jdarith.c start_pass
+                    lo = min(ss, 1)
+                    prev_bits[ci][lo:] = coef_bits[ci][lo:] if n_scans > 1 \
+                        else 0
                     coef_bits[ci][ss:min(se, 9) + 1] = al
             if arith is not None:
-                pos = native.jpeg_decode_arith_scan(
+                pos, last_good = native.jpeg_decode_arith_scan(
                     data, pos, np.asarray(rows, np.int32),
                     [planes[i] for i in sel], arith, frame[4], frame[5],
                     restart, prog)
                 whole = _jpeg_whole(data, pos, single_scan)
                 continue
-            pos = native.jpeg_decode_scan(
+            pos, last_good = native.jpeg_decode_scan(
                 data, pos, np.asarray(rows, np.int32), [planes[i] for i in sel],
                 huff_bits, huff_vals, frame[4], frame[5], restart, prog)
             whole = _jpeg_whole(data, pos, single_scan)
     if frame is None:
         raise ValueError("JPEG without a frame header")
+    smoothing = None
     if progressive and len(latched) == len(comps) and \
             (coef_bits[:len(comps), 0] >= 0).all() and \
             (coef_bits[:len(comps), 1:] != 0).any() and \
             all(latched[ci][_ZIGZAG[:10]].all() for ci in latched):
         # libjpeg's smoothing_ok: coefficients 1-9 left unfinished are
-        # estimated from the neighbouring blocks' DC (block smoothing)
-        raise _not_ported("decoding progressive JPEG files whose scans "
-                          "leave any of coefficients 1-9 unfinished", "7e.5")
-    return frame, comps, planes, latched, jfif, adobe, lossless
+        # estimated from the neighbouring blocks' DC (block smoothing),
+        # with the coef_bits latched now and, for the iMCU rows past the
+        # last one the last scan decoded from data, those before it
+        prev = prev_bits[:len(comps)].copy() if n_scans > 1 else \
+            np.full((len(comps), 10), -1)
+        smoothing = (coef_bits[:len(comps)].copy(), prev, last_good)
+    return frame, comps, planes, latched, jfif, adobe, lossless, smoothing
 
 
-def read_jpeg(data, force_ycc=False, cmyk=False, raw4=False):
+# natural positions of zig-zag coefficients 1-9, libjpeg's Q01_POS ...
+# Q30_POS: AC01, AC10, AC20, AC11, AC02, AC03, AC12, AC21, AC30
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+# jdcoefct.c decompress_smooth_data's estimates: the weights of the 5 x 5
+# window of DC values around a block (two block rows above to two below,
+# two columns left to two right) for AC01, AC02, AC03, AC12, AC11 and DC
+# (natural positions 1, 2, 3, 10, 9, 0) with DC interpolation on (no AC
+# coefficient of 1-9 sent yet); AC10, AC20, AC30 and AC21 take the
+# transposed weights of AC01, AC02, AC03 and AC12. With it off only
+# AC01-AC02 are estimated, from fewer neighbours.
+_SMOOTH_ON = {
+    1: [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+        [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]],
+    2: [[0, 0, 0, 0, 0], [0, 2, -5, 2, 0], [1, 7, -14, 7, 1],
+        [0, 2, -5, 2, 0], [0, 0, 0, 0, 0]],
+    3: [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+        [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]],
+    10: [[0, 0, 0, 0, 0], [0, 1, -3, 1, 0], [0, 0, 0, 0, 0],
+         [0, -1, 3, -1, 0], [0, 0, 0, 0, 0]],
+    9: [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0],
+        [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],
+    0: [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+        [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]]}
+_SMOOTH_OFF = {
+    1: [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5],
+    2: [[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5],
+    9: [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5, [1, -10, 0, 10, -1],
+        [0, 1, 0, -1, 0]]}
+for _t in (_SMOOTH_ON, _SMOOTH_OFF):
+    for _k, _v in list(_t.items()):
+        _t[_k] = np.array(_v, np.int64)
+        if _k in (1, 2, 3, 10):       # AC10, AC20, AC30, AC21
+            _t[{1: 8, 2: 16, 3: 24, 10: 17}[_k]] = _t[_k].T
+del _t, _k, _v
+
+
+def _smooth_rows(v, n_imcu, n_blocks):
+    """decompress_smooth_data's block rows of one component, in the order
+    it outputs them: for each, (its iMCU row, the rows it reads two above,
+    one above, itself, one below, two below), libjpeg's arithmetic kept
+    (the last iMCU row's block count stands in for v in image_block_row)."""
+    out = []
+    for r in range(n_imcu):
+        if r < n_imcu - 1:
+            rows = v
+        else:
+            rows = n_blocks % v or v
+        total = rows * n_imcu            # image_block_rows
+        for b in range(rows):
+            i, cur = r * rows + b, r * v + b
+            up = cur - 1 if i > 0 else cur
+            up2 = cur - 2 if i > 1 else up
+            dn = cur + 1 if i < total - 1 else cur
+            dn2 = cur + 2 if i < total - 2 else dn
+            out.append((r, up2, up, cur, dn, dn2))
+    return np.array(out, np.int64).reshape(-1, 6)
+
+
+def _smooth_cols(n_blocks):
+    """The columns of the 5-wide DC window of each block column: two to
+    each side, the first and last columns repeated past the edges."""
+    c = np.arange(n_blocks)
+    return np.stack([np.clip(c + k, 0, n_blocks - 1) for k in range(-2, 3)],
+                    1)
+
+
+def _smooth_pred(num, q, al=None):
+    """An estimate num / (q * 256) as decompress_smooth_data rounds it (to
+    the nearest, halves away from zero), capped at (1 << Al) - 1 where the
+    coefficient's last scan had Al > 0 (al [rows], or None: no cap)."""
+    pred = ((q << 7) + np.abs(num)) // (q << 8)
+    if al is not None:
+        cap = (1 << np.maximum(al, 0)) - 1
+        pred = np.where((al > 0)[:, None], np.minimum(pred, cap[:, None]),
+                        pred)
+    return np.where(num >= 0, pred, -pred)
+
+
+def _block_smoothing(frame, comps, planes, latched, smoothing):
+    """libjpeg-turbo's decompress_smooth_data (jdcoefct.c) on the DCT
+    planes of a progressive file: in each block, each of coefficients 1-9
+    that is still zero and not known to be final (its coefficient bits
+    not 0) becomes an estimate from the DC values of the 5 x 5 blocks
+    around it; where no AC coefficient of 1-9 has been sent, DC is
+    re-estimated too (interpolation). Integer arithmetic on the quantised
+    values, each block reading its neighbours' unsmoothed DC; the iMCU
+    rows past the last good one take the bits from before each
+    component's last scan. `smoothing`: `_jpeg_scans`' (bits, bits before,
+    last good iMCU row), or None. Returns the planes to take the IDCT."""
+    if smoothing is None:
+        return planes
+    cur_bits, prev_bits, last_good = smoothing
+    out = []
+    for ci, c in enumerate(comps):
+        plane = planes[ci]
+        bw = -(-c["w"] // 8)
+        rows = _smooth_rows(c["v"], frame[5], -(-c["h_px"] // 8))
+        cols = _smooth_cols(bw)
+        dc = plane[..., 0].astype(np.int64)
+        # the DC values around each block: [rows, cols, 5, 5]
+        win = dc[rows[:, 1:, None, None], cols.T[None, None]].transpose(
+            0, 3, 1, 2)
+        bits = np.where((rows[:, 0] > last_good)[:, None], prev_bits[ci],
+                        cur_bits[ci])                         # [rows, 10]
+        interp = (bits[:, 1:] == -1).all(1)
+        q = latched[ci].astype(np.int64)
+        blk = plane[rows[:, 3], :bw].copy()                   # [rows, cols, 64]
+        for k, pos in enumerate(_SMOOTH_POS, 1):
+            w = np.where(interp[:, None, None], _SMOOTH_ON[pos],
+                         _SMOOTH_OFF.get(pos, 0))             # [rows, 5, 5]
+            est = _smooth_pred(q[0] * np.einsum("rcij,rij->rc", win, w),
+                               q[pos], bits[:, k])
+            use = ((bits[:, k] != 0) & (interp | (k <= 5)))[:, None] & \
+                (blk[..., pos] == 0)
+            blk[..., pos] = np.where(use, est, blk[..., pos]).astype(np.int16)
+        if interp.any():
+            est = _smooth_pred(q[0] * np.einsum("rcij,ij->rc", win,
+                                                _SMOOTH_ON[0]), q[0])
+            blk[..., 0] = np.where(interp[:, None], est,
+                                   blk[..., 0]).astype(np.int16)
+        p = plane.copy()
+        p[rows[:, 3], :bw] = blk
+        out.append(p)
+    return out
+
+
+def read_jpeg(data, force_ycc=False, cmyk=False, raw4=False, raw=False):
     """JPEG bytes -> uint8 [H, W, 3], as PIL's convert("RGB") gives them:
     sequential and progressive files of 8-bit samples, Huffman- or
-    arithmetic-coded (DAC conditioning), and lossless Huffman files (1x1
-    sampling); grey, YCbCr, RGB, CMYK and YCCK, the colour space chosen as
-    libjpeg chooses it (JFIF, the Adobe APP14 transform, the component
-    ids); PIL's CMYK -> RGB. Raises NotImplementedError (7e.5) for
-    arithmetic-coded lossless and subsampled lossless files, and for
-    progressive files that leave coefficients for libjpeg's block
-    smoothing; ValueError for what PIL refuses too (12- and 16-bit
-    samples, 2 or more than 4 components,
-    hierarchical coding, fractional sampling, lossless YCbCr) and for a
-    corrupt file. `cmyk`: a 4-component file's samples as libjpeg gives
-    them for JCS_CMYK (uint8 [H, W, 4]; a YCCK file converted to CMYK).
-    `raw4`: a 4-component file's samples with libjpeg told that the file
-    is CMYK (no YCCK conversion, whatever its Adobe transform)."""
-    frame, comps, planes, latched, jfif, adobe, lossless = _jpeg_scans(data)
+    arithmetic-coded (DAC conditioning), and lossless Huffman files at any
+    integral sampling; grey, YCbCr, RGB, CMYK and YCCK, the colour space
+    chosen as libjpeg chooses it (JFIF, the Adobe APP14 transform, the
+    component ids); PIL's CMYK -> RGB. A progressive file whose scans
+    leave any of coefficients 1-9 unfinished goes through libjpeg-turbo's
+    block smoothing (`_block_smoothing`). Raises ValueError for what PIL
+    refuses too (12- and 16-bit samples, 2 or more than 4 components,
+    hierarchical and arithmetic-coded lossless coding, fractional
+    sampling, lossless YCbCr) and for a corrupt file. `force_ycc`: the
+    file read as YCbCr whatever its markers (libtiff asks for it);
+    `cmyk`: a 4-component file's samples as libjpeg gives them for
+    JCS_CMYK (uint8 [H, W, 4]; a YCCK file converted to CMYK). `raw4`: a
+    4-component file's samples with libjpeg told that the file is CMYK (no
+    YCCK conversion, whatever its Adobe transform). `raw`: every
+    component's samples with no colour conversion (libtiff's
+    JCS_UNKNOWN), uint8 [H, W, components]."""
+    frame, comps, planes, latched, jfif, adobe, lossless, smoothing = \
+        _jpeg_scans(data)
+    planes = _block_smoothing(frame, comps, planes, latched, smoothing)
     H, W, hmax, vmax = frame[:4]
     if lossless:
         if any(ci not in latched for ci in range(len(comps))):
             raise ValueError("a lossless JPEG component without a scan: PIL "
                              "(libjpeg-turbo) refuses it too")
-        if raw4 and len(comps) == 4:
-            return _lossless_rgb(planes, latched, jfif, None, True)
+        # each component replicated up to full size (libjpeg does no fancy
+        # upsampling of lossless samples, one to a "block")
+        planes = [np.repeat(np.repeat(p, vmax // c["v"], 0), hmax // c["h"],
+                            1)[:H, :W] for p, c in zip(planes, comps)]
+        if force_ycc:   # libjpeg converts no colour in lossless mode
+            raise _jpeg_refused("lossless YCbCr")
+        if raw or (raw4 and len(comps) == 4):
+            return _lossless_rgb(planes, latched, jfif, None, True, raw)
         return _lossless_rgb(planes, latched, jfif, adobe, cmyk)
     out = []
     for ci, c in enumerate(comps):
@@ -1288,6 +1461,8 @@ def read_jpeg(data, force_ycc=False, cmyk=False, raw4=False):
         px = blocks.transpose(0, 2, 1, 3).reshape(c["bh"] * 8, c["bw"] * 8)
         up = _upsample(px, c["h_px"], c["w"], vmax // c["v"], hmax // c["h"])
         out.append(up[:H, :W])
+    if raw:
+        return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
     if len(comps) == 1:
         return np.repeat(out[0][..., None].astype(np.uint8), 3, axis=-1)
     if raw4 and len(comps) == 4:
@@ -1314,7 +1489,8 @@ def jpeg_coefficients(data):
     """A DCT JPEG's components as ((h, v) its sampling factors, int64
     [rows, cols, 64] its dequantised coefficients in natural order): the
     input of the IDCT (ROADMAP C19)."""
-    _, comps, planes, latched, *_ = _jpeg_scans(data)
+    frame, comps, planes, latched, *_, smoothing = _jpeg_scans(data)
+    planes = _block_smoothing(frame, comps, planes, latched, smoothing)
     return [((c["h"], c["v"]), planes[ci].astype(np.int64) *
              latched.get(ci, np.zeros(64, np.int64)))
             for ci, c in enumerate(comps)]
@@ -1807,27 +1983,30 @@ def _tiff_raw(data, off, rows, line, pitch, fill):
 
 
 def _tiff_jpeg(strip, tables, kind, tags):
-    """A JPEG-compressed strip or tile -> int samples [rows, cols, 3]: the
-    JPEGTables' segments before the strip's own; a YCbCr file's colour
-    converted to RGB (libtiff's JPEGCOLORMODE_RGB, as PIL asks)."""
+    """A JPEG-compressed strip or tile -> int samples [rows, cols, n]: the
+    JPEGTables' segments before the strip's own, read as libtiff's JPEG
+    codec reads them: its data source feeds an EOI marker wherever the
+    strip runs out; component 0 sampled as YCbCrSubsampling says (1x1
+    unless YCbCr) and the others 1x1; a YCbCr file's colour converted to
+    RGB (JPEGCOLORMODE_RGB, as PIL asks), any other's samples as they are
+    (JCS_UNKNOWN: no JFIF or Adobe colour conversion)."""
     if tables[:2] == b"\xff\xd8" and strip[:2] == b"\xff\xd8":
         end = tables.rfind(b"\xff\xd9")
         strip = tables[:end if end > 0 else len(tables)] + strip[2:]
-    if kind == "ycbcr":
-        sub = tuple(tags.get(530, (2, 2))[:2])
-        got = _jpeg_sampling(strip)[:1]
-        if got != [sub]:
-            raise _tiff_refused(f"JPEG data sampled {got} under "
-                                f"YCbCrSubsampling {sub} (libtiff)")
+    sub = tuple(tags.get(530, (2, 2))[:2]) if kind == "ycbcr" else (1, 1)
+    got = _jpeg_sampling(strip)
+    if got[:1] != [sub] or any(hv != (1, 1) for hv in got[1:]):
+        raise _tiff_refused(f"JPEG data sampled {got} where libtiff wants "
+                            f"{sub} and 1x1")
     try:
-        if kind == "cmyk":
-            # libtiff's JPEG codec hands the CMYK samples over as libjpeg
-            # gives them
-            if len(_jpeg_sampling(strip)) != 4:
-                raise _tiff_refused("JPEG data of other than four "
-                                    "components under CMYK")
-            return read_jpeg(strip, cmyk=True)
-        return read_jpeg(strip, force_ycc=kind == "ycbcr")
+        try:
+            return read_jpeg(strip + b"\xff\xd9", force_ycc=kind == "ycbcr",
+                             raw=kind != "ycbcr")
+        except ValueError:
+            # cut inside a marker segment, which reads on into the EOIs;
+            # a decode that did not read past the first EOI is the same
+            return read_jpeg(strip + b"\xff\xd9" * 32769,
+                             force_ycc=kind == "ycbcr", raw=kind != "ycbcr")
     except (struct.error, IndexError):
         raise _tiff_refused("JPEG data that is corrupt") from None
 
