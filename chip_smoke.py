@@ -147,15 +147,22 @@ phase, one JSON line each:
     rarer formats PIL opens (BLP, FLI / FLC, FITS, FTEX, GBR, IMT, IPTC,
     McIdas, PIXAR, XV thumbnails) against PIL's decodes
     (pil_rare_decodes.npz), a 2048^2 BLP2 DXT5 file and a PhotoCD file
-    built from seeds against their decodes' sha256.
+    built from seeds against their decodes' sha256. Slice 7e.4b: the
+    old-style JPEG TIFF files (both layouts, every sampling, strips with
+    restart intervals, tiles, planes, grey, tags left out) against PIL's
+    decodes (ojpeg_decodes.npz), the ones PIL refuses refused, and a
+    2048^2 tables-only file of 16-row strips built from a seed against
+    its decode's sha256.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
-    and 7e.6b (`phase_image_twins`): `cbox_tex_files`, `cbox_tex_webp`,
-    `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`, `cbox_sky_cvtiff`,
-    `cbox_sky_bigtiff` and `cbox_tex_rare` through K1,
-    `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
-    `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd` and
-    `env_sphere_rare` through K2 at 512^2, their images read from TIFF
-    (LZW, BigTIFF, ZSTD), GIF, OpenEXR (plain, luminance-chroma, deep),
+    7e.6b, 7e.5 and 7e.4b (`phase_image_twins`): `cbox_tex_files`,
+    `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
+    `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
+    `cbox_tex_smooth` and `cbox_tex_ojpeg` through K1, `env_sphere_files`,
+    `env_sphere_webp`, `env_sphere_cv`, `env_sphere_pil`,
+    `env_sphere_cvgif`, `env_sphere_zstd`, `env_sphere_rare`,
+    `env_sphere_lossless` and `env_sphere_ojpeg` through K2 at 512^2,
+    their images read from TIFF (LZW, BigTIFF, ZSTD, old-style JPEG), GIF,
+    JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s and `cbox_tex_dds`'s originals read PIL's
@@ -2225,8 +2232,8 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b and 7e.5
-    on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5
+    and 7e.4b on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2274,8 +2281,15 @@ def phase_image_files(card):
     first AC scan (`tools/gen_torch_assets.py` `smooth_cuts`), each cut's
     smoothing pass timed on its own, and a 2048^2 4:2:0 lossless file
     built here from its seed (`lossless_timing`), against their decodes'
-    sha256; the SOF11 file `ll_arith.jpg` refused (ValueError); no image
-    library imported."""
+    sha256; the SOF11 file `ll_arith.jpg` refused (ValueError); slice
+    7e.4b: every file of ojpeg_decodes.npz (old-style JPEG TIFF in both
+    layouts, every sampling, strips with restart intervals, tiles,
+    planes, grey, tags left out; the twins' files) against its committed
+    PIL decode, the `oj_bad_*` files PIL refuses refused (ValueError),
+    and a 2048^2 tables-only 4:2:0 file of 16-row strips, a restart
+    interval each, built here from its seed (`tools/gen_torch_ojpeg.py`
+    `ojpeg_timing`) against its decode's sha256; no image library
+    imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2285,6 +2299,7 @@ def phase_image_files(card):
     gen_cv = _load_by_path("vt_gen_torch_cvtiff", "tools/gen_torch_cvtiff.py")
     gen_assets = _load_by_path("vt_gen_torch_assets",
                                "tools/gen_torch_assets.py")
+    gen_ojpeg = _load_by_path("vt_gen_torch_ojpeg", "tools/gen_torch_ojpeg.py")
     with open(os.path.join(assets, "smooth_2048.jpg"), "rb") as f:
         cuts = gen_assets.smooth_cuts(f.read())
     t0 = time.perf_counter()
@@ -2293,6 +2308,7 @@ def phase_image_files(card):
                      ("blp_2048.blp", gen_pil.blp_dxt_timing),
                      ("photocd.pcd", gen_pil.pcd_file),
                      ("lossless_2048.jpg", gen_assets.lossless_timing),
+                     ("ojpeg_2048.tif", gen_ojpeg.ojpeg_timing),
                      *((fn, lambda d=d: d) for fn, d in cuts.items())):
         with open(os.path.join(built_dir, fn), "wb") as f:
             f.write(make())
@@ -2301,7 +2317,8 @@ def phase_image_files(card):
     # timing files built from a seed (and the cuts of a committed one)
     built = {fn: built_dir for fn in ("bc7_2048.dds", "sky_2048.exr",
                                       "blp_2048.blp", "photocd.pcd",
-                                      "lossless_2048.jpg", *cuts)}
+                                      "lossless_2048.jpg", "ojpeg_2048.tif",
+                                      *cuts)}
     for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
                       ("webp_decodes.npz", "ldr"),
                       ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr"),
@@ -2309,7 +2326,8 @@ def phase_image_files(card):
                       ("pil_rare_decodes.npz", "ldr"),
                       ("cvtiff_decodes.npz", "hdr"),
                       ("tiff_decodes.npz", None),
-                      ("jpeg_7e5_decodes.npz", "ldr")):
+                      ("jpeg_7e5_decodes.npz", "ldr"),
+                      ("ojpeg_decodes.npz", "ldr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
         must = {"image_decodes.npz": ("tiny.tif",),
@@ -2331,7 +2349,12 @@ def phase_image_files(card):
                 "jpeg_7e5_decodes.npz": ("checker_smooth.jpg",
                                          "projector_lossless.jpg",
                                          "cut_arith_mid.jpg", "cut_440_dc.jpg",
-                                         "ll_planes.jpg", "ll_cmyk.jpg")
+                                         "ll_planes.jpg", "ll_cmyk.jpg"),
+                "ojpeg_decodes.npz": ("checker_ojpeg.tif",
+                                      "projector_ojpeg.tif",
+                                      "oj_tb_strips.tif", "oj_tb_tiles.tif",
+                                      "oj_planar_strips.tif", "oj_grey.tif",
+                                      "oj_411.tif", "oj_tb_440.tif")
                 }.get(npz, ())
         check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
@@ -2376,7 +2399,12 @@ def phase_image_files(card):
         with open(avif, "wb") as f:   # the ISO-BMFF box that names AVIF
             f.write(struct.pack(">I", 28) + b"ftypavif" + bytes(4)
                     + b"avifmif1miaf")
-        for path, err, what in ((avif, NotImplementedError, "7e"),
+        refused = [(os.path.join(assets, fn), ValueError, "")
+                   for fn in sorted(os.listdir(assets))
+                   if fn.startswith("oj_bad_")]
+        check(len(refused) >= 12, "the old-style JPEG files PIL refuses")
+        for path, err, what in (*refused,
+                                (avif, NotImplementedError, "7e"),
                                 (os.path.join(assets, "ll_arith.jpg"),
                                  ValueError, "arithmetic-coded lossless"),
                                 (os.path.join(assets, "deep_scanline.exr"),
@@ -2385,10 +2413,11 @@ def phase_image_files(card):
                                  ValueError, "deep")):
             try:
                 imageio.read_image(path)
-                raised = ""
+                raised = None
             except err as e:
                 raised = str(e)
-            check(what in raised, f"{os.path.basename(path)}: {raised!r}")
+            check(raised is not None and what in raised,
+                  f"{os.path.basename(path)}: {raised!r}")
     for fn in built:
         os.remove(os.path.join(built_dir, fn))
     os.rmdir(built_dir)
@@ -2427,12 +2456,17 @@ IMAGE_TWINS = (
     ("env_sphere_lossless_ref", "env_sphere_lossless_ref", "packet_isect",
      None),
     ("env_sphere_lossless", "env_sphere_lossless", "packet_isect",
-     "env_sphere_lossless_ref"))
+     "env_sphere_lossless_ref"),
+    ("cbox_tex_ojpeg_ref", "cbox_tex_ojpeg_ref", "dense_isect", None),
+    ("cbox_tex_ojpeg", "cbox_tex_ojpeg", "dense_isect", "cbox_tex_ojpeg_ref"),
+    ("env_sphere_ojpeg_ref", "env_sphere_ojpeg_ref", "packet_isect", None),
+    ("env_sphere_ojpeg", "env_sphere_ojpeg", "packet_isect",
+     "env_sphere_ojpeg_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b and 7e.5
-    through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5 and
+    7e.4b through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2468,7 +2502,12 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     `cbox_tex_smooth_ref` (PIL's decode of that JPEG in a PNG), and
     `env_sphere_lossless` (its projector image a 4:2:0 lossless JPEG)
     through K2, bit for bit with `env_sphere_lossless_ref` (PIL's decode
-    in a PNG). Returns each render's launch counts."""
+    in a PNG); slice 7e.4b: `cbox_tex_ojpeg` (its checker an interchange
+    old-style JPEG TIFF) through K1, bit for bit with `cbox_tex_ojpeg_ref`
+    (PIL's decode of that file in a PNG), and `env_sphere_ojpeg` (its
+    projector image a tables-only old-style JPEG TIFF of four strips, a
+    restart interval each) through K2, bit for bit with
+    `env_sphere_ojpeg_ref`. Returns each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:

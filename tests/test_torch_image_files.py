@@ -877,20 +877,17 @@ def test_pil_written_tiff_matches_pil(tmp_path, mode, compression):
     (4, "CCITT Group 4"), (34925, "LZMA"), (50000, "ZSTD"), (50001, "WebP"),
     (32809, "ThunderScan"), (34676, "SGILog"), (6, "old-style JPEG")])
 def test_tiff_codecs_for_7e_name_it(tmp_path, comp, what):
-    """The rarer codecs (slice 7e.4): an 8-bit grey strip of zeros under
-    each is refused as PIL refuses it (Group 4 and ThunderScan take 1- and
-    4-bit samples only, the zeros are no LZMA or ZSTD stream, PIL's
-    libtiff has no WebP codec, SGILog takes LogL / LogLuv only); old-style
-    JPEG still raises NotImplementedError naming 7e.4b. A BigTIFF header
-    with no directory, and a CMYK JPEG-in-TIFF, as PIL gives them."""
+    """The rarer codecs (slice 7e.4, and old-style JPEG: 7e.4b): an 8-bit
+    grey strip of zeros under each is refused as PIL refuses it (Group 4
+    and ThunderScan take 1- and 4-bit samples only, the zeros are no LZMA
+    or ZSTD stream, PIL's libtiff has no WebP codec, SGILog takes LogL /
+    LogLuv only, libtiff's old-style JPEG codec finds neither a JPEG
+    header nor its tables). A BigTIFF header with no directory, and a
+    CMYK JPEG-in-TIFF, as PIL gives them."""
     data = bytearray(ga.tiff_bytes(np.zeros((4, 4, 1), np.int64), 8, 1, 1))
     i = data.index(struct.pack("<HHI", 259, 3, 1))
     data[i + 8:i + 10] = struct.pack("<H", comp)
-    if comp == 6:
-        with pytest.raises(NotImplementedError, match=f"{what}.*7e.4b"):
-            tio.read_tiff(bytes(data))
-    else:
-        _assert_same(tmp_path, bytes(data), decodes=False, name="t.tif")
+    _assert_same(tmp_path, bytes(data), decodes=False, name="t.tif")
     _assert_same(tmp_path, b"II+\0" + bytes(30), decodes=False, name="b.tif")
     b = io.BytesIO()
     Image.fromarray(np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3)

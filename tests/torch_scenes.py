@@ -541,6 +541,42 @@ def env_sphere_lossless_ref(res=512, sub_div=40):
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_LOSSLESS_REF)
 
 
+# slice 7e.4b (tools/gen_torch_ojpeg.py): the checker as an interchange
+# old-style JPEG TIFF (4:2:0), and the projector's RGB as a tables-only one
+# (4:2:0, a strip and a restart interval each MCU row); each decodes to
+# other pixels than its PNG, so its scene is held against one reading PIL's
+# decode of the file from a PNG.
+CBOX_TEX_OJPEG = {"checker.png": "checker_ojpeg.tif"}
+CBOX_TEX_OJPEG_REF = {"checker.png": "checker_ojpeg_pil.png"}
+ENV_SPHERE_OJPEG = {"projector.png": "projector_ojpeg.tif"}
+ENV_SPHERE_OJPEG_REF = {"projector.png": "projector_ojpeg_pil.png"}
+
+
+def cbox_tex_ojpeg(res=512):
+    """`cbox_tex` with its checker from an old-style JPEG TIFF: it renders
+    as `cbox_tex_ojpeg_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_OJPEG)
+
+
+def cbox_tex_ojpeg_ref(res=512):
+    """`cbox_tex` with its checker read from PIL's decode of
+    checker_ojpeg.tif, written as a PNG."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_OJPEG_REF)
+
+
+def env_sphere_ojpeg(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a tables-only old-style
+    JPEG TIFF of several strips: it renders as `env_sphere_ojpeg_ref`
+    does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_OJPEG)
+
+
+def env_sphere_ojpeg_ref(res=512, sub_div=40):
+    """`env_sphere` with its projector image read from PIL's decode of
+    projector_ojpeg.tif, written as a PNG."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_OJPEG_REF)
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

@@ -1578,6 +1578,17 @@ def _tiff_module():
     return mod
 
 
+def _ojpeg_module():
+    """`tools/gen_torch_ojpeg.py`, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_ojpeg", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_ojpeg.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _pil_module():
     """`tools/gen_torch_pil.py`, loaded by path."""
     import importlib.util
@@ -1668,6 +1679,7 @@ def main():
     _cvtiff_module().write_cv_files(out)
     _tiff_module().write_tiff_files(out)
     write_jpeg_7e5_files(out, checker(), projector()[..., :3])
+    _ojpeg_module().write_ojpeg_files(out, checker(), projector()[..., :3])
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

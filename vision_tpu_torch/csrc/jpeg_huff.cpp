@@ -281,11 +281,14 @@ const uint8_t *read_restart(const uint8_t *q, const uint8_t *end,
 // where it reads. Returns the offset of the marker that ends the scan, or
 // -1 / -3 as vt_jpeg_decode_scan. An MCU met once `cd.out_of_data()` is
 // left as it is. `good` (if not null) gets libjpeg's last_good_iMCU_row:
-// the iMCU row of the last MCU begun before the data ran out.
+// the iMCU row of the last MCU begun before the data ran out. `failed` (if
+// not null) gets the MCU at which a restart failed (-3) or whose data ran
+// past the end (-6): the decoding stops there.
 template <class Coder>
 int64_t walk_scan(Coder &cd, const uint8_t *data, int32_t ncomp,
                   const int32_t *comp, int16_t **coef, int32_t mcux,
-                  int32_t mcuy, int32_t restart, int32_t *good = nullptr) {
+                  int32_t mcuy, int32_t restart, int32_t *good = nullptr,
+                  int64_t *failed = nullptr) {
   int64_t n_mcu, per_row, rows_per_imcu = 1;
   if (ncomp == 1) {
     per_row = comp[5];
@@ -298,7 +301,10 @@ int64_t walk_scan(Coder &cd, const uint8_t *data, int32_t ncomp,
   for (int64_t m = 0; m < n_mcu; ++m) {
     if (good != nullptr && !cd.out_of_data())
       *good = (int32_t)(m / per_row / rows_per_imcu);
-    if (restart > 0 && m > 0 && m % restart == 0 && !cd.restart()) return -3;
+    if (restart > 0 && m > 0 && m % restart == 0 && !cd.restart()) {
+      if (failed != nullptr) *failed = m;
+      return -3;
+    }
     int64_t my = m / per_row, mx = m % per_row;
     // out of data (libjpeg's insufficient_data): the MCU is left as it is
     if (cd.out_of_data()) continue;
@@ -311,6 +317,10 @@ int64_t walk_scan(Coder &cd, const uint8_t *data, int32_t ncomp,
           if (!cd.block(c, coef[c] + (row * ci[4] + col) * 64)) return -1;
         }
       }
+    }
+    if (failed != nullptr && cd.past_end()) {
+      *failed = m;
+      return -6;
     }
   }
   // the scan ends at the next marker that is not a restart marker
@@ -330,12 +340,22 @@ struct HuffCoder {
   int32_t eobrun = 0;
 
   int next_rst = 0;
+  // libtiff's old-style JPEG codec gives libjpeg a resync_to_restart that
+  // fails: any marker but the RSTn due stops the decoding
+  bool strict = false;
 
   // libjpeg's process_restart: the bit buffer dropped, read_restart; a
   // marker left in place makes the interval decode from zeros (and keeps
   // an out-of-data flag). False at the file's end.
   bool restart() {
     bool left;
+    if (strict) {
+      const uint8_t *q = b.p;
+      while (q + 1 < b.end &&
+             !(q[0] == 0xFF && q[1] != 0x00 && q[1] != 0xFF))
+        ++q;
+      if (q + 1 >= b.end || q[1] != 0xD0 + next_rst) return false;
+    }
     const uint8_t *q = read_restart(b.p, b.end, next_rst, left);
     next_rst = (next_rst + 1) & 7;
     if (q == nullptr) return false;
@@ -349,6 +369,7 @@ struct HuffCoder {
     return true;
   }
   bool out_of_data() const { return b.short_data; }
+  bool past_end() const { return b.past_end; }
   bool block(int c, int16_t *blk) {
     const int32_t *ci = comp + c * 7;
     return decode_block(b, tables[ci[0]], tables[4 + ci[1]], sc, pred[c],
@@ -361,8 +382,10 @@ struct HuffCoder {
 int64_t decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
                     const int32_t *comp, int16_t **coef, const uint8_t *bits,
                     const uint8_t *vals, int32_t mcux, int32_t mcuy,
-                    int32_t restart, const Scan &sc, int32_t *good) {
+                    int32_t restart, const Scan &sc, int32_t *good,
+                    int64_t *failed = nullptr) {
   HuffCoder cd{Bits{data, data + len}, {}, comp, sc};
+  cd.strict = failed != nullptr;
   bool used[8] = {false};
   bool need_dc = !sc.prog || (sc.ss == 0 && sc.ah == 0);
   bool need_ac = !sc.prog || sc.ss > 0;
@@ -374,8 +397,8 @@ int64_t decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
     if (used[t] &&
         !cd.tables[t].build(bits + 16 * t, vals + 256 * t, t < 4 ? 15 : 255))
       return -2;
-  int64_t end =
-      walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart, good);
+  int64_t end = walk_scan(cd, data, ncomp, comp, coef, mcux, mcuy, restart,
+                          good, failed);
   return cd.b.past_end ? -6 : end;
 }
 
@@ -564,6 +587,7 @@ struct ArithCoder {
   bool block(int ci, int16_t *blk);
   const uint8_t *pos() const { return p; }
   bool out_of_data() const { return false; }
+  bool past_end() const { return false; }
   const uint8_t *end() const { return end_; }
 };
 
@@ -810,6 +834,22 @@ int64_t vt_jpeg_decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
   if (!valid_scan(ncomp, comp, 7, 2)) return -5;
   return decode_scan(data, len, ncomp, comp, coef, bits, vals, mcux, mcuy,
                      restart, Scan{prog != 0, ss, se, ah, al}, good);
+}
+
+// Decode the one sequential scan of the stream libtiff's old-style JPEG
+// codec (tif_ojpeg.c) builds, with the arguments of vt_jpeg_decode_scan:
+// its resync_to_restart fails, and so does its data source past the
+// stream's end. Returns as vt_jpeg_decode_scan, with -3 or -6 where
+// libjpeg stops with an error, and then `failed` the MCU it stopped at.
+int64_t vt_ojpeg_decode_scan(const uint8_t *data, int64_t len, int32_t ncomp,
+                             const int32_t *comp, int16_t **coef,
+                             const uint8_t *bits, const uint8_t *vals,
+                             int32_t mcux, int32_t mcuy, int32_t restart,
+                             int64_t *failed) {
+  if (!valid_scan(ncomp, comp, 7, 2)) return -5;
+  *failed = -1;
+  return decode_scan(data, len, ncomp, comp, coef, bits, vals, mcux, mcuy,
+                     restart, Scan{false, 0, 63, 0, 0}, nullptr, failed);
 }
 
 // Decode one lossless scan into uint16 planes [height][width] of its

@@ -68,6 +68,10 @@ def _library():
                                             P, P, P, P] + \
             [ctypes.c_int32] * 8 + [P]
         lib.vt_jpeg_decode_scan.restype = ctypes.c_int64
+        lib.vt_ojpeg_decode_scan.argtypes = [
+            P, ctypes.c_int64, ctypes.c_int32, P, P, P, P] + \
+            [ctypes.c_int32] * 3 + [P]
+        lib.vt_ojpeg_decode_scan.restype = ctypes.c_int64
         lib.vt_jpeg_decode_arith_scan.argtypes = [
             P, ctypes.c_int64, ctypes.c_int32, P, P, P] + \
             [ctypes.c_int32] * 8 + [P]
@@ -183,6 +187,30 @@ def jpeg_decode_scan(data, start, comps, planes, bits, vals, mcux, mcuy,
         mcux, mcuy, restart, prog is not None, *(prog or (0, 63, 0, 0)),
         ctypes.byref(good))
     return start + _scan_end(rc), good.value
+
+
+def ojpeg_decode_scan(data, start, comps, planes, bits, vals, mcux, mcuy,
+                      restart):
+    """Huffman-decode the sequential scan of the stream libtiff's
+    old-style JPEG codec hands libjpeg (`csrc/jpeg_huff.cpp`), with the
+    arguments of `jpeg_decode_scan`: a restart marker other than the one
+    due, or data that runs past the stream's end, stops the decoding with
+    libjpeg's error. Returns (the offset in `data` of the marker that ends
+    the scan, the MCU at which libjpeg stopped, or None)."""
+    buf = np.frombuffer(data, np.uint8)
+    comps = np.ascontiguousarray(comps, np.int32)
+    bits = np.ascontiguousarray(bits, np.uint8)
+    vals = np.ascontiguousarray(vals, np.uint8)
+    _check_planes(planes, comps)
+    ptrs = (ctypes.c_void_p * len(planes))(*(p.ctypes.data for p in planes))
+    failed = ctypes.c_int64(-1)
+    rc = _library().vt_ojpeg_decode_scan(
+        buf.ctypes.data + start, len(buf) - start, len(planes),
+        comps.ctypes.data, ptrs, bits.ctypes.data, vals.ctypes.data,
+        mcux, mcuy, restart, ctypes.byref(failed))
+    if rc in (-3, -6):
+        return None, failed.value
+    return start + _scan_end(rc), None
 
 
 def _check_planes(planes, comps):

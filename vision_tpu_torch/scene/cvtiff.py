@@ -34,7 +34,8 @@ pip cv2's decodes of generated files (its source is not at hand):
     planar. Grey photometrics give one channel, the rest B, G, R.
   * The codecs are libtiff's (`imageio._tiff_decode`): CCITT, ThunderScan
     and the rest; LZMA, ZSTD, WebP and old-style JPEG are refused, as the
-    pip cv2's libtiff lacks them.
+    pip cv2's libtiff lacks them (old-style JPEG is decoded on PIL's route
+    only: `ojpeg.py`).
   * The Orientation tag is applied as imread applies it (2-4 flips; 5-8
     transpose, which OpenCV 5.0 refuses for an image that is not square).
 
@@ -309,14 +310,15 @@ def ycbcr_has_routine(d):
         d.planar == 1 or sub == (1, 1))
 
 
-def ycbcr_units(d):
+def ycbcr_units(d, chunk=None):
     """A chunky or planar 8-bit YCbCr image's samples as libtiff's RGBA
     reader reads them: int64 [h, w, 3] (Y, Cb, Cr), each pixel with its
     data unit's Cb and Cr (units of hs x vs luma samples in row order,
     then Cb and Cr; partial units at the right and bottom edges). A strip
     is read to its rows rounded up to vs, in scanlines of the unit row's
     bytes / vs (libtiff's TIFFScanlineSize); a codec's error keeps what it
-    gave, as the RGBA reader goes on."""
+    gave, as the RGBA reader goes on. `chunk(k, n)`: chunky strip or tile
+    k's n bytes as the reader gets them (default: its codec's)."""
     w, h = d.width, d.length
     hs, vs = d.subsampling[:2]
     out = np.zeros((h, w, 3), np.int64)
@@ -334,7 +336,8 @@ def ycbcr_units(d):
         uh, unit = -(-cols // hs), hs * vs + 2
         uv = -(-rows // vs)
         n = uv * vs * (uh * unit // vs) if not d.tile else uv * uh * unit
-        buf, _ = imageio._tiff_decode(d, k, n, keep=True)
+        buf = imageio._tiff_decode(d, k, n, keep=True)[0] if chunk is None \
+            else chunk(k, n)
         u = np.zeros(uv * uh * unit, np.uint8)
         u[:n] = np.frombuffer(buf, np.uint8)
         u = u.reshape(uv, uh, unit).astype(np.int64)

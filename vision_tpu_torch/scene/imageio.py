@@ -40,7 +40,8 @@ refuses:
     (their docstrings list the variants), quirks included.
   * TIFF (`read_tiff`) and GIF (`read_gif`): as PIL (libtiff for
     compressed TIFF) reads page / frame 0; their docstrings list the
-    variants and the quirks copied.
+    variants and the quirks copied. Old-style JPEG TIFF through libtiff's
+    OJPEG codec (`ojpeg.py`).
   * WebP (`webp.decode`): lossless (VP8L) and lossy (VP8) images, alpha
     (VP8L's own or an ALPH chunk, dropped), extended (VP8X) files and frame
     0 of an animation on its canvas, as PIL decodes them through libwebp's
@@ -65,10 +66,10 @@ refuses:
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-Old-style JPEG TIFF on PIL's route and SGILog TIFF on OpenCV's (7e.4b),
-OpenCV's JPEG 2000 and AVIF readers under a .hdr / .exr name, and the
-formats PIL opens that `pilread.py` does not decode yet raise
-NotImplementedError naming their item of ROADMAP queue A.
+SGILog TIFF on OpenCV's route (7e.4b), OpenCV's JPEG 2000 and AVIF
+readers under a .hdr / .exr name, and the formats PIL opens that
+`pilread.py` does not decode yet raise NotImplementedError naming their
+item of ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ import zlib
 import numpy as np
 
 from .. import native
-from . import cvread, cvtiff, pilread, tiffdir, webp
+from . import cvread, cvtiff, ojpeg, pilread, tiffdir, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -1025,14 +1026,20 @@ def _pil_jpeg_open(data):
         s, pos = (data[pos], pos + 1) if pos < n else (None, pos)
 
 
-def _jpeg_scans(data):
+def _jpeg_scans(data, ojpeg=False):
     """JPEG bytes -> (frame, components, their coefficient planes, the
-    quantisation table latched for each, JFIF, Adobe transform, lossless):
-    the markers walked and every scan entropy-decoded as libjpeg-turbo
-    does (`read_jpeg`'s refusals)."""
+    quantisation table latched for each, JFIF, Adobe transform, lossless,
+    block smoothing's state): the markers walked and every scan
+    entropy-decoded as libjpeg-turbo does (`read_jpeg`'s refusals).
+    `ojpeg`: the stream libtiff's old-style JPEG codec hands libjpeg
+    (`ojpeg._stream`), which PIL's JPEG plugin never walks, whose restart
+    markers out of order and whose end stop libjpeg with an error ->
+    (frame, components, planes, latched tables, the MCU libjpeg stopped
+    at or None)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
-    _pil_jpeg_open(data)
+    if not ojpeg:
+        _pil_jpeg_open(data)
     qt = {}
     huff_bits = np.zeros((8, 16), np.uint8)
     huff_vals = np.zeros((8, 256), np.uint8)
@@ -1269,6 +1276,12 @@ def _jpeg_scans(data):
                     restart, prog)
                 whole = _jpeg_whole(data, pos, single_scan)
                 continue
+            if ojpeg:   # libtiff's one sequential scan: the rest unread
+                pos, failed = native.ojpeg_decode_scan(
+                    data, pos, np.asarray(rows, np.int32),
+                    [planes[i] for i in sel], huff_bits, huff_vals,
+                    frame[4], frame[5], restart)
+                return frame, comps, planes, latched, failed
             pos, last_good = native.jpeg_decode_scan(
                 data, pos, np.asarray(rows, np.int32), [planes[i] for i in sel],
                 huff_bits, huff_vals, frame[4], frame[5], restart, prog)
@@ -1508,9 +1521,6 @@ _ZIGZAG = np.array([
 # TIFF (as PIL's TiffImagePlugin and libtiff read it)
 # ---------------------------------------------------------------------------
 
-# the compressions PIL names that are left for slice 7e.4b (the rest are
-# decoded here or refused as PIL refuses them)
-_TIFF_LATER = {6: "old-style JPEG"}
 # libtiff's CCITT codecs: RLE, Group 3, Group 4 and RLEW (PIL's
 # "tiff_raw_16")
 TIFF_FAX = (2, 3, 4, 32771)
@@ -1789,8 +1799,11 @@ def read_tiff(data):
     applied; classic TIFF and BigTIFF in either byte order under PIL's six
     headers, strips or tiles, chunky or planar; no compression, PackBits,
     LZW (old-style too), Deflate, LZMA, ZSTD, CCITT RLE / RLEW / Group 3 /
-    Group 4, ThunderScan and JPEG (with JPEGTables; YCbCr decoded to RGB as
-    libtiff's JPEG colour mode asks; CMYK; planar); predictors 1, 2 and 3;
+    Group 4, ThunderScan, JPEG (with JPEGTables; YCbCr decoded to RGB as
+    libtiff's JPEG colour mode asks; CMYK; planar) and old-style JPEG (its
+    JPEGInterchangeFormat stream or its tables, strips, tiles, planes, a
+    YCbCr file through libtiff's RGBA reader, a grey one strip by strip:
+    `ojpeg.read`); predictors 1, 2 and 3;
     1-, 2-, 4-, 8-, 12- and 16-bit integer and 32-bit integer and float
     samples; min-is-white / min-is-black, RGB(A) with extra samples
     (associated alpha undone as PIL does), palette, CMYK, CIELab (PIL's
@@ -1802,8 +1815,8 @@ def read_tiff(data):
     libtiff reads it too (`tiffdir`; edited files: ROADMAP C26, C28). What
     PIL has no mode for raises ValueError (or passes the file on to PIL's
     next plugin), as does what PIL's libtiff refuses (SGILog outside LogL /
-    LogLuv, which PIL has no mode for, WebP, which it lacks); old-style
-    JPEG raises NotImplementedError naming ROADMAP queue A, 7e.4b."""
+    LogLuv, which PIL has no mode for, WebP, which it lacks, and what its
+    OJPEG codec refuses)."""
     if data[:4] not in pilread.TIFF_PREFIXES:
         raise ValueError("not a TIFF file")
     # PIL takes the byte order from bytes 0-1 and BigTIFF from byte 2
@@ -1814,9 +1827,6 @@ def read_tiff(data):
     ptags = tiffdir.pil_ifd(data, bo, big)
     st = tiffdir.PilSetup(ptags)
     comp = st.compression
-    if comp in _TIFF_LATER:
-        raise _not_ported(f"decoding {_TIFF_LATER[comp]} TIFF files",
-                          "7e.4b")
     w, h = st.xsize, st.ysize
     photo, bps, sf, extra, fill = st.photo, st.bps, st.sample_format, \
         st.extra, st.fill
@@ -1840,7 +1850,10 @@ def read_tiff(data):
     else:
         d = tiffdir.LibtiffDir(data, bo)
         _tiff_codec_setup(d)
-        if (d.width, d.length) != (w, h) or d.planar != st.planar or \
+        # libtiff's OJPEG hack makes one planar strip contiguous; PIL
+        # reads such a file through libtiff whatever its planarity
+        if (d.width, d.length) != (w, h) or (d.planar != st.planar and
+                                             comp != 6) or \
                 d.spp != spp or d.bps != bits or d.fill != fill:
             raise _tiff_refused("whose directory libtiff reads otherwise "
                                 "than PIL")
@@ -1857,6 +1870,8 @@ def read_tiff(data):
         tables = d.jpegtables or b""
         tags[530] = tuple(d.subsampling)
         chunks = [c + (0,) for c in d.chunks()]
+    if comp == 6:
+        return ojpeg.read(d, kind)
     if comp == 7 and kind not in ("ycbcr", "rgb", "grey", "cmyk"):
         raise _tiff_refused(f"JPEG of PIL's mode for {kind} samples")
     if kind == "ycbcr" and (comp not in (1, 7) or (comp == 7 and planar)):

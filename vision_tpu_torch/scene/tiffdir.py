@@ -142,7 +142,7 @@ class PilSetup:
             sf = (1,)
         bps = t.get(258, (1,))
         extra = t.get(338, ())
-        spp = t.get(277, 3 if self.compression == 7 and photo in (2, 6)
+        spp = t.get(277, 3 if self.compression == 6 and photo in (2, 6)
                     else 1)
         if spp > 6:                               # MAX_SAMPLESPERPIXEL
             raise pilread._PassOn
@@ -396,27 +396,14 @@ class LibtiffDir:
             if len(extra) > self.spp or any(v > 2 for v in extra):
                 raise _refused(f"extra samples {extra}")
             self.extra = tuple(extra)
+        ojpeg = self.compression == 6
+        if ojpeg and self.planar == 2 and ent.get(273, (0, 0))[1] == 1 and \
+                ent.get(279, (0, 0))[1] == 1:
+            self.planar = 1     # the OJPEG hack: one strip is contiguous
         if self.width is None and self.length is None:
             raise _refused("without its dimensions")
         self.width = self.width or 0
         self.length = self.length or 0
-        if tw is not None or tl is not None:
-            self.tile = (tw or 0, tl or 0)
-            if 0 in self.tile:
-                raise _refused("of zero tiles")
-            n = -(-self.width // self.tile[0]) * -(-self.length //
-                                                     self.tile[1])
-        else:
-            self.tile = None
-            n = 1 if self.rows == 0xFFFFFFFF else -(-self.length // self.rows)
-        if self.planar == 2:
-            n *= self.spp
-        if n == 0:
-            raise _refused("of zero strips")
-        self.n_chunks = n
-        off_tag, cnt_tag = (324, 325) if self.tile else (273, 279)
-        if off_tag not in ent:
-            raise _refused("without its strip or tile offsets")
         # the second pass
         self.bps = 1
         if 258 in ent:
@@ -432,6 +419,18 @@ class LibtiffDir:
                 raise _refused(f"sample format of a bad {e}") from None
             if not 1 <= self.sample_format <= 6:
                 raise _refused(f"sample format {self.sample_format}")
+        # MinSampleValue / MaxSampleValue are read as BitsPerSample is, and
+        # SMinSampleValue / SMaxSampleValue need one value a sample: a bad
+        # entry fails the directory
+        for tag in (280, 281):
+            if tag in ent:
+                try:
+                    self._short_or_persample(tag)
+                except _Err as e:
+                    raise _refused(f"tag {tag} of a bad {e}") from None
+        for tag in (340, 341):
+            if tag in ent and ent[tag][1] != self.spp:
+                raise _refused(f"tag {tag} of a bad count")
         self.photometric = self._fetch(262, None)
         self.fill = self._fetch(266, 1, check=lambda v: v in (1, 2))
         self.orientation = self._fetch(274, 1, check=lambda v: 1 <= v <= 8)
@@ -461,6 +460,16 @@ class LibtiffDir:
                     self.subsampling = v
             except _Err:
                 pass
+        if ojpeg:
+            # TIFFReadDirectory's OJPEG hacks: a missing (or unread)
+            # Photometric is YCbCr, RGB is YCbCr, a missing BitsPerSample
+            # is 8, a missing SamplesPerPixel 3 for YCbCr and 1 for grey
+            if self.photometric in (None, 2):
+                self.photometric = 6
+            if 258 not in ent:
+                self.bps = 8
+            if 277 not in ent and self.photometric in (0, 1, 6):
+                self.spp = 1 if self.photometric in (0, 1) else 3
         if self.photometric == 3 and self.colormap is None:
             if self.bps >= 8 and self.spp == 3:
                 self.photometric = 2
@@ -468,6 +477,23 @@ class LibtiffDir:
                 self.photometric = 1
             else:
                 raise _refused("palette without its colour map")
+        if tw is not None or tl is not None:
+            self.tile = (tw or 0, tl or 0)
+            if 0 in self.tile:
+                raise _refused("of zero tiles")
+            n = -(-self.width // self.tile[0]) * -(-self.length //
+                                                     self.tile[1])
+        else:
+            self.tile = None
+            n = 1 if self.rows == 0xFFFFFFFF else -(-self.length // self.rows)
+        if self.planar == 2:
+            n *= self.spp
+        if n == 0:
+            raise _refused("of zero strips")
+        self.n_chunks = n
+        off_tag, cnt_tag = (324, 325) if self.tile else (273, 279)
+        if off_tag not in ent and not (ojpeg and not self.tile and n == 1):
+            raise _refused("without its strip or tile offsets")
         self.inkset = self._fetch(332, 1)
         # "Defining non-color channels as ExtraSamples": the samples past
         # the photometric's colour channels count as unspecified extras
@@ -478,10 +504,14 @@ class LibtiffDir:
         # the strip (tile) tables: read up to the chunks there are, short
         # ones padded with zeros
         try:
-            self.offsets = self._strile(off_tag)
+            self.offsets = self._strile(off_tag) if off_tag in ent else None
             counts = self._strile(cnt_tag) if cnt_tag in ent else None
         except _Err as e:
             raise _refused(f"strip table of a bad {e}") from None
+        if ojpeg:
+            # the OJPEG codec reads its own data: no table is mended
+            self.counts = counts
+            return
         if counts is None:
             if (self.planar == 1 and n > 1) or (self.planar == 2 and
                                                 n != self.spp):
