@@ -152,23 +152,30 @@ phase, one JSON line each:
     restart intervals, tiles, planes, grey, tags left out) against PIL's
     decodes (ojpeg_decodes.npz), the ones PIL refuses refused, and a
     2048^2 tables-only file of 16-row strips built from a seed against
-    its decode's sha256.
+    its decode's sha256. Slice 7e.4b on OpenCV's route: the SGILog TIFF
+    files under .hdr / .exr names (LogLuv32 and LogLuv24 as float XYZ
+    through OpenCV's XYZ2BGR, LogL as libtiff's 8-bit grey; strips,
+    tiles, odd widths, every uv code) against the pip cv2's decodes
+    (sgilog_decodes.npz), the `sl_bad_*` files it refuses refused, and a
+    2048^2 LogLuv32 file of 128 strips built from a seed (`luv_2048.exr`)
+    against its decode's sha256, timed.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
     7e.6b, 7e.5 and 7e.4b (`phase_image_twins`): `cbox_tex_files`,
     `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
     `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
-    `cbox_tex_smooth` and `cbox_tex_ojpeg` through K1, `env_sphere_files`,
-    `env_sphere_webp`, `env_sphere_cv`, `env_sphere_pil`,
-    `env_sphere_cvgif`, `env_sphere_zstd`, `env_sphere_rare`,
-    `env_sphere_lossless` and `env_sphere_ojpeg` through K2 at 512^2,
-    their images read from TIFF (LZW, BigTIFF, ZSTD, old-style JPEG), GIF,
+    `cbox_tex_smooth`, `cbox_tex_ojpeg` and `cbox_sky_logluv` through K1,
+    `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
+    `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd`,
+    `env_sphere_rare`, `env_sphere_lossless`, `env_sphere_ojpeg` and
+    `env_sphere_luv24` through K2 at 512^2, their images read from TIFF
+    (LZW, BigTIFF, ZSTD, old-style JPEG, SGILog LogLuv32 and LogLuv24), GIF,
     JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s and `cbox_tex_dds`'s originals read PIL's
     decode of their lossy checker, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
-    `cbox_sky_bigtiff`'s and `env_sphere_cvgif`'s the OpenCV decode of
-    their image).
+    `cbox_sky_bigtiff`'s, `env_sphere_cvgif`'s, `cbox_sky_logluv`'s and
+    `env_sphere_luv24`'s the OpenCV decode of their image).
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -2233,7 +2240,7 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 def phase_image_files(card):
     """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5
-    and 7e.4b on the card's host: every file of
+    and 7e.4b (both routes) on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2288,8 +2295,15 @@ def phase_image_files(card):
     PIL decode, the `oj_bad_*` files PIL refuses refused (ValueError),
     and a 2048^2 tables-only 4:2:0 file of 16-row strips, a restart
     interval each, built here from its seed (`tools/gen_torch_ojpeg.py`
-    `ojpeg_timing`) against its decode's sha256; no image library
-    imported."""
+    `ojpeg_timing`) against its decode's sha256; slice 7e.4b on OpenCV's
+    route: every file of sgilog_decodes.npz (LogLuv32 and LogLuv24 TIFF
+    as float XYZ through OpenCV's XYZ2BGR, LogL as libtiff's 8-bit grey:
+    several strips, tiles, odd widths, runs and literals across 127 / 128
+    bytes, every uv code, orientation; the twins' files) against the pip
+    cv2's decode, the `sl_bad_*` files it refuses refused (ValueError),
+    and a 2048^2 LogLuv32 file of 128 strips built here from its seed
+    (`tools/gen_torch_sgilog.py` `logluv_timing`) against its decode's
+    sha256; no image library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2300,6 +2314,8 @@ def phase_image_files(card):
     gen_assets = _load_by_path("vt_gen_torch_assets",
                                "tools/gen_torch_assets.py")
     gen_ojpeg = _load_by_path("vt_gen_torch_ojpeg", "tools/gen_torch_ojpeg.py")
+    gen_sgilog = _load_by_path("vt_gen_torch_sgilog",
+                               "tools/gen_torch_sgilog.py")
     with open(os.path.join(assets, "smooth_2048.jpg"), "rb") as f:
         cuts = gen_assets.smooth_cuts(f.read())
     t0 = time.perf_counter()
@@ -2309,6 +2325,7 @@ def phase_image_files(card):
                      ("photocd.pcd", gen_pil.pcd_file),
                      ("lossless_2048.jpg", gen_assets.lossless_timing),
                      ("ojpeg_2048.tif", gen_ojpeg.ojpeg_timing),
+                     ("luv_2048.exr", gen_sgilog.logluv_timing),
                      *((fn, lambda d=d: d) for fn, d in cuts.items())):
         with open(os.path.join(built_dir, fn), "wb") as f:
             f.write(make())
@@ -2318,7 +2335,7 @@ def phase_image_files(card):
     built = {fn: built_dir for fn in ("bc7_2048.dds", "sky_2048.exr",
                                       "blp_2048.blp", "photocd.pcd",
                                       "lossless_2048.jpg", "ojpeg_2048.tif",
-                                      *cuts)}
+                                      "luv_2048.exr", *cuts)}
     for npz, kind in (("image_decodes.npz", "ldr"), ("exr_decodes.npz", "hdr"),
                       ("webp_decodes.npz", "ldr"),
                       ("exr_cv_decodes.npz", "hdr"), ("cv_decodes.npz", "hdr"),
@@ -2327,7 +2344,8 @@ def phase_image_files(card):
                       ("cvtiff_decodes.npz", "hdr"),
                       ("tiff_decodes.npz", None),
                       ("jpeg_7e5_decodes.npz", "ldr"),
-                      ("ojpeg_decodes.npz", "ldr")):
+                      ("ojpeg_decodes.npz", "ldr"),
+                      ("sgilog_decodes.npz", "hdr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
         must = {"image_decodes.npz": ("tiny.tif",),
@@ -2354,7 +2372,15 @@ def phase_image_files(card):
                                       "projector_ojpeg.tif",
                                       "oj_tb_strips.tif", "oj_tb_tiles.tif",
                                       "oj_planar_strips.tif", "oj_grey.tif",
-                                      "oj_411.tif", "oj_tb_440.tif")
+                                      "oj_411.tif", "oj_tb_440.tif"),
+                "sgilog_decodes.npz": ("sky_a_logluv.exr",
+                                       "projector_luv24.hdr",
+                                       "sl_luv32_strips.exr",
+                                       "sl_luv32_runs.exr",
+                                       "sl_luv32_tiles.exr",
+                                       "sl_luv24_uv.exr",
+                                       "sl_logl_strips.exr",
+                                       "sl_logl_cut.exr")
                 }.get(npz, ())
         check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
@@ -2403,6 +2429,11 @@ def phase_image_files(card):
                    for fn in sorted(os.listdir(assets))
                    if fn.startswith("oj_bad_")]
         check(len(refused) >= 12, "the old-style JPEG files PIL refuses")
+        sl_bad = [(os.path.join(assets, fn), ValueError, "")
+                  for fn in sorted(os.listdir(assets))
+                  if fn.startswith("sl_bad_")]
+        check(len(sl_bad) >= 5, "the SGILog files the pip cv2 refuses")
+        refused += sl_bad
         for path, err, what in (*refused,
                                 (avif, NotImplementedError, "7e"),
                                 (os.path.join(assets, "ll_arith.jpg"),
@@ -2461,12 +2492,18 @@ IMAGE_TWINS = (
     ("cbox_tex_ojpeg", "cbox_tex_ojpeg", "dense_isect", "cbox_tex_ojpeg_ref"),
     ("env_sphere_ojpeg_ref", "env_sphere_ojpeg_ref", "packet_isect", None),
     ("env_sphere_ojpeg", "env_sphere_ojpeg", "packet_isect",
-     "env_sphere_ojpeg_ref"))
+     "env_sphere_ojpeg_ref"),
+    ("cbox_sky_logluv_ref", "cbox_sky_logluv_ref", "dense_isect", None),
+    ("cbox_sky_logluv", "cbox_sky_logluv", "dense_isect",
+     "cbox_sky_logluv_ref"),
+    ("env_sphere_luv24_ref", "env_sphere_luv24_ref", "packet_isect", None),
+    ("env_sphere_luv24", "env_sphere_luv24", "packet_isect",
+     "env_sphere_luv24_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
     """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5 and
-    7e.4b through the kernels, at 512^2 and the seeds of
+    7e.4b (both routes) through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2507,7 +2544,13 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     (PIL's decode of that file in a PNG), and `env_sphere_ojpeg` (its
     projector image a tables-only old-style JPEG TIFF of four strips, a
     restart interval each) through K2, bit for bit with
-    `env_sphere_ojpeg_ref`. Returns each render's launch counts."""
+    `env_sphere_ojpeg_ref`; slice 7e.4b on OpenCV's route:
+    `cbox_sky_logluv` (sky_a as a LogLuv32 TIFF named .exr) through K1,
+    bit for bit with `cbox_sky_logluv_ref` (the pip cv2's decode in a
+    FLOAT OpenEXR file), and `env_sphere_luv24` (its projector image a
+    LogLuv24 TIFF named .hdr) through K2, bit for bit with
+    `env_sphere_luv24_ref` (the pip cv2's decode in a PFM). Returns each
+    render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:

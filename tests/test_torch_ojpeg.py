@@ -425,24 +425,31 @@ def test_twin_scenes_render_as_their_references(name):
 
 
 def test_7e4b_is_left_for_sglog_on_opencvs_route_only(tmp_path):
-    """No reader on PIL's route names 7e.4b any more; SGILog under a .exr
-    name (OpenCV's route) still raises NotImplementedError naming it, and
-    an old-style JPEG file there is refused as the pip cv2 refuses it (its
-    libtiff lacks the codec)."""
-    import inspect
+    """No module of the port names 7e.4b any more: SGILog under a .exr name
+    (OpenCV's route) decodes as the pip cv2 decodes it, and an old-style
+    JPEG file there is refused as the pip cv2 refuses it (its libtiff
+    lacks the codec)."""
     import pathlib
-    from vision_tpu_torch.scene import ojpeg, pilread, tiffdir
-    for mod in (ojpeg, pilread, tiffdir):
-        assert "7e.4b" not in pathlib.Path(mod.__file__).read_text()
-    assert "7e.4b" not in inspect.getsource(tio.read_tiff)
-    lines = pathlib.Path(tio.__file__).read_text().splitlines()
-    assert all("SGILog" in line for line in lines if "7e.4b" in line)
+    import vision_tpu_torch
+    root = pathlib.Path(vision_tpu_torch.__file__).parent
+    for path in sorted(root.rglob("*")):
+        if path.suffix in (".py", ".cpp", ".cu", ".cuh") and \
+                "_build" not in path.parts:
+            assert "7e.4b" not in path.read_text(), path
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_sgilog_ojpeg", os.path.join(os.path.dirname(ASSETS),
+                                                  "..", "tools",
+                                                  "gen_torch_sgilog.py"))
+    sgi = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sgi)
     p = str(tmp_path / "luv.exr")
     with open(p, "wb") as f:
-        f.write(gen.ojpeg_tiff(gen.pil_jpeg(gen.waves(8, 8, 1)), tags={
-            259: (3, [34677]), 262: (3, [32845])}))
-    with pytest.raises(NotImplementedError, match="7e.4b"):
-        tio.read_image(p)
+        f.write(sgi.sgilog_tiff(sgi._random_luv32(np.random.default_rng(8),
+                                                  8, 8), "luv32",
+                                rows_per_strip=3))
+    want = jtex.load_image(p)
+    got = tio.read_image(p)[0]
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     p = str(tmp_path / "oj.exr")
     with open(p, "wb") as f:
         f.write(gen.ojpeg_tiff(gen.pil_jpeg(gen.waves(8, 8, 1))))

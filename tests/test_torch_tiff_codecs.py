@@ -369,27 +369,23 @@ def test_jpeg_and_planar_layouts_match_pil(tmp_path, kind):
     (32766, 1, 2), (32766, 3, 2), (32766, 1, 8), (6, 6, 8)])
 def test_other_codecs_as_the_libraries_take_them(tmp_path, comp, photo,
                                                  bits):
-    """What neither library decodes, and what is left for ROADMAP 7e.4b:
-    WebP-in-TIFF (neither libtiff has the codec), SGILog (PIL has no mode
-    for LogL / LogLuv and its libtiff refuses SGILog of any other
-    photometric; OpenCV reads LogL / LogLuv as float: 7e.4b), NeXT (PIL
-    names no such compression; OpenCV refuses 2-bit samples and libtiff
-    NeXT of other bits) and old-style JPEG of one YCbCr sample (libtiff's
-    RGBA reader, which PIL reads libtiff's YCbCr through, has no routine
-    for it; cv2's libtiff lacks the codec)."""
+    """What the libraries make of the rarer codecs: WebP-in-TIFF (neither
+    libtiff has the codec), SGILog (PIL has no mode for LogL / LogLuv and
+    its libtiff refuses SGILog of any other photometric; OpenCV reads LogL
+    through libtiff's RGBA reader as 8-bit grey, which decodes these
+    bytes, and LogLuv as float, whose 24-bit strip here is too short),
+    NeXT (PIL names no such compression; OpenCV refuses 2-bit samples and
+    libtiff NeXT of other bits) and old-style JPEG of one YCbCr sample
+    (libtiff's RGBA reader, which PIL reads libtiff's YCbCr through, has
+    no routine for it; cv2's libtiff lacks the codec)."""
     v = np.random.default_rng(1).integers(0, 1 << min(bits, 8), (6, 8, 1))
     spp = {2: 3, 32845: 3}.get(photo, 1)
     data = ga.tiff_bytes(np.repeat(v, spp, -1), bits, photo, comp,
                          chunks=[bytes(range(60))], colormap=np.zeros(
                              (1 << bits, 3), np.int64) if photo == 3 else None)
     for route in ("t.tif", "t.exr"):
-        later = comp in (34676, 34677) and route == "t.exr" and \
-            photo > 30000
-        if later:
-            with pytest.raises(NotImplementedError, match="7e.4b"):
-                _outcome(tmp_path, data, route)
-        else:
-            _assert_same(tmp_path, data, route, decodes=False)
+        _assert_same(tmp_path, data, route, decodes=(
+            comp, photo, route) == (34676, 32844, "t.exr"))
 
 
 # ---------------------------------------------------------------------------

@@ -463,11 +463,11 @@ def cbox_sky_cvtiff_ref(res=512):
     return _cbox_sky_file(res, "sky_a_f32_ref.exr")
 
 
-def _env_sphere_projector(res, sub_div, fn):
+def _env_sphere_projector(res, sub_div, fn, scale=40.0 / 255.0):
     s = env_sphere(res, sub_div)
     proj = s["light_sampler"]["param"]["lights"][1]["param"]
     proj["color"]["fn"] = asset(fn)
-    proj["scale"] = 40.0 / 255.0
+    proj["scale"] = scale
     return s
 
 
@@ -575,6 +575,40 @@ def env_sphere_ojpeg_ref(res=512, sub_div=40):
     """`env_sphere` with its projector image read from PIL's decode of
     projector_ojpeg.tif, written as a PNG."""
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_OJPEG_REF)
+
+
+# slice 7e.4b on OpenCV's route (tools/gen_torch_sgilog.py): sky_a as a
+# LogLuv32 TIFF named .exr, and the projector's RGB / 255 as a LogLuv24
+# TIFF named .hdr (LogLuv24 holds luminances up to 15.7, so its samples
+# stay in 0-1 and the projector keeps its scale of 40). Each decodes to
+# other floats than its source, so its scene is held against one reading
+# the pip cv2's decode of its file from a FLOAT OpenEXR file or a PFM
+# named .hdr.
+def cbox_sky_logluv(res=512):
+    """`cbox_sky` lit by sky_a as a LogLuv32 TIFF (SGILog run-length
+    coded, strips of 5 rows) named .exr: it renders as
+    `cbox_sky_logluv_ref` does."""
+    return _cbox_sky_file(res, "sky_a_logluv.exr")
+
+
+def cbox_sky_logluv_ref(res=512):
+    """`cbox_sky` lit by the pip cv2's decode of sky_a_logluv.exr, written
+    as an uncompressed FLOAT OpenEXR file."""
+    return _cbox_sky_file(res, "sky_a_logluv_ref.exr")
+
+
+def env_sphere_luv24(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a LogLuv24 TIFF named
+    .hdr (the projector's RGB / 255): it renders as `env_sphere_luv24_ref`
+    does."""
+    return _env_sphere_projector(res, sub_div, "projector_luv24.hdr", 40.0)
+
+
+def env_sphere_luv24_ref(res=512, sub_div=40):
+    """`env_sphere_luv24` with the pip cv2's decode of its LogLuv24 file
+    read from a PFM file named .hdr."""
+    return _env_sphere_projector(res, sub_div, "projector_luv24_pfm.hdr",
+                                 40.0)
 
 
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)

@@ -54,6 +54,9 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
   * The files of slice 7e.3b (TIFF and GIF under .hdr / .exr names) and
     `cvtiff_decodes.npz`, written by `tools/gen_torch_cvtiff.py` (its
     docstring lists them).
+  * The SGILog TIFF files of slice 7e.4b on OpenCV's route,
+    `sgilog_decodes.npz` and `vision_tpu_torch/data/sgilog_uv.npz`,
+    written by `tools/gen_torch_sgilog.py` (its docstring lists them).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1589,6 +1592,17 @@ def _ojpeg_module():
     return mod
 
 
+def _sgilog_module():
+    """`tools/gen_torch_sgilog.py`, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_sgilog", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_sgilog.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _pil_module():
     """`tools/gen_torch_pil.py`, loaded by path."""
     import importlib.util
@@ -1680,6 +1694,7 @@ def main():
     _tiff_module().write_tiff_files(out)
     write_jpeg_7e5_files(out, checker(), projector()[..., :3])
     _ojpeg_module().write_ojpeg_files(out, checker(), projector()[..., :3])
+    _sgilog_module().write_sgilog_files(out)
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

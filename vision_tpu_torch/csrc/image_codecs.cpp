@@ -3,17 +3,17 @@
 // DWA's AC coefficients), OpenEXR's byte run-length coding (RLE and DWA's
 // RLE channels), DWA's run-length coding of AC coefficients, LZW (TIFF's,
 // most significant bit first, and GIF's and TIFF's old style, least
-// significant bit first), TIFF's PackBits, and the BC7 and BC6H blocks of
-// DDS files (`scene/pilread.py`). Each walks its input a bit
-// or a byte at a time, so it lives here: in Python it costs about a
+// significant bit first), TIFF's PackBits and SGILog rows, and the BC7
+// and BC6H blocks of DDS files (`scene/pilread.py`). Each walks its input
+// a bit or a byte at a time, so it lives here: in Python it costs about a
 // microsecond a step. The vectorisable stages (PIZ's wavelet and lookup
 // table, PXR24's byte planes, B44's blocks, DWA's inverse DCT, the
 // predictors) stay in numpy.
 //
 // Each function decodes as the reference library does (libOpenEXR 3.1's
-// ImfHuf.cpp, ImfRle.cpp and ImfDwaCompressor.cpp; libtiff's tif_lzw.c
-// and tif_packbits.c; PIL's GifDecode.c and BcnDecode.c) and returns a
-// negative code where it throws or stops.
+// ImfHuf.cpp, ImfRle.cpp and ImfDwaCompressor.cpp; libtiff's tif_lzw.c,
+// tif_packbits.c and tif_luv.c; PIL's GifDecode.c and BcnDecode.c) and
+// returns a negative code where it throws or stops.
 //
 // C ABI, bound with ctypes.
 
@@ -2429,6 +2429,75 @@ int64_t vt_fli_decode(const uint8_t *buf, int64_t n, uint8_t *img,
     bytes -= advance;
   }
   return -1;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// SGILog (libtiff's tif_luv.c): LogL16, LogLuv32 and LogLuv24 rows
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// One row of `nplanes` byte planes (most significant first), each coded
+// on its own: a byte >= 128 is a run of (byte - 126) copies of the next
+// byte, a byte below 128 a count of literal bytes after it. A run or a
+// literal that passes the row's end is cut there (the rest of a literal
+// is read as the next plane's code). False where the data ends before the
+// row does ("Not enough data").
+bool sgilog_rle_row(const uint8_t *&bp, int64_t &cc, uint32_t *tp,
+                    int64_t npixels, int nplanes) {
+  std::memset(tp, 0, size_t(npixels) * sizeof(uint32_t));
+  for (int shft = 8 * (nplanes - 1); shft >= 0; shft -= 8) {
+    int64_t i = 0;
+    while (i < npixels && cc > 0) {
+      if (*bp >= 128) {         // run
+        if (cc < 2) break;
+        int rc = *bp++ + (2 - 128);
+        uint32_t b = uint32_t(*bp++) << shft;
+        cc -= 2;
+        while (rc-- && i < npixels) tp[i++] |= b;
+      } else {                  // literal (a zero count is a no-op)
+        int rc = *bp++;
+        while (--cc && rc-- && i < npixels) tp[i++] |= uint32_t(*bp++) << shft;
+      }
+    }
+    if (i != npixels) return false;
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One strip or tile of SGILog data -> nrows rows of npixels codes in `out`
+// (uint32 each): kind 16, LogL16Decode (two byte planes: the 16-bit code,
+// its sign in bit 15); 32, LogLuvDecode32 (four planes: L in bits 31-16,
+// u in 15-8, v in 7-0); 24, LogLuvDecode24 (three bytes a pixel,
+// big-endian, no run-length coding). Rows are decoded one after another
+// from where the last one ended, as LogLuvDecodeStrip / Tile call the row
+// decoder; a row that fails stops the strip and is not written. Returns
+// the rows decoded whole.
+int64_t vt_sgilog_decode(const uint8_t *in, int64_t n_in, uint32_t *out,
+                         int64_t npixels, int64_t nrows, int32_t kind) {
+  const uint8_t *bp = in;
+  int64_t cc = n_in;
+  std::vector<uint32_t> tp(size_t(npixels > 0 ? npixels : 1));
+  for (int64_t r = 0; r < nrows; ++r) {
+    if (kind == 24) {
+      int64_t i = 0;
+      for (; i < npixels && cc >= 3; ++i, bp += 3, cc -= 3)
+        tp[size_t(i)] = uint32_t(bp[0]) << 16 | uint32_t(bp[1]) << 8 | bp[2];
+      if (i != npixels) return r;
+    } else if (!sgilog_rle_row(bp, cc, tp.data(), npixels,
+                               kind == 16 ? 2 : 4)) {
+      return r;
+    }
+    std::memcpy(out + r * npixels, tp.data(),
+                size_t(npixels) * sizeof(uint32_t));
+  }
+  return nrows;
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """ctypes bindings of the port's host library: the SAH BVH builder
 (`native/bvh_builder.cpp`), the OBJ parser (`csrc/mesh_io.cpp`), the
 JPEG entropy decoder (`csrc/jpeg_huff.cpp`), the serial stages of the
-OpenEXR, TIFF and GIF codecs (`csrc/image_codecs.cpp`) and the WebP
-bitstream decoders (`csrc/webp_codec.cpp`).
+OpenEXR, TIFF (SGILog among them) and GIF codecs
+(`csrc/image_codecs.cpp`) and the WebP bitstream decoders
+(`csrc/webp_codec.cpp`).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
 `build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
@@ -116,6 +117,9 @@ def _library():
         lib.vt_fli_decode.argtypes = [P, ctypes.c_int64, P, ctypes.c_int64,
                                       ctypes.c_int64]
         lib.vt_fli_decode.restype = ctypes.c_int64
+        lib.vt_sgilog_decode.argtypes = [P, ctypes.c_int64, P, ctypes.c_int64,
+                                         ctypes.c_int64, ctypes.c_int32]
+        lib.vt_sgilog_decode.restype = ctypes.c_int64
         lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
         lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
@@ -418,6 +422,19 @@ def fli_decode(buf, img):
     return int(_library().vt_fli_decode(data.ctypes.data, len(buf),
                                         img.ctypes.data, img.shape[1],
                                         img.shape[0]))
+
+
+def sgilog_decode(data, npixels, nrows, kind):
+    """One strip or tile of SGILog data, as libtiff's tif_luv.c decodes it
+    a row at a time: kind 16 (LogL16, two run-length coded byte planes), 32
+    (LogLuv32, four) or 24 (LogLuv24, three raw bytes a pixel) -> (uint32
+    [nrows, npixels] codes, the rows decoded whole: the rest are zeros, a
+    short count libtiff's "Not enough data" error)."""
+    buf = _bytes(data)
+    out = np.zeros((max(nrows, 1), max(npixels, 1)), np.uint32)
+    done = _library().vt_sgilog_decode(buf.ctypes.data, len(data),
+                                       out.ctypes.data, npixels, nrows, kind)
+    return out[:nrows, :npixels], int(done)
 
 
 _WEBP_ERRORS = {

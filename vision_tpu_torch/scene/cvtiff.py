@@ -36,18 +36,35 @@ pip cv2's decodes of generated files (its source is not at hand):
     and the rest; LZMA, ZSTD, WebP and old-style JPEG are refused, as the
     pip cv2's libtiff lacks them (old-style JPEG is decoded on PIL's route
     only: `ojpeg.py`).
+  * SGILog (tif_luv.c; `sgilog.py`, `native.sgilog_decode`). LogLuv
+    (photometric 32845) of three samples (or no SamplesPerPixel tag) is
+    read as float whatever its bits and sample format: OpenCV sets
+    libtiff's SGILog data format to float, which SGILog (34676) and
+    SGILog24 (34677) take and any other compression refuses; each strip or
+    tile, contiguous only, goes through TIFFReadEncodedStrip / Tile (a row
+    whose data runs out fails it, and the file) into X, Y, Z
+    (LogLuv32toXYZ / LogLuv24toXYZ in float64, stored as float32; 0 where
+    L <= 0, so the sign bit gives black); the orientation is applied, then
+    cvtColor's XYZ2BGR in float32 (`_xyz2bgr`: the summation order of its
+    vector loop and of its scalar tail). With no SamplesPerPixel tag
+    libtiff reads one sample and rows of a third of the pixels, the rest of
+    OpenCV's buffer uninitialised: refused (ROADMAP C34). LogL (32844) of
+    one sample and SGILog compression goes through the RGBA reader, which
+    asks the codec for 8-bit grey (L16toGry) and keeps a failed strip's
+    rows before the error (zeros after); LogLuv of other than three
+    samples, LogL of SGILog24 or more samples, and SGILog of any other
+    photometric are refused.
   * The Orientation tag is applied as imread applies it (2-4 flips; 5-8
     transpose, which OpenCV 5.0 refuses for an image that is not square).
 
 Returns OpenCV's image: [H, W] or [H, W, 3] (B, G, R) in its dtype.
-ValueError for what OpenCV refuses; NotImplementedError naming ROADMAP
-7e.4b for SGILog (LogL / LogLuv, which OpenCV reads as float).
+ValueError for what OpenCV refuses.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from . import cvread, imageio, tiffdir
+from . import cvread, imageio, sgilog, tiffdir
 
 # codecs the pip cv2's libtiff lacks (it refuses them: "not configured")
 _NOT_CONFIGURED = (6, 32909, 34661, 34887, 34925, 50000, 50001, 50002)
@@ -60,11 +77,6 @@ def _refused(what):
     return cvread._refused("TIFF", what)
 
 
-def _later(what):
-    return imageio._not_ported(f"decoding {what} TIFF files as OpenCV does",
-                               "7e.4b")
-
-
 def read_tiff_cv(data):
     """TIFF bytes -> OpenCV's image of it (module docstring)."""
     if data[:4] not in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
@@ -73,11 +85,13 @@ def read_tiff_cv(data):
     photo = d.photometric
     if photo is None:
         raise _refused("without a Photometric tag")
-    if photo in (32844, 32845):
-        raise _later("SGILog")
     grey = photo in (0, 1)
     bpp = d.bps
     ncn = d.spp if 277 in d.entries else (1 if grey else 3)
+    if photo == tiffdir.LOGLUV and ncn == 3:
+        cvread._check_size("TIFF", d.width, d.length)
+        # OpenCV turns the XYZ image, then converts it
+        return _xyz2bgr(_orient(_logluv_xyz(d), d.orientation))
     sf = d.sample_format
     if bpp > 8 and (photo > 2 or ncn not in (1, 3, 4)):
         bpp = 8
@@ -214,6 +228,9 @@ def _rgba_ok(d):
         if spp != 3 or colours != 3 or bps not in (8, 16) or d.planar == 2:
             raise _refused("CIELab of a layout libtiff's RGBA reader "
                            "refuses")
+    elif photo == tiffdir.LOGL:
+        if d.compression != 34676:
+            raise _refused(f"LogL of compression {d.compression}")
     else:
         raise _refused(f"of photometric {photo}")
 
@@ -225,6 +242,8 @@ def _rgba_route(d, ncn, grey, colour):
     photo, bps, spp = d.photometric, d.bps, d.spp
     w, h = d.width, d.length
     planar = d.planar == 2
+    if photo == tiffdir.LOGL:
+        return _logl_route(d)
     if photo == 6 and (d.compression != 7 or planar):
         # libtiff's JPEG codec converts chunky YCbCr itself
         return ycbcr_to_rgb(d, ycbcr_units(d))[..., ::-1]
@@ -274,6 +293,76 @@ def _rgba_route(d, ncn, grey, colour):
     if alpha == 2:                       # unassociated: premultiplied
         rgb = (rgb * s[..., 3:4] + 127) // 255
     return rgb[..., ::-1]
+
+
+def _sgilog_codes(d, k, cols, rows):
+    """Strip or tile k of SGILog data as libtiff's row decoders give it
+    (`imageio._tiff_decode`): (uint32 codes [rows, cols], the rows after a
+    failed one 0; whether every row decoded)."""
+    buf, ok = imageio._tiff_decode(d, k, rows * cols * 4, keep=True)
+    return np.frombuffer(buf, np.uint32).reshape(rows, cols), ok
+
+
+def _logl_route(d):
+    """LogL through libtiff's RGBA reader, which asks the codec for 8-bit
+    grey (L16toGry) and goes on past a strip's error: the rows before it
+    decoded, the rest 0. Returns grey [h, w]."""
+    tiffdir.sgilog_setup(d)
+    w, h = d.width, d.length
+    out = np.zeros((h, w), np.int64)
+    for x0, y0, cols, rows, _, k in d.chunks():
+        codes, _ = _sgilog_codes(d, k, cols, rows)
+        g = sgilog.l16_to_gry(codes)[:min(rows, h - y0), :min(cols, w - x0)]
+        out[y0:y0 + g.shape[0], x0:x0 + g.shape[1]] = g
+    return out
+
+
+def _logluv_xyz(d):
+    """LogLuv of three samples: OpenCV sets libtiff's SGILog data format to
+    float and reads each strip or tile with TIFFReadEncodedStrip / Tile (a
+    codec error refuses the file) -> float32 [h, w, 3] X, Y, Z
+    (LogLuv32toXYZ / LogLuv24toXYZ)."""
+    if d.compression not in (34676, 34677):
+        raise _refused(f"LogLuv of compression {d.compression} (OpenCV's "
+                       "TIFFSetField of the SGILog data format fails)")
+    tiffdir.sgilog_setup(d)
+    if d.spp != 3:
+        raise _refused(f"LogLuv of {d.spp} samples read as 3: OpenCV reads "
+                       "past them into an uninitialised buffer (ROADMAP "
+                       "C34)")
+    to_xyz = sgilog.logluv32_to_xyz if d.compression == 34676 else \
+        sgilog.logluv24_to_xyz
+    w, h = d.width, d.length
+    out = np.zeros((h, w, 3), np.float32)
+    for x0, y0, cols, rows, _, k in d.chunks():
+        codes, ok = _sgilog_codes(d, k, cols, rows)
+        if not ok:
+            raise _refused(f"SGILog strip or tile {k} whose data ends before "
+                           "its last row (libtiff's Not enough data)")
+        v = to_xyz(codes[:min(rows, h - y0), :min(cols, w - x0)])
+        out[y0:y0 + v.shape[0], x0:x0 + v.shape[1]] = v
+    return out
+
+
+# OpenCV 5.0's XYZ -> RGB coefficients (color_lab.cpp's XYZ2sRGB_D65), as
+# float32
+_XYZ2RGB = np.array([[3.240479, -1.53715, -0.498535],
+                     [-0.969256, 1.875991, 0.041556],
+                     [0.055648, -0.204043, 1.057311]], np.float32)
+
+
+def _xyz2bgr(xyz):
+    """cvtColor(COLOR_XYZ2BGR) of float32 [h, w, 3] as the pip cv2 computes
+    it: each product and sum rounded to float32, no fused multiply-add; in
+    each row its vector loop takes the first 4 floor(w / 4) pixels as c0 X
+    + (c1 Y + c2 Z), its scalar tail the rest as (c0 X + c1 Y) + c2 Z."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    simd = np.arange(xyz.shape[1]) < 4 * (xyz.shape[1] // 4)
+    out = np.empty_like(xyz)
+    for ch, (c0, c1, c2) in enumerate(_XYZ2RGB[::-1]):
+        a, b, c = c0 * x, c1 * y, c2 * z
+        out[..., ch] = np.where(simd, a + (b + c), (a + b) + c)
+    return out
 
 
 def _orient(img, o):

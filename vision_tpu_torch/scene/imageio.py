@@ -66,10 +66,9 @@ refuses:
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-SGILog TIFF on OpenCV's route (7e.4b), OpenCV's JPEG 2000 and AVIF
-readers under a .hdr / .exr name, and the formats PIL opens that
-`pilread.py` does not decode yet raise NotImplementedError naming their
-item of ROADMAP queue A.
+OpenCV's JPEG 2000 and AVIF readers under a .hdr / .exr name, and the
+formats PIL opens that `pilread.py` does not decode yet raise
+NotImplementedError naming their item of ROADMAP queue A.
 """
 from __future__ import annotations
 
@@ -1666,6 +1665,8 @@ def _tiff_decode(d, k, n, keep=False):
     elif comp == 32809:
         out, good = native.thunder_decode(raw, n, d.width, d.chunk_size(1))
         out = out.tobytes()
+    elif comp in (34676, 34677):
+        out, good = _tiff_sgilog(d, raw, n)
     else:
         out = b""
     ok = good and len(out) == n
@@ -1691,6 +1692,20 @@ def _tiff_fax(d, k, raw, n):
                                "row (libtiff succeeds, its rows after are "
                                "undefined: ROADMAP C28)")
     return out.tobytes(), rc in (1, 2)
+
+
+def _tiff_sgilog(d, raw, n):
+    """libtiff's SGILog row decoders (tif_luv.c) of one strip or tile ->
+    (its codes as native uint32 bytes, n // 4 of them in rows of the
+    chunk's width, as far as whole rows decoded; whether every row did):
+    LogL16 for LogL, LogLuv32 for SGILog, LogLuv24 for SGILog24. A row
+    whose data runs out fails the strip ("Not enough data")."""
+    cols = d.tile[0] if d.tile else d.width
+    rows = n // (4 * cols)
+    kind = 16 if d.photometric == tiffdir.LOGL else \
+        32 if d.compression == 34676 else 24
+    codes, done = native.sgilog_decode(raw, cols, rows, kind)
+    return codes[:done].tobytes(), done == rows
 
 
 def _tiff_lzma(raw, n):

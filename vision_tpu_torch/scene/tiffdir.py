@@ -213,6 +213,22 @@ def pil_strips(tags, s):
 # libtiff's TIFFReadDirectory
 # ---------------------------------------------------------------------------
 
+LOGL, LOGLUV = 32844, 32845
+
+
+def sgilog_setup(d):
+    """libtiff's LogLuvSetupDecode of a LogLuv or LogL directory d for the
+    data format the caller has set (LogLuvInitState, LogL16InitState):
+    ValueError where it fails, as every strip then fails. LogLuv takes
+    contiguous samples only, LogL one sample (`imageio._tiff_codec_setup`
+    refuses SGILog of any other photometric)."""
+    if d.photometric == LOGLUV and d.planar != 1:
+        raise _refused("SGILog of planar samples (SGILog cannot handle "
+                       "non-contiguous data)")
+    if d.photometric == LOGL and d.spp != 1:
+        raise _refused(f"LogL of {d.spp} samples")
+
+
 class _Err(Exception):
     """A TIFFReadDirEntry* error (count, type, range or I/O)."""
 
