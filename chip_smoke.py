@@ -158,22 +158,32 @@ phase, one JSON line each:
     tiles, odd widths, every uv code) against the pip cv2's decodes
     (sgilog_decodes.npz), the `sl_bad_*` files it refuses refused, and a
     2048^2 LogLuv32 file of 128 strips built from a seed (`luv_2048.exr`)
-    against its decode's sha256, timed.
+    against its decode's sha256, timed. Slice 7e.7a: the JPEG 2000 files
+    (J2K and JP2; L, LA, I;16, RGB, RGBA, CMYK, sYCC, P and PA; 5/3 and
+    9/7; every progression, tiles, layers, precincts, every code-block
+    style, ROI, SOP / EPH, COC / QCC, POC, PPM / PPT, sub-sampled
+    components; ICNS JPEG 2000 icons) against PIL's decodes
+    (j2k_decodes.npz), the `j2k_bad_*` files PIL refuses refused, and the
+    committed 2048^2 9/7 file `j2k_2048.jp2` against its decode's sha256,
+    timed.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
-    7e.6b, 7e.5 and 7e.4b (`phase_image_twins`): `cbox_tex_files`,
+    7e.6b, 7e.5, 7e.4b and 7e.7a (`phase_image_twins`): `cbox_tex_files`,
     `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
     `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
-    `cbox_tex_smooth`, `cbox_tex_ojpeg` and `cbox_sky_logluv` through K1,
-    `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
-    `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd`,
-    `env_sphere_rare`, `env_sphere_lossless`, `env_sphere_ojpeg` and
-    `env_sphere_luv24` through K2 at 512^2, their images read from TIFF
+    `cbox_tex_smooth`, `cbox_tex_ojpeg`, `cbox_sky_logluv` and
+    `cbox_tex_j2k` through K1, `env_sphere_files`, `env_sphere_webp`,
+    `env_sphere_cv`, `env_sphere_pil`, `env_sphere_cvgif`,
+    `env_sphere_zstd`, `env_sphere_rare`, `env_sphere_lossless`,
+    `env_sphere_ojpeg`, `env_sphere_luv24` and `env_sphere_j2k` through
+    K2 at 512^2, their images read from TIFF
     (LZW, BigTIFF, ZSTD, old-style JPEG, SGILog LogLuv32 and LogLuv24), GIF,
     JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
+    JPEG 2000 (lossy JP2, tiled J2K),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
-    run (`cbox_tex_webp`'s and `cbox_tex_dds`'s originals read PIL's
-    decode of their lossy checker, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
+    run (`cbox_tex_webp`'s, `cbox_tex_dds`'s and `cbox_tex_j2k`'s
+    originals read PIL's decode of their lossy checker,
+    `env_sphere_j2k`'s PIL's decode of its projector, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
     `cbox_sky_bigtiff`'s, `env_sphere_cvgif`'s, `cbox_sky_logluv`'s and
     `env_sphere_luv24`'s the OpenCV decode of their image).
   * the bench ladder (slice 10, `phase_bench`): `python -m
@@ -2239,8 +2249,8 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 
 def phase_image_files(card):
-    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5
-    and 7e.4b (both routes) on the card's host: every file of
+    """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
+    7e.4b (both routes) and 7e.7a on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2303,7 +2313,16 @@ def phase_image_files(card):
     cv2's decode, the `sl_bad_*` files it refuses refused (ValueError),
     and a 2048^2 LogLuv32 file of 128 strips built here from its seed
     (`tools/gen_torch_sgilog.py` `logluv_timing`) against its decode's
-    sha256; no image library imported."""
+    sha256; slice 7e.7a: every file of j2k_decodes.npz (JPEG 2000 on
+    PIL's route: J2K and JP2, every mode, 5/3 and 9/7, progressions,
+    tiles, layers, precincts, every Part-1 code-block style, ROI, SOP /
+    EPH, COC / QCC, POC, PPM / PPT, sub-sampled components, palettes,
+    ICNS icons; the twins' files) against its committed PIL decode, the
+    `j2k_bad_*` files PIL refuses refused (ValueError), and the committed
+    2048^2 file `j2k_2048.jp2` (9/7, six resolutions, 64 x 64
+    code-blocks, about 0.5 bits a pixel; the card's machine has no
+    encoder) against its decode's sha256, timed; no image library
+    imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2345,7 +2364,8 @@ def phase_image_files(card):
                       ("tiff_decodes.npz", None),
                       ("jpeg_7e5_decodes.npz", "ldr"),
                       ("ojpeg_decodes.npz", "ldr"),
-                      ("sgilog_decodes.npz", "hdr")):
+                      ("sgilog_decodes.npz", "hdr"),
+                      ("j2k_decodes.npz", "ldr")):
         dec = np.load(os.path.join(assets, npz))
         files = [k for k in dec.files if ":" not in k]
         must = {"image_decodes.npz": ("tiny.tif",),
@@ -2380,7 +2400,14 @@ def phase_image_files(card):
                                        "sl_luv32_tiles.exr",
                                        "sl_luv24_uv.exr",
                                        "sl_logl_strips.exr",
-                                       "sl_logl_cut.exr")
+                                       "sl_logl_cut.exr"),
+                "j2k_decodes.npz": ("checker_j2k.jp2", "projector_j2k.j2k",
+                                    "j2k_sty_bypass.j2k",
+                                    "j2k_sty_reset.j2k",
+                                    "j2k_sty_termall.j2k",
+                                    "j2k_sty_vsc.j2k", "j2k_sty_pterm.j2k",
+                                    "j2k_sty_segsym.j2k", "j2k_icns.icns",
+                                    "j2k_sycc.jp2", "j2k_p3.jp2")
                 }.get(npz, ())
         check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
@@ -2434,6 +2461,11 @@ def phase_image_files(card):
                   if fn.startswith("sl_bad_")]
         check(len(sl_bad) >= 5, "the SGILog files the pip cv2 refuses")
         refused += sl_bad
+        j2k_bad = [(os.path.join(assets, fn), ValueError, "")
+                   for fn in sorted(os.listdir(assets))
+                   if fn.startswith("j2k_bad_")]
+        check(len(j2k_bad) >= 9, "the JPEG 2000 files PIL refuses")
+        refused += j2k_bad
         for path, err, what in (*refused,
                                 (avif, NotImplementedError, "7e"),
                                 (os.path.join(assets, "ll_arith.jpg"),
@@ -2498,12 +2530,17 @@ IMAGE_TWINS = (
      "cbox_sky_logluv_ref"),
     ("env_sphere_luv24_ref", "env_sphere_luv24_ref", "packet_isect", None),
     ("env_sphere_luv24", "env_sphere_luv24", "packet_isect",
-     "env_sphere_luv24_ref"))
+     "env_sphere_luv24_ref"),
+    ("cbox_tex_j2k_ref", "cbox_tex_j2k_ref", "dense_isect", None),
+    ("cbox_tex_j2k", "cbox_tex_j2k", "dense_isect", "cbox_tex_j2k_ref"),
+    ("env_sphere_j2k_ref", "env_sphere_j2k_ref", "packet_isect", None),
+    ("env_sphere_j2k", "env_sphere_j2k", "packet_isect",
+     "env_sphere_j2k_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
-    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5 and
-    7e.4b (both routes) through the kernels, at 512^2 and the seeds of
+    """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
+    7e.4b (both routes) and 7e.7a through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2549,8 +2586,13 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     bit for bit with `cbox_sky_logluv_ref` (the pip cv2's decode in a
     FLOAT OpenEXR file), and `env_sphere_luv24` (its projector image a
     LogLuv24 TIFF named .hdr) through K2, bit for bit with
-    `env_sphere_luv24_ref` (the pip cv2's decode in a PFM). Returns each
-    render's launch counts."""
+    `env_sphere_luv24_ref` (the pip cv2's decode in a PFM); slice 7e.7a:
+    `cbox_tex_j2k` (its checker a lossy JP2 file: 9/7, ICT, two quality
+    layers) through K1, bit for bit with `cbox_tex_j2k_ref` (PIL's decode
+    of that file in a PNG), and `env_sphere_j2k` (its projector image a
+    reversible J2K codestream: 5/3, RCT, four tiles with a tile offset,
+    PCRL, precincts) through K2, bit for bit with `env_sphere_j2k_ref`.
+    Returns each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:

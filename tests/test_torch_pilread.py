@@ -187,7 +187,7 @@ PLUGINS = {
     "BUFR": "refused", "CUR": "decoded", "PCX": "decoded", "DCX": "decoded",
     "DDS": "decoded", "EPS": "refused", "FITS": "decoded", "FLI": "decoded",
     "FTEX": "decoded", "GBR": "decoded", "GRIB": "refused", "HDF5": "refused",
-    "JPEG2000": "7e.7", "ICNS": "decoded", "ICO": "decoded", "IM": "decoded",
+    "JPEG2000": "decoded", "ICNS": "decoded", "ICO": "decoded", "IM": "decoded",
     "IMT": "decoded", "IPTC": "decoded", "MCIDAS": "decoded",
     "MPEG": "refused", "TIFF": "decoded", "MSP": "decoded", "PCD": "decoded",
     "PIXAR": "decoded", "PSD": "decoded", "QOI": "decoded", "SGI": "decoded",

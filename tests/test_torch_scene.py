@@ -280,10 +280,11 @@ def _j2k_exr():
 
 OUT_OF_SLICE = {
     # an image under a .exr name that OpenCV decodes and the port does not
-    # yet: a JPEG 2000 codestream (slice 7e.7; until slice 7e.3b this case
-    # named a YCbCr JPEG-in-TIFF, which OpenCV's TIFF reader now decodes)
+    # yet: a JPEG 2000 codestream (slice 7e.7b, OpenCV's route; PIL's
+    # route is ported in 7e.7a; until slice 7e.3b this case named a YCbCr
+    # JPEG-in-TIFF, which OpenCV's TIFF reader now decodes)
     "ycc_exr_image": (lambda: _edit(lambda s: s["materials"][0][
-        "param"].update(color={"fn": _j2k_exr()})), "7e.7"),
+        "param"].update(color={"fn": _j2k_exr()})), "7e.7b"),
 }
 
 # features out of the slice before slice 7e.1 (a WebP image), before slice

@@ -577,6 +577,41 @@ def env_sphere_ojpeg_ref(res=512, sub_div=40):
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_OJPEG_REF)
 
 
+# slice 7e.7a (tools/gen_torch_j2k.py): the checker as a lossy JP2 file
+# (9/7, ICT, two quality layers), and the projector's RGB as a reversible
+# J2K codestream (5/3, RCT, four tiles with a tile offset, PCRL,
+# precincts); the lossy one decodes to other pixels than its PNG, so each
+# scene is held against one reading PIL's decode of its file from a PNG.
+CBOX_TEX_J2K = {"checker.png": "checker_j2k.jp2"}
+CBOX_TEX_J2K_REF = {"checker.png": "checker_j2k_pil.png"}
+ENV_SPHERE_J2K = {"projector.png": "projector_j2k.j2k"}
+ENV_SPHERE_J2K_REF = {"projector.png": "projector_j2k_pil.png"}
+
+
+def cbox_tex_j2k(res=512):
+    """`cbox_tex` with its checker from a lossy JP2 file: it renders as
+    `cbox_tex_j2k_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_J2K)
+
+
+def cbox_tex_j2k_ref(res=512):
+    """`cbox_tex` with its checker read from PIL's decode of
+    checker_j2k.jp2, written as a PNG."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_J2K_REF)
+
+
+def env_sphere_j2k(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a tiled reversible J2K
+    codestream: it renders as `env_sphere_j2k_ref` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_J2K)
+
+
+def env_sphere_j2k_ref(res=512, sub_div=40):
+    """`env_sphere` with its projector image read from PIL's decode of
+    projector_j2k.j2k, written as a PNG."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_J2K_REF)
+
+
 # slice 7e.4b on OpenCV's route (tools/gen_torch_sgilog.py): sky_a as a
 # LogLuv32 TIFF named .exr, and the projector's RGB / 255 as a LogLuv24
 # TIFF named .hdr (LogLuv24 holds luminances up to 15.7, so its samples

@@ -57,6 +57,9 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
   * The SGILog TIFF files of slice 7e.4b on OpenCV's route,
     `sgilog_decodes.npz` and `vision_tpu_torch/data/sgilog_uv.npz`,
     written by `tools/gen_torch_sgilog.py` (its docstring lists them).
+  * The JPEG 2000 files of slice 7e.7a (PIL's route), `j2k_decodes.npz`
+    and the timing file `j2k_2048.jp2`, written by `tools/gen_torch_j2k.py`
+    (its docstring lists them).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1603,6 +1606,17 @@ def _sgilog_module():
     return mod
 
 
+def _j2k_module():
+    """`tools/gen_torch_j2k.py`, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_j2k", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_j2k.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _pil_module():
     """`tools/gen_torch_pil.py`, loaded by path."""
     import importlib.util
@@ -1695,6 +1709,7 @@ def main():
     write_jpeg_7e5_files(out, checker(), projector()[..., :3])
     _ojpeg_module().write_ojpeg_files(out, checker(), projector()[..., :3])
     _sgilog_module().write_sgilog_files(out)
+    _j2k_module().write_j2k_files(out, checker(), projector()[..., :3])
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

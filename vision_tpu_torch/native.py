@@ -2,12 +2,12 @@
 (`native/bvh_builder.cpp`), the OBJ parser (`csrc/mesh_io.cpp`), the
 JPEG entropy decoder (`csrc/jpeg_huff.cpp`), the serial stages of the
 OpenEXR, TIFF (SGILog among them) and GIF codecs
-(`csrc/image_codecs.cpp`) and the WebP bitstream decoders
-(`csrc/webp_codec.cpp`).
+(`csrc/image_codecs.cpp`), the WebP bitstream decoders
+(`csrc/webp_codec.cpp`) and JPEG 2000's tier-1 (`csrc/j2k_codec.cpp`).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
 `build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
-import the JAX package. At first use the five sources are compiled with
+import the JAX package. At first use the six sources are compiled with
 g++ into `vision_tpu_torch/_build/` (the tracked `native/libvision_native.so`
 is neither loaded nor rebuilt). The OBJ parser is the port's own copy of
 `native/mesh_io.cpp`'s: its vertex cache keys on the exact index triple
@@ -29,7 +29,8 @@ SOURCES = [os.path.join(_HERE, "..", "native", "bvh_builder.cpp"),
            os.path.join(_HERE, "csrc", "mesh_io.cpp"),
            os.path.join(_HERE, "csrc", "jpeg_huff.cpp"),
            os.path.join(_HERE, "csrc", "image_codecs.cpp"),
-           os.path.join(_HERE, "csrc", "webp_codec.cpp")]
+           os.path.join(_HERE, "csrc", "webp_codec.cpp"),
+           os.path.join(_HERE, "csrc", "j2k_codec.cpp")]
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lib = None
@@ -120,6 +121,8 @@ def _library():
         lib.vt_sgilog_decode.argtypes = [P, ctypes.c_int64, P, ctypes.c_int64,
                                          ctypes.c_int64, ctypes.c_int32]
         lib.vt_sgilog_decode.restype = ctypes.c_int64
+        lib.vt_j2k_t1_decode.argtypes = [P, ctypes.c_int64, P, P, P, P]
+        lib.vt_j2k_t1_decode.restype = ctypes.c_int64
         lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
         lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
@@ -435,6 +438,25 @@ def sgilog_decode(data, npixels, nrows, kind):
     done = _library().vt_sgilog_decode(buf.ctypes.data, len(data),
                                        out.ctypes.data, npixels, nrows, kind)
     return out[:nrows, :npixels], int(done)
+
+
+def j2k_t1_decode(data, info, segs, steps, out):
+    """JPEG 2000 code-blocks through tier-1 as OpenJPEG 2.5 decodes them
+    (`csrc/j2k_codec.cpp`), each written into `out` (int32 for the 5/3
+    path, float32 for the 9/7) at its offset: info int64 [n, 12] (see
+    `vt_j2k_t1_decode`), segs int64 (length, passes) pairs, steps float32
+    [n]. Returns None, or the index of the first code-block OpenJPEG
+    refuses."""
+    buf = _bytes(data + b"\0\0")
+    info = np.ascontiguousarray(info, np.int64)
+    segs = np.ascontiguousarray(segs, np.int64)
+    steps = np.ascontiguousarray(steps, np.float32)
+    assert out.flags.c_contiguous and out.itemsize == 4
+    n = len(info)
+    done = _library().vt_j2k_t1_decode(buf.ctypes.data, n, info.ctypes.data,
+                                       segs.ctypes.data, steps.ctypes.data,
+                                       out.ctypes.data)
+    return None if done == n else int(done)
 
 
 _WEBP_ERRORS = {

@@ -68,7 +68,8 @@ refuses:
 
 OpenCV's JPEG 2000 and AVIF readers under a .hdr / .exr name, and the
 formats PIL opens that `pilread.py` does not decode yet raise
-NotImplementedError naming their item of ROADMAP queue A.
+NotImplementedError naming their item of ROADMAP queue A (JPEG 2000
+under any other name is decoded by `j2k.py`).
 """
 from __future__ import annotations
 
@@ -149,8 +150,8 @@ def _read_opencv(data, name):
     (`webp.decode_opencv`); BMP, Sun raster, PNM, PFM, PAM and GIF files
     by OpenCV's own readers (`cvread`), TIFF by its libtiff reader
     (`cvtiff`). OpenCV's JPEG 2000 and AVIF readers raise
-    NotImplementedError (7e.7, 7e.8); content OpenCV cannot read raises
-    ValueError."""
+    NotImplementedError (7e.7b, or 7e.7c for HTJ2K; 7e.8); content OpenCV
+    cannot read raises ValueError."""
     if data[:2] == b"#?":
         return read_hdr(data)
     if _is_exr(data):
@@ -180,9 +181,15 @@ def _read_opencv(data, name):
             return _from_cv(cvread.read_pam(data))
     other = next((n for magic, n in _OPENCV_OTHER if data.startswith(magic)),
                  "AVIF" if _is_avif(data) else None)
+    if other == "JPEG 2000":
+        from . import j2k
+        if j2k.uses_ht(data):
+            raise _not_ported(f"'{name}': decoding HTJ2K code-blocks", "7e.7c")
+        raise _not_ported(f"'{name}': decoding JPEG 2000 files as OpenCV "
+                          "does", "7e.7b")
     if other is not None:
         raise _not_ported(f"'{name}': decoding {other} files as OpenCV does",
-                          "7e.7" if other == "JPEG 2000" else "7e.8")
+                          "7e.8")
     raise ValueError(f"'{name}': not a format OpenCV (the JAX package's "
                      "reader for .hdr / .exr names) reads")
 

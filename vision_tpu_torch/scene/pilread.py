@@ -19,7 +19,8 @@ refusal. `read` walks the same order (`_PLUGINS`) and returns uint8
     it and refuses it (its header, its data, or a handler PIL has not here:
     EPS without Ghostscript, the BUFR, GRIB and HDF5 stubs, MPEG, WMF);
   * NotImplementedError naming ROADMAP queue A's item where PIL decodes
-    a format this package does not yet: 7e.7 (JPEG 2000) and 7e.8 (AVIF).
+    a format this package does not yet: 7e.8 (AVIF), and JPEG 2000's
+    HTJ2K code-blocks (7e.7c).
 
 Decoded here, each as its plugin and its decoder in libImaging read it,
 then through `convert("RGB")` of the mode it gives (`_rgb`): PNM and PFM
@@ -33,7 +34,8 @@ and palettes, BLP2 palettes and PIL's own Python DXT1 / 3 / 5 decoders),
 FLI / FLC (the first frame, FliDecode.c in `csrc/image_codecs.cpp`),
 FITS (raw and gzip tiles), FTEX, GBR, IMT, IPTC, McIdas, PhotoCD (PIL's
 PhotoYCC tables), PIXAR and XV thumbnails. PNG, JPEG, BMP, TIFF, GIF,
-WebP and TGA go to their readers in `imageio.py` and `webp.py`. Opened by
+WebP and TGA go to their readers in `imageio.py` and `webp.py`, JPEG
+2000 (and ICNS's JPEG 2000 icons) to `j2k.py`. Opened by
 path, PIL maps raw pixels of modes L, P, I;16 and the like from the file
 (`_mapped`): the whole image must lie in it.
 """
@@ -518,9 +520,9 @@ def read_icns(data):
     """An Apple icon as IcnsImagePlugin reads it: the largest size with a
     resource PIL knows; a PNG resource as PNG (its own size, if one the
     file lists), else the packed RGB planes (the mask, checked, becomes
-    alpha, which convert("RGB") drops). JPEG 2000 resources are ROADMAP
-    7e.7."""
-    from . import imageio
+    alpha, which convert("RGB") drops); a JPEG 2000 resource through
+    `j2k.read_icns_resource`."""
+    from . import imageio, j2k
     if len(data) < 8:
         raise _PassOn
     filesize = _u32(data, 4, ">")
@@ -562,7 +564,8 @@ def read_icns(data):
                 out["RGBA"] = imageio.read_png(data[start:])
             elif sig.startswith((b"\xffO\xffQ", b"\r\n\x87\n")) or \
                     sig == b"\0\0\0\x0cjP  \r\n\x87\n":
-                raise _later("JPEG 2000 icon resources in ICNS", "7e.7")
+                out["RGBA"] = j2k.read_icns_resource(
+                    data[start:start + length])
             else:
                 raise _refused("ICNS", "with an icon resource of another "
                                "format")
@@ -2435,6 +2438,11 @@ def _webp(data, name):
     return webp.decode(data, name)[0]
 
 
+def _jpeg2000(data, name):
+    from . import j2k
+    return j2k.read(data)
+
+
 def _tga(data, name):
     from . import imageio
     if imageio._tga_header(data) is None:
@@ -2490,8 +2498,7 @@ _PLUGINS = (
      _stub("GRIB")),
     ("HDF5", lambda p: p.startswith(b"\x89HDF\r\n\x1a\n"), _stub("HDF5")),
     ("JPEG2000", lambda p: p.startswith(
-        (b"\xffO\xffQ", b"\0\0\0\x0cjP  \r\n\x87\n")),
-     _not_yet("JPEG 2000", "7e.7")),
+        (b"\xffO\xffQ", b"\0\0\0\x0cjP  \r\n\x87\n")), _jpeg2000),
     ("ICNS", lambda p: p.startswith(b"icns"), _plain(read_icns)),
     ("ICO", lambda p: p.startswith(b"\0\0\1\0"), _plain(read_ico)),
     ("IM", None, _plain(read_im)),
