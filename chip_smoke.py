@@ -165,27 +165,35 @@ phase, one JSON line each:
     components; ICNS JPEG 2000 icons) against PIL's decodes
     (j2k_decodes.npz), the `j2k_bad_*` files PIL refuses refused, and the
     committed 2048^2 9/7 file `j2k_2048.jp2` against its decode's sha256,
-    timed.
+    timed. Slice 7e.7b: every JPEG 2000 file of j2k_cv_decodes.npz under a
+    .exr name (OpenJPEG's whole-image decode, JP2's palette, cmap and
+    cdef boxes, OpenCV's colour-space rules, 9-16-bit samples, sYCC, POC
+    stops) against the pip cv2's decode, the ones it refuses refused, and
+    `j2k_2048.jp2` under a .exr name against its decode's sha256, timed.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
-    7e.6b, 7e.5, 7e.4b and 7e.7a (`phase_image_twins`): `cbox_tex_files`,
+    7e.6b, 7e.5, 7e.4b, 7e.7a and 7e.7b (`phase_image_twins`): `cbox_tex_files`,
     `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
     `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
-    `cbox_tex_smooth`, `cbox_tex_ojpeg`, `cbox_sky_logluv` and
-    `cbox_tex_j2k` through K1, `env_sphere_files`, `env_sphere_webp`,
-    `env_sphere_cv`, `env_sphere_pil`, `env_sphere_cvgif`,
-    `env_sphere_zstd`, `env_sphere_rare`, `env_sphere_lossless`,
-    `env_sphere_ojpeg`, `env_sphere_luv24` and `env_sphere_j2k` through
+    `cbox_tex_smooth`, `cbox_tex_ojpeg`, `cbox_sky_logluv`,
+    `cbox_tex_j2k` and `cbox_sky_j2kcv` through K1, `env_sphere_files`,
+    `env_sphere_webp`, `env_sphere_cv`, `env_sphere_pil`,
+    `env_sphere_cvgif`, `env_sphere_zstd`, `env_sphere_rare`,
+    `env_sphere_lossless`, `env_sphere_ojpeg`, `env_sphere_luv24`,
+    `env_sphere_j2k` and `env_sphere_j2kcv` through
     K2 at 512^2, their images read from TIFF
     (LZW, BigTIFF, ZSTD, old-style JPEG, SGILog LogLuv32 and LogLuv24), GIF,
     JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
-    JPEG 2000 (lossy JP2, tiled J2K),
+    JPEG 2000 (lossy JP2, tiled J2K; a 16-bit lossless JP2 named .exr and
+    a 9/7 JP2 named .hdr on OpenCV's route),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s, `cbox_tex_dds`'s and `cbox_tex_j2k`'s
     originals read PIL's decode of their lossy checker,
     `env_sphere_j2k`'s PIL's decode of its projector, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
-    `cbox_sky_bigtiff`'s, `env_sphere_cvgif`'s, `cbox_sky_logluv`'s and
-    `env_sphere_luv24`'s the OpenCV decode of their image).
+    `cbox_sky_bigtiff`'s, `env_sphere_cvgif`'s, `cbox_sky_logluv`'s,
+    `env_sphere_luv24`'s, `cbox_sky_j2kcv`'s and `env_sphere_j2kcv`'s the
+    OpenCV decode of their image), with the same launch counts as a twin
+    rendered here.
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -2250,7 +2258,7 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 def phase_image_files(card):
     """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes) and 7e.7a on the card's host: every file of
+    7e.4b (both routes), 7e.7a and 7e.7b on the card's host: every file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2321,7 +2329,13 @@ def phase_image_files(card):
     `j2k_bad_*` files PIL refuses refused (ValueError), and the committed
     2048^2 file `j2k_2048.jp2` (9/7, six resolutions, 64 x 64
     code-blocks, about 0.5 bits a pixel; the card's machine has no
-    encoder) against its decode's sha256, timed; no image library
+    encoder) against its decode's sha256, timed; slice 7e.7b: every file
+    of j2k_cv_decodes.npz (slice 7e.7a's JPEG 2000 files and the `j2kcv_*`
+    ones: 9-16-bit samples, palettes with cmap and cdef boxes, sYCC, grey
+    colr boxes over 2-4 components, tiles at the origin, POC stops; the
+    twins' files) copied under a .exr name against the pip cv2's decode,
+    the ones it refuses refused (ValueError), and `j2k_2048.jp2` under a
+    .exr name against its decode's sha256, timed; no image library
     imported."""
     import hashlib
     import tempfile
@@ -2481,6 +2495,46 @@ def phase_image_files(card):
                 raised = str(e)
             check(raised is not None and what in raised,
                   f"{os.path.basename(path)}: {raised!r}")
+    # slice 7e.7b: JPEG 2000 under a .exr name, OpenCV's route
+    dec = np.load(os.path.join(assets, "j2k_cv_decodes.npz"))
+    refused_cv = set(dec[":refused"].tolist())
+    files = sorted([k for k in dec.files if ":" not in k] + list(refused_cv))
+    check({"sky_a_j2kcv.exr", "projector_j2kcv.hdr", "j2kcv_pal_cdef.jp2",
+           "j2kcv_sycca16.jp2", "j2kcv_grey16.j2k", "j2kcv_poc_stop_c1.j2k",
+           "j2k_poc_reduced.j2k", "j2k_p3.jp2"} <= set(files)
+          and {"j2k_signed_l.j2k", "j2kcv_bad_tnsot1.j2k"} <= refused_cv,
+          "j2k_cv_decodes.npz's files")
+    exr = os.path.join(built_dir, "j2k.exr")
+    for fn in [*files, "j2k_2048.jp2"]:
+        with open(os.path.join(assets, fn), "rb") as f:
+            data = f.read()
+        with open(exr, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        try:
+            got, got_kind = imageio.read_image(exr)
+        except ValueError as e:
+            got, got_kind = None, str(e)
+        seconds = time.perf_counter() - t0
+        if fn in refused_cv:
+            emit(dict(phase="image_file", file=fn, name="j2k.exr",
+                      card=card, seconds=seconds, refused=got is None))
+            check(got is None, f"{fn} under a .exr name: {got_kind!r}")
+            continue
+        check(got is not None and got_kind == "hdr", f"{fn}: {got_kind!r}")
+        if fn == "j2k_2048.jp2":
+            rec = _image_file_rec(fn, got[:128, :128], dec[fn + ":corner"],
+                                  seconds, card, got_kind)
+            rec.update(shape=list(got.shape), timing_file=True,
+                       sha256_equal=hashlib.sha256(got.tobytes()).digest()
+                       == dec[fn + ":sha256"].tobytes())
+        else:
+            rec = _image_file_rec(fn, got, dec[fn], seconds, card, got_kind)
+        rec.update(name="j2k.exr")
+        emit(rec)
+        check(rec["bit_equal"] and rec["max_abs_diff"] == 0
+              and rec.get("sha256_equal", True), f"{fn} {rec}")
+    os.remove(exr)
     for fn in built:
         os.remove(os.path.join(built_dir, fn))
     os.rmdir(built_dir)
@@ -2535,12 +2589,17 @@ IMAGE_TWINS = (
     ("cbox_tex_j2k", "cbox_tex_j2k", "dense_isect", "cbox_tex_j2k_ref"),
     ("env_sphere_j2k_ref", "env_sphere_j2k_ref", "packet_isect", None),
     ("env_sphere_j2k", "env_sphere_j2k", "packet_isect",
-     "env_sphere_j2k_ref"))
+     "env_sphere_j2k_ref"),
+    ("cbox_sky_j2kcv_ref", "cbox_sky_j2kcv_ref", "dense_isect", None),
+    ("cbox_sky_j2kcv", "cbox_sky_j2kcv", "dense_isect", "cbox_sky_j2kcv_ref"),
+    ("env_sphere_j2kcv_ref", "env_sphere_j2kcv_ref", "packet_isect", None),
+    ("env_sphere_j2kcv", "env_sphere_j2kcv", "packet_isect",
+     "env_sphere_j2kcv_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
     """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes) and 7e.7a through the kernels, at 512^2 and the seeds of
+    7e.4b (both routes), 7e.7a and 7e.7b through the kernels, at 512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2591,8 +2650,15 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     layers) through K1, bit for bit with `cbox_tex_j2k_ref` (PIL's decode
     of that file in a PNG), and `env_sphere_j2k` (its projector image a
     reversible J2K codestream: 5/3, RCT, four tiles with a tile offset,
-    PCRL, precincts) through K2, bit for bit with `env_sphere_j2k_ref`.
-    Returns each render's launch counts."""
+    PCRL, precincts) through K2, bit for bit with `env_sphere_j2k_ref`;
+    slice 7e.7b: `cbox_sky_j2kcv` (sky_a times 1600 as a lossless 5/3
+    16-bit JP2 named .exr) through K1, bit for bit with
+    `cbox_sky_j2kcv_ref` (the pip cv2's decode in a FLOAT OpenEXR file),
+    and `env_sphere_j2kcv` (its projector image an 8-bit 9/7 JP2 named
+    .hdr) through K2, bit for bit with `env_sphere_j2kcv_ref` (the pip
+    cv2's decode in a PFM). A twin whose reference is rendered here has
+    its reference's launch counts too. Returns each render's launch
+    counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:
@@ -2608,9 +2674,14 @@ def phase_image_twins(vt, modules, scenes, originals, card):
                            img, renders[ref])),
                        max_abs_diff_to_original=float(
                            np.abs(img - renders[ref]).max()))
+        if ref in per_render:
+            rec.update(launches_equal_to_original=rec["launches"]
+                       == per_render[ref])
         emit(rec)
         check(ref is None or rec["bit_equal_to_original"],
               f"{name} against {ref}")
+        check(rec.get("launches_equal_to_original", True),
+              f"{name}'s launches against {ref}'s")
         check(all(rec["launches"][f"{kernel}.{k}"] > 0
                   for k in ("closest", "anyhit")), f"{name} {rec['launches']}")
         per_render[name] = rec["launches"]

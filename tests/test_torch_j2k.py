@@ -13,7 +13,8 @@ loader gets it under any name but .hdr / .exr: `PIL.Image.open(p)
     ICC and unknown colour spaces; the `j2k_bad_*` files refused by both.
   * 300 seeded byte edits and cuts, each with PIL's outcome (an edit that
     sets the HT code-block bit raises naming 7e.7c).
-  * ICNS's JPEG 2000 icons; HTJ2K and OpenCV's route naming their items;
+  * ICNS's JPEG 2000 icons; HTJ2K naming its item, OpenCV's route giving
+    the pip cv2's decode (slice 7e.7b, `tests/test_torch_j2k_cv.py`);
     `texture.load_image` against the JAX package's; the 2048^2 timing
     file; the twins `cbox_tex_j2k` (K1) / `env_sphere_j2k` (K2)."""
 import hashlib
@@ -192,12 +193,15 @@ def test_htj2k_names_7e7c(tmp_path, name):
 @pytest.mark.parametrize("fn", ["j2k_rgb_rev.j2k", "checker_j2k.jp2"])
 def test_opencvs_route_names_7e7b(tmp_path, fn):
     """A JPEG 2000 file under a .exr name goes to OpenCV's reader by the
-    JAX package's rule: slice 7e.7b."""
+    JAX package's rule (slice 7e.7b, `cvj2k`): the pip cv2's decode as
+    `j2k_cv_decodes.npz` holds it, not PIL's."""
     p = tmp_path / "x.exr"
     with open(os.path.join(ASSETS, fn), "rb") as f:
         p.write_bytes(f.read())
-    with pytest.raises(NotImplementedError, match=r"7e\.7b"):
-        tio.read_image(str(p))
+    got, kind = tio.read_image(str(p))
+    assert kind == "hdr"
+    want = np.load(os.path.join(ASSETS, "j2k_cv_decodes.npz"))[fn]
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("fn", FILES[::4] + ["checker_j2k.jp2",
@@ -262,7 +266,7 @@ def test_twin_scenes_render_as_their_references(name):
 
 def test_7e7_is_left_for_opencvs_route_only():
     """No module of the port names the whole of 7e.7 any more: PIL's route
-    decodes (7e.7a); OpenCV's route is 7e.7b, HTJ2K 7e.7c."""
+    decodes (7e.7a), and so does OpenCV's (7e.7b); HTJ2K is 7e.7c."""
     import pathlib
     import re
     import vision_tpu_torch

@@ -269,22 +269,31 @@ def _env(fn):
 
 
 def _j2k_exr():
-    """A JPEG 2000 codestream (its SOC and SIZ markers) under a .exr name:
+    """A JPEG 2000 codestream of HT code-blocks (Part 15: its COD's
+    code-block style, `tools/gen_torch_j2k.py` `_ht`) under a .exr name:
     OpenCV's JPEG 2000 reader by the JAX package's rule."""
+    import importlib.util
     import tempfile
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_j2k_scene", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "..", "tools", "gen_torch_j2k.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    with open(asset("j2k_rgb_rev.j2k"), "rb") as f:
+        data = gen._ht(f.read())
     p = os.path.join(tempfile.mkdtemp(), "j2k.exr")
     with open(p, "wb") as f:
-        f.write(b"\xffO\xffQ\x00\x29" + bytes(39))
+        f.write(data)
     return p
 
 
 OUT_OF_SLICE = {
     # an image under a .exr name that OpenCV decodes and the port does not
-    # yet: a JPEG 2000 codestream (slice 7e.7b, OpenCV's route; PIL's
-    # route is ported in 7e.7a; until slice 7e.3b this case named a YCbCr
-    # JPEG-in-TIFF, which OpenCV's TIFF reader now decodes)
+    # yet: an HTJ2K codestream (slice 7e.7c; JPEG 2000 of Part 1 is ported
+    # on both routes, 7e.7a and 7e.7b; until slice 7e.7b this case named a
+    # Part 1 codestream, and until slice 7e.3b a YCbCr JPEG-in-TIFF)
     "ycc_exr_image": (lambda: _edit(lambda s: s["materials"][0][
-        "param"].update(color={"fn": _j2k_exr()})), "7e.7b"),
+        "param"].update(color={"fn": _j2k_exr()})), "7e.7c"),
 }
 
 # features out of the slice before slice 7e.1 (a WebP image), before slice
@@ -357,7 +366,7 @@ BVH_SCENES = {
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
                          + sorted(PORTED))
 def test_out_of_slice_raises(name):
-    """A feature outside the ported slices (a JPEG 2000 codestream under a
+    """A feature outside the ported slices (an HTJ2K codestream under a
     .exr name, which OpenCV's JPEG 2000 reader decodes) raises NotImplementedError
     naming its slice; the two scenes of
     BVH_SCENES, out of the slice before slices 2 and 3, load and carry the

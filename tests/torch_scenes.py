@@ -359,10 +359,12 @@ def env_sphere_webp(res=512, sub_div=40):
 ENV_SPHERE_CV = {"sky_a.hdr": "sky_a_pfm.hdr", "sky_b.hdr": "sky_b_deep.exr"}
 
 
-def _cbox_sky_file(res, fn):
+def _cbox_sky_file(res, fn, scale=None):
     s = cbox_sky(res)
-    s["light_sampler"]["param"]["lights"][0]["param"]["color"]["fn"] = \
-        asset(fn)
+    light = s["light_sampler"]["param"]["lights"][0]["param"]
+    light["color"]["fn"] = asset(fn)
+    if scale is not None:
+        light["scale"] = scale
     return s
 
 
@@ -644,6 +646,40 @@ def env_sphere_luv24_ref(res=512, sub_div=40):
     read from a PFM file named .hdr."""
     return _env_sphere_projector(res, sub_div, "projector_luv24_pfm.hdr",
                                  40.0)
+
+
+# slice 7e.7b (tools/gen_torch_j2k_cv.py): sky_a times 1600, rounded, as a
+# lossless 5/3 16-bit RGB JP2 named .exr (OpenCV keeps its 16-bit samples,
+# so the sky's scale of 3 is divided by 1600), and the projector's RGB as
+# an 8-bit 9/7 JP2 named .hdr (0-255 samples: the projector's scale
+# divided by 255). Each scene is held against one reading the pip cv2's
+# decode of its file from a FLOAT OpenEXR file or a PFM named .hdr.
+SKY_J2KCV_SCALE = 3.0 / 1600
+
+
+def cbox_sky_j2kcv(res=512):
+    """`cbox_sky` lit by sky_a as a lossless 16-bit JP2 named .exr: it
+    renders as `cbox_sky_j2kcv_ref` does."""
+    return _cbox_sky_file(res, "sky_a_j2kcv.exr", SKY_J2KCV_SCALE)
+
+
+def cbox_sky_j2kcv_ref(res=512):
+    """`cbox_sky_j2kcv` lit by the pip cv2's decode of sky_a_j2kcv.exr,
+    written as an uncompressed FLOAT OpenEXR file."""
+    return _cbox_sky_file(res, "sky_a_j2kcv_ref.exr", SKY_J2KCV_SCALE)
+
+
+def env_sphere_j2kcv(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a 9/7 JP2 named .hdr
+    (0-255 samples, the projector's scale divided by 255): it renders as
+    `env_sphere_j2kcv_ref` does."""
+    return _env_sphere_projector(res, sub_div, "projector_j2kcv.hdr")
+
+
+def env_sphere_j2kcv_ref(res=512, sub_div=40):
+    """`env_sphere_j2kcv` with the pip cv2's decode of its JP2 file read
+    from a PFM file named .hdr."""
+    return _env_sphere_projector(res, sub_div, "projector_j2kcv_pfm.hdr")
 
 
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)

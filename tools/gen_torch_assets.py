@@ -60,6 +60,9 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
   * The JPEG 2000 files of slice 7e.7a (PIL's route), `j2k_decodes.npz`
     and the timing file `j2k_2048.jp2`, written by `tools/gen_torch_j2k.py`
     (its docstring lists them).
+  * The JPEG 2000 files of slice 7e.7b (OpenCV's route) and
+    `j2k_cv_decodes.npz`, written by `tools/gen_torch_j2k_cv.py` (its
+    docstring lists them).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1606,12 +1609,12 @@ def _sgilog_module():
     return mod
 
 
-def _j2k_module():
-    """`tools/gen_torch_j2k.py`, loaded by path."""
+def _j2k_module(name="gen_torch_j2k"):
+    """`tools/gen_torch_j2k.py` (or `name`.py), loaded by path."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "vt_gen_torch_j2k", os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "gen_torch_j2k.py"))
+        "vt_" + name, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1710,6 +1713,8 @@ def main():
     _ojpeg_module().write_ojpeg_files(out, checker(), projector()[..., :3])
     _sgilog_module().write_sgilog_files(out)
     _j2k_module().write_j2k_files(out, checker(), projector()[..., :3])
+    _j2k_module("gen_torch_j2k_cv").write_j2k_cv_files(
+        out, sky("a"), projector()[..., :3])
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

@@ -540,11 +540,16 @@ class J2kWriter:
     """A codestream of seeded random coefficients. `header` is the main
     header's markers after SIZ (COD, QCD and the rest, bytes); `bits`
     bounds each component's magnitudes; `roi` (comp -> shift) lifts a
-    rectangle of each band's coefficients by the shift."""
+    rectangle of each band's coefficients by the shift. `coefs`, where
+    given, takes the place of the random ones: (comp, resno, band,
+    code-block) -> the code-block's coefficients
+    (`tools/gen_torch_j2k_cv.py` `lossless_coefs`)."""
 
     def __init__(self, w, h, comps, header, seed, x0=0, y0=0, tile=None,
                  tile_off=(0, 0), bits=5, roi=None, layers_split=False,
-                 sop=False, eph=False, ppm=False, ppt=False, parts=1):
+                 sop=False, eph=False, ppm=False, ppt=False, parts=1,
+                 coefs=None):
+        self.coefs = coefs
         self.rng = np.random.default_rng(seed)
         self.main = (b"\xffO" + siz(w, h, comps, x0, y0, tile, tile_off) +
                      header)
@@ -589,7 +594,9 @@ class J2kWriter:
                                 if cw <= 0 or ch <= 0:
                                     coded[(c, resno, bi, pi_, k)] = (0, [], s)
                                     continue
-                                coef = self._coefs(c, b, cw, ch)
+                                coef = self._coefs(c, b, cw, ch) if \
+                                    self.coefs is None else \
+                                    self.coefs(c, resno, b, cb)
                                 K, segs = t1_encode(coef, b.bandno, sty)
                                 coded[(c, resno, bi, pi_, k)] = (K, segs, s)
             state = {}

@@ -60,16 +60,17 @@ refuses:
     0), or luminance-chroma converted, or Y replicated.
   * Under a .hdr / .exr name, OpenCV's own BMP, Sun raster, PNM, PFM,
     PAM and GIF readers and its CMYK / YCCK JPEG conversion
-    (`cvread.py`), and its TIFF reader over libtiff (`cvtiff.py`).
+    (`cvread.py`), its TIFF reader over libtiff (`cvtiff.py`), and its
+    JPEG 2000 reader over OpenJPEG's whole-image API (`cvj2k.py`).
   * Under any other name, the plugins of PIL tried in PIL's order, and
     the small formats of PIL's own plugins (`pilread.py`).
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-OpenCV's JPEG 2000 and AVIF readers under a .hdr / .exr name, and the
-formats PIL opens that `pilread.py` does not decode yet raise
-NotImplementedError naming their item of ROADMAP queue A (JPEG 2000
-under any other name is decoded by `j2k.py`).
+OpenCV's AVIF reader under a .hdr / .exr name, JPEG 2000's HTJ2K
+code-blocks under any name, and the formats PIL opens that `pilread.py`
+does not decode yet raise NotImplementedError naming their item of
+ROADMAP queue A (JPEG 2000 under any other name is decoded by `j2k.py`).
 """
 from __future__ import annotations
 
@@ -82,7 +83,7 @@ import zlib
 import numpy as np
 
 from .. import native
-from . import cvread, cvtiff, ojpeg, pilread, tiffdir, webp
+from . import cvj2k, cvread, cvtiff, j2k, ojpeg, pilread, tiffdir, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -120,9 +121,10 @@ def _read_pil(data, name):
     return pilread.read(data, name)
 
 
-# magic numbers of the formats OpenCV's own readers take that this module
-# does not decode under a .hdr / .exr name (ROADMAP 7e.3b)
-_OPENCV_OTHER = ((b"\0\0\0\x0cjP  ", "JPEG 2000"), (b"\xffO\xffQ", "JPEG 2000"))
+# the signatures OpenCV's JPEG 2000 readers take: a JP2 signature box
+# (OPJ_CODEC_JP2) and a bare codestream's SOC SIZ (OPJ_CODEC_J2K), both
+# decoded by `cvj2k` but for HTJ2K code-blocks
+_J2K_SIGNATURES = (b"\0\0\0\x0cjP  \r\n\x87\n", b"\xffO\xffQ")
 
 
 def _is_avif(data):
@@ -149,9 +151,9 @@ def _read_opencv(data, name):
     OpenCV's own conversion; a WebP file as OpenCV's libwebp decodes it
     (`webp.decode_opencv`); BMP, Sun raster, PNM, PFM, PAM and GIF files
     by OpenCV's own readers (`cvread`), TIFF by its libtiff reader
-    (`cvtiff`). OpenCV's JPEG 2000 and AVIF readers raise
-    NotImplementedError (7e.7b, or 7e.7c for HTJ2K; 7e.8); content OpenCV
-    cannot read raises ValueError."""
+    (`cvtiff`), JPEG 2000 by its OpenJPEG reader (`cvj2k`). HTJ2K
+    code-blocks and OpenCV's AVIF reader raise NotImplementedError (7e.7c,
+    7e.8); content OpenCV cannot read raises ValueError."""
     if data[:2] == b"#?":
         return read_hdr(data)
     if _is_exr(data):
@@ -179,16 +181,12 @@ def _read_opencv(data, name):
             return _from_cv(cvread.read_pfm(data))
         if data[1] == ord("7"):
             return _from_cv(cvread.read_pam(data))
-    other = next((n for magic, n in _OPENCV_OTHER if data.startswith(magic)),
-                 "AVIF" if _is_avif(data) else None)
-    if other == "JPEG 2000":
-        from . import j2k
+    if data.startswith(_J2K_SIGNATURES):
         if j2k.uses_ht(data):
             raise _not_ported(f"'{name}': decoding HTJ2K code-blocks", "7e.7c")
-        raise _not_ported(f"'{name}': decoding JPEG 2000 files as OpenCV "
-                          "does", "7e.7b")
-    if other is not None:
-        raise _not_ported(f"'{name}': decoding {other} files as OpenCV does",
+        return _from_cv(cvj2k.read_cv(data))
+    if _is_avif(data):
+        raise _not_ported(f"'{name}': decoding AVIF files as OpenCV does",
                           "7e.8")
     raise ValueError(f"'{name}': not a format OpenCV (the JAX package's "
                      "reader for .hdr / .exr names) reads")

@@ -36,6 +36,12 @@ Three layers, each as its reference runs it:
     for I;16) bits with its signed offset and rounding; sYCC through
     PIL's YCbCr -> RGB; then `convert("RGB")`.
 
+Under a .hdr / .exr name the JAX package's loader reads JPEG 2000 through
+OpenCV over OpenJPEG 2.5.3's whole-image API: `WholeImage` drives the
+same OpenJPEG layers as opj_read_header / opj_decode do (the tiles
+composed into one image, JP2's pclr / cmap / cdef applied, the colour
+space from colr), and `cvj2k.py` converts its components as OpenCV does.
+
 What PIL refuses raises ValueError (the JAX package's slot takes its
 default). ROADMAP's items raise NotImplementedError: HTJ2K code-blocks
 (Part 15: the HT code-block style or a CAP marker) name 7e.7c; Part 2's
@@ -44,6 +50,7 @@ resolutions than an earlier tile decoded name 7e.7d.
 """
 from __future__ import annotations
 
+import dataclasses
 import struct
 
 import numpy as np
@@ -317,8 +324,9 @@ class _Jp2:
         self.ihdr = None          # (w, h, numcomps, bpc)
         self.enumcs = 0
         self.has_colr = False
-        self.pclr = None          # number of channels
-        self.cmap = self.cdef = False
+        self.pclr = None          # (entries [NE, NPC] uint32, sizes, signs)
+        self.cmap = None          # [(cmp, mtyp, pcol)] a palette column
+        self.cdef = None          # [(cn, typ, asoc)]
         self.has_jp2h = False
         self.start = self._read(0)
 
@@ -465,22 +473,31 @@ class _Jp2:
             ne, npc = struct.unpack_from(">HB", p)
             if ne == 0 or ne > 1024 or npc == 0 or len(p) < 3 + npc:
                 raise _Fail("bad pclr box")
-            need = 3 + npc + ne * sum(min((((b & 0x7F) + 1) + 7) >> 3, 4)
-                                      for b in p[3:3 + npc])
-            if len(p) < need:
+            sizes = [(b & 0x7F) + 1 for b in p[3:3 + npc]]
+            widths = [min((n + 7) >> 3, 4) for n in sizes]
+            if len(p) < 3 + npc + ne * sum(widths):
                 raise _Fail("pclr box cut")
-            self.pclr = npc
+            entries, pos = [], 3 + npc
+            for _ in range(ne):
+                for n in widths:
+                    entries.append(int.from_bytes(p[pos:pos + n], "big"))
+                    pos += n
+            self.pclr = (np.array(entries, np.uint32).reshape(ne, npc),
+                         sizes, [b >> 7 for b in p[3:3 + npc]])
         elif typ == b"cmap":
-            if self.pclr is None or self.cmap or len(p) < 4 * self.pclr:
+            if self.pclr is None or self.cmap is not None or \
+                    len(p) < 4 * len(self.pclr[1]):
                 raise _Fail("bad cmap box")
-            self.cmap = True
+            self.cmap = [struct.unpack_from(">HBB", p, 4 * i)
+                         for i in range(len(self.pclr[1]))]
         elif typ == b"cdef":
-            if self.cdef or len(p) < 2:
+            if self.cdef is not None or len(p) < 2:
                 raise _Fail("bad cdef box")
             n = struct.unpack_from(">H", p)[0]
             if n == 0 or len(p) < 2 + 6 * n:
                 raise _Fail("bad cdef box")
-            self.cdef = True
+            self.cdef = [struct.unpack_from(">HHH", p, 2 + 6 * i)
+                         for i in range(n)]
 
     def color_space(self):
         """The colour space PIL's decoder gets: one of the five enumerated
@@ -558,11 +575,14 @@ _PART2 = {0xFF74: "Part 2's MCT marker", 0xFF75: "Part 2's MCC marker",
 class _Codestream:
     """opj_j2k_read_header and the tile-part loop of
     opj_j2k_read_tile_header / opj_j2k_decode_tile, over `data` from
-    `pos` (the stream runs to the end of the file, as OpenJPEG's does)."""
+    `pos` (the stream runs to the end of the file, as OpenJPEG's does).
+    `release` "2.5.3" keeps that release's one rule found to differ from
+    2.5.4's: a later SOT cut short fails the tile-part count check."""
 
-    def __init__(self, data, pos, ihdr=None):
+    def __init__(self, data, pos, ihdr=None, release="2.5.4"):
         self.d, self.pos, self.end = data, pos, len(data)
         self.ihdr = ihdr
+        self.release = release
         self.ppm = None
         self.ppm_markers = {}
         self._main_header()
@@ -933,9 +953,12 @@ class _Codestream:
         self.sot_length = 0 if self.last_part else psot - 12
         self.cur_tile = tile
 
-    def tiles(self):
+    def tiles(self, whole=False):
         """Yield each tile's index when OpenJPEG hands it to PIL, its tcp
-        holding its data; raises _Fail where OpenJPEG returns false."""
+        holding its data; raises _Fail where OpenJPEG returns false.
+        `whole`: as opj_j2k_decode_tiles, stop once as many tiles as the
+        image has were decoded."""
+        decoded = 0
         self.tcps = [self.default.copy() for _ in range(self.tw * self.th)]
         self.can_decode = False
         self.last_part = False
@@ -980,7 +1003,9 @@ class _Codestream:
                 state = self._sod()
                 if self.can_decode and not checked:
                     checked = True
-                    if self._needs_correction():
+                    # skipped where the tile declares one tile-part
+                    if self.tcps[self.cur_tile].nparts != 1 and \
+                            self._needs_correction():
                         self.can_decode = False
                         self.nparts_correction = 1
                         for t in self.tcps:
@@ -1012,9 +1037,8 @@ class _Codestream:
             yield self.cur_tile
             tcp.data = None
             self.can_decode = False
-            if self.left() == 0 and state == _NEOC:
-                continue
-            if state != _EOC_ST:
+            if state not in (_NEOC, _EOC_ST) or \
+                    (state == _NEOC and self.left()):
                 if self.left() < 2:
                     raise _Fail("stream too short after a tile")
                 m = self.marker()
@@ -1022,10 +1046,13 @@ class _Codestream:
                     self.cur_tile = 0
                     state = _EOC_ST
                 elif m != _SOT:
-                    if self.left() == 0:
-                        state = _NEOC
-                        continue
-                    raise _Fail("no SOT or EOC after a tile")
+                    if self.left():
+                        raise _Fail("no SOT or EOC after a tile")
+                    state = _NEOC
+            decoded += 1
+            if whole and (decoded == len(self.tcps) or
+                          (state == _NEOC and not self.left())):
+                return
 
     def _sod(self):
         """opj_j2k_read_sod (strict) -> the next state."""
@@ -1051,8 +1078,11 @@ class _Codestream:
         while True:
             if len(d) - pos < 2:
                 return False
-            if struct.unpack_from(">H", d, pos)[0] != _SOT or \
-                    len(d) - pos < 12:
+            if struct.unpack_from(">H", d, pos)[0] != _SOT:
+                return False
+            if len(d) - pos < 12:
+                if self.release == "2.5.3":
+                    raise _Fail("stream too short in a later SOT")
                 return False        # a stream cut here fails later, or not
             if struct.unpack_from(">H", d, pos + 2)[0] != 10:
                 raise _Fail("inconsistent SOT size")
@@ -1725,7 +1755,7 @@ def _decode_tile(cs, tileno):
     tcp = cs.tcps[tileno]
     box, comps = _tile_geometry(cs, tileno, tcp)
     _tier2(tcp, comps, box, cs)
-    planes, rds = [], []
+    planes, rds, origins = [], [], []
     for c, cp in enumerate(comps):
         # OpenJPEG inverts the wavelet up to resno_decoded, and hands on
         # that resolution's samples (the last one but where the packets
@@ -1739,6 +1769,7 @@ def _decode_tile(cs, tileno):
         planes.append(_idwt(a, cp["res"][:rd + 1], cp["tccp"].qmfbid == 0)
                       [:r.y1 - r.y0, :r.x1 - r.x0])
         rds.append(rd)
+        origins.append((r.x0, r.y0))
     if tcp.mct == 1:
         if len(comps) >= 3:
             full = [(cp["res"][-1].x1 - cp["res"][-1].x0) *
@@ -1778,7 +1809,159 @@ def _decode_tile(cs, tileno):
                     f = np.where(np.isnan(f), np.float32(lo - shift), f)
             v = np.rint(f).astype(np.int64) + shift
         out.append(v)
-    return box, out
+    return box, out, origins
+
+
+# ---------------------------------------------------------------------------
+# OpenJPEG's whole-image API (opj_read_header, opj_decode), as OpenCV's
+# Jpeg2KOpjDecoder drives it
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Component:
+    """An opj_image_comp_t after opj_decode: `data` (int64 [h, w], the
+    component's w x h samples at (x0, y0) on its own grid), its precision,
+    sign and sub-sampling."""
+
+    data: np.ndarray
+    prec: int
+    sgnd: int
+    dx: int
+    dy: int
+    x0: int
+    y0: int
+
+
+class WholeImage:
+    """opj_read_header of a JP2 file (OPJ_CODEC_JP2) or a bare codestream
+    (OPJ_CODEC_J2K): `comps` [(prec, sgnd, dx, dy)] and `size` (w, h) as
+    SIZ gives them; `decode()` is opj_decode. Raises _Fail where OpenJPEG
+    returns false (IndexError where the data runs out under the port's
+    reading)."""
+
+    def __init__(self, data):
+        self.jp2 = None
+        if data[:12] == _JP2_SIG:
+            self.jp2 = _Jp2(data)
+            if not self.jp2.has_jp2h or self.jp2.ihdr is None:
+                raise _Fail("JP2 without jp2h or ihdr")
+            if self.jp2.start is None:
+                raise _Fail("no codestream")
+            self.cs = _Codestream(data, self.jp2.start, self.jp2.ihdr,
+                                  "2.5.3")
+        else:
+            self.cs = _Codestream(data, 0, release="2.5.3")
+        self.comps = self.cs.comps
+        self.size = (self.cs.x1 - self.cs.x0, self.cs.y1 - self.cs.y0)
+
+    def decode(self):
+        """opj_jp2_decode / opj_j2k_decode -> ([Component], colour space):
+        the tiles decoded as opj_j2k_decode_tiles decodes them (it stops
+        after as many tiles as the image has), each tile-component's
+        samples at its decoded resolution placed as
+        opj_j2k_update_image_data places them (that resolution's
+        coordinates taken on the full-size grid: a component whose packets
+        stop short of its last resolution fills a corner of each tile),
+        the rest zeros; then JP2's colour boxes as
+        opj_jp2_apply_color_postprocessing applies them."""
+        cs = self.cs
+        out = []
+        for prec, sgnd, dx, dy in cs.comps:
+            x0, y0 = _cdiv(cs.x0, dx), _cdiv(cs.y0, dy)
+            out.append(Component(np.zeros((_cdiv(cs.y1, dy) - y0,
+                                           _cdiv(cs.x1, dx) - x0), np.int64),
+                                 prec, sgnd, dx, dy, x0, y0))
+        n = 0
+        for tileno in cs.tiles(whole=True):
+            _, planes, origins = _decode_tile(cs, tileno)
+            for comp, a, (rx0, ry0) in zip(out, planes, origins):
+                sy, oy, ny = _span(comp.y0, comp.data.shape[0], ry0,
+                                   a.shape[0])
+                sx, ox, nx = _span(comp.x0, comp.data.shape[1], rx0,
+                                   a.shape[1])
+                comp.data[sy:sy + ny, sx:sx + nx] = a[oy:oy + ny, ox:ox + nx]
+            n += 1
+        if not n:
+            raise _Fail("no tile decoded")
+        if self.jp2 is None:
+            return out, _UNSPECIFIED
+        return _colour_boxes(self.jp2, out), self.jp2.color_space()
+
+
+def _span(d0, dn, r0, rn):
+    """One axis of opj_j2k_update_image_data: a component's [d0, d0 + dn)
+    and a tile's decoded resolution [r0, r0 + rn) -> (the first sample
+    written, the first one read, how many)."""
+    if d0 < r0:
+        start, off = r0 - d0, 0
+        n = rn if d0 + dn >= r0 + rn else d0 + dn - r0
+    else:
+        start, off = 0, d0 - r0
+        n = rn - off if d0 + dn >= r0 + rn else dn
+    if n < 0:
+        raise _Fail("a tile outside its component")
+    return start, off, n
+
+
+def _colour_boxes(jp2, comps):
+    """opj_jp2_check_color, then pclr applied where a cmap box maps it
+    (opj_jp2_apply_pclr; a pclr box alone is dropped), then cdef's
+    channel swaps (opj_jp2_apply_cdef)."""
+    cmap = list(jp2.cmap) if jp2.pclr is not None and jp2.cmap else None
+    if jp2.cdef is not None:
+        nch = len(cmap) if cmap else len(comps)
+        for cn, _, asoc in jp2.cdef:
+            if cn >= nch or (asoc not in (0, 65535) and asoc - 1 >= nch):
+                raise _Fail("cdef names a channel past the image's")
+        if set(range(nch)) - {cn for cn, _, _ in jp2.cdef}:
+            raise _Fail("incomplete channel definitions")
+    if cmap:
+        nch = len(cmap)
+        sane, used = True, [False] * nch
+        for i, (cmp, mtyp, pcol) in enumerate(cmap):
+            if cmp >= len(comps):
+                sane = False
+            if mtyp not in (0, 1) or pcol >= nch or (used[pcol] and mtyp) \
+                    or (mtyp == 0 and pcol) or (mtyp == 1 and pcol != i):
+                sane = False
+            else:
+                used[pcol] = True
+        if any(not u and m[1] for u, m in zip(used, cmap)):
+            sane = False
+        if sane and len(comps) == 1 and not all(used):
+            # "Component mapping seems wrong. Trying to correct."
+            cmap = [(cmp, 1, i) for i, (cmp, _, _) in enumerate(cmap)]
+        if not sane:
+            raise _Fail("a cmap box OpenJPEG cannot apply")
+        entries, sizes, signs = jp2.pclr
+        top = len(entries) - 1
+        new = []
+        for i, (cmp, mtyp, pcol) in enumerate(cmap):
+            old = comps[cmp]
+            if mtyp == 0:
+                data = old.data
+            else:
+                idx = np.clip(old.data, 0, top)
+                data = entries[idx, pcol].view(np.int32).astype(np.int64)
+            new.append(dataclasses.replace(old, data=data, prec=sizes[i],
+                                           sgnd=signs[i]))
+        comps = new
+    if jp2.cdef is not None:
+        info = [list(e) for e in jp2.cdef]
+        for i, (cn, typ, asoc) in enumerate(info):
+            if cn >= len(comps) or asoc in (0, 65535):
+                continue
+            acn = asoc - 1
+            if acn >= len(comps):
+                continue
+            if cn != acn and typ == 0:
+                comps[cn], comps[acn] = comps[acn], comps[cn]
+                for e in info[i + 1:]:
+                    if e[0] == cn:
+                        e[0] = acn
+                    elif e[0] == acn:
+                        e[0] = cn
+    return comps
 
 
 # ---------------------------------------------------------------------------
@@ -1916,7 +2099,7 @@ def _decode(data, codec, mode, size):
                        np.uint16 if mode == "I;16" else np.uint8)
         meta = cs.comps
         for tileno in cs.tiles():
-            box, comps = _decode_tile(cs, tileno)
+            box, comps, _ = _decode_tile(cs, tileno)
             tx0, ty0, tx1, ty1 = box
             if tx0 >= tx1 or ty0 >= ty1 or tx0 < cs.x0 or ty0 < cs.y0 or \
                     tx1 - cs.x0 > w or ty1 - cs.y0 > h:
