@@ -170,29 +170,36 @@ phase, one JSON line each:
     cdef boxes, OpenCV's colour-space rules, 9-16-bit samples, sYCC, POC
     stops) against the pip cv2's decode, the ones it refuses refused, and
     `j2k_2048.jp2` under a .exr name against its decode's sha256, timed.
+    Slice 7e.7d: on both routes, with the files above, the files of Part
+    2's CBD, MCT, MCC and MCO markers (in the main and tile-part headers)
+    and of tiles with fewer resolutions than an earlier tile.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
-    7e.6b, 7e.5, 7e.4b, 7e.7a and 7e.7b (`phase_image_twins`): `cbox_tex_files`,
+    7e.6b, 7e.5, 7e.4b, 7e.7a, 7e.7b and 7e.7d (`phase_image_twins`):
+    `cbox_tex_files`,
     `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
     `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
     `cbox_tex_smooth`, `cbox_tex_ojpeg`, `cbox_sky_logluv`,
-    `cbox_tex_j2k` and `cbox_sky_j2kcv` through K1, `env_sphere_files`,
-    `env_sphere_webp`, `env_sphere_cv`, `env_sphere_pil`,
-    `env_sphere_cvgif`, `env_sphere_zstd`, `env_sphere_rare`,
-    `env_sphere_lossless`, `env_sphere_ojpeg`, `env_sphere_luv24`,
-    `env_sphere_j2k` and `env_sphere_j2kcv` through
+    `cbox_tex_j2k`, `cbox_sky_j2kcv` and `cbox_tex_j2kp2` through K1,
+    `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
+    `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd`,
+    `env_sphere_rare`, `env_sphere_lossless`, `env_sphere_ojpeg`,
+    `env_sphere_luv24`, `env_sphere_j2k`, `env_sphere_j2kcv` and
+    `env_sphere_j2kp2cv` through
     K2 at 512^2, their images read from TIFF
     (LZW, BigTIFF, ZSTD, old-style JPEG, SGILog LogLuv32 and LogLuv24), GIF,
     JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
-    JPEG 2000 (lossy JP2, tiled J2K; a 16-bit lossless JP2 named .exr and
-    a 9/7 JP2 named .hdr on OpenCV's route),
+    JPEG 2000 (lossy JP2, tiled J2K, a JP2 of Part 2's CBD and MCO; a
+    16-bit lossless JP2 named .exr, a 9/7 JP2 named .hdr and tiles of
+    different MCOs named .exr on OpenCV's route),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
-    run (`cbox_tex_webp`'s, `cbox_tex_dds`'s and `cbox_tex_j2k`'s
-    originals read PIL's decode of their lossy checker,
+    run (`cbox_tex_webp`'s, `cbox_tex_dds`'s, `cbox_tex_j2k`'s and
+    `cbox_tex_j2kp2`'s originals read PIL's decode of their checker,
     `env_sphere_j2k`'s PIL's decode of its projector, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
     `cbox_sky_bigtiff`'s, `env_sphere_cvgif`'s, `cbox_sky_logluv`'s,
-    `env_sphere_luv24`'s, `cbox_sky_j2kcv`'s and `env_sphere_j2kcv`'s the
-    OpenCV decode of their image), with the same launch counts as a twin
+    `env_sphere_luv24`'s, `cbox_sky_j2kcv`'s, `env_sphere_j2kcv`'s and
+    `env_sphere_j2kp2cv`'s the OpenCV decode of their image), with the
+    same launch counts as a twin
     rendered here.
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
@@ -2258,7 +2265,8 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 def phase_image_files(card):
     """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes), 7e.7a and 7e.7b on the card's host: every file of
+    7e.4b (both routes), 7e.7a, 7e.7b and 7e.7d on the card's host: every
+    file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
     BMP; TIFF and GIF, `tiny.tif` among them) and of webp_decodes.npz
@@ -2335,8 +2343,10 @@ def phase_image_files(card):
     colr boxes over 2-4 components, tiles at the origin, POC stops; the
     twins' files) copied under a .exr name against the pip cv2's decode,
     the ones it refuses refused (ValueError), and `j2k_2048.jp2` under a
-    .exr name against its decode's sha256, timed; no image library
-    imported."""
+    .exr name against its decode's sha256, timed; slice 7e.7d: Part 2's
+    files (CBD, MCT / MCC / MCO in the main and tile-part headers, tiles
+    of fewer resolutions; the twins' files) among both .npz files' and
+    the `j2k_bad_*` ones; no image library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2421,7 +2431,12 @@ def phase_image_files(card):
                                     "j2k_sty_termall.j2k",
                                     "j2k_sty_vsc.j2k", "j2k_sty_pterm.j2k",
                                     "j2k_sty_segsym.j2k", "j2k_icns.icns",
-                                    "j2k_sycc.jp2", "j2k_p3.jp2")
+                                    "j2k_sycc.jp2", "j2k_p3.jp2",
+                                    "checker_j2kp2.jp2",
+                                    "j2k_p2_cbd12.j2k",
+                                    "j2k_p2_mco_f64.jp2",
+                                    "j2k_p2_tiles_mco.j2k",
+                                    "j2k_p2_res_poc.j2k")
                 }.get(npz, ())
         check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
@@ -2434,7 +2449,9 @@ def phase_image_files(card):
                                  else "ldr")
             check(got_kind == want_kind and rec["bit_equal"]
                   and rec["max_abs_diff"] == 0, f"{fn} against its decode {rec}")
-        for fn in sorted({k.split(":")[0] for k in dec.files if ":" in k}):
+        # the timing files: a decode's sha256 and corner
+        for fn in sorted(k[:-len(":corner")] for k in dec.files
+                         if k.endswith(":corner")):
             t0 = time.perf_counter()
             got, got_kind = imageio.read_image(os.path.join(
                 built.get(fn, assets), fn))
@@ -2478,7 +2495,7 @@ def phase_image_files(card):
         j2k_bad = [(os.path.join(assets, fn), ValueError, "")
                    for fn in sorted(os.listdir(assets))
                    if fn.startswith("j2k_bad_")]
-        check(len(j2k_bad) >= 9, "the JPEG 2000 files PIL refuses")
+        check(len(j2k_bad) >= 18, "the JPEG 2000 files PIL refuses")
         refused += j2k_bad
         for path, err, what in (*refused,
                                 (avif, NotImplementedError, "7e"),
@@ -2501,8 +2518,11 @@ def phase_image_files(card):
     files = sorted([k for k in dec.files if ":" not in k] + list(refused_cv))
     check({"sky_a_j2kcv.exr", "projector_j2kcv.hdr", "j2kcv_pal_cdef.jp2",
            "j2kcv_sycca16.jp2", "j2kcv_grey16.j2k", "j2kcv_poc_stop_c1.j2k",
-           "j2k_poc_reduced.j2k", "j2k_p3.jp2"} <= set(files)
-          and {"j2k_signed_l.j2k", "j2kcv_bad_tnsot1.j2k"} <= refused_cv,
+           "j2k_poc_reduced.j2k", "j2k_p3.jp2", "projector_j2kp2cv.exr",
+           "j2k_p2_cbd12.j2k", "j2k_p2_tiles_mco.j2k",
+           "j2k_p2_res_4123.j2k"} <= set(files)
+          and {"j2k_signed_l.j2k", "j2kcv_bad_tnsot1.j2k", "j2k_p2_cbd7.j2k",
+               "j2k_bad_p2_mct_size.j2k"} <= refused_cv,
           "j2k_cv_decodes.npz's files")
     exr = os.path.join(built_dir, "j2k.exr")
     for fn in [*files, "j2k_2048.jp2"]:
@@ -2594,12 +2614,19 @@ IMAGE_TWINS = (
     ("cbox_sky_j2kcv", "cbox_sky_j2kcv", "dense_isect", "cbox_sky_j2kcv_ref"),
     ("env_sphere_j2kcv_ref", "env_sphere_j2kcv_ref", "packet_isect", None),
     ("env_sphere_j2kcv", "env_sphere_j2kcv", "packet_isect",
-     "env_sphere_j2kcv_ref"))
+     "env_sphere_j2kcv_ref"),
+    ("cbox_tex_j2kp2_ref", "cbox_tex_j2kp2_ref", "dense_isect", None),
+    ("cbox_tex_j2kp2", "cbox_tex_j2kp2", "dense_isect", "cbox_tex_j2kp2_ref"),
+    ("env_sphere_j2kp2cv_ref", "env_sphere_j2kp2cv_ref", "packet_isect",
+     None),
+    ("env_sphere_j2kp2cv", "env_sphere_j2kp2cv", "packet_isect",
+     "env_sphere_j2kp2cv_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card):
     """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes), 7e.7a and 7e.7b through the kernels, at 512^2 and the seeds of
+    7e.4b (both routes), 7e.7a, 7e.7b and 7e.7d through the kernels, at
+    512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
     GIF) and `env_sphere_webp` (checker and projector from lossless WebP
@@ -2656,7 +2683,13 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     `cbox_sky_j2kcv_ref` (the pip cv2's decode in a FLOAT OpenEXR file),
     and `env_sphere_j2kcv` (its projector image an 8-bit 9/7 JP2 named
     .hdr) through K2, bit for bit with `env_sphere_j2kcv_ref` (the pip
-    cv2's decode in a PFM). A twin whose reference is rendered here has
+    cv2's decode in a PFM); slice 7e.7d: `cbox_tex_j2kp2` (its checker a
+    JP2 whose CBD gives 9-bit samples and whose main header's MCO sets
+    offsets) through K1, bit for bit with `cbox_tex_j2kp2_ref` (PIL's
+    decode in a PNG), and `env_sphere_j2kp2cv` (its projector image four
+    tiles with different MCOs in their tile-part headers, named .exr)
+    through K2, bit for bit with `env_sphere_j2kp2cv_ref` (the pip cv2's
+    decode in a PFM). A twin whose reference is rendered here has
     its reference's launch counts too. Returns each render's launch
     counts."""
     per_render = {}

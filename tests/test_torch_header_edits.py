@@ -15,7 +15,9 @@ a file on to the next plugin where PIL's `_bitmap` raises struct.error or
 finds no pixels): a TGA whose first bytes read as a cursor directory
 decodes as PIL's TGA. And edits of restart markers inside the scans of
 Huffman-coded, arithmetic-coded and lossless files, which libjpeg
-resynchronises (ROADMAP C26)."""
+resynchronises (ROADMAP C26); and C26's tail: the segments that follow a
+file's last scan, cut by its end or wrong, which libjpeg reads in
+jpeg_finish_decompress."""
 import io
 import struct
 import warnings
@@ -277,3 +279,129 @@ def test_bitmap_plugins_hand_files_on_as_pil(tmp_path, case):
             tio.read_image(str(p))
     else:
         np.testing.assert_array_equal(tio.read_image(str(p))[0], want)
+
+
+def _tail_sources():
+    """name -> a JPEG of PIL's without its EOI: whole single-scan baseline
+    (RGB and grey) and progressive."""
+    g = np.random.default_rng(0)
+    big = g.integers(0, 256, (20, 28, 3), np.uint8)
+    out = {"baseline": _save(Image.fromarray(big), "JPEG", quality=90),
+           "grey": _save(Image.fromarray(big[..., 0]), "JPEG", quality=90),
+           "progressive": _save(Image.fromarray(big), "JPEG", quality=90,
+                                progressive=True)}
+    return {k: v[:-2] for k, v in out.items()}
+
+
+TAIL_SOURCES = _tail_sources()
+# what follows the last scan, and whether PIL keeps its image: after a
+# whole single scan libjpeg reads these in jpeg_finish_decompress, where
+# running out of data suspends (PIL keeps the image) and an error in the
+# bytes read so far refuses the file; a progressive file keeps nothing
+TAILS = [
+    ("dqt_cut", b"\xff\xdb\x00\x43\x00" + bytes(10), True),
+    ("dqt_length_only", b"\xff\xdb\x00\x43", True),
+    ("dqt_half_length", b"\xff\xdb\x00", True),
+    ("dqt_bad_id_cut", b"\xff\xdb\x00\x43\x04", False),
+    ("dqt_16bit_cut", b"\xff\xdb\x00\x43\x10", True),
+    ("dqt_short_then_eoi", b"\xff\xdb\x00\x03\x00\xff\xd9", True),
+    ("dqt_length_1", b"\xff\xdb\x00\x01", False),
+    ("dht_cut", b"\xff\xc4\x00\x1f\x00" + bytes(5), True),
+    ("dht_bad_id_cut", b"\xff\xc4\x00\x1f\x04", True),
+    ("dht_bad_id_read", b"\xff\xc4\x00\x2f\x05" + bytes(15) + b"\x02\x01\x02",
+     False),
+    ("dht_counts_past_length", b"\xff\xc4\x00\x1f\x00" + bytes([1] * 16),
+     False),
+    ("dht_length_16", b"\xff\xc4\x00\x10\x00\x00\x00", False),
+    ("dri_cut", b"\xff\xdd\x00\x04\x00", True),
+    ("dri_bad_length", b"\xff\xdd\x00\x05", False),
+    ("dac_cut", b"\xff\xcc\x00\x06\x09", True),
+    ("dac_bad_value", b"\xff\xcc\x00\x06\x00\x01", False),
+    ("dac_odd_then_eoi", b"\xff\xcc\x00\x05\x00\x10\x01\xff\xd9", False),
+    ("sof_marker_only", b"\xff\xc0", False),
+    ("sof_cut", b"\xff\xc2\x00\x11\x08", False),
+    ("jpg_cut", b"\xff\xc8\x00", False),
+    ("sos_cut", b"\xff\xda\x00\x0c\x03\x01", True),
+    ("sos_bad_length", b"\xff\xda\x00\x0b\x03", False),
+    ("sos_id_cut", b"\xff\xda\x00\x0c\x03\x07", True),
+    ("sos_length_1", b"\xff\xda\x00\x01", True),
+    ("rst", b"\xff\xd0", True),
+    ("rst_then_zero", b"\xff\xd0\x00", True),
+    ("com_cut", b"\xff\xfe\x00\x10ab", True),
+]
+
+
+@pytest.mark.parametrize("source", sorted(TAIL_SOURCES))
+@pytest.mark.parametrize("case", [t[0] for t in TAILS])
+def test_segments_after_the_last_scan_match_pil(tmp_path, source, case):
+    """C26's tail: a JPEG whose last scan is followed by a DQT, DHT, DRI,
+    DAC, frame or scan header cut by the file's end (or short, or
+    wrong), an RST, or a cut COM, in place of its EOI. After a whole
+    single scan PIL keeps its image where libjpeg runs out of data first
+    and refuses it where libjpeg meets an error in what it read (the
+    outcome recorded here); a progressive file is refused. The port
+    gives PIL's outcome and image."""
+    tail, kept = next((t, k) for n, t, k in TAILS if n == case)
+    p = str(tmp_path / "t.jpg")
+    with open(p, "wb") as f:
+        f.write(TAIL_SOURCES[source] + tail)
+    want = _pil(p)
+    assert (want is not None) == (kept and source != "progressive")
+    if want is None:
+        with pytest.raises(ValueError):
+            tio.read_image(p)
+    else:
+        np.testing.assert_array_equal(tio.read_image(p)[0], want)
+
+
+def _random_tail(g):
+    """Up to two segments of parsed or skipped markers, of right or wrong
+    lengths and ids, most cut short, some followed by an EOI."""
+    tail = b""
+    for _ in range(int(g.integers(1, 3))):
+        m = int(g.choice([0xDB, 0xC4, 0xDD, 0xCC, 0xDA, 0xC0, 0xC8, 0xDC,
+                          0xFE, 0xE1, 0xD0, 0xD9]))
+        if m == 0xDB:
+            body = bytes([int(g.choice([0, 1, 0x10, 3, 4, 0x13]))]) + bytes(
+                g.integers(1, 256, 128 if g.random() < .3 else 64, np.uint8))
+        elif m == 0xC4:
+            counts = np.zeros(16, np.uint8)
+            counts[int(g.integers(16))] = int(g.integers(0, 20))
+            body = bytes([int(g.choice([0, 1, 0x10, 0x13, 4, 0x20]))]) + \
+                bytes(counts) + bytes(g.integers(0, 256, int(counts.sum()),
+                                                 np.uint8))
+        elif m == 0xCC:
+            body = b"".join(bytes([int(g.choice([0, 1, 16, 31, 32])),
+                                   int(g.integers(256))])
+                            for _ in range(int(g.integers(1, 4))))
+        elif m == 0xDA:
+            ns = int(g.integers(1, 4))
+            body = bytes([ns]) + b"".join(bytes([int(g.integers(1, 5)), 0])
+                                          for _ in range(ns)) + b"\0\x3f\0"
+        else:
+            body = bytes(g.integers(0, 256, int(g.integers(0, 20)), np.uint8))
+        n = len(body) + 2 + (int(g.integers(-3, 4)) if g.random() < .25
+                             else 0)
+        tail += bytes([0xFF, m]) + (b"" if m in (0xD0, 0xD9) else
+                                    struct.pack(">H", max(n, 0)) + body)
+    if g.random() < .7:
+        tail = tail[:int(g.integers(1, len(tail) + 1))]
+    return tail + (b"\xff\xd9" if g.random() < .2 else b"")
+
+
+@pytest.mark.parametrize("source", sorted(TAIL_SOURCES))
+def test_random_tails_match_pil(tmp_path, source):
+    """Sixty seeded tails after the last scan (`_random_tail`): the port
+    decodes each file as PIL does, or refuses it where PIL raises."""
+    g = np.random.default_rng(sum(map(ord, source)) + 26)
+    p = str(tmp_path / "t.jpg")
+    for k in range(60):
+        with open(p, "wb") as f:
+            f.write(TAIL_SOURCES[source] + _random_tail(g))
+        want = _pil(p)
+        if want is None:
+            with pytest.raises(ValueError):
+                tio.read_image(p)
+        else:
+            np.testing.assert_array_equal(tio.read_image(p)[0], want,
+                                          err_msg=f"tail {k}")

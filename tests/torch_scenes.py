@@ -682,6 +682,41 @@ def env_sphere_j2kcv_ref(res=512, sub_div=40):
     return _env_sphere_projector(res, sub_div, "projector_j2kcv_pfm.hdr")
 
 
+# slice 7e.7d (tools/gen_torch_j2k_p2.py): the checker as a JP2 whose CBD
+# gives 9-bit samples and whose main header's MCO sets offsets, read on
+# PIL's route; the projector's RGB as four tiles with different MCOs in
+# their tile-part headers, named .exr (OpenCV's route, 0-255 samples).
+# Each scene is held against one reading the library's decode of its file
+# from a PNG or a PFM named .hdr.
+CBOX_TEX_J2KP2 = {"checker.png": "checker_j2kp2.jp2"}
+CBOX_TEX_J2KP2_REF = {"checker.png": "checker_j2kp2_pil.png"}
+
+
+def cbox_tex_j2kp2(res=512):
+    """`cbox_tex` with its checker from a JP2 of Part 2's CBD and MCO: it
+    renders as `cbox_tex_j2kp2_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_J2KP2)
+
+
+def cbox_tex_j2kp2_ref(res=512):
+    """`cbox_tex` with its checker read from PIL's decode of
+    checker_j2kp2.jp2, written as a PNG."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_J2KP2_REF)
+
+
+def env_sphere_j2kp2cv(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a tiled codestream named
+    .exr whose tiles carry different MCOs: it renders as
+    `env_sphere_j2kp2cv_ref` does."""
+    return _env_sphere_projector(res, sub_div, "projector_j2kp2cv.exr")
+
+
+def env_sphere_j2kp2cv_ref(res=512, sub_div=40):
+    """`env_sphere_j2kp2cv` with the pip cv2's decode of its file read
+    from a PFM file named .hdr."""
+    return _env_sphere_projector(res, sub_div, "projector_j2kp2cv_pfm.hdr")
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

@@ -36,7 +36,10 @@ each with PIL's decode as a PNG (`checker_j2k_pil.png`,
 `projector_j2k_pil.png`); and the timing file `j2k_2048.jp2` (2048^2
 RGB, 9/7, six resolutions, 64 x 64 code-blocks, about 0.5 bits a pixel),
 committed, as the card's machine has no encoder: the .npz keeps its
-decode's sha256 and 128 x 128 corner.
+decode's sha256 and 128 x 128 corner. Slice 7e.7d's files (Part 2's
+markers, tiles of fewer resolutions, `checker_j2kp2.jp2` and its
+`checker_j2kp2_pil.png`) come from `tools/gen_torch_j2k_p2.py`, which
+lists them.
 
 Needs PIL and numpy. The output is deterministic: running it again
 writes the same bytes.
@@ -543,13 +546,16 @@ class J2kWriter:
     rectangle of each band's coefficients by the shift. `coefs`, where
     given, takes the place of the random ones: (comp, resno, band,
     code-block) -> the code-block's coefficients
-    (`tools/gen_torch_j2k_cv.py` `lossless_coefs`)."""
+    (`tools/gen_torch_j2k_cv.py` `lossless_coefs`). `tile_headers`
+    (tile index -> marker segments, bytes) go into that tile's first
+    tile-part header, and its coding parameters follow them."""
 
     def __init__(self, w, h, comps, header, seed, x0=0, y0=0, tile=None,
                  tile_off=(0, 0), bits=5, roi=None, layers_split=False,
                  sop=False, eph=False, ppm=False, ppt=False, parts=1,
-                 coefs=None):
+                 coefs=None, tile_headers=None):
         self.coefs = coefs
+        self.tile_headers = tile_headers or {}
         self.rng = np.random.default_rng(seed)
         self.main = (b"\xffO" + siz(w, h, comps, x0, y0, tile, tile_off) +
                      header)
@@ -576,6 +582,12 @@ class J2kWriter:
     def build(self):
         cs = J._Codestream(self.main + b"\xff\x90", 0)
         cs.tcps = [cs.default.copy() for _ in range(cs.tw * cs.th)]
+        for tileno, segs in self.tile_headers.items():
+            pos = 0
+            while pos < len(segs):
+                code, n = struct.unpack_from(">HH", segs, pos)
+                cs._handler(code, segs[pos + 4:pos + 2 + n], cs.tcps[tileno])
+                pos += 2 + n
         tiles = []
         ppm_parts = []
         for tileno in range(cs.tw * cs.th):
@@ -625,10 +637,11 @@ class J2kWriter:
             cuts = [round(i * n / self.parts) for i in range(self.parts + 1)]
             for part in range(self.parts):
                 seg = range(cuts[part], cuts[part + 1])
-                hdr = b""
+                hdr = self.tile_headers.get(tileno, b"") if part == 0 \
+                    else b""
                 if self.ppt:
-                    hdr = marker(0xFF61, bytes([part]) +
-                                 b"".join(heads[i] for i in seg))
+                    hdr += marker(0xFF61, bytes([part]) +
+                                  b"".join(heads[i] for i in seg))
                 if self.ppm or self.ppt:
                     data = b"".join(bodies[i] for i in seg)
                 else:
@@ -1091,23 +1104,39 @@ def j2k_timing(n=2048):
                       quality_mode="rates")
 
 
+def _p2_module():
+    """`tools/gen_torch_j2k_p2.py`: Part 2's files (slice 7e.7d)."""
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_j2k_p2", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_j2k_p2.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def j2k_files(checker_rgb, projector_rgb):
     f = {}
     f.update(pil_files())
     f.update(writer_files())
     f.update(icns_files())
     f.update(twin_files(checker_rgb, projector_rgb))
+    p2 = _p2_module()
+    f.update(p2.p2_files(f))
+    f["checker_j2kp2.jp2"] = p2.checker_twin(checker_rgb)
     return f
 
 
 def write_j2k_files(out, checker_rgb, projector_rgb):
     """The files (`j2k_files`), the twins' PIL decodes as PNGs, the timing
     file `j2k_2048.jp2`, and `j2k_decodes.npz`: PIL's decode of each file
-    it decodes (by path), and the sha256 and 128 x 128 corner of its
-    decode of `j2k_2048.jp2` under "j2k_2048.jp2:sha256" / ":corner"."""
+    it decodes (by path), the sha256 and 128 x 128 corner of its decode
+    of `j2k_2048.jp2` under "j2k_2048.jp2:sha256" / ":corner", and Part
+    2's edit outcomes and tile-resolution runs ("p2edits:sha256",
+    "<name>:runs", `tools/gen_torch_j2k_p2.py`)."""
     from PIL import Image
     dec = {}
-    for fn, data in j2k_files(checker_rgb, projector_rgb).items():
+    files = j2k_files(checker_rgb, projector_rgb)
+    for fn, data in files.items():
         p = os.path.join(out, fn)
         with open(p, "wb") as fh:
             fh.write(data)
@@ -1117,9 +1146,13 @@ def write_j2k_files(out, checker_rgb, projector_rgb):
             assert fn.startswith("j2k_bad_"), fn
             continue
         assert not fn.startswith("j2k_bad_"), fn
-    for fn in ("checker_j2k.jp2", "projector_j2k.j2k"):
+    for fn in ("checker_j2k.jp2", "projector_j2k.j2k", "checker_j2kp2.jp2"):
         Image.fromarray(dec[fn]).save(os.path.join(
             out, fn.rsplit(".", 1)[0] + "_pil.png"))
+    p2 = _p2_module()
+    dec["p2edits:sha256"] = p2.edit_digests(files, "pil")
+    for fn, runs in p2.res_runs(files, "pil").items():
+        dec[fn + ":runs"] = runs
     timing = j2k_timing()
     with open(os.path.join(out, "j2k_2048.jp2"), "wb") as fh:
         fh.write(timing)

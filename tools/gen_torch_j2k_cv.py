@@ -30,14 +30,18 @@ a child process, `J2kWriter`, the JP2 box helpers). It writes
     (the pip cv2's decode, a FLOAT OpenEXR file), and
     `projector_j2kcv.hdr` (the projector's RGB, an 8-bit 9/7 JP2 with an
     sRGB colr box and no image offset, PIL's encoder) with
-    `projector_j2kcv_pfm.hdr` (the pip cv2's decode, a PFM);
+    `projector_j2kcv_pfm.hdr` (the pip cv2's decode, a PFM), and slice
+    7e.7d's `projector_j2kp2cv.exr` (tiles with different MCOs,
+    `tools/gen_torch_j2k_p2.py`) with `projector_j2kp2cv_pfm.hdr`;
   * `j2k_cv_decodes.npz`: the decode of every file above and of every
     committed JPEG 2000 file of slice 7e.7a (`j2k_*`, `checker_j2k.jp2`,
     `projector_j2k.j2k`), read under a .exr name; the names the pip cv2
     refuses under ":refused"; the sha256 and 128 x 128 corner of its
-    decode of `j2k_2048.jp2` under "j2k_2048.jp2:sha256" / ":corner"; and
+    decode of `j2k_2048.jp2` under "j2k_2048.jp2:sha256" / ":corner";
     under "edits:sha256" the outcome of each seeded edit of `edit_cases()`
-    (the sha256 of `_digest`, zeros where the pip cv2 refuses).
+    (the sha256 of `_digest`, zeros where the pip cv2 refuses); and slice
+    7e.7d's edit outcomes and tile-resolution runs ("p2edits:sha256",
+    "<name>:runs").
 
 Needs PIL, numpy and the pip cv2 (run in a child process, one for all the
 files: a broken file could crash it). The output is deterministic:
@@ -285,7 +289,9 @@ def twin_files(sky, projector_rgb):
                 65535).astype(np.uint16)
     return {"sky_a_j2kcv.exr": lossless_jp2(q, 16, numres=3),
             "projector_j2kcv.hdr": G.pil_encode(projector_rgb,
-                                                irreversible=True, mct=1)}
+                                                irreversible=True, mct=1),
+            "projector_j2kp2cv.exr": G._p2_module().projector_twin(
+                projector_rgb)}
 
 
 def committed_files(assets):
@@ -413,8 +419,15 @@ def write_j2k_cv_files(out, sky, projector_rgb):
          for i in range(len(edits))])
     imageio.write_exr(dec["sky_a_j2kcv.exr"],
                       os.path.join(out, "sky_a_j2kcv_ref.exr"))
-    with open(os.path.join(out, "projector_j2kcv_pfm.hdr"), "wb") as fh:
-        fh.write(pfm(dec["projector_j2kcv.hdr"]))
+    for fn in ("projector_j2kcv.hdr", "projector_j2kp2cv.exr"):
+        with open(os.path.join(out, fn.split(".")[0] + "_pfm.hdr"),
+                  "wb") as fh:
+            fh.write(pfm(dec[fn]))
+    p2 = G._p2_module()
+    p2_files = {fn: named[fn] for fn in named if fn.startswith("j2k_")}
+    keep["p2edits:sha256"] = p2.edit_digests(p2_files, "cv")
+    for fn, runs in p2.res_runs(p2_files, "cv").items():
+        keep[fn + ":runs"] = runs
     np.savez_compressed(os.path.join(out, "j2k_cv_decodes.npz"), **keep)
 
 

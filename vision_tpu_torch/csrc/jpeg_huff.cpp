@@ -323,10 +323,10 @@ int64_t walk_scan(Coder &cd, const uint8_t *data, int32_t ncomp,
       return -6;
     }
   }
-  // the scan ends at the next marker that is not a restart marker
+  // the scan ends at the next marker (a restart marker after the last
+  // MCU is one: libjpeg's marker reader passes over it)
   const uint8_t *q = cd.pos(), *end = cd.end();
-  while (q + 1 < end && !(q[0] == 0xFF && q[1] != 0x00 &&
-                          !(q[1] >= 0xD0 && q[1] <= 0xD7) && q[1] != 0xFF))
+  while (q + 1 < end && !(q[0] == 0xFF && q[1] != 0x00 && q[1] != 0xFF))
     ++q;
   return (int64_t)(q - data);
 }
@@ -786,8 +786,7 @@ int64_t decode_lossless(const uint8_t *data, int64_t len, int32_t ncomp,
     }
   }
   const uint8_t *q = b.p;
-  while (q + 1 < b.end && !(q[0] == 0xFF && q[1] != 0x00 &&
-                            !(q[1] >= 0xD0 && q[1] <= 0xD7) && q[1] != 0xFF))
+  while (q + 1 < b.end && !(q[0] == 0xFF && q[1] != 0x00 && q[1] != 0xFF))
     ++q;
   return (int64_t)(q - data);
 }

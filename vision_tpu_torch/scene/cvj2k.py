@@ -27,8 +27,8 @@ OpenCV's rules, read from the pip cv2's decodes and its messages:
     for three) is refused.
 
 What OpenCV refuses raises ValueError (the JAX package's slot takes its
-default). HTJ2K code-blocks (7e.7c) and Part 2's markers (7e.7d) raise
-NotImplementedError from `j2k`.
+default). Part 2's CBD sets the precisions readHeader sees; HTJ2K
+code-blocks (7e.7c) raise NotImplementedError from `j2k`.
 """
 from __future__ import annotations
 

@@ -970,6 +970,94 @@ def _jpeg_whole(data, pos, single_scan):
     return single_scan and pos + 1 < len(data) and data[pos] == 0xFF
 
 
+def _scan_component(comps, cid, k, sel):
+    """The frame component a scan's k-th entry names, as libjpeg-turbo's
+    get_sos finds it: the first of id `cid` at or after slot k, none
+    listed twice (`sel`: those of the entries before)."""
+    ci = next((j for j, c in enumerate(comps)
+               if c["id"] == cid and j >= k and j not in sel), None)
+    if ci is None:
+        raise _jpeg_refused("a scan of a bad component id in")
+    return ci
+
+
+def _jpeg_tail_segment(data, pos, marker, comps):
+    """A segment libjpeg parses (DQT, DHT, DRI, DAC, SOS, a frame header)
+    after a whole single scan, read byte by byte as jpeg_finish_decompress
+    reads it from `pos` (its length field): the file's bytes, whatever the
+    length says (a short quantisation table reads on past it) -> the
+    offset after what was read, or None where the file ends first (libjpeg
+    suspends there and PIL keeps its image). Raises where libjpeg stops
+    with an error on the bytes it has read."""
+    n = len(data)
+    if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xCC):
+        raise _jpeg_refused("a frame header after a whole scan in")
+    if pos + 2 > n:
+        return None
+    length, = struct.unpack(">H", data[pos:pos + 2])
+    p = pos + 2
+    if marker == 0xDD:
+        if length != 4:
+            raise _jpeg_refused("a restart interval of the wrong length in")
+        return p + 2 if p + 2 <= n else None
+    if marker == 0xDA:
+        if p >= n:
+            return None
+        ns = data[p]
+        p += 1
+        if length != 2 * ns + 6 or not 1 <= ns <= 4:
+            raise _jpeg_refused("a scan header of the wrong length in")
+        sel = []
+        for k in range(ns):
+            if p + 2 > n:
+                return None
+            sel.append(_scan_component(comps, data[p], k, sel))
+            p += 2
+        if p + 3 > n:
+            return None
+        raise _jpeg_refused("a scan after a whole sequential scan in")
+    length -= 2
+    if marker == 0xDB:
+        while length > 0:
+            if p >= n:
+                return None
+            pq, tq = data[p] >> 4, data[p] & 15
+            size = 128 if pq else 64
+            if tq > 3:
+                raise _jpeg_refused("a bad quantisation table in")
+            if p + 1 + size > n:
+                return None
+            p += 1 + size
+            length -= 1 + size
+    elif marker == 0xC4:
+        while length > 16:
+            if p + 17 > n:
+                return None
+            idx, nv = data[p], sum(data[p + 1:p + 17])
+            p += 17
+            length -= 17
+            if nv > 256 or nv > length:
+                raise _jpeg_refused("a bad Huffman table in")
+            if p + nv > n:
+                return None
+            p += nv
+            length -= nv
+            if not (0 <= idx < 4 or 0x10 <= idx < 0x14):
+                raise _jpeg_refused("a Huffman table id past 3 in")
+    else:   # DAC
+        while length > 0:
+            if p + 2 > n:
+                return None
+            index, val = data[p], data[p + 1]
+            p += 2
+            length -= 2
+            if index >= 32 or (index < 16 and val & 15 > val >> 4):
+                raise _jpeg_refused("bad arithmetic conditioning")
+    if length != 0:
+        raise _jpeg_refused("a segment of the wrong length in")
+    return p
+
+
 def _pil_jpeg_open(data):
     """PIL's JpegImageFile._open, which walks the markers to the first SOS
     before libjpeg reads the file: ValueError where it raises (a short
@@ -1051,7 +1139,10 @@ def _jpeg_scans(data, ojpeg=False):
     frame, comps, planes, latched = None, None, None, {}
     restart, jfif, adobe, progressive, lossless = 0, False, None, False, False
     scanned = single_scan = False
-    arith = None  # the conditioning of an arithmetic-coded file (DAC)
+    # DAC's conditioning, read whatever the coding; the frame header says
+    # whether the file is arithmetic-coded (`arith`: the conditioning)
+    cond = np.array(_ARITH_CONDITIONING, np.int32)
+    arith = None
     # libjpeg's coef_bits of coefficients 0-9 (-1: not yet sent; else the
     # Al of the last scan that sent it) and their values before each
     # component's last scan (the second half of its table)
@@ -1075,6 +1166,13 @@ def _jpeg_scans(data, ojpeg=False):
             raise _jpeg_refused("a second SOI marker in")
         if marker < 0xC0 or marker in (0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
             raise _jpeg_refused(f"a reserved marker 0x{marker:02X} in")
+        if whole and not (0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC)):
+            # jpeg_finish_decompress: no table is used any more, only
+            # whether libjpeg errs, suspends or reads on matters (C26)
+            pos = _jpeg_tail_segment(data, pos, marker, comps)
+            if pos is None:
+                break
+            continue
         if pos + 2 > len(data):
             if whole:
                 break
@@ -1155,8 +1253,8 @@ def _jpeg_scans(data, ojpeg=False):
                 raise ValueError("JPEG without a height or width (DNL)")
             progressive = marker in (0xC2, 0xCA)
             lossless = marker == 0xC3
-            if marker in (0xC9, 0xCA) and arith is None:
-                arith = np.array(_ARITH_CONDITIONING, np.int32)
+            if marker in (0xC9, 0xCA):
+                arith = cond
             comps = [dict(id=body[6 + 3 * k], h=body[7 + 3 * k] >> 4,
                           v=body[7 + 3 * k] & 15, tq=body[8 + 3 * k])
                      for k in range(nc)]
@@ -1180,16 +1278,16 @@ def _jpeg_scans(data, ojpeg=False):
         elif marker == 0xC8:  # the JPEG extension
             raise _jpeg_refused("JPEG-extension")
         elif marker == 0xCC:  # DAC: arithmetic-coding conditioning
-            if arith is None:
-                arith = np.array(_ARITH_CONDITIONING, np.int32)
+            if len(body) % 2:  # get_dac reads a pair on past it, then errs
+                raise _jpeg_refused("a conditioning segment of odd length in")
             for i in range(0, len(body) - 1, 2):  # as libjpeg's get_dac
                 tc, tb, val = body[i] >> 4, body[i] & 15, body[i + 1]
                 if tc > 1 or (tc == 0 and val & 15 > val >> 4):
                     raise _jpeg_refused("bad arithmetic conditioning")
                 if tb < 4 and tc == 0:
-                    arith[tb], arith[4 + tb] = val & 15, val >> 4
+                    cond[tb], cond[4 + tb] = val & 15, val >> 4
                 elif tb < 4:
-                    arith[8 + tb] = val
+                    cond[8 + tb] = val
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
@@ -1215,13 +1313,8 @@ def _jpeg_scans(data, ojpeg=False):
             use_ac = not lossless and (not progressive or ss != 0)
             rows, sel = [], []
             for k in range(ns):
-                cid, tables = body[1 + 2 * k], body[2 + 2 * k]
-                # as libjpeg-turbo's get_sos: the first frame component of
-                # that id at or after this slot, and none listed twice
-                ci = next((j for j, c in enumerate(comps)
-                           if c["id"] == cid and j >= k and j not in sel), None)
-                if ci is None:
-                    raise _jpeg_refused("a scan of a bad component id in")
+                tables = body[2 + 2 * k]
+                ci = _scan_component(comps, body[1 + 2 * k], k, sel)
                 if arith is not None:
                     if tables >> 4 > 3 or tables & 15 > 3:
                         raise ValueError("corrupt JPEG scan header")

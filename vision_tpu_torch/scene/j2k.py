@@ -1,7 +1,8 @@
-"""JPEG 2000 (Part 1) as the JAX package's loader gets it under any name
-but .hdr / .exr: `PIL.Image.open(p).convert("RGB")`, PIL 12.1.0's
-Jpeg2KImagePlugin over OpenJPEG 2.5.4 (the counterpart of PIL's plugin,
-its Jpeg2KDecode.c and the library it drives).
+"""JPEG 2000 (Part 1, and Part 2's CBD, MCT, MCC and MCO markers) as the
+JAX package's loader gets it under any name but .hdr / .exr:
+`PIL.Image.open(p).convert("RGB")`, PIL 12.1.0's Jpeg2KImagePlugin over
+OpenJPEG 2.5.4 (the counterpart of PIL's plugin, its Jpeg2KDecode.c and
+the library it drives).
 
 Three layers, each as its reference runs it:
 
@@ -13,18 +14,25 @@ Three layers, each as its reference runs it:
   * OpenJPEG (`_Jp2`, `_Codestream`, `_decode_tile`): the JP2 boxes
     (`opj_jp2_read_header_procedure`) and the colour space they give; the main header and the tile-part
     headers with their checks (SIZ, COD, COC, QCD, QCC, RGN, POC, PPM,
-    PPT, TLM, PLM, PLT, CRG, COM); tiles read and decoded as
+    PPT, TLM, PLM, PLT, CRG, COM, and Part 2's CBD, MCT, MCC and MCO:
+    CBD sets the precision and sign each component is decoded to, an
+    MCO resets each component's DC level shift in the main header's or
+    its tile's coding parameters, and the offset array of its MCC sets
+    it; a decorrelation matrix is checked, never applied, as COD's MCT
+    is at most 1); tiles read and decoded as
     `opj_read_tile_header` / `opj_decode_tile_data` hand them to PIL (a
     tile decoded when its last tile-part is read, the rest at EOC; the
     codestream must go on with SOT or EOC after each); tier-2 (tag trees,
     layers, Lblock, codeword segments under each code-block style, SOP and
     EPH, precincts, the five progressions and POC, packet headers in PPM /
-    PPT); tier-1, ROI and the coefficients in `csrc/j2k_codec.cpp`
+    PPT; each component's resno_decoded, the highest resolution a packet
+    of the tile was read for, taken afresh in each tile); tier-1, ROI and
+    the coefficients in `csrc/j2k_codec.cpp`
     (`native.j2k_t1_decode`); the inverse 5/3 wavelet in integers and the
     9/7 in float32 with OpenJPEG's lifting constants and order (its
     high-pass scaled by 2 / K, its step sizes without the band gain); RCT,
-    ICT in float32; the DC level shift, lrintf and the clamp to each
-    component's precision; each tile's components packed as
+    ICT in float32; the tile's DC level shifts, lrintf and the clamp to
+    each component's precision; each tile's components packed as
     `opj_tcd_update_tile_data` packs them (1, 2 or 4 bytes a sample).
     OpenJPEG's decoder runs in strict mode: a stream cut short fails.
   * PIL's unpackers (`_unpack`): picked by the mode, the colour space
@@ -43,13 +51,12 @@ composed into one image, JP2's pclr / cmap / cdef applied, the colour
 space from colr), and `cvj2k.py` converts its components as OpenCV does.
 
 What PIL refuses raises ValueError (the JAX package's slot takes its
-default). ROADMAP's items raise NotImplementedError: HTJ2K code-blocks
-(Part 15: the HT code-block style or a CAP marker) name 7e.7c; Part 2's
-MCT / MCC / MCO / CBD markers and a tile whose components have fewer
-resolutions than an earlier tile decoded name 7e.7d.
+default). HTJ2K code-blocks (Part 15: the HT code-block style or a CAP
+marker) raise NotImplementedError naming ROADMAP's item 7e.7c.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import struct
 
@@ -535,8 +542,28 @@ class _Tccp:
         return c
 
 
+class _Mct:
+    """An MCT record (opj_mct_data_t): Imct's index and element type, its
+    array (None once freed: data size 0)."""
+
+    def __init__(self):
+        self.index = self.etype = 0
+        self.data = None
+
+
+class _Mcc:
+    """An MCC record (opj_simple_mcc_decorrelation_data_t): its index,
+    component count and the MCT records it names."""
+
+    def __init__(self):
+        self.index = self.nb_comps = 0
+        self.deco = self.offset = None
+
+
 class _Tcp:
-    """A tile's coding parameters (opj_tcp_t), its tile-parts and data."""
+    """A tile's coding parameters (opj_tcp_t), its tile-parts and data;
+    Part 2's records and each component's DC level shift
+    (tccp->m_dc_level_shift: from SIZ, reset by MCO)."""
 
     def __init__(self, ncomp):
         self.csty = 0
@@ -544,6 +571,13 @@ class _Tcp:
         self.numlayers = 0
         self.mct = 0
         self.tccps = [_Tccp() for _ in range(ncomp)]
+        self.shifts = [0] * ncomp
+        self.mcts = []
+        self.mccs = []
+        # the MCC slot after the last record, which keeps what a marker
+        # that was not taken wrote there; room for 10 more at a time
+        self.mcc_spare = _Mcc()
+        self.mcc_room = 10
         self.pocs = []
         self.ppt = {}
         self.part = -1
@@ -554,6 +588,17 @@ class _Tcp:
         t = _Tcp(0)
         t.__dict__.update(self.__dict__)
         t.tccps = [c.copy() for c in self.tccps]
+        t.shifts = list(self.shifts)
+        t.mcts = [copy.copy(m) for m in self.mcts]
+        remap = {id(a): b for a, b in zip(self.mcts, t.mcts)}
+
+        def mcc(m):
+            c = copy.copy(m)
+            c.deco = remap.get(id(m.deco))
+            c.offset = remap.get(id(m.offset))
+            return c
+        t.mccs = [mcc(m) for m in self.mccs]
+        t.mcc_spare = mcc(self.mcc_spare)
         t.pocs, t.ppt = list(self.pocs), dict(self.ppt)
         return t
 
@@ -568,8 +613,8 @@ _MARKERS = {0xFF90: _MH | _TPHSOT, 0xFF52: _MH | _TPH, 0xFF53: _MH | _TPH,
             0xFF58: _TPH, 0xFF60: _MH, 0xFF61: _TPH, 0xFF91: 0, 0xFF63: _MH,
             0xFF64: _MH | _TPH, 0xFF74: _MH | _TPH, 0xFF78: _MH,
             0xFF50: _MH, 0xFF59: _MH, 0xFF75: _MH | _TPH, 0xFF77: _MH | _TPH}
-_PART2 = {0xFF74: "Part 2's MCT marker", 0xFF75: "Part 2's MCC marker",
-          0xFF77: "Part 2's MCO marker", 0xFF78: "Part 2's CBD marker"}
+# Part 2's MCT arrays: bytes an element (int16, int32, float32, float64)
+_MCT_SIZE = (2, 4, 4, 8)
 
 
 class _Codestream:
@@ -643,8 +688,6 @@ class _Codestream:
     def _handler(self, m, p, tcp):
         """The marker handlers: main header (tcp None) or tile-part."""
         t = self.default if tcp is None and self.siz else tcp
-        if m in _PART2:
-            raise _later(_PART2[m], "7e.7d")
         if m in (0xFF50, 0xFF59):
             raise _later("Part 15's CAP / CPF markers (HTJ2K)", "7e.7c")
         if m == 0xFF51:
@@ -675,6 +718,14 @@ class _Codestream:
         elif m == 0xFF63:
             if len(p) != 4 * self.ncomp:
                 raise _Fail("bad CRG")
+        elif m == 0xFF78:
+            self._cbd(p)
+        elif m == 0xFF74:
+            self._mct(p, t)
+        elif m == 0xFF75:
+            self._mcc(p, t)
+        elif m == 0xFF77:
+            self._mco(p, t)
         elif m == 0xFF90:
             self._sot(p)
 
@@ -711,9 +762,133 @@ class _Codestream:
         if self.tw == 0 or self.th == 0 or self.tw > 65535 // self.th:
             raise _Fail("bad tile count")
         self.default = _Tcp(ncomp)
-        self.resno_decoded = [0] * ncomp
+        self.default.shifts = [0 if sgnd else 1 << (prec - 1)
+                               for prec, sgnd, _, _ in comps]
         self.siz = True
         self.state = _MH
+
+    # --- Part 2 (opj_j2k_read_cbd / mct / mcc / mco, opj_j2k_add_mct) ------
+    def _cbd(self, p):
+        """Each component's precision and sign for the image OpenJPEG
+        decodes into (its clamp, its samples' size, what PIL and OpenCV
+        are told); the DC level shift stays SIZ's."""
+        if len(p) != self.ncomp + 2 or \
+                struct.unpack_from(">H", p)[0] != self.ncomp:
+            raise _Fail("bad CBD")
+        comps = []
+        for (_, _, dx, dy), b in zip(self.comps, p[2:]):
+            prec = (b & 0x7F) + 1
+            if prec > 31:
+                raise _Fail("CBD precision past 31 bits")
+            comps.append((prec, b >> 7, dx, dy))
+        self.comps = comps
+
+    def _mct(self, p, t):
+        if len(p) < 2:
+            raise _Fail("bad MCT")
+        if struct.unpack_from(">H", p)[0]:      # Zmct: a later part, skipped
+            return
+        if len(p) <= 6:
+            raise _Fail("bad MCT")
+        imct, ymct = struct.unpack_from(">HH", p, 2)
+        rec = next((r for r in t.mcts if r.index == imct & 0xFF), None)
+        if rec is None:
+            rec = _Mct()
+            t.mcts.append(rec)
+        rec.data = None
+        rec.index, rec.etype = imct & 0xFF, (imct >> 10) & 3
+        if ymct:                                 # a record left without data
+            return
+        rec.data = p[6:]
+
+    def _mcc(self, p, t):
+        """An MCC marker; where OpenJPEG warns and goes on, what it wrote to
+        the record so far stays."""
+        if len(p) < 2:
+            raise _Fail("bad MCC")
+        if struct.unpack_from(">H", p)[0]:      # Zmcc
+            return
+        if len(p) < 7:
+            raise _Fail("bad MCC")
+        rec = next((r for r in t.mccs if r.index == p[2]), None)
+        new = rec is None
+        if new:
+            if len(t.mccs) == t.mcc_room:
+                t.mcc_room += 10
+                t.mcc_spare = _Mcc()
+            rec = t.mcc_spare
+        rec.index = p[2]
+        ymcc, qmcc = struct.unpack_from(">HH", p, 3)
+        if ymcc or qmcc > 1:
+            return
+        size, q = len(p) - 7, 7
+        for _ in range(qmcc):
+            if size < 3:
+                raise _Fail("bad MCC")
+            if p[q] != 1:                       # not array decorrelation
+                return
+            n = struct.unpack_from(">H", p, q + 1)[0]
+            q, size = q + 3, size - 3
+            nb, rec.nb_comps = 1 + (n >> 15), n & 0x7FFF
+            if size < nb * rec.nb_comps + 2:
+                raise _Fail("bad MCC")
+            size -= nb * rec.nb_comps + 2
+            for j in range(rec.nb_comps):
+                if int.from_bytes(p[q:q + nb], "big") != j:
+                    return
+                q += nb
+            n = struct.unpack_from(">H", p, q)[0]
+            q += 2
+            nb = 1 + (n >> 15)
+            if n & 0x7FFF != rec.nb_comps:
+                return
+            if size < nb * rec.nb_comps + 3:
+                raise _Fail("bad MCC")
+            size -= nb * rec.nb_comps + 3
+            for j in range(rec.nb_comps):
+                if int.from_bytes(p[q:q + nb], "big") != j:
+                    return
+                q += nb
+            tm = int.from_bytes(p[q:q + 3], "big")
+            q += 3
+            rec.deco = rec.offset = None
+            for attr, idx in (("deco", tm & 0xFF),
+                              ("offset", (tm >> 8) & 0xFF)):
+                if idx:
+                    found = next((r for r in t.mcts if r.index == idx), None)
+                    if found is None:
+                        raise _Fail("MCC names a missing MCT")
+                    setattr(rec, attr, found)
+        if size:
+            raise _Fail("bad MCC size")
+        if new:
+            t.mccs.append(rec)
+            t.mcc_spare = _Mcc()
+
+    def _mco(self, p, t):
+        """Every component's DC level shift reset to 0, then each stage's
+        MCC applied (OpenJPEG takes one stage; its search for the stage's
+        MCC looks at the first record only)."""
+        if len(p) < 1:
+            raise _Fail("bad MCO")
+        if p[0] > 1:
+            return
+        if len(p) != p[0] + 1:
+            raise _Fail("bad MCO")
+        t.shifts = [0] * self.ncomp
+        for idx in p[1:]:
+            if not t.mccs or t.mccs[0].index != idx:
+                continue
+            rec = t.mccs[0]
+            if rec.nb_comps != self.ncomp:
+                continue
+            for arr, n in ((rec.deco, self.ncomp ** 2),
+                           (rec.offset, self.ncomp)):
+                if arr is not None and \
+                        len(arr.data or b"") != _MCT_SIZE[arr.etype] * n:
+                    raise _Fail("an MCT array of the wrong size")
+            if rec.offset is not None:
+                t.shifts = _mct_ints(rec.offset, self.ncomp)
 
     def _spcod(self, p, tccp):
         if len(p) < 5:
@@ -1100,6 +1275,22 @@ class _Codestream:
 # ---------------------------------------------------------------------------
 # OpenJPEG: a tile's geometry (opj_tcd_init_tile) and tier-2 (t2.c, pi.c)
 # ---------------------------------------------------------------------------
+
+def _mct_ints(rec, n):
+    """An MCT array's n elements as OpenJPEG reads them into int32 offsets:
+    an int16 as its unsigned 16 bits, an int32 as it is, a float by C's
+    truncating cast (x86's 0x80000000 where it does not fit)."""
+    fmt = (">H", ">i", ">f", ">d")[rec.etype]
+    size = _MCT_SIZE[rec.etype]
+    out = []
+    for i in range(n):
+        v = struct.unpack_from(fmt, rec.data, i * size)[0]
+        if rec.etype >= 2:
+            v = int(v) if np.isfinite(v) and -2**31 <= int(v) < 2**31 \
+                else -2**31
+        out.append(v)
+    return out
+
 
 def _cdiv(a, b):
     return -(-a // b)
@@ -1597,8 +1788,11 @@ def _read_packet(src, pos, end, hdr, tcp, res, lay, prec, sty):
 def _tier2(tcp, comps, tile_box, cs):
     """opj_t2_decode_packets: every packet of the tile in its order, the
     headers from the packets or from PPM / PPT, each code-block's
-    segments attached to it."""
+    segments attached to it -> each component's resno_decoded, the highest
+    resolution a packet of this tile was read for (OpenJPEG starts it at 0
+    in each tile, whatever an earlier tile decoded)."""
     data = tcp.data
+    decoded = [0] * cs.ncomp
     if cs.ppm is not None:
         hdr = [cs.ppm, cs.ppm_pos, len(cs.ppm)]
     elif tcp.ppt:
@@ -1613,11 +1807,10 @@ def _tier2(tcp, comps, tile_box, cs):
         tccp = cp["tccp"]
         pos = _read_packet(data, pos, end, hdr, tcp, cp["res"][resno], lay,
                            prec, tccp.cblksty)
-        # the image component's resno_decoded: the highest resolution a
-        # packet was read for, in this tile or an earlier one
-        cs.resno_decoded[compno] = max(cs.resno_decoded[compno], resno)
+        decoded[compno] = max(decoded[compno], resno)
     if cs.ppm is not None:
         cs.ppm_pos = hdr[1]
+    return decoded
 
 
 # ---------------------------------------------------------------------------
@@ -1754,16 +1947,13 @@ def _idwt(a, ress, irrev):
 def _decode_tile(cs, tileno):
     tcp = cs.tcps[tileno]
     box, comps = _tile_geometry(cs, tileno, tcp)
-    _tier2(tcp, comps, box, cs)
+    decoded = _tier2(tcp, comps, box, cs)
     planes, rds, origins = [], [], []
     for c, cp in enumerate(comps):
         # OpenJPEG inverts the wavelet up to resno_decoded, and hands on
-        # that resolution's samples (the last one but where the packets
-        # stop short of it)
-        rd = cs.resno_decoded[c]
-        if rd >= len(cp["res"]):
-            raise _later("a component of fewer resolutions than an earlier "
-                         "tile's", "7e.7d")
+        # that resolution's samples (the last one but where the tile's
+        # packets stop short of it)
+        rd = decoded[c]
         a = _tier1(tcp.data, cp)
         r = cp["res"][rd]
         planes.append(_idwt(a, cp["res"][:rd + 1], cp["tccp"].qmfbid == 0)
@@ -1793,21 +1983,24 @@ def _decode_tile(cs, tileno):
                            y + u * np.float32(1.772)]
             planes[:3] = [x.view(p.dtype) for x, p in zip(yuv, planes[:3])]
     out = []
-    for cp, a in zip(comps, planes):
+    for cp, a, shift in zip(comps, planes, tcp.shifts):
         prec, sgnd = cp["prec"], cp["sgnd"]
-        shift = 0 if sgnd else 1 << (prec - 1)
         lo, hi = (-(1 << (prec - 1)), (1 << (prec - 1)) - 1) if sgnd else \
             (0, (1 << prec) - 1)
         if cp["tccp"].qmfbid == 1:
-            v = np.clip(a.astype(np.int64) + shift, lo, hi)
+            # the sum in int32 (it wraps), then the clamp
+            v = a.astype(np.int64) + shift
+            v = np.clip((v + 2**31) % 2**32 - 2**31, lo, hi)
         else:
-            # lrintf, then the clamp: rint and the clamp to integer bounds
-            # commute; beyond INT_MAX / INT_MIN and NaN take the bounds
+            # lrintf in int64, the shift, then the clamp; beyond INT_MAX /
+            # INT_MIN and NaN take the bounds
             with np.errstate(invalid="ignore"):
-                f = np.clip(a, np.float32(lo - shift), np.float32(hi - shift))
-                if np.isnan(f).any():
-                    f = np.where(np.isnan(f), np.float32(lo - shift), f)
-            v = np.rint(f).astype(np.int64) + shift
+                f = np.clip(a, np.float32(-2**31), np.float32(2**31))
+                nan = np.isnan(f)
+                v = np.clip(np.rint(np.where(nan, 0, f).astype(np.float64))
+                            .astype(np.int64) + shift, lo, hi)
+                v[a > np.float32(2**31)] = hi
+                v[(a < np.float32(-2**31)) | nan] = lo
         out.append(v)
     return box, out, origins
 
@@ -1834,10 +2027,10 @@ class Component:
 
 class WholeImage:
     """opj_read_header of a JP2 file (OPJ_CODEC_JP2) or a bare codestream
-    (OPJ_CODEC_J2K): `comps` [(prec, sgnd, dx, dy)] and `size` (w, h) as
-    SIZ gives them; `decode()` is opj_decode. Raises _Fail where OpenJPEG
-    returns false (IndexError where the data runs out under the port's
-    reading)."""
+    (OPJ_CODEC_J2K): `comps` [(prec, sgnd, dx, dy)] as SIZ and CBD give
+    them and `size` (w, h) as SIZ gives it; `decode()` is opj_decode.
+    Raises _Fail where OpenJPEG returns false (IndexError where the data
+    runs out under the port's reading)."""
 
     def __init__(self, data):
         self.jp2 = None
