@@ -172,35 +172,43 @@ phase, one JSON line each:
     `j2k_2048.jp2` under a .exr name against its decode's sha256, timed.
     Slice 7e.7d: on both routes, with the files above, the files of Part
     2's CBD, MCT, MCC and MCO markers (in the main and tile-part headers)
-    and of tiles with fewer resolutions than an earlier tile.
+    and of tiles with fewer resolutions than an earlier tile. Slice 7e.7c:
+    on both routes, with the files above, the HTJ2K files (Part 15's HT
+    code-blocks: cleanup, SigProp and MagRef, every code-block shape and
+    style, layers, CAP / CPF; the `htj2k_bad_*` files refused) and the
+    2048^2 HT file `htj2k_2048.jp2` against each library's decode's
+    sha256, timed.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
-    7e.6b, 7e.5, 7e.4b, 7e.7a, 7e.7b and 7e.7d (`phase_image_twins`):
+    7e.6b, 7e.5, 7e.4b, 7e.7a, 7e.7b, 7e.7d and 7e.7c
+    (`phase_image_twins`):
     `cbox_tex_files`,
     `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
     `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
     `cbox_tex_smooth`, `cbox_tex_ojpeg`, `cbox_sky_logluv`,
-    `cbox_tex_j2k`, `cbox_sky_j2kcv` and `cbox_tex_j2kp2` through K1,
+    `cbox_tex_j2k`, `cbox_sky_j2kcv`, `cbox_tex_j2kp2` and
+    `cbox_tex_htj2k` through K1,
     `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
     `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd`,
     `env_sphere_rare`, `env_sphere_lossless`, `env_sphere_ojpeg`,
-    `env_sphere_luv24`, `env_sphere_j2k`, `env_sphere_j2kcv` and
-    `env_sphere_j2kp2cv` through
+    `env_sphere_luv24`, `env_sphere_j2k`, `env_sphere_j2kcv`,
+    `env_sphere_j2kp2cv` and `env_sphere_htj2kcv` through
     K2 at 512^2, their images read from TIFF
     (LZW, BigTIFF, ZSTD, old-style JPEG, SGILog LogLuv32 and LogLuv24), GIF,
     JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
-    JPEG 2000 (lossy JP2, tiled J2K, a JP2 of Part 2's CBD and MCO; a
-    16-bit lossless JP2 named .exr, a 9/7 JP2 named .hdr and tiles of
-    different MCOs named .exr on OpenCV's route),
+    JPEG 2000 (lossy JP2, tiled J2K, a JP2 of Part 2's CBD and MCO, a
+    reversible HTJ2K JP2; a 16-bit lossless JP2 named .exr, a 9/7 JP2
+    named .hdr, tiles of different MCOs named .exr and a 9/7 HTJ2K
+    codestream named .exr on OpenCV's route),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s, `cbox_tex_dds`'s, `cbox_tex_j2k`'s and
     `cbox_tex_j2kp2`'s originals read PIL's decode of their checker,
     `env_sphere_j2k`'s PIL's decode of its projector, `cbox_sky_yc`'s, `cbox_sky_cvtiff`'s,
     `cbox_sky_bigtiff`'s, `env_sphere_cvgif`'s, `cbox_sky_logluv`'s,
-    `env_sphere_luv24`'s, `cbox_sky_j2kcv`'s, `env_sphere_j2kcv`'s and
-    `env_sphere_j2kp2cv`'s the OpenCV decode of their image), with the
-    same launch counts as a twin
-    rendered here.
+    `env_sphere_luv24`'s, `cbox_sky_j2kcv`'s, `env_sphere_j2kcv`'s,
+    `env_sphere_j2kp2cv`'s and `env_sphere_htj2kcv`'s the OpenCV decode
+    of their image), with the same launch counts as the render it is held
+    against.
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
     JSON line printed again and held to bench.py's schema (metric, unit, a
@@ -2265,7 +2273,8 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 def phase_image_files(card):
     """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes), 7e.7a, 7e.7b and 7e.7d on the card's host: every
+    7e.4b (both routes), 7e.7a, 7e.7b, 7e.7d and 7e.7c on the card's
+    host: every
     file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
@@ -2346,7 +2355,12 @@ def phase_image_files(card):
     .exr name against its decode's sha256, timed; slice 7e.7d: Part 2's
     files (CBD, MCT / MCC / MCO in the main and tile-part headers, tiles
     of fewer resolutions; the twins' files) among both .npz files' and
-    the `j2k_bad_*` ones; no image library imported."""
+    the `j2k_bad_*` ones; slice 7e.7c: the HTJ2K files (`htj2k_*`, the
+    twins' files) among both .npz files', the `htj2k_bad_*` ones PIL
+    refuses refused (ValueError), and the committed 2048^2 HT file
+    `htj2k_2048.jp2` (9/7, ICT, six resolutions, 64 x 64 code-blocks of
+    cleanup, SigProp and MagRef) on both routes against each library's
+    decode's sha256, timed; no image library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2436,7 +2450,12 @@ def phase_image_files(card):
                                     "j2k_p2_cbd12.j2k",
                                     "j2k_p2_mco_f64.jp2",
                                     "j2k_p2_tiles_mco.j2k",
-                                    "j2k_p2_res_poc.j2k")
+                                    "j2k_p2_res_poc.j2k",
+                                    "checker_htj2k.jp2", "htj2k_grey.j2k",
+                                    "htj2k_irr_ict.jp2", "htj2k_prec16.jp2",
+                                    "htj2k_layers2.j2k", "htj2k_vsc.j2k",
+                                    "htj2k_cblk16x256.j2k",
+                                    "htj2k_mel_unchecked.j2k")
                 }.get(npz, ())
         check(set(must) <= set(files), f"{npz}'s files")
         for fn in files:
@@ -2496,7 +2515,11 @@ def phase_image_files(card):
                    for fn in sorted(os.listdir(assets))
                    if fn.startswith("j2k_bad_")]
         check(len(j2k_bad) >= 18, "the JPEG 2000 files PIL refuses")
-        refused += j2k_bad
+        ht_bad = [(os.path.join(assets, fn), ValueError, "")
+                  for fn in sorted(os.listdir(assets))
+                  if fn.startswith("htj2k_bad_")]
+        check(len(ht_bad) >= 13, "the HTJ2K files PIL refuses")
+        refused += j2k_bad + ht_bad
         for path, err, what in (*refused,
                                 (avif, NotImplementedError, "7e"),
                                 (os.path.join(assets, "ll_arith.jpg"),
@@ -2520,12 +2543,16 @@ def phase_image_files(card):
            "j2kcv_sycca16.jp2", "j2kcv_grey16.j2k", "j2kcv_poc_stop_c1.j2k",
            "j2k_poc_reduced.j2k", "j2k_p3.jp2", "projector_j2kp2cv.exr",
            "j2k_p2_cbd12.j2k", "j2k_p2_tiles_mco.j2k",
-           "j2k_p2_res_4123.j2k"} <= set(files)
+           "j2k_p2_res_4123.j2k", "projector_htj2kcv.exr",
+           "checker_htj2k.jp2", "htj2k_layers3.j2k", "htj2k_sp_only.j2k",
+           "htj2k_irr.j2k"} <= set(files)
           and {"j2k_signed_l.j2k", "j2kcv_bad_tnsot1.j2k", "j2k_p2_cbd7.j2k",
-               "j2k_bad_p2_mct_size.j2k"} <= refused_cv,
+               "j2k_bad_p2_mct_size.j2k", "htj2k_bad_mel.j2k",
+               "htj2k_bad_uq.j2k"} <= refused_cv,
           "j2k_cv_decodes.npz's files")
     exr = os.path.join(built_dir, "j2k.exr")
-    for fn in [*files, "j2k_2048.jp2"]:
+    timing = ("j2k_2048.jp2", "htj2k_2048.jp2")
+    for fn in [*files, *timing]:
         with open(os.path.join(assets, fn), "rb") as f:
             data = f.read()
         with open(exr, "wb") as f:
@@ -2542,7 +2569,7 @@ def phase_image_files(card):
             check(got is None, f"{fn} under a .exr name: {got_kind!r}")
             continue
         check(got is not None and got_kind == "hdr", f"{fn}: {got_kind!r}")
-        if fn == "j2k_2048.jp2":
+        if fn in timing:
             rec = _image_file_rec(fn, got[:128, :128], dec[fn + ":corner"],
                                   seconds, card, got_kind)
             rec.update(shape=list(got.shape), timing_file=True,
@@ -2620,12 +2647,18 @@ IMAGE_TWINS = (
     ("env_sphere_j2kp2cv_ref", "env_sphere_j2kp2cv_ref", "packet_isect",
      None),
     ("env_sphere_j2kp2cv", "env_sphere_j2kp2cv", "packet_isect",
-     "env_sphere_j2kp2cv_ref"))
+     "env_sphere_j2kp2cv_ref"),
+    ("cbox_tex_htj2k", "cbox_tex_htj2k", "dense_isect", "cbox_tex"),
+    ("env_sphere_htj2kcv_ref", "env_sphere_htj2kcv_ref", "packet_isect",
+     None),
+    ("env_sphere_htj2kcv", "env_sphere_htj2kcv", "packet_isect",
+     "env_sphere_htj2kcv_ref"))
 
 
-def phase_image_twins(vt, modules, scenes, originals, card):
+def phase_image_twins(vt, modules, scenes, originals, card, launches):
     """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes), 7e.7a, 7e.7b and 7e.7d through the kernels, at
+    7e.4b (both routes), 7e.7a, 7e.7b, 7e.7d and 7e.7c through the
+    kernels, at
     512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
@@ -2689,9 +2722,14 @@ def phase_image_twins(vt, modules, scenes, originals, card):
     decode in a PNG), and `env_sphere_j2kp2cv` (its projector image four
     tiles with different MCOs in their tile-part headers, named .exr)
     through K2, bit for bit with `env_sphere_j2kp2cv_ref` (the pip cv2's
-    decode in a PFM). A twin whose reference is rendered here has
-    its reference's launch counts too. Returns each render's launch
-    counts."""
+    decode in a PFM); slice 7e.7c: `cbox_tex_htj2k` (its checker a
+    reversible HTJ2K JP2 on PIL's route, lossless) through K1, bit for bit
+    with `cbox_tex`, and `env_sphere_htj2kcv` (its projector image a 9/7
+    HTJ2K codestream named .exr, SigProp and MagRef in a second layer)
+    through K2, bit for bit with `env_sphere_htj2kcv_ref` (the pip cv2's
+    decode in a PFM). A twin has its reference's launch counts too, the
+    reference rendered here or in an earlier phase (`launches`). Returns
+    each render's launch counts."""
     per_render = {}
     renders = dict(originals)
     for name, maker, kernel, ref in IMAGE_TWINS:
@@ -2707,9 +2745,9 @@ def phase_image_twins(vt, modules, scenes, originals, card):
                            img, renders[ref])),
                        max_abs_diff_to_original=float(
                            np.abs(img - renders[ref]).max()))
-        if ref in per_render:
+        if ref in per_render or ref in launches:
             rec.update(launches_equal_to_original=rec["launches"]
-                       == per_render[ref])
+                       == per_render.get(ref, launches.get(ref)))
         emit(rec)
         check(ref is None or rec["bit_equal_to_original"],
               f"{name} against {ref}")
@@ -3017,7 +3055,8 @@ def main():
     # and OpenCV (libOpenEXR, libwebp and its own readers) decode for the
     # JAX package, and the scenes that read them ----
     phase_image_files(smi)
-    per_render.update(phase_image_twins(vt, [di, pi], scenes, originals, smi))
+    per_render.update(phase_image_twins(vt, [di, pi], scenes, originals, smi,
+                                        dict(per_render)))
 
     # ---- slice 10: the bench ladder ----
     per_render.update(phase_bench(vt, [di, pi], scenes, scene, smi))

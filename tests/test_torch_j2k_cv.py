@@ -11,7 +11,8 @@ pip cv2 5.0.0's Jpeg2KOpjDecoder over OpenJPEG 2.5.3's whole-image API
     stored outcome.
   * OpenCV's BGR2GRAY and YUV2BGR against `cv2.cvtColor`; OpenJPEG's
     tile-part count rule on PIL's route too; the signatures, the size
-    limit, HTJ2K and AVIF; the 2048^2 timing file; the twins
+    limit, a Part 1 codestream with the HT bit, AVIF; the 2048^2 timing
+    file; the twins
     `cbox_sky_j2kcv` (K1) / `env_sphere_j2kcv` (K2)."""
 import hashlib
 import importlib.util
@@ -25,7 +26,7 @@ import pytest
 
 from tests.torch_scenes import ASSETS
 from vision_tpu.scene import texture as jtex
-from vision_tpu_torch.scene import cvj2k, j2k
+from vision_tpu_torch.scene import cvj2k
 from vision_tpu_torch.scene import imageio as tio
 
 _spec = importlib.util.spec_from_file_location(
@@ -133,15 +134,12 @@ EDITS = gen.edit_cases(ASSETS)
 def test_seeded_edits_match_cv2(case):
     """Ten of the 300 seeded cuts, byte replacements or bit flips of
     `gen.EDIT_SOURCES`: the port's outcome (its decode's sha256, or a
-    refusal) is the pip cv2's stored one; an edit that sets the HT
-    code-block bit raises naming 7e.7c instead."""
+    refusal) is the pip cv2's stored one, an edit that sets the HT
+    code-block bit included (slice 7e.7c: its Part 1 blocks read as HT
+    blocks)."""
     want = DECODES["edits:sha256"]
     for i in range(case * 10, case * 10 + 10):
         fn, data = EDITS[i]
-        if j2k.uses_ht(data):
-            with pytest.raises(NotImplementedError, match=r"7e\.7c"):
-                tio._read_opencv(data, "x.exr")
-            continue
         try:
             got = tio._read_opencv(data, "x.exr")
         except ValueError:
@@ -213,10 +211,13 @@ def test_size_limit(tmp_path):
 
 @pytest.mark.parametrize("name", ["x.exr", "x.hdr"])
 def test_htj2k_and_avif_still_name_their_items(tmp_path, name):
-    """HTJ2K code-blocks raise naming 7e.7c on OpenCV's route, AVIF 7e.8."""
+    """A Part 1 codestream with the HT code-block bit on OpenCV's route:
+    the pip cv2 refuses its blocks read as HT blocks, and so does the port
+    (slice 7e.7c); AVIF raises naming 7e.8."""
     j2k_gen = gen.G
     p = _named(tmp_path, j2k_gen._ht(_read("j2k_rgb_rev.j2k")), name)
-    with pytest.raises(NotImplementedError, match=r"7e\.7c"):
+    assert _library(p) is None
+    with pytest.raises(ValueError, match="HT code-block"):
         tio.read_image(p)
     p = _named(tmp_path, struct.pack(">I", 28) + b"ftypavif" + bytes(4) +
                b"avifmif1miaf", name)

@@ -268,32 +268,25 @@ def _env(fn):
     return {"type": "spherical", "param": {"color": {"fn": asset(fn)}}}
 
 
-def _j2k_exr():
-    """A JPEG 2000 codestream of HT code-blocks (Part 15: its COD's
-    code-block style, `tools/gen_torch_j2k.py` `_ht`) under a .exr name:
-    OpenCV's JPEG 2000 reader by the JAX package's rule."""
-    import importlib.util
+def _avif_exr():
+    """An AVIF file (written by the pip cv2) under a .exr name: OpenCV's
+    AVIF reader by the JAX package's rule."""
     import tempfile
-    spec = importlib.util.spec_from_file_location(
-        "vt_gen_torch_j2k_scene", os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "..", "tools", "gen_torch_j2k.py"))
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
-    with open(asset("j2k_rgb_rev.j2k"), "rb") as f:
-        data = gen._ht(f.read())
-    p = os.path.join(tempfile.mkdtemp(), "j2k.exr")
-    with open(p, "wb") as f:
-        f.write(data)
-    return p
+    import cv2
+    d = tempfile.mkdtemp()
+    img = np.random.default_rng(5).integers(0, 256, (16, 16, 3), np.uint8)
+    assert cv2.imwrite(os.path.join(d, "a.avif"), img)
+    os.replace(os.path.join(d, "a.avif"), os.path.join(d, "a.exr"))
+    return os.path.join(d, "a.exr")
 
 
 OUT_OF_SLICE = {
     # an image under a .exr name that OpenCV decodes and the port does not
-    # yet: an HTJ2K codestream (slice 7e.7c; JPEG 2000 of Part 1 is ported
-    # on both routes, 7e.7a and 7e.7b; until slice 7e.7b this case named a
-    # Part 1 codestream, and until slice 7e.3b a YCbCr JPEG-in-TIFF)
+    # yet: an AVIF file (slice 7e.8; until slice 7e.7c this case named an
+    # HTJ2K codestream, until slice 7e.7b a Part 1 codestream, and until
+    # slice 7e.3b a YCbCr JPEG-in-TIFF)
     "ycc_exr_image": (lambda: _edit(lambda s: s["materials"][0][
-        "param"].update(color={"fn": _j2k_exr()})), "7e.7c"),
+        "param"].update(color={"fn": _avif_exr()})), "7e.8"),
 }
 
 # features out of the slice before slice 7e.1 (a WebP image), before slice
@@ -304,6 +297,8 @@ OUT_OF_SLICE = {
 # missing, so both packages skip its shape with a warning), which now load
 # as the JAX package loads them
 PORTED = {
+    "htj2k_exr_image": lambda: _edit(lambda s: s["materials"][0][
+        "param"].update(color={"fn": asset("projector_htj2kcv.exr")})),
     "webp_image": lambda: _edit(lambda s: s["materials"][0][
         "param"].update(color={"fn": asset("tiny.webp")})),
     "tiff_image": lambda: _edit(lambda s: s["materials"][0][
@@ -366,13 +361,13 @@ BVH_SCENES = {
 @pytest.mark.parametrize("name", sorted(OUT_OF_SLICE) + sorted(BVH_SCENES)
                          + sorted(PORTED))
 def test_out_of_slice_raises(name):
-    """A feature outside the ported slices (an HTJ2K codestream under a
-    .exr name, which OpenCV's JPEG 2000 reader decodes) raises NotImplementedError
-    naming its slice; the two scenes of
-    BVH_SCENES, out of the slice before slices 2 and 3, load and carry the
-    tree their kernel walks; the scenes of PORTED, out of it before slice
-    1b, 4, 4c, 4d, 7a, 7, 7c, 7d (the TIFF) or 7e.1 (the WebP), load as the
-    JAX package does."""
+    """A feature outside the ported slices (an AVIF file under a .exr name,
+    which OpenCV's AVIF reader decodes) raises NotImplementedError naming
+    its slice; the two scenes of BVH_SCENES, out of the slice before slices
+    2 and 3, load and carry the tree their kernel walks; the scenes of
+    PORTED, out of it before slice 1b, 4, 4c, 4d, 7a, 7, 7c, 7d (the TIFF),
+    7e.1 (the WebP) or 7e.7c (an HTJ2K codestream under a .exr name,
+    OpenCV's JPEG 2000 reader), load as the JAX package does."""
     if name in PORTED:
         s = PORTED[name]()
         with warnings.catch_warnings():

@@ -717,6 +717,34 @@ def env_sphere_j2kp2cv_ref(res=512, sub_div=40):
     return _env_sphere_projector(res, sub_div, "projector_j2kp2cv_pfm.hdr")
 
 
+# slice 7e.7c (tools/gen_torch_j2k_ht.py): the checker as a reversible HTJ2K
+# JP2 (its cleanup passes hold every bit, so it decodes to the checker) on
+# PIL's route, held against `cbox_tex` itself; the projector's RGB as a 9/7
+# HTJ2K codestream whose second layer refines its blocks (SigProp and
+# MagRef), named .exr (OpenCV's route, 0-255 samples), held against one
+# reading the pip cv2's decode of it from a PFM named .hdr.
+CBOX_TEX_HTJ2K = {"checker.png": "checker_htj2k.jp2"}
+
+
+def cbox_tex_htj2k(res=512):
+    """`cbox_tex` with its checker from a reversible HTJ2K JP2: it renders
+    as `cbox_tex` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_HTJ2K)
+
+
+def env_sphere_htj2kcv(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a 9/7 HTJ2K codestream
+    named .exr, refined in a second layer: it renders as
+    `env_sphere_htj2kcv_ref` does."""
+    return _env_sphere_projector(res, sub_div, "projector_htj2kcv.exr")
+
+
+def env_sphere_htj2kcv_ref(res=512, sub_div=40):
+    """`env_sphere_htj2kcv` with the pip cv2's decode of its file read
+    from a PFM file named .hdr."""
+    return _env_sphere_projector(res, sub_div, "projector_htj2kcv_pfm.hdr")
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

@@ -39,7 +39,8 @@ committed, as the card's machine has no encoder: the .npz keeps its
 decode's sha256 and 128 x 128 corner. Slice 7e.7d's files (Part 2's
 markers, tiles of fewer resolutions, `checker_j2kp2.jp2` and its
 `checker_j2kp2_pil.png`) come from `tools/gen_torch_j2k_p2.py`, which
-lists them.
+lists them; slice 7e.7c's HTJ2K files (`htj2k_*`, `checker_htj2k.jp2`
+and the timing file `htj2k_2048.jp2`) from `tools/gen_torch_j2k_ht.py`.
 
 Needs PIL and numpy. The output is deterministic: running it again
 writes the same bytes.
@@ -609,7 +610,7 @@ class J2kWriter:
                                 coef = self._coefs(c, b, cw, ch) if \
                                     self.coefs is None else \
                                     self.coefs(c, resno, b, cb)
-                                K, segs = t1_encode(coef, b.bandno, sty)
+                                K, segs = self.code_block(coef, b, sty)
                                 coded[(c, resno, bi, pi_, k)] = (K, segs, s)
             state = {}
             heads, bodies = [], []
@@ -653,6 +654,11 @@ class J2kWriter:
                                    self.tnsot)
                 out += hdr + b"\xff\x93" + data
         return bytes(out + b"\xff\xd9")
+
+    def code_block(self, coef, band, sty):
+        """One code-block -> (its bit-planes K, [(bytes, passes)]
+        codeword segments)."""
+        return t1_encode(coef, band.bandno, sty)
 
     def _plan(self, total, k, nlay):
         """Cumulative passes of one code-block after each layer."""
@@ -1088,18 +1094,23 @@ def twin_files(checker_rgb, projector_rgb):
                 no_jp2=True)}
 
 
-def j2k_timing(n=2048):
-    """2048^2 RGB, 9/7, six resolutions, 64 x 64 code-blocks, about 0.5
-    bits a pixel."""
+def timing_image(n=2048):
+    """The timing files' image: n^2 RGB, smooth waves and noise."""
     g = np.random.default_rng(SEED + 2)
     y, x = np.mgrid[0:n, 0:n] / n
     ph = g.random(3) * 6
     v = np.stack([np.sin(23 * x + 7 * y + ph[0]) * np.cos(11 * y + ph[1]),
                   np.cos(17 * y - 5 * x + ph[1]),
                   np.sin(31 * x * y + ph[2])], -1)
-    img = np.clip(np.round(128 + 90 * v + g.normal(0, 6, (n, n, 3))), 0,
-                  255).astype(np.uint8)
-    return pil_encode(img, irreversible=True, mct=1, num_resolutions=6,
+    return np.clip(np.round(128 + 90 * v + g.normal(0, 6, (n, n, 3))), 0,
+                   255).astype(np.uint8)
+
+
+def j2k_timing(n=2048):
+    """2048^2 RGB, 9/7, six resolutions, 64 x 64 code-blocks, about 0.5
+    bits a pixel."""
+    return pil_encode(timing_image(n), irreversible=True, mct=1,
+                      num_resolutions=6,
                       codeblock_size=(64, 64), quality_layers=[48],
                       quality_mode="rates")
 
@@ -1114,6 +1125,16 @@ def _p2_module():
     return mod
 
 
+def _ht_module():
+    """`tools/gen_torch_j2k_ht.py`: the HTJ2K files (slice 7e.7c)."""
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_j2k_ht", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_j2k_ht.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def j2k_files(checker_rgb, projector_rgb):
     f = {}
     f.update(pil_files())
@@ -1123,6 +1144,9 @@ def j2k_files(checker_rgb, projector_rgb):
     p2 = _p2_module()
     f.update(p2.p2_files(f))
     f["checker_j2kp2.jp2"] = p2.checker_twin(checker_rgb)
+    ht = _ht_module()
+    f.update(ht.ht_files())
+    f["checker_htj2k.jp2"] = ht.checker_twin(checker_rgb)
     return f
 
 
@@ -1132,7 +1156,10 @@ def write_j2k_files(out, checker_rgb, projector_rgb):
     it decodes (by path), the sha256 and 128 x 128 corner of its decode
     of `j2k_2048.jp2` under "j2k_2048.jp2:sha256" / ":corner", and Part
     2's edit outcomes and tile-resolution runs ("p2edits:sha256",
-    "<name>:runs", `tools/gen_torch_j2k_p2.py`)."""
+    "<name>:runs", `tools/gen_torch_j2k_p2.py`); slice 7e.7c's HT files,
+    their edits' outcomes ("htedits:sha256") and the HT timing file
+    `htj2k_2048.jp2` as `j2k_2048.jp2`'s (`tools/gen_torch_j2k_ht.py`,
+    which checks its tables and its writer first)."""
     from PIL import Image
     dec = {}
     files = j2k_files(checker_rgb, projector_rgb)
@@ -1143,9 +1170,9 @@ def write_j2k_files(out, checker_rgb, projector_rgb):
         try:
             dec[fn] = np.asarray(Image.open(p).convert("RGB"))
         except (OSError, SyntaxError, ValueError):
-            assert fn.startswith("j2k_bad_"), fn
+            assert fn.startswith(("j2k_bad_", "htj2k_bad_")), fn
             continue
-        assert not fn.startswith("j2k_bad_"), fn
+        assert not fn.startswith(("j2k_bad_", "htj2k_bad_")), fn
     for fn in ("checker_j2k.jp2", "projector_j2k.j2k", "checker_j2kp2.jp2"):
         Image.fromarray(dec[fn]).save(os.path.join(
             out, fn.rsplit(".", 1)[0] + "_pil.png"))
@@ -1160,6 +1187,18 @@ def write_j2k_files(out, checker_rgb, projector_rgb):
     dec["j2k_2048.jp2:sha256"] = np.frombuffer(
         hashlib.sha256(full.tobytes()).digest(), np.uint8)
     dec["j2k_2048.jp2:corner"] = full[:CORNER, :CORNER]
+    ht = _ht_module()
+    ht.check_tables()
+    ht.check_writer()
+    ht.once_per_process(files, "pil")
+    dec["htedits:sha256"] = ht.edit_digests(files, "pil")
+    timing = ht.ht_timing()
+    with open(os.path.join(out, "htj2k_2048.jp2"), "wb") as fh:
+        fh.write(timing)
+    full = np.asarray(Image.open(io.BytesIO(timing)).convert("RGB"))
+    dec["htj2k_2048.jp2:sha256"] = np.frombuffer(
+        hashlib.sha256(full.tobytes()).digest(), np.uint8)
+    dec["htj2k_2048.jp2:corner"] = full[:CORNER, :CORNER]
     np.savez_compressed(os.path.join(out, "j2k_decodes.npz"), **dec)
 
 

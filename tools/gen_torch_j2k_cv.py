@@ -32,7 +32,10 @@ a child process, `J2kWriter`, the JP2 box helpers). It writes
     sRGB colr box and no image offset, PIL's encoder) with
     `projector_j2kcv_pfm.hdr` (the pip cv2's decode, a PFM), and slice
     7e.7d's `projector_j2kp2cv.exr` (tiles with different MCOs,
-    `tools/gen_torch_j2k_p2.py`) with `projector_j2kp2cv_pfm.hdr`;
+    `tools/gen_torch_j2k_p2.py`) with `projector_j2kp2cv_pfm.hdr`, and
+    slice 7e.7c's `projector_htj2kcv.exr` (9/7 HT code-blocks refined in a
+    second layer, `tools/gen_torch_j2k_ht.py`) with
+    `projector_htj2kcv_pfm.hdr`;
   * `j2k_cv_decodes.npz`: the decode of every file above and of every
     committed JPEG 2000 file of slice 7e.7a (`j2k_*`, `checker_j2k.jp2`,
     `projector_j2k.j2k`), read under a .exr name; the names the pip cv2
@@ -41,7 +44,9 @@ a child process, `J2kWriter`, the JP2 box helpers). It writes
     under "edits:sha256" the outcome of each seeded edit of `edit_cases()`
     (the sha256 of `_digest`, zeros where the pip cv2 refuses); and slice
     7e.7d's edit outcomes and tile-resolution runs ("p2edits:sha256",
-    "<name>:runs").
+    "<name>:runs"); slice 7e.7c's HT files (`htj2k_*`,
+    `checker_htj2k.jp2`), their edits' outcomes ("htedits:sha256") and
+    `htj2k_2048.jp2` as `j2k_2048.jp2`.
 
 Needs PIL, numpy and the pip cv2 (run in a child process, one for all the
 files: a broken file could crash it). The output is deterministic:
@@ -283,23 +288,27 @@ def cv_files(assets):
 
 
 def twin_files(sky, projector_rgb):
-    """`sky_a_j2kcv.exr` and `projector_j2kcv.hdr` (the module
-    docstring)."""
+    """`sky_a_j2kcv.exr`, `projector_j2kcv.hdr`, `projector_j2kp2cv.exr`
+    and `projector_htj2kcv.exr` (the module docstring)."""
     q = np.clip(np.round(sky.astype(np.float64) * SKY_SCALE), 0,
                 65535).astype(np.uint16)
     return {"sky_a_j2kcv.exr": lossless_jp2(q, 16, numres=3),
             "projector_j2kcv.hdr": G.pil_encode(projector_rgb,
                                                 irreversible=True, mct=1),
             "projector_j2kp2cv.exr": G._p2_module().projector_twin(
+                projector_rgb),
+            "projector_htj2kcv.exr": G._ht_module().projector_twin(
                 projector_rgb)}
 
 
 def committed_files(assets):
-    """Slice 7e.7a's JPEG 2000 files, as committed."""
+    """The committed JPEG 2000 files of slices 7e.7a, 7e.7d and 7e.7c."""
     return sorted(fn for fn in os.listdir(assets)
-                  if (fn.startswith("j2k_") and fn.endswith((".j2k", ".jp2"))
-                      and fn != "j2k_2048.jp2")
-                  or fn in ("checker_j2k.jp2", "projector_j2k.j2k"))
+                  if (fn.startswith(("j2k_", "htj2k_")) and
+                      fn.endswith((".j2k", ".jp2"))
+                      and fn not in ("j2k_2048.jp2", "htj2k_2048.jp2"))
+                  or fn in ("checker_j2k.jp2", "projector_j2k.j2k",
+                            "checker_htj2k.jp2"))
 
 
 EDIT_SOURCES = ("j2k_rgb_irr_mct.jp2", "j2k_tiles_irr.jp2", "j2k_ppt.j2k",
@@ -396,8 +405,9 @@ def write_j2k_cv_files(out, sky, projector_rgb):
     for fn in committed_files(out):
         with open(os.path.join(out, fn), "rb") as fh:
             named[fn] = fh.read()
-    with open(os.path.join(out, "j2k_2048.jp2"), "rb") as fh:
-        named["j2k_2048.jp2"] = fh.read()
+    for fn in ("j2k_2048.jp2", "htj2k_2048.jp2"):
+        with open(os.path.join(out, fn), "rb") as fh:
+            named[fn] = fh.read()
     edits = edit_cases(out)
     for i, (_, d) in enumerate(edits):
         named[f":edit{i:04d}"] = d
@@ -406,20 +416,22 @@ def write_j2k_cv_files(out, sky, projector_rgb):
         assert (dec[fn] is None) == fn.startswith("j2kcv_bad_"), fn
     keep = {fn: a for fn, a in dec.items()
             if a is not None and not fn.startswith(":")
-            and fn != "j2k_2048.jp2"}
+            and fn not in ("j2k_2048.jp2", "htj2k_2048.jp2")}
     keep[":refused"] = np.array(sorted(fn for fn, a in dec.items()
                                        if a is None
                                        and not fn.startswith(":")))
-    full = dec["j2k_2048.jp2"]
-    keep["j2k_2048.jp2:sha256"] = np.frombuffer(
-        hashlib.sha256(full.tobytes()).digest(), np.uint8)
-    keep["j2k_2048.jp2:corner"] = full[:CORNER, :CORNER]
+    for fn in ("j2k_2048.jp2", "htj2k_2048.jp2"):
+        full = dec[fn]
+        keep[fn + ":sha256"] = np.frombuffer(
+            hashlib.sha256(full.tobytes()).digest(), np.uint8)
+        keep[fn + ":corner"] = full[:CORNER, :CORNER]
     keep["edits:sha256"] = np.array(
         [np.frombuffer(_digest(dec[f":edit{i:04d}"]), np.uint8)
          for i in range(len(edits))])
     imageio.write_exr(dec["sky_a_j2kcv.exr"],
                       os.path.join(out, "sky_a_j2kcv_ref.exr"))
-    for fn in ("projector_j2kcv.hdr", "projector_j2kp2cv.exr"):
+    for fn in ("projector_j2kcv.hdr", "projector_j2kp2cv.exr",
+               "projector_htj2kcv.exr"):
         with open(os.path.join(out, fn.split(".")[0] + "_pfm.hdr"),
                   "wb") as fh:
             fh.write(pfm(dec[fn]))
@@ -428,6 +440,10 @@ def write_j2k_cv_files(out, sky, projector_rgb):
     keep["p2edits:sha256"] = p2.edit_digests(p2_files, "cv")
     for fn, runs in p2.res_runs(p2_files, "cv").items():
         keep[fn + ":runs"] = runs
+    ht = G._ht_module()
+    ht_named = {fn: named[fn] for fn in named if fn.startswith("htj2k_")}
+    ht.once_per_process(ht_named, "cv")
+    keep["htedits:sha256"] = ht.edit_digests(ht_named, "cv")
     np.savez_compressed(os.path.join(out, "j2k_cv_decodes.npz"), **keep)
 
 

@@ -3,11 +3,12 @@
 JPEG entropy decoder (`csrc/jpeg_huff.cpp`), the serial stages of the
 OpenEXR, TIFF (SGILog among them) and GIF codecs
 (`csrc/image_codecs.cpp`), the WebP bitstream decoders
-(`csrc/webp_codec.cpp`) and JPEG 2000's tier-1 (`csrc/j2k_codec.cpp`).
+(`csrc/webp_codec.cpp`) and JPEG 2000's tier-1 (`csrc/j2k_codec.cpp`,
+and `csrc/j2k_ht.cpp` for Part 15's HT code-blocks).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
 `build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
-import the JAX package. At first use the six sources are compiled with
+import the JAX package. At first use the seven sources are compiled with
 g++ into `vision_tpu_torch/_build/` (the tracked `native/libvision_native.so`
 is neither loaded nor rebuilt). The OBJ parser is the port's own copy of
 `native/mesh_io.cpp`'s: its vertex cache keys on the exact index triple
@@ -30,7 +31,8 @@ SOURCES = [os.path.join(_HERE, "..", "native", "bvh_builder.cpp"),
            os.path.join(_HERE, "csrc", "jpeg_huff.cpp"),
            os.path.join(_HERE, "csrc", "image_codecs.cpp"),
            os.path.join(_HERE, "csrc", "webp_codec.cpp"),
-           os.path.join(_HERE, "csrc", "j2k_codec.cpp")]
+           os.path.join(_HERE, "csrc", "j2k_codec.cpp"),
+           os.path.join(_HERE, "csrc", "j2k_ht.cpp")]
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lib = None
@@ -123,6 +125,8 @@ def _library():
         lib.vt_sgilog_decode.restype = ctypes.c_int64
         lib.vt_j2k_t1_decode.argtypes = [P, ctypes.c_int64, P, P, P, P]
         lib.vt_j2k_t1_decode.restype = ctypes.c_int64
+        lib.vt_j2k_ht_decode.argtypes = [P, ctypes.c_int64, P, P, P, P, P]
+        lib.vt_j2k_ht_decode.restype = ctypes.c_int64
         lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
         lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
@@ -457,6 +461,40 @@ def j2k_t1_decode(data, info, segs, steps, out):
                                        segs.ctypes.data, steps.ctypes.data,
                                        out.ctypes.data)
     return None if done == n else int(done)
+
+
+# why OpenJPEG's HT block decoder stops (`csrc/j2k_ht.cpp`), as its
+# messages say it
+HT_REFUSALS = {1: "ROI in an HT code-block",
+               2: "more than 3 coding passes",
+               3: "more than 30 bit-planes",
+               4: "more zero bit-planes than bit-planes",
+               5: "invalid code-block length values",
+               6: "not 2 <= Scup <= min(Lcup, 4079)",
+               7: "an incorrect MEL segment sequence",
+               8: "U_q larger than the zero bit-planes + 1",
+               9: "VLC code producing significant samples outside the "
+                  "code-block"}
+
+
+def j2k_ht_decode(data, info, segs, steps, out):
+    """JPEG 2000 HT code-blocks (Part 15) as OpenJPEG 2.5's HT decoder
+    decodes them (`csrc/j2k_ht.cpp`), each written into `out` (int32 for
+    the 5/3 path, float32 for the 9/7) at its offset: info int64 [n, 14]
+    (see `vt_j2k_ht_decode`), segs int64 (length, passes) pairs, steps
+    float32 [n]. Returns None, or (the index of the first code-block
+    OpenJPEG refuses, why: `HT_REFUSALS`)."""
+    buf = _bytes(data)
+    info = np.ascontiguousarray(info, np.int64)
+    segs = np.ascontiguousarray(segs, np.int64)
+    steps = np.ascontiguousarray(steps, np.float32)
+    assert out.flags.c_contiguous and out.itemsize == 4
+    why = np.zeros(1, np.int32)
+    n = len(info)
+    done = _library().vt_j2k_ht_decode(buf.ctypes.data, n, info.ctypes.data,
+                                       segs.ctypes.data, steps.ctypes.data,
+                                       out.ctypes.data, why.ctypes.data)
+    return None if done == n else (int(done), HT_REFUSALS[int(why[0])])
 
 
 _WEBP_ERRORS = {

@@ -27,8 +27,9 @@ OpenCV's rules, read from the pip cv2's decodes and its messages:
     for three) is refused.
 
 What OpenCV refuses raises ValueError (the JAX package's slot takes its
-default). Part 2's CBD sets the precisions readHeader sees; HTJ2K
-code-blocks (7e.7c) raise NotImplementedError from `j2k`.
+default). Part 2's CBD sets the precisions readHeader sees; Part 15's
+HTJ2K code-blocks decode through `j2k`'s tier-1 as OpenJPEG 2.5.3's HT
+decoder decodes them.
 """
 from __future__ import annotations
 

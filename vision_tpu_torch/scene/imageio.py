@@ -67,10 +67,10 @@ refuses:
   * `write_exr`: a single-part scanline OpenEXR of uncompressed FLOAT B, G,
     R channels.
 
-OpenCV's AVIF reader under a .hdr / .exr name, JPEG 2000's HTJ2K
-code-blocks under any name, and the formats PIL opens that `pilread.py`
-does not decode yet raise NotImplementedError naming their item of
-ROADMAP queue A (JPEG 2000 under any other name is decoded by `j2k.py`).
+OpenCV's AVIF reader under a .hdr / .exr name and the formats PIL opens
+that `pilread.py` does not decode yet raise NotImplementedError naming
+their item of ROADMAP queue A (JPEG 2000, HTJ2K code-blocks included,
+under any other name is decoded by `j2k.py`).
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ import zlib
 import numpy as np
 
 from .. import native
-from . import cvj2k, cvread, cvtiff, j2k, ojpeg, pilread, tiffdir, webp
+from . import cvj2k, cvread, cvtiff, ojpeg, pilread, tiffdir, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 EXR_MAGIC = 20000630
@@ -123,7 +123,7 @@ def _read_pil(data, name):
 
 # the signatures OpenCV's JPEG 2000 readers take: a JP2 signature box
 # (OPJ_CODEC_JP2) and a bare codestream's SOC SIZ (OPJ_CODEC_J2K), both
-# decoded by `cvj2k` but for HTJ2K code-blocks
+# decoded by `cvj2k`
 _J2K_SIGNATURES = (b"\0\0\0\x0cjP  \r\n\x87\n", b"\xffO\xffQ")
 
 
@@ -151,9 +151,9 @@ def _read_opencv(data, name):
     OpenCV's own conversion; a WebP file as OpenCV's libwebp decodes it
     (`webp.decode_opencv`); BMP, Sun raster, PNM, PFM, PAM and GIF files
     by OpenCV's own readers (`cvread`), TIFF by its libtiff reader
-    (`cvtiff`), JPEG 2000 by its OpenJPEG reader (`cvj2k`). HTJ2K
-    code-blocks and OpenCV's AVIF reader raise NotImplementedError (7e.7c,
-    7e.8); content OpenCV cannot read raises ValueError."""
+    (`cvtiff`), JPEG 2000 (HTJ2K code-blocks too) by its OpenJPEG reader
+    (`cvj2k`). OpenCV's AVIF reader raises NotImplementedError (7e.8);
+    content OpenCV cannot read raises ValueError."""
     if data[:2] == b"#?":
         return read_hdr(data)
     if _is_exr(data):
@@ -182,8 +182,6 @@ def _read_opencv(data, name):
         if data[1] == ord("7"):
             return _from_cv(cvread.read_pam(data))
     if data.startswith(_J2K_SIGNATURES):
-        if j2k.uses_ht(data):
-            raise _not_ported(f"'{name}': decoding HTJ2K code-blocks", "7e.7c")
         return _from_cv(cvj2k.read_cv(data))
     if _is_avif(data):
         raise _not_ported(f"'{name}': decoding AVIF files as OpenCV does",

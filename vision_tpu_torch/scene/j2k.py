@@ -1,8 +1,8 @@
-"""JPEG 2000 (Part 1, and Part 2's CBD, MCT, MCC and MCO markers) as the
-JAX package's loader gets it under any name but .hdr / .exr:
-`PIL.Image.open(p).convert("RGB")`, PIL 12.1.0's Jpeg2KImagePlugin over
-OpenJPEG 2.5.4 (the counterpart of PIL's plugin, its Jpeg2KDecode.c and
-the library it drives).
+"""JPEG 2000 (Part 1, Part 2's CBD, MCT, MCC and MCO markers, and Part
+15's HT code-blocks) as the JAX package's loader gets it under any name
+but .hdr / .exr: `PIL.Image.open(p).convert("RGB")`, PIL 12.1.0's
+Jpeg2KImagePlugin over OpenJPEG 2.5.4 (the counterpart of PIL's plugin,
+its Jpeg2KDecode.c and the library it drives).
 
 Three layers, each as its reference runs it:
 
@@ -50,9 +50,15 @@ same OpenJPEG layers as opj_read_header / opj_decode do (the tiles
 composed into one image, JP2's pclr / cmap / cdef applied, the colour
 space from colr), and `cvj2k.py` converts its components as OpenCV does.
 
+Part 15 (HTJ2K): CAP and CPF are read and left unused, as OpenJPEG reads
+them; a tile-component whose code-block style has the HT bit (0x40) has
+its segments read as OpenJPEG's tier-2 reads an HT block's (the first
+holds the cleanup pass alone, the next every pass still to come) and its
+blocks decoded by `native.j2k_ht_decode` (`csrc/j2k_ht.cpp`, OpenJPEG's
+HT block decoder); HTMIXED (0x80) is refused, as both releases refuse it.
+
 What PIL refuses raises ValueError (the JAX package's slot takes its
-default). HTJ2K code-blocks (Part 15: the HT code-block style or a CAP
-marker) raise NotImplementedError naming ROADMAP's item 7e.7c.
+default).
 """
 from __future__ import annotations
 
@@ -89,11 +95,6 @@ _UNSPECIFIED, _SRGB, _GRAY, _SYCC, _EYCC, _CMYK = range(6)
 def _refused(what):
     return ValueError(f"JPEG 2000 file {what}: PIL (the JAX package's "
                       "reader) refuses it too")
-
-
-def _later(what, item):
-    return NotImplementedError(f"decoding JPEG 2000 files with {what} is not "
-                               f"ported yet: ROADMAP queue A, slice {item}")
 
 
 class _Fail(Exception):
@@ -689,7 +690,7 @@ class _Codestream:
         """The marker handlers: main header (tcp None) or tile-part."""
         t = self.default if tcp is None and self.siz else tcp
         if m in (0xFF50, 0xFF59):
-            raise _later("Part 15's CAP / CPF markers (HTJ2K)", "7e.7c")
+            return      # Part 15's CAP and CPF: read and left unused
         if m == 0xFF51:
             self._siz(p)
         elif m == 0xFF52:
@@ -902,8 +903,6 @@ class _Codestream:
         tccp.cblksty = p[3]
         if tccp.cblksty & 0x80:
             raise _Fail("mixed HT code-blocks")
-        if tccp.cblksty & 0x40:
-            raise _later("HT code-blocks (Part 15)", "7e.7c")
         tccp.qmfbid = p[4]
         if tccp.qmfbid > 1:
             raise _Fail("bad transform")
@@ -1730,7 +1729,12 @@ def _read_packet(src, pos, end, hdr, tcp, res, lay, prec, sty):
                 n = cb.numnewpasses
                 while True:
                     seg = cb.segs[segno]
-                    seg[4] = min(seg[0] - seg[1], n)
+                    if sty & 0x40:
+                        # HT: the first segment holds the cleanup pass
+                        # alone, a later one every pass still to come
+                        seg[4] = 1 if segno == 0 else n
+                    else:
+                        seg[4] = min(seg[0] - seg[1], n)
                     nbits = cb.numlenbits + seg[4].bit_length() - 1
                     if nbits > 32:
                         raise _Fail("invalid bit number")
@@ -1819,12 +1823,15 @@ def _tier2(tcp, comps, tile_box, cs):
 
 def _tier1(data, cp):
     """Every code-block of one tile-component into its buffer (int32 for
-    5/3, float32 for 9/7), OpenJPEG's Mallat layout."""
+    5/3, float32 for 9/7), OpenJPEG's Mallat layout: HT code-blocks
+    (the style's 0x40) through `native.j2k_ht_decode`, the others through
+    `native.j2k_t1_decode`."""
     ress = cp["res"]
     tccp = cp["tccp"]
     w = ress[-1].x1 - ress[-1].x0
     h = ress[-1].y1 - ress[-1].y0
     irrev = tccp.qmfbid == 0
+    ht = bool(tccp.cblksty & 0x40)
     out = np.zeros((max(h, 1), max(w, 1)), np.float32 if irrev else np.int32)
     info, segs, steps, chunks = [], [], [], []
     off = 0
@@ -1843,13 +1850,23 @@ def _tier1(data, cp):
                         pres = ress[resno - 1]
                         y += pres.y1 - pres.y0
                     nseg = cb.numsegs
-                    info.append((off, len(segs) // 2, nseg, cb.x1 - cb.x0,
-                                 cb.y1 - cb.y0, b.bandno,
-                                 cb.numbps if cb.numbps < 2**31
-                                 else cb.numbps - 2**32,
-                                 tccp.roishift, tccp.cblksty,
-                                 y * out.shape[1] + x, out.shape[1],
-                                 int(irrev)))
+                    row = [off, len(segs) // 2, nseg, cb.x1 - cb.x0,
+                           cb.y1 - cb.y0]
+                    if ht:
+                        # OpenJPEG reads a block of one chunk where it lies
+                        # in the tile's data (a buffer aligned to 16), a
+                        # block of more from a buffer of its own
+                        row += [b.numbps, cb.numbps, tccp.roishift,
+                                tccp.cblksty]
+                        tail = [len(cb.chunks), cb.chunks[0][0] & 3
+                                if len(cb.chunks) == 1 else 0]
+                    else:
+                        row += [b.bandno, cb.numbps if cb.numbps < 2**31
+                                else cb.numbps - 2**32, tccp.roishift,
+                                tccp.cblksty]
+                        tail = []
+                    info.append(row + [y * out.shape[1] + x, out.shape[1],
+                                       int(irrev)] + tail)
                     for s in cb.segs[:nseg]:
                         segs += (s[2], s[1])
                     for cpos, clen in cb.chunks:
@@ -1857,11 +1874,18 @@ def _tier1(data, cp):
                         off += clen
                     steps.append(b.step)
     buf = b"".join(chunks)
-    bad = native.j2k_t1_decode(buf, np.array(info, np.int64).reshape(-1, 12),
-                               np.array(segs, np.int64),
-                               np.array(steps, np.float32), out)
-    if bad is not None:
-        raise _Fail("a code-block of 31 bit-planes or more")
+    if ht:
+        bad = native.j2k_ht_decode(buf, np.array(info, np.int64).reshape(
+            -1, 14), np.array(segs, np.int64), np.array(steps, np.float32),
+            out)
+        if bad is not None:
+            raise _Fail(f"an HT code-block OpenJPEG stops at: {bad[1]}")
+    else:
+        bad = native.j2k_t1_decode(buf, np.array(info, np.int64).reshape(
+            -1, 12), np.array(segs, np.int64), np.array(steps, np.float32),
+            out)
+        if bad is not None:
+            raise _Fail("a code-block of 31 bit-planes or more")
     return out[:h, :w]
 
 
@@ -2315,40 +2339,6 @@ def read(data):
     if mode in ("P", "PA"):
         return _rgb("P", img if img.ndim == 2 else img[..., 0], palette)
     return _rgb(mode, img)
-
-
-def uses_ht(data):
-    """Whether a JPEG 2000 file's main header asks for Part 15 (HTJ2K): a
-    CAP marker, or a COD / COC code-block style with the HT bit."""
-    pos = 0
-    if data[:12] == _JP2_SIG:
-        pos = 12
-        while pos + 8 <= len(data):
-            n, t = struct.unpack_from(">I4s", data, pos)
-            if t == b"jp2c":
-                pos += 8
-                break
-            if n < 8:
-                return False
-            pos += n
-    if data[pos:pos + 2] != b"\xffO":
-        return False
-    pos += 2
-    room = 1
-    while pos + 4 <= len(data):
-        m, n = struct.unpack_from(">HH", data, pos)
-        body = data[pos + 4:pos + 2 + n]
-        if m in (0xFF90, 0xFF93) or n < 2:
-            return False
-        if m == 0xFF50:
-            return True
-        if m == 0xFF51 and len(body) >= 36:
-            room = 1 if struct.unpack_from(">H", body, 34)[0] <= 256 else 2
-        sty = 8 if m == 0xFF52 else room + 4 if m == 0xFF53 else None
-        if sty is not None and len(body) > sty and body[sty] & 0x40:
-            return True
-        pos += 2 + n
-    return False
 
 
 def read_icns_resource(data):

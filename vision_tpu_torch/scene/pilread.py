@@ -19,8 +19,7 @@ refusal. `read` walks the same order (`_PLUGINS`) and returns uint8
     it and refuses it (its header, its data, or a handler PIL has not here:
     EPS without Ghostscript, the BUFR, GRIB and HDF5 stubs, MPEG, WMF);
   * NotImplementedError naming ROADMAP queue A's item where PIL decodes
-    a format this package does not yet: 7e.8 (AVIF), and JPEG 2000's
-    HTJ2K code-blocks (7e.7c).
+    a format this package does not yet: 7e.8 (AVIF).
 
 Decoded here, each as its plugin and its decoder in libImaging read it,
 then through `convert("RGB")` of the mode it gives (`_rgb`): PNM and PFM
