@@ -745,6 +745,40 @@ def env_sphere_htj2kcv_ref(res=512, sub_div=40):
     return _env_sphere_projector(res, sub_div, "projector_htj2kcv_pfm.hdr")
 
 
+# slice 7e.8a.1 (tools/gen_torch_avif.py): the checker and the projector's
+# RGBA as lossless AVIF files (AV1 coded lossless at 4:2:0, BT.601 full
+# range: libyuv's YUV to RGB) on PIL's route. Each scene is held against
+# one reading PIL's decode of its file from a PNG.
+CBOX_TEX_AVIF = {"checker.png": "checker_avif.avif"}
+CBOX_TEX_AVIF_REF = {"checker.png": "checker_avif_pil.png"}
+ENV_SPHERE_AVIF = {"projector.png": "projector_avif.avif"}
+ENV_SPHERE_AVIF_REF = {"projector.png": "projector_avif_pil.png"}
+
+
+def cbox_tex_avif(res=512):
+    """`cbox_tex` with its checker from a lossless AVIF file: it renders as
+    `cbox_tex_avif_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_AVIF)
+
+
+def cbox_tex_avif_ref(res=512):
+    """`cbox_tex` with its checker read from PIL's decode of
+    checker_avif.avif, written as a PNG."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_AVIF_REF)
+
+
+def env_sphere_avif(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a lossless AVIF file with
+    an alpha item: it renders as `env_sphere_avif_ref` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIF)
+
+
+def env_sphere_avif_ref(res=512, sub_div=40):
+    """`env_sphere` with its projector image read from PIL's decode of
+    projector_avif.avif, written as a PNG."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIF_REF)
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

@@ -63,6 +63,11 @@ own decoders, `vision_tpu_torch/scene/imageio.py`, and needs neither).
   * The JPEG 2000 files of slice 7e.7b (OpenCV's route) and
     `j2k_cv_decodes.npz`, written by `tools/gen_torch_j2k_cv.py` (its
     docstring lists them).
+  * The AVIF files of slice 7e.8a.1 (PIL's route, lossless AV1),
+    `avif_decodes.npz`, the twins' `checker_avif.avif` /
+    `projector_avif.avif` with PIL's decodes as PNGs and the timing file
+    `avif_2048.avif`, written by `tools/gen_torch_avif.py` (its docstring
+    lists them).
 
 The output is deterministic: running it again writes the same bytes.
 """
@@ -1715,6 +1720,8 @@ def main():
     _j2k_module().write_j2k_files(out, checker(), projector()[..., :3])
     _j2k_module("gen_torch_j2k_cv").write_j2k_cv_files(
         out, sky("a"), projector()[..., :3])
+    _j2k_module("gen_torch_avif").write_avif_files(out, checker(),
+                                                   projector())
     for fn in sorted(os.listdir(out)):
         print(fn, os.path.getsize(os.path.join(out, fn)))
 

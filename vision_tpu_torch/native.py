@@ -3,12 +3,13 @@
 JPEG entropy decoder (`csrc/jpeg_huff.cpp`), the serial stages of the
 OpenEXR, TIFF (SGILog among them) and GIF codecs
 (`csrc/image_codecs.cpp`), the WebP bitstream decoders
-(`csrc/webp_codec.cpp`) and JPEG 2000's tier-1 (`csrc/j2k_codec.cpp`,
-and `csrc/j2k_ht.cpp` for Part 15's HT code-blocks).
+(`csrc/webp_codec.cpp`), JPEG 2000's tier-1 (`csrc/j2k_codec.cpp`,
+and `csrc/j2k_ht.cpp` for Part 15's HT code-blocks) and the tiles of
+lossless AV1 frames (`csrc/av1_codec.cpp`).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
 `build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
-import the JAX package. At first use the seven sources are compiled with
+import the JAX package. At first use the eight sources are compiled with
 g++ into `vision_tpu_torch/_build/` (the tracked `native/libvision_native.so`
 is neither loaded nor rebuilt). The OBJ parser is the port's own copy of
 `native/mesh_io.cpp`'s: its vertex cache keys on the exact index triple
@@ -32,7 +33,8 @@ SOURCES = [os.path.join(_HERE, "..", "native", "bvh_builder.cpp"),
            os.path.join(_HERE, "csrc", "image_codecs.cpp"),
            os.path.join(_HERE, "csrc", "webp_codec.cpp"),
            os.path.join(_HERE, "csrc", "j2k_codec.cpp"),
-           os.path.join(_HERE, "csrc", "j2k_ht.cpp")]
+           os.path.join(_HERE, "csrc", "j2k_ht.cpp"),
+           os.path.join(_HERE, "csrc", "av1_codec.cpp")]
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lib = None
@@ -127,6 +129,10 @@ def _library():
         lib.vt_j2k_t1_decode.restype = ctypes.c_int64
         lib.vt_j2k_ht_decode.argtypes = [P, ctypes.c_int64, P, P, P, P, P]
         lib.vt_j2k_ht_decode.restype = ctypes.c_int64
+        lib.vt_av1_decode_frame.argtypes = [P, ctypes.c_int64, P, P, P, P, P]
+        lib.vt_av1_decode_frame.restype = ctypes.c_int64
+        lib.vt_av1_coverage.argtypes = [P, ctypes.c_int32]
+        lib.vt_av1_coverage.restype = None
         lib.vt_webp_coverage.argtypes = [P, ctypes.c_int32]
         lib.vt_webp_coverage.restype = ctypes.c_int64
         _lib = lib
@@ -495,6 +501,43 @@ def j2k_ht_decode(data, info, segs, steps, out):
                                        segs.ctypes.data, steps.ctypes.data,
                                        out.ctypes.data, why.ctypes.data)
     return None if done == n else (int(done), HT_REFUSALS[int(why[0])])
+
+
+# why dav1d refuses a frame (`csrc/av1_codec.cpp`)
+AV1_REFUSALS = {-2: "an AV1 tile past the data",
+                -3: "an AV1 block size without a chroma block size (a "
+                    "vertical partition in 4:2:2)",
+                -4: "an AV1 tile whose symbols run past its data"}
+
+
+def av1_decode_frame(data, tiles, prm, width, height, ssx, ssy, mono):
+    """The tiles of one lossless AV1 intra frame (`csrc/av1_codec.cpp`):
+    tiles [(offset, size)] into `data` in raster order, prm the frame's
+    parameters (see `vt_av1_decode_frame`), width / height the frame's
+    4x4-aligned size. Returns [Y, U, V] uint8 planes at that size (U, V
+    zero-sized for 4:0:0); raises ValueError where dav1d refuses it."""
+    buf = _bytes(data)
+    t = np.ascontiguousarray(np.asarray(tiles, np.int64).reshape(-1))
+    prm = np.ascontiguousarray(prm, np.int32)
+    cw, ch = (0, 0) if mono else (width >> ssx, height >> ssy)
+    planes = [np.zeros((height, width), np.uint8),
+              np.zeros((max(ch, 1), max(cw, 1)), np.uint8),
+              np.zeros((max(ch, 1), max(cw, 1)), np.uint8)]
+    rc = _library().vt_av1_decode_frame(
+        buf.ctypes.data, len(data), t.ctypes.data, prm.ctypes.data,
+        *(p.ctypes.data for p in planes))
+    if rc < 0:
+        raise ValueError(f"corrupt AVIF: {AV1_REFUSALS[int(rc)]} (dav1d "
+                         "refuses it)")
+    return planes
+
+
+def av1_coverage(reset=False):
+    """The AV1 decoder's path counters since the last reset: int64 [72]
+    (the layout is `csrc/av1_codec.cpp`'s COV_* indices)."""
+    out = np.zeros(72, np.int64)
+    _library().vt_av1_coverage(out.ctypes.data, int(reset))
+    return out
 
 
 _WEBP_ERRORS = {

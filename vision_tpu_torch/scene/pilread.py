@@ -19,7 +19,8 @@ refusal. `read` walks the same order (`_PLUGINS`) and returns uint8
     it and refuses it (its header, its data, or a handler PIL has not here:
     EPS without Ghostscript, the BUFR, GRIB and HDF5 stubs, MPEG, WMF);
   * NotImplementedError naming ROADMAP queue A's item where PIL decodes
-    a format this package does not yet: 7e.8 (AVIF).
+    a variant this package does not yet: AVIF's lossy frames (7e.8a.2),
+    grid items, 10/12-bit samples and image sequences (7e.8a.3).
 
 Decoded here, each as its plugin and its decoder in libImaging read it,
 then through `convert("RGB")` of the mode it gives (`_rgb`): PNM and PFM
@@ -34,7 +35,8 @@ FLI / FLC (the first frame, FliDecode.c in `csrc/image_codecs.cpp`),
 FITS (raw and gzip tiles), FTEX, GBR, IMT, IPTC, McIdas, PhotoCD (PIL's
 PhotoYCC tables), PIXAR and XV thumbnails. PNG, JPEG, BMP, TIFF, GIF,
 WebP and TGA go to their readers in `imageio.py` and `webp.py`, JPEG
-2000 (and ICNS's JPEG 2000 icons) to `j2k.py`. Opened by
+2000 (and ICNS's JPEG 2000 icons) to `j2k.py`, AVIF (lossless AV1 key
+frames, through libavif's YUV to RGB) to `avif.py`. Opened by
 path, PIL maps raw pixels of modes L, P, I;16 and the like from the file
 (`_mapped`): the whole image must lie in it.
 """
@@ -61,11 +63,6 @@ class _PassOn(Exception):
 def _refused(fmt, what):
     return ValueError(f"{fmt} file {what}: PIL (the JAX package's reader) "
                       "refuses it too")
-
-
-def _later(fmt, item):
-    return NotImplementedError(f"decoding {fmt} files is not ported yet: "
-                               f"ROADMAP queue A, slice {item}")
 
 
 def _opened(fmt, w, h):
@@ -841,12 +838,6 @@ def _sgi_row(buf, src, n, dest, w, end, bpc):
 # the formats no plugin of this module decodes yet, and the ones PIL
 # identifies but cannot decode here
 # ---------------------------------------------------------------------------
-
-def _not_yet(fmt, item):
-    def reader(data, name):
-        raise _later(fmt, item)
-    return reader
-
 
 # ---------------------------------------------------------------------------
 # IM (ImImagePlugin)
@@ -2442,6 +2433,14 @@ def _jpeg2000(data, name):
     return j2k.read(data)
 
 
+def _avif(data, name):
+    from . import avif
+    try:
+        return avif.read(data)
+    except avif.PassOn:
+        raise _PassOn from None
+
+
 def _tga(data, name):
     from . import imageio
     if imageio._tga_header(data) is None:
@@ -2477,7 +2476,7 @@ _PLUGINS = (
     ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy",
      _plain(read_ppm)),
     ("PNG", lambda p: p.startswith(b"\x89PNG\r\n\x1a\n"), _from("read_png")),
-    ("AVIF", _avif_accept, _not_yet("AVIF", "7e.8")),
+    ("AVIF", _avif_accept, _avif),
     ("BLP", lambda p: p.startswith((b"BLP1", b"BLP2")), read_blp),
     ("BUFR", lambda p: p.startswith((b"BUFR", b"ZCZC")), _stub("BUFR")),
     ("CUR", lambda p: p.startswith(b"\0\0\2\0"), _plain(read_cur)),
