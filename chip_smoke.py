@@ -181,28 +181,34 @@ phase, one JSON line each:
     (lossless AV1 on PIL's route; the `avif_bad_*` files refused, the
     `avif_later_*` ones raising naming their sub-item) and the 2048^2
     lossless file `avif_2048.avif` against PIL's decode's sha256, timed.
+    Slice 7e.8a.2a: the lossy AVIF files of `avifq_decodes.npz` (every
+    quantiser context, speeds 5-10, every subsampling, transform size and
+    type aom picks, the deblocking filter; the `avif_later_*` ones of
+    7e.8a.2b raising naming it) and the 2048^2 lossy file
+    `avif_lossy_2048.avif` against PIL's decode's sha256, timed.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
-    7e.6b, 7e.5, 7e.4b, 7e.7a, 7e.7b, 7e.7d, 7e.7c and 7e.8a.1
+    7e.6b, 7e.5, 7e.4b, 7e.7a, 7e.7b, 7e.7d, 7e.7c, 7e.8a.1 and 7e.8a.2a
     (`phase_image_twins`):
     `cbox_tex_files`,
     `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
     `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
     `cbox_tex_smooth`, `cbox_tex_ojpeg`, `cbox_sky_logluv`,
     `cbox_tex_j2k`, `cbox_sky_j2kcv`, `cbox_tex_j2kp2`,
-    `cbox_tex_htj2k` and `cbox_tex_avif` through K1,
+    `cbox_tex_htj2k`, `cbox_tex_avif` and `cbox_tex_avifq` through K1,
     `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
     `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd`,
     `env_sphere_rare`, `env_sphere_lossless`, `env_sphere_ojpeg`,
     `env_sphere_luv24`, `env_sphere_j2k`, `env_sphere_j2kcv`,
-    `env_sphere_j2kp2cv`, `env_sphere_htj2kcv` and `env_sphere_avif`
-    through K2 at 512^2, their images read from TIFF
+    `env_sphere_j2kp2cv`, `env_sphere_htj2kcv`, `env_sphere_avif` and
+    `env_sphere_avifq` through K2 at 512^2, their images read from TIFF
     (LZW, BigTIFF, ZSTD, old-style JPEG, SGILog LogLuv32 and LogLuv24), GIF,
     JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
     JPEG 2000 (lossy JP2, tiled J2K, a JP2 of Part 2's CBD and MCO, a
     reversible HTJ2K JP2; a 16-bit lossless JP2 named .exr, a 9/7 JP2
     named .hdr, tiles of different MCOs named .exr and a 9/7 HTJ2K
     codestream named .exr on OpenCV's route),
-    lossless AVIF (4:2:0, an alpha item),
+    lossless AVIF (4:2:0, an alpha item), lossy AVIF at PIL's defaults
+    (a natural texture; a lossy alpha item),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s, `cbox_tex_dds`'s, `cbox_tex_j2k`'s and
@@ -211,8 +217,9 @@ phase, one JSON line each:
     `cbox_sky_bigtiff`'s, `env_sphere_cvgif`'s, `cbox_sky_logluv`'s,
     `env_sphere_luv24`'s, `cbox_sky_j2kcv`'s, `env_sphere_j2kcv`'s,
     `env_sphere_j2kp2cv`'s and `env_sphere_htj2kcv`'s the OpenCV decode
-    of their image, `cbox_tex_avif`'s and `env_sphere_avif`'s PIL's decode
-    of theirs), with the same launch counts as the render it is held
+    of their image, `cbox_tex_avif`'s, `env_sphere_avif`'s,
+    `cbox_tex_avifq`'s and `env_sphere_avifq`'s PIL's decode of theirs),
+    with the same launch counts as the render it is held
     against.
   * the bench ladder (slice 10, `phase_bench`): `python -m
     vision_tpu_torch.bench` in a subprocess, as a user runs it; its one
@@ -2278,8 +2285,8 @@ def _image_file_rec(fn, got, want, seconds, card, kind):
 
 def phase_image_files(card):
     """Slices 7c, 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes), 7e.7a, 7e.7b, 7e.7d, 7e.7c and 7e.8a.1 on the
-    card's host: every
+    7e.4b (both routes), 7e.7a, 7e.7b, 7e.7d, 7e.7c, 7e.8a.1 and 7e.8a.2a
+    on the card's host: every
     file of
     tests/assets_torch/image_decodes.npz (progressive, CMYK, YCCK, RGB,
     lossless and arithmetic-coded JPEG, Adam7 and low- and 16-bit PNG, TGA,
@@ -2371,8 +2378,15 @@ def phase_image_files(card):
     twins' files) against its committed PIL decode, the ones PIL refuses
     refused (ValueError), the later sub-items' raising NotImplementedError
     naming them, and the committed 2048^2 lossless file `avif_2048.avif`
-    (autotiled) against its decode's sha256, timed; no image library
-    imported."""
+    (autotiled) against its decode's sha256, timed; slice 7e.8a.2a: every
+    file of avifq_decodes.npz (lossy AV1 on PIL's route: qualities 0-99,
+    speeds 5-10, every subsampling, odd sizes, tiles, 128x128
+    superblocks, reduced_tx_set, sharpness, a lossy alpha item, limited
+    range, each intra tool off, the 4:1 and 64-point transforms; the
+    twins' files) against its committed PIL decode, the 7e.8a.2b files
+    raising NotImplementedError naming it, and the committed 2048^2 lossy
+    file `avif_lossy_2048.avif` (autotiled, PIL's defaults) against its
+    decode's sha256, timed; no image library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2598,25 +2612,47 @@ def phase_image_files(card):
         os.remove(os.path.join(built_dir, fn))
     os.rmdir(built_dir)
     # slice 7e.8a.1: lossless AVIF on PIL's route
-    dec = np.load(os.path.join(assets, "avif_decodes.npz"))
-    refused_avif = set(dec[":refused"].tolist())
-    files = sorted([k for k in dec.files if ":" not in k] + list(refused_avif))
+    files, refused_avif = _avif_files(assets, "avif_decodes.npz",
+                                      "avif_2048.avif", card)
     check({"avif_noise_420.avif", "avif_pal8_420_s0.avif",
            "avif_tiles_11.avif", "avif_alpha_444.avif",
            "avif_nclx_mc9_cp9_444.avif", "avif_nclx_identity_444.avif",
            "checker_avif.avif", "projector_avif.avif"} <= set(files)
           and {"avif_bad_noispe.avif", "avif_bad_cut_item.avif",
                "avif_bad_matrix10.avif"} <= refused_avif
-          and set(AVIF_LATER) <= set(files), "avif_decodes.npz's files")
-    for fn in [*files, "avif_2048.avif"]:
+          and {"avif_later_intrabc.avif", "avif_later_lossy.avif"}
+          <= set(files), "avif_decodes.npz's files")
+    # slice 7e.8a.2a: lossy AVIF on PIL's route
+    files, _ = _avif_files(assets, "avifq_decodes.npz",
+                           "avif_lossy_2048.avif", card)
+    check({"avifq_q0.avif", "avifq_q99.avif", "avifq_s10.avif",
+           "avifq_sb128.avif", "avifq_alpha.avif", "avifq_bars_420_s0.avif",
+           "texture_avifq.avif", "projector_avifq.avif",
+           "avif_later_cdef.avif"} <= set(files), "avifq_decodes.npz's files")
+    check(not {"PIL", "cv2", "OpenEXR", "Imath"} & set(sys.modules),
+          "an image library was imported")
+
+
+def _avif_files(assets, npz, timing, card):
+    """Every AVIF file of `npz` (PIL's decodes, the names it refuses under
+    ":refused") and its 2048^2 timing file, read on the card's host and
+    held to PIL's outcome, timed: bit for bit, refused (ValueError), or
+    NotImplementedError naming the sub-item of `AVIF_LATER`; the timing
+    file by its decode's sha256. Returns (the files, the refused)."""
+    import hashlib
+    from vision_tpu_torch.scene import imageio
+    dec = np.load(os.path.join(assets, npz))
+    refused = set(dec[":refused"].tolist()) if ":refused" in dec else set()
+    files = sorted([k for k in dec.files if ":" not in k] + list(refused))
+    for fn in [*files, timing]:
         t0 = time.perf_counter()
         try:
             got, got_kind = imageio.read_image(os.path.join(assets, fn))
         except (ValueError, NotImplementedError) as e:
             got, got_kind = None, f"{type(e).__name__}: {e}"
         seconds = time.perf_counter() - t0
-        if fn in refused_avif or fn in AVIF_LATER:
-            want = "ValueError" if fn in refused_avif else \
+        if fn in refused or fn in AVIF_LATER:
+            want = "ValueError" if fn in refused else \
                 "NotImplementedError: AVIF"
             emit(dict(phase="image_file", file=fn, card=card,
                       seconds=seconds, raised=got_kind))
@@ -2624,7 +2660,7 @@ def phase_image_files(card):
                   AVIF_LATER.get(fn, "") in got_kind, f"{fn}: {got_kind!r}")
             continue
         check(got is not None and got_kind == "ldr", f"{fn}: {got_kind!r}")
-        if fn == "avif_2048.avif":
+        if fn == timing:
             rec = _image_file_rec(fn, got[:128, :128], dec[fn + ":corner"],
                                   seconds, card, got_kind)
             rec.update(shape=list(got.shape), timing_file=True,
@@ -2635,16 +2671,17 @@ def phase_image_files(card):
         emit(rec)
         check(rec["bit_equal"] and rec["max_abs_diff"] == 0
               and rec.get("sha256_equal", True), f"{fn} {rec}")
-    check(not {"PIL", "cv2", "OpenEXR", "Imath"} & set(sys.modules),
-          "an image library was imported")
+    return files, refused
 
 
 # the AVIF files PIL decodes and the port sends to a later sub-item
-AVIF_LATER = {"avif_later_lossy.avif": "7e.8a.2",
-              "avif_later_intrabc.avif": "7e.8a.2",
+AVIF_LATER = {"avif_later_intrabc.avif": "7e.8a.2c",
               "avif_later_10bit.avif": "7e.8a.3",
               "avif_later_prem.avif": "7e.8a.3",
-              "avif_later_scaled.avif": "7e.8a.3"}
+              "avif_later_scaled.avif": "7e.8a.3",
+              "avif_later_cdef.avif": "7e.8a.2b",
+              "avif_later_qm.avif": "7e.8a.2b",
+              "avif_later_lr.avif": "7e.8a.2b"}
 
 
 # the twin scenes: (name, maker, kernel, the render it must equal)
@@ -2715,13 +2752,18 @@ IMAGE_TWINS = (
     ("cbox_tex_avif", "cbox_tex_avif", "dense_isect", "cbox_tex_avif_ref"),
     ("env_sphere_avif_ref", "env_sphere_avif_ref", "packet_isect", None),
     ("env_sphere_avif", "env_sphere_avif", "packet_isect",
-     "env_sphere_avif_ref"))
+     "env_sphere_avif_ref"),
+    ("cbox_tex_avifq_ref", "cbox_tex_avifq_ref", "dense_isect", None),
+    ("cbox_tex_avifq", "cbox_tex_avifq", "dense_isect", "cbox_tex_avifq_ref"),
+    ("env_sphere_avifq_ref", "env_sphere_avifq_ref", "packet_isect", None),
+    ("env_sphere_avifq", "env_sphere_avifq", "packet_isect",
+     "env_sphere_avifq_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card, launches):
     """Slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4, 7e.6b, 7e.5,
-    7e.4b (both routes), 7e.7a, 7e.7b, 7e.7d, 7e.7c and 7e.8a.1 through the
-    kernels, at
+    7e.4b (both routes), 7e.7a, 7e.7b, 7e.7d, 7e.7c, 7e.8a.1 and 7e.8a.2a
+    through the kernels, at
     512^2 and the seeds of
     `phase_images`: `env_sphere_files` (its skies from OpenEXR files, PIZ
     and tiled RLE; its checker from an LZW TIFF; its projector image from a
@@ -2794,7 +2836,12 @@ def phase_image_twins(vt, modules, scenes, originals, card, launches):
     lossless 4:2:0 AVIF file) through K1, bit for bit with
     `cbox_tex_avif_ref` (PIL's decode in a PNG), and `env_sphere_avif`
     (its projector image a lossless AVIF file with an alpha item) through
-    K2, bit for bit with `env_sphere_avif_ref`. A twin has its reference's
+    K2, bit for bit with `env_sphere_avif_ref`; slice 7e.8a.2a:
+    `cbox_tex_avifq` (a natural texture in a lossy AVIF file at PIL's
+    defaults) through K1, bit for bit with `cbox_tex_avifq_ref` (PIL's
+    decode in a PNG), and `env_sphere_avifq` (its projector image a lossy
+    AVIF file with a lossy alpha item) through K2, bit for bit with
+    `env_sphere_avifq_ref`. A twin has its reference's
     launch counts too, the
     reference rendered here or in an earlier phase (`launches`). Returns
     each render's launch counts."""

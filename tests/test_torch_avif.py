@@ -48,11 +48,12 @@ _spec.loader.exec_module(gen)
 
 DEC = np.load(os.path.join(ASSETS, "avif_decodes.npz"))
 REFUSED = set(DEC[":refused"].tolist())
+# the files of `tools/gen_torch_avif.py` (the lossy slice's have their own
+# test, tests/test_torch_avif_lossy.py)
 FILES = sorted(fn for fn in os.listdir(ASSETS) if fn.endswith(".avif") and
-               fn != "avif_2048.avif")
+               fn != "avif_2048.avif" and (fn in DEC.files or fn in REFUSED))
 # what PIL decodes and the port sends to a later sub-item
-LATER = {"avif_later_lossy.avif": "7e.8a.2",
-         "avif_later_intrabc.avif": "7e.8a.2",
+LATER = {"avif_later_intrabc.avif": "7e.8a.2c",
          "avif_later_10bit.avif": "7e.8a.3",
          "avif_later_prem.avif": "7e.8a.3",
          "avif_later_scaled.avif": "7e.8a.3"}
@@ -62,11 +63,13 @@ PASS_ON = {"avif_bad_brand.avif", "avif_bad_cut_meta.avif",
            "avif_bad_hdlr.avif", "avif_bad_nclx_reserved.avif",
            "avif_bad_noispe.avif", "avif_bad_pixi_av1c.avif"}
 # the seeded edits the port sends to a later sub-item: a header edit that
-# makes the frame lossy, 10-bit or intra block copy, or its size unlike
-# ispe's. PIL decodes the first; the second it refuses once its decoder
-# meets the corruption that sub-item's tools would meet (ROADMAP 7e.8a.2)
-LATER_EDITS = {1, 22, 109, 118, 172, 220, 223, 244, 298}
-LATER_EDITS_PIL_REFUSES = {145, 184, 190, 196, 205}
+# makes the frame use a lossy tool of 7e.8a.2b, 10-bit samples or intra
+# block copy, or its size unlike ispe's. PIL decodes the first; the second
+# it refuses once its decoder meets the corruption that sub-item's tools
+# would meet (ROADMAP 7e.8a.2a). Edits 1 and 196, which make the frame
+# lossy, are decoded (1) and refused (196) as PIL does.
+LATER_EDITS = {22, 109, 118, 172, 220, 223, 244, 298}
+LATER_EDITS_PIL_REFUSES = {145, 184, 190, 205}
 
 
 def _read(fn):
@@ -84,9 +87,10 @@ def _port(data):
 def test_tables_are_the_librarys():
     """Every table of csrc/av1_codec.cpp is found in the libavif library
     PIL ships: the default CDFs whole (in libaom's layout, or dav1d's for
-    the five libaom keeps otherwise), the prediction tables in libaom's."""
+    the four libaom keeps otherwise), the prediction, quantiser, scan and
+    transform tables in libaom's."""
     found = gen.check_tables()
-    assert len(found) == 32
+    assert len(found) == 76
     assert sorted(k for k, v in found.items() if v == "dav1d") == [
         "CFL_SIGN", "PALETTE_UV_MODE", "SEGMENT_ID", "SKIP"]
 

@@ -183,7 +183,7 @@ def _minimal(fmt):
 # or decoder here); or the ROADMAP item that ports it
 PLUGINS = {
     "BMP": "decoded", "DIB": "decoded", "GIF": "decoded", "JPEG": "decoded",
-    "PPM": "decoded", "PNG": "decoded", "AVIF": "7e.8a.2", "BLP": "decoded",
+    "PPM": "decoded", "PNG": "decoded", "AVIF": "decoded", "BLP": "decoded",
     "BUFR": "refused", "CUR": "decoded", "PCX": "decoded", "DCX": "decoded",
     "DDS": "decoded", "EPS": "refused", "FITS": "decoded", "FLI": "decoded",
     "FTEX": "decoded", "GBR": "decoded", "GRIB": "refused", "HDF5": "refused",

@@ -779,6 +779,41 @@ def env_sphere_avif_ref(res=512, sub_div=40):
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIF_REF)
 
 
+# slice 7e.8a.2a (tools/gen_torch_avif_lossy.py): a seeded natural texture
+# and the projector's RGBA as lossy AVIF files at PIL's defaults (quality
+# 75, speed 6, 4:2:0: AV1's quantiser, transforms and deblocking filter),
+# each scene held against one reading PIL's decode of its file from a PNG.
+# (aom codes the checker as screen content, with intra block copy.)
+CBOX_TEX_AVIFQ = {"checker.png": "texture_avifq.avif"}
+CBOX_TEX_AVIFQ_REF = {"checker.png": "texture_avifq_pil.png"}
+ENV_SPHERE_AVIFQ = {"projector.png": "projector_avifq.avif"}
+ENV_SPHERE_AVIFQ_REF = {"projector.png": "projector_avifq_pil.png"}
+
+
+def cbox_tex_avifq(res=512):
+    """`cbox_tex` with a lossy AVIF texture in the checker's slot: it
+    renders as `cbox_tex_avifq_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_AVIFQ)
+
+
+def cbox_tex_avifq_ref(res=512):
+    """`cbox_tex` with PIL's decode of texture_avifq.avif, written as a
+    PNG, in the checker's slot."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_AVIFQ_REF)
+
+
+def env_sphere_avifq(res=512, sub_div=40):
+    """`env_sphere` with its projector image from a lossy AVIF file with a
+    lossy alpha item: it renders as `env_sphere_avifq_ref` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIFQ)
+
+
+def env_sphere_avifq_ref(res=512, sub_div=40):
+    """`env_sphere` with its projector image read from PIL's decode of
+    projector_avifq.avif, written as a PNG."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIFQ_REF)
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

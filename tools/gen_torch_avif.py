@@ -7,13 +7,17 @@ frames in the HEIF container, written by PIL 12.1.0's encoder (libavif
 (`tools/gen_torch_assets.py` calls `write_avif_files`.)
 
   * `check_tables`: every default-CDF table of
-    `vision_tpu_torch/csrc/av1_codec.cpp` is found in the libavif shared
-    library PIL ships (which carries dav1d and aom): whole, in libaom's
-    inverted layout (32768 - each value, then 0 and the count 0, rows
-    padded to the table's widest), or else in dav1d's (32768 - each
-    value, then the count); the filter-intra taps, the directional
-    derivatives, the smooth weights, the edge kernels, the 4x4 scan, the
-    coefficient context offsets in libaom's layout (the palette colour
+    `vision_tpu_torch/csrc/av1_codec.cpp` (the coefficient CDFs of all
+    four quantiser contexts and five sizes, tx depth and intra tx types
+    among them) is found in the libavif shared library PIL ships (which
+    carries dav1d and aom): whole, in libaom's inverted layout (32768 -
+    each value, then 0 and the count 0, rows padded to the table's
+    widest), or else in dav1d's (32768 - each value, then the count);
+    the filter-intra taps, the directional derivatives, the smooth
+    weights, the edge kernels, the quantiser lookups, the cosine and
+    sine constants, Mode_To_Txfm, Max_Tx_Size_Rect, the intra tx-type
+    maps, the default scans and the coefficient context offsets (libaom
+    keeps the last two transposed) in libaom's layout (the palette colour
     contexts, which neither library keeps as such a table, are held by
     the palette files' decodes). The generator stops where one is
     missing.
@@ -37,11 +41,13 @@ frames in the HEIF container, written by PIL 12.1.0's encoder (libavif
     files: a third in the container, a third in the AV1 headers, a third
     in the tile data).
 
-Needs PIL, numpy and the pip cv2. The output is deterministic: running it
-again writes the same bytes.
+`write_avif_files` then calls `tools/gen_torch_avif_lossy.py` for slice
+7e.8a.2a's lossy files. Needs PIL, numpy and the pip cv2. The output is
+deterministic: running it again writes the same bytes.
 """
 import glob
 import hashlib
+import importlib.util
 import io
 import os
 import re
@@ -94,12 +100,21 @@ _CDF_TABLES = {
     "CFL_ALPHA": 16, "FILTER_INTRA": 2, "FILTER_INTRA_MODE": 5,
     "PALETTE_Y_MODE": 2, "PALETTE_UV_MODE": 2, "PALETTE_Y_SIZE": 7,
     "PALETTE_UV_SIZE": 7, "PALETTE_Y_COLOR": None, "PALETTE_UV_COLOR": None,
-    "TXB_SKIP": 2, "EOB_PT_16": 5, "EOB_EXTRA": 2, "DC_SIGN": 2,
-    "COEFF_BASE_EOB": 3, "COEFF_BASE": 4, "COEFF_BR": 4}
+    "TXB_SKIP": 2, "EOB_PT_16": 5, "EOB_PT_32": 6, "EOB_PT_64": 7,
+    "EOB_PT_128": 8, "EOB_PT_256": 9, "EOB_PT_512": 10, "EOB_PT_1024": 11,
+    "EOB_EXTRA": 2, "DC_SIGN": 2, "COEFF_BASE_EOB": 3, "COEFF_BASE": 4,
+    "COEFF_BR": 4, "TX_DEPTH_8X8": 2, "TX_DEPTH": 3, "INTRA_TX_SET1": 7,
+    "INTRA_TX_SET2": 5}
 # libaom's row width where its table pads rows to a wider alphabet
 _AOM_STRIDE = {"UV_MODE_NOCFL": 15, "PARTITION_W8": 11,
                "PARTITION_W16_64": 11, "PARTITION_W128": 11,
-               "PALETTE_Y_COLOR": 9, "PALETTE_UV_COLOR": 9}
+               "PALETTE_Y_COLOR": 9, "PALETTE_UV_COLOR": 9,
+               "TX_DEPTH_8X8": 4, "TX_DEPTH": 4, "INTRA_TX_SET1": 17,
+               "INTRA_TX_SET2": 17}
+# the default scans' (width, height); libaom keeps each transposed
+_SCANS = {f"DEFAULT_SCAN_{w}X{h}": (w, h) for w, h in (
+    (4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8),
+    (16, 32), (32, 16), (4, 16), (16, 4), (8, 32), (32, 8))}
 
 
 def _find(hay, needle):
@@ -139,19 +154,32 @@ def check_tables(lib=None):
         else:
             raise RuntimeError(f"{name} of av1_codec.cpp is not in {lib}")
     taps = np.array([r + [0] for r in tables["INTRA_FILTER_TAPS"][1]], "i1")
-    scan = tables["DEFAULT_SCAN_4X4"][1][0]
-    scan_t = [(p % 4) * 4 + p // 4 for p in scan]
+    flat = {k: [v for r in t[1] for v in r] for k, t in tables.items()}
     checks = {
         "INTRA_FILTER_TAPS": taps,
-        "DR_INTRA_DERIVATIVE": np.array(
-            tables["DR_INTRA_DERIVATIVE"][1][0], "<u2"),
-        "SM_WEIGHTS_4": np.array(tables["SM_WEIGHTS_4"][1][0] +
-                                 [255, 197, 146, 105, 73, 50, 37, 32], "u1"),
+        "DR_INTRA_DERIVATIVE": np.array(flat["DR_INTRA_DERIVATIVE"], "<u2"),
+        "SM_WEIGHTS": np.array(flat["SM_WEIGHTS"], "u1"),
         "INTRA_EDGE_KERNEL": np.array(tables["INTRA_EDGE_KERNEL"][1], "<i4"),
-        "DEFAULT_SCAN_4X4": np.array(scan_t, "<i2"),
-        "COEFF_BASE_CTX_OFFSET_4X4": np.array(
-            [v for r in tables["COEFF_BASE_CTX_OFFSET_4X4"][1][:4]
-             for v in r[:4]], "i1")}
+        "DC_QLOOKUP": np.array(flat["DC_QLOOKUP"], "<i2"),
+        "AC_QLOOKUP": np.array(flat["AC_QLOOKUP"], "<i2"),
+        "COSPI": np.array(flat["COSPI"], "<i4"),
+        "SINPI": np.array(flat["SINPI"], "<i4"),
+        "MODE_TO_TXFM": np.array(flat["MODE_TO_TXFM"], "u1"),
+        "MAX_TX_SIZE_RECT": np.array(flat["MAX_TX_SIZE_RECT"], "u1"),
+        "TX_TYPE_INTRA_INV_SET1": np.array(flat["TX_TYPE_INTRA_INV_SET1"],
+                                           "u1"),
+        "TX_TYPE_INTRA_INV_SET2": np.array(flat["TX_TYPE_INTRA_INV_SET2"],
+                                           "u1")}
+    for name, (w, h) in _SCANS.items():
+        checks[name] = np.array([(p % w) * h + p // w for p in flat[name]],
+                                "<i2")
+    # the context offsets as libaom's per-size arrays (transposed)
+    off = np.array(flat["COEFF_BASE_CTX_OFFSET"]).reshape(3, 5, 5)
+    for w, h in set(_SCANS.values()):
+        t = off[0 if w == h else 1 if w > h else 2]
+        checks[f"COEFF_BASE_CTX_OFFSET {w}x{h}"] = np.array(
+            [t[min(r, 4), min(c, 4)] for c in range(w) for r in range(h)],
+            "i1")
     for name, arr in checks.items():
         if not _find(data, arr):
             raise RuntimeError(f"{name} of av1_codec.cpp is not in {lib}")
@@ -491,18 +519,18 @@ def _regions(d):
     return start, min(start + 24, len(d))
 
 
-def edit_cases(files):
-    """EDITS_EACH seeded edits of each file of EDIT_SOURCES: a cut, or one
-    to three bytes replaced or with a bit flipped, a third in the
-    container's boxes, a third in the first bytes of the item's data (the
-    OBU and frame headers), a third in the tile data -> [(source,
-    bytes)], in order."""
+def edit_cases(files, sources=EDIT_SOURCES, each=EDITS_EACH, seed=SEED):
+    """`each` seeded edits of each file of `sources`: a cut, or one to
+    three bytes replaced or with a bit flipped, a third in the container's
+    boxes, a third in the first bytes of the item's data (the OBU and
+    frame headers), a third in the tile data -> [(source, bytes)], in
+    order."""
     out = []
-    for si, fn in enumerate(EDIT_SOURCES):
+    for si, fn in enumerate(sources):
         src = files[fn]
         c_end, h_end = _regions(src)
-        g = np.random.default_rng(SEED * 1000 + si)
-        for k in range(EDITS_EACH):
+        g = np.random.default_rng(seed * 1000 + si)
+        for k in range(each):
             d = bytearray(src)
             lo, hi = ((0, c_end), (c_end, h_end), (h_end, len(d)))[k % 3]
             kind = int(g.integers(3))
@@ -594,11 +622,16 @@ def write_avif_files(out, checker, projector):
     arrays["edits:sha256"] = np.array([np.frombuffer(
         digest(ed[f"{i:04d}"]), np.uint8) for i in range(len(edits))])
     np.savez_compressed(os.path.join(out, "avif_decodes.npz"), **arrays)
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_avif_lossy", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_avif_lossy.py"))
+    lossy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lossy)
+    lossy.write_lossy_files(out, projector)
 
 
 def main():
     print(check_tables())
-    import importlib.util
     spec = importlib.util.spec_from_file_location(
         "vt_gen_torch_assets_avif", os.path.join(os.path.dirname(
             os.path.abspath(__file__)), "gen_torch_assets.py"))

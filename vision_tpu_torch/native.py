@@ -5,7 +5,7 @@ OpenEXR, TIFF (SGILog among them) and GIF codecs
 (`csrc/image_codecs.cpp`), the WebP bitstream decoders
 (`csrc/webp_codec.cpp`), JPEG 2000's tier-1 (`csrc/j2k_codec.cpp`,
 and `csrc/j2k_ht.cpp` for Part 15's HT code-blocks) and the tiles of
-lossless AV1 frames (`csrc/av1_codec.cpp`).
+AV1 intra frames with their deblocking filter (`csrc/av1_codec.cpp`).
 
 Counterpart of `vision_tpu/native.py` (`build_bvh_native`,
 `build_bvh_boxes_native`, `load_obj_native`) for the port, which may not
@@ -511,7 +511,8 @@ AV1_REFUSALS = {-2: "an AV1 tile past the data",
 
 
 def av1_decode_frame(data, tiles, prm, width, height, ssx, ssy, mono):
-    """The tiles of one lossless AV1 intra frame (`csrc/av1_codec.cpp`):
+    """The tiles of one AV1 intra frame, then its deblocking filter
+    (`csrc/av1_codec.cpp`):
     tiles [(offset, size)] into `data` in raster order, prm the frame's
     parameters (see `vt_av1_decode_frame`), width / height the frame's
     4x4-aligned size. Returns [Y, U, V] uint8 planes at that size (U, V
@@ -533,9 +534,9 @@ def av1_decode_frame(data, tiles, prm, width, height, ssx, ssy, mono):
 
 
 def av1_coverage(reset=False):
-    """The AV1 decoder's path counters since the last reset: int64 [72]
+    """The AV1 decoder's path counters since the last reset: int64 [127]
     (the layout is `csrc/av1_codec.cpp`'s COV_* indices)."""
-    out = np.zeros(72, np.int64)
+    out = np.zeros(127, np.int64)
     _library().vt_av1_coverage(out.ctypes.data, int(reset))
     return out
 

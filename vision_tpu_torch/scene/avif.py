@@ -7,18 +7,21 @@ path); `convert("RGB")` then drops the alpha.
 
 Decoded here, bit for bit: single-image files (`ftyp` brand `avif` /
 `mif1`) whose primary item is one `av01` item holding an 8-bit AV1 key
-frame coded lossless (`base_q_idx` 0 and no delta q: CodedLossless), at
-4:4:4, 4:2:2, 4:2:0 or 4:0:0, in one tile or several, with any intra tool
-but intra block copy; the alpha item too where it is such a frame. The
-container, the OBUs and the headers are read here; the tiles go to
+frame, at 4:4:4, 4:2:2, 4:2:0 or 4:0:0, in one tile or several: coded
+lossless (`base_q_idx` 0 and no delta q: CodedLossless), or lossy with
+the quantiser, every intra transform size and type and the deblocking
+filter (what aom writes at speeds 5-10), with any intra tool but intra
+block copy; the alpha item too where it is such a frame. The container,
+the OBUs and the headers are read here; the tiles go to
 `csrc/av1_codec.cpp` (`native.av1_decode_frame`).
 
 What libavif or dav1d refuse raises ValueError (PIL's own refusal: a
 container libavif cannot parse is PIL's SyntaxError, which passes the file
 on to the plugins after AVIF: `pilread` does that through `PassOn`). What
 PIL decodes and this module does not yet raises NotImplementedError naming
-ROADMAP queue A's sub-item: 7e.8a.2 (lossy frames, their transforms and
-loop filters, intra block copy), 7e.8a.3 (grid items, 10/12-bit samples,
+ROADMAP queue A's sub-item: 7e.8a.2b (CDEF, loop restoration, delta q /
+lf, quantiser matrices, segments' alt-q / alt-lf), 7e.8a.2c (intra block
+copy, superres, film grain), 7e.8a.3 (grid items, 10/12-bit samples,
 image sequences, premultiplied alpha, other encoders' files).
 """
 from __future__ import annotations
@@ -39,7 +42,7 @@ def _later(sub, what):
 
 
 # ---------------------------------------------------------------------------
-# AV1: OBUs, the sequence header and the frame header of a lossless key frame
+# AV1: OBUs, the sequence header and the frame header of a key frame
 
 OBU_SEQUENCE_HEADER, OBU_FRAME_HEADER, OBU_TILE_GROUP = 1, 3, 4
 OBU_FRAME, OBU_REDUNDANT_FRAME_HEADER = 6, 7
@@ -196,7 +199,8 @@ def _sequence_header(b):
         if order_hint:
             s["order_hint_bits"] = b.f(3) + 1
     s["superres"] = b.f(1)
-    b.f(2)  # enable_cdef, enable_restoration: nothing for a lossless frame
+    s["enable_cdef"] = b.f(1)
+    s["enable_restoration"] = b.f(1)
     # color_config
     hbd = b.f(1)
     depth = 8
@@ -248,8 +252,7 @@ def _tile_log2(blk, target):
 
 
 def _frame_header(b, s, tid, sid):
-    """The uncompressed header of a shown key frame, read and held to the
-    lossless case; returns its fields."""
+    """The uncompressed header of a shown key frame; returns its fields."""
     h = {}
     if s["reduced"]:
         frame_type, show = 0, 1
@@ -287,7 +290,7 @@ def _frame_header(b, s, tid, sid):
     else:
         w, hh = s["max_w"], s["max_h"]
     if s["superres"] and b.f(1):
-        raise _later("7e.8a.2", "AV1 superres")
+        raise _later("7e.8a.2c", "AV1 superres")
     h["width"], h["height"] = w, hh
     mi_cols, mi_rows = 2 * ((w + 7) >> 3), 2 * ((hh + 7) >> 3)
     h["mi_cols"], h["mi_rows"] = mi_cols, mi_rows
@@ -295,7 +298,7 @@ def _frame_header(b, s, tid, sid):
         b.f(16)
         b.f(16)
     if sct and b.f(1):
-        raise _later("7e.8a.2", "AV1 intra block copy (allow_intrabc)")
+        raise _later("7e.8a.2c", "AV1 intra block copy (allow_intrabc)")
     if not s["reduced"] and not h["disable_cdf_update"]:
         b.f(1)  # disable_frame_end_update_cdf
     # tile_info
@@ -346,7 +349,9 @@ def _frame_header(b, s, tid, sid):
     h["tile_bits"] = cols_log2 + rows_log2
     h["tile_size_bytes"] = 4
     if cols_log2 or rows_log2:
-        b.f(cols_log2 + rows_log2)  # context_update_tile_id
+        if b.f(cols_log2 + rows_log2) >= len(col_starts) * len(row_starts):
+            raise ValueError("corrupt AVIF: an AV1 context_update_tile_id "
+                             "past the frame's tiles (dav1d refuses it)")
         h["tile_size_bytes"] = b.f(2) + 1
     # quantization_params
     base_q = b.f(8)
@@ -389,12 +394,56 @@ def _frame_header(b, s, tid, sid):
     # nothing in an intra frame)
     qindex = [base_q if feat[i][0] is None else
               max(0, min(255, base_q + feat[i][0])) for i in range(8)]
-    if any(qindex) or any(dq):
-        raise _later("7e.8a.2", "a lossy AV1 frame (its quantiser, "
-                     "transforms and loop filters)")
-    b.f(1)  # reduced_tx_set
+    lossless = not any(qindex) and not any(dq)
+    h["lossless"], h["base_q"] = int(lossless), base_q
+    h["dq"] = (dq + dq[1:] if len(dq) == 3 else dq + [0] * (5 - len(dq)))
+    h["tx_mode"], h["lf"] = 0, [0] * 4 + [0, 0] + [1, 0, 0, 0, -1, 0, -1, -1,
+                                                   0, 0]
+    # what the port leaves to a later sub-item, raised once the header is
+    # read (dav1d's refusal of a truncated header comes first)
+    later = None
+    if not lossless:
+        if any(feat[i][j] is not None for i in range(8) for j in range(5)):
+            later = ("7e.8a.2b", "AV1 segments with alt-q or alt-lf features "
+                     "in a lossy frame")
+        if qm:
+            later = later or ("7e.8a.2b", "AV1 quantiser matrices")
+        # delta_q_params, delta_lf_params
+        if base_q > 0 and b.f(1):
+            b.f(2)
+            if b.f(1):
+                b.f(3)
+            later = later or ("7e.8a.2b", "AV1 delta q / delta lf")
+        # loop_filter_params, from a key frame's default deltas
+        lf = h["lf"]
+        lf[0], lf[1] = b.f(6), b.f(6)
+        if not s["mono"] and (lf[0] or lf[1]):
+            lf[2], lf[3] = b.f(6), b.f(6)
+        lf[4] = b.f(3)  # sharpness
+        lf[5] = b.f(1)  # loop_filter_delta_enabled
+        if lf[5] and b.f(1):  # loop_filter_delta_update
+            for i in range(10):
+                if b.f(1):
+                    lf[6 + i] = b.su(7)
+        # cdef_params
+        if s["enable_cdef"]:
+            b.f(2)  # cdef_damping_minus_3
+            bits = b.f(2)
+            strengths = [b.f(6 if s["mono"] else 12) for _ in range(1 << bits)]
+            if bits or any(strengths):
+                later = later or ("7e.8a.2b", "AV1 CDEF")
+        # lr_params
+        if s["enable_restoration"]:
+            types = [b.f(2) for _ in range(1 if s["mono"] else 3)]
+            if any(types):
+                later = later or ("7e.8a.2b", "AV1 loop restoration")
+        # read_tx_mode: TX_MODE_SELECT or TX_MODE_LARGEST
+        h["tx_mode"] = 2 if b.f(1) else 1
+    h["reduced_tx_set"] = b.f(1)
     if s["film_grain"] and b.f(1):
-        raise _later("7e.8a.2", "AV1 film grain")
+        later = later or ("7e.8a.2c", "AV1 film grain")
+    if later:
+        raise _later(*later)
     h["seg"] = (seg, last_active, preskip,
                 sum(1 << i for i in range(8) if feat[i][6] is not None))
     return h
@@ -437,7 +486,7 @@ def _tile_groups(data, obus_tg, h, hdr_end_bit):
 
 
 def decode_av1(data, alpha=False):
-    """One AV1 temporal unit holding a lossless 8-bit key frame -> (planes
+    """One AV1 temporal unit holding an 8-bit key frame -> (planes
     [Y, U, V] uint8 (U, V None for 4:0:0), the sequence header's fields).
     An alpha item's frame (`alpha`) of another depth is refused, as libavif
     refuses an alpha plane unlike the (8-bit) colour planes."""
@@ -464,7 +513,10 @@ def decode_av1(data, alpha=False):
                 b.bit = (b.bit + 7) & ~7
                 tg.append((start, end))
                 hdr_end = b.bit
-        elif typ == OBU_TILE_GROUP and hdr is not None:
+        elif typ == OBU_TILE_GROUP:
+            if hdr is None:
+                raise ValueError("corrupt AVIF: an AV1 tile group before "
+                                 "its frame header (dav1d refuses it)")
             tg.append((start, end))
     if seq is None or hdr is None or not tg:
         raise ValueError("corrupt AVIF: no AV1 frame in the item's data")
@@ -474,8 +526,10 @@ def decode_av1(data, alpha=False):
     seg = hdr["seg"]
     prm = [mc, mr, ssx, ssy, mono, seq["sb128"], seq["filter_intra"],
            seq["edge_filter"], hdr["allow_sc"], hdr["disable_cdf_update"],
-           seg[0], seg[1], seg[2], seg[3],
-           len(hdr["col_starts"]) - 1, len(hdr["row_starts"]) - 1]
+           seg[0], seg[1], seg[2], seg[3], hdr["lossless"], hdr["base_q"]]
+    prm += hdr["dq"] + [hdr["tx_mode"], hdr["reduced_tx_set"]] + hdr["lf"]
+    prm += [hdr["width"], hdr["height"], len(hdr["col_starts"]) - 1,
+            len(hdr["row_starts"]) - 1]
     prm += hdr["col_starts"] + hdr["row_starts"]
     planes = native.av1_decode_frame(data, tiles, prm, mc * 4, mr * 4,
                                      ssx, ssy, mono)
