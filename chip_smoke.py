@@ -185,22 +185,30 @@ phase, one JSON line each:
     quantiser context, speeds 5-10, every subsampling, transform size and
     type aom picks, the deblocking filter; the `avif_later_*` ones of
     7e.8a.2b raising naming it) and the 2048^2 lossy file
-    `avif_lossy_2048.avif` against PIL's decode's sha256, timed.
+    `avif_lossy_2048.avif` against PIL's decode's sha256, timed. Slice
+    7e.8a.2c.1: the AVIF files of `avifibc_decodes.npz` (intra block copy:
+    the displacement vectors, the var-tx tree, the inter transform sets
+    with flipped ADST; qualities 0-99, speeds 0-7, lossless, every
+    subsampling, odd sizes, tiles, 128x128 superblocks, alpha; and
+    `avif_later_intrabc.avif` of `avif_decodes.npz`) and the 2048^2 file
+    `avifibc_2048.avif` against PIL's decode's sha256, timed.
   * the twin scenes of slices 7d, 7e.1, 7e.2, 7e.3a, 7e.6a, 7e.3b, 7e.4
-    7e.6b, 7e.5, 7e.4b, 7e.7a, 7e.7b, 7e.7d, 7e.7c, 7e.8a.1 and 7e.8a.2a
-    (`phase_image_twins`):
+    7e.6b, 7e.5, 7e.4b, 7e.7a, 7e.7b, 7e.7d, 7e.7c, 7e.8a.1, 7e.8a.2a and
+    7e.8a.2c.1 (`phase_image_twins`):
     `cbox_tex_files`,
     `cbox_tex_webp`, `cbox_sky_yc`, `cbox_tex_pil`, `cbox_tex_dds`,
     `cbox_sky_cvtiff`, `cbox_sky_bigtiff`, `cbox_tex_rare`,
     `cbox_tex_smooth`, `cbox_tex_ojpeg`, `cbox_sky_logluv`,
     `cbox_tex_j2k`, `cbox_sky_j2kcv`, `cbox_tex_j2kp2`,
-    `cbox_tex_htj2k`, `cbox_tex_avif` and `cbox_tex_avifq` through K1,
+    `cbox_tex_htj2k`, `cbox_tex_avif`, `cbox_tex_avifq` and
+    `cbox_tex_avifibc` through K1,
     `env_sphere_files`, `env_sphere_webp`, `env_sphere_cv`,
     `env_sphere_pil`, `env_sphere_cvgif`, `env_sphere_zstd`,
     `env_sphere_rare`, `env_sphere_lossless`, `env_sphere_ojpeg`,
     `env_sphere_luv24`, `env_sphere_j2k`, `env_sphere_j2kcv`,
-    `env_sphere_j2kp2cv`, `env_sphere_htj2kcv`, `env_sphere_avif` and
-    `env_sphere_avifq` through K2 at 512^2, their images read from TIFF
+    `env_sphere_j2kp2cv`, `env_sphere_htj2kcv`, `env_sphere_avif`,
+    `env_sphere_avifq` and `env_sphere_avifibc` through K2 at 512^2, their
+    images read from TIFF
     (LZW, BigTIFF, ZSTD, old-style JPEG, SGILog LogLuv32 and LogLuv24), GIF,
     JPEG (cut progressive, lossless), OpenEXR (plain, luminance-chroma, deep),
     JPEG 2000 (lossy JP2, tiled J2K, a JP2 of Part 2's CBD and MCO, a
@@ -208,7 +216,8 @@ phase, one JSON line each:
     named .hdr, tiles of different MCOs named .exr and a 9/7 HTJ2K
     codestream named .exr on OpenCV's route),
     lossless AVIF (4:2:0, an alpha item), lossy AVIF at PIL's defaults
-    (a natural texture; a lossy alpha item),
+    (a natural texture; a lossy alpha item), AVIF with intra block copy at
+    PIL's defaults (the checker's colours; a screen-like projector),
     WebP, PFM, QOI, PPM, SGI, ICO, BC7 DDS, BLP, GBR, FLC and PIXAR files
     and OpenCV's TIFF and GIF readers, each bit for bit with its original's render in the same
     run (`cbox_tex_webp`'s, `cbox_tex_dds`'s, `cbox_tex_j2k`'s and
@@ -218,7 +227,8 @@ phase, one JSON line each:
     `env_sphere_luv24`'s, `cbox_sky_j2kcv`'s, `env_sphere_j2kcv`'s,
     `env_sphere_j2kp2cv`'s and `env_sphere_htj2kcv`'s the OpenCV decode
     of their image, `cbox_tex_avif`'s, `env_sphere_avif`'s,
-    `cbox_tex_avifq`'s and `env_sphere_avifq`'s PIL's decode of theirs),
+    `cbox_tex_avifq`'s, `env_sphere_avifq`'s, `cbox_tex_avifibc`'s and
+    `env_sphere_avifibc`'s PIL's decode of theirs),
     with the same launch counts as the render it is held
     against.
   * the bench ladder (slice 10, `phase_bench`): `python -m
@@ -2386,7 +2396,14 @@ def phase_image_files(card):
     twins' files) against its committed PIL decode, the 7e.8a.2b files
     raising NotImplementedError naming it, and the committed 2048^2 lossy
     file `avif_lossy_2048.avif` (autotiled, PIL's defaults) against its
-    decode's sha256, timed; no image library imported."""
+    decode's sha256, timed; slice 7e.8a.2c.1: every file of
+    avifibc_decodes.npz (intra block copy at PIL's defaults for flat and
+    screen-like images: qualities 0-99, speeds 0-7, lossless, every
+    subsampling, odd sizes, tiles, 128x128 superblocks, reduced_tx_set, an
+    alpha item, limited range, each intra tool off; the twins' files)
+    against its committed PIL decode, and the committed 2048^2 file
+    `avifibc_2048.avif` (autotiled, PIL's defaults) against its decode's
+    sha256, timed; no image library imported."""
     import hashlib
     import tempfile
     from vision_tpu_torch.scene import imageio
@@ -2629,6 +2646,15 @@ def phase_image_files(card):
            "avifq_sb128.avif", "avifq_alpha.avif", "avifq_bars_420_s0.avif",
            "texture_avifq.avif", "projector_avifq.avif",
            "avif_later_cdef.avif"} <= set(files), "avifq_decodes.npz's files")
+    # slice 7e.8a.2c.1: intra block copy on PIL's route
+    files, _ = _avif_files(assets, "avifibc_decodes.npz",
+                           "avifibc_2048.avif", card)
+    check({"avifibc_page.avif", "avifibc_q0.avif", "avifibc_s0.avif",
+           "avifibc_lossless_444.avif", "avifibc_400.avif",
+           "avifibc_sb128.avif", "avifibc_rgba.avif", "avifibc_tiles_11.avif",
+           "avifibc_vartx_s0.avif", "checker_avifibc.avif",
+           "projector_avifibc.avif"} <= set(files),
+          "avifibc_decodes.npz's files")
     check(not {"PIL", "cv2", "OpenEXR", "Imath"} & set(sys.modules),
           "an image library was imported")
 
@@ -2675,8 +2701,7 @@ def _avif_files(assets, npz, timing, card):
 
 
 # the AVIF files PIL decodes and the port sends to a later sub-item
-AVIF_LATER = {"avif_later_intrabc.avif": "7e.8a.2c",
-              "avif_later_10bit.avif": "7e.8a.3",
+AVIF_LATER = {"avif_later_10bit.avif": "7e.8a.3",
               "avif_later_prem.avif": "7e.8a.3",
               "avif_later_scaled.avif": "7e.8a.3",
               "avif_later_cdef.avif": "7e.8a.2b",
@@ -2757,7 +2782,14 @@ IMAGE_TWINS = (
     ("cbox_tex_avifq", "cbox_tex_avifq", "dense_isect", "cbox_tex_avifq_ref"),
     ("env_sphere_avifq_ref", "env_sphere_avifq_ref", "packet_isect", None),
     ("env_sphere_avifq", "env_sphere_avifq", "packet_isect",
-     "env_sphere_avifq_ref"))
+     "env_sphere_avifq_ref"),
+    ("cbox_tex_avifibc_ref", "cbox_tex_avifibc_ref", "dense_isect", None),
+    ("cbox_tex_avifibc", "cbox_tex_avifibc", "dense_isect",
+     "cbox_tex_avifibc_ref"),
+    ("env_sphere_avifibc_ref", "env_sphere_avifibc_ref", "packet_isect",
+     None),
+    ("env_sphere_avifibc", "env_sphere_avifibc", "packet_isect",
+     "env_sphere_avifibc_ref"))
 
 
 def phase_image_twins(vt, modules, scenes, originals, card, launches):
@@ -2841,7 +2873,13 @@ def phase_image_twins(vt, modules, scenes, originals, card, launches):
     defaults) through K1, bit for bit with `cbox_tex_avifq_ref` (PIL's
     decode in a PNG), and `env_sphere_avifq` (its projector image a lossy
     AVIF file with a lossy alpha item) through K2, bit for bit with
-    `env_sphere_avifq_ref`. A twin has its reference's
+    `env_sphere_avifq_ref`; slice 7e.8a.2c.1: `cbox_tex_avifibc` (the
+    checker's colours at 256^2 in an AVIF file at PIL's defaults whose
+    frame copies blocks of itself) through K1, bit for bit with
+    `cbox_tex_avifibc_ref` (PIL's decode in a PNG), and
+    `env_sphere_avifibc` (its projector image a screen-like AVIF file with
+    intra block copy and an alpha item) through K2, bit for bit with
+    `env_sphere_avifibc_ref`. A twin has its reference's
     launch counts too, the
     reference rendered here or in an earlier phase (`launches`). Returns
     each render's launch counts."""

@@ -53,8 +53,8 @@ REFUSED = set(DEC[":refused"].tolist())
 FILES = sorted(fn for fn in os.listdir(ASSETS) if fn.endswith(".avif") and
                fn != "avif_2048.avif" and (fn in DEC.files or fn in REFUSED))
 # what PIL decodes and the port sends to a later sub-item
-LATER = {"avif_later_intrabc.avif": "7e.8a.2c",
-         "avif_later_10bit.avif": "7e.8a.3",
+# (avif_later_intrabc.avif, intra block copy, decodes since slice 7e.8a.2c.1)
+LATER = {"avif_later_10bit.avif": "7e.8a.3",
          "avif_later_prem.avif": "7e.8a.3",
          "avif_later_scaled.avif": "7e.8a.3"}
 # the bad files libavif cannot parse (PIL's SyntaxError: the file passes on
@@ -63,13 +63,14 @@ PASS_ON = {"avif_bad_brand.avif", "avif_bad_cut_meta.avif",
            "avif_bad_hdlr.avif", "avif_bad_nclx_reserved.avif",
            "avif_bad_noispe.avif", "avif_bad_pixi_av1c.avif"}
 # the seeded edits the port sends to a later sub-item: a header edit that
-# makes the frame use a lossy tool of 7e.8a.2b, 10-bit samples or intra
-# block copy, or its size unlike ispe's. PIL decodes the first; the second
-# it refuses once its decoder meets the corruption that sub-item's tools
-# would meet (ROADMAP 7e.8a.2a). Edits 1 and 196, which make the frame
-# lossy, are decoded (1) and refused (196) as PIL does.
+# makes the frame use a lossy tool of 7e.8a.2b or 10-bit samples, or its
+# size unlike ispe's. PIL decodes the first; the second it refuses once its
+# decoder meets the corruption that sub-item's tools would meet (ROADMAP
+# 7e.8a.2a). Edits 1 and 196, which make the frame lossy, are decoded (1)
+# and refused (196) as PIL does; edit 190, which switches on intra block
+# copy, is refused as PIL refuses it (slice 7e.8a.2c.1).
 LATER_EDITS = {22, 109, 118, 172, 220, 223, 244, 298}
-LATER_EDITS_PIL_REFUSES = {145, 184, 190, 205}
+LATER_EDITS_PIL_REFUSES = {145, 184, 205}
 
 
 def _read(fn):
@@ -88,9 +89,10 @@ def test_tables_are_the_librarys():
     """Every table of csrc/av1_codec.cpp is found in the libavif library
     PIL ships: the default CDFs whole (in libaom's layout, or dav1d's for
     the four libaom keeps otherwise), the prediction, quantiser, scan and
-    transform tables in libaom's."""
+    transform tables in libaom's (intra block copy's, slice 7e.8a.2c.1,
+    among them)."""
     found = gen.check_tables()
-    assert len(found) == 76
+    assert len(found) == 88
     assert sorted(k for k, v in found.items() if v == "dav1d") == [
         "CFL_SIGN", "PALETTE_UV_MODE", "SEGMENT_ID", "SKIP"]
 

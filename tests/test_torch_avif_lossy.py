@@ -9,7 +9,7 @@ type, the deblocking filter).
   * Every file of `tools/gen_torch_avif_lossy.py` against PIL's stored
     decode (`avifq_decodes.npz`) and against PIL on the spot; the header
     fields each carries; the `avif_later_*` files, which PIL decodes,
-    raising NotImplementedError naming 7e.8a.2b or 7e.8a.2c; the
+    raising NotImplementedError naming 7e.8a.2b; the
     committed files reach every transform size aom picks, every intra
     transform type and every deblocking filter.
   * 300 seeded edits, each with PIL's stored outcome (those the port sends
@@ -46,18 +46,20 @@ _spec.loader.exec_module(gen)
 DEC = np.load(os.path.join(ASSETS, "avifq_decodes.npz"))
 FILES = sorted(k for k in DEC.files if ":" not in k)
 # what PIL decodes and the port sends to a later sub-item
-LATER = dict(gen.LATER, **{"avif_later_intrabc.avif": "7e.8a.2c"})
+LATER = dict(gen.LATER)
 # the seeded edits the port sends to a later sub-item: header edits that
-# switch on a tool of 7e.8a.2b / 7e.8a.2c, a 10-bit depth or a frame size
-# unlike ispe's (7e.8a.3). PIL decodes the first set; the second it refuses
-# once dav1d's decode with that tool meets the corruption (ROADMAP 7e.8a.2a)
-LATER_EDITS = {4: "7e.8a.2b", 19: "7e.8a.2c", 31: "7e.8a.2b", 52: "7e.8a.3",
+# switch on a tool of 7e.8a.2b, a 10-bit depth or a frame size unlike
+# ispe's (7e.8a.3). PIL decodes the first set; the second it refuses once
+# dav1d's decode with that tool meets the corruption (ROADMAP 7e.8a.2a).
+# Edits 19, 265 and 289 switch on intra block copy: since slice 7e.8a.2c.1
+# 265 and 289 are refused as PIL refuses them, and 19, read on past
+# allow_intrabc, names the segments' alt-q of 7e.8a.2b
+LATER_EDITS = {4: "7e.8a.2b", 19: "7e.8a.2b", 31: "7e.8a.2b", 52: "7e.8a.3",
                70: "7e.8a.3", 79: "7e.8a.2b", 94: "7e.8a.3", 115: "7e.8a.2b",
                142: "7e.8a.2b", 151: "7e.8a.2b", 178: "7e.8a.2b",
                202: "7e.8a.3", 223: "7e.8a.2b", 232: "7e.8a.3"}
 LATER_EDITS_PIL_REFUSES = {25: "7e.8a.2b", 121: "7e.8a.2b", 145: "7e.8a.2b",
-                           199: "7e.8a.2b", 265: "7e.8a.2c", 289: "7e.8a.2c",
-                           298: "7e.8a.3"}
+                           199: "7e.8a.2b", 298: "7e.8a.3"}
 # the transform sizes aom 3.12.1 picks in the files: every size but
 # TX_16X64 (no speed or content tried makes it pick a 16x64 block)
 TX_SIZES = [s for s in range(19) if s != 17]
@@ -169,9 +171,9 @@ def test_files_reach_every_tool():
             pilread.read(_read(fn), "x.avif")
     c = native.av1_coverage()
     assert (c[72 + np.array(TX_SIZES)] > 0).all(), c[72:91]
-    assert (c[103 + np.array(UV_TX_SIZES)] > 0).all(), c[103:122]
-    assert (c[91 + np.array([0, 1, 2, 3, 9, 10, 11])] > 0).all(), c[91:103]
-    assert (c[122:127] > 0).all(), c[122:127]
+    assert (c[107 + np.array(UV_TX_SIZES)] > 0).all(), c[107:126]
+    assert (c[91 + np.array([0, 1, 2, 3, 9, 10, 11])] > 0).all(), c[91:107]
+    assert (c[126:131] > 0).all(), c[126:131]
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +293,7 @@ def test_twin_scenes_render_as_their_references(name, ref):
 def test_no_module_names_7e8a2a():
     """No module of the port names slice 7e.8a.2a as still to come, or
     7e.8a.2 without its part: lossy key frames decode, and what they do not
-    raises naming 7e.8a.2b, 7e.8a.2c or 7e.8a.3."""
+    raises naming 7e.8a.2b, 7e.8a.2c.2 or 7e.8a.3."""
     import vision_tpu_torch
     root = pathlib.Path(vision_tpu_torch.__file__).parent
     for path in root.rglob("*.py"):

@@ -814,6 +814,41 @@ def env_sphere_avifq_ref(res=512, sub_div=40):
     return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIFQ_REF)
 
 
+# slice 7e.8a.2c.1 (tools/gen_torch_avif_ibc.py): the checker's colours at
+# 256^2 and a screen-like RGBA projector as AVIF files at PIL's defaults,
+# whose frames copy blocks of themselves (intra block copy), each scene
+# held against one reading PIL's decode of its file from a PNG.
+CBOX_TEX_AVIFIBC = {"checker.png": "checker_avifibc.avif"}
+CBOX_TEX_AVIFIBC_REF = {"checker.png": "checker_avifibc_pil.png"}
+ENV_SPHERE_AVIFIBC = {"projector.png": "projector_avifibc.avif"}
+ENV_SPHERE_AVIFIBC_REF = {"projector.png": "projector_avifibc_pil.png"}
+
+
+def cbox_tex_avifibc(res=512):
+    """`cbox_tex` with its checker from an AVIF file with intra block copy
+    blocks: it renders as `cbox_tex_avifibc_ref` does."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_AVIFIBC)
+
+
+def cbox_tex_avifibc_ref(res=512):
+    """`cbox_tex` with PIL's decode of checker_avifibc.avif, written as a
+    PNG, in the checker's slot."""
+    return _swap_files(cbox_tex(res), CBOX_TEX_AVIFIBC_REF)
+
+
+def env_sphere_avifibc(res=512, sub_div=40):
+    """`env_sphere` with its projector image from an AVIF file with intra
+    block copy blocks and an alpha item: it renders as
+    `env_sphere_avifibc_ref` does."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIFIBC)
+
+
+def env_sphere_avifibc_ref(res=512, sub_div=40):
+    """`env_sphere` with its projector image read from PIL's decode of
+    projector_avifibc.avif, written as a PNG."""
+    return _swap_files(env_sphere(res, sub_div), ENV_SPHERE_AVIFIBC_REF)
+
+
 # row-vector form: the sky's +z pole to world +y (as `cbox_sky`)
 SKY_O2W = {"type": "matrix4x4", "param": {"matrix4x4": [
     [1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]]}}

@@ -8,18 +8,19 @@ frames in the HEIF container, written by PIL 12.1.0's encoder (libavif
 
   * `check_tables`: every default-CDF table of
     `vision_tpu_torch/csrc/av1_codec.cpp` (the coefficient CDFs of all
-    four quantiser contexts and five sizes, tx depth and intra tx types
-    among them) is found in the libavif shared library PIL ships (which
+    four quantiser contexts and five sizes, tx depth, the intra and inter
+    tx types, intra block copy's flag and MV CDFs and txfm_split among
+    them) is found in the libavif shared library PIL ships (which
     carries dav1d and aom): whole, in libaom's inverted layout (32768 -
     each value, then 0 and the count 0, rows padded to the table's
     widest), or else in dav1d's (32768 - each value, then the count);
     the filter-intra taps, the directional derivatives, the smooth
     weights, the edge kernels, the quantiser lookups, the cosine and
-    sine constants, Mode_To_Txfm, Max_Tx_Size_Rect, the intra tx-type
-    maps, the default scans and the coefficient context offsets (libaom
-    keeps the last two transposed) in libaom's layout (the palette colour
-    contexts, which neither library keeps as such a table, are held by
-    the palette files' decodes). The generator stops where one is
+    sine constants, Mode_To_Txfm, Max_Tx_Size_Rect, the intra and inter
+    tx-type maps, the default scans and the coefficient context offsets
+    (libaom keeps the last two transposed) in libaom's layout (the palette
+    colour contexts, which neither library keeps as such a table, are held
+    by the palette files' decodes). The generator stops where one is
     missing.
   * The files (`avif_files`): `avif_*` that PIL decodes, at 4:4:4, 4:2:2,
     4:2:0 and 4:0:0, odd sizes, speeds 0-10, tiles, each intra tool
@@ -28,8 +29,9 @@ frames in the HEIF container, written by PIL 12.1.0's encoder (libavif
     orientation (libavif writes `irot`), an ICC profile, and copies whose
     `nclx` names other matrices, ranges and primaries (libyuv's and
     libavif's own YUV to RGB); `avif_bad_*` that PIL refuses;
-    `avif_later_*` that PIL decodes and the port sends to a later
-    sub-item (a lossy frame, screen content with intra block copy, a
+    `avif_later_*` that PIL decodes and the port sent to a later
+    sub-item when it was written (a lossy frame, screen content with
+    intra block copy, which slices 7e.8a.2a and 7e.8a.2c.1 now decode; a
     10-bit file of the pip cv2, premultiplied alpha, an `ispe` other than
     the frame's size); the twins' `checker_avif.avif` and
     `projector_avif.avif` with PIL's decodes as PNGs; the timing file
@@ -104,13 +106,16 @@ _CDF_TABLES = {
     "EOB_PT_128": 8, "EOB_PT_256": 9, "EOB_PT_512": 10, "EOB_PT_1024": 11,
     "EOB_EXTRA": 2, "DC_SIGN": 2, "COEFF_BASE_EOB": 3, "COEFF_BASE": 4,
     "COEFF_BR": 4, "TX_DEPTH_8X8": 2, "TX_DEPTH": 3, "INTRA_TX_SET1": 7,
-    "INTRA_TX_SET2": 5}
+    "INTRA_TX_SET2": 5, "INTRABC": 2, "MV_JOINT": 4, "MV_CLASS": 11,
+    "MV_CLASS0_BIT": 2, "MV_SIGN": 2, "MV_BITS": 2, "TXFM_SPLIT": 2,
+    "INTER_TX_SET1": 16, "INTER_TX_SET2": 12, "INTER_TX_SET3": 2}
 # libaom's row width where its table pads rows to a wider alphabet
 _AOM_STRIDE = {"UV_MODE_NOCFL": 15, "PARTITION_W8": 11,
                "PARTITION_W16_64": 11, "PARTITION_W128": 11,
                "PALETTE_Y_COLOR": 9, "PALETTE_UV_COLOR": 9,
                "TX_DEPTH_8X8": 4, "TX_DEPTH": 4, "INTRA_TX_SET1": 17,
-               "INTRA_TX_SET2": 17}
+               "INTRA_TX_SET2": 17, "INTER_TX_SET1": 17, "INTER_TX_SET2": 17,
+               "INTER_TX_SET3": 17}
 # the default scans' (width, height); libaom keeps each transposed
 _SCANS = {f"DEFAULT_SCAN_{w}X{h}": (w, h) for w, h in (
     (4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16), (16, 8),
@@ -169,6 +174,10 @@ def check_tables(lib=None):
         "TX_TYPE_INTRA_INV_SET1": np.array(flat["TX_TYPE_INTRA_INV_SET1"],
                                            "u1"),
         "TX_TYPE_INTRA_INV_SET2": np.array(flat["TX_TYPE_INTRA_INV_SET2"],
+                                           "u1"),
+        "TX_TYPE_INTER_INV_SET1": np.array(flat["TX_TYPE_INTER_INV_SET1"],
+                                           "u1"),
+        "TX_TYPE_INTER_INV_SET2": np.array(flat["TX_TYPE_INTER_INV_SET2"],
                                            "u1")}
     for name, (w, h) in _SCANS.items():
         checks[name] = np.array([(p % w) * h + p // w for p in flat[name]],

@@ -29,6 +29,9 @@ after checking av1_codec.cpp's tables against the library.)
     `edit_cases` (seeded edits of `EDIT_SOURCES`: a third in the
     container, a third in the AV1 headers, a third in the tile data).
 
+`write_lossy_files` then calls `tools/gen_torch_avif_ibc.py` for slice
+7e.8a.2c.1's files with intra block copy.
+
 Needs PIL and numpy. The output is deterministic.
 """
 import hashlib
@@ -193,7 +196,7 @@ LATER = {"avif_later_cdef.avif": "7e.8a.2b", "avif_later_qm.avif": "7e.8a.2b",
 
 def frame_fields(data):
     """The header fields of a file's colour frame (and its alpha frame's
-    base_q_idx) as the port reads them."""
+    base_q_idx and allow_intrabc) as the port reads them."""
     sys.path.insert(0, ROOT)
     from vision_tpu_torch.scene import avif
     meta = avif._parse(data)
@@ -212,8 +215,10 @@ def frame_fields(data):
                                          sid)
         if it.id != meta.primary:
             out["alpha_base_q"] = hdr["base_q"]
+            out["alpha_intrabc"] = hdr["allow_intrabc"]
             continue
         out.update(base_q=hdr["base_q"], tx_mode=hdr["tx_mode"],
+                   allow_intrabc=hdr["allow_intrabc"],
                    reduced_tx_set=hdr["reduced_tx_set"],
                    sharpness=hdr["lf"][4], mono=seq["mono"],
                    sb128=seq["sb128"], full_range=seq["full_range"],
@@ -298,6 +303,12 @@ def write_lossy_files(out, projector):
     arrays["edits:sha256"] = np.array([np.frombuffer(
         G.digest(ed[f"{i:04d}"]), np.uint8) for i in range(len(edits))])
     np.savez_compressed(os.path.join(out, "avifq_decodes.npz"), **arrays)
+    spec = importlib.util.spec_from_file_location(
+        "vt_gen_torch_avif_ibc", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gen_torch_avif_ibc.py"))
+    ibc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ibc)
+    ibc.write_ibc_files(out)
 
 
 def main():

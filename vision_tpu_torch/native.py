@@ -507,14 +507,16 @@ def j2k_ht_decode(data, info, segs, steps, out):
 AV1_REFUSALS = {-2: "an AV1 tile past the data",
                 -3: "an AV1 block size without a chroma block size (a "
                     "vertical partition in 4:2:2)",
-                -4: "an AV1 tile whose symbols run past its data"}
+                -4: "an AV1 tile whose symbols run past its data",
+                -5: "an AV1 intra block copy vector into its own superblock"}
 
 
 def av1_decode_frame(data, tiles, prm, width, height, ssx, ssy, mono):
     """The tiles of one AV1 intra frame, then its deblocking filter
     (`csrc/av1_codec.cpp`):
     tiles [(offset, size)] into `data` in raster order, prm the frame's
-    parameters (see `vt_av1_decode_frame`), width / height the frame's
+    parameters (see `vt_av1_decode_frame`; allow_intrabc last), width /
+    height the frame's
     4x4-aligned size. Returns [Y, U, V] uint8 planes at that size (U, V
     zero-sized for 4:0:0); raises ValueError where dav1d refuses it."""
     buf = _bytes(data)
@@ -534,9 +536,9 @@ def av1_decode_frame(data, tiles, prm, width, height, ssx, ssy, mono):
 
 
 def av1_coverage(reset=False):
-    """The AV1 decoder's path counters since the last reset: int64 [127]
+    """The AV1 decoder's path counters since the last reset: int64 [190]
     (the layout is `csrc/av1_codec.cpp`'s COV_* indices)."""
-    out = np.zeros(127, np.int64)
+    out = np.zeros(190, np.int64)
     _library().vt_av1_coverage(out.ctypes.data, int(reset))
     return out
 

@@ -10,19 +10,21 @@ Decoded here, bit for bit: single-image files (`ftyp` brand `avif` /
 frame, at 4:4:4, 4:2:2, 4:2:0 or 4:0:0, in one tile or several: coded
 lossless (`base_q_idx` 0 and no delta q: CodedLossless), or lossy with
 the quantiser, every intra transform size and type and the deblocking
-filter (what aom writes at speeds 5-10), with any intra tool but intra
-block copy; the alpha item too where it is such a frame. The container,
-the OBUs and the headers are read here; the tiles go to
-`csrc/av1_codec.cpp` (`native.av1_decode_frame`).
+filter (what aom writes at speeds 5-10), with any intra tool, intra block
+copy among them (what aom writes for flat and screen-like images: the
+displacement vectors, the var-tx tree and the inter transform sets); the
+alpha item too where it is such a frame. The container, the OBUs and the
+headers are read here; the tiles go to `csrc/av1_codec.cpp`
+(`native.av1_decode_frame`).
 
 What libavif or dav1d refuse raises ValueError (PIL's own refusal: a
 container libavif cannot parse is PIL's SyntaxError, which passes the file
 on to the plugins after AVIF: `pilread` does that through `PassOn`). What
 PIL decodes and this module does not yet raises NotImplementedError naming
 ROADMAP queue A's sub-item: 7e.8a.2b (CDEF, loop restoration, delta q /
-lf, quantiser matrices, segments' alt-q / alt-lf), 7e.8a.2c (intra block
-copy, superres, film grain), 7e.8a.3 (grid items, 10/12-bit samples,
-image sequences, premultiplied alpha, other encoders' files).
+lf, quantiser matrices, segments' alt-q / alt-lf), 7e.8a.2c.2 (superres,
+film grain), 7e.8a.3 (grid items, 10/12-bit samples, image sequences,
+premultiplied alpha, other encoders' files).
 """
 from __future__ import annotations
 
@@ -290,15 +292,18 @@ def _frame_header(b, s, tid, sid):
     else:
         w, hh = s["max_w"], s["max_h"]
     if s["superres"] and b.f(1):
-        raise _later("7e.8a.2c", "AV1 superres")
+        raise _later("7e.8a.2c.2", "AV1 superres")
     h["width"], h["height"] = w, hh
     mi_cols, mi_rows = 2 * ((w + 7) >> 3), 2 * ((hh + 7) >> 3)
     h["mi_cols"], h["mi_rows"] = mi_cols, mi_rows
     if b.f(1):  # render_and_frame_size_different
         b.f(16)
         b.f(16)
-    if sct and b.f(1):
-        raise _later("7e.8a.2c", "AV1 intra block copy (allow_intrabc)")
+    # allow_intrabc (read where superres is off, as it is here); an intra
+    # block copy frame reads no delta lf, loop filter, CDEF or loop
+    # restoration parameters, and its vectors are whole samples
+    # (force_integer_mv is 1 in an intra frame)
+    ibc = h["allow_intrabc"] = b.f(1) if sct else 0
     if not s["reduced"] and not h["disable_cdf_update"]:
         b.f(1)  # disable_frame_end_update_cdf
     # tile_info
@@ -411,29 +416,30 @@ def _frame_header(b, s, tid, sid):
         # delta_q_params, delta_lf_params
         if base_q > 0 and b.f(1):
             b.f(2)
-            if b.f(1):
+            if not ibc and b.f(1):
                 b.f(3)
             later = later or ("7e.8a.2b", "AV1 delta q / delta lf")
         # loop_filter_params, from a key frame's default deltas
         lf = h["lf"]
-        lf[0], lf[1] = b.f(6), b.f(6)
-        if not s["mono"] and (lf[0] or lf[1]):
-            lf[2], lf[3] = b.f(6), b.f(6)
-        lf[4] = b.f(3)  # sharpness
-        lf[5] = b.f(1)  # loop_filter_delta_enabled
-        if lf[5] and b.f(1):  # loop_filter_delta_update
-            for i in range(10):
-                if b.f(1):
-                    lf[6 + i] = b.su(7)
+        if not ibc:
+            lf[0], lf[1] = b.f(6), b.f(6)
+            if not s["mono"] and (lf[0] or lf[1]):
+                lf[2], lf[3] = b.f(6), b.f(6)
+            lf[4] = b.f(3)  # sharpness
+            lf[5] = b.f(1)  # loop_filter_delta_enabled
+            if lf[5] and b.f(1):  # loop_filter_delta_update
+                for i in range(10):
+                    if b.f(1):
+                        lf[6 + i] = b.su(7)
         # cdef_params
-        if s["enable_cdef"]:
+        if s["enable_cdef"] and not ibc:
             b.f(2)  # cdef_damping_minus_3
             bits = b.f(2)
             strengths = [b.f(6 if s["mono"] else 12) for _ in range(1 << bits)]
             if bits or any(strengths):
                 later = later or ("7e.8a.2b", "AV1 CDEF")
         # lr_params
-        if s["enable_restoration"]:
+        if s["enable_restoration"] and not ibc:
             types = [b.f(2) for _ in range(1 if s["mono"] else 3)]
             if any(types):
                 later = later or ("7e.8a.2b", "AV1 loop restoration")
@@ -441,7 +447,7 @@ def _frame_header(b, s, tid, sid):
         h["tx_mode"] = 2 if b.f(1) else 1
     h["reduced_tx_set"] = b.f(1)
     if s["film_grain"] and b.f(1):
-        later = later or ("7e.8a.2c", "AV1 film grain")
+        later = later or ("7e.8a.2c.2", "AV1 film grain")
     if later:
         raise _later(*later)
     h["seg"] = (seg, last_active, preskip,
@@ -530,7 +536,7 @@ def decode_av1(data, alpha=False):
     prm += hdr["dq"] + [hdr["tx_mode"], hdr["reduced_tx_set"]] + hdr["lf"]
     prm += [hdr["width"], hdr["height"], len(hdr["col_starts"]) - 1,
             len(hdr["row_starts"]) - 1]
-    prm += hdr["col_starts"] + hdr["row_starts"]
+    prm += hdr["col_starts"] + hdr["row_starts"] + [hdr["allow_intrabc"]]
     planes = native.av1_decode_frame(data, tiles, prm, mc * 4, mr * 4,
                                      ssx, ssy, mono)
     w, h = hdr["width"], hdr["height"]

@@ -20,9 +20,9 @@ refusal. `read` walks the same order (`_PLUGINS`) and returns uint8
     EPS without Ghostscript, the BUFR, GRIB and HDF5 stubs, MPEG, WMF);
   * NotImplementedError naming ROADMAP queue A's item where PIL decodes
     a variant this package does not yet: AVIF's CDEF, loop restoration,
-    delta q / lf and quantiser matrices (7e.8a.2b), intra block copy,
-    superres and film grain (7e.8a.2c), grid items, 10/12-bit samples and
-    image sequences (7e.8a.3).
+    delta q / lf and quantiser matrices (7e.8a.2b), superres and film
+    grain (7e.8a.2c.2), grid items, 10/12-bit samples and image sequences
+    (7e.8a.3).
 
 Decoded here, each as its plugin and its decoder in libImaging read it,
 then through `convert("RGB")` of the mode it gives (`_rgb`): PNM and PFM
